@@ -1,0 +1,252 @@
+"""The bound-evaluation kernels (CUDA, sm_90a) and their plain versions.
+
+Port of goicp_tpu/bounds/pallas_eval.py's two main-path kernels:
+
+  K1 geometric_bounds_kernel  <- pallas_eval.py:517 (csrc/geom_bounds.cu)
+  K2 chem_incomp_kernel       <- pallas_eval.py:702 (csrc/chem_incomp.cu)
+
+Both recompute the exact-EDT lookup as a minimum over the occupied cells
+(the EDT is exact, so the field value at a voxel IS that minimum): no
+(S^3,) table is read.  The signatures are the TPU kernels' (minus
+`interpret`).
+
+Each wrapper dispatches on the device of the tensors it is given: a CPU
+tensor goes to the plain torch version beside it (geometric_bounds_plain,
+chem_incomp_plain), a CUDA tensor to the kernel, which launches on the
+current stream or raises.  There is no other fallback.  Each wrapper
+counts its kernel launches in its `launches` attribute.
+
+Nothing here builds or needs nvcc until a kernel is launched.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from goicp_tpu_torch.grid.edt import nearest_occupied
+from goicp_tpu_torch.grid.lookup import oob_extension, voxel_indices
+
+SQRT3 = float(np.sqrt(3.0))
+MAX_POINTS = 8192     # points per row the kernels' shared-memory plan holds
+MAX_SIZE = 1024       # grid size: voxels pack 10 bits per axis
+
+
+# ---------------------------------------------------------------------------
+# plain torch versions (same functions, same inputs)
+# ---------------------------------------------------------------------------
+
+def _trim(vals: torch.Tensor, mask: torch.Tensor, k, static: bool):
+    """Keep the k smallest masked values per row (padding forced to +inf):
+    static k -> the first k sorted values; a 0-d tensor k -> all sorted
+    values with ranks >= k zeroed (a where, not a multiply: dropped slots
+    may hold +inf)."""
+    vs = torch.sort(torch.where(mask, vals, torch.inf), dim=-1).values
+    if static:
+        return vs[..., :k]
+    keep = torch.arange(vs.shape[-1], device=vs.device) < k
+    return torch.where(keep, vs, torch.zeros_like(vs))
+
+
+def reduce_bounds(dis, widths, rot_unc, norm: int, fused: bool,
+                  mask=None, k=None, static: bool = False):
+    """Per-node bound sums from per-point weighted distances.
+
+    dis (L,B,Nd) = w * d; widths (L,B); rot_unc (L,Nd) or None; trimming
+    when k is given (see _trim; mask (…,Nd) bool marks real points).
+    Returns (ub, lb) or, fused, (ub_plain, ubu, lbu), each (L,B)."""
+    def f(v):
+        return v * v if norm == 2 else v
+
+    def kept_of(v):
+        return v if k is None else _trim(v, mask, k, static)
+
+    s3w = ((SQRT3 / 2.0) * widths)[:, :, None]
+    if fused:
+        disu = torch.clamp(dis if rot_unc is None
+                           else dis - rot_unc[:, None, :], min=0.0)
+        kept, keptu = kept_of(dis), kept_of(disu)
+        lb_d = torch.clamp(keptu - s3w, min=0.0)
+        return (torch.sum(f(kept), dim=-1), torch.sum(f(keptu), dim=-1),
+                torch.sum(f(lb_d), dim=-1))
+    if rot_unc is not None:
+        dis = dis - rot_unc[:, None, :]
+    kept = kept_of(torch.clamp(dis, min=0.0))
+    lb_d = torch.clamp(kept - s3w, min=0.0)
+    return torch.sum(f(kept), dim=-1), torch.sum(f(lb_d), dim=-1)
+
+
+def geometric_bounds_plain(pts_rot, centers, widths, rot_unc, weights,
+                           cell_coords, consts, trim_count=None, *,
+                           size: int, norm: int, fused: bool = False,
+                           trim_k: int = 0):
+    """K1's function in plain torch: the min over occupied cells per point,
+    then the same reductions as the gather path (evaluate.py)."""
+    pos = pts_rot[:, None, :, :] + centers[:, :, None, :]    # (L,B,Nd,3)
+    raw, clamped = voxel_indices(pos, consts)
+    d2, _ = nearest_occupied(clamped.reshape(-1, 3), cell_coords, size)
+    dist = torch.sqrt(d2.to(torch.float32)).reshape(raw.shape[:-1]) \
+        / consts[3]
+    oob, extra = oob_extension(raw, consts)
+    dist = torch.where(oob, dist + extra, dist)
+    dis = weights[None, None, :] * dist
+    mask = (weights > 0)[None, None, :]
+    if trim_count is not None:
+        k, static = trim_count, False
+    elif trim_k:
+        k, static = trim_k, True
+    else:
+        k, static = None, False
+    return reduce_bounds(dis, widths, rot_unc, norm, fused, mask=mask, k=k,
+                         static=static)
+
+
+def chem_incomp_plain(pts_rot, corners, cell_compat, prop_onehot, data_mask,
+                      cell_coords, consts, *, size: int):
+    """K2's function in plain torch: first-minimum nearest occupied cell of
+    each clamped voxel, inc = mask - onehot . cell_compat[cell], summed."""
+    pos = pts_rot[:, None, :, :] + corners[:, :, None, :]    # (L,Q,Nd,3)
+    _, clamped = voxel_indices(pos, consts)
+    _, cell = nearest_occupied(clamped.reshape(-1, 3), cell_coords, size)
+    h = cell_compat[cell].reshape(pos.shape[:-1] + (cell_compat.shape[1],))
+    s = torch.sum(prop_onehot[None, None] * h, dim=-1)
+    inc = (data_mask > 0).to(torch.float32)[None, None, :] - s
+    return torch.sum(inc, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
+           device: torch.device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no bound kernel for device {t.device}")
+    return t.device.type
+
+
+def _launch_check(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def geometric_bounds_kernel(pts_rot, centers, widths, rot_unc, weights,
+                            cell_coords, consts, trim_count=None, *,
+                            size: int, norm: int, fused: bool = False,
+                            trim_k: int = 0):
+    """K1.  pts_rot (L,Nd,3), centers (L,B,3), widths (L,B), rot_unc
+    (L,Nd)|None, weights (Nd,), cell_coords (C,3) i32, consts (5,) f32 ->
+    ub, lb (L,B); fused=True -> (ub_plain, ubu, lbu).  Trimming: trim_k>0
+    static, or trim_count (0-d f32 tensor, read on the device)."""
+    if _route(pts_rot) == "cpu":
+        return geometric_bounds_plain(
+            pts_rot, centers, widths, rot_unc, weights, cell_coords, consts,
+            trim_count, size=size, norm=norm, fused=fused, trim_k=trim_k)
+    from goicp_tpu_torch._build import library
+    dev = pts_rot.device
+    L, nd, _ = pts_rot.shape
+    B = centers.shape[1]
+    C = cell_coords.shape[0]
+    f32 = torch.float32
+    _check("pts_rot", pts_rot, (L, nd, 3), f32, dev)
+    _check("centers", centers, (L, B, 3), f32, dev)
+    _check("widths", widths, (L, B), f32, dev)
+    if rot_unc is not None:
+        _check("rot_unc", rot_unc, (L, nd), f32, dev)
+    _check("weights", weights, (nd,), f32, dev)
+    _check("cell_coords", cell_coords, (C, 3), torch.int32, dev)
+    _check("consts", consts, (5,), f32, dev)
+    if trim_count is not None:
+        _check("trim_count", trim_count, (), f32, dev)
+    if norm not in (1, 2):
+        raise ValueError(f"norm must be 1 or 2, got {norm}")
+    if not (0 < nd <= MAX_POINTS and 0 < C and 2 <= size <= MAX_SIZE):
+        raise ValueError(f"geometric_bounds_kernel takes 1..{MAX_POINTS} "
+                         f"points, >= 1 cell and grid size 2..{MAX_SIZE}; "
+                         f"got Nd={nd}, C={C}, size={size}")
+    outs = [torch.empty((L, B), dtype=f32, device=dev)
+            for _ in range(3 if fused else 2)]
+    if L * B == 0:
+        return tuple(outs)
+    err = library().goicp_geom_bounds(
+        _ptr(pts_rot), _ptr(centers), _ptr(widths), _ptr(rot_unc),
+        _ptr(weights), _ptr(cell_coords), _ptr(consts), _ptr(trim_count),
+        _ptr(outs[0]), _ptr(outs[1]), _ptr(outs[2] if fused else None),
+        L, B, nd, C, norm, int(fused),
+        0 if trim_count is not None else int(trim_k),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _launch_check(err, "geom_bounds")
+    geometric_bounds_kernel.launches += 1
+    return tuple(outs)
+
+
+geometric_bounds_kernel.launches = 0
+
+
+def chem_incomp_kernel(pts_rot, corners, cell_compat, prop_onehot, data_mask,
+                       cell_coords, consts, *, size: int):
+    """K2.  pts_rot (L,Nd,3), corners (L,Q,3), cell_compat (C,9) f32 0/1,
+    prop_onehot (Nd,9) f32 masked one-hot, data_mask (Nd,) -> per-corner
+    incompatibility counts (L,Q) f32."""
+    if _route(pts_rot) == "cpu":
+        return chem_incomp_plain(pts_rot, corners, cell_compat, prop_onehot,
+                                 data_mask, cell_coords, consts, size=size)
+    from goicp_tpu_torch._build import library
+    dev = pts_rot.device
+    L, nd, _ = pts_rot.shape
+    Q = corners.shape[1]
+    C = cell_coords.shape[0]
+    f32 = torch.float32
+    _check("pts_rot", pts_rot, (L, nd, 3), f32, dev)
+    _check("corners", corners, (L, Q, 3), f32, dev)
+    _check("cell_compat", cell_compat, (C, 9), f32, dev)
+    _check("prop_onehot", prop_onehot, (nd, 9), f32, dev)
+    _check("data_mask", data_mask, (nd,), f32, dev)
+    _check("cell_coords", cell_coords, (C, 3), torch.int32, dev)
+    _check("consts", consts, (5,), f32, dev)
+    if not (0 < nd <= MAX_POINTS and 0 < C and 2 <= size <= MAX_SIZE):
+        raise ValueError(f"chem_incomp_kernel takes 1..{MAX_POINTS} points, "
+                         f">= 1 cell and grid size 2..{MAX_SIZE}; got "
+                         f"Nd={nd}, C={C}, size={size}")
+    out = torch.empty((L, Q), dtype=f32, device=dev)
+    if L * Q == 0:
+        return out
+    err = library().goicp_chem_incomp(
+        _ptr(pts_rot), _ptr(corners), _ptr(cell_compat), _ptr(prop_onehot),
+        _ptr(data_mask), _ptr(cell_coords), _ptr(consts), _ptr(out),
+        L, Q, nd, C,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _launch_check(err, "chem_incomp")
+    chem_incomp_kernel.launches += 1
+    return out
+
+
+chem_incomp_kernel.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"geometric_bounds_kernel": geometric_bounds_kernel.launches,
+            "chem_incomp_kernel": chem_incomp_kernel.launches}
+
+
+def reset_launch_counts():
+    geometric_bounds_kernel.launches = 0
+    chem_incomp_kernel.launches = 0

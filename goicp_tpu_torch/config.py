@@ -1,0 +1,72 @@
+"""Search configuration.
+
+Port of goicp_tpu/config.py: the same names, defaults and derived
+properties, so a configuration means the same search in both packages.
+The reference keys mirror the reference's `config.txt`; the rest shape the
+batched search (batch sizes, frontier capacities, iteration caps) and only
+affect speed or pruning efficiency, never epsilon-optimality.  Only the
+fields the ported engine reads are here: the host engine's
+`rot_frontier_capacity` and the streams' `packed_slots`,
+`packed_trans_every` and `trans_slots` come with those modules, and
+reading a `config.txt` (`from_file`) comes with the CLI port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class GoICPConfig:
+    # ---- reference keys ----
+    MSEThresh: float = 0.01
+    norm: int = 2                    # 1 = L1, 2 = L2
+    regularization: float = 0.0005   # chem incompatibility weight
+    regularizationNeighbors: float = 0.0
+    ponderation: int = 1             # 1 = weights 1 + 2*minN/neighbors
+    cfpfh: int = 0                   # 0 off; 1, 2, 3 = bin sets (io/cfpfh)
+    regularizationFPFH: float = 0.0
+    rotMinX: float = -3.1416
+    rotMinY: float = -3.1416
+    rotMinZ: float = -3.1416
+    rotWidth: float = 6.2832
+    transMinX: float = -0.5
+    transMinY: float = -0.5
+    transMinZ: float = -0.5
+    transWidth: float = 1.0
+    trimFraction: float = 0.0
+    distTransSize: int = 20
+    distTransExpandFactor: float = 2.0
+
+    # ---- batched search shape ----
+    rot_batch: int = 8           # rotation cubes popped per outer step
+    trans_capacity: int = 128    # translation frontier width per lane
+    trans_pop: int = 8           # translation nodes expanded per iteration
+    inner_max_iters: int = 200   # inner BnB iteration cap per invocation
+    device_rot_capacity: int = 2048  # device engine's outer frontier cap
+    icp_max_iter: int = 200
+    max_outer_steps: int = 100_000
+    icp_seeds: int = 1           # ICP the K lowest-ub lanes per outer step
+    margin_frac: float = 1.0     # search to margin_frac * MSEThresh * N
+    icp_on_improve: int = 1      # ICP only on improving outer steps
+    fused_inner: int = 1         # one fused ub+lb inner search per step
+    lane_compaction: int = 1     # staged inner-lane compaction L->L/2->L/4
+    init_seeds: int = 1          # initial-incumbent ICP multi-start count
+    chem_reuse: int = 0          # frontier nodes carry their corners' chem
+    sorted_merge: int = 0        # not ported yet (inner_bnb raises)
+    chem_survivors: int = 0      # not ported yet (inner_bnb raises)
+
+    # ---- derived ----
+    @property
+    def doTrim(self) -> bool:
+        return self.trimFraction >= 0.001
+
+    @property
+    def err_diff(self) -> float:
+        """ICP convergence threshold."""
+        return self.MSEThresh / 10000.0
+
+    @property
+    def mse_margin(self) -> float:
+        """The per-point epsilon the engines search to."""
+        return self.MSEThresh * self.margin_frac

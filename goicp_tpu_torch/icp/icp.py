@@ -1,0 +1,223 @@
+"""Batched trimmed ICP with Kabsch/SVD updates.
+
+Port of goicp_tpu/icp/icp.py.  Reference: ICP3D<T>::Run
+(jly_icp3d.hpp:197-311) — 1-NN correspondences, optional trim (keep
+n*(1-trimFraction) closest pairs), Kabsch via SVD with det correction,
+compose, iterate until err - err_new < err_diff * num or max_iter.
+
+The NN search is a brute-force squared-distance matrix
+(|x|^2 - 2 x.y + |y|^2, first-index argmin); the 3x3 SVD is the
+closed-form one-sided Jacobi of the JAX package.  icp_run runs K starts at
+once (the JAX package vmaps it): a Python loop steps every row while any
+row is still running, and rows that have stopped keep their state, as
+rows of a vmapped while_loop do.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class ICPResult(NamedTuple):
+    R: torch.Tensor          # (K, 3, 3)
+    t: torch.Tensor          # (K, 3)
+    nn_idx: torch.Tensor     # (K, Nd) final model correspondence per point
+    err: torch.Tensor        # (K,) final kept-pair squared-distance sum
+    iters: torch.Tensor      # (K,) iterations each row ran
+
+
+def nn_correspondences(points: torch.Tensor, model: torch.Tensor):
+    """points (..., N, 3) x model (M, 3) -> (nn_idx (..., N) i64,
+    sq_dist (..., N)).  Exact 1-NN via the expanded distance matrix."""
+    cross = torch.matmul(points, model.T)
+    d2 = (torch.sum(points * points, dim=-1)[..., None]
+          - 2.0 * cross + torch.sum(model * model, dim=-1))
+    idx = torch.argmin(d2, dim=-1)
+    best = torch.gather(d2, -1, idx[..., None])[..., 0]
+    return idx, torch.clamp(best, min=0.0)
+
+
+def _set_cols(M: torch.Tensor, cols: dict) -> torch.Tensor:
+    out = M.clone()
+    for j, c in cols.items():
+        out[..., :, j] = c
+    return out
+
+
+def _jacobi_svd3(H: torch.Tensor, sweeps: int = 6):
+    """One-sided Jacobi SVD of a (..., 3, 3) matrix: H = U diag(sigma) V^T
+    with V a proper rotation (product of Givens rotations), sigma >= 0
+    sorted descending, U's columns orthonormal (degenerate columns completed
+    by cross products)."""
+    A = H
+    V = torch.eye(3, dtype=H.dtype, device=H.device).expand(H.shape)
+
+    def rot(A, V, p, q):
+        ap, aq = A[..., :, p], A[..., :, q]
+        app = torch.sum(ap * ap, dim=-1)
+        aqq = torch.sum(aq * aq, dim=-1)
+        apq = torch.sum(ap * aq, dim=-1)
+        # Givens rotation zeroing the (p,q) column inner product
+        safe = torch.abs(apq) > 1e-30
+        tau = (aqq - app) / torch.where(safe, 2.0 * apq,
+                                        torch.ones_like(apq))
+        t = torch.where(
+            safe,
+            torch.sign(tau) / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau)),
+            torch.zeros_like(tau))
+        c = 1.0 / torch.sqrt(1.0 + t * t)
+        s = t * c
+
+        def apply(M):
+            mp, mq = M[..., :, p], M[..., :, q]
+            np_ = c[..., None] * mp - s[..., None] * mq
+            nq_ = s[..., None] * mp + c[..., None] * mq
+            return _set_cols(M, {p: np_, q: nq_})
+
+        return apply(A), apply(V)
+
+    for _ in range(sweeps):
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            A, V = rot(A, V, p, q)
+    sigma = torch.sqrt(torch.sum(A * A, dim=-2))          # (..., 3)
+    # sort columns by sigma DESCENDING (compare-swap network, applied
+    # jointly to A, V and sigma)
+    for p, q in ((0, 1), (0, 2), (1, 2)):
+        swap = sigma[..., p] < sigma[..., q]
+        sw = swap[..., None]
+
+        def csw(M):
+            mp, mq = M[..., :, p], M[..., :, q]
+            return _set_cols(M, {p: torch.where(sw, mq, mp),
+                                 q: torch.where(sw, mp, mq)})
+
+        A = csw(A)
+        V = csw(V)
+        sp, sq = sigma[..., p], sigma[..., q]
+        sigma = sigma.clone()
+        sigma[..., p] = torch.where(swap, sq, sp)
+        sigma[..., q] = torch.where(swap, sp, sq)
+    s1 = torch.amax(sigma, dim=-1, keepdim=True)
+    ok = sigma > 1e-5 * torch.clamp(s1, min=1e-30)
+    U = A / torch.clamp(sigma, min=1e-30)[..., None, :]
+    u0, u1, u2 = U[..., :, 0], U[..., :, 1], U[..., :, 2]
+    # branch-free orthonormal completion of degenerate columns
+    e = (torch.argmin(torch.abs(u0), dim=-1)[..., None]
+         == torch.arange(3, device=H.device)).to(u0.dtype)
+    alt1 = torch.linalg.cross(u0, e)
+    alt1 = alt1 / torch.clamp(torch.linalg.norm(alt1, dim=-1, keepdim=True),
+                              min=1e-30)
+    u1 = torch.where(ok[..., 1:2], u1, alt1)
+    u2 = torch.where(ok[..., 2:3], u2, torch.linalg.cross(u0, u1))
+    U = torch.stack([u0, u1, u2], dim=-1)
+    return U, sigma, V
+
+
+def kabsch(q_d: torch.Tensor, q_m: torch.Tensor,
+           w: torch.Tensor | None = None) -> torch.Tensor:
+    """Best rotation R_ s.t. R_ @ q_d ~ q_m (centered inputs (..., N, 3));
+    SVD with det correction.  Optional per-row 0/1 weights."""
+    if w is not None:
+        q_d = q_d * w[..., None]
+    H = torch.matmul(q_d.transpose(-1, -2), q_m)          # (..., 3, 3)
+    return kabsch_from_H(H)
+
+
+def _det3(M: torch.Tensor) -> torch.Tensor:
+    return torch.sum(M[..., 0, :] * torch.linalg.cross(M[..., 1, :],
+                                                       M[..., 2, :]), dim=-1)
+
+
+def kabsch_from_H(H: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) correspondence matrix -> optimal rotation
+    R = V D U^T, D = diag(1,1,det(V U^T)) on the SMALLEST singular
+    direction (Kabsch/Umeyama).  H == 0 returns identity."""
+    hmax = torch.amax(torch.abs(H), dim=(-2, -1), keepdim=True)
+    Hn = H / torch.clamp(hmax, min=1e-30)             # scale-invariant
+    U, sigma, V = _jacobi_svd3(Hn)
+    det = _det3(V) * _det3(U)          # det(V U^T), both orthonormal
+    small = torch.argmin(sigma, dim=-1)
+    d = torch.where(torch.arange(3, device=H.device) == small[..., None],
+                    det[..., None], torch.ones_like(sigma))   # (..., 3)
+    R = torch.matmul(V * d[..., None, :], U.transpose(-1, -2))
+    eye = torch.eye(3, dtype=H.dtype, device=H.device).expand(R.shape)
+    return torch.where(hmax > 0, R, eye)
+
+
+def icp_run(data: torch.Tensor, model: torch.Tensor, R0: torch.Tensor,
+            t0: torch.Tensor, *, inlier_num: int, max_iter: int,
+            err_diff: float, data_mask: torch.Tensor | None = None,
+            count: torch.Tensor | None = None,
+            dynamic_trim: bool = False,
+            enabled: torch.Tensor | None = None) -> ICPResult:
+    """Run ICP from K starts (R0 (K,3,3), t0 (K,3)).  inlier_num == Nd
+    means no trimming.
+
+    data_mask (shape-bucket padding): padded rows get a huge NN distance so
+    no trim selection includes them.  count (dynamic-counts mode): the kept-
+    set size as a 0-d tensor — the REAL point count (the kept set is the
+    data_mask rows) or, with dynamic_trim, the REAL inlier count (the
+    `count` smallest NN distances, by an exact rank mask over a stable
+    argsort).  enabled (bool, scalar or (K,)): rows where it is False run
+    zero iterations and return (R0, t0, err=-1, nn_idx=0)."""
+    n = data.shape[0]
+    K = R0.shape[0]
+    dev = data.device
+    trim = count is None and inlier_num < n
+    cnt = torch.tensor(float(inlier_num), device=dev) if count is None \
+        else count
+    ranks = torch.arange(n, device=dev)
+
+    R = R0.to(torch.float32)
+    t = t0.to(torch.float32)
+    err = torch.full((K,), -1.0, device=dev)
+    nn_idx = torch.zeros((K, n), dtype=torch.int64, device=dev)
+    it = torch.zeros((K,), dtype=torch.int32, device=dev)
+    converged = torch.zeros((K,), dtype=torch.bool, device=dev)
+    if enabled is not None:
+        converged = converged | ~torch.as_tensor(enabled, device=dev)
+
+    while True:
+        running = (~converged) & (it < max_iter)
+        if not bool(running.any()):
+            break
+        pts = torch.matmul(data, R.transpose(-1, -2)) + t[:, None, :]
+        idx, d2 = nn_correspondences(pts, model)
+        if data_mask is not None:
+            d2 = torch.where(data_mask > 0, d2, 1.0e12)
+        if dynamic_trim:
+            order = torch.argsort(d2, dim=-1, stable=True)  # smallest first
+            in_rank = (ranks < count).to(torch.float32).expand(K, n)
+            mask = torch.zeros((K, n), device=dev).scatter(1, order, in_rank)
+        elif count is not None:
+            mask = data_mask.expand(K, n)
+        elif trim:
+            keep = torch.argsort(d2, dim=-1, stable=True)[:, :inlier_num]
+            mask = torch.zeros((K, n), device=dev).scatter(
+                1, keep, torch.ones_like(keep, dtype=torch.float32))
+        else:
+            mask = torch.ones((K, n), device=dev)
+        err_new = torch.sum(d2 * mask, dim=-1)
+        conv = (err > 0) & (err - err_new < err_diff * cnt)
+
+        m_corr = model[idx]                                # (K,Nd,3)
+        mw = mask[..., None]
+        mu_d = torch.sum(pts * mw, dim=1) / cnt
+        mu_m = torch.sum(m_corr * mw, dim=1) / cnt
+        R_ = kabsch((pts - mu_d[:, None, :]) * mw,
+                    (m_corr - mu_m[:, None, :]) * mw)
+        t_ = mu_m - torch.matmul(R_, mu_d[..., None])[..., 0]
+        R_next = torch.where(conv[:, None, None], R, torch.matmul(R_, R))
+        t_next = torch.where(conv[:, None],
+                             t, torch.matmul(R_, t[..., None])[..., 0] + t_)
+
+        r1 = running[:, None]
+        R = torch.where(running[:, None, None], R_next, R)
+        t = torch.where(r1, t_next, t)
+        err = torch.where(running, err_new, err)
+        nn_idx = torch.where(r1, idx, nn_idx)
+        it = it + running.to(torch.int32)
+        converged = torch.where(running, conv, converged)
+    return ICPResult(R=R, t=t, nn_idx=nn_idx, err=err, iters=it)

@@ -1,0 +1,310 @@
+"""Bound evaluation: the kernels' plain versions (bounds/cuda_eval.py) vs the
+JAX package's XLA gather path and its Pallas kernels (interpret mode), and
+the port's gather path (bounds/evaluate.py) vs the JAX gather path.
+
+Tolerances: untrimmed sums atol 1e-5 (the same integer-exact distances,
+summed in another order); trimmed sums rtol 1e-5 / atol 1e-4 (the same
+inlier set, summed in another order); incompatibility counts exact.
+The kernels themselves run only on a CUDA card (tests marked `cuda`).
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from goicp_tpu.bounds import evaluate as jev
+from goicp_tpu.bounds.pallas_eval import (chem_incomp_kernel,
+                                          geometric_bounds_kernel)
+from goicp_tpu.config import GoICPConfig
+from goicp_tpu.pipeline import prepare as jprep
+from goicp_tpu_torch.bounds import cuda_eval
+from goicp_tpu_torch.bounds import evaluate as tev
+from goicp_tpu_torch.pipeline.prepare import pair_from_jax
+
+UNTRIMMED = dict(rtol=0, atol=1e-5)
+TRIMMED = dict(rtol=1e-5, atol=1e-4)
+
+
+def _pair(n=37, m=41, pad_to=64, seed=3, **cfg_kw):
+    rng = np.random.default_rng(seed)
+    cfg = GoICPConfig(**{"regularization": 0.0005, "ponderation": 1,
+                         "distTransSize": 12, **cfg_kw})
+    src = rng.uniform(-0.7, 0.7, size=(n, 3))
+    tgt = rng.uniform(-0.7, 0.7, size=(m, 3))
+    sp = rng.integers(0, 9, size=n).astype(np.int32)
+    tp = rng.integers(0, 9, size=m).astype(np.int32)
+    jp = jprep.prepare_pair(src, tgt, sp, tp, cfg, pad_data_to=pad_to)
+    return jp, pair_from_jax(jp), cfg
+
+
+def _lanes(nd, seed, L=4, B=8, shift=0.0):
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-0.9, 0.9, size=(L, nd, 3)).astype(np.float32)
+    centers = (rng.uniform(-0.6, 0.6, size=(L, B, 3)) + shift
+               ).astype(np.float32)
+    widths = rng.uniform(0.05, 0.5, size=(L, B)).astype(np.float32)
+    rw = rng.uniform(0.1, 1.0, size=(L,)).astype(np.float32)
+    return pts, centers, widths, rw
+
+
+def _both(*arrays):
+    return ([jnp.asarray(a) for a in arrays],
+            [torch.as_tensor(a) for a in arrays])
+
+
+def _close(got, want, tol):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **tol)
+
+
+def _plain_and_refs(jp, tp, cfg, pts, centers, widths, rw, unc,
+                    fused=False, trim_k=0, dynamic=False):
+    """(plain, xla, pallas) bound tuples for the same inputs."""
+    (jpts, jcen, jwid, jrw), (tpts, tcen, twid, trw) = \
+        _both(pts, centers, widths, rw)
+    junc = jev.rot_uncertainty(jrw, jp.norm_data) if unc else None
+    tunc = tev.rot_uncertainty(trw, tp.norm_data) if unc else None
+    if fused and not unc:
+        junc = jnp.zeros((pts.shape[0], pts.shape[1]), jnp.float32)
+        tunc = torch.zeros((pts.shape[0], pts.shape[1]))
+    size = jp.grid.geom.size
+    kcount = float(jp.inlier_num) if dynamic else None
+    plain = cuda_eval.geometric_bounds_plain(
+        tpts, tcen, twid, tunc, tp.weights, tp.grid.cell_coords,
+        tp.grid.consts,
+        torch.tensor(kcount) if dynamic else None,
+        size=size, norm=cfg.norm, fused=fused,
+        trim_k=0 if dynamic else trim_k)
+    pal = geometric_bounds_kernel(
+        jpts, jcen, jwid, junc, jp.weights, jp.grid.cell_coords,
+        jp.grid.consts, jnp.float32(kcount) if dynamic else None,
+        size=size, norm=cfg.norm, fused=fused,
+        trim_k=0 if dynamic else trim_k, interpret=True)
+    jq = jprep.make_count_dynamic(jp) if dynamic else jp
+    f = jev.geometric_bounds_fused if fused else jev.geometric_bounds
+    xla = f(jq, cfg, jpts, jcen, jwid, junc)
+    return plain, xla, pal
+
+
+@pytest.mark.parametrize("norm", [1, 2])
+@pytest.mark.parametrize("unc", [False, True])
+@pytest.mark.parametrize("fused", [False, True])
+def test_geometric_plain_untrimmed(norm, unc, fused):
+    jp, tp, cfg = _pair(norm=norm)
+    args = _lanes(jp.n_data_padded, 11)
+    plain, xla, pal = _plain_and_refs(jp, tp, cfg, *args, unc, fused=fused)
+    assert len(plain) == (3 if fused else 2)
+    _close(plain, xla, UNTRIMMED)
+    _close(plain, pal, UNTRIMMED)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("dynamic", [False, True])
+def test_geometric_plain_trimmed(fused, dynamic):
+    jp, tp, cfg = _pair(trimFraction=0.2)
+    assert jp.inlier_num < jp.n_data
+    args = _lanes(jp.n_data_padded, 17)
+    plain, xla, pal = _plain_and_refs(jp, tp, cfg, *args, True, fused=fused,
+                                      trim_k=jp.inlier_num, dynamic=dynamic)
+    _close(plain, xla, TRIMMED)
+    _close(plain, pal, TRIMMED)
+
+
+def test_geometric_plain_out_of_bounds():
+    """Centers far outside the grid exercise the out-of-bounds extension."""
+    jp, tp, cfg = _pair()
+    args = _lanes(jp.n_data_padded, 5, shift=2.5)
+    plain, xla, pal = _plain_and_refs(jp, tp, cfg, *args, False)
+    _close(plain, xla, dict(rtol=1e-6, atol=1e-5))
+    _close(plain, pal, dict(rtol=1e-6, atol=1e-5))
+
+
+def test_geometric_plain_cells_padded_to_1200():
+    """The cell table padded past 512 entries with cells outside the grid
+    (never winners): the kernel contract of test_pallas_eval.py:78."""
+    jp, tp, cfg = _pair()
+    pts, centers, widths, _ = _lanes(jp.n_data_padded, 13)
+    cells = np.asarray(jp.grid.cell_coords)
+    big = np.concatenate([cells, np.full((1200 - len(cells), 3), -9,
+                                         cells.dtype)])
+    (jpts, jcen, jwid), (tpts, tcen, twid) = _both(pts, centers, widths)
+    xla = jev.geometric_bounds(jp, cfg, jpts, jcen, jwid, None)
+    size = jp.grid.geom.size
+    pal = geometric_bounds_kernel(jpts, jcen, jwid, None, jp.weights,
+                                  jnp.asarray(big), jp.grid.consts,
+                                  size=size, norm=2, interpret=True)
+    plain = cuda_eval.geometric_bounds_plain(
+        tpts, tcen, twid, None, tp.weights, torch.as_tensor(big),
+        tp.grid.consts, size=size, norm=2)
+    _close(plain, xla, UNTRIMMED)
+    _close(plain, pal, UNTRIMMED)
+
+
+def test_geometric_plain_more_than_512_cells():
+    """A 1400-point model on a 28^3 grid: > 512 real occupied cells
+    (test_pallas_eval.py:201)."""
+    rng = np.random.default_rng(19)
+    cfg = GoICPConfig(regularization=0.0, ponderation=0, distTransSize=28)
+    src = rng.uniform(-0.7, 0.7, size=(40, 3))
+    tgt = rng.uniform(-0.9, 0.9, size=(1400, 3))
+    jp = jprep.prepare_pair(src, tgt, np.zeros(40, np.int32),
+                            np.zeros(1400, np.int32), cfg, pad_data_to=64)
+    tp = pair_from_jax(jp)
+    assert jp.grid.cell_coords.shape[0] > 512
+    args = _lanes(jp.n_data_padded, 19)
+    plain, xla, pal = _plain_and_refs(jp, tp, cfg, *args, False)
+    _close(plain, xla, UNTRIMMED)
+    _close(plain, pal, UNTRIMMED)
+
+
+@pytest.mark.parametrize("q", [8, 27, 152])
+def test_chem_plain_exact(q):
+    jp, tp, cfg = _pair()
+    rng = np.random.default_rng(7)
+    pts = rng.uniform(-0.9, 0.9, size=(3, jp.n_data_padded, 3)
+                      ).astype(np.float32)
+    corners = rng.uniform(-0.8, 0.8, size=(3, q, 3)).astype(np.float32)
+    (jpts, jcor), (tpts, tcor) = _both(pts, corners)
+    want = np.asarray(jev.chem_corner_values(jp, cfg, jpts, jcor)["incomp"])
+    pal = np.asarray(chem_incomp_kernel(
+        jpts, jcor, jp.cell_compat, jp.prop_onehot, jp.data_mask,
+        jp.grid.cell_coords, jp.grid.consts, size=jp.grid.geom.size,
+        interpret=True))
+    got = cuda_eval.chem_incomp_plain(
+        tpts, tcor, tp.cell_compat, tp.prop_onehot, tp.data_mask,
+        tp.grid.cell_coords, tp.grid.consts, size=tp.grid.geom.size).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got, pal)
+
+
+def test_wrappers_take_plain_versions_on_cpu():
+    jp, tp, cfg = _pair()
+    pts, centers, widths, _ = _lanes(jp.n_data_padded, 3)
+    _, (tpts, tcen, twid) = _both(pts, centers, widths)
+    before = cuda_eval.launch_counts()
+    args = (tpts, tcen, twid, None, tp.weights, tp.grid.cell_coords,
+            tp.grid.consts)
+    kw = dict(size=tp.grid.geom.size, norm=2)
+    for a, b in zip(cuda_eval.geometric_bounds_kernel(*args, **kw),
+                    cuda_eval.geometric_bounds_plain(*args, **kw)):
+        assert torch.equal(a, b)
+    assert cuda_eval.launch_counts() == before
+
+
+@pytest.mark.parametrize("trim", ["off", "static", "dynamic"])
+@pytest.mark.parametrize("fused", [False, True])
+def test_gather_path_matches_jax(trim, fused):
+    jp, _, cfg = _pair(trimFraction=0.0 if trim == "off" else 0.2)
+    if trim == "dynamic":
+        jp = jprep.make_count_dynamic(jp)
+    tp = pair_from_jax(jp)
+    pts, centers, widths, rw = _lanes(jp.n_data_padded, 29)
+    (jpts, jcen, jwid, jrw), (tpts, tcen, twid, trw) = \
+        _both(pts, centers, widths, rw)
+    junc = jev.rot_uncertainty(jrw, jp.norm_data)
+    tunc = tev.rot_uncertainty(trw, tp.norm_data)
+    np.testing.assert_allclose(tunc.numpy(), np.asarray(junc), rtol=1e-6,
+                               atol=1e-7)
+    if fused:
+        want = jev.geometric_bounds_fused(jp, cfg, jpts, jcen, jwid, junc)
+        got = tev.geometric_bounds_fused(tp, cfg, tpts, tcen, twid, tunc)
+    else:
+        want = jev.geometric_bounds(jp, cfg, jpts, jcen, jwid, junc)
+        got = tev.geometric_bounds(tp, cfg, tpts, tcen, twid, tunc)
+    _close(got, want, UNTRIMMED if trim == "off" else TRIMMED)
+
+
+@pytest.mark.parametrize("cfg_kw", [
+    dict(),                                           # fused per-voxel table
+    dict(distTransSize=40),                           # (point, cell) table
+    dict(regularizationNeighbors=0.001),              # + neighbour term
+])
+def test_chem_gather_path_matches_jax(cfg_kw):
+    jp, _, cfg = _pair(**cfg_kw)
+    if cfg_kw.get("distTransSize") == 40:
+        # beyond the fused-table budget the (point, cell) tables are used
+        jp = jprep.prepare_pair(
+            np.asarray(jp.data)[:37], np.asarray(jp.model),
+            np.asarray(jp.data_props)[:37], np.asarray(jp.model_props), cfg)
+        object.__setattr__(jp, "fused_chem", False)
+    tp = pair_from_jax(jp)
+    rng = np.random.default_rng(31)
+    pts = rng.uniform(-0.9, 0.9, size=(2, jp.n_data_padded, 3)
+                      ).astype(np.float32)
+    corners = rng.uniform(-0.8, 0.8, size=(2, 19, 3)).astype(np.float32)
+    (jpts, jcor), (tpts, tcor) = _both(pts, corners)
+    want = jev.chem_corner_values(jp, cfg, jpts, jcor)
+    got = tev.chem_corner_values(tp, cfg, tpts, tcor)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    lat = {k: np.asarray(v).reshape(2, 1, 19)[..., [i % 19 for i in
+                                                    range(27)]]
+           for k, v in want.items()}
+    jb = jev.chem_bounds_from_lattice(cfg, {k: jnp.asarray(v)
+                                            for k, v in lat.items()},
+                                      with_child_vals=True)
+    tb = tev.chem_bounds_from_lattice(cfg, {k: torch.as_tensor(v)
+                                            for k, v in lat.items()},
+                                      with_child_vals=True)
+    np.testing.assert_array_equal(tb[0].numpy(), np.asarray(jb[0]))
+    np.testing.assert_array_equal(tb[1].numpy(), np.asarray(jb[1]))
+    for k in jb[3]:
+        np.testing.assert_array_equal(tb[3][k].numpy(), np.asarray(jb[3][k]))
+
+
+# ---------------------------------------------------------------------------
+# on the card: each kernel vs its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda:0")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "unc", "fused", "static",
+                                  "dynamic", "fused_dynamic", "oob"])
+def test_geometric_kernel_matches_plain_on_card(cuda_device, mode):
+    trimmed = mode in ("static", "dynamic", "fused_dynamic")
+    _, tp, cfg = _pair(trimFraction=0.2 if trimmed else 0.0)
+    tp = tp.to(cuda_device)
+    pts, centers, widths, rw = _lanes(
+        tp.n_data_padded, 41, L=8, B=64, shift=2.5 if mode == "oob" else 0)
+    t = [torch.as_tensor(a, device=cuda_device)
+         for a in (pts, centers, widths, rw)]
+    unc = None if mode in ("plain", "oob") else \
+        tev.rot_uncertainty(t[3], tp.norm_data).contiguous()
+    kw = dict(size=tp.grid.geom.size, norm=2,
+              fused=mode in ("fused", "fused_dynamic"),
+              trim_k=tp.inlier_num if mode == "static" else 0)
+    k = tp.inlier_f() if mode in ("dynamic", "fused_dynamic") else None
+    args = (t[0], t[1], t[2], unc, tp.weights, tp.grid.cell_coords,
+            tp.grid.consts, k)
+    n0 = cuda_eval.geometric_bounds_kernel.launches
+    got = cuda_eval.geometric_bounds_kernel(*args, **kw)
+    want = cuda_eval.geometric_bounds_plain(*args, **kw)
+    assert cuda_eval.geometric_bounds_kernel.launches == n0 + 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, **(TRIMMED if trimmed
+                                            else UNTRIMMED))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [8, 152])
+def test_chem_kernel_matches_plain_on_card(cuda_device, q):
+    _, tp, _ = _pair()
+    tp = tp.to(cuda_device)
+    rng = np.random.default_rng(43)
+    pts = torch.as_tensor(rng.uniform(-0.9, 0.9, (8, tp.n_data_padded, 3)),
+                          dtype=torch.float32, device=cuda_device)
+    cor = torch.as_tensor(rng.uniform(-0.8, 0.8, (8, q, 3)),
+                          dtype=torch.float32, device=cuda_device)
+    args = (pts, cor, tp.cell_compat, tp.prop_onehot, tp.data_mask,
+            tp.grid.cell_coords, tp.grid.consts)
+    got = cuda_eval.chem_incomp_kernel(*args, size=tp.grid.geom.size)
+    want = cuda_eval.chem_incomp_plain(*args, size=tp.grid.geom.size)
+    assert torch.equal(got, want)

@@ -1,0 +1,94 @@
+"""Port grid (goicp_tpu_torch/grid) vs the JAX package's grid: every Grid
+field equal, the C-truncating ROUND, and the DT lookups."""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from goicp_tpu.grid import edt as jedt
+from goicp_tpu.grid import lookup as jlookup
+from goicp_tpu_torch.grid import edt as tedt
+from goicp_tpu_torch.grid import lookup as tlookup
+
+_FIELDS = ("dist", "nearest_cell", "cell_color", "cell_mask", "cell_points",
+           "cell_count", "cell_coords", "consts")
+
+
+def _random_cloud(n=60, seed=0):
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-0.8, 0.8, size=(n, 3))
+    props = rng.integers(0, 9, size=n).astype(np.int32)
+    return pts, props
+
+
+def test_round_ref_truncates_toward_zero():
+    # ROUND(x) = int(x+0.5) with C trunc-toward-zero: -1.2 -> 0, not -1
+    xs = np.array([-1.6, -1.5, -1.2, -0.7, -0.5, -0.4, 0.0, 0.4, 0.5, 1.49,
+                   2.5], np.float32)
+    expect = np.array([int(x + 0.5) for x in xs.astype(np.float64)])
+    np.testing.assert_array_equal(tedt.round_ref_np(xs), expect)
+    got = tedt.round_ref(torch.as_tensor(xs)).numpy()
+    np.testing.assert_array_equal(got, expect)
+    np.testing.assert_array_equal(
+        got, np.asarray(jedt.round_ref(jnp.asarray(xs))))
+
+
+@pytest.mark.parametrize("n,seed,size,pad", [
+    (50, 1, 12, None), (30, 2, 16, None), (40, 3, 14, (64, 8)),
+    (25, 5, 12, (40, 4)), (60, 0, 20, None), (3, 0, 8, None)])
+def test_grid_fields_equal_jax(n, seed, size, pad):
+    pts, props = _random_cloud(n, seed)
+    if n == 3:   # two points share a voxel, the third alone
+        pts = np.array([[0.0, 0.0, 0.0], [0.001, 0.0, 0.0], [0.5, 0.5, 0.5]])
+        props = np.array([2, 2, 5], np.int32)
+    kw = dict(pad_cells=pad[0], pad_points=pad[1]) if pad else {}
+    gj = jedt.build_grid(pts, props, size=size, expand_factor=2.0, **kw)
+    gt = tedt.build_grid(pts, props, size=size, expand_factor=2.0, **kw)
+    assert gt.n_cells == gj.n_cells
+    assert vars(gt.geom) == vars(gj.geom)
+    for f in _FIELDS:
+        a = np.asarray(getattr(gj, f))
+        b = getattr(gt, f).numpy()
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(b, a, err_msg=f)
+
+
+@pytest.mark.parametrize("seed,size", [(3, 14), (4, 10), (5, 12)])
+def test_lookups_equal_jax(seed, size):
+    pts, props = _random_cloud(40, seed)
+    gj = jedt.build_grid(pts, props, size=size, expand_factor=2.0)
+    gt = tedt.build_grid(pts, props, size=size, expand_factor=2.0)
+    rng = np.random.default_rng(seed)
+    # in-bounds, model points, and far out-of-bounds queries
+    q = np.concatenate([rng.uniform(-1.0, 1.0, size=(200, 3)), pts,
+                        rng.uniform(-4.0, 4.0, size=(100, 3))]
+                       ).astype(np.float32)
+    qt = torch.as_tensor(q)
+    dj = np.asarray(jlookup.dt_distance(jnp.asarray(q), gj.dist, gj.consts))
+    dt = tlookup.dt_distance(qt, gt.dist, gt.consts).numpy()
+    np.testing.assert_array_equal(dt, dj)
+    cj = np.asarray(jlookup.nearest_cell_id(jnp.asarray(q), gj.nearest_cell,
+                                            gj.consts))
+    ct = tlookup.nearest_cell_id(qt, gt.nearest_cell, gt.consts).numpy()
+    np.testing.assert_array_equal(ct, cj)
+    rj, kj = jlookup.voxel_indices(jnp.asarray(q), gj.consts)
+    rt, kt = tlookup.voxel_indices(qt, gt.consts)
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(rj))
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+
+
+def test_edt_matches_brute_force():
+    pts, props = _random_cloud(50, 1)
+    size = 12
+    g = tedt.build_grid(pts, props, size=size, expand_factor=2.0)
+    occ = g.cell_coords.numpy()[: g.n_cells].astype(np.float64)
+    flat = np.arange(size ** 3)
+    voxels = np.stack([flat % size, (flat // size) % size,
+                       flat // (size * size)], axis=1).astype(np.float64)
+    d = np.linalg.norm(voxels[:, None, :] - occ[None, :, :], axis=2)
+    np.testing.assert_allclose(g.dist.numpy(), d.min(axis=1) / g.geom.scale,
+                               atol=1e-5)
+    # first-minimum tie-break: the smallest index among the nearest cells
+    d2 = ((voxels[:, None, :] - occ[None, :, :]) ** 2).sum(-1)
+    np.testing.assert_array_equal(g.nearest_cell.numpy(), d2.argmin(axis=1))

@@ -1,0 +1,68 @@
+"""The PyTorch port imports, prepares and searches without jax and without
+the JAX package, and importing its kernel module neither builds nor needs
+nvcc."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PKG = REPO / "goicp_tpu_torch"
+
+_CHILD = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None          # any `import jax` now raises
+    sys.modules["goicp_tpu"] = None    # ... and any import of the JAX package
+    import numpy as np
+    import torch
+
+    import goicp_tpu_torch
+    from goicp_tpu_torch.bounds import cuda_eval
+    assert "goicp_tpu_torch._build" not in sys.modules
+    assert goicp_tpu_torch.default_device() == torch.device(
+        "cuda:0" if torch.cuda.is_available() else "cpu")
+    from goicp_tpu_torch.pipeline.prepare import prepare_pair
+    from goicp_tpu_torch.search.inner import inner_bnb
+
+    rng = np.random.default_rng(0)
+    model = rng.uniform(-0.7, 0.7, size=(40, 3))
+    data = model[:32] @ np.diag([1.0, -1.0, -1.0])
+    props = rng.integers(0, 9, 40).astype(np.int32)
+    cfg = goicp_tpu_torch.GoICPConfig(regularization=0.0005,
+                                      distTransSize=10, trans_capacity=32,
+                                      trans_pop=4, inner_max_iters=20)
+    pair = prepare_pair(data, model, props[:32], props, cfg, pad_data_to=64)
+    L = 4
+    pts = torch.as_tensor(rng.normal(size=(L, 64, 3)) * 0.4,
+                          dtype=torch.float32)
+    res = inner_bnb(pair, cfg, pts, torch.full((L,), 0.5),
+                    torch.ones(L, dtype=torch.bool), torch.tensor(1e6),
+                    with_rot_uncertainty=False, fused=True)
+    assert res.best_err.shape == (L,) and res.iters > 0
+    assert bool(torch.isfinite(res.best_err).all())
+    assert sys.modules["jax"] is None and sys.modules["goicp_tpu"] is None
+    assert not [m for m in sys.modules
+                if m.startswith(("jax.", "goicp_tpu."))]
+    assert "goicp_tpu_torch._build" not in sys.modules
+    print("OK")
+""")
+
+
+def test_port_runs_without_jax_or_nvcc():
+    env = dict(os.environ, PATH=os.path.dirname(sys.executable),  # no nvcc
+               CUDA_HOME=str(REPO / "no-cuda-here"), PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|goicp_tpu)\b", re.M)
+    offenders = [str(p.relative_to(REPO))
+                 for p in [*PKG.rglob("*.py"), REPO / "chip_smoke.py"]
+                 if pattern.search(p.read_text())]
+    assert offenders == []
