@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (goicp_tpu_torch) once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # everything; the result lines
+    python3 chip_smoke.py --kernels-only   # phases 1-2, no result lines
 
 Phases, each of which fails the script (nonzero exit, no result line):
 
@@ -13,16 +14,33 @@ Phases, each of which fails the script (nonzero exit, no result line):
     shapes (a prepared bench pair, lanes/centers/widths from a numpy seed),
     held against its plain torch version on the same inputs: K1 untrimmed
     (fused and plain modes) to atol 1e-5, K1 with the dynamic K read from
-    counts[1] to rtol 1e-5 / atol 1e-4, K2 at Q=152 and Q=8 exactly.  Median
-    kernel and plain times over 25 launches each, from CUDA events.
+    counts[1] to rtol 1e-5 / atol 1e-4, K2 at Q=152 and Q=8 exactly.  The
+    per-lane-table kernels K3 and K4 at the streams' shapes: two prepared
+    pairs of one bucket, 16 lanes interleaved between them, same
+    tolerances (K3 untrimmed: atol 1e-5 + rtol 1e-6, its sums over 256
+    points being larger), and lane for lane EQUAL to K1 / K2 run with that
+    lane's pair.  Median kernel and plain times over 25 launches each, from CUDA
+    events, beside each kernel's bound: the larger of its operations over
+    67 TFLOP/s (fp32 outside the tensor cores; the integer distance work
+    is held to the same rate) and its input + output bytes over 3.35 TB/s.
  3. registrations through the port's entry points: prepare_pair(bucket=
     True) -> make_count_dynamic -> register_device, under GoICPConfig() +
     bench_shape, on six pairs of the similar pool and four of the trimmed
     pool.  Each is held against the fp32 reference rows (the JAX package's
     register_device on XLA:CPU, goicp_tpu_torch/bench/reference_rows.jsonl)
     and printed beside its sweep383*.jsonl row.
- 4. proof: both kernels' launch counters, zeroed just before phase 3, are
+ 4. proof: K1's and K2's launch counters, zeroed just before phase 3, are
     > 0 after it.
+ 5. the fused cross-pair stream: the similar pool syn00-syn15 and the
+    trimmed pool trm00-trm07, each prepared into one pool-max bucket,
+    through register_fused_stream(width=2, chunk_steps=512).  Every pair is
+    held against the port's register_device on the same prepared pair and,
+    where there is one, against its fp32 reference row.  K3 and K4 must
+    have launched.
+ 6. the slot-packed stream on the same pools:
+    register_packed_stream(width=16, chunk_steps=512) with 16 slots and
+    transitions every 8 iterations; the same checks, and K3 and K4 must
+    have launched again.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -42,8 +60,14 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda:0"
 SIMILAR = ["syn00", "syn01", "syn05", "syn06", "syn13", "syn07"]
 TRIMMED = ["trm00", "trm01", "trm03", "trm13"]
+STREAM_SIMILAR = [f"syn{i:02d}" for i in range(16)]
+STREAM_TRIMMED = [f"trm{i:02d}" for i in range(8)]
 ERR_TOL = 1e-4          # |error - reference error|
+STREAM_ERR_TOL = 1e-5   # |stream error - register_device error|
 TRIM_EVALS_REL = 0.05   # trimmed pairs: evals within 5 % of the reference
+PEAK_OPS = 67e12        # H100 SXM fp32 outside the tensor cores, per second
+PEAK_BYTES = 3.35e12    # H100 SXM device memory, bytes per second
+OPS_PER_CELL = 9        # per (point, cell): 3 sub, 3 mul, 2 add, 1 min
 
 
 def _require(ok, what):
@@ -77,6 +101,29 @@ def _max_err(got, want):
     return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
 
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _bound(n_dist, tensors):
+    """(bound_ms, bound_by): the least time the card could take for n_dist
+    point-cell squared distances (the real points and in-grid cells of
+    this run's inputs) and these input/output tensors."""
+    t_ops = n_dist * OPS_PER_CELL / PEAK_OPS
+    t_bytes = _nbytes(*tensors) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _real_counts(pair):
+    """(real data points, in-grid occupied cells) of a prepared pair."""
+    size = pair.grid.geom.size
+    cells = pair.grid.cell_coords
+    ok = ((cells >= 0) & (cells < size)).all(dim=-1)
+    return int((pair.data_mask > 0).sum()), int(ok.sum())
+
+
 def _prepared(name, cfg, pools, dev):
     from goicp_tpu_torch.bench.measure import _normalized_synthetic
     from goicp_tpu_torch.pipeline.prepare import (make_count_dynamic,
@@ -97,13 +144,19 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import goicp_tpu_torch
     from goicp_tpu_torch import _build
-    from goicp_tpu_torch.bench.measure import (TRIM_FRACTION, bench_shape,
-                                               synthetic_pool,
+    from goicp_tpu_torch.bench.measure import (TRIM_FRACTION,
+                                               _bucket_and_prepare,
+                                               _normalized_synthetic,
+                                               bench_shape, synthetic_pool,
                                                synthetic_pool_trimmed)
     from goicp_tpu_torch.bounds import cuda_eval
     from goicp_tpu_torch.bounds.evaluate import rot_uncertainty
+    from goicp_tpu_torch.dist.mesh import stack_pairs
     from goicp_tpu_torch.geom.rotation import rodrigues_np
+    from goicp_tpu_torch.search import fused_stream
     from goicp_tpu_torch.search.device_engine import register_device
+    from goicp_tpu_torch.search.fused_stream import register_fused_stream
+    from goicp_tpu_torch.search.packed_stream import register_packed_stream
 
     # ---- 1. setup ----
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -139,6 +192,12 @@ def main() -> int:
         "chem_incomp_kernel": dict(
             source="goicp_tpu_torch/csrc/chem_incomp.cu",
             replaces="goicp_tpu/bounds/pallas_eval.py:702", errs=[]),
+        "geometric_bounds_kernel_lanes": dict(
+            source="goicp_tpu_torch/csrc/geom_bounds.cu",
+            replaces="goicp_tpu/bounds/pallas_eval.py:632", errs=[]),
+        "chem_incomp_kernel_lanes": dict(
+            source="goicp_tpu_torch/csrc/chem_incomp.cu",
+            replaces="goicp_tpu/bounds/pallas_eval.py:778", errs=[]),
     }
     L, B = 8, cfg.trans_pop * 8
     for name, c in (("syn07", cfg), ("trm00", cfg_t)):
@@ -186,12 +245,17 @@ def main() -> int:
             err = _max_err(got, want)
             kernels["geometric_bounds_kernel"]["errs"].append(err)
             ms, pms = _median_ms(kern), _median_ms(plain)
+            n_pts, n_cells = _real_counts(pair)
+            bms, bby = _bound(L * B * n_pts * n_cells,
+                              [*base, ru, *tabs, *got])
             if label == "fused":
-                kernels["geometric_bounds_kernel"].update(ms=ms, plain_ms=pms)
+                kernels["geometric_bounds_kernel"].update(
+                    ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby)
             print(f"K1 {name} {label}: L={L} B={B} Nd={nd} "
                   f"C={g.cell_coords.shape[0]} max_abs_err={err:.3g} "
                   f"(atol {atol}, rtol {rtol}) kernel {ms:.4f} ms "
-                  f"plain {pms:.4f} ms", flush=True)
+                  f"plain {pms:.4f} ms bound {bms:.6f} ms ({bby})",
+                  flush=True)
         for q in (cfg.trans_pop * 19, 8):
             corners = torch.as_tensor(rng.uniform(-0.6, 0.6, (L, q, 3)),
                                       dtype=torch.float32, device=dev)
@@ -209,12 +273,122 @@ def main() -> int:
             err = _max_err([got], [want])
             kernels["chem_incomp_kernel"]["errs"].append(err)
             ms, pms = _median_ms(kern2), _median_ms(plain2)
+            n_pts, n_cells = _real_counts(pair)
+            bms, bby = _bound(L * q * n_pts * n_cells, [*cargs, got])
             if name == "syn07" and q == cfg.trans_pop * 19:
-                kernels["chem_incomp_kernel"].update(ms=ms, plain_ms=pms)
+                kernels["chem_incomp_kernel"].update(
+                    ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby)
             print(f"K2 {name} Q={q}: L={L} Nd={nd} "
                   f"C={g.cell_coords.shape[0]} max_abs_err={err:.3g} "
-                  f"(exact) kernel {ms:.4f} ms plain {pms:.4f} ms",
-                  flush=True)
+                  f"(exact) kernel {ms:.4f} ms plain {pms:.4f} ms "
+                  f"bound {bms:.6f} ms ({bby})", flush=True)
+
+    # K3 / K4 at the streams' shapes: two pairs of one bucket, 16 lanes
+    # interleaved between them
+    LS = 16
+    lane_pair = torch.arange(LS, dtype=torch.int32, device=dev) % 2
+    for names, c in ((("syn07", "syn13"), cfg), (("trm00", "trm01"), cfg_t)):
+        two = _bucket_and_prepare(
+            [_normalized_synthetic(pools[n]) for n in names], c, device=dev)
+        st = stack_pairs(two)
+        g = st.grid
+        nd, size = st.n_data_padded, g.geom.size
+        trimmed = c.doTrim
+        rots = np.stack([rodrigues_np(v)
+                         for v in rng.uniform(-2.5, 2.5, (LS, 3))])
+        pts = torch.stack([
+            torch.as_tensor(rots[l], dtype=torch.float32, device=dev)
+            @ two[l % 2].data.T for l in range(LS)]
+        ).transpose(1, 2).contiguous()
+        centers = torch.as_tensor(rng.uniform(-0.5, 0.5, (LS, B, 3)),
+                                  dtype=torch.float32, device=dev)
+        widths = torch.as_tensor(rng.uniform(0.03, 0.5, (LS, B)),
+                                 dtype=torch.float32, device=dev)
+        rw = torch.as_tensor(rng.uniform(0.05, 1.0, LS),
+                             dtype=torch.float32, device=dev)
+        unc = torch.stack([rot_uncertainty(rw[l:l + 1],
+                                           two[l % 2].norm_data)[0]
+                           for l in range(LS)]).contiguous()
+        kcount = st.counts[:, 1].contiguous() if trimmed else None
+        k3 = (pts, centers, widths, unc, st.weights, g.cell_coords,
+              g.consts, kcount, lane_pair)
+        # untrimmed sums reach ~60 over 256 points, where one float32 ulp
+        # is 3.8e-6 and the block's summation order differs from torch's
+        atol, rtol = (1e-4, 1e-5) if trimmed else (1e-5, 1e-6)
+        real = [_real_counts(p) for p in two]
+        n_dist = sum(real[l % 2][0] * real[l % 2][1] for l in range(LS))
+        label = "dynamic K" if trimmed else "untrimmed"
+
+        def kern3(k3=k3):
+            return cuda_eval.geometric_bounds_kernel_lanes(
+                *k3, size=size, norm=c.norm)
+
+        def plain3(k3=k3):
+            return cuda_eval.geometric_bounds_lanes_plain(
+                *k3, size=size, norm=c.norm)
+        got, want = kern3(), plain3()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+        for l in range(LS):
+            p = two[l % 2]
+            one = cuda_eval.geometric_bounds_kernel(
+                pts[l:l + 1], centers[l:l + 1], widths[l:l + 1],
+                unc[l:l + 1], p.weights, p.grid.cell_coords, p.grid.consts,
+                p.inlier_f() if trimmed else None, size=size, norm=c.norm,
+                fused=True)
+            _require(all(torch.equal(a[l], b[0]) for a, b in zip(got, one)),
+                     f"K3 == K1 on lane {l} ({names}, {label})")
+        err = _max_err(got, want)
+        kernels["geometric_bounds_kernel_lanes"]["errs"].append(err)
+        ms, pms = _median_ms(kern3), _median_ms(plain3)
+        bms, bby = _bound(B * n_dist, [*k3, *got])
+        if not trimmed:
+            kernels["geometric_bounds_kernel_lanes"].update(
+                ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby)
+        print(f"K3 {'+'.join(names)} {label}: L={LS} B={B} Nd={nd} "
+              f"C={g.cell_coords.shape[1]} max_abs_err={err:.3g} (atol "
+              f"{atol}, rtol {rtol}; == K1 lane for lane) kernel {ms:.4f} "
+              f"ms plain {pms:.4f} ms bound {bms:.6f} ms ({bby})",
+              flush=True)
+        for q in (c.trans_pop * 19, 8):
+            corners = torch.as_tensor(rng.uniform(-0.6, 0.6, (LS, q, 3)),
+                                      dtype=torch.float32, device=dev)
+            k4 = (pts, corners, st.cell_compat, st.prop_onehot,
+                  st.data_mask, g.cell_coords, g.consts, lane_pair)
+
+            def kern4(k4=k4):
+                return cuda_eval.chem_incomp_kernel_lanes(*k4, size=size)
+
+            def plain4(k4=k4):
+                return cuda_eval.chem_incomp_lanes_plain(*k4, size=size)
+            got, want = kern4(), plain4()
+            torch.cuda.synchronize()
+            _require(torch.equal(got, want),
+                     f"K4 == plain ({names}, Q={q})")
+            for l in range(LS):
+                p = two[l % 2]
+                one = cuda_eval.chem_incomp_kernel(
+                    pts[l:l + 1], corners[l:l + 1], p.cell_compat,
+                    p.prop_onehot, p.data_mask, p.grid.cell_coords,
+                    p.grid.consts, size=size)
+                _require(torch.equal(got[l], one[0]),
+                         f"K4 == K2 on lane {l} ({names}, Q={q})")
+            err = _max_err([got], [want])
+            kernels["chem_incomp_kernel_lanes"]["errs"].append(err)
+            ms, pms = _median_ms(kern4), _median_ms(plain4)
+            bms, bby = _bound(q * n_dist, [*k4, got])
+            if not trimmed and q == c.trans_pop * 19:
+                kernels["chem_incomp_kernel_lanes"].update(
+                    ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby)
+            print(f"K4 {'+'.join(names)} Q={q}: L={LS} Nd={nd} "
+                  f"C={g.cell_coords.shape[1]} max_abs_err={err:.3g} "
+                  f"(exact; == K2 lane for lane) kernel {ms:.4f} ms plain "
+                  f"{pms:.4f} ms bound {bms:.6f} ms ({bby})", flush=True)
+
+    if sys.argv[1:] == ["--kernels-only"]:
+        print("kernels only: phases 3-6 not run, no result", flush=True)
+        return 0
 
     # ---- 3. registrations (the main path) ----
     ref = _rows(os.path.join(REPO, "goicp_tpu_torch", "bench",
@@ -259,14 +433,120 @@ def main() -> int:
     # ---- 4. proof the main path ran the kernels ----
     print(f"launches during the registrations: {json.dumps(counts)}",
           flush=True)
-    for kname, n in counts.items():
-        _require(n > 0, f"{kname} launched on the main path")
+    for kname in ("geometric_bounds_kernel", "chem_incomp_kernel"):
+        _require(counts[kname] > 0, f"{kname} launched on the main path")
+
+    # ---- 5. and 6. the cross-pair streams ----
+    stream_pools = []
+    for label, names, c in (("similar", STREAM_SIMILAR, cfg),
+                            ("trimmed", STREAM_TRIMMED, cfg_t)):
+        t0 = time.perf_counter()
+        pairs = _bucket_and_prepare(
+            [_normalized_synthetic(pools[n]) for n in names], c, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        refs, walls = [], []
+        for pair in pairs:
+            tp = time.perf_counter()
+            refs.append(register_device(pair, c))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - tp)
+        print(f"{label} pool: {len(pairs)} pairs in one bucket (Nd="
+              f"{pairs[0].n_data_padded}, C="
+              f"{pairs[0].grid.cell_coords.shape[0]}), prepare "
+              f"{t1 - t0:.3f} s; register_device one pair at a time "
+              f"{sum(walls):.3f} s = {len(pairs) / sum(walls):.3f} pairs/s; "
+              f"per pair s: "
+              + " ".join(f"{n}={w:.3f}" for n, w in zip(names, walls)),
+              flush=True)
+        stream_pools.append((label, names, c, pairs, refs))
+
+    def run_stream(phase, engine, fn):
+        """Drive one stream over both pools with the launch counts at 0,
+        hold every pair against register_device and its reference row,
+        and return the launch counts of the phase."""
+        cuda_eval.reset_launch_counts()
+        for label, names, c, pairs, refs in stream_pools:
+            fused_stream.reset_counters()
+            before = cuda_eval.launch_counts()
+            t0 = time.perf_counter()
+            out = fn(pairs, c)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            sc = dict(fused_stream.counters)
+            launched = {k: v - before[k]
+                        for k, v in cuda_eval.launch_counts().items()}
+            g = max(sc["global_iters"], 1)
+            print(f"phase {phase} {engine} stream, {label} pool: wall "
+                  f"{wall:.3f} s, {len(pairs) / wall:.3f} pairs/s, "
+                  f"{sc['global_iters']} global iterations, "
+                  f"{sc['transitions']} transition events, "
+                  f"{sc['host_reads']} host reads = "
+                  f"{sc['host_reads'] / g:.3f} per global iteration, "
+                  f"launches {json.dumps(launched)} = "
+                  + ", ".join(f"{k} {v / g:.3f}" for k, v in launched.items()
+                              if v) + " per global iteration", flush=True)
+            for i, (name, r) in enumerate(zip(names, refs)):
+                got = dict(error=float(out.error[i]),
+                           converged=bool(out.converged[i]),
+                           outer=int(out.outer_iters[i]),
+                           inner=int(out.inner_iters[i]),
+                           evals=int(out.evals[i]),
+                           icp_runs=int(out.icp_runs[i]),
+                           opt_comp=int(out.opt_comp[i]))
+                want = dict(error=float(r.error), converged=bool(r.converged),
+                            outer=int(r.outer_iters),
+                            inner=int(r.inner_iters), evals=int(r.evals),
+                            icp_runs=int(r.icp_runs),
+                            opt_comp=int(r.opt_comp))
+                row = ref.get(name)
+                row_match = None if row is None else all(
+                    got[k] == row[k] for k in ("outer", "evals", "icp_runs"))
+                print(f"  {name}: {engine} {json.dumps(got)} | "
+                      f"register_device {json.dumps(want)} | "
+                      f"counters_match_row={row_match}", flush=True)
+                _require(got["converged"] and want["converged"],
+                         f"{engine} {name} converged")
+                _require(abs(got["error"] - want["error"]) <= STREAM_ERR_TOL,
+                         f"{engine} {name} error {got['error']} vs "
+                         f"register_device {want['error']}")
+                if label == "similar":
+                    for k in ("outer", "evals", "icp_runs", "opt_comp"):
+                        _require(got[k] == want[k],
+                                 f"{engine} {name} {k}: {got[k]} vs "
+                                 f"register_device {want[k]}")
+                else:
+                    _require(abs(got["evals"] - want["evals"])
+                             <= TRIM_EVALS_REL * want["evals"],
+                             f"{engine} {name} evals {got['evals']} vs "
+                             f"{want['evals']}")
+                if row is not None:
+                    _require(abs(got["error"] - row["error"]) <= ERR_TOL,
+                             f"{engine} {name} error {got['error']} vs "
+                             f"reference row {row['error']}")
+        phase_counts = cuda_eval.launch_counts()
+        print(f"launches during phase {phase}: {json.dumps(phase_counts)}",
+              flush=True)
+        for kname in ("geometric_bounds_kernel_lanes",
+                      "chem_incomp_kernel_lanes"):
+            _require(phase_counts[kname] > 0,
+                     f"{kname} launched by the {engine} stream")
+        return phase_counts
+
+    counts5 = run_stream(5, "fused", lambda pairs, c: register_fused_stream(
+        pairs, c, width=2, chunk_steps=512))
+    counts6 = run_stream(6, "packed", lambda pairs, c: register_packed_stream(
+        pairs, dataclasses.replace(c, packed_slots=16, packed_trans_every=8),
+        width=16, chunk_steps=512))
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
-         "replaces": k["replaces"], "launches": counts[kname],
+         "replaces": k["replaces"],
+         "launches": counts[kname] + counts5[kname] + counts6[kname],
          "max_abs_err": max(k["errs"]), "ms": k["ms"],
-         "plain_ms": k["plain_ms"]} for kname, k in kernels.items()]}))
+         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+         "bound_by": k["bound_by"], "library_ms": None}
+        for kname, k in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -13,10 +13,15 @@ package, so `goicp_tpu/X/y.py` has its counterpart at
   grid/     exact 3D EDT + nearest-occupied-cell fields, DT lookups
   pipeline/ per-pair preparation (PairData), shape buckets
   bounds/   translation-node bound evaluation: torch gather path (CPU) and
-            the hand-written CUDA kernels (bounds/cuda_eval.py, csrc/)
+            the four hand-written CUDA kernels (bounds/cuda_eval.py, csrc/)
   icp/      batched trimmed ICP with a closed-form 3x3 Jacobi SVD
-  search/   inner translation BnB and the device-side outer engine
-  bench/    the bench's synthetic pair pools
+  search/   inner translation BnB, the device-side outer engine
+            (device_engine.py) and the cross-pair streams built on it:
+            fused_stream.py (every pair of a window advances each
+            iteration) and packed_stream.py (a slot budget of lanes picked
+            across the window)
+  dist/     stacking prepared pairs along a pair axis (mesh.py)
+  bench/    the bench's synthetic pair pools and bucketed preparation
 
 The port stands alone: it imports neither jax nor `goicp_tpu`.
 Everything runs in float32 with TF32 off, mirroring the

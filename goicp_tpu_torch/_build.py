@@ -37,6 +37,12 @@ _SIGNATURES = {
     # pts, corners, cell_compat, prop_onehot, data_mask, cells, consts, out,
     # L, Q, Nd, C, stream
     "goicp_chem_incomp": [_P] * 8 + [_I] * 4 + [_P],
+    # pts, centers, widths, rot_unc, weights, cells, consts, trim_count,
+    # lane_pair, out0, out1, out2, L, B, Nd, C, norm, stream
+    "goicp_geom_bounds_lanes": [_P] * 12 + [_I] * 5 + [_P],
+    # pts, corners, cell_compat, prop_onehot, data_mask, cells, consts,
+    # lane_pair, out, L, Q, Nd, C, stream
+    "goicp_chem_incomp_lanes": [_P] * 9 + [_I] * 4 + [_P],
 }
 
 

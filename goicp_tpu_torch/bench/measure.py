@@ -1,6 +1,6 @@
-"""The bench's search shape and synthetic pair pools.
+"""The bench's search shape, synthetic pair pools and bucketed preparation.
 
-Port of the pool half of goicp_tpu/bench/measure.py (:44-157).  The pools
+Port of the pool half of goicp_tpu/bench/measure.py (:44-198).  The pools
 draw the very same clouds as the JAX functions from the same seeds: the
 similar pool (rigidly transformed subsets of the model, properties carried
 along) and the trimmed pool (noisy subsets plus ~10% unmatched outliers),
@@ -92,3 +92,47 @@ def _normalized_synthetic(entry):
     norm = normalize_pair(data, model)
     return (quantize_like_file(norm["source"]),
             quantize_like_file(norm["target"]), dp, mp)
+
+
+def _bucket_and_prepare(raw, cfg, device=None):
+    """Prepare normalized pairs [(data, model, dp, mp)] into ONE pool-max
+    shape bucket, count-dynamic, so a cross-pair stream can stack them."""
+    from goicp_tpu_torch.pipeline.prepare import (bucket_dims,
+                                                  make_count_dynamic,
+                                                  prepare_pair)
+    dims: dict = {}
+    for data, model, _, _ in raw:
+        d = bucket_dims(model, len(data), len(model), cfg)
+        dims = {k: max(dims.get(k, 0), v) for k, v in d.items()}
+    return [make_count_dynamic(
+        prepare_pair(data, model, dp, mp, cfg, device=device, **dims))
+        for data, model, dp, mp in raw]
+
+
+def _bucket_and_prepare_multi(raw, cfg, max_buckets: int = 3, device=None):
+    """Shape-BUCKETED prep: pairs grouped by their own kernel dims instead
+    of one pool-max bucket (plan_buckets).  One stream runs per bucket;
+    trajectories are padding-invariant, so per-pair results and eval counts
+    are those of the single-bucket protocol.
+    Returns [(pairs, original_indices)]."""
+    from goicp_tpu_torch.pipeline.prepare import (bucket_dims,
+                                                  make_count_dynamic,
+                                                  plan_buckets, prepare_pair)
+    dims_list = [bucket_dims(m, len(d), len(m), cfg) for d, m, _, _ in raw]
+    plan = plan_buckets(dims_list, max_buckets=max_buckets)
+    return [([make_count_dynamic(prepare_pair(*raw[i], cfg, device=device,
+                                              **bd))
+              for i in idxs], idxs) for bd, idxs in plan]
+
+
+def _reassemble(outs, n: int):
+    """[(original_indices, DeviceResult batch)] -> DeviceResult rows in
+    original pair order (the per-bucket streams' inverse permutation)."""
+    from goicp_tpu_torch.search.device_engine import DeviceResult
+    rows = [None] * n
+    for idxs, out in outs:
+        for j, i in enumerate(idxs):
+            rows[i] = tuple(np.asarray(getattr(out, f))[j]
+                            for f in DeviceResult._fields)
+    return DeviceResult(*(np.stack([r[k] for r in rows])
+                          for k in range(len(DeviceResult._fields))))

@@ -1,10 +1,12 @@
-"""Where one registration's time goes on the card.
+"""Where one registration's, or one stream's, time goes on the card.
 
     python -m goicp_tpu_torch.bench.profile_pair [syn07 trm00 ...]
-        [--out profile.json]
+        [--stream fused|packed] [--out profile.json]
 
 For each named bench pair (similar pool `syn*`, trimmed pool `trm*`, at the
-bench's search shape): one warm-up registration, one timed registration
+bench's search shape), or with --stream for all named pairs of one pool
+together through that cross-pair stream (one shape bucket; fused: width 2;
+packed: 16 slots, width 16): one warm-up run, one timed run
 (host clock, ending in a device synchronize), and one under torch.profiler
 (CPU + CUDA activities), from which it reports the device's busy time (the
 sum of kernel times on the single stream), the idle share of the profiled
@@ -29,26 +31,23 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_registration(pair, cfg, activities):
-    """(result, timed wall s, profile summary dict) for one pair."""
+def profile_registration(run, activities):
+    """(result, timed wall s, profile summary dict) of run(), which
+    registers on the card."""
     import torch
     from goicp_tpu_torch.bounds import cuda_eval
-    from goicp_tpu_torch.search.device_engine import register_device
 
-    def sync():
-        if pair.data.is_cuda:
-            torch.cuda.synchronize()
-
-    register_device(pair, cfg)                       # warm-up
+    sync = torch.cuda.synchronize
+    run()                                            # warm-up
     sync()
     t0 = time.perf_counter()
-    res = register_device(pair, cfg)
+    res = run()
     sync()
     wall = time.perf_counter() - t0
     cuda_eval.reset_launch_counts()
     with torch.profiler.profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        register_device(pair, cfg)
+        run()
         sync()
         prof_wall = time.perf_counter() - t0
     launches = cuda_eval.launch_counts()
@@ -80,6 +79,8 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("pairs", nargs="*", default=["syn07", "trm00"])
+    ap.add_argument("--stream", choices=["fused", "packed"],
+                    help="profile the named pairs together through a stream")
     ap.add_argument("--out", help="write the summary to this JSON file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -89,7 +90,10 @@ def main(argv=None) -> int:
     from goicp_tpu_torch.bench.measure import (TRIM_FRACTION, bench_shape,
                                                synthetic_pool,
                                                synthetic_pool_trimmed,
+                                               _bucket_and_prepare,
                                                _normalized_synthetic)
+    from goicp_tpu_torch.search import fused_stream, packed_stream
+    from goicp_tpu_torch.search.device_engine import register_device
     from goicp_tpu_torch.pipeline.prepare import (make_count_dynamic,
                                                   prepare_pair)
     import subprocess
@@ -104,12 +108,47 @@ def main(argv=None) -> int:
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     out = dict(card=card, torch=torch.__version__, pairs={})
+    if args.stream:
+        c = cfg if args.pairs[0].startswith("syn") else cfg_t
+        pairs = _bucket_and_prepare(
+            [_normalized_synthetic(pools[n]) for n in args.pairs], c,
+            device="cuda")
+        if args.stream == "fused":
+            def run():
+                fused_stream.reset_counters()
+                return fused_stream.register_fused_stream(
+                    pairs, c, width=2, chunk_steps=512)
+        else:
+            pc = dataclasses.replace(c, packed_slots=16,
+                                     packed_trans_every=8)
+
+            def run():
+                fused_stream.reset_counters()
+                return packed_stream.register_packed_stream(
+                    pairs, pc, width=16, chunk_steps=512)
+        res, wall, summary = profile_registration(run, acts)
+        g = fused_stream.counters["global_iters"]
+        summary.update(stream=args.stream, pairs=args.pairs,
+                       outer=res.outer_iters.tolist(),
+                       inner=res.inner_iters.tolist(),
+                       evals=res.evals.tolist(), global_iters=g,
+                       host_reads=fused_stream.counters["host_reads"],
+                       ms_per_global_iter=1e3 * wall / max(g, 1),
+                       launch_calls_per_global_iter=summary[
+                           "kernel_launch_calls"] / max(g, 1))
+        out["stream"] = summary
+        print(args.stream, json.dumps({k: v for k, v in summary.items()
+                                       if k != "top_kernels"}), flush=True)
+        for k in summary["top_kernels"]:
+            print("   ", json.dumps(k), flush=True)
+        args.pairs = []
     for name in args.pairs:
         c = cfg if name.startswith("syn") else cfg_t
         data, model, dp, mp = _normalized_synthetic(pools[name])
         pair = make_count_dynamic(prepare_pair(data, model, dp, mp, c,
                                                bucket=True, device="cuda"))
-        res, wall, summary = profile_registration(pair, c, acts)
+        res, wall, summary = profile_registration(
+            lambda: register_device(pair, c), acts)
         summary.update(outer=int(res.outer_iters),
                        inner=int(res.inner_iters), evals=int(res.evals),
                        icp_runs=int(res.icp_runs),

@@ -1,19 +1,27 @@
 """The bound-evaluation kernels (CUDA, sm_90a) and their plain versions.
 
-Port of goicp_tpu/bounds/pallas_eval.py's two main-path kernels:
+Port of goicp_tpu/bounds/pallas_eval.py's four kernels:
 
-  K1 geometric_bounds_kernel  <- pallas_eval.py:517 (csrc/geom_bounds.cu)
-  K2 chem_incomp_kernel       <- pallas_eval.py:702 (csrc/chem_incomp.cu)
+  K1 geometric_bounds_kernel        <- :517 (csrc/geom_bounds.cu)
+  K2 chem_incomp_kernel             <- :702 (csrc/chem_incomp.cu)
+  K3 geometric_bounds_kernel_lanes  <- :632 (csrc/geom_bounds.cu)
+  K4 chem_incomp_kernel_lanes       <- :778 (csrc/chem_incomp.cu)
 
-Both recompute the exact-EDT lookup as a minimum over the occupied cells
+All recompute the exact-EDT lookup as a minimum over the occupied cells
 (the EDT is exact, so the field value at a voxel IS that minimum): no
-(S^3,) table is read.  The signatures are the TPU kernels' (minus
-`interpret`).
+(S^3,) table is read.  K1 and K2 keep the TPU kernels' signatures (minus
+`interpret`).  K3 and K4 are K1 (fused mode) and K2 for lane batches whose
+lanes belong to different pairs (the cross-pair streams): they take the
+PER-PAIR tables with a leading pair axis plus `lane_pair` (L,) int32, and
+each lane reads the rows of its own pair.  (The TPU versions take gathered
+per-lane copies of the tables, which a Pallas block spec needs and a CUDA
+block does not.)
 
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor goes to the plain torch version beside it (geometric_bounds_plain,
-chem_incomp_plain), a CUDA tensor to the kernel, which launches on the
-current stream or raises.  There is no other fallback.  Each wrapper
+chem_incomp_plain, geometric_bounds_lanes_plain, chem_incomp_lanes_plain),
+a CUDA tensor to the kernel, which launches on the current stream or
+raises.  There is no other fallback.  Each wrapper
 counts its kernel launches in its `launches` attribute.
 
 Nothing here builds or needs nvcc until a kernel is launched.
@@ -116,6 +124,47 @@ def chem_incomp_plain(pts_rot, corners, cell_compat, prop_onehot, data_mask,
     return torch.sum(inc, dim=-1)
 
 
+def _per_pair_lanes(lane_pair: torch.Tensor, n_pairs: int):
+    """(pair, its lane indices) for every pair that owns a lane."""
+    for w in range(n_pairs):
+        sel = torch.nonzero(lane_pair == w)[:, 0]
+        if sel.numel():
+            yield w, sel
+
+
+def geometric_bounds_lanes_plain(pts_rot, centers, widths, rot_unc, weights,
+                                 cell_coords, consts, trim_count, lane_pair,
+                                 *, size: int, norm: int):
+    """K3's function in plain torch: every lane through
+    geometric_bounds_plain (fused) with the tables of its own pair."""
+    L, B = widths.shape
+    outs = [torch.empty((L, B), dtype=torch.float32, device=pts_rot.device)
+            for _ in range(3)]
+    for w, sel in _per_pair_lanes(lane_pair, weights.shape[0]):
+        got = geometric_bounds_plain(
+            pts_rot[sel], centers[sel], widths[sel], rot_unc[sel],
+            weights[w], cell_coords[w], consts[w],
+            None if trim_count is None else trim_count[w],
+            size=size, norm=norm, fused=True)
+        for o, g in zip(outs, got):
+            o[sel] = g
+    return tuple(outs)
+
+
+def chem_incomp_lanes_plain(pts_rot, corners, cell_compat, prop_onehot,
+                            data_mask, cell_coords, consts, lane_pair, *,
+                            size: int):
+    """K4's function in plain torch: every lane through chem_incomp_plain
+    with the tables of its own pair."""
+    out = torch.empty(corners.shape[:2], dtype=torch.float32,
+                      device=pts_rot.device)
+    for w, sel in _per_pair_lanes(lane_pair, cell_compat.shape[0]):
+        out[sel] = chem_incomp_plain(
+            pts_rot[sel], corners[sel], cell_compat[w], prop_onehot[w],
+            data_mask[w], cell_coords[w], consts[w], size=size)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -141,6 +190,18 @@ def _route(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no bound kernel for device {t.device}")
     return t.device.type
+
+
+def in_envelope(nd: int, n_cells: int, size: int) -> bool:
+    """The shapes every kernel here takes."""
+    return 0 < nd <= MAX_POINTS and 0 < n_cells and 2 <= size <= MAX_SIZE
+
+
+def _check_envelope(name: str, nd: int, n_cells: int, size: int):
+    if not in_envelope(nd, n_cells, size):
+        raise ValueError(f"{name} takes 1..{MAX_POINTS} points, >= 1 cell "
+                         f"and grid size 2..{MAX_SIZE}; got Nd={nd}, "
+                         f"C={n_cells}, size={size}")
 
 
 def _launch_check(err: int, what: str):
@@ -178,10 +239,7 @@ def geometric_bounds_kernel(pts_rot, centers, widths, rot_unc, weights,
         _check("trim_count", trim_count, (), f32, dev)
     if norm not in (1, 2):
         raise ValueError(f"norm must be 1 or 2, got {norm}")
-    if not (0 < nd <= MAX_POINTS and 0 < C and 2 <= size <= MAX_SIZE):
-        raise ValueError(f"geometric_bounds_kernel takes 1..{MAX_POINTS} "
-                         f"points, >= 1 cell and grid size 2..{MAX_SIZE}; "
-                         f"got Nd={nd}, C={C}, size={size}")
+    _check_envelope("geometric_bounds_kernel", nd, C, size)
     outs = [torch.empty((L, B), dtype=f32, device=dev)
             for _ in range(3 if fused else 2)]
     if L * B == 0:
@@ -222,10 +280,7 @@ def chem_incomp_kernel(pts_rot, corners, cell_compat, prop_onehot, data_mask,
     _check("data_mask", data_mask, (nd,), f32, dev)
     _check("cell_coords", cell_coords, (C, 3), torch.int32, dev)
     _check("consts", consts, (5,), f32, dev)
-    if not (0 < nd <= MAX_POINTS and 0 < C and 2 <= size <= MAX_SIZE):
-        raise ValueError(f"chem_incomp_kernel takes 1..{MAX_POINTS} points, "
-                         f">= 1 cell and grid size 2..{MAX_SIZE}; got "
-                         f"Nd={nd}, C={C}, size={size}")
+    _check_envelope("chem_incomp_kernel", nd, C, size)
     out = torch.empty((L, Q), dtype=f32, device=dev)
     if L * Q == 0:
         return out
@@ -242,11 +297,103 @@ def chem_incomp_kernel(pts_rot, corners, cell_compat, prop_onehot, data_mask,
 chem_incomp_kernel.launches = 0
 
 
+def geometric_bounds_kernel_lanes(pts_rot, centers, widths, rot_unc, weights,
+                                  cell_coords, consts, trim_count, lane_pair,
+                                  *, size: int, norm: int):
+    """K3.  pts_rot (L,Nd,3), centers (L,B,3), widths (L,B), rot_unc (L,Nd);
+    per-pair tables weights (W,Nd), cell_coords (W,C,3) i32, consts (W,5),
+    trim_count (W,) f32 or None (no trimming); lane_pair (L,) i32 in
+    [0, W) -> (ub_plain, ubu, lbu), each (L,B).  Lane l equals K1 in fused
+    mode on lane l with the tables of pair lane_pair[l]."""
+    if _route(pts_rot) == "cpu":
+        return geometric_bounds_lanes_plain(
+            pts_rot, centers, widths, rot_unc, weights, cell_coords, consts,
+            trim_count, lane_pair, size=size, norm=norm)
+    from goicp_tpu_torch._build import library
+    dev = pts_rot.device
+    L, nd, _ = pts_rot.shape
+    B = centers.shape[1]
+    W, C = cell_coords.shape[:2]
+    f32 = torch.float32
+    _check("pts_rot", pts_rot, (L, nd, 3), f32, dev)
+    _check("centers", centers, (L, B, 3), f32, dev)
+    _check("widths", widths, (L, B), f32, dev)
+    _check("rot_unc", rot_unc, (L, nd), f32, dev)
+    _check("weights", weights, (W, nd), f32, dev)
+    _check("cell_coords", cell_coords, (W, C, 3), torch.int32, dev)
+    _check("consts", consts, (W, 5), f32, dev)
+    if trim_count is not None:
+        _check("trim_count", trim_count, (W,), f32, dev)
+    _check("lane_pair", lane_pair, (L,), torch.int32, dev)
+    if norm not in (1, 2):
+        raise ValueError(f"norm must be 1 or 2, got {norm}")
+    _check_envelope("geometric_bounds_kernel_lanes", nd, C, size)
+    outs = [torch.empty((L, B), dtype=f32, device=dev) for _ in range(3)]
+    if L * B == 0:
+        return tuple(outs)
+    err = library().goicp_geom_bounds_lanes(
+        _ptr(pts_rot), _ptr(centers), _ptr(widths), _ptr(rot_unc),
+        _ptr(weights), _ptr(cell_coords), _ptr(consts), _ptr(trim_count),
+        _ptr(lane_pair), _ptr(outs[0]), _ptr(outs[1]), _ptr(outs[2]),
+        L, B, nd, C, norm,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _launch_check(err, "geom_bounds_lanes")
+    geometric_bounds_kernel_lanes.launches += 1
+    return tuple(outs)
+
+
+geometric_bounds_kernel_lanes.launches = 0
+
+
+def chem_incomp_kernel_lanes(pts_rot, corners, cell_compat, prop_onehot,
+                             data_mask, cell_coords, consts, lane_pair, *,
+                             size: int):
+    """K4.  pts_rot (L,Nd,3), corners (L,Q,3); per-pair tables cell_compat
+    (W,C,9), prop_onehot (W,Nd,9), data_mask (W,Nd), cell_coords (W,C,3)
+    i32, consts (W,5); lane_pair (L,) i32 -> counts (L,Q) f32.  Lane l
+    equals K2 on lane l with the tables of pair lane_pair[l]."""
+    if _route(pts_rot) == "cpu":
+        return chem_incomp_lanes_plain(
+            pts_rot, corners, cell_compat, prop_onehot, data_mask,
+            cell_coords, consts, lane_pair, size=size)
+    from goicp_tpu_torch._build import library
+    dev = pts_rot.device
+    L, nd, _ = pts_rot.shape
+    Q = corners.shape[1]
+    W, C = cell_coords.shape[:2]
+    f32 = torch.float32
+    _check("pts_rot", pts_rot, (L, nd, 3), f32, dev)
+    _check("corners", corners, (L, Q, 3), f32, dev)
+    _check("cell_compat", cell_compat, (W, C, 9), f32, dev)
+    _check("prop_onehot", prop_onehot, (W, nd, 9), f32, dev)
+    _check("data_mask", data_mask, (W, nd), f32, dev)
+    _check("cell_coords", cell_coords, (W, C, 3), torch.int32, dev)
+    _check("consts", consts, (W, 5), f32, dev)
+    _check("lane_pair", lane_pair, (L,), torch.int32, dev)
+    _check_envelope("chem_incomp_kernel_lanes", nd, C, size)
+    out = torch.empty((L, Q), dtype=f32, device=dev)
+    if L * Q == 0:
+        return out
+    err = library().goicp_chem_incomp_lanes(
+        _ptr(pts_rot), _ptr(corners), _ptr(cell_compat), _ptr(prop_onehot),
+        _ptr(data_mask), _ptr(cell_coords), _ptr(consts), _ptr(lane_pair),
+        _ptr(out), L, Q, nd, C,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _launch_check(err, "chem_incomp_lanes")
+    chem_incomp_kernel_lanes.launches += 1
+    return out
+
+
+chem_incomp_kernel_lanes.launches = 0
+
+_KERNELS = (geometric_bounds_kernel, chem_incomp_kernel,
+            geometric_bounds_kernel_lanes, chem_incomp_kernel_lanes)
+
+
 def launch_counts() -> dict:
-    return {"geometric_bounds_kernel": geometric_bounds_kernel.launches,
-            "chem_incomp_kernel": chem_incomp_kernel.launches}
+    return {k.__name__: k.launches for k in _KERNELS}
 
 
 def reset_launch_counts():
-    geometric_bounds_kernel.launches = 0
-    chem_incomp_kernel.launches = 0
+    for k in _KERNELS:
+        k.launches = 0

@@ -16,11 +16,17 @@ incompatibility term is the only chem term, where the JAX package uses its
 chem kernel).  CPU tensors take the gather path over the EDT fields, which
 is what the JAX package runs on the CPU.  FPFH and neighbour terms take
 the gather path on both devices.
+
+The cross-pair streams evaluate lanes of DIFFERENT pairs in one call: they
+pass a LaneTables (per-pair tables plus the pair of each lane) where a
+PairData is expected, and the call goes to the per-lane-table kernels K3
+and K4 of bounds/cuda_eval.py (their plain versions on the CPU).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -47,6 +53,44 @@ for _j in range(8):
         _off = _CHILD_OFFSETS[_j] + _CHILD_OFFSETS[_c]
         _CHILD_CORNER_TO_LATTICE[_j, _c] = \
             (_off[2] * 3 + _off[1]) * 3 + _off[0]
+
+
+class LaneTables(NamedTuple):
+    """What K3 and K4 read: the tables of W stacked pairs and, for each of
+    the L lanes of a call, the pair it belongs to."""
+    weights: torch.Tensor       # (W, Nd)
+    cell_coords: torch.Tensor   # (W, C, 3) i32
+    consts: torch.Tensor        # (W, 5)
+    trim_count: torch.Tensor | None   # (W,) inlier counts, None = no trim
+    cell_compat: torch.Tensor   # (W, C, 9)
+    prop_onehot: torch.Tensor   # (W, Nd, 9)
+    data_mask: torch.Tensor     # (W, Nd)
+    sse: torch.Tensor           # (W,) the search epsilon of each pair
+    lane_pair: torch.Tensor | None    # (L,) i32
+    size: int
+
+
+def only_incomp(cfg: GoICPConfig) -> bool:
+    """The incompatibility count is the only active chem term."""
+    return (cfg.regularization > 0
+            and not (cfg.regularizationFPFH > 0 and cfg.cfpfh != 0)
+            and cfg.regularizationNeighbors <= 0)
+
+
+def lane_tables(pair_batch: PairData, cfg: GoICPConfig,
+                lane_pair: torch.Tensor | None = None) -> LaneTables:
+    """Per-pair kernel tables of a stacked PairData (dist/mesh.stack_pairs).
+    The trim count is each pair's inlier count, read on the device."""
+    p = pair_batch
+    inliers = p.counts[:, 1].contiguous()
+    sse = torch.tensor(cfg.mse_margin, dtype=torch.float32,
+                       device=p.device) * inliers
+    return LaneTables(
+        weights=p.weights, cell_coords=p.grid.cell_coords,
+        consts=p.grid.consts, trim_count=inliers if cfg.doTrim else None,
+        cell_compat=p.cell_compat, prop_onehot=p.prop_onehot,
+        data_mask=p.data_mask, sse=sse, lane_pair=lane_pair,
+        size=p.grid.geom.size)
 
 
 def _trim_mode(pair: PairData, cfg: GoICPConfig) -> str:
@@ -101,7 +145,13 @@ def geometric_bounds_fused(pair: PairData, cfg: GoICPConfig, pts_rot,
       ub_plain: error at the node center with zero rotation uncertainty;
       ubu:      same with maxRotDis subtracted;
       lbu:      ubu minus the sqrt(3)/2*w translation uncertainty.
-    -> three (L,B) tensors."""
+    -> three (L,B) tensors.  `pair` may be a LaneTables."""
+    if isinstance(pair, LaneTables):
+        t = pair
+        return cuda_eval.geometric_bounds_kernel_lanes(
+            pts_rot.contiguous(), centers.contiguous(), widths.contiguous(),
+            rot_uncertainty.contiguous(), t.weights, t.cell_coords, t.consts,
+            t.trim_count, t.lane_pair, size=t.size, norm=cfg.norm)
     return _bounds(pair, cfg, pts_rot, centers, widths, rot_uncertainty,
                    fused=True)
 
@@ -109,11 +159,18 @@ def geometric_bounds_fused(pair: PairData, cfg: GoICPConfig, pts_rot,
 def chem_corner_values(pair: PairData, cfg: GoICPConfig, pts_rot, corners):
     """Per-corner chem sums.  pts_rot (L, Nd, 3); corners (L, Q, 3) ->
     dict of (L, Q) tensors: incomp (count), fpfh (mean over Nd), nbr (sum),
-    all through the nearest occupied cell of the clamped voxel."""
-    only_incomp = (cfg.regularization > 0
-                   and not (cfg.regularizationFPFH > 0 and cfg.cfpfh != 0)
-                   and cfg.regularizationNeighbors <= 0)
-    if only_incomp and pts_rot.is_cuda:
+    all through the nearest occupied cell of the clamped voxel.  `pair`
+    may be a LaneTables when the count is the only chem term."""
+    if isinstance(pair, LaneTables):
+        if not only_incomp(cfg):
+            raise ValueError("per-lane tables carry the incompatibility "
+                             "count only")
+        t = pair
+        return {"incomp": cuda_eval.chem_incomp_kernel_lanes(
+            pts_rot.contiguous(), corners.contiguous(), t.cell_compat,
+            t.prop_onehot, t.data_mask, t.cell_coords, t.consts,
+            t.lane_pair, size=t.size)}
+    if only_incomp(cfg) and pts_rot.is_cuda:
         return {"incomp": cuda_eval.chem_incomp_kernel(
             pts_rot.contiguous(), corners.contiguous(), pair.cell_compat,
             pair.prop_onehot, pair.data_mask, pair.grid.cell_coords,

@@ -3,12 +3,11 @@
 Port of goicp_tpu/config.py: the same names, defaults and derived
 properties, so a configuration means the same search in both packages.
 The reference keys mirror the reference's `config.txt`; the rest shape the
-batched search (batch sizes, frontier capacities, iteration caps) and only
-affect speed or pruning efficiency, never epsilon-optimality.  Only the
-fields the ported engine reads are here: the host engine's
-`rot_frontier_capacity` and the streams' `packed_slots`,
-`packed_trans_every` and `trans_slots` come with those modules, and
-reading a `config.txt` (`from_file`) comes with the CLI port.
+batched search (batch sizes, frontier capacities, iteration caps, the
+cross-pair streams' slot budgets) and only affect speed or pruning
+efficiency, never epsilon-optimality.  Only the fields the ported modules
+read are here: the host engine's `rot_frontier_capacity` comes with that
+engine, and reading a `config.txt` (`from_file`) comes with the CLI port.
 """
 
 from __future__ import annotations
@@ -50,9 +49,15 @@ class GoICPConfig:
     margin_frac: float = 1.0     # search to margin_frac * MSEThresh * N
     icp_on_improve: int = 1      # ICP only on improving outer steps
     fused_inner: int = 1         # one fused ub+lb inner search per step
+    packed_slots: int = 8        # packed stream (search/packed_stream.py):
+                                 # lanes served per global iteration
+    packed_trans_every: int = 8  # packed stream: transitions fire every N
+                                 # global iterations
     lane_compaction: int = 1     # staged inner-lane compaction L->L/2->L/4
     init_seeds: int = 1          # initial-incumbent ICP multi-start count
     chem_reuse: int = 0          # frontier nodes carry their corners' chem
+    trans_slots: int = 0         # fused/packed streams: >0 serves at most K
+                                 # transitioning pairs per event (0 = all)
     sorted_merge: int = 0        # not ported yet (inner_bnb raises)
     chem_survivors: int = 0      # not ported yet (inner_bnb raises)
 

@@ -1,9 +1,12 @@
-// K2: per-corner chemical incompatibility counts.
+// K2 and K4: per-corner chemical incompatibility counts, with one table
+// set for all lanes (K2) or one per lane (K4).
 //
-// Replaces goicp_tpu/bounds/pallas_eval.py::chem_incomp_kernel (:702, body
-// _chem_kernel :410).  For each (lane, corner): the number of real data
-// points whose property is incompatible with the nearest occupied cell of
-// their CLAMPED voxel, voxel = trunc((p + corner - lo) * scale + 0.5):
+// K2 replaces goicp_tpu/bounds/pallas_eval.py::chem_incomp_kernel (:702),
+// K4 ::chem_incomp_kernel_lanes (:778); both share the body _chem_kernel
+// (:410) there and chem_incomp_body here.  For each (lane, corner): the
+// number of real data points whose property is incompatible with the
+// nearest occupied cell of their CLAMPED voxel,
+// voxel = trunc((p + corner - lo) * scale + 0.5):
 //   cell(i) = argmin over occupied cells of (|voxel_i - cell|^2, cell index)
 //             (ties go to the smallest index, as in the EDT's argmin);
 //   inc(i)  = [mask_i > 0] - sum_k onehot[i, k] * cell_compat[cell(i), k];
@@ -18,6 +21,10 @@
 // memory, and an integer block sum (exact and order-free).  The TPU
 // kernel's parity-bit key encoding is an MXU device and is not carried
 // over: the argmin is a lexicographic int32 comparison.
+//
+// K4 serves the cross-pair streams: the tables stay per pair ((W, C, 9),
+// (W, Nd, 9), (W, Nd), (W, C, 3), (W, 5)) and a block follows
+// lane_pair[lane] to its pair's rows instead of reading gathered copies.
 #include <algorithm>
 #include <climits>
 
@@ -28,16 +35,20 @@ namespace goicp {
 struct ChemParams {
   const float* pts;          // (L, Nd, 3)
   const float* corners;      // (L, Q, 3)
-  const float* cell_compat;  // (C, 9)
-  const float* prop_onehot;  // (Nd, 9)
-  const float* data_mask;    // (Nd,)
-  const int* cells;          // (C, 3)
-  const float* consts;       // (5,)
+  const float* cell_compat;  // (C, 9), or (W, C, 9) with lane_pair
+  const float* prop_onehot;  // (Nd, 9), or (W, Nd, 9)
+  const float* data_mask;    // (Nd,), or (W, Nd)
+  const int* cells;          // (C, 3), or (W, C, 3)
+  const float* consts;       // (5,), or (W, 5)
+  const int* lane_pair;      // (L,) pair of each lane (K4) or null (K2)
   float* out;                // (L, Q)
   int L, Q, Nd, C;
 };
 
-__global__ void chem_incomp_kernel(ChemParams p) {
+// The whole computation of one block = one (lane, corner).  `pair` selects
+// the table rows (always 0 for K2).
+__device__ __forceinline__ void chem_incomp_body(const ChemParams& p,
+                                                 int pair) {
   extern __shared__ __align__(16) unsigned char smem[];
   int4* tile = reinterpret_cast<int4*>(smem);               // kCellTile
   int* best_d = reinterpret_cast<int*>(tile + kCellTile);   // Nd
@@ -47,7 +58,12 @@ __global__ void chem_incomp_kernel(ChemParams p) {
 
   const int lane = blockIdx.x / p.Q;
   const int q = blockIdx.x % p.Q;
-  const GridConsts g = load_consts(p.consts);
+  const size_t pr = static_cast<size_t>(pair);
+  const float* cell_compat = p.cell_compat + pr * p.C * 9;
+  const float* prop_onehot = p.prop_onehot + pr * p.Nd * 9;
+  const float* data_mask = p.data_mask + pr * p.Nd;
+  const int* cells = p.cells + pr * p.C * 3;
+  const GridConsts g = load_consts(p.consts + pr * 5);
   const float* pts = p.pts + static_cast<size_t>(lane) * p.Nd * 3;
   const float* cor = p.corners + (static_cast<size_t>(lane) * p.Q + q) * 3;
   const float c0 = cor[0], c1 = cor[1], c2 = cor[2];
@@ -64,7 +80,7 @@ __global__ void chem_incomp_kernel(ChemParams p) {
   for (int start = 0; start < p.C; start += kCellTile) {
     const int n = min(kCellTile, p.C - start);
     __syncthreads();
-    load_cell_tile(p.cells, start, n, g.size, tile);
+    load_cell_tile(cells, start, n, g.size, tile);
     __syncthreads();
     for (int i = threadIdx.x; i < p.Nd; i += blockDim.x) {
       const int v = voxs[i];
@@ -83,16 +99,36 @@ __global__ void chem_incomp_kernel(ChemParams p) {
 
   int count = 0;
   for (int i = threadIdx.x; i < p.Nd; i += blockDim.x) {
-    const float* oh = p.prop_onehot + static_cast<size_t>(i) * 9;
-    const float* h = p.cell_compat + static_cast<size_t>(best_i[i]) * 9;
+    const float* oh = prop_onehot + static_cast<size_t>(i) * 9;
+    const float* h = cell_compat + static_cast<size_t>(best_i[i]) * 9;
     float s = 0.0f;
     for (int k = 0; k < 9; ++k) s = __fadd_rn(s, __fmul_rn(oh[k], h[k]));
-    const float inc = __fsub_rn(p.data_mask[i] > 0.0f ? 1.0f : 0.0f, s);
+    const float inc = __fsub_rn(data_mask[i] > 0.0f ? 1.0f : 0.0f, s);
     count += __float2int_rn(inc);
   }
   count = block_sum(count, red);
   if (threadIdx.x == 0)
     p.out[static_cast<size_t>(lane) * p.Q + q] = static_cast<float>(count);
+}
+
+__global__ void chem_incomp_kernel(ChemParams p) { chem_incomp_body(p, 0); }
+
+__global__ void chem_incomp_lanes_kernel(ChemParams p) {
+  chem_incomp_body(p, p.lane_pair[blockIdx.x / p.Q]);
+}
+
+template <typename Kernel>
+int launch_chem(Kernel kernel, const ChemParams& p, void* stream) {
+  const size_t smem = kCellTile * sizeof(int4) + 3 * sizeof(int) * p.Nd;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int threads = std::min(256, std::max(32, (p.Nd + 31) / 32 * 32));
+  kernel<<<p.L * p.Q, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace goicp
@@ -105,15 +141,18 @@ extern "C" int goicp_chem_incomp(const float* pts, const float* corners,
                                  int Q, int Nd, int C, void* stream) {
   using namespace goicp;
   ChemParams p{pts, corners, cell_compat, prop_onehot, data_mask, cells,
-               consts, out, L, Q, Nd, C};
-  const size_t smem = kCellTile * sizeof(int4) + 3 * sizeof(int) * Nd;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        chem_incomp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int threads = std::min(256, std::max(32, (Nd + 31) / 32 * 32));
-  chem_incomp_kernel<<<L * Q, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+               consts, nullptr, out, L, Q, Nd, C};
+  return launch_chem(chem_incomp_kernel, p, stream);
+}
+
+// K4: tables per pair, followed through lane_pair.
+extern "C" int goicp_chem_incomp_lanes(
+    const float* pts, const float* corners, const float* cell_compat,
+    const float* prop_onehot, const float* data_mask, const int* cells,
+    const float* consts, const int* lane_pair, float* out, int L, int Q,
+    int Nd, int C, void* stream) {
+  using namespace goicp;
+  ChemParams p{pts, corners, cell_compat, prop_onehot, data_mask, cells,
+               consts, lane_pair, out, L, Q, Nd, C};
+  return launch_chem(chem_incomp_lanes_kernel, p, stream);
 }

@@ -1,7 +1,10 @@
-// K1: geometric translation-node bounds (all modes of the TPU kernel).
+// K1 and K3: geometric translation-node bounds (all modes of the TPU
+// kernel), with one table set for all lanes (K1) or one per lane (K3).
 //
-// Replaces goicp_tpu/bounds/pallas_eval.py::geometric_bounds_kernel (:517,
-// body _geom_kernel :310).  For each (lane, node, point):
+// K1 replaces goicp_tpu/bounds/pallas_eval.py::geometric_bounds_kernel
+// (:517), K3 ::geometric_bounds_kernel_lanes (:632); both share the body
+// _geom_kernel (:310) there and geom_bounds_body here.  For each (lane,
+// node, point):
 //   voxel = trunc((p + c - lo) * scale + 0.5), clamped to the grid;
 //   d     = sqrt(min over occupied cells of |voxel - cell|^2) / scale, plus
 //           the out-of-bounds extension sqrt(sum excess^2) / scale;
@@ -25,6 +28,12 @@
 // memory, and fixed-order block reductions (no atomics, so results repeat
 // bit for bit).  The TPU kernel's bf16 digit-column key encoding exists
 // only for the MXU and is not carried over: squared distances are int32.
+//
+// K3 serves the cross-pair streams, where every lane may belong to another
+// registration pair.  The TPU kernel takes gathered per-lane copies of the
+// tables because a block spec can only slice; here the tables stay per pair
+// ((W, Nd) weights, (W, C, 3) cells, (W, 5) consts, (W,) trim counts) and a
+// block follows lane_pair[lane] to its pair's rows, so no table is copied.
 #include <algorithm>
 #include <climits>
 
@@ -39,10 +48,12 @@ struct GeomParams {
   const float* centers;     // (L, B, 3)
   const float* widths;      // (L, B)
   const float* rot_unc;     // (L, Nd) or null
-  const float* weights;     // (Nd,)
-  const int* cells;         // (C, 3)
-  const float* consts;      // (5,) [x_min, y_min, z_min, scale, size]
-  const float* trim_count;  // device scalar K (dynamic trim) or null
+  const float* weights;     // (Nd,), or (W, Nd) with lane_pair
+  const int* cells;         // (C, 3), or (W, C, 3)
+  const float* consts;      // (5,) [x_min, y_min, z_min, scale, size],
+                            // or (W, 5)
+  const float* trim_count;  // device scalar K (dynamic trim), (W,), or null
+  const int* lane_pair;     // (L,) pair of each lane (K3) or null (K1)
   float* out0;              // (L, B) ub
   float* out1;              // (L, B) lb (plain) / ubu (fused)
   float* out2;              // (L, B) lbu (fused) or null
@@ -76,7 +87,10 @@ __device__ void bitonic_sort(float* a, float* b, int n) {
   }
 }
 
-__global__ void geom_bounds_kernel(GeomParams p) {
+// The whole computation of one block = one (lane, node).  `pair` selects
+// the table rows (always 0 for K1).
+__device__ __forceinline__ void geom_bounds_body(const GeomParams& p,
+                                                 int pair) {
   extern __shared__ __align__(16) unsigned char smem[];
   int4* tile = reinterpret_cast<int4*>(smem);               // kCellTile
   int* d2s = reinterpret_cast<int*>(tile + kCellTile);      // Nd
@@ -87,7 +101,11 @@ __global__ void geom_bounds_kernel(GeomParams p) {
 
   const int lane = blockIdx.x / p.B;
   const int node = blockIdx.x % p.B;
-  const GridConsts g = load_consts(p.consts);
+  const float* weights = p.weights + static_cast<size_t>(pair) * p.Nd;
+  const int* cells = p.cells + static_cast<size_t>(pair) * p.C * 3;
+  const float* trim_count =
+      p.trim_count != nullptr ? p.trim_count + pair : nullptr;
+  const GridConsts g = load_consts(p.consts + static_cast<size_t>(pair) * 5);
   const float* pts = p.pts + static_cast<size_t>(lane) * p.Nd * 3;
   const float* cen = p.centers + (static_cast<size_t>(lane) * p.B + node) * 3;
   const float c0 = cen[0], c1 = cen[1], c2 = cen[2];
@@ -105,7 +123,7 @@ __global__ void geom_bounds_kernel(GeomParams p) {
   for (int start = 0; start < p.C; start += kCellTile) {
     const int n = min(kCellTile, p.C - start);
     __syncthreads();
-    load_cell_tile(p.cells, start, n, g.size, tile);
+    load_cell_tile(cells, start, n, g.size, tile);
     __syncthreads();
     for (int i = threadIdx.x; i < p.Nd; i += blockDim.x) {
       const int v = voxs[i];
@@ -118,7 +136,7 @@ __global__ void geom_bounds_kernel(GeomParams p) {
   __syncthreads();
 
   // 3. per-point distances (+inf for rows' padding slots when trimming)
-  const bool trim = p.trim_k > 0 || p.trim_count != nullptr;
+  const bool trim = p.trim_k > 0 || trim_count != nullptr;
   const float inf = __int_as_float(0x7f800000);
   for (int i = threadIdx.x; i < p.n_sort; i += blockDim.x) {
     if (i >= p.Nd) { dis[i] = inf; disu[i] = inf; continue; }
@@ -136,7 +154,7 @@ __global__ void geom_bounds_kernel(GeomParams p) {
                                 __fmul_rn(ex[2], ex[2]));
       d = __fadd_rn(d, __fdiv_rn(__fsqrt_rn(s), g.scale));
     }
-    const float w = p.weights[i];
+    const float w = weights[i];
     float ds = __fmul_rn(w, d);
     const float ru = p.rot_unc != nullptr
         ? p.rot_unc[static_cast<size_t>(lane) * p.Nd + i] : 0.0f;
@@ -158,7 +176,7 @@ __global__ void geom_bounds_kernel(GeomParams p) {
   if (trim) {
     bitonic_sort(dis, p.fused ? disu : nullptr, p.n_sort);
     n_sum = p.n_sort;
-    kf = p.trim_count != nullptr ? *p.trim_count : static_cast<float>(p.trim_k);
+    kf = trim_count != nullptr ? *trim_count : static_cast<float>(p.trim_k);
   }
   const float s3w = __fmul_rn(kHalfSqrt3, p.widths[static_cast<size_t>(lane) * p.B + node]);
   float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
@@ -185,6 +203,35 @@ __global__ void geom_bounds_kernel(GeomParams p) {
   }
 }
 
+__global__ void geom_bounds_kernel(GeomParams p) { geom_bounds_body(p, 0); }
+
+__global__ void geom_bounds_lanes_kernel(GeomParams p) {
+  geom_bounds_body(p, p.lane_pair[blockIdx.x / p.B]);
+}
+
+// One block per (lane, node); the row is padded to a power of two only
+// when it is sorted.
+template <typename Kernel>
+int launch_geom(Kernel kernel, GeomParams p, void* stream) {
+  const bool trim = p.trim_k > 0 || p.trim_count != nullptr;
+  p.n_sort = p.Nd;
+  if (trim) {
+    p.n_sort = 1;
+    while (p.n_sort < p.Nd) p.n_sort <<= 1;
+  }
+  const size_t smem = kCellTile * sizeof(int4) + 2 * sizeof(int) * p.Nd +
+                      2 * sizeof(float) * p.n_sort;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int threads = std::min(256, std::max(32, (p.Nd + 31) / 32 * 32));
+  kernel<<<p.L * p.B, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace goicp
 
 extern "C" int goicp_geom_bounds(const float* pts, const float* centers,
@@ -196,24 +243,22 @@ extern "C" int goicp_geom_bounds(const float* pts, const float* centers,
                                  int fused, int trim_k, void* stream) {
   using namespace goicp;
   GeomParams p{pts, centers, widths, rot_unc, weights, cells, consts,
-               trim_count, out0, out1, out2, L, B, Nd, C, 0, norm, fused,
-               trim_k};
-  const bool trim = trim_k > 0 || trim_count != nullptr;
-  int n_sort = Nd;
-  if (trim) {
-    n_sort = 1;
-    while (n_sort < Nd) n_sort <<= 1;
-  }
-  p.n_sort = n_sort;
-  const size_t smem = kCellTile * sizeof(int4) + 2 * sizeof(int) * Nd +
-                      2 * sizeof(float) * n_sort;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        geom_bounds_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int threads = std::min(256, std::max(32, (Nd + 31) / 32 * 32));
-  geom_bounds_kernel<<<L * B, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+               trim_count, nullptr, out0, out1, out2, L, B, Nd, C, 0, norm,
+               fused, trim_k};
+  return launch_geom(geom_bounds_kernel, p, stream);
+}
+
+// K3: fused mode with rotation uncertainty; tables per pair, followed
+// through lane_pair; trim_count (W,) per pair or null (no trimming).
+extern "C" int goicp_geom_bounds_lanes(
+    const float* pts, const float* centers, const float* widths,
+    const float* rot_unc, const float* weights, const int* cells,
+    const float* consts, const float* trim_count, const int* lane_pair,
+    float* out0, float* out1, float* out2, int L, int B, int Nd, int C,
+    int norm, void* stream) {
+  using namespace goicp;
+  GeomParams p{pts, centers, widths, rot_unc, weights, cells, consts,
+               trim_count, lane_pair, out0, out1, out2, L, B, Nd, C, 0, norm,
+               1, 0};
+  return launch_geom(geom_bounds_lanes_kernel, p, stream);
 }

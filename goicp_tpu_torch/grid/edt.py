@@ -3,9 +3,9 @@
 Port of goicp_tpu/grid/edt.py.  The EDT is an exact argmin, over the
 occupied voxel centers, of the squared distance from every voxel center of
 the SIZE^3 grid.  Voxel and cell coordinates are small integers, so the
-squared distances are computed in integer arithmetic: the result is the
-same as the JAX package's f32 matmul form, bit for bit, with the same
-first-minimum tie-break (the smallest cell index wins).
+squared distances are exact integers in float32 (the JAX package's f32
+matmul form, bit for bit), with the same first-minimum tie-break (the
+smallest cell index wins).
 
 Voxelization keeps the reference's ROUND(x) = int(x + 0.5), C truncation
 toward zero (jly_3ddt.cpp:30).  All distances are stored divided by
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 _EDT_CHUNK_ELEMS = 1 << 22   # voxel x cell pairs per argmin chunk
+_NEVER = 1.0e9               # |c|^2 of a padding cell: it never wins
 
 
 def round_ref(x: torch.Tensor) -> torch.Tensor:
@@ -69,11 +70,14 @@ class Grid:
     n_cells: int
     geom: GridGeometry
 
-    def to(self, device) -> "Grid":
+    def map_tensors(self, fn) -> "Grid":
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
+            f.name: fn(getattr(self, f.name))
             for f in dataclasses.fields(self)
             if isinstance(getattr(self, f.name), torch.Tensor)})
+
+    def to(self, device) -> "Grid":
+        return self.map_tensors(lambda t: t.to(device))
 
 
 def grid_geometry(model: np.ndarray, size: int, expand_factor: float
@@ -147,21 +151,23 @@ def nearest_occupied(voxels: torch.Tensor, cell_coords: torch.Tensor,
     squared voxel distance (N,) i64 and the cell index (N,) i64.  Cells
     outside [0, size) are padding and never win; ties go to the smallest
     cell index (first minimum)."""
-    cells = cell_coords.to(torch.int64)
+    # |v - c|^2 = |v|^2 + |c|^2 - 2 v.c in float32, one small matmul per
+    # chunk: every term and partial sum is an integer below 2^24 (voxels and
+    # real cells lie in [0, size), size <= 1024), so the result is exact
+    cells = cell_coords.to(torch.int32)
     valid = ((cells >= 0) & (cells < size)).all(dim=1)
-    never = torch.iinfo(torch.int64).max
-    vox = voxels.to(torch.int64)
+    cf = torch.where(valid[:, None], cells, 0).to(torch.float32)
+    cc = torch.where(valid, torch.sum(cf * cf, dim=1), _NEVER)
+    vf = voxels.to(torch.float32)
+    vv = torch.sum(vf * vf, dim=1)
     chunk = max(1, _EDT_CHUNK_ELEMS // max(cells.shape[0], 1))
     best_d, best_i = [], []
-    for start in range(0, vox.shape[0], chunk):
-        v = vox[start:start + chunk]
-        d2 = ((v[:, 0:1] - cells[None, :, 0]) ** 2
-              + (v[:, 1:2] - cells[None, :, 1]) ** 2
-              + (v[:, 2:3] - cells[None, :, 2]) ** 2)
-        d2 = torch.where(valid[None, :], d2, never)
+    for start in range(0, vf.shape[0], chunk):
+        d2 = torch.addmm(vv[start:start + chunk, None] + cc[None, :],
+                         vf[start:start + chunk], cf.T, alpha=-2.0)
         i = torch.argmin(d2, dim=1)                 # first minimum wins
         best_i.append(i)
-        best_d.append(torch.gather(d2, 1, i[:, None])[:, 0])
+        best_d.append(torch.gather(d2, 1, i[:, None])[:, 0].to(torch.int64))
     return torch.cat(best_d), torch.cat(best_i)
 
 

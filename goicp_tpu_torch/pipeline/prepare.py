@@ -21,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from goicp_tpu_torch import default_device
 from goicp_tpu_torch.chem.neighbors import neighbor_counts, neighbor_weights
 from goicp_tpu_torch.chem.properties import (codes_to_indices,
                                              compatibility_matrix)
@@ -80,13 +81,20 @@ class PairData:
         return self.counts[1] if self.dynamic_counts \
             else torch.tensor(float(self.inlier_num), device=self.device)
 
-    def to(self, device) -> "PairData":
+    def map_tensors(self, fn) -> "PairData":
+        """The same pair with fn applied to every tensor leaf (the grid's
+        included); the host-side fields are kept."""
         kw = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            if isinstance(v, (torch.Tensor, Grid)):
-                kw[f.name] = v.to(device)
+            if isinstance(v, torch.Tensor):
+                kw[f.name] = fn(v)
+            elif isinstance(v, Grid):
+                kw[f.name] = v.map_tensors(fn)
         return dataclasses.replace(self, **kw)
+
+    def to(self, device) -> "PairData":
+        return self.map_tensors(lambda t: t.to(device))
 
 
 def make_count_dynamic(pair: PairData) -> PairData:
@@ -201,10 +209,13 @@ def prepare_pair(source: np.ndarray, target: np.ndarray,
                  pad_data_to: int | None = None,
                  pad_model_to: int | None = None,
                  bucket: bool = False,
-                 device: torch.device | str = "cpu") -> PairData:
+                 device: torch.device | str | None = None) -> PairData:
     """source/target: normalized clouds (f64 host); props: raw codes or
     dense indices (values < 9 treated as dense).  pad_* / bucket: pad to a
-    static shape bucket (see bucket_dims)."""
+    static shape bucket (see bucket_dims).  device: where the pair's
+    tensors live; None means goicp_tpu_torch.default_device()."""
+    if device is None:
+        device = default_device()
     src = np.asarray(source, dtype=np.float32)
     tgt = np.asarray(target, dtype=np.float32)
     sp = np.asarray(source_props)
@@ -330,10 +341,14 @@ def prepare_pair(source: np.ndarray, target: np.ndarray,
     )
 
 
-def pair_from_jax(pair, device: torch.device | str = "cpu") -> PairData:
+def pair_from_jax(pair, device: torch.device | str | None = None
+                  ) -> PairData:
     """A JAX `goicp_tpu` PairData -> the port's PairData, leaf by leaf
     (each converted with np.asarray), so both packages search the very
-    same prepared pair.  Duck-typed: nothing of JAX is imported here."""
+    same prepared pair.  Duck-typed: nothing of JAX is imported here.
+    device None means goicp_tpu_torch.default_device()."""
+    if device is None:
+        device = default_device()
     def t(x):
         return torch.as_tensor(np.array(np.asarray(x)), device=device)
 

@@ -1,0 +1,813 @@
+"""Cross-pair fused stream engine: ONE loop advances EVERY pair.
+
+Port of goicp_tpu/search/fused_stream.py.  A window of W pairs is in flight
+at once.  Every GLOBAL iteration advances each in-flight pair by one
+inner-BnB iteration; outer-step transitions (harvest the finished inner
+search -> ICP -> adopt -> prune/merge -> pop the next rotation parents ->
+rotate -> fresh inner state) happen PER PAIR, asynchronously, whenever that
+pair's inner search completes.  The sequential depth of a window is the max
+over pairs of that pair's OWN (inner iterations + outer transitions).
+
+The JAX package writes the engine as per-pair functions under jax.vmap
+inside one lax.while_loop.  Here the batch axes are written out:
+
+  * the inner iteration, which runs every step, flattens the window's
+    (W, L) lanes into W*L lanes and runs the ONE inner-BnB body of
+    search/inner.py over them.  Lanes of different pairs read different
+    tables, so the bounds go through the per-lane-table kernels K3 and K4
+    (bounds/cuda_eval.py; their plain versions on the CPU): one launch each
+    per global iteration, whatever W.  Configurations with FPFH or
+    neighbour chem terms, which those kernels do not carry, run the body
+    once per window row instead;
+  * the transition, which is rare, runs per transitioning row on that
+    row's slice of the state, with the per-pair functions of
+    search/device_engine.py.  Rows that do not transition, and rows that
+    converged, are not touched.
+
+The loop is a Python loop: each global iteration reads ONE small tensor on
+the host (which rows finished, which completed their inner search), and a
+transition event reads one more (which of its rows improved) before it
+decides about ICP.  `counters` counts both.
+
+Epsilon-optimality bookkeeping is identical to search/device_engine.py
+(same pop/threshold-discard/prune rules, same min-dropped-lb folding into
+the reported gap); per pair the trajectory is register_device's.
+
+Not ported yet, each raising NotImplementedError when asked for: `mesh=`
+and the straggler handoff (multi-GPU, ROADMAP Queue 1 item 16),
+`escalate_capacity` and migrate_row_capacity (item 18).
+
+Reference anchors: OuterBnB/InnerBnB nesting jly_goicp.cpp:582-876 /
+:286-579 (one pair, one node at a time); the pair loop bo1_GoICP.py:40-54.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+
+import numpy as np
+import torch
+
+from goicp_tpu_torch.bounds.error import bnb_incompatibility_count
+from goicp_tpu_torch.bounds.evaluate import (lane_tables, only_incomp,
+                                             rot_uncertainty)
+from goicp_tpu_torch.config import GoICPConfig
+from goicp_tpu_torch.dist.mesh import stack_pairs
+from goicp_tpu_torch.geom.rotation import rodrigues
+from goicp_tpu_torch.pipeline.prepare import PairData
+from goicp_tpu_torch.search.device_engine import (DeviceResult,
+                                                  _icp_best_of_seeds,
+                                                  _initial_incumbent)
+from goicp_tpu_torch.search.inner import (_PER_LANE, IterStats, _chem_active,
+                                          _chem_reuse_active, _chem_terms,
+                                          _make_inner_body,
+                                          root_corner_values)
+
+SQRT3 = 3.0 ** 0.5
+INF = float("inf")
+_F32 = torch.float32
+_I32 = torch.int32
+
+# what the stream loops did since reset_counters(): global iterations,
+# transition events, and the host reads those two cost
+counters = dict(global_iters=0, transitions=0, host_reads=0)
+
+
+def reset_counters():
+    for k in counters:
+        counters[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# nested-state helpers (a state is a dict of tensors; "inner" nests one more)
+# ---------------------------------------------------------------------------
+
+def _map_state(fn, *states):
+    out = {}
+    for k, v in states[0].items():
+        rest = [s[k] for s in states[1:]]
+        out[k] = _map_state(fn, v, *rest) if isinstance(v, dict) \
+            else fn(v, *rest)
+    return out
+
+
+def _row(state: dict, r: int) -> dict:
+    return _map_state(lambda x: x[r], state)
+
+
+def _stack_rows(rows: list) -> dict:
+    return _map_state(lambda *xs: torch.stack(xs), *rows)
+
+
+def _write_row(state: dict, r: int, new: dict):
+    """state[...][r] = new[...], in place."""
+    for k, v in new.items():
+        if isinstance(v, dict):
+            _write_row(state[k], r, v)
+        else:
+            state[k][r] = v
+
+
+def _pair_row(pair_batch: PairData, r: int) -> PairData:
+    return pair_batch.map_tensors(lambda t: t[r])
+
+
+def _take_pairs(pair_batch: PairData, idx) -> PairData:
+    idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64,
+                          device=pair_batch.device)
+    return pair_batch.map_tensors(lambda t: t[idx].contiguous())
+
+
+# ---------------------------------------------------------------------------
+# per-pair state
+# ---------------------------------------------------------------------------
+
+def _i32(v, dev):
+    return torch.tensor(v, dtype=_I32, device=dev)
+
+
+def _inner_init(cfg: GoICPConfig, L: int, opt_err: torch.Tensor,
+                root_cv=None) -> dict:
+    """Fresh inner-search state for one pair's L rotation lanes (the
+    per-lane translation frontier of search/inner.py, as carried state).
+    root_cv (L, 8*T): the root node's corner-reuse chem payload (required
+    for a REAL search when cfg.chem_reuse; the dummy init passes None)."""
+    dev = opt_err.device
+    C = cfg.trans_capacity
+    root = torch.tensor([cfg.transMinX, cfg.transMinY, cfg.transMinZ,
+                         cfg.transWidth], dtype=_F32, device=dev)
+    nodes = torch.zeros((L, C, 4), dtype=_F32, device=dev)
+    nodes[:, 0] = root
+    lbs = torch.full((L, C), INF, dtype=_F32, device=dev)
+    lbs[:, 0] = 0.0
+    inc = opt_err.to(_F32).expand(L).clone()
+    st = dict(
+        nodes=nodes, lbs=lbs, opt_err=inc, thr=inc.clone(),
+        best_node=torch.zeros((L, 4), dtype=_F32, device=dev),
+        ub_terms=torch.zeros((L, 3), dtype=_F32, device=dev),
+        min_dropped=torch.full((L,), INF, dtype=_F32, device=dev),
+        done=torch.zeros((L,), dtype=torch.bool, device=dev),
+        it=_i32(0, dev), evals=_i32(0, dev),
+        geom_surv=_i32(0, dev), chem_corners=_i32(0, dev),
+    )
+    if _chem_reuse_active(cfg):
+        cv = torch.zeros((L, C, 8 * len(_chem_terms(cfg))), dtype=_F32,
+                         device=dev)
+        if root_cv is not None:
+            cv[:, 0] = root_cv
+        st["cvals"] = cv
+    return st
+
+
+def fused_init(pair: PairData, cfg: GoICPConfig) -> dict:
+    """Initial per-pair state: root rotation frontier + identity/ICP
+    incumbent (device_engine.device_init), plus a DUMMY completed inner
+    state — the first global iteration transitions it, popping the root
+    rotation node and starting the real inner search."""
+    dev = pair.device
+    Cr = cfg.device_rot_capacity
+    L = cfg.rot_batch * 8
+    ndp = pair.n_data_padded
+    opt_err0, opt_R0, opt_t0, comp0, terms0, better0 = \
+        _initial_incumbent(pair, cfg)
+    fr_nodes = torch.zeros((Cr, 4), dtype=_F32, device=dev)
+    fr_nodes[0] = torch.tensor([cfg.rotMinX, cfg.rotMinY, cfg.rotMinZ,
+                                cfg.rotWidth], dtype=_F32, device=dev)
+    fr_lbs = torch.full((Cr,), INF, dtype=_F32, device=dev)
+    fr_lbs[0] = 0.0
+    inner0 = _inner_init(cfg, L, opt_err0)
+    inner0["done"] = torch.ones((L,), dtype=torch.bool, device=dev)
+    return dict(
+        fr_nodes=fr_nodes, fr_lbs=fr_lbs,
+        opt_err=opt_err0.to(_F32), opt_R=opt_R0, opt_t=opt_t0,
+        comp=comp0.to(_I32), terms=terms0,
+        last_icp=better0,
+        min_dropped=torch.tensor(INF, dtype=_F32, device=dev),
+        it=_i32(0, dev), evals=_i32(0, dev), inner_it=_i32(0, dev),
+        icp_runs=_i32(1, dev),
+        geom_surv=_i32(0, dev), chem_corners=_i32(0, dev),
+        converged=torch.tensor(False, device=dev),
+        final_lb=torch.tensor(0.0, dtype=_F32, device=dev),
+        # in-flight pop context (filled by each transition)
+        inner=inner0,
+        pts_rot=torch.zeros((L, ndp, 3), dtype=_F32, device=dev),
+        mrd=torch.zeros((L, ndp), dtype=_F32, device=dev),
+        widths=torch.zeros((L,), dtype=_F32, device=dev),
+        active=torch.zeros((L,), dtype=torch.bool, device=dev),
+        child_nodes=torch.zeros((L, 4), dtype=_F32, device=dev),
+        R_lanes=torch.eye(3, dtype=_F32, device=dev).expand(L, 3, 3).clone(),
+    )
+
+
+def _init_batch(pair_batch: PairData, cfg: GoICPConfig) -> dict:
+    """fused_init for every row of a stacked PairData -> (W, ...) state."""
+    W = pair_batch.data.shape[0]
+    return _stack_rows([fused_init(_pair_row(pair_batch, r), cfg)
+                        for r in range(W)])
+
+
+# ---------------------------------------------------------------------------
+# the inner iteration (batched over the window)
+# ---------------------------------------------------------------------------
+
+def _inner_step(pair_batch: PairData, cfg: GoICPConfig, s: dict,
+                tables, live: torch.Tensor) -> dict:
+    """One inner-BnB iteration for every row where `live` (W,) holds; the
+    other rows keep their inner state.  tables: the window's LaneTables, or
+    None for configurations K3/K4 do not carry (then row by row)."""
+    ist = s["inner"]
+    W, L = ist["done"].shape
+    lanes = {k: ist[k].reshape((W * L,) + ist[k].shape[2:])
+             for k in _PER_LANE if k in ist}
+    pts = s["pts_rot"].reshape((W * L,) + s["pts_rot"].shape[2:])
+    mrd = s["mrd"].reshape(W * L, -1)
+    if tables is not None:
+        sse = tables.sse[tables.lane_pair.long()]
+        new, stats = _make_inner_body(tables, cfg, pts, mrd, sse,
+                                      fused=True)(lanes)
+    else:
+        outs = []
+        for r in range(W):
+            pair = _pair_row(pair_batch, r)
+            sse = torch.tensor(cfg.mse_margin, dtype=_F32,
+                               device=pair.device) * pair.inlier_f()
+            body = _make_inner_body(pair, cfg, s["pts_rot"][r], s["mrd"][r],
+                                    sse, fused=True)
+            outs.append(body({k: ist[k][r] for k in lanes}))
+        new = {k: torch.cat([o[0][k] for o in outs]) for k in lanes}
+        stats = IterStats(
+            evals=torch.cat([o[1].evals for o in outs]),
+            geom_surv=torch.cat([o[1].geom_surv for o in outs]),
+            corners_per_lane=outs[0][1].corners_per_lane)
+
+    def keep(new_v, old_v):
+        m = live.reshape((W,) + (1,) * (old_v.ndim - 1))
+        return torch.where(m, new_v.reshape(old_v.shape), old_v)
+
+    def add(total, inc):
+        return total + torch.where(live, inc, 0).to(total.dtype)
+
+    out = {k: keep(new[k], ist[k]) for k in lanes}
+    out.update(
+        it=add(ist["it"], 1),
+        evals=add(ist["evals"], stats.evals.reshape(W, L).sum(dim=1)),
+        geom_surv=add(ist["geom_surv"],
+                      stats.geom_surv.reshape(W, L).sum(dim=1)),
+        chem_corners=add(ist["chem_corners"], L * stats.corners_per_lane))
+    return out
+
+
+def _inner_complete(cfg: GoICPConfig, s: dict) -> torch.Tensor:
+    """(W,) has each pair's in-flight inner search finished?"""
+    return torch.all(s["inner"]["done"], dim=-1) \
+        | (s["inner"]["it"] >= cfg.inner_max_iters)
+
+
+# ---------------------------------------------------------------------------
+# the outer-step transition (per transitioning row)
+# ---------------------------------------------------------------------------
+
+def _harvest(s: dict) -> dict:
+    """Per-pair inner-search finalize (inner_bnb's post-loop code, fused
+    path) + candidate extraction."""
+    ist = s["inner"]
+    rem_min = torch.amin(ist["lbs"], dim=1)
+    lb_safe = torch.minimum(ist["thr"], ist["min_dropped"])
+    lb_safe = torch.where(ist["done"], lb_safe,
+                          torch.minimum(lb_safe, rem_min))
+    ubs = torch.where(s["active"], ist["opt_err"], INF)
+    best_lane = torch.argmin(ubs)
+    tn = ist["best_node"][best_lane]
+    return dict(lb_safe=lb_safe, ubs=ubs, cand_ub=ubs[best_lane],
+                cand_R=s["R_lanes"][best_lane],
+                cand_t=tn[:3] + tn[3] / 2.0,
+                cand_terms=ist["ub_terms"][best_lane])
+
+
+def _refine(pair: PairData, cfg: GoICPConfig, s: dict, h: dict) -> dict:
+    """Per-pair ICP refinement + BnB compat count for an improving
+    candidate.  The expensive block of a transition: the caller runs it
+    only for rows that improved (improvements are rare)."""
+    icp_R, icp_t, sc, icp_incomp = _icp_best_of_seeds(
+        pair, cfg, s["R_lanes"], s["inner"]["best_node"], h["ubs"])
+    bnb_comp = bnb_incompatibility_count(pair, cfg, h["cand_R"],
+                                         h["cand_t"])
+    return dict(icp_R=icp_R, icp_t=icp_t, icp_err=sc.error,
+                icp_terms=torch.stack([sc.geom,
+                                       sc.incomp_term + sc.nbr_term,
+                                       sc.fpfh_term]),
+                icp_incomp=icp_incomp.to(_I32),
+                bnb_comp=bnb_comp.to(_I32))
+
+
+def _refine_dummy(dev) -> dict:
+    return dict(icp_R=torch.eye(3, dtype=_F32, device=dev),
+                icp_t=torch.zeros(3, dtype=_F32, device=dev),
+                icp_err=torch.tensor(INF, dtype=_F32, device=dev),
+                icp_terms=torch.zeros(3, dtype=_F32, device=dev),
+                icp_incomp=_i32(0, dev), bnb_comp=_i32(0, dev))
+
+
+def _advance(pair: PairData, cfg: GoICPConfig, s: dict, h: dict, r: dict,
+             bnb_improved, icp_improved) -> dict:
+    """Per-pair adopt + prune/merge + pop + rotate + fresh inner state, for
+    a row that transitions (live, inner search complete).  Mirrors
+    device_engine._make_body's tail.  Returns the row's new state."""
+    dev = pair.device
+    Pr = cfg.rot_batch
+    L = Pr * 8
+    Cr = cfg.device_rot_capacity
+    sse = torch.tensor(cfg.mse_margin, dtype=_F32, device=dev) \
+        * pair.inlier_f()
+    child_off = torch.tensor(
+        [[j & 1, (j >> 1) & 1, (j >> 2) & 1] for j in range(8)],
+        dtype=_F32, device=dev)
+    ist = s["inner"]
+    lb_safe = h["lb_safe"]
+    cand_ub = h["cand_ub"]
+
+    def adopt(icp_v, bnb_v, old_v):
+        return torch.where(icp_improved, icp_v,
+                           torch.where(bnb_improved, bnb_v, old_v))
+
+    opt_err = adopt(r["icp_err"], cand_ub, s["opt_err"])
+    opt_R = adopt(r["icp_R"], h["cand_R"], s["opt_R"])
+    opt_t = adopt(r["icp_t"], h["cand_t"], s["opt_t"])
+    comp = adopt(r["icp_incomp"], r["bnb_comp"], s["comp"]).to(_I32)
+    terms = adopt(r["icp_terms"], h["cand_terms"], s["terms"])
+    last_icp = icp_improved | (~bnb_improved & s["last_icp"])
+
+    # ---- prune + merge children into the (sorted) rotation frontier ----
+    lbs_new = torch.where(s["active"] & (lb_safe < opt_err), lb_safe, INF)
+    all_lbs = torch.cat([s["fr_lbs"], lbs_new])
+    all_nodes = torch.cat([s["fr_nodes"], s["child_nodes"]])
+    order = torch.argsort(all_lbs, stable=True)
+    keep_lbs = all_lbs[order[:Cr]]
+    keep_nodes = all_nodes[order[:Cr]]
+    dropped = all_lbs[order[Cr:]]
+    min_drop = torch.amin(torch.where(torch.isfinite(dropped), dropped, INF))
+    keep_lbs = torch.where(keep_lbs >= opt_err, INF, keep_lbs)
+
+    # ---- convergence check + pop the next Pr parents ----
+    pop_lb = keep_lbs[:Pr]
+    min_lb = pop_lb[0]
+    converged = torch.isinf(min_lb) | (opt_err - min_lb <= sse) \
+        | torch.isnan(opt_err)    # numeric guard: freeze on NaN incumbent
+    final_lb = torch.where(converged & ~s["converged"], min_lb,
+                           s["final_lb"])
+    parents = keep_nodes[:Pr]
+    rest_lbs = torch.cat([keep_lbs[Pr:],
+                          torch.full((Pr,), INF, dtype=_F32, device=dev)])
+    rest_nodes = torch.cat([keep_nodes[Pr:],
+                            torch.zeros((Pr, 4), dtype=_F32, device=dev)])
+    expand = torch.isfinite(pop_lb) & (opt_err - pop_lb > sse) & ~converged
+
+    cw = parents[:, 3:4] / 2.0
+    cxyz = parents[:, None, 0:3] + child_off[None] * cw[:, None]
+    centers = (cxyz + cw[:, None] / 2.0).reshape(L, 3)
+    widths = cw[:, None].expand(Pr, 8, 1).reshape(L)
+    child_nodes = torch.cat([cxyz.reshape(L, 3), widths[:, None]], dim=1)
+    inside = (torch.linalg.norm(centers, dim=1)
+              - SQRT3 * widths / 2.0) <= math.pi
+    active = inside & torch.repeat_interleave(expand, 8)
+    R_lanes = rodrigues(centers)
+    pts = torch.einsum("lij,nj->lni", R_lanes, pair.data)
+    mrd = rot_uncertainty(widths, pair.norm_data)
+    root_cv = root_corner_values(pair, cfg, pts) \
+        if _chem_reuse_active(cfg) else None
+    inner_new = _inner_init(cfg, L, opt_err, root_cv=root_cv)
+    inner_new["done"] = ~active | converged
+
+    return dict(
+        fr_nodes=rest_nodes, fr_lbs=rest_lbs,
+        opt_err=opt_err, opt_R=opt_R, opt_t=opt_t, comp=comp, terms=terms,
+        last_icp=last_icp,
+        min_dropped=torch.minimum(s["min_dropped"], min_drop),
+        # one `it` per pop performed — each transition pops exactly once,
+        # matching device_engine's one-increment-per-body (including its
+        # final convergence-detecting pop)
+        it=s["it"] + 1,
+        evals=s["evals"] + ist["evals"],
+        inner_it=s["inner_it"] + ist["it"],
+        icp_runs=s["icp_runs"] + (bnb_improved.to(_I32)
+                                  if cfg.icp_on_improve else 1),
+        geom_surv=s["geom_surv"] + ist["geom_surv"],
+        chem_corners=s["chem_corners"] + ist["chem_corners"],
+        converged=s["converged"] | converged,
+        final_lb=final_lb,
+        inner=inner_new,
+        pts_rot=pts, mrd=mrd, widths=widths, active=active,
+        child_nodes=child_nodes, R_lanes=R_lanes,
+    )
+
+
+def _transition_batch(pair_batch: PairData, cfg: GoICPConfig, s: dict,
+                      rows) -> list:
+    """Outer-step transition of the window rows `rows` (host indices of
+    live rows whose inner search completed): harvest each, read ONCE on
+    the host which of them improved, run the ICP/compat refine block only
+    for those, then adopt/merge/pop.  `s` only needs s[k][r] to be row r's
+    value.  The adopt ordering is device_engine._make_body's, so the
+    per-pair trajectory matches register_device.  Returns the rows' new
+    states, in order; `s` is left as it was."""
+    counters["transitions"] += 1
+    pairs = [_pair_row(pair_batch, int(r)) for r in rows]
+    states = [_row(s, int(r)) for r in rows]
+    hs = [_harvest(st) for st in states]
+    improved = [~(h["cand_ub"] >= st["opt_err"])       # NaN-infectious <
+                for h, st in zip(hs, states)]
+    if cfg.icp_on_improve:
+        do_icp = torch.stack(improved).cpu().numpy()
+        counters["host_reads"] += 1
+    else:
+        do_icp = np.ones(len(states), bool)
+    out = []
+    for pair, st, h, imp, icp in zip(pairs, states, hs, improved, do_icp):
+        if icp:
+            r = _refine(pair, cfg, st, h)
+            incumbent = torch.minimum(st["opt_err"], h["cand_ub"])
+            icp_improved = ~(r["icp_err"] >= incumbent)  # NaN-infectious <
+        else:
+            r = _refine_dummy(pair.device)
+            icp_improved = torch.tensor(False, device=pair.device)
+        out.append(_advance(pair, cfg, st, h, r, imp, icp_improved))
+    return out
+
+
+def _window_tables(pair_batch: PairData, cfg: GoICPConfig, L: int):
+    """The window's LaneTables with lane_pair = each row's L lanes, or None
+    where K3/K4 do not carry the configuration's chem terms."""
+    if _chem_active(cfg) and not only_incomp(cfg):
+        return None
+    W = pair_batch.data.shape[0]
+    lane_pair = torch.arange(W, dtype=_I32, device=pair_batch.device
+                             ).repeat_interleave(L)
+    return lane_tables(pair_batch, cfg, lane_pair)
+
+
+def _trans_budget(cfg: GoICPConfig, W: int) -> int:
+    return min(cfg.trans_slots, W) if cfg.trans_slots > 0 else W
+
+
+def fused_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
+                    steps: int, eager: bool = False) -> dict:
+    """Advance the fused window by at most `steps` GLOBAL iterations (each
+    one inner-BnB iteration for every in-flight pair + any due outer
+    transitions).  Resumable: feed the returned state back in (`state`
+    itself is not modified).
+
+    eager=True ALSO returns as soon as any row NEWLY finishes (converged
+    or retired at max_outer_steps), so the stream loop refills the row
+    immediately instead of leaving it masked until the chunk boundary.
+    Pure host pacing — per-pair state math is identical either way.
+
+    cfg.trans_slots = K > 0 serves only the K lowest-index transitioning
+    rows per event; the others keep their completed (idempotent) inner
+    state and are served at the next one — their own pop sequence is
+    unchanged."""
+    s = _map_state(torch.clone, state)
+    W, L = s["inner"]["done"].shape
+    K = _trans_budget(cfg, W)
+    tables = _window_tables(pair_batch, cfg, L)
+    fin0 = None
+    g = 0
+    while True:
+        finished = s["converged"] | (s["it"] >= cfg.max_outer_steps)
+        flags = torch.stack([finished, s["converged"],
+                             _inner_complete(cfg, s)]).cpu().numpy()
+        counters["host_reads"] += 1
+        if fin0 is None:
+            fin0 = flags[0].copy()
+        go = bool((~flags[0]).any()) and g < steps
+        if eager:
+            go = go and not bool((flags[0] & ~fin0).any())
+        if not go:
+            break
+        rows = np.nonzero(flags[2] & ~flags[1])[0][:K]
+        if len(rows):
+            for r, new in zip(rows, _transition_batch(pair_batch, cfg, s,
+                                                      rows)):
+                _write_row(s, int(r), new)
+        # one inner iteration for every pair still mid-search (the body
+        # is harmless on done inner states; `where` keeps them anyway)
+        live = ~s["converged"] & ~_inner_complete(cfg, s)
+        s["inner"] = _inner_step(pair_batch, cfg, s, tables, live)
+        g += 1
+        counters["global_iters"] += 1
+    return s
+
+
+# ---------------------------------------------------------------------------
+# results, checkpoints
+# ---------------------------------------------------------------------------
+
+def _inflight_lb(state: dict) -> torch.Tensor:
+    """(W,) lower bound of the popped parents' subtrees still mid-inner-
+    search: inner_bnb's lb_safe formula (min over thr / min_dropped, plus
+    the remaining frontier min for lanes not done) min-reduced over the
+    active lanes.  A pair retired at max_outer_steps removed its popped
+    parents from the rotation frontier at the transition, so their
+    subtree's lbs live ONLY here — without this fold `remaining`
+    overstates the proven bound."""
+    ist = state["inner"]
+    rem_min = torch.amin(ist["lbs"], dim=-1)                  # (W, L)
+    lane_lb = torch.minimum(ist["thr"], ist["min_dropped"])
+    lane_lb = torch.where(ist["done"], lane_lb,
+                          torch.minimum(lane_lb, rem_min))
+    return torch.amin(torch.where(state["active"], lane_lb, INF), dim=-1)
+
+
+def fused_finalize(state: dict) -> DeviceResult:
+    """Batched state -> DeviceResult rows (device_engine.device_finalize
+    semantics: remaining/dropped lbs fold into the reported gap; for
+    unconverged rows the in-flight inner search's lower bound folds in
+    too — see _inflight_lb)."""
+    s = state
+    remaining = torch.minimum(torch.amin(s["fr_lbs"], dim=-1),
+                              s["min_dropped"])
+    remaining = torch.minimum(remaining, _inflight_lb(s))
+    bound = torch.minimum(torch.where(s["converged"], s["final_lb"],
+                                      remaining), s["opt_err"])
+    gap = torch.clamp(s["opt_err"] - bound, min=0.0)
+    return DeviceResult(error=s["opt_err"], R=s["opt_R"], t=s["opt_t"],
+                        opt_comp=s["comp"], terms=s["terms"],
+                        last_icp=s["last_icp"], outer_iters=s["it"],
+                        evals=s["evals"], gap=gap,
+                        converged=s["converged"],
+                        inner_iters=s["inner_it"],
+                        icp_runs=s["icp_runs"],
+                        geom_surv=s["geom_surv"] + s["inner"]["geom_surv"],
+                        chem_corners=s["chem_corners"]
+                        + s["inner"]["chem_corners"])
+
+
+def _flat_items(state: dict):
+    for k, v in state.items():
+        if isinstance(v, dict):
+            for k2, v2 in v.items():
+                yield f"{k}.{k2}", v2
+        else:
+            yield k, v
+
+
+def _flatten_state(state: dict) -> dict:
+    """Nested state -> flat dict of numpy arrays with dotted keys."""
+    return {k: np.asarray(v.cpu()) for k, v in _flat_items(state)}
+
+
+def _unflatten_state(blob: dict, device) -> dict:
+    state: dict = {}
+    for k, v in blob.items():
+        t = torch.as_tensor(np.array(np.asarray(v)), device=device)
+        if "." in k:
+            k1, k2 = k.split(".", 1)
+            state.setdefault(k1, {})[k2] = t
+        else:
+            state[k] = t
+    return state
+
+
+def stream_state_from_jax(state: dict, device=None) -> dict:
+    """A stream state of the JAX package (nested dict of arrays, as its
+    fused_init / fused_run_chunk return it) -> the port's state on
+    `device` (None: goicp_tpu_torch.default_device()), leaf by leaf with
+    the dtypes kept.  Duck-typed: nothing of JAX is imported here."""
+    if device is None:
+        from goicp_tpu_torch import default_device
+        device = default_device()
+    return _unflatten_state(dict(_flat_items(state)), device)
+
+
+def save_stream_state(path: str, state: dict, rows_orig, dead, next_pair,
+                      done: dict) -> None:
+    """Checkpoint an in-flight stream: per-row search state (nested dicts
+    flattened to dotted keys, dtypes kept), window bookkeeping, retired
+    results."""
+    blob = {f"state_{k}": v for k, v in _flatten_state(state).items()}
+    blob["rows_orig"] = np.asarray(rows_orig, np.int64)
+    blob["dead"] = np.asarray(dead, bool)
+    blob["next_pair"] = np.int64(next_pair)
+    blob["done_idx"] = np.asarray(sorted(done.keys()), np.int64)
+    for f in DeviceResult._fields:
+        blob[f"done_{f}"] = np.stack(
+            [np.asarray(getattr(done[i], f))
+             for i in sorted(done.keys())]) if done else np.zeros((0,))
+    np.savez(path, **blob)
+
+
+def load_stream_state(path: str, device="cpu"):
+    """-> (state on `device`, rows_orig, dead, next_pair, done)."""
+    with np.load(path) as z:
+        state = _unflatten_state(
+            {k[len("state_"):]: z[k] for k in z.files
+             if k.startswith("state_")}, device)
+        rows_orig = [int(i) for i in z["rows_orig"]]
+        dead = [bool(d) for d in z["dead"]]
+        next_pair = int(z["next_pair"])
+        done = {}
+        for j, i in enumerate(z["done_idx"]):
+            done[int(i)] = DeviceResult(
+                *(z[f"done_{f}"][j] for f in DeviceResult._fields))
+    return state, rows_orig, dead, next_pair, done
+
+
+def migrate_row_capacity(row_state: dict, cfg: GoICPConfig,
+                         cfg2: GoICPConfig) -> dict:
+    raise NotImplementedError(
+        "frontier-capacity escalation (migrate_row_capacity, "
+        "escalate_capacity) is not ported yet: ROADMAP Queue 1 item 18")
+
+
+def straggler_to_lane_sharded(pair, cfg: GoICPConfig, row_state: dict,
+                              mesh):
+    raise NotImplementedError(
+        "the straggler handoff to lane sharding needs the multi-GPU "
+        "engines, which are not ported yet: ROADMAP Queue 1 item 16")
+
+
+def _fused_inflight_np(state: dict) -> np.ndarray:
+    """(W,) in-flight inner lower bound, on the host (progress telemetry)."""
+    return np.asarray(_inflight_lb(state).cpu())
+
+
+# ---------------------------------------------------------------------------
+# the stream host loop
+# ---------------------------------------------------------------------------
+
+def register_fused_stream(pairs, cfg: GoICPConfig, width: int = 8,
+                          chunk_steps: int = 256,
+                          progress=None,
+                          checkpoint_path: str | None = None,
+                          resume: bool = False,
+                          max_chunks: int | None = None,
+                          mesh=None, checkpoint_every: int = 1,
+                          eager: bool = False,
+                          escalate_capacity: int | None = None,
+                          escalate_after_chunks: int = 8):
+    """Continuous-batching registration over the fused engine: a window of
+    `width` pairs advances in chunks of `chunk_steps` GLOBAL iterations;
+    converged pairs retire at chunk boundaries and fresh pairs refill
+    their rows.  Runs on the device of the pairs it is given (all on one
+    device, one shape bucket, count-dynamic).
+
+    progress: optional callable(dict) invoked at each chunk boundary with
+    in-flight telemetry (the analogue of the reference's periodic
+    LB/level/elapsed prints, jly_goicp.cpp:694-700).
+
+    checkpoint_path: save the in-flight window state after every chunk;
+    resume=True restarts from that file (same pairs, cfg) and converges to
+    the identical results (the search is deterministic).  max_chunks
+    bounds the chunks executed (kill/restart tests): when hit, the state
+    is saved and a RuntimeError raised.
+
+    eager: end a chunk early when a row newly finishes so it refills
+    immediately (see fused_run_chunk) — pure host pacing, identical
+    per-pair results.
+
+    mesh (pair-level data parallelism and the straggler handoff) and
+    escalate_capacity (frontier-capacity escalation) are not ported yet
+    and raise NotImplementedError.
+
+    Returns DeviceResult of numpy arrays, batch axis in pair order."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (the stream across several GPUs) is not ported yet: "
+            "ROADMAP Queue 1 item 16")
+    if escalate_capacity is not None:
+        raise NotImplementedError(
+            "escalate_capacity is not ported yet: ROADMAP Queue 1 item 18")
+    del escalate_after_chunks
+
+    def run_chunk(pair_batch, cfg_, state, steps):
+        return fused_run_chunk(pair_batch, cfg_, state, steps, eager=eager)
+
+    return _stream_driver(pairs, cfg, width=width, chunk_steps=chunk_steps,
+                          progress=progress,
+                          checkpoint_path=checkpoint_path, resume=resume,
+                          max_chunks=max_chunks,
+                          init_fn=_init_batch, run_chunk=run_chunk,
+                          finalize=fused_finalize,
+                          inflight_fn=_fused_inflight_np,
+                          checkpoint_every=checkpoint_every)
+
+
+def _result_rows(res: DeviceResult) -> list:
+    """Batched DeviceResult of tensors -> one DeviceResult of numpy values
+    per row."""
+    cols = [np.asarray(getattr(res, f).cpu()) for f in DeviceResult._fields]
+    return [DeviceResult(*(c[r] for c in cols)) for r in range(len(cols[0]))]
+
+
+def _stream_driver(pairs, cfg: GoICPConfig, width, chunk_steps, progress,
+                   checkpoint_path, resume, max_chunks,
+                   init_fn, run_chunk, finalize, inflight_fn=None,
+                   checkpoint_every: int = 1):
+    """Engine-generic continuous-batching host loop (window refill,
+    checkpoint/resume, progress) shared by the fused and packed streams.
+    init_fn(pair_batch, cfg) -> state; run_chunk(pair_batch, cfg, state,
+    steps) -> state; finalize(state) -> DeviceResult batch.
+
+    checkpoint_every: chunks between on-disk state saves (each save copies
+    the whole window state to the host).  The state is ALWAYS saved before
+    a max_chunks abort."""
+    B = len(pairs)
+    width = min(width, B)
+    stacked_all = stack_pairs(list(pairs))
+    dev = stacked_all.device
+
+    n0 = min(width, B)
+    rows_orig = [i if i < n0 else 0 for i in range(width)]
+    next_pair = n0
+    done: dict[int, DeviceResult] = {}
+    dead = [i >= n0 for i in range(width)]
+
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        state, rows_orig, dead, next_pair, done = \
+            load_stream_state(checkpoint_path, dev)
+        cur_pair = _take_pairs(stacked_all, rows_orig)
+    else:
+        cur_pair = _take_pairs(stacked_all, rows_orig)
+        state = init_fn(cur_pair, cfg)
+
+    chunks = 0
+    while True:
+        state = run_chunk(cur_pair, cfg, state, chunk_steps)
+        chunks += 1
+        conv = np.asarray(state["converged"].cpu())
+        its = np.asarray(state["it"].cpu())
+        finished = conv | (its >= cfg.max_outer_steps)
+
+        if progress is not None:
+            # frontier_min folds the in-flight inner search's bound (the
+            # popped parents' subtrees are no longer in fr_lbs)
+            infl = inflight_fn(state) if inflight_fn is not None \
+                else np.full(width, np.inf)
+            opt = np.asarray(state["opt_err"].cpu())
+            fr0 = np.asarray(state["fr_lbs"][:, 0].cpu())
+            progress(dict(
+                chunk=chunks,
+                rows=[{"pair": rows_orig[r], "dead": dead[r],
+                       "converged": bool(conv[r]),
+                       "outer": int(its[r]),
+                       "incumbent": float(opt[r]),
+                       "frontier_min": float(min(fr0[r], infl[r]))}
+                      for r in range(width)]))
+
+        if all(finished[r] or dead[r] for r in range(width)):
+            res = _result_rows(finalize(state))
+            for r in range(width):
+                if not dead[r] and rows_orig[r] not in done:
+                    done[rows_orig[r]] = res[r]
+            if next_pair >= B:
+                break
+            n = min(width, B - next_pair)
+            rows_orig = [next_pair + i if i < n else next_pair
+                         for i in range(width)]
+            dead = [i >= n for i in range(width)]
+            next_pair += n
+            cur_pair = _take_pairs(stacked_all, rows_orig)
+            state = init_fn(cur_pair, cfg)
+        else:
+            retired = [r for r in range(width)
+                       if finished[r] and not dead[r]]
+            if retired:
+                res = _result_rows(finalize(state))
+                for r in retired:
+                    if rows_orig[r] not in done:
+                        done[rows_orig[r]] = res[r]
+                    if next_pair < B:
+                        sub_pair = _take_pairs(stacked_all, [next_pair])
+                        _write_row(state, r, _row(init_fn(sub_pair, cfg), 0))
+                        rows_orig[r] = next_pair
+                        next_pair += 1
+                    else:
+                        dead[r] = True
+                cur_pair = _take_pairs(
+                    stacked_all,
+                    [rows_orig[i] if not dead[i] else 0
+                     for i in range(width)])
+
+        # the tail runs on EVERY path (incl. a whole-window retire+refill):
+        # the on-disk checkpoint never lags the in-memory state by more
+        # than checkpoint_every chunks, and max_chunks cannot overshoot
+        hit_cap = max_chunks is not None and chunks >= max_chunks
+        if checkpoint_path and (chunks % max(checkpoint_every, 1) == 0
+                                or hit_cap):
+            save_stream_state(checkpoint_path, state, rows_orig, dead,
+                              next_pair, done)
+        if hit_cap:
+            raise RuntimeError(
+                f"max_chunks={max_chunks} reached with "
+                f"{B - len(done)} pairs unfinished (state checkpointed)")
+
+    rows = [done[i] for i in range(B)]
+    out = DeviceResult(*(np.stack([np.asarray(getattr(r, f)) for r in rows])
+                         for f in DeviceResult._fields))
+    if np.isnan(np.asarray(out.error)).any():
+        # numeric guard: engines make NaN scores infectious so they
+        # surface loudly here rather than being silently ignored
+        bad = np.where(np.isnan(np.asarray(out.error)))[0].tolist()
+        raise FloatingPointError(
+            f"NaN escaped bound/ICP scoring for pair rows {bad}")
+    return out

@@ -17,6 +17,7 @@ lanes into a narrower batch, which changes no lane's trajectory.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -168,7 +169,12 @@ def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
             n_active = int(torch.sum(~s["done"]))
             if n_active == 0 or (stop_count > 0 and n_active <= stop_count):
                 break
-            s = body(s)
+            lanes, stats = body(s)
+            s = dict(lanes, it=s["it"] + 1,
+                     evals=s["evals"] + torch.sum(stats.evals),
+                     geom_surv=s["geom_surv"] + torch.sum(stats.geom_surv),
+                     chem_corners=s["chem_corners"]
+                     + stats.corners_per_lane * pts.shape[0])
         return s
 
     stage_widths = [L]
@@ -211,9 +217,32 @@ def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
                        chem_corners=s["chem_corners"])
 
 
+@functools.lru_cache(maxsize=8)
+def _body_constants(dev: torch.device):
+    """The body's index tables on `dev`, copied there once (the streams
+    make a body every global iteration)."""
+    return (torch.as_tensor(_CHILD_OFFSETS, dtype=torch.float32, device=dev),
+            torch.as_tensor(_LATTICE_OFFSETS, dtype=torch.float32,
+                            device=dev),
+            torch.as_tensor(_ODD_LATTICE, device=dev),
+            torch.as_tensor(_LAT_FROM_STORED, device=dev))
+
+
+class IterStats(NamedTuple):
+    """What one body call did, per lane."""
+    evals: torch.Tensor        # (L,) bound evaluations (valid children)
+    geom_surv: torch.Tensor    # (L,) children surviving the geometric lb
+    corners_per_lane: int      # chem corners evaluated for every lane
+
+
 def _make_inner_body(pair, cfg, pts_rot, mrd, sse_thresh, fused):
-    """The per-iteration inner-BnB body for a (possibly compacted) lane
-    batch, on the full corner-lattice chem path."""
+    """The per-iteration inner-BnB body for a lane batch, on the full
+    corner-lattice chem path: body(lanes) -> (lanes, IterStats), where
+    `lanes` holds the per-lane fields (_PER_LANE) and the caller keeps the
+    counters.  The ONE iteration of every engine: inner_bnb's (possibly
+    compacted) batch of one pair, and the cross-pair streams' batches,
+    whose lanes belong to several pairs: then `pair` is a LaneTables
+    (bounds/evaluate.py) and sse_thresh holds one epsilon per lane."""
     L = pts_rot.shape[0]
     C = cfg.trans_capacity
     P = cfg.trans_pop
@@ -222,11 +251,10 @@ def _make_inner_body(pair, cfg, pts_rot, mrd, sse_thresh, fused):
     chem = _chem_active(cfg)
     reuse = _chem_reuse_active(cfg)
     terms_keys = _chem_terms(cfg)
-    child_off = torch.as_tensor(_CHILD_OFFSETS, dtype=f32, device=dev)
-    lattice_off = torch.as_tensor(_LATTICE_OFFSETS, dtype=f32, device=dev)
-    odd = torch.as_tensor(_ODD_LATTICE, device=dev)
-    lat_perm = torch.as_tensor(_LAT_FROM_STORED, device=dev)
+    child_off, lattice_off, odd, lat_perm = _body_constants(dev)
     rows = torch.arange(L, device=dev)
+    sse_lane = sse_thresh.reshape(-1)          # (1,) or (L,)
+    sse_thresh = sse_thresh.reshape(-1, 1)     # against (L, P) pops
 
     def body(s):
         # SORTED-FRONTIER INVARIANT: lbs[l] is ascending (INF = empty), so
@@ -235,7 +263,7 @@ def _make_inner_body(pair, cfg, pts_rot, mrd, sse_thresh, fused):
         ref_err = s["thr"] if fused else s["opt_err"]
         min_lb = lbs[:, 0]
         done = s["done"] | torch.isinf(min_lb) \
-            | (ref_err - min_lb < sse_thresh)
+            | (ref_err - min_lb < sse_lane)
 
         pop_lb = lbs[:, :P]
         parents = s["nodes"][:, :P]
@@ -273,7 +301,6 @@ def _make_inner_body(pair, cfg, pts_rot, mrd, sse_thresh, fused):
 
         # children whose GEOMETRIC lb alone does not rule them out
         alive = valid & ~(lb >= s["opt_err"][:, None])
-        n_surv = torch.sum(alive)
 
         child_cv = None
         if chem:
@@ -293,7 +320,7 @@ def _make_inner_body(pair, cfg, pts_rot, mrd, sse_thresh, fused):
                         [parents_cv[..., ti * 8:(ti + 1) * 8],
                          vals_odd[k_].reshape(L, P, 19)], dim=-1)
                     vals[k_] = both[..., lat_perm]           # (L,P,27)
-                n_corners = L * P * 19
+                n_corners = P * 19
                 ub_add, lb_add, ub_t, cvd = chem_bounds_from_lattice(
                     cfg, vals, with_child_vals=True)
                 child_cv = torch.cat(
@@ -303,7 +330,7 @@ def _make_inner_body(pair, cfg, pts_rot, mrd, sse_thresh, fused):
                 vals = chem_corner_values(pair, cfg, pts_rot,
                                           corners.reshape(L, P * 27, 3))
                 vals = {k: v.reshape(L, P, 27) for k, v in vals.items()}
-                n_corners = L * P * 27
+                n_corners = P * 27
                 ub_add, lb_add, ub_t = chem_bounds_from_lattice(cfg, vals)
             ub = ub + ub_add.reshape(L, P * 8)
             lb = lb + lb_add.reshape(L, P * 8)
@@ -368,13 +395,12 @@ def _make_inner_body(pair, cfg, pts_rot, mrd, sse_thresh, fused):
 
         out = dict(nodes=keep_nodes, lbs=keep_lbs, opt_err=opt_err, thr=thr,
                    best_node=best_node, ub_terms=ub_terms,
-                   min_dropped=min_dropped, done=done,
-                   it=s["it"] + 1, evals=s["evals"] + torch.sum(valid),
-                   geom_surv=s["geom_surv"] + n_surv,
-                   chem_corners=s["chem_corners"] + n_corners)
+                   min_dropped=min_dropped, done=done)
         if reuse:
             out["cvals"] = torch.where(done[:, None, None], s["cvals"],
                                        keep_payload[..., 4:])
-        return out
+        return out, IterStats(evals=torch.sum(valid, dim=1),
+                              geom_surv=torch.sum(alive, dim=1),
+                              corners_per_lane=n_corners)
 
     return body

@@ -15,12 +15,17 @@ import torch
 
 from goicp_tpu.bounds import evaluate as jev
 from goicp_tpu.bounds.pallas_eval import (chem_incomp_kernel,
-                                          geometric_bounds_kernel)
+                                          chem_incomp_kernel_lanes,
+                                          chem_tables, geom_table,
+                                          geometric_bounds_kernel,
+                                          geometric_bounds_kernel_lanes)
 from goicp_tpu.config import GoICPConfig
 from goicp_tpu.pipeline import prepare as jprep
 from goicp_tpu_torch.bounds import cuda_eval
 from goicp_tpu_torch.bounds import evaluate as tev
-from goicp_tpu_torch.pipeline.prepare import pair_from_jax
+from goicp_tpu_torch.dist.mesh import stack_pairs
+from goicp_tpu_torch.pipeline.prepare import (make_count_dynamic,
+                                              pair_from_jax)
 
 UNTRIMMED = dict(rtol=0, atol=1e-5)
 TRIMMED = dict(rtol=1e-5, atol=1e-4)
@@ -35,7 +40,7 @@ def _pair(n=37, m=41, pad_to=64, seed=3, **cfg_kw):
     sp = rng.integers(0, 9, size=n).astype(np.int32)
     tp = rng.integers(0, 9, size=m).astype(np.int32)
     jp = jprep.prepare_pair(src, tgt, sp, tp, cfg, pad_data_to=pad_to)
-    return jp, pair_from_jax(jp), cfg
+    return jp, pair_from_jax(jp, "cpu"), cfg
 
 
 def _lanes(nd, seed, L=4, B=8, shift=0.0):
@@ -150,7 +155,7 @@ def test_geometric_plain_more_than_512_cells():
     tgt = rng.uniform(-0.9, 0.9, size=(1400, 3))
     jp = jprep.prepare_pair(src, tgt, np.zeros(40, np.int32),
                             np.zeros(1400, np.int32), cfg, pad_data_to=64)
-    tp = pair_from_jax(jp)
+    tp = pair_from_jax(jp, "cpu")
     assert jp.grid.cell_coords.shape[0] > 512
     args = _lanes(jp.n_data_padded, 19)
     plain, xla, pal = _plain_and_refs(jp, tp, cfg, *args, False)
@@ -198,7 +203,7 @@ def test_gather_path_matches_jax(trim, fused):
     jp, _, cfg = _pair(trimFraction=0.0 if trim == "off" else 0.2)
     if trim == "dynamic":
         jp = jprep.make_count_dynamic(jp)
-    tp = pair_from_jax(jp)
+    tp = pair_from_jax(jp, "cpu")
     pts, centers, widths, rw = _lanes(jp.n_data_padded, 29)
     (jpts, jcen, jwid, jrw), (tpts, tcen, twid, trw) = \
         _both(pts, centers, widths, rw)
@@ -228,7 +233,7 @@ def test_chem_gather_path_matches_jax(cfg_kw):
             np.asarray(jp.data)[:37], np.asarray(jp.model),
             np.asarray(jp.data_props)[:37], np.asarray(jp.model_props), cfg)
         object.__setattr__(jp, "fused_chem", False)
-    tp = pair_from_jax(jp)
+    tp = pair_from_jax(jp, "cpu")
     rng = np.random.default_rng(31)
     pts = rng.uniform(-0.9, 0.9, size=(2, jp.n_data_padded, 3)
                       ).astype(np.float32)
@@ -252,6 +257,142 @@ def test_chem_gather_path_matches_jax(cfg_kw):
     np.testing.assert_array_equal(tb[1].numpy(), np.asarray(jb[1]))
     for k in jb[3]:
         np.testing.assert_array_equal(tb[3][k].numpy(), np.asarray(jb[3][k]))
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4: lanes of different pairs in one call
+# ---------------------------------------------------------------------------
+
+_LANE_PAIR = [0, 1, 0, 1]
+
+
+def _lane_case(device="cpu"):
+    """Two pairs of one shape bucket with their lanes interleaved: the
+    inputs of tests/test_pallas_eval.py's lane-table test.  Returns the
+    JAX pairs, the port's pairs stacked, and the lane arrays (numpy)."""
+    cfg = GoICPConfig(regularization=0.0005, ponderation=1,
+                      distTransSize=12, trimFraction=0.1)
+    jpairs = []
+    for seed in (1, 2):
+        r = np.random.default_rng(seed)
+        src = r.uniform(-0.7, 0.7, size=(37, 3))
+        tgt = r.uniform(-0.7, 0.7, size=(41 + seed, 3))
+        jpairs.append(jprep.prepare_pair(
+            src, tgt, r.integers(0, 9, 37).astype(np.int32),
+            r.integers(0, 9, len(tgt)).astype(np.int32), cfg,
+            pad_data_to=64, pad_cells=64, pad_points=8, pad_model_to=64))
+    tpairs = [make_count_dynamic(pair_from_jax(p, device)) for p in jpairs]
+    rng = np.random.default_rng(3)
+    L, B, Q = 4, 16, 54
+    nd = jpairs[0].n_data_padded
+    arrays = dict(
+        pts=rng.uniform(-0.9, 0.9, size=(L, nd, 3)),
+        centers=rng.uniform(-0.5, 0.5, size=(L, B, 3)),
+        widths=rng.uniform(0.05, 0.5, size=(L, B)),
+        corners=rng.uniform(-0.6, 0.6, size=(L, Q, 3)),
+        unc=rng.uniform(0, 0.3, size=(L, nd)))
+    arrays = {k: v.astype(np.float32) for k, v in arrays.items()}
+    return jpairs, tpairs, stack_pairs(tpairs), arrays
+
+
+def _jax_lane_tables(jpairs):
+    size = jpairs[0].grid.geom.size
+
+    def gl(per_pair):
+        return jnp.stack([per_pair[i] for i in _LANE_PAIR])
+
+    ct = [chem_tables(p.grid.cell_coords, p.cell_compat, p.prop_onehot,
+                      p.data_mask, size) for p in jpairs]
+    cons = gl([jnp.concatenate([p.grid.consts,
+                                jnp.asarray([p.inlier_f(), 0.0, 0.0])])
+               for p in jpairs])
+    return dict(weights=gl([p.weights for p in jpairs]),
+                g6=gl([geom_table(p.grid.cell_coords, size)
+                       for p in jpairs]),
+                a16=gl([a for a, _ in ct]), pp=gl([p for _, p in ct]),
+                cons=cons, size=size)
+
+
+def _k3_args(stacked, a, trim, device="cpu"):
+    t = {k: torch.as_tensor(v, device=device) for k, v in a.items()}
+    return (t["pts"], t["centers"], t["widths"], t["unc"], stacked.weights,
+            stacked.grid.cell_coords, stacked.grid.consts,
+            stacked.counts[:, 1].contiguous() if trim else None,
+            torch.as_tensor(_LANE_PAIR, dtype=torch.int32, device=device))
+
+
+def _k4_args(stacked, a, device="cpu"):
+    t = {k: torch.as_tensor(v, device=device) for k, v in a.items()}
+    return (t["pts"], t["corners"], stacked.cell_compat,
+            stacked.prop_onehot, stacked.data_mask,
+            stacked.grid.cell_coords, stacked.grid.consts,
+            torch.as_tensor(_LANE_PAIR, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("trim", [False, True])
+def test_geometric_lanes_plain(trim):
+    """K3's plain version vs the JAX per-lane-table kernel (interpret
+    mode), and lane for lane EQUAL to K1's plain version on that lane's
+    pair."""
+    jpairs, tpairs, stacked, a = _lane_case()
+    jt = _jax_lane_tables(jpairs)
+    want = geometric_bounds_kernel_lanes(
+        jnp.asarray(a["pts"]), jnp.asarray(a["centers"]),
+        jnp.asarray(a["widths"]), jnp.asarray(a["unc"]), jt["weights"],
+        jt["g6"], jt["cons"], size=jt["size"], norm=2, trim=trim,
+        interpret=True)
+    args = _k3_args(stacked, a, trim)
+    got = cuda_eval.geometric_bounds_lanes_plain(*args, size=jt["size"],
+                                                 norm=2)
+    _close(got, want, TRIMMED if trim else UNTRIMMED)
+    for lane, w in enumerate(_LANE_PAIR):
+        p = tpairs[w]
+        one = cuda_eval.geometric_bounds_plain(
+            *(x[lane:lane + 1] for x in args[:4]), p.weights,
+            p.grid.cell_coords, p.grid.consts,
+            p.inlier_f() if trim else None, size=jt["size"], norm=2,
+            fused=True)
+        for g, o in zip(got, one):
+            assert torch.equal(g[lane], o[0])
+
+
+def test_chem_lanes_plain_exact():
+    """K4's plain version vs the JAX per-lane-table kernel (interpret
+    mode) and vs K2's plain version lane for lane: counts, exact."""
+    jpairs, tpairs, stacked, a = _lane_case()
+    jt = _jax_lane_tables(jpairs)
+    want = np.asarray(chem_incomp_kernel_lanes(
+        jnp.asarray(a["pts"]), jnp.asarray(a["corners"]), jt["a16"],
+        jt["pp"], jt["cons"], size=jt["size"], interpret=True))
+    args = _k4_args(stacked, a)
+    got = cuda_eval.chem_incomp_lanes_plain(*args, size=jt["size"])
+    np.testing.assert_array_equal(got.numpy(), want)
+    for lane, w in enumerate(_LANE_PAIR):
+        p = tpairs[w]
+        one = cuda_eval.chem_incomp_plain(
+            args[0][lane:lane + 1], args[1][lane:lane + 1], p.cell_compat,
+            p.prop_onehot, p.data_mask, p.grid.cell_coords, p.grid.consts,
+            size=jt["size"])
+        assert torch.equal(got[lane], one[0])
+
+
+def test_lane_wrappers_take_plain_versions_on_cpu():
+    _, _, stacked, a = _lane_case()
+    size = stacked.grid.geom.size
+    before = cuda_eval.launch_counts()
+    assert set(before) == {"geometric_bounds_kernel", "chem_incomp_kernel",
+                           "geometric_bounds_kernel_lanes",
+                           "chem_incomp_kernel_lanes"}
+    k3 = _k3_args(stacked, a, True)
+    for g, w in zip(
+            cuda_eval.geometric_bounds_kernel_lanes(*k3, size=size, norm=2),
+            cuda_eval.geometric_bounds_lanes_plain(*k3, size=size, norm=2)):
+        assert torch.equal(g, w)
+    k4 = _k4_args(stacked, a)
+    assert torch.equal(
+        cuda_eval.chem_incomp_kernel_lanes(*k4, size=size),
+        cuda_eval.chem_incomp_lanes_plain(*k4, size=size))
+    assert cuda_eval.launch_counts() == before
 
 
 # ---------------------------------------------------------------------------
@@ -308,3 +449,39 @@ def test_chem_kernel_matches_plain_on_card(cuda_device, q):
     got = cuda_eval.chem_incomp_kernel(*args, size=tp.grid.geom.size)
     want = cuda_eval.chem_incomp_plain(*args, size=tp.grid.geom.size)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("trim", [False, True])
+def test_lane_kernels_match_plain_and_per_pair_kernels_on_card(cuda_device,
+                                                               trim):
+    """K3 and K4 on the card vs their plain versions, and lane for lane
+    EQUAL to K1 / K2 run with that lane's pair."""
+    _, tpairs, stacked, a = _lane_case(cuda_device)
+    size = stacked.grid.geom.size
+    k3 = _k3_args(stacked, a, trim, cuda_device)
+    k4 = _k4_args(stacked, a, cuda_device)
+    before = cuda_eval.launch_counts()
+    got3 = cuda_eval.geometric_bounds_kernel_lanes(*k3, size=size, norm=2)
+    got4 = cuda_eval.chem_incomp_kernel_lanes(*k4, size=size)
+    after = cuda_eval.launch_counts()
+    for name in ("geometric_bounds_kernel_lanes", "chem_incomp_kernel_lanes"):
+        assert after[name] == before[name] + 1
+    for g, w in zip(got3, cuda_eval.geometric_bounds_lanes_plain(
+            *k3, size=size, norm=2)):
+        torch.testing.assert_close(g, w, **(TRIMMED if trim else UNTRIMMED))
+    assert torch.equal(got4, cuda_eval.chem_incomp_lanes_plain(*k4,
+                                                               size=size))
+    for lane, w in enumerate(_LANE_PAIR):
+        p = tpairs[w]
+        one3 = cuda_eval.geometric_bounds_kernel(
+            *(x[lane:lane + 1].contiguous() for x in k3[:4]), p.weights,
+            p.grid.cell_coords, p.grid.consts,
+            p.inlier_f() if trim else None, size=size, norm=2, fused=True)
+        for g, o in zip(got3, one3):
+            assert torch.equal(g[lane], o[0])
+        one4 = cuda_eval.chem_incomp_kernel(
+            k4[0][lane:lane + 1].contiguous(),
+            k4[1][lane:lane + 1].contiguous(), p.cell_compat, p.prop_onehot,
+            p.data_mask, p.grid.cell_coords, p.grid.consts, size=size)
+        assert torch.equal(got4[lane], one4[0])

@@ -79,7 +79,7 @@ def test_register_device_matches_jax(name, kw, pad, seed):
     if pad:
         jp = jprep.make_count_dynamic(jp)
     want = jax.device_get(jeng.register_device(jp, cfg))
-    got = teng.register_device(tprep.pair_from_jax(jp), _port_cfg(cfg))
+    got = teng.register_device(tprep.pair_from_jax(jp, "cpu"), _port_cfg(cfg))
     assert bool(got.converged)
     _assert_same(got, want)
 

@@ -20,9 +20,8 @@ from goicp_tpu_torch.geom import normalize as tnorm
 from goicp_tpu_torch.io import cfpfh as tcfpfh
 from goicp_tpu_torch.io import xyz as txyz
 
-# read only by the host engine and the fused/packed streams, not ported yet
-_NOT_PORTED = {"rot_frontier_capacity", "packed_slots", "packed_trans_every",
-               "trans_slots"}
+# read only by the host engine, which is not ported yet
+_NOT_PORTED = {"rot_frontier_capacity"}
 
 
 @pytest.mark.parametrize("kw", [{}, dict(MSEThresh=0.02, margin_frac=0.9,

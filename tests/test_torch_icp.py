@@ -160,7 +160,7 @@ def test_scoring_matches_jax(trim, dynamic):
                             pad_data_to=64)
     if dynamic:
         jp = jprep.make_count_dynamic(jp)
-    tp = pair_from_jax(jp)
+    tp = pair_from_jax(jp, "cpu")
     np.testing.assert_allclose(terr.initial_error(tp, cfg).numpy(),
                                np.asarray(jerr.initial_error(jp, cfg)),
                                rtol=1e-6, atol=1e-5)

@@ -1,6 +1,6 @@
-"""The PyTorch port imports, prepares and searches without jax and without
-the JAX package, and importing its kernel module neither builds nor needs
-nvcc."""
+"""The PyTorch port imports, prepares and searches (one pair, and a window
+of pairs through both cross-pair streams) without jax and without the JAX
+package, and importing its kernel module neither builds nor needs nvcc."""
 
 import os
 import pathlib
@@ -43,6 +43,27 @@ _CHILD = textwrap.dedent("""
                     with_rot_uncertainty=False, fused=True)
     assert res.best_err.shape == (L,) and res.iters > 0
     assert bool(torch.isfinite(res.best_err).all())
+
+    # the cross-pair stream modules, a few global iterations of each
+    from goicp_tpu_torch.bench import measure
+    from goicp_tpu_torch.dist.mesh import stack_pairs
+    from goicp_tpu_torch.pipeline.prepare import make_count_dynamic
+    from goicp_tpu_torch.search import fused_stream, packed_stream
+    assert measure._bucket_and_prepare and measure._reassemble
+    scfg = goicp_tpu_torch.GoICPConfig(
+        regularization=0.0005, distTransSize=10, rot_batch=1,
+        trans_capacity=16, trans_pop=2, inner_max_iters=20, icp_max_iter=20,
+        device_rot_capacity=64, packed_slots=4)
+    window = stack_pairs([make_count_dynamic(
+        prepare_pair(data, model, props[:32], props, scfg, pad_data_to=64,
+                     device="cpu"))] * 2)
+    fstate = fused_stream.fused_run_chunk(
+        window, scfg, fused_stream._init_batch(window, scfg), 3)
+    assert min(fstate["it"].tolist()) >= 1
+    pstate = packed_stream.packed_run_chunk(
+        window, scfg, packed_stream.packed_init(window, scfg), 3)
+    assert min(pstate["it"].tolist()) >= 1
+    assert 2 <= fused_stream.counters["global_iters"] <= 6
     assert sys.modules["jax"] is None and sys.modules["goicp_tpu"] is None
     assert not [m for m in sys.modules
                 if m.startswith(("jax.", "goicp_tpu."))]

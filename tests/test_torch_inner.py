@@ -59,7 +59,7 @@ def test_inner_bnb_matches_jax(variant):
     cfg, jp, pts, widths, active = _case(
         seed=1, trim=variant.get("trim", 0.0),
         dynamic=variant.get("dynamic", False), **variant.get("cfg", {}))
-    tp = pair_from_jax(jp)
+    tp = pair_from_jax(jp, "cpu")
     fused = variant["fused"]
     unc = variant.get("unc", False)
     inc = 40.0
@@ -85,7 +85,7 @@ def test_inner_bnb_matches_jax(variant):
 
 def test_root_corner_values_match_jax():
     cfg, jp, pts, _, _ = _case(seed=2)
-    tp = pair_from_jax(jp)
+    tp = pair_from_jax(jp, "cpu")
     want = jinner.root_corner_values(jp, cfg, jnp.asarray(pts))
     got = tinner.root_corner_values(tp, cfg, torch.as_tensor(pts))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -95,7 +95,7 @@ def test_root_corner_values_match_jax():
 
 def test_unported_options_raise():
     cfg, jp, pts, widths, active = _case(seed=3)
-    tp = pair_from_jax(jp)
+    tp = pair_from_jax(jp, "cpu")
     for kw in (dict(sorted_merge=1), dict(chem_survivors=8)):
         with pytest.raises(NotImplementedError):
             tinner.inner_bnb(tp, dataclasses.replace(cfg, **kw),

@@ -82,8 +82,8 @@ def test_pair_from_jax_round_trips():
     args, _ = _inputs(5)
     jp = jprep.make_count_dynamic(jprep.prepare_pair(*args, cfg,
                                                      bucket=True))
-    _assert_same(tprep.pair_from_jax(jp), jp)
-    moved = tprep.pair_from_jax(jp).to("cpu")
+    _assert_same(tprep.pair_from_jax(jp, "cpu"), jp)
+    moved = tprep.pair_from_jax(jp, "cpu").to("cpu")
     assert moved.grid.dist.device.type == "cpu"
 
 
@@ -128,3 +128,75 @@ def test_prepare_on_device_argument():
     args, _ = _inputs(7)
     p = tprep.prepare_pair(*args, cfg, device=torch.device("cpu"))
     assert p.device.type == "cpu" and p.grid.consts.device.type == "cpu"
+
+
+def _small_raw(n_pairs=5, seed=41):
+    rng = np.random.default_rng(seed)
+    raw = []
+    for _ in range(n_pairs):
+        m = int(rng.integers(30, 70))
+        n = int(rng.integers(20, m + 1))
+        raw.append((rng.uniform(-0.7, 0.7, size=(n, 3)),
+                    rng.uniform(-0.7, 0.7, size=(m, 3)),
+                    rng.integers(0, 9, size=n).astype(np.int32),
+                    rng.integers(0, 9, size=m).astype(np.int32)))
+    return raw
+
+
+def test_bucket_and_prepare_equals_jax_and_stacks():
+    """One pool-max bucket: every pair equals the JAX package's, and the
+    pairs stack along a pair axis (dist/mesh.stack_pairs) leaf by leaf."""
+    from goicp_tpu_torch.dist.mesh import stack_pairs
+    cfg = GoICPConfig(distTransSize=12, trimFraction=0.1)
+    raw = _small_raw()
+    jpairs = jmeasure._bucket_and_prepare(raw, cfg)
+    tpairs = tmeasure._bucket_and_prepare(raw, cfg, device="cpu")
+    assert len({p.data.shape for p in tpairs}) == 1
+    for tp, jp in zip(tpairs, jpairs):
+        assert tp.dynamic_counts and tp.device.type == "cpu"
+        _assert_same(tp, jp)
+    stacked = stack_pairs(tpairs)
+    assert stacked.data.shape == (5,) + tuple(tpairs[0].data.shape)
+    for f in _LEAVES:
+        for i, tp in enumerate(tpairs):
+            assert torch.equal(getattr(stacked, f)[i], getattr(tp, f)), f
+    for f in _GRID:
+        assert torch.equal(getattr(stacked.grid, f)[3],
+                           getattr(tpairs[3].grid, f)), f
+
+
+def test_bucket_and_prepare_multi_and_reassemble():
+    """Shape buckets partition the pool as the JAX package's plan does, and
+    _reassemble undoes the partition."""
+    from goicp_tpu_torch.search.device_engine import DeviceResult
+    cfg = GoICPConfig(distTransSize=12)
+    raw = _small_raw(n_pairs=9, seed=43)
+    jb = jmeasure._bucket_and_prepare_multi(raw, cfg, max_buckets=3)
+    tb = tmeasure._bucket_and_prepare_multi(raw, cfg, max_buckets=3,
+                                            device="cpu")
+    assert [idxs for _, idxs in tb] == [idxs for _, idxs in jb]
+    assert sorted(i for _, idxs in tb for i in idxs) == list(range(9))
+    for (tps, _), (jps, _) in zip(tb, jb):
+        for tp, jp in zip(tps, jps):
+            _assert_same(tp, jp)
+    outs = []
+    for _, idxs in tb:
+        cols = {f: np.asarray(idxs, np.float32) * (k + 1)
+                for k, f in enumerate(DeviceResult._fields)}
+        outs.append((idxs, DeviceResult(**cols)))
+    whole = tmeasure._reassemble(outs, 9)
+    np.testing.assert_array_equal(whole.error, np.arange(9, dtype=np.float32))
+    np.testing.assert_array_equal(whole.t, 3 * np.arange(9, dtype=np.float32))
+
+
+def test_prepare_defaults_to_the_default_device():
+    import goicp_tpu_torch
+    args, kw = _inputs(5)
+    cfg = GoICPConfig(distTransSize=10)
+    p = tprep.prepare_pair(*args, cfg)
+    assert p.device == goicp_tpu_torch.default_device() \
+        or p.device.type == goicp_tpu_torch.default_device().type
+    jp = jprep.prepare_pair(*args, cfg)
+    assert tprep.pair_from_jax(jp).device.type == \
+        goicp_tpu_torch.default_device().type
+    assert tprep.pair_from_jax(jp, "cpu").device.type == "cpu"
