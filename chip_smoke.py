@@ -2,38 +2,57 @@
 """Drive the PyTorch/CUDA port (goicp_tpu_torch) once on one NVIDIA GPU.
 
     python3 chip_smoke.py                  # everything; the result lines
-    python3 chip_smoke.py --kernels-only   # phases 1-2, no result lines
+    python3 chip_smoke.py --kernels-only   # phases 1-2; no result
 
 Phases, each of which fails the script (nonzero exit, no result line):
 
  1. setup: the card's name and power limit (nvidia-smi), TF32 off, and the
     CUDA kernels of goicp_tpu_torch/csrc built with nvcc (build time on its
     own line, then each kernel's registers, shared memory and spills as
-    ptxas reports them).
+    ptxas reports them), and the time of an empty kernel launched and
+    timed the same two ways as the kernels (launch_floor_ms,
+    graph_launch_floor_ms).
  2. kernels vs plain: each kernel's wrapper on card tensors at main-path
     shapes (a prepared bench pair, lanes/centers/widths from a numpy seed),
     held against its plain torch version on the same inputs: K1 untrimmed
-    (fused and plain modes) to atol 1e-5, K1 with the dynamic K read from
-    counts[1] to rtol 1e-5 / atol 1e-4, K2 at Q=152 and Q=8 exactly.  The
-    per-lane-table kernels K3 and K4 at the streams' shapes: two prepared
-    pairs of one bucket, 16 lanes interleaved between them, same
-    tolerances (K3 untrimmed: atol 1e-5 + rtol 1e-6, its sums over 256
-    points being larger), and lane for lane EQUAL to K1 / K2 run with that
-    lane's pair.  Median kernel and plain times over 25 launches each, from CUDA
-    events, beside each kernel's bound: the larger of its operations over
-    67 TFLOP/s (fp32 outside the tensor cores; the integer distance work
-    is held to the same rate) and its input + output bytes over 3.35 TB/s.
+    (fused and plain modes) to atol 1e-5 + rtol 1e-6, K1 with the dynamic K
+    read from counts[1] to rtol 1e-5 / atol 1e-4, K2 at Q=152 and Q=8
+    exactly, and K1's trimmed modes once more on rows of 320 points, which
+    go through the shared-memory scratch.  The per-lane-table kernels K3
+    and K4 at the streams' shapes:
+    two prepared pairs of one bucket, 16 lanes interleaved between them,
+    same tolerances, and lane for lane EQUAL to K1 / K2 run with that
+    lane's pair.  (The per-point distances are the same float32 in kernel
+    and plain version; the sums differ in order: a warp's per-thread
+    partial sums and shuffles against torch's, and, trimmed, "below the
+    K-th value plus its ties" against a sorted prefix.  Sums over 256
+    points reach ~60, where one float32 ulp is 3.8e-6.)  Every prepared
+    pair used here has its Grid.nearest_cell, the table the kernels trust,
+    held equal to nearest_occupied over all S^3 voxels.  One more pair is
+    prepared on a 64^3 grid, whose 1 MB table does not fit a block's shared
+    memory: K1 and K2 with the tables read from device memory, same
+    tolerances.  Times from CUDA events: a kernel's `ms` is the median of
+    25 single launches (which on a busy host measures the enqueue, as the
+    empty kernel's two times show), its `graph_ms` the per-launch time of
+    50 launches replayed from one CUDA graph (the card's time); a plain
+    version's is the median of 25 calls.  Both stand beside the kernel's
+    bound and the empty kernel's two times.  The bound counts what the
+    FUNCTION needs, whatever implements it: a fixed number of operations
+    per (lane, node or corner, real point) over 67 TFLOP/s (fp32 outside
+    the tensor cores), against its input + output bytes over 3.35 TB/s,
+    each tensor once.
  3. registrations through the port's entry points: prepare_pair(bucket=
     True) -> make_count_dynamic -> register_device, under GoICPConfig() +
     bench_shape, on six pairs of the similar pool and four of the trimmed
-    pool.  Each is held against the fp32 reference rows (the JAX package's
+    pool.  Each pair's nearest-cell table is checked as in phase 2, and
+    each result is held against the fp32 reference rows (the JAX package's
     register_device on XLA:CPU, goicp_tpu_torch/bench/reference_rows.jsonl)
     and printed beside its sweep383*.jsonl row.
  4. proof: K1's and K2's launch counters, zeroed just before phase 3, are
     > 0 after it.
  5. the fused cross-pair stream: the similar pool syn00-syn15 and the
-    trimmed pool trm00-trm07, each prepared into one pool-max bucket,
-    through register_fused_stream(width=2, chunk_steps=512).  Every pair is
+    trimmed pool trm00-trm07, each prepared into one pool-max bucket
+    (every pair's nearest-cell table checked as in phase 2), through register_fused_stream(width=2, chunk_steps=512).  Every pair is
     held against the port's register_device on the same prepared pair and,
     where there is one, against its fp32 reference row.  K3 and K4 must
     have launched.
@@ -67,7 +86,19 @@ STREAM_ERR_TOL = 1e-5   # |stream error - register_device error|
 TRIM_EVALS_REL = 0.05   # trimmed pairs: evals within 5 % of the reference
 PEAK_OPS = 67e12        # H100 SXM fp32 outside the tensor cores, per second
 PEAK_BYTES = 3.35e12    # H100 SXM device memory, bytes per second
-OPS_PER_CELL = 9        # per (point, cell): 3 sub, 3 mul, 2 add, 1 min
+# Operations the functions need per (lane, node or corner, real point):
+#   voxelize      21  3 axes x (add, sub, mul, add, trunc, max, min)
+#   table index    4  (z * S + y) * S + x
+# K1/K3 then      21  squared distance to the one cell 8 (3 sub, 3 mul, 2
+#                     add), sqrt 1, divide 1, weight 1, minus rot_unc 1,
+#                     clamp 1, minus sqrt(3)/2 w 1, clamp 1, three squares
+#                     3, three sums 3 (the plain mode has one sum, one
+#                     square and the rot_unc pair fewer: 17)
+# K2/K4 then      19  the 9-wide dot 17 (9 mul, 8 add), mask minus dot 1,
+#                     the sum 1
+GEOM_OPS_FUSED = 46
+GEOM_OPS_PLAIN = 42
+CHEM_OPS = 44
 
 
 def _require(ok, what):
@@ -97,6 +128,33 @@ def _median_ms(fn, n=25):
     return statistics.median(times)
 
 
+def _device_ms(fn, n=50, reps=7, warm_s=0.03):
+    """Per-launch time of fn with the host taken out: n calls captured into
+    one CUDA graph, the graph replayed for warm_s seconds and then reps
+    times between CUDA events, the median replay divided by n."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < warm_s:    # let the clocks come up
+        graph.replay()
+        torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return statistics.median(times)
+
+
 def _max_err(got, want):
     return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
@@ -106,22 +164,36 @@ def _nbytes(*tensors):
                if t is not None)
 
 
-def _bound(n_dist, tensors):
-    """(bound_ms, bound_by): the least time the card could take for n_dist
-    point-cell squared distances (the real points and in-grid cells of
-    this run's inputs) and these input/output tensors."""
-    t_ops = n_dist * OPS_PER_CELL / PEAK_OPS
+def _bound(n_points, ops_per_point, tensors):
+    """(bound_ms, bound_by): the least time the card could take for
+    n_points (lane, node or corner, real point) evaluations of this run's
+    inputs and these input/output tensors."""
+    t_ops = n_points * ops_per_point / PEAK_OPS
     t_bytes = _nbytes(*tensors) / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def _real_counts(pair):
-    """(real data points, in-grid occupied cells) of a prepared pair."""
-    size = pair.grid.geom.size
-    cells = pair.grid.cell_coords
-    ok = ((cells >= 0) & (cells < size)).all(dim=-1)
-    return int((pair.data_mask > 0).sum()), int(ok.sum())
+def _real_points(pair):
+    """Real (unpadded) data points of a prepared pair."""
+    return int((pair.data_mask > 0).sum())
+
+
+def _check_table(pair, name):
+    """Grid.nearest_cell of a prepared pair == the first-minimum argmin of
+    nearest_occupied over all S^3 voxels."""
+    import torch
+    from goicp_tpu_torch.grid.edt import nearest_occupied
+    g = pair.grid
+    size = g.geom.size
+    flat = torch.arange(size ** 3, device=g.cell_coords.device)
+    vox = torch.stack([flat % size, (flat // size) % size,
+                       flat // (size * size)], dim=1)
+    _, want = nearest_occupied(vox, g.cell_coords, size)
+    _require(g.nearest_cell.dtype == torch.int32
+             and torch.equal(g.nearest_cell.long(), want),
+             f"{name}: Grid.nearest_cell == nearest_occupied on all "
+             f"{size}^3 voxels")
 
 
 def _prepared(name, cfg, pools, dev):
@@ -153,6 +225,8 @@ def main() -> int:
     from goicp_tpu_torch.bounds.evaluate import rot_uncertainty
     from goicp_tpu_torch.dist.mesh import stack_pairs
     from goicp_tpu_torch.geom.rotation import rodrigues_np
+    from goicp_tpu_torch.pipeline.prepare import (make_count_dynamic,
+                                                  prepare_pair)
     from goicp_tpu_torch.search import fused_stream
     from goicp_tpu_torch.search.device_engine import register_device
     from goicp_tpu_torch.search.fused_stream import register_fused_stream
@@ -176,6 +250,13 @@ def main() -> int:
     for line in _build.build_info["log"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"ptxas: {line.strip()}", flush=True)
+    floor_ms = _median_ms(lambda: cuda_eval.empty_launch(dev))
+    floor_dev = _device_ms(lambda: cuda_eval.empty_launch(dev))
+    floor = (f"launch floor {floor_ms:.4f} ms (from a graph "
+             f"{floor_dev:.4f} ms)")
+    print(f"an empty kernel: median of 25 single launches {floor_ms:.4f} ms "
+          f"(the host's enqueue included); {floor_dev:.4f} ms a launch "
+          f"replayed from a CUDA graph", flush=True)
 
     cfg = bench_shape(goicp_tpu_torch.GoICPConfig())
     cfg_t = dataclasses.replace(cfg, trimFraction=TRIM_FRACTION,
@@ -202,6 +283,7 @@ def main() -> int:
     L, B = 8, cfg.trans_pop * 8
     for name, c in (("syn07", cfg), ("trm00", cfg_t)):
         pair = _prepared(name, c, pools, dev)
+        _check_table(pair, name)
         nd = pair.n_data_padded
         rots = np.stack([rodrigues_np(v)
                          for v in rng.uniform(-2.5, 2.5, (L, 3))])
@@ -218,12 +300,12 @@ def main() -> int:
                               pair.norm_data).contiguous()
         g = pair.grid
         base = (pts, centers, widths)
-        tabs = (pair.weights, g.cell_coords, g.consts)
+        tabs = (pair.weights, g.cell_coords, g.nearest_cell, g.consts)
         kw = dict(size=g.geom.size, norm=cfg.norm)
         if name == "syn07":
-            cases = [("fused", unc, dict(fused=True), 1e-5, 0.0),
-                     ("plain+unc", unc, {}, 1e-5, 0.0),
-                     ("plain", None, {}, 1e-5, 0.0)]
+            cases = [("fused", unc, dict(fused=True), 1e-5, 1e-6),
+                     ("plain+unc", unc, {}, 1e-5, 1e-6),
+                     ("plain", None, {}, 1e-5, 1e-6)]
         else:
             k = pair.inlier_f()
             cases = [("fused K=counts[1]", unc,
@@ -231,57 +313,125 @@ def main() -> int:
                      ("plain+unc K=counts[1]", unc, dict(trim_count=k),
                       1e-4, 1e-5)]
         for label, ru, extra, atol, rtol in cases:
-            def kern(ru=ru, extra=extra):
-                return cuda_eval.geometric_bounds_kernel(
-                    *base, ru, *tabs, **kw, **extra)
+            def kern(args=(*base, ru, *tabs), kw={**kw, **extra}):
+                return cuda_eval.geometric_bounds_kernel(*args, **kw)
 
-            def plain(ru=ru, extra=extra):
-                return cuda_eval.geometric_bounds_plain(
-                    *base, ru, *tabs, **kw, **extra)
+            def plain(args=(*base, ru, *tabs), kw={**kw, **extra}):
+                return cuda_eval.geometric_bounds_plain(*args, **kw)
             got, want = kern(), plain()
             torch.cuda.synchronize()
             for a, b in zip(got, want):
                 torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
             err = _max_err(got, want)
             kernels["geometric_bounds_kernel"]["errs"].append(err)
-            ms, pms = _median_ms(kern), _median_ms(plain)
-            n_pts, n_cells = _real_counts(pair)
-            bms, bby = _bound(L * B * n_pts * n_cells,
-                              [*base, ru, *tabs, *got])
+            ms, pms, dms = _median_ms(kern), _median_ms(plain), _device_ms(kern)
+            bms, bby = _bound(
+                L * B * _real_points(pair),
+                GEOM_OPS_FUSED if extra.get("fused") else GEOM_OPS_PLAIN,
+                [*base, ru, *tabs, extra.get("trim_count"), *got])
             if label == "fused":
                 kernels["geometric_bounds_kernel"].update(
-                    ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby)
+                    ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                    graph_ms=dms)
             print(f"K1 {name} {label}: L={L} B={B} Nd={nd} "
                   f"C={g.cell_coords.shape[0]} max_abs_err={err:.3g} "
-                  f"(atol {atol}, rtol {rtol}) kernel {ms:.4f} ms "
-                  f"plain {pms:.4f} ms bound {bms:.6f} ms ({bby})",
-                  flush=True)
+                  f"(atol {atol}, rtol {rtol}) kernel {ms:.4f} ms (from a "
+                  f"graph {dms:.4f} ms) plain {pms:.4f} ms bound "
+                  f"{bms:.6f} ms ({bby}) {floor}", flush=True)
         for q in (cfg.trans_pop * 19, 8):
             corners = torch.as_tensor(rng.uniform(-0.6, 0.6, (L, q, 3)),
                                       dtype=torch.float32, device=dev)
             cargs = (pts, corners, pair.cell_compat, pair.prop_onehot,
-                     pair.data_mask, g.cell_coords, g.consts)
+                     pair.data_mask, g.nearest_cell, g.consts)
 
-            def kern2(cargs=cargs):
-                return cuda_eval.chem_incomp_kernel(*cargs, size=g.geom.size)
+            def kern2(cargs=cargs, size=g.geom.size):
+                return cuda_eval.chem_incomp_kernel(*cargs, size=size)
 
-            def plain2(cargs=cargs):
-                return cuda_eval.chem_incomp_plain(*cargs, size=g.geom.size)
+            def plain2(cargs=cargs, size=g.geom.size):
+                return cuda_eval.chem_incomp_plain(*cargs, size=size)
             got, want = kern2(), plain2()
             torch.cuda.synchronize()
             _require(torch.equal(got, want), f"K2 == plain ({name}, Q={q})")
             err = _max_err([got], [want])
             kernels["chem_incomp_kernel"]["errs"].append(err)
-            ms, pms = _median_ms(kern2), _median_ms(plain2)
-            n_pts, n_cells = _real_counts(pair)
-            bms, bby = _bound(L * q * n_pts * n_cells, [*cargs, got])
+            ms, pms, dms = (_median_ms(kern2), _median_ms(plain2),
+                            _device_ms(kern2))
+            bms, bby = _bound(L * q * _real_points(pair), CHEM_OPS,
+                              [*cargs, got])
             if name == "syn07" and q == cfg.trans_pop * 19:
                 kernels["chem_incomp_kernel"].update(
-                    ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby)
+                    ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                    graph_ms=dms)
             print(f"K2 {name} Q={q}: L={L} Nd={nd} "
                   f"C={g.cell_coords.shape[0]} max_abs_err={err:.3g} "
-                  f"(exact) kernel {ms:.4f} ms plain {pms:.4f} ms "
-                  f"bound {bms:.6f} ms ({bby})", flush=True)
+                  f"(exact) kernel {ms:.4f} ms (from a graph {dms:.4f} "
+                  f"ms) plain {pms:.4f} ms bound {bms:.6f} ms ({bby}) "
+                  f"{floor}", flush=True)
+
+    # rows of more than 256 points (BO1 cavities reach 306): the trimmed
+    # selection reads the row from the warp's shared-memory scratch
+    # instead of its registers.  Static K in plain mode, dynamic K fused.
+    data, model, dp, mp = _normalized_synthetic(pools["trm00"])
+    long_pair = prepare_pair(data, model, dp, mp, cfg_t, bucket=True,
+                             pad_data_to=320, device=dev)
+    _require(long_pair.n_data_padded == 320
+             and long_pair.inlier_num < long_pair.n_data, "a trimmed Nd=320")
+    pts_long = torch.as_tensor(
+        np.einsum("lij,nj->lni", rots, long_pair.data.cpu().numpy()),
+        dtype=torch.float32, device=dev).contiguous()
+    unc_long = rot_uncertainty(
+        torch.as_tensor(rng.uniform(0.05, 1.0, L), dtype=torch.float32,
+                        device=dev), long_pair.norm_data).contiguous()
+    g = long_pair.grid
+    for label, count, extra in (
+            ("plain+unc K static", None,
+             dict(trim_k=long_pair.inlier_num)),
+            ("fused K=counts[1]", make_count_dynamic(long_pair).inlier_f(),
+             dict(fused=True))):
+        args = (pts_long, centers, widths, unc_long, long_pair.weights,
+                g.cell_coords, g.nearest_cell, g.consts, count)
+        kw_long = dict(size=g.geom.size, norm=cfg.norm, **extra)
+        got = cuda_eval.geometric_bounds_kernel(*args, **kw_long)
+        want = cuda_eval.geometric_bounds_plain(*args, **kw_long)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+        err = _max_err(got, want)
+        kernels["geometric_bounds_kernel"]["errs"].append(err)
+        print(f"K1 trm00 {label}, Nd=320 (rows in shared memory): "
+              f"max_abs_err={err:.3g} (atol 0.0001, rtol 1e-05)", flush=True)
+
+    # the tables in device memory: a 64^3 grid (1 MB of nearest cells) does
+    # not fit a block's shared memory
+    cfg64 = dataclasses.replace(cfg_t, distTransSize=64)
+    pair64 = _prepared("trm00", cfg64, pools, dev)
+    _check_table(pair64, "trm00 at S=64")
+    g64 = pair64.grid
+    _require(g64.nearest_cell.numel() * 4 > 227 * 1024, "S=64 table > 227 KB")
+    pts64 = torch.as_tensor(
+        np.einsum("lij,nj->lni", rots, pair64.data.cpu().numpy()),
+        dtype=torch.float32, device=dev).contiguous()
+    a64 = (pts64, centers, widths, unc, pair64.weights, g64.cell_coords,
+           g64.nearest_cell, g64.consts, pair64.inlier_f())
+    kw64 = dict(size=64, norm=cfg.norm, fused=True)
+    got = cuda_eval.geometric_bounds_kernel(*a64, **kw64)
+    want = cuda_eval.geometric_bounds_plain(*a64, **kw64)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+    corners64 = torch.as_tensor(
+        np.random.default_rng(64).uniform(-0.6, 0.6,
+                                          (L, cfg.trans_pop * 19, 3)),
+        dtype=torch.float32, device=dev)
+    c64 = (pts64, corners64, pair64.cell_compat, pair64.prop_onehot,
+           pair64.data_mask, g64.nearest_cell, g64.consts)
+    _require(torch.equal(cuda_eval.chem_incomp_kernel(*c64, size=64),
+                         cuda_eval.chem_incomp_plain(*c64, size=64)),
+             "K2 == plain with the table in device memory (S=64)")
+    ms1 = _device_ms(lambda: cuda_eval.geometric_bounds_kernel(*a64, **kw64))
+    ms2 = _device_ms(lambda: cuda_eval.chem_incomp_kernel(*c64, size=64))
+    print(f"S=64, tables in device memory: K1 trm00 fused K=counts[1] "
+          f"max_abs_err={_max_err(got, want):.3g} (atol 0.0001, rtol 1e-05) "
+          f"kernel {ms1:.4f} ms from a graph; K2 Q={corners64.shape[1]} "
+          f"exact, kernel {ms2:.4f} ms from a graph", flush=True)
 
     # K3 / K4 at the streams' shapes: two pairs of one bucket, 16 lanes
     # interleaved between them
@@ -290,6 +440,8 @@ def main() -> int:
     for names, c in ((("syn07", "syn13"), cfg), (("trm00", "trm01"), cfg_t)):
         two = _bucket_and_prepare(
             [_normalized_synthetic(pools[n]) for n in names], c, device=dev)
+        for n, p in zip(names, two):
+            _check_table(p, f"{n} (bucket of {'+'.join(names)})")
         st = stack_pairs(two)
         g = st.grid
         nd, size = st.n_data_padded, g.geom.size
@@ -311,21 +463,18 @@ def main() -> int:
                            for l in range(LS)]).contiguous()
         kcount = st.counts[:, 1].contiguous() if trimmed else None
         k3 = (pts, centers, widths, unc, st.weights, g.cell_coords,
-              g.consts, kcount, lane_pair)
+              g.nearest_cell, g.consts, kcount, lane_pair)
         # untrimmed sums reach ~60 over 256 points, where one float32 ulp
-        # is 3.8e-6 and the block's summation order differs from torch's
+        # is 3.8e-6 and the warp's summation order differs from torch's
         atol, rtol = (1e-4, 1e-5) if trimmed else (1e-5, 1e-6)
-        real = [_real_counts(p) for p in two]
-        n_dist = sum(real[l % 2][0] * real[l % 2][1] for l in range(LS))
+        n_real = sum(_real_points(two[l % 2]) for l in range(LS))
         label = "dynamic K" if trimmed else "untrimmed"
 
-        def kern3(k3=k3):
-            return cuda_eval.geometric_bounds_kernel_lanes(
-                *k3, size=size, norm=c.norm)
+        def kern3(k3=k3, kw=dict(size=size, norm=c.norm)):
+            return cuda_eval.geometric_bounds_kernel_lanes(*k3, **kw)
 
-        def plain3(k3=k3):
-            return cuda_eval.geometric_bounds_lanes_plain(
-                *k3, size=size, norm=c.norm)
+        def plain3(k3=k3, kw=dict(size=size, norm=c.norm)):
+            return cuda_eval.geometric_bounds_lanes_plain(*k3, **kw)
         got, want = kern3(), plain3()
         torch.cuda.synchronize()
         for a, b in zip(got, want):
@@ -334,33 +483,36 @@ def main() -> int:
             p = two[l % 2]
             one = cuda_eval.geometric_bounds_kernel(
                 pts[l:l + 1], centers[l:l + 1], widths[l:l + 1],
-                unc[l:l + 1], p.weights, p.grid.cell_coords, p.grid.consts,
+                unc[l:l + 1], p.weights, p.grid.cell_coords,
+                p.grid.nearest_cell, p.grid.consts,
                 p.inlier_f() if trimmed else None, size=size, norm=c.norm,
                 fused=True)
             _require(all(torch.equal(a[l], b[0]) for a, b in zip(got, one)),
                      f"K3 == K1 on lane {l} ({names}, {label})")
         err = _max_err(got, want)
         kernels["geometric_bounds_kernel_lanes"]["errs"].append(err)
-        ms, pms = _median_ms(kern3), _median_ms(plain3)
-        bms, bby = _bound(B * n_dist, [*k3, *got])
+        ms, pms, dms = (_median_ms(kern3), _median_ms(plain3),
+                        _device_ms(kern3))
+        bms, bby = _bound(B * n_real, GEOM_OPS_FUSED, [*k3, *got])
         if not trimmed:
             kernels["geometric_bounds_kernel_lanes"].update(
-                ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby)
+                ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                graph_ms=dms)
         print(f"K3 {'+'.join(names)} {label}: L={LS} B={B} Nd={nd} "
               f"C={g.cell_coords.shape[1]} max_abs_err={err:.3g} (atol "
               f"{atol}, rtol {rtol}; == K1 lane for lane) kernel {ms:.4f} "
-              f"ms plain {pms:.4f} ms bound {bms:.6f} ms ({bby})",
-              flush=True)
+              f"ms (from a graph {dms:.4f} ms) plain {pms:.4f} ms bound "
+              f"{bms:.6f} ms ({bby}) {floor}", flush=True)
         for q in (c.trans_pop * 19, 8):
             corners = torch.as_tensor(rng.uniform(-0.6, 0.6, (LS, q, 3)),
                                       dtype=torch.float32, device=dev)
             k4 = (pts, corners, st.cell_compat, st.prop_onehot,
-                  st.data_mask, g.cell_coords, g.consts, lane_pair)
+                  st.data_mask, g.nearest_cell, g.consts, lane_pair)
 
-            def kern4(k4=k4):
+            def kern4(k4=k4, size=size):
                 return cuda_eval.chem_incomp_kernel_lanes(*k4, size=size)
 
-            def plain4(k4=k4):
+            def plain4(k4=k4, size=size):
                 return cuda_eval.chem_incomp_lanes_plain(*k4, size=size)
             got, want = kern4(), plain4()
             torch.cuda.synchronize()
@@ -370,21 +522,24 @@ def main() -> int:
                 p = two[l % 2]
                 one = cuda_eval.chem_incomp_kernel(
                     pts[l:l + 1], corners[l:l + 1], p.cell_compat,
-                    p.prop_onehot, p.data_mask, p.grid.cell_coords,
+                    p.prop_onehot, p.data_mask, p.grid.nearest_cell,
                     p.grid.consts, size=size)
                 _require(torch.equal(got[l], one[0]),
                          f"K4 == K2 on lane {l} ({names}, Q={q})")
             err = _max_err([got], [want])
             kernels["chem_incomp_kernel_lanes"]["errs"].append(err)
-            ms, pms = _median_ms(kern4), _median_ms(plain4)
-            bms, bby = _bound(q * n_dist, [*k4, got])
+            ms, pms, dms = (_median_ms(kern4), _median_ms(plain4),
+                            _device_ms(kern4))
+            bms, bby = _bound(q * n_real, CHEM_OPS, [*k4, got])
             if not trimmed and q == c.trans_pop * 19:
                 kernels["chem_incomp_kernel_lanes"].update(
-                    ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby)
+                    ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                    graph_ms=dms)
             print(f"K4 {'+'.join(names)} Q={q}: L={LS} Nd={nd} "
                   f"C={g.cell_coords.shape[1]} max_abs_err={err:.3g} "
-                  f"(exact; == K2 lane for lane) kernel {ms:.4f} ms plain "
-                  f"{pms:.4f} ms bound {bms:.6f} ms ({bby})", flush=True)
+                  f"(exact; == K2 lane for lane) kernel {ms:.4f} ms "
+                  f"(from a graph {dms:.4f} ms) plain {pms:.4f} ms bound "
+                  f"{bms:.6f} ms ({bby}) {floor}", flush=True)
 
     if sys.argv[1:] == ["--kernels-only"]:
         print("kernels only: phases 3-6 not run, no result", flush=True)
@@ -405,6 +560,7 @@ def main() -> int:
         r = register_device(pair, c)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        _check_table(pair, name)
         got = dict(error=float(r.error), converged=bool(r.converged),
                    outer=int(r.outer_iters), inner=int(r.inner_iters),
                    evals=int(r.evals), icp_runs=int(r.icp_runs))
@@ -446,7 +602,9 @@ def main() -> int:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         refs, walls = [], []
-        for pair in pairs:
+        for n, pair in zip(names, pairs):
+            _check_table(pair, f"{n} ({label} pool's bucket)")
+            torch.cuda.synchronize()
             tp = time.perf_counter()
             refs.append(register_device(pair, c))
             torch.cuda.synchronize()
@@ -545,7 +703,9 @@ def main() -> int:
          "launches": counts[kname] + counts5[kname] + counts6[kname],
          "max_abs_err": max(k["errs"]), "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-         "bound_by": k["bound_by"], "library_ms": None}
+         "bound_by": k["bound_by"], "library_ms": None,
+         "launch_floor_ms": floor_ms, "graph_ms": k["graph_ms"],
+         "graph_launch_floor_ms": floor_dev}
         for kname, k in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

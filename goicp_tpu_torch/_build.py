@@ -31,18 +31,22 @@ build_info: dict = {}    # path, seconds (0 when loaded from the cache), log
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # pts, centers, widths, rot_unc, weights, cells, consts, trim_count,
-    # out0, out1, out2, L, B, Nd, C, norm, fused, trim_k, stream
-    "goicp_geom_bounds": [_P] * 11 + [_I] * 7 + [_P],
-    # pts, corners, cell_compat, prop_onehot, data_mask, cells, consts, out,
-    # L, Q, Nd, C, stream
-    "goicp_chem_incomp": [_P] * 8 + [_I] * 4 + [_P],
-    # pts, centers, widths, rot_unc, weights, cells, consts, trim_count,
-    # lane_pair, out0, out1, out2, L, B, Nd, C, norm, stream
-    "goicp_geom_bounds_lanes": [_P] * 12 + [_I] * 5 + [_P],
-    # pts, corners, cell_compat, prop_onehot, data_mask, cells, consts,
-    # lane_pair, out, L, Q, Nd, C, stream
-    "goicp_chem_incomp_lanes": [_P] * 9 + [_I] * 4 + [_P],
+    # pts, centers, widths, rot_unc, weights, cells, nearest_cell, consts,
+    # trim_count, out0, out1, out2, L, B, Nd, C, size, norm, fused, trim_k,
+    # stream
+    "goicp_geom_bounds": [_P] * 12 + [_I] * 8 + [_P],
+    # pts, corners, cell_compat, prop_onehot, data_mask, nearest_cell,
+    # consts, out, L, Q, Nd, C, size, stream
+    "goicp_chem_incomp": [_P] * 8 + [_I] * 5 + [_P],
+    # pts, centers, widths, rot_unc, weights, cells, nearest_cell, consts,
+    # trim_count, lane_pair, out0, out1, out2, L, B, Nd, C, size, norm,
+    # stream
+    "goicp_geom_bounds_lanes": [_P] * 13 + [_I] * 6 + [_P],
+    # pts, corners, cell_compat, prop_onehot, data_mask, nearest_cell,
+    # consts, lane_pair, out, L, Q, Nd, C, size, stream
+    "goicp_chem_incomp_lanes": [_P] * 9 + [_I] * 5 + [_P],
+    # stream
+    "goicp_empty_launch": [_P],
 }
 
 

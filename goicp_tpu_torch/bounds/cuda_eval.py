@@ -7,15 +7,21 @@ Port of goicp_tpu/bounds/pallas_eval.py's four kernels:
   K3 geometric_bounds_kernel_lanes  <- :632 (csrc/geom_bounds.cu)
   K4 chem_incomp_kernel_lanes       <- :778 (csrc/chem_incomp.cu)
 
-All recompute the exact-EDT lookup as a minimum over the occupied cells
-(the EDT is exact, so the field value at a voxel IS that minimum): no
-(S^3,) table is read.  K1 and K2 keep the TPU kernels' signatures (minus
-`interpret`).  K3 and K4 are K1 (fused mode) and K2 for lane batches whose
-lanes belong to different pairs (the cross-pair streams): they take the
-PER-PAIR tables with a leading pair axis plus `lane_pair` (L,) int32, and
-each lane reads the rows of its own pair.  (The TPU versions take gathered
-per-lane copies of the tables, which a Pallas block spec needs and a CUDA
-block does not.)
+The TPU kernels recompute the exact-EDT lookup as a minimum over the
+occupied cells, because a gather is what a TPU does badly.  Here every
+kernel reads the pair's nearest-cell table instead (`Grid.nearest_cell`,
+(S^3,) int32: the EDT's own first-minimum argmin over the cells, built by
+grid/edt.py::nearest_occupied): per point one voxelization, one table read
+and, for the geometric bounds, one integer squared distance to that cell,
+which is the same minimum, so every per-point distance keeps its bits.
+K1 keeps the TPU kernel's signature (minus `interpret`) plus that table;
+K2 takes the table in place of the cell coordinates, which the count no
+longer reads.  K3 and K4 are K1 (fused mode) and K2 for lane batches whose lanes
+belong to different pairs (the cross-pair streams): they take the PER-PAIR
+tables with a leading pair axis plus `lane_pair` (L,) int32, and each lane
+reads the rows of its own pair.  (The TPU versions take gathered per-lane
+copies of the tables, which a Pallas block spec needs and a CUDA block
+does not.)
 
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor goes to the plain torch version beside it (geometric_bounds_plain,
@@ -34,11 +40,11 @@ import ctypes
 import numpy as np
 import torch
 
-from goicp_tpu_torch.grid.edt import nearest_occupied
-from goicp_tpu_torch.grid.lookup import oob_extension, voxel_indices
+from goicp_tpu_torch.grid.lookup import (flat_index, oob_extension,
+                                         voxel_indices)
 
 SQRT3 = float(np.sqrt(3.0))
-MAX_POINTS = 8192     # points per row the kernels' shared-memory plan holds
+MAX_POINTS = 8192     # points per row: two trimmed rows fit a block's memory
 MAX_SIZE = 1024       # grid size: voxels pack 10 bits per axis
 
 
@@ -86,19 +92,30 @@ def reduce_bounds(dis, widths, rot_unc, norm: int, fused: bool,
     return torch.sum(f(kept), dim=-1), torch.sum(f(lb_d), dim=-1)
 
 
-def geometric_bounds_plain(pts_rot, centers, widths, rot_unc, weights,
-                           cell_coords, consts, trim_count=None, *,
-                           size: int, norm: int, fused: bool = False,
-                           trim_k: int = 0):
-    """K1's function in plain torch: the min over occupied cells per point,
-    then the same reductions as the gather path (evaluate.py)."""
+def point_distances(pts_rot, centers, cell_coords, nearest_cell, consts):
+    """(L,Nd,3) points at (L,B,3) centers -> (L,B,Nd) distances to the
+    nearest occupied cell: the table's cell at the clamped voxel, the
+    integer squared distance to it, sqrt / scale, plus the out-of-bounds
+    extension.  The steps of K1/K3, point for point."""
     pos = pts_rot[:, None, :, :] + centers[:, :, None, :]    # (L,B,Nd,3)
     raw, clamped = voxel_indices(pos, consts)
-    d2, _ = nearest_occupied(clamped.reshape(-1, 3), cell_coords, size)
-    dist = torch.sqrt(d2.to(torch.float32)).reshape(raw.shape[:-1]) \
-        / consts[3]
+    cell = nearest_cell[flat_index(clamped, consts)].long()
+    diff = clamped - cell_coords[cell]
+    d2 = torch.sum(diff * diff, dim=-1)
+    dist = torch.sqrt(d2.to(torch.float32)) / consts[3]
     oob, extra = oob_extension(raw, consts)
-    dist = torch.where(oob, dist + extra, dist)
+    return torch.where(oob, dist + extra, dist)
+
+
+def geometric_bounds_plain(pts_rot, centers, widths, rot_unc, weights,
+                           cell_coords, nearest_cell, consts,
+                           trim_count=None, *, size: int, norm: int,
+                           fused: bool = False, trim_k: int = 0):
+    """K1's function in plain torch: per point the table lookup of
+    point_distances, then the same reductions as the gather path
+    (evaluate.py)."""
+    dist = point_distances(pts_rot, centers, cell_coords, nearest_cell,
+                           consts)
     dis = weights[None, None, :] * dist
     mask = (weights > 0)[None, None, :]
     if trim_count is not None:
@@ -112,13 +129,13 @@ def geometric_bounds_plain(pts_rot, centers, widths, rot_unc, weights,
 
 
 def chem_incomp_plain(pts_rot, corners, cell_compat, prop_onehot, data_mask,
-                      cell_coords, consts, *, size: int):
-    """K2's function in plain torch: first-minimum nearest occupied cell of
-    each clamped voxel, inc = mask - onehot . cell_compat[cell], summed."""
+                      nearest_cell, consts, *, size: int):
+    """K2's function in plain torch: the table's cell at each clamped voxel,
+    inc = mask - onehot . cell_compat[cell], summed."""
     pos = pts_rot[:, None, :, :] + corners[:, :, None, :]    # (L,Q,Nd,3)
     _, clamped = voxel_indices(pos, consts)
-    _, cell = nearest_occupied(clamped.reshape(-1, 3), cell_coords, size)
-    h = cell_compat[cell].reshape(pos.shape[:-1] + (cell_compat.shape[1],))
+    cell = nearest_cell[flat_index(clamped, consts)].long()  # (L,Q,Nd)
+    h = cell_compat[cell]                                    # (L,Q,Nd,9)
     s = torch.sum(prop_onehot[None, None] * h, dim=-1)
     inc = (data_mask > 0).to(torch.float32)[None, None, :] - s
     return torch.sum(inc, dim=-1)
@@ -133,8 +150,9 @@ def _per_pair_lanes(lane_pair: torch.Tensor, n_pairs: int):
 
 
 def geometric_bounds_lanes_plain(pts_rot, centers, widths, rot_unc, weights,
-                                 cell_coords, consts, trim_count, lane_pair,
-                                 *, size: int, norm: int):
+                                 cell_coords, nearest_cell, consts,
+                                 trim_count, lane_pair, *, size: int,
+                                 norm: int):
     """K3's function in plain torch: every lane through
     geometric_bounds_plain (fused) with the tables of its own pair."""
     L, B = widths.shape
@@ -143,7 +161,7 @@ def geometric_bounds_lanes_plain(pts_rot, centers, widths, rot_unc, weights,
     for w, sel in _per_pair_lanes(lane_pair, weights.shape[0]):
         got = geometric_bounds_plain(
             pts_rot[sel], centers[sel], widths[sel], rot_unc[sel],
-            weights[w], cell_coords[w], consts[w],
+            weights[w], cell_coords[w], nearest_cell[w], consts[w],
             None if trim_count is None else trim_count[w],
             size=size, norm=norm, fused=True)
         for o, g in zip(outs, got):
@@ -152,7 +170,7 @@ def geometric_bounds_lanes_plain(pts_rot, centers, widths, rot_unc, weights,
 
 
 def chem_incomp_lanes_plain(pts_rot, corners, cell_compat, prop_onehot,
-                            data_mask, cell_coords, consts, lane_pair, *,
+                            data_mask, nearest_cell, consts, lane_pair, *,
                             size: int):
     """K4's function in plain torch: every lane through chem_incomp_plain
     with the tables of its own pair."""
@@ -161,7 +179,7 @@ def chem_incomp_lanes_plain(pts_rot, corners, cell_compat, prop_onehot,
     for w, sel in _per_pair_lanes(lane_pair, cell_compat.shape[0]):
         out[sel] = chem_incomp_plain(
             pts_rot[sel], corners[sel], cell_compat[w], prop_onehot[w],
-            data_mask[w], cell_coords[w], consts[w], size=size)
+            data_mask[w], nearest_cell[w], consts[w], size=size)
     return out
 
 
@@ -210,17 +228,19 @@ def _launch_check(err: int, what: str):
 
 
 def geometric_bounds_kernel(pts_rot, centers, widths, rot_unc, weights,
-                            cell_coords, consts, trim_count=None, *,
-                            size: int, norm: int, fused: bool = False,
-                            trim_k: int = 0):
+                            cell_coords, nearest_cell, consts,
+                            trim_count=None, *, size: int, norm: int,
+                            fused: bool = False, trim_k: int = 0):
     """K1.  pts_rot (L,Nd,3), centers (L,B,3), widths (L,B), rot_unc
-    (L,Nd)|None, weights (Nd,), cell_coords (C,3) i32, consts (5,) f32 ->
-    ub, lb (L,B); fused=True -> (ub_plain, ubu, lbu).  Trimming: trim_k>0
-    static, or trim_count (0-d f32 tensor, read on the device)."""
+    (L,Nd)|None, weights (Nd,), cell_coords (C,3) i32, nearest_cell (S^3,)
+    i32, consts (5,) f32 -> ub, lb (L,B); fused=True -> (ub_plain, ubu,
+    lbu).  Trimming: trim_k>0 static, or trim_count (0-d f32 tensor, read
+    on the device)."""
     if _route(pts_rot) == "cpu":
         return geometric_bounds_plain(
-            pts_rot, centers, widths, rot_unc, weights, cell_coords, consts,
-            trim_count, size=size, norm=norm, fused=fused, trim_k=trim_k)
+            pts_rot, centers, widths, rot_unc, weights, cell_coords,
+            nearest_cell, consts, trim_count, size=size, norm=norm,
+            fused=fused, trim_k=trim_k)
     from goicp_tpu_torch._build import library
     dev = pts_rot.device
     L, nd, _ = pts_rot.shape
@@ -234,6 +254,7 @@ def geometric_bounds_kernel(pts_rot, centers, widths, rot_unc, weights,
         _check("rot_unc", rot_unc, (L, nd), f32, dev)
     _check("weights", weights, (nd,), f32, dev)
     _check("cell_coords", cell_coords, (C, 3), torch.int32, dev)
+    _check("nearest_cell", nearest_cell, (size ** 3,), torch.int32, dev)
     _check("consts", consts, (5,), f32, dev)
     if trim_count is not None:
         _check("trim_count", trim_count, (), f32, dev)
@@ -246,10 +267,10 @@ def geometric_bounds_kernel(pts_rot, centers, widths, rot_unc, weights,
         return tuple(outs)
     err = library().goicp_geom_bounds(
         _ptr(pts_rot), _ptr(centers), _ptr(widths), _ptr(rot_unc),
-        _ptr(weights), _ptr(cell_coords), _ptr(consts), _ptr(trim_count),
-        _ptr(outs[0]), _ptr(outs[1]), _ptr(outs[2] if fused else None),
-        L, B, nd, C, norm, int(fused),
-        0 if trim_count is not None else int(trim_k),
+        _ptr(weights), _ptr(cell_coords), _ptr(nearest_cell), _ptr(consts),
+        _ptr(trim_count), _ptr(outs[0]), _ptr(outs[1]),
+        _ptr(outs[2] if fused else None), L, B, nd, C, size, norm,
+        int(fused), 0 if trim_count is not None else int(trim_k),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _launch_check(err, "geom_bounds")
     geometric_bounds_kernel.launches += 1
@@ -260,25 +281,25 @@ geometric_bounds_kernel.launches = 0
 
 
 def chem_incomp_kernel(pts_rot, corners, cell_compat, prop_onehot, data_mask,
-                       cell_coords, consts, *, size: int):
+                       nearest_cell, consts, *, size: int):
     """K2.  pts_rot (L,Nd,3), corners (L,Q,3), cell_compat (C,9) f32 0/1,
-    prop_onehot (Nd,9) f32 masked one-hot, data_mask (Nd,) -> per-corner
-    incompatibility counts (L,Q) f32."""
+    prop_onehot (Nd,9) f32 masked one-hot, data_mask (Nd,), nearest_cell
+    (S^3,) i32 -> per-corner incompatibility counts (L,Q) f32."""
     if _route(pts_rot) == "cpu":
         return chem_incomp_plain(pts_rot, corners, cell_compat, prop_onehot,
-                                 data_mask, cell_coords, consts, size=size)
+                                 data_mask, nearest_cell, consts, size=size)
     from goicp_tpu_torch._build import library
     dev = pts_rot.device
     L, nd, _ = pts_rot.shape
     Q = corners.shape[1]
-    C = cell_coords.shape[0]
+    C = cell_compat.shape[0]
     f32 = torch.float32
     _check("pts_rot", pts_rot, (L, nd, 3), f32, dev)
     _check("corners", corners, (L, Q, 3), f32, dev)
     _check("cell_compat", cell_compat, (C, 9), f32, dev)
     _check("prop_onehot", prop_onehot, (nd, 9), f32, dev)
     _check("data_mask", data_mask, (nd,), f32, dev)
-    _check("cell_coords", cell_coords, (C, 3), torch.int32, dev)
+    _check("nearest_cell", nearest_cell, (size ** 3,), torch.int32, dev)
     _check("consts", consts, (5,), f32, dev)
     _check_envelope("chem_incomp_kernel", nd, C, size)
     out = torch.empty((L, Q), dtype=f32, device=dev)
@@ -286,8 +307,8 @@ def chem_incomp_kernel(pts_rot, corners, cell_compat, prop_onehot, data_mask,
         return out
     err = library().goicp_chem_incomp(
         _ptr(pts_rot), _ptr(corners), _ptr(cell_compat), _ptr(prop_onehot),
-        _ptr(data_mask), _ptr(cell_coords), _ptr(consts), _ptr(out),
-        L, Q, nd, C,
+        _ptr(data_mask), _ptr(nearest_cell), _ptr(consts), _ptr(out),
+        L, Q, nd, C, size,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _launch_check(err, "chem_incomp")
     chem_incomp_kernel.launches += 1
@@ -298,17 +319,20 @@ chem_incomp_kernel.launches = 0
 
 
 def geometric_bounds_kernel_lanes(pts_rot, centers, widths, rot_unc, weights,
-                                  cell_coords, consts, trim_count, lane_pair,
-                                  *, size: int, norm: int):
+                                  cell_coords, nearest_cell, consts,
+                                  trim_count, lane_pair, *, size: int,
+                                  norm: int):
     """K3.  pts_rot (L,Nd,3), centers (L,B,3), widths (L,B), rot_unc (L,Nd);
-    per-pair tables weights (W,Nd), cell_coords (W,C,3) i32, consts (W,5),
-    trim_count (W,) f32 or None (no trimming); lane_pair (L,) i32 in
-    [0, W) -> (ub_plain, ubu, lbu), each (L,B).  Lane l equals K1 in fused
-    mode on lane l with the tables of pair lane_pair[l]."""
+    per-pair tables weights (W,Nd), cell_coords (W,C,3) i32, nearest_cell
+    (W,S^3) i32, consts (W,5), trim_count (W,) f32 or None (no trimming);
+    lane_pair (L,) i32 in [0, W) -> (ub_plain, ubu, lbu), each (L,B).  Lane
+    l equals K1 in fused mode on lane l with the tables of pair
+    lane_pair[l]."""
     if _route(pts_rot) == "cpu":
         return geometric_bounds_lanes_plain(
-            pts_rot, centers, widths, rot_unc, weights, cell_coords, consts,
-            trim_count, lane_pair, size=size, norm=norm)
+            pts_rot, centers, widths, rot_unc, weights, cell_coords,
+            nearest_cell, consts, trim_count, lane_pair, size=size,
+            norm=norm)
     from goicp_tpu_torch._build import library
     dev = pts_rot.device
     L, nd, _ = pts_rot.shape
@@ -321,6 +345,7 @@ def geometric_bounds_kernel_lanes(pts_rot, centers, widths, rot_unc, weights,
     _check("rot_unc", rot_unc, (L, nd), f32, dev)
     _check("weights", weights, (W, nd), f32, dev)
     _check("cell_coords", cell_coords, (W, C, 3), torch.int32, dev)
+    _check("nearest_cell", nearest_cell, (W, size ** 3), torch.int32, dev)
     _check("consts", consts, (W, 5), f32, dev)
     if trim_count is not None:
         _check("trim_count", trim_count, (W,), f32, dev)
@@ -333,9 +358,9 @@ def geometric_bounds_kernel_lanes(pts_rot, centers, widths, rot_unc, weights,
         return tuple(outs)
     err = library().goicp_geom_bounds_lanes(
         _ptr(pts_rot), _ptr(centers), _ptr(widths), _ptr(rot_unc),
-        _ptr(weights), _ptr(cell_coords), _ptr(consts), _ptr(trim_count),
-        _ptr(lane_pair), _ptr(outs[0]), _ptr(outs[1]), _ptr(outs[2]),
-        L, B, nd, C, norm,
+        _ptr(weights), _ptr(cell_coords), _ptr(nearest_cell), _ptr(consts),
+        _ptr(trim_count), _ptr(lane_pair), _ptr(outs[0]), _ptr(outs[1]),
+        _ptr(outs[2]), L, B, nd, C, size, norm,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _launch_check(err, "geom_bounds_lanes")
     geometric_bounds_kernel_lanes.launches += 1
@@ -346,28 +371,28 @@ geometric_bounds_kernel_lanes.launches = 0
 
 
 def chem_incomp_kernel_lanes(pts_rot, corners, cell_compat, prop_onehot,
-                             data_mask, cell_coords, consts, lane_pair, *,
+                             data_mask, nearest_cell, consts, lane_pair, *,
                              size: int):
     """K4.  pts_rot (L,Nd,3), corners (L,Q,3); per-pair tables cell_compat
-    (W,C,9), prop_onehot (W,Nd,9), data_mask (W,Nd), cell_coords (W,C,3)
+    (W,C,9), prop_onehot (W,Nd,9), data_mask (W,Nd), nearest_cell (W,S^3)
     i32, consts (W,5); lane_pair (L,) i32 -> counts (L,Q) f32.  Lane l
     equals K2 on lane l with the tables of pair lane_pair[l]."""
     if _route(pts_rot) == "cpu":
         return chem_incomp_lanes_plain(
             pts_rot, corners, cell_compat, prop_onehot, data_mask,
-            cell_coords, consts, lane_pair, size=size)
+            nearest_cell, consts, lane_pair, size=size)
     from goicp_tpu_torch._build import library
     dev = pts_rot.device
     L, nd, _ = pts_rot.shape
     Q = corners.shape[1]
-    W, C = cell_coords.shape[:2]
+    W, C = cell_compat.shape[:2]
     f32 = torch.float32
     _check("pts_rot", pts_rot, (L, nd, 3), f32, dev)
     _check("corners", corners, (L, Q, 3), f32, dev)
     _check("cell_compat", cell_compat, (W, C, 9), f32, dev)
     _check("prop_onehot", prop_onehot, (W, nd, 9), f32, dev)
     _check("data_mask", data_mask, (W, nd), f32, dev)
-    _check("cell_coords", cell_coords, (W, C, 3), torch.int32, dev)
+    _check("nearest_cell", nearest_cell, (W, size ** 3), torch.int32, dev)
     _check("consts", consts, (W, 5), f32, dev)
     _check("lane_pair", lane_pair, (L,), torch.int32, dev)
     _check_envelope("chem_incomp_kernel_lanes", nd, C, size)
@@ -376,8 +401,8 @@ def chem_incomp_kernel_lanes(pts_rot, corners, cell_compat, prop_onehot,
         return out
     err = library().goicp_chem_incomp_lanes(
         _ptr(pts_rot), _ptr(corners), _ptr(cell_compat), _ptr(prop_onehot),
-        _ptr(data_mask), _ptr(cell_coords), _ptr(consts), _ptr(lane_pair),
-        _ptr(out), L, Q, nd, C,
+        _ptr(data_mask), _ptr(nearest_cell), _ptr(consts), _ptr(lane_pair),
+        _ptr(out), L, Q, nd, C, size,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _launch_check(err, "chem_incomp_lanes")
     chem_incomp_kernel_lanes.launches += 1
@@ -397,3 +422,12 @@ def launch_counts() -> dict:
 def reset_launch_counts():
     for k in _KERNELS:
         k.launches = 0
+
+
+def empty_launch(device) -> None:
+    """Launch the library's empty kernel on `device`'s current stream: the
+    floor under every kernel launch, for the measurements."""
+    from goicp_tpu_torch._build import library
+    _launch_check(library().goicp_empty_launch(
+        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)),
+        "empty")

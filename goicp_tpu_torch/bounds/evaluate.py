@@ -60,6 +60,7 @@ class LaneTables(NamedTuple):
     the L lanes of a call, the pair it belongs to."""
     weights: torch.Tensor       # (W, Nd)
     cell_coords: torch.Tensor   # (W, C, 3) i32
+    nearest_cell: torch.Tensor  # (W, S^3) i32 row of cell_coords per voxel
     consts: torch.Tensor        # (W, 5)
     trim_count: torch.Tensor | None   # (W,) inlier counts, None = no trim
     cell_compat: torch.Tensor   # (W, C, 9)
@@ -87,7 +88,8 @@ def lane_tables(pair_batch: PairData, cfg: GoICPConfig,
                        device=p.device) * inliers
     return LaneTables(
         weights=p.weights, cell_coords=p.grid.cell_coords,
-        consts=p.grid.consts, trim_count=inliers if cfg.doTrim else None,
+        nearest_cell=p.grid.nearest_cell, consts=p.grid.consts,
+        trim_count=inliers if cfg.doTrim else None,
         cell_compat=p.cell_compat, prop_onehot=p.prop_onehot,
         data_mask=p.data_mask, sse=sse, lane_pair=lane_pair,
         size=p.grid.geom.size)
@@ -115,7 +117,8 @@ def _bounds(pair: PairData, cfg: GoICPConfig, pts_rot, centers, widths,
         return cuda_eval.geometric_bounds_kernel(
             pts_rot.contiguous(), centers.contiguous(), widths.contiguous(),
             None if rot_uncertainty is None else rot_uncertainty.contiguous(),
-            pair.weights, pair.grid.cell_coords, pair.grid.consts,
+            pair.weights, pair.grid.cell_coords, pair.grid.nearest_cell,
+            pair.grid.consts,
             trim_count=pair.inlier_f() if trim == "dynamic" else None,
             size=pair.grid.geom.size, norm=cfg.norm, fused=fused,
             trim_k=pair.inlier_num if trim == "static" else 0)
@@ -150,8 +153,9 @@ def geometric_bounds_fused(pair: PairData, cfg: GoICPConfig, pts_rot,
         t = pair
         return cuda_eval.geometric_bounds_kernel_lanes(
             pts_rot.contiguous(), centers.contiguous(), widths.contiguous(),
-            rot_uncertainty.contiguous(), t.weights, t.cell_coords, t.consts,
-            t.trim_count, t.lane_pair, size=t.size, norm=cfg.norm)
+            rot_uncertainty.contiguous(), t.weights, t.cell_coords,
+            t.nearest_cell, t.consts, t.trim_count, t.lane_pair,
+            size=t.size, norm=cfg.norm)
     return _bounds(pair, cfg, pts_rot, centers, widths, rot_uncertainty,
                    fused=True)
 
@@ -168,12 +172,12 @@ def chem_corner_values(pair: PairData, cfg: GoICPConfig, pts_rot, corners):
         t = pair
         return {"incomp": cuda_eval.chem_incomp_kernel_lanes(
             pts_rot.contiguous(), corners.contiguous(), t.cell_compat,
-            t.prop_onehot, t.data_mask, t.cell_coords, t.consts,
+            t.prop_onehot, t.data_mask, t.nearest_cell, t.consts,
             t.lane_pair, size=t.size)}
     if only_incomp(cfg) and pts_rot.is_cuda:
         return {"incomp": cuda_eval.chem_incomp_kernel(
             pts_rot.contiguous(), corners.contiguous(), pair.cell_compat,
-            pair.prop_onehot, pair.data_mask, pair.grid.cell_coords,
+            pair.prop_onehot, pair.data_mask, pair.grid.nearest_cell,
             pair.grid.consts, size=pair.grid.geom.size)}
     pos = pts_rot[:, None, :, :] + corners[:, :, None, :]   # (L,Q,Nd,3)
     nd_idx = torch.arange(pair.n_data_padded, device=pos.device)[None, None]

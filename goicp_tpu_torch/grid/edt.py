@@ -188,8 +188,12 @@ def _edt_fields(cell_coords: torch.Tensor, size: int):
 def build_grid(model: np.ndarray, props_idx: np.ndarray, size: int,
                expand_factor: float, pad_cells: int | None = None,
                pad_points: int | None = None,
-               device: torch.device | str = "cpu") -> Grid:
-    """Build all distance-transform fields for a model cloud."""
+               device: torch.device | str | None = None) -> Grid:
+    """Build all distance-transform fields for a model cloud on `device`
+    (None: goicp_tpu_torch.default_device())."""
+    if device is None:
+        from goicp_tpu_torch import default_device
+        device = default_device()
     geom = grid_geometry(model, size, expand_factor)
     cells = _occupied_cells(model, props_idx, geom, pad_cells, pad_points)
     cell_coords = torch.as_tensor(cells["cell_coords"], device=device)

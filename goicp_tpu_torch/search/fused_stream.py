@@ -596,8 +596,12 @@ def save_stream_state(path: str, state: dict, rows_orig, dead, next_pair,
     np.savez(path, **blob)
 
 
-def load_stream_state(path: str, device="cpu"):
-    """-> (state on `device`, rows_orig, dead, next_pair, done)."""
+def load_stream_state(path: str, device=None):
+    """-> (state on `device`, rows_orig, dead, next_pair, done); device
+    None means goicp_tpu_torch.default_device()."""
+    if device is None:
+        from goicp_tpu_torch import default_device
+        device = default_device()
     with np.load(path) as z:
         state = _unflatten_state(
             {k[len("state_"):]: z[k] for k in z.files

@@ -2,6 +2,10 @@
 JAX package's XLA gather path and its Pallas kernels (interpret mode), and
 the port's gather path (bounds/evaluate.py) vs the JAX gather path.
 
+The plain versions look the nearest occupied cell up in the pair's
+nearest-cell table, as the kernels do; test_table_lookup_equals_min_over_cells
+holds that against a scan of the cells.
+
 Tolerances: untrimmed sums atol 1e-5 (the same integer-exact distances,
 summed in another order); trimmed sums rtol 1e-5 / atol 1e-4 (the same
 inlier set, summed in another order); incompatibility counts exact.
@@ -24,6 +28,8 @@ from goicp_tpu.pipeline import prepare as jprep
 from goicp_tpu_torch.bounds import cuda_eval
 from goicp_tpu_torch.bounds import evaluate as tev
 from goicp_tpu_torch.dist.mesh import stack_pairs
+from goicp_tpu_torch.grid.edt import nearest_occupied
+from goicp_tpu_torch.grid.lookup import oob_extension, voxel_indices
 from goicp_tpu_torch.pipeline.prepare import (make_count_dynamic,
                                               pair_from_jax)
 
@@ -77,7 +83,7 @@ def _plain_and_refs(jp, tp, cfg, pts, centers, widths, rw, unc,
     kcount = float(jp.inlier_num) if dynamic else None
     plain = cuda_eval.geometric_bounds_plain(
         tpts, tcen, twid, tunc, tp.weights, tp.grid.cell_coords,
-        tp.grid.consts,
+        tp.grid.nearest_cell, tp.grid.consts,
         torch.tensor(kcount) if dynamic else None,
         size=size, norm=cfg.norm, fused=fused,
         trim_k=0 if dynamic else trim_k)
@@ -141,7 +147,7 @@ def test_geometric_plain_cells_padded_to_1200():
                                   size=size, norm=2, interpret=True)
     plain = cuda_eval.geometric_bounds_plain(
         tpts, tcen, twid, None, tp.weights, torch.as_tensor(big),
-        tp.grid.consts, size=size, norm=2)
+        tp.grid.nearest_cell, tp.grid.consts, size=size, norm=2)
     _close(plain, xla, UNTRIMMED)
     _close(plain, pal, UNTRIMMED)
 
@@ -163,6 +169,84 @@ def test_geometric_plain_more_than_512_cells():
     _close(plain, pal, UNTRIMMED)
 
 
+def _big_grid_pair():
+    """A 1400-point model on a 28^3 grid: > 512 real occupied cells."""
+    rng = np.random.default_rng(19)
+    cfg = GoICPConfig(regularization=0.0005, ponderation=1, distTransSize=28,
+                      trimFraction=0.2)
+    src = rng.uniform(-0.7, 0.7, size=(40, 3))
+    tgt = rng.uniform(-0.9, 0.9, size=(1400, 3))
+    jp = jprep.prepare_pair(src, tgt, rng.integers(0, 9, 40).astype(np.int32),
+                            rng.integers(0, 9, 1400).astype(np.int32), cfg,
+                            pad_data_to=64)
+    return pair_from_jax(jp, "cpu")
+
+
+@pytest.mark.parametrize("case", ["in_grid", "out_of_bounds",
+                                  "cells_padded_to_1200", "over_512_cells"])
+@pytest.mark.parametrize("mode", ["untrimmed", "static", "dynamic", "chem"])
+def test_table_lookup_equals_min_over_cells(mode, case):
+    """The plain versions read Grid.nearest_cell; the same bounds from a
+    scan of all cells (nearest_occupied, the first-minimum argmin that built
+    the table) must agree: per-point distances bit for bit (the same
+    integer squared distance goes through the same sqrt and division), the
+    sums to atol 1e-5 (they are the same reductions of equal values, so
+    they come out equal; the tolerance is that of the other sum tests), the
+    incompatibility counts exactly."""
+    tp = _big_grid_pair() if case == "over_512_cells" \
+        else _pair(trimFraction=0.2)[1]
+    g = tp.grid
+    size = g.geom.size
+    cells = g.cell_coords
+    if case == "cells_padded_to_1200":
+        cells = torch.cat([cells, torch.full((1200 - len(cells), 3), -9,
+                                             dtype=cells.dtype)])
+    if case == "over_512_cells":
+        assert g.n_cells > 512
+    pts, centers, widths, rw = _lanes(
+        tp.n_data_padded, 23, shift=2.5 if case == "out_of_bounds" else 0.0)
+    tpts, tcen, twid, trw = (torch.as_tensor(a)
+                             for a in (pts, centers, widths, rw))
+    pos = tpts[:, None, :, :] + tcen[:, :, None, :]
+    raw, clamped = voxel_indices(pos, g.consts)
+    d2, cell = nearest_occupied(clamped.reshape(-1, 3), cells, size)
+    if mode == "chem":
+        compat = tp.cell_compat
+        if case == "cells_padded_to_1200":
+            compat = torch.cat([compat, torch.zeros(
+                (1200 - len(compat), compat.shape[1]))])
+        h = compat[cell].reshape(pos.shape[:-1] + (compat.shape[1],))
+        inc = (tp.data_mask > 0).to(torch.float32)[None, None, :] \
+            - torch.sum(tp.prop_onehot[None, None] * h, dim=-1)
+        want = torch.sum(inc, dim=-1)
+        got = cuda_eval.chem_incomp_plain(
+            tpts, tcen, compat, tp.prop_onehot, tp.data_mask,
+            g.nearest_cell, g.consts, size=size)
+        assert torch.equal(got, want)
+        return
+    dist = torch.sqrt(d2.to(torch.float32)).reshape(raw.shape[:-1]) \
+        / g.consts[3]
+    oob, extra = oob_extension(raw, g.consts)
+    dist = torch.where(oob, dist + extra, dist)
+    if case == "out_of_bounds":
+        assert bool(oob.any())
+    assert torch.equal(
+        cuda_eval.point_distances(tpts, tcen, cells, g.nearest_cell,
+                                  g.consts), dist)
+    unc = tev.rot_uncertainty(trw, tp.norm_data)
+    k = dict(untrimmed=None, static=tp.inlier_num,
+             dynamic=torch.tensor(float(tp.inlier_num)))[mode]
+    want = cuda_eval.reduce_bounds(
+        tp.weights[None, None, :] * dist, twid, unc, 2, True,
+        mask=(tp.weights > 0)[None, None, :], k=k, static=mode == "static")
+    got = cuda_eval.geometric_bounds_plain(
+        tpts, tcen, twid, unc, tp.weights, cells, g.nearest_cell, g.consts,
+        k if mode == "dynamic" else None, size=size, norm=2, fused=True,
+        trim_k=tp.inlier_num if mode == "static" else 0)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
 @pytest.mark.parametrize("q", [8, 27, 152])
 def test_chem_plain_exact(q):
     jp, tp, cfg = _pair()
@@ -178,7 +262,8 @@ def test_chem_plain_exact(q):
         interpret=True))
     got = cuda_eval.chem_incomp_plain(
         tpts, tcor, tp.cell_compat, tp.prop_onehot, tp.data_mask,
-        tp.grid.cell_coords, tp.grid.consts, size=tp.grid.geom.size).numpy()
+        tp.grid.nearest_cell, tp.grid.consts,
+        size=tp.grid.geom.size).numpy()
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, pal)
 
@@ -189,7 +274,7 @@ def test_wrappers_take_plain_versions_on_cpu():
     _, (tpts, tcen, twid) = _both(pts, centers, widths)
     before = cuda_eval.launch_counts()
     args = (tpts, tcen, twid, None, tp.weights, tp.grid.cell_coords,
-            tp.grid.consts)
+            tp.grid.nearest_cell, tp.grid.consts)
     kw = dict(size=tp.grid.geom.size, norm=2)
     for a, b in zip(cuda_eval.geometric_bounds_kernel(*args, **kw),
                     cuda_eval.geometric_bounds_plain(*args, **kw)):
@@ -316,8 +401,8 @@ def _jax_lane_tables(jpairs):
 def _k3_args(stacked, a, trim, device="cpu"):
     t = {k: torch.as_tensor(v, device=device) for k, v in a.items()}
     return (t["pts"], t["centers"], t["widths"], t["unc"], stacked.weights,
-            stacked.grid.cell_coords, stacked.grid.consts,
-            stacked.counts[:, 1].contiguous() if trim else None,
+            stacked.grid.cell_coords, stacked.grid.nearest_cell,
+            stacked.grid.consts, stacked.counts[:, 1].contiguous() if trim else None,
             torch.as_tensor(_LANE_PAIR, dtype=torch.int32, device=device))
 
 
@@ -325,7 +410,7 @@ def _k4_args(stacked, a, device="cpu"):
     t = {k: torch.as_tensor(v, device=device) for k, v in a.items()}
     return (t["pts"], t["corners"], stacked.cell_compat,
             stacked.prop_onehot, stacked.data_mask,
-            stacked.grid.cell_coords, stacked.grid.consts,
+            stacked.grid.nearest_cell, stacked.grid.consts,
             torch.as_tensor(_LANE_PAIR, dtype=torch.int32, device=device))
 
 
@@ -349,7 +434,7 @@ def test_geometric_lanes_plain(trim):
         p = tpairs[w]
         one = cuda_eval.geometric_bounds_plain(
             *(x[lane:lane + 1] for x in args[:4]), p.weights,
-            p.grid.cell_coords, p.grid.consts,
+            p.grid.cell_coords, p.grid.nearest_cell, p.grid.consts,
             p.inlier_f() if trim else None, size=jt["size"], norm=2,
             fused=True)
         for g, o in zip(got, one):
@@ -371,7 +456,7 @@ def test_chem_lanes_plain_exact():
         p = tpairs[w]
         one = cuda_eval.chem_incomp_plain(
             args[0][lane:lane + 1], args[1][lane:lane + 1], p.cell_compat,
-            p.prop_onehot, p.data_mask, p.grid.cell_coords, p.grid.consts,
+            p.prop_onehot, p.data_mask, p.grid.nearest_cell, p.grid.consts,
             size=jt["size"])
         assert torch.equal(got[lane], one[0])
 
@@ -424,7 +509,7 @@ def test_geometric_kernel_matches_plain_on_card(cuda_device, mode):
               trim_k=tp.inlier_num if mode == "static" else 0)
     k = tp.inlier_f() if mode in ("dynamic", "fused_dynamic") else None
     args = (t[0], t[1], t[2], unc, tp.weights, tp.grid.cell_coords,
-            tp.grid.consts, k)
+            tp.grid.nearest_cell, tp.grid.consts, k)
     n0 = cuda_eval.geometric_bounds_kernel.launches
     got = cuda_eval.geometric_bounds_kernel(*args, **kw)
     want = cuda_eval.geometric_bounds_plain(*args, **kw)
@@ -445,7 +530,7 @@ def test_chem_kernel_matches_plain_on_card(cuda_device, q):
     cor = torch.as_tensor(rng.uniform(-0.8, 0.8, (8, q, 3)),
                           dtype=torch.float32, device=cuda_device)
     args = (pts, cor, tp.cell_compat, tp.prop_onehot, tp.data_mask,
-            tp.grid.cell_coords, tp.grid.consts)
+            tp.grid.nearest_cell, tp.grid.consts)
     got = cuda_eval.chem_incomp_kernel(*args, size=tp.grid.geom.size)
     want = cuda_eval.chem_incomp_plain(*args, size=tp.grid.geom.size)
     assert torch.equal(got, want)
@@ -476,12 +561,43 @@ def test_lane_kernels_match_plain_and_per_pair_kernels_on_card(cuda_device,
         p = tpairs[w]
         one3 = cuda_eval.geometric_bounds_kernel(
             *(x[lane:lane + 1].contiguous() for x in k3[:4]), p.weights,
-            p.grid.cell_coords, p.grid.consts,
+            p.grid.cell_coords, p.grid.nearest_cell, p.grid.consts,
             p.inlier_f() if trim else None, size=size, norm=2, fused=True)
         for g, o in zip(got3, one3):
             assert torch.equal(g[lane], o[0])
         one4 = cuda_eval.chem_incomp_kernel(
             k4[0][lane:lane + 1].contiguous(),
             k4[1][lane:lane + 1].contiguous(), p.cell_compat, p.prop_onehot,
-            p.data_mask, p.grid.cell_coords, p.grid.consts, size=size)
+            p.data_mask, p.grid.nearest_cell, p.grid.consts, size=size)
         assert torch.equal(got4[lane], one4[0])
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_with_table_in_device_memory_on_card(cuda_device):
+    """A 64^3 grid: the 1 MB nearest-cell table does not fit a block's
+    shared memory, so the kernels read it (and the cells) from device
+    memory.  Same tolerances as above: K1 untrimmed and trimmed sums, K2
+    exact."""
+    _, tp, _ = _pair(distTransSize=64, trimFraction=0.2)
+    tp = tp.to(cuda_device)
+    g = tp.grid
+    assert g.nearest_cell.numel() * 4 > 227 * 1024
+    pts, centers, widths, rw = _lanes(tp.n_data_padded, 47, L=8, B=64)
+    t = [torch.as_tensor(a, device=cuda_device)
+         for a in (pts, centers, widths, rw)]
+    unc = tev.rot_uncertainty(t[3], tp.norm_data).contiguous()
+    for k, tol in ((None, UNTRIMMED), (tp.inlier_f(), TRIMMED)):
+        args = (t[0], t[1], t[2], unc, tp.weights, g.cell_coords,
+                g.nearest_cell, g.consts, k)
+        kw = dict(size=g.geom.size, norm=2, fused=True)
+        for a, b in zip(cuda_eval.geometric_bounds_kernel(*args, **kw),
+                        cuda_eval.geometric_bounds_plain(*args, **kw)):
+            torch.testing.assert_close(a, b, **tol)
+    cor = torch.as_tensor(
+        np.random.default_rng(48).uniform(-0.8, 0.8, (8, 152, 3)),
+        dtype=torch.float32, device=cuda_device)
+    cargs = (t[0], cor, tp.cell_compat, tp.prop_onehot, tp.data_mask,
+             g.nearest_cell, g.consts)
+    assert torch.equal(
+        cuda_eval.chem_incomp_kernel(*cargs, size=g.geom.size),
+        cuda_eval.chem_incomp_plain(*cargs, size=g.geom.size))

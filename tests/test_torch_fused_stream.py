@@ -201,3 +201,20 @@ def test_unported_options_raise(case, kw, item):
         tfs.migrate_row_capacity({}, case["cfg"], case["cfg"])
     with pytest.raises(NotImplementedError, match="item 16"):
         tfs.straggler_to_lane_sharded(None, case["cfg"], {}, None)
+
+
+def test_load_stream_state_defaults_to_the_default_device(tmp_path):
+    """A checkpoint loads onto goicp_tpu_torch.default_device() unless the
+    caller names a device."""
+    import goicp_tpu_torch
+    path = str(tmp_path / "state.npz")
+    state = {"best": torch.arange(3, dtype=torch.float32),
+             "inner": {"count": torch.tensor([2, 5], dtype=torch.int32)}}
+    tfs.save_stream_state(path, state, [0, 1], [False, True], 2, {})
+    got, rows_orig, dead, next_pair, done = tfs.load_stream_state(path)
+    assert got["best"].device.type == goicp_tpu_torch.default_device().type
+    assert got["inner"]["count"].dtype == torch.int32
+    assert torch.equal(got["best"].cpu(), state["best"])
+    assert (rows_orig, dead, next_pair, done) == ([0, 1], [False, True], 2,
+                                                  {})
+    assert tfs.load_stream_state(path, "cpu")[0]["best"].device.type == "cpu"

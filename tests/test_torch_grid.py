@@ -44,7 +44,8 @@ def test_grid_fields_equal_jax(n, seed, size, pad):
         props = np.array([2, 2, 5], np.int32)
     kw = dict(pad_cells=pad[0], pad_points=pad[1]) if pad else {}
     gj = jedt.build_grid(pts, props, size=size, expand_factor=2.0, **kw)
-    gt = tedt.build_grid(pts, props, size=size, expand_factor=2.0, **kw)
+    gt = tedt.build_grid(pts, props, size=size, expand_factor=2.0,
+                         device="cpu", **kw)
     assert gt.n_cells == gj.n_cells
     assert vars(gt.geom) == vars(gj.geom)
     for f in _FIELDS:
@@ -58,7 +59,8 @@ def test_grid_fields_equal_jax(n, seed, size, pad):
 def test_lookups_equal_jax(seed, size):
     pts, props = _random_cloud(40, seed)
     gj = jedt.build_grid(pts, props, size=size, expand_factor=2.0)
-    gt = tedt.build_grid(pts, props, size=size, expand_factor=2.0)
+    gt = tedt.build_grid(pts, props, size=size, expand_factor=2.0,
+                         device="cpu")
     rng = np.random.default_rng(seed)
     # in-bounds, model points, and far out-of-bounds queries
     q = np.concatenate([rng.uniform(-1.0, 1.0, size=(200, 3)), pts,
@@ -81,7 +83,8 @@ def test_lookups_equal_jax(seed, size):
 def test_edt_matches_brute_force():
     pts, props = _random_cloud(50, 1)
     size = 12
-    g = tedt.build_grid(pts, props, size=size, expand_factor=2.0)
+    g = tedt.build_grid(pts, props, size=size, expand_factor=2.0,
+                        device="cpu")
     occ = g.cell_coords.numpy()[: g.n_cells].astype(np.float64)
     flat = np.arange(size ** 3)
     voxels = np.stack([flat % size, (flat // size) % size,
@@ -92,3 +95,12 @@ def test_edt_matches_brute_force():
     # first-minimum tie-break: the smallest index among the nearest cells
     d2 = ((voxels[:, None, :] - occ[None, :, :]) ** 2).sum(-1)
     np.testing.assert_array_equal(g.nearest_cell.numpy(), d2.argmin(axis=1))
+
+
+def test_build_grid_defaults_to_the_default_device():
+    import goicp_tpu_torch
+    pts, props = _random_cloud(20, 2)
+    g = tedt.build_grid(pts, props, size=8, expand_factor=2.0)
+    assert g.nearest_cell.device.type == \
+        goicp_tpu_torch.default_device().type
+    assert g.nearest_cell.dtype == torch.int32
