@@ -31,7 +31,10 @@ Phases, each of which fails the script (nonzero exit, no result line):
     held equal to nearest_occupied over all S^3 voxels.  One more pair is
     prepared on a 64^3 grid, whose 1 MB table does not fit a block's shared
     memory: K1 and K2 with the tables read from device memory, same
-    tolerances.  Times from CUDA events: a kernel's `ms` is the median of
+    tolerances.  K1 once more at the host-streaming engine's shape
+    (GoICPConfig's rot_batch 8: 64 lanes of 64 nodes) on syn07, fused,
+    plain+unc and plain, timed like the others.  Times from CUDA events:
+    a kernel's `ms` is the median of
     25 single launches (which on a busy host measures the enqueue, as the
     empty kernel's two times show), its `graph_ms` the per-launch time of
     50 launches replayed from one CUDA graph (the card's time); a plain
@@ -60,6 +63,30 @@ Phases, each of which fails the script (nonzero exit, no result line):
     register_packed_stream(width=16, chunk_steps=512) with 16 slots and
     transitions every 8 iterations; the same checks, and K3 and K4 must
     have launched again.
+ 7. the user's entry points, from files: a BO1-style data root written
+    in a temporary directory (goicp_tpu_torch/bench/bo1_files.py) holding
+    syn00, syn01, syn05, syn06, syn13 and syn07 as .mol2 cavities, c-FPFH
+    files, the RMSD path's chain and aligned protein files, a pair list and
+    a config.txt of GoICPConfig() + bench_shape.  The clouds and property
+    codes read back from the files must equal the pools'.  Then, through
+    goicp_tpu_torch.cli.main on the card: run-pair on syn07 with the device
+    engine (held to its reference row and to register_device on the same
+    prepared pair; output files written; RMSD near 0) and with the host
+    engine (converged, error within MSEThresh*Nd of the row); run-bo1
+    with the fused engine over the six pairs (each row equal in error and
+    counters to phase 3's result, RMSD below 1e-3), with the host and
+    device engines over two pairs (then again: both skipped); run-demo on
+    a random 1000-point cloud and a rotated, shifted 500-point subset of
+    it, on the demo's 300^3 grid (converged).  K1, K2, K3 and K4 must have
+    launched.
+ 8. the bench's own code at a smaller depth: bench/measure.py's similar
+    pool of 16 pairs in 4 shape buckets and its trimmed pool of 8, no
+    reference data, one timed pass each through the fused stream (width
+    2, 512-step chunks), held to measure._check_parity (converged, the
+    margin guard, the fp32 reference rows' errors and, on the similar pool,
+    their counters); pairs/s and bound evaluations/s printed, and the
+    pairs whose counters differ from their sweep383 rows (TPU runs).  K3
+    and K4 must have launched.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -67,6 +94,7 @@ last line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -78,6 +106,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 DEVICE = "cuda:0"
 SIMILAR = ["syn00", "syn01", "syn05", "syn06", "syn13", "syn07"]
+DEMO_POINTS = (1000, 500)   # phase 7's demo: model and data points
 TRIMMED = ["trm00", "trm01", "trm03", "trm13"]
 STREAM_SIMILAR = [f"syn{i:02d}" for i in range(16)]
 STREAM_TRIMMED = [f"trm{i:02d}" for i in range(8)]
@@ -105,11 +134,6 @@ def _require(ok, what):
     """A failed check ends the run (a plain raise, kept under python -O)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
-
-
-def _rows(path):
-    with open(path) as fh:
-        return {r["pair"]: r for r in map(json.loads, fh) if r}
 
 
 def _median_ms(fn, n=25):
@@ -196,6 +220,36 @@ def _check_table(pair, name):
              f"{size}^3 voxels")
 
 
+def _first_diff(a, b):
+    """Where two arrays first differ, for a failure message."""
+    import numpy as np
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape:
+        return f"shapes {a.shape} and {b.shape}"
+    diff = np.argwhere(a != b)
+    if not len(diff):
+        return "no difference"
+    i = tuple(int(x) for x in diff[0])
+    return f"first at {i}: {a[i]!r} vs {b[i]!r}"
+
+
+@contextlib.contextmanager
+def _returns(module, name):
+    """Record what module.name returns while the block runs (the CLI looks
+    its entry points up when it is called)."""
+    fn = getattr(module, name)
+    out = []
+
+    def wrapper(*args, **kw):
+        out.append(fn(*args, **kw))
+        return out[-1]
+    setattr(module, name, wrapper)
+    try:
+        yield out
+    finally:
+        setattr(module, name, fn)
+
+
 def _prepared(name, cfg, pools, dev):
     from goicp_tpu_torch.bench.measure import _normalized_synthetic
     from goicp_tpu_torch.pipeline.prepare import (make_count_dynamic,
@@ -203,6 +257,272 @@ def _prepared(name, cfg, pools, dev):
     data, model, dp, mp = _normalized_synthetic(pools[name])
     return make_count_dynamic(prepare_pair(data, model, dp, mp, cfg,
                                            bucket=True, device=dev))
+
+
+def _entry_points(cfg, pools, ref, phase3, dev):
+    """Phase 7: the CLI's subcommands on files written from the pools, on
+    the card.  Returns the kernels' launch counts of the phase."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from goicp_tpu_torch import cli
+    from goicp_tpu_torch.bench.bo1_files import write_bo1_root, write_config
+    from goicp_tpu_torch.bench.measure import (_normalized_synthetic,
+                                               synthetic_aligned)
+    from goicp_tpu_torch.bounds import cuda_eval
+    from goicp_tpu_torch.chem.properties import codes_to_indices
+    from goicp_tpu_torch.geom.rotation import rodrigues_np
+    from goicp_tpu_torch.io.xyz import write_normalized_cloud
+    from goicp_tpu_torch.pipeline import demo, pair as pair_mod
+    from goicp_tpu_torch.pipeline.prepare import prepare_pair
+    from goicp_tpu_torch.search.device_engine import register_device
+
+    cuda_eval.reset_launch_counts()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "bo1")
+        aligned = synthetic_aligned(64)
+        ids = write_bo1_root(root, [(n, *pools[n][1:], aligned[n])
+                                    for n in SIMILAR])
+        config = os.path.join(root, "config.txt")
+        write_config(config, cfg)
+        chains = os.path.join(root, "chains")
+        refp = os.path.join(root, "ref_proteins")
+
+        def cavity(cid):
+            return os.path.join(root, "cavities", f"{cid}_cavity6.mol2")
+
+        # the files hold the pools' pairs: the quantized clouds and the
+        # property codes read back equal the pools' own
+        for name, (src, tgt) in zip(SIMILAR, ids):
+            inputs = pair_mod.load_pair_inputs(cavity(tgt), cavity(src), cfg,
+                                               write_normalized=False)
+            want = _normalized_synthetic(pools[name])
+            for label, a, b in (
+                    ("data cloud", inputs.src_n, want[0]),
+                    ("model cloud", inputs.tgt_n, want[1]),
+                    ("data props", codes_to_indices(inputs.src_props),
+                     want[2]),
+                    ("model props", codes_to_indices(inputs.tgt_props),
+                     want[3])):
+                _require(np.array_equal(a, b),
+                         f"{name}: the {label} read back from the files == "
+                         f"the pool's ({_first_diff(a, b)})")
+        print(f"phase 7: wrote {len(ids)} pairs under a BO1-style root; the "
+              "clouds and property codes read back equal the pools'",
+              flush=True)
+
+        # ---- run-pair, device engine, syn07 ----
+        src7, tgt7 = ids[SIMILAR.index("syn07")]
+        nd7 = len(pools["syn07"][1])
+
+        def run_pair_argv(out, engine):
+            return ["run-pair", cavity(tgt7), cavity(src7), str(nd7), config,
+                    os.path.join(out, "output.txt"), "5", "--out-dir", out,
+                    "--chains-dir", chains, "--ref-proteins-dir", refp,
+                    "--engine", engine, "-q"]
+        out_dev = os.path.join(tmp, "run_pair_device")
+        t0 = time.perf_counter()
+        with _returns(pair_mod, "run_pair") as res:
+            _require(cli.main(run_pair_argv(out_dev, "device")) == 0,
+                     "run-pair --engine device")
+        wall = time.perf_counter() - t0
+        dres = res[0]
+        reg = dres.registration
+        row = ref["syn07"]
+        got = dict(error=reg.error, converged=reg.converged,
+                   outer=reg.outer_steps, evals=reg.bound_evals,
+                   icp_runs=reg.icp_runs, compat=reg.compatibilities,
+                   rmsd=dres.rmsd)
+        _require(reg.converged, "run-pair device syn07 converged")
+        _require(abs(reg.error - row["error"]) <= ERR_TOL,
+                 f"run-pair device syn07 error {reg.error} vs reference "
+                 f"row {row['error']}")
+        for k in ("outer", "evals", "icp_runs"):
+            _require(got[k] == row[k], f"run-pair device syn07 {k} "
+                     f"{got[k]} vs reference row {row[k]}")
+        inputs = pair_mod.load_pair_inputs(cavity(tgt7), cavity(src7), cfg,
+                                           write_normalized=False)
+        same = prepare_pair(inputs.src_n, inputs.tgt_n, inputs.src_props,
+                            inputs.tgt_props, cfg, nd_downsampled=nd7,
+                            bucket=True, device=dev)
+        r = register_device(same, cfg)
+        want = dict(error=float(r.error), outer=int(r.outer_iters),
+                    evals=int(r.evals), icp_runs=int(r.icp_runs),
+                    compat=nd7 - int(r.opt_comp))
+        _require(abs(got["error"] - want["error"]) <= STREAM_ERR_TOL
+                 and all(got[k] == want[k]
+                         for k in ("outer", "evals", "icp_runs", "compat")),
+                 f"run-pair device syn07 {got} vs register_device on the "
+                 f"same prepared pair {want}")
+        for f in ("output.txt", "output_rescaled.txt",
+                  f"cavitiesN/{src7}_cavity6_sim5N.xyz",
+                  f"cavitiesN/{tgt7}_cavity6_sim5N.xyz",
+                  f"rot/rot_{src7}_protein.mol2", "resultsRMSD.txt"):
+            _require(os.path.exists(os.path.join(out_dev, f)),
+                     f"run-pair wrote {f}")
+        _require(dres.rmsd is not None and dres.rmsd < 1e-3,
+                 f"run-pair device syn07 RMSD {dres.rmsd}")
+        print(f"run-pair syn07 --engine device: command {wall:.3f} s, "
+              f"registration {reg.time_s:.3f} s | {json.dumps(got)} | "
+              f"register_device on the same prepared pair "
+              f"{json.dumps(want)}", flush=True)
+
+        # ---- run-pair, host engine, syn07 ----
+        t0 = time.perf_counter()
+        with _returns(pair_mod, "run_pair") as res:
+            _require(cli.main(run_pair_argv(os.path.join(tmp, "host"),
+                                            "host")) == 0,
+                     "run-pair --engine host")
+        wall = time.perf_counter() - t0
+        hreg = res[0].registration
+        eps = cfg.MSEThresh * nd7
+        _require(hreg.converged and abs(hreg.error - row["error"]) <= eps,
+                 f"run-pair host syn07: converged {hreg.converged}, error "
+                 f"{hreg.error} vs row {row['error']} (eps {eps})")
+        print(f"run-pair syn07 --engine host: command {wall:.3f} s, "
+              f"registration {hreg.time_s:.3f} s, error {hreg.error:.6g} "
+              f"(row {row['error']}, eps {eps:.3g}), RMSD {res[0].rmsd:.3g}; "
+              f"outer steps {hreg.outer_steps}, evals {hreg.bound_evals}, "
+              f"ICP runs {hreg.icp_runs} (the device engine: "
+              f"{reg.outer_steps}, {reg.bound_evals}, {reg.icp_runs})",
+              flush=True)
+
+        # ---- run-bo1 ----
+        def bo1(engine, out, *extra):
+            t0 = time.perf_counter()
+            _require(cli.main(["run-bo1", root, config, "--out-dir", out,
+                               "--engine", engine, "-q", *extra]) == 0,
+                     f"run-bo1 --engine {engine}")
+            with open(os.path.join(out, "results_similar.jsonl")) as fh:
+                return [json.loads(x) for x in fh], time.perf_counter() - t0
+
+        def same_as_phase3(r, engine):
+            name = r["source"][:-1]
+            w = phase3[name]
+            _require(r.get("converged") and
+                     abs(r["error"] - w["error"]) <= STREAM_ERR_TOL
+                     and r["outer_steps"] == w["outer"]
+                     and r["bound_evals"] == w["evals"]
+                     and r["icp_runs"] == w["icp_runs"]
+                     and r["compatibilities"] == w["n_data"] - w["opt_comp"],
+                     f"run-bo1 {engine} {name}: row {r} vs phase 3 {w}")
+            _require(r["rmsd"] is not None and r["rmsd"] < 1e-3,
+                     f"run-bo1 {engine} {name}: RMSD {r['rmsd']}")
+
+        out_fused = os.path.join(tmp, "bo1_fused")
+        rows, wall = bo1("fused", out_fused)
+        _require(len(rows) == len(SIMILAR), f"run-bo1 fused: {len(rows)} "
+                 f"rows for {len(SIMILAR)} pairs")
+        for r in rows:
+            same_as_phase3(r, "fused")
+        print(f"run-bo1 --engine fused, {len(rows)} pairs: command "
+              f"{wall:.3f} s, stream wall {rows[0]['batch_wall_s']:.3f} s "
+              f"(batch {rows[0]['batch']}); every row equals phase 3 in "
+              f"error and counters; max RMSD "
+              f"{max(r['rmsd'] for r in rows):.3g}", flush=True)
+        for engine in ("host", "device"):
+            out = os.path.join(tmp, f"bo1_{engine}")
+            rows, wall = bo1(engine, out, "--limit", "2")
+            _require(len(rows) == 2 and not any("failed" in r for r in rows),
+                     f"run-bo1 {engine} --limit 2: rows {rows}")
+            for r in rows:
+                if engine == "device":
+                    same_as_phase3(r, engine)
+                else:
+                    w = ref[r["source"][:-1]]
+                    _require(r["converged"] and abs(r["error"] - w["error"])
+                             <= cfg.MSEThresh * phase3[r["source"][:-1]]
+                             ["n_data"], f"run-bo1 host: row {r}")
+            again, wall2 = bo1(engine, out, "--limit", "2")
+            _require(len(again) == 2, f"run-bo1 {engine}: the second call "
+                     "skips both pairs")
+            print(f"run-bo1 --engine {engine} --limit 2: command {wall:.3f} "
+                  f"s; again {wall2:.3f} s, both skipped", flush=True)
+
+        # ---- run-demo: a random cloud and a rigidly moved subset ----
+        rng = np.random.default_rng(1000)
+        nm, nd = DEMO_POINTS
+        model = rng.uniform(-0.7, 0.7, (nm, 3))
+        # a rotation ICP from the identity does not undo: the search takes
+        # some tens of outer steps (with angles up to 2.5 rad, ~100)
+        data = (model[:nd] - rng.uniform(-0.1, 0.1, 3)) @ rodrigues_np(
+            rng.uniform(-0.9, 0.9, 3))
+        for f, cloud in (("model.txt", model), ("data.txt", data)):
+            write_normalized_cloud(os.path.join(tmp, f), cloud)
+        t0 = time.perf_counter()
+        with _returns(demo, "run_demo") as res:
+            _require(cli.main(["run-demo", os.path.join(tmp, "model.txt"),
+                               os.path.join(tmp, "data.txt"), "--output",
+                               os.path.join(tmp, "demo_output.txt"),
+                               "-q"]) == 0, "run-demo")
+        wall = time.perf_counter() - t0
+        dem = res[0]
+        _require(dem.converged, f"run-demo converged ({dem})")
+        print(f"run-demo, {nm} model / {nd} data points, S="
+              f"{demo.DEMO_CONFIG.distTransSize}, device engine: command "
+              f"{wall:.3f} s, registration {dem.time_s:.3f} s, error "
+              f"{dem.error:.6g}, outer steps {dem.outer_steps}, evals "
+              f"{dem.bound_evals}, ICP runs {dem.icp_runs}", flush=True)
+
+    counts = cuda_eval.launch_counts()
+    print(f"phase 7 wall {time.perf_counter() - t_phase:.3f} s; launches "
+          f"during phase 7: {json.dumps(counts)}", flush=True)
+    for kname in counts:
+        _require(counts[kname] > 0, f"{kname} launched in phase 7")
+    return counts
+
+
+def _bench_phase(dev):
+    """Phase 8: the bench's pools at a smaller depth, one timed pass each.
+    Returns the kernels' launch counts of the phase."""
+    import numpy as np
+    import torch
+    import goicp_tpu_torch
+    from goicp_tpu_torch.bench import measure
+    from goicp_tpu_torch.bounds import cuda_eval
+
+    cfg = measure.bench_shape(goicp_tpu_torch.GoICPConfig())
+    cfg_t = dataclasses.replace(cfg, trimFraction=measure.TRIM_FRACTION,
+                                trans_capacity=256)
+    rows = measure.reference_rows()
+    cuda_eval.reset_launch_counts()
+    t_phase = time.perf_counter()
+    rates = {}
+    for label, c, n, build in (
+            ("similar", cfg, 16, lambda: measure.build_batch_buckets(
+                cfg, 16, max_buckets=4, device=dev)),
+            ("trimmed", cfg_t, 8, lambda: measure.build_trimmed_batch_buckets(
+                cfg_t, 8, device=dev))):
+        names = measure.similar_names(n) if label == "similar" else \
+            [e[0] for e in measure.synthetic_pool_trimmed(n)]
+        t0 = time.perf_counter()
+        buckets = build()
+        torch.cuda.synchronize()
+        prep = time.perf_counter() - t0
+        wall, out = measure.timed_pass(buckets, c, n, names, rows)
+        evals = int(np.sum(out.evals))
+        differ = measure.sweep_row_differences(out, names,
+                                               measure.sweep_rows())
+        rates[label] = (n / wall, evals / wall)
+        print(f"phase 8 bench {label} pool: {n} pairs in {len(buckets)} "
+              f"buckets (prepare {prep:.3f} s), one pass of the fused "
+              f"stream {wall:.3f} s = {n / wall:.4f} pairs/s, {evals} "
+              f"bound evaluations = {evals / wall:.1f} evals/s; "
+              f"_check_parity held; counters other than the sweep383 rows' "
+              f"(this run, row): {json.dumps(differ)}", flush=True)
+    print(f"phase 8: pairs_per_s {rates['similar'][0]:.4f}, "
+          f"trimmed_pairs_per_s {rates['trimmed'][0]:.4f}, "
+          f"bound_evals_per_s {rates['similar'][1]:.1f} (the card's, at "
+          f"this depth)", flush=True)
+    counts = cuda_eval.launch_counts()
+    print(f"phase 8 wall {time.perf_counter() - t_phase:.3f} s; launches "
+          f"during phase 8: {json.dumps(counts)}", flush=True)
+    for kname in ("geometric_bounds_kernel_lanes",
+                  "chem_incomp_kernel_lanes"):
+        _require(counts[kname] > 0, f"{kname} launched in phase 8")
+    return counts
 
 
 def main() -> int:
@@ -219,7 +539,8 @@ def main() -> int:
     from goicp_tpu_torch.bench.measure import (TRIM_FRACTION,
                                                _bucket_and_prepare,
                                                _normalized_synthetic,
-                                               bench_shape, synthetic_pool,
+                                               bench_shape, reference_rows,
+                                               sweep_rows, synthetic_pool,
                                                synthetic_pool_trimmed)
     from goicp_tpu_torch.bounds import cuda_eval
     from goicp_tpu_torch.bounds.evaluate import rot_uncertainty
@@ -433,6 +754,54 @@ def main() -> int:
           f"kernel {ms1:.4f} ms from a graph; K2 Q={corners64.shape[1]} "
           f"exact, kernel {ms2:.4f} ms from a graph", flush=True)
 
+    # K1 at the host-streaming engine's shape: GoICPConfig's rot_batch 8
+    # pops 8 rotation cubes an outer step, 8 children each: 64 lanes
+    LH = goicp_tpu_torch.GoICPConfig().rot_batch * 8
+    pair = _prepared("syn07", cfg, pools, dev)
+    g = pair.grid
+    rots_h = np.stack([rodrigues_np(v)
+                       for v in rng.uniform(-2.5, 2.5, (LH, 3))])
+    base_h = (torch.as_tensor(
+                  np.einsum("lij,nj->lni", rots_h, pair.data.cpu().numpy()),
+                  dtype=torch.float32, device=dev).contiguous(),
+              torch.as_tensor(rng.uniform(-0.5, 0.5, (LH, B, 3)),
+                              dtype=torch.float32, device=dev),
+              torch.as_tensor(rng.uniform(0.03, 0.5, (LH, B)),
+                              dtype=torch.float32, device=dev))
+    unc_h = rot_uncertainty(torch.as_tensor(rng.uniform(0.05, 1.0, LH),
+                                            dtype=torch.float32, device=dev),
+                            pair.norm_data).contiguous()
+    tabs_h = (pair.weights, g.cell_coords, g.nearest_cell, g.consts)
+    host_shape = {}
+    for label, ru, extra in (("fused", unc_h, dict(fused=True)),
+                             ("plain+unc", unc_h, {}), ("plain", None, {})):
+        def kern(args=(*base_h, ru, *tabs_h),
+                 kw=dict(size=g.geom.size, norm=cfg.norm, **extra)):
+            return cuda_eval.geometric_bounds_kernel(*args, **kw)
+
+        def plain(args=(*base_h, ru, *tabs_h),
+                  kw=dict(size=g.geom.size, norm=cfg.norm, **extra)):
+            return cuda_eval.geometric_bounds_plain(*args, **kw)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-6)
+        err = _max_err(got, want)
+        kernels["geometric_bounds_kernel"]["errs"].append(err)
+        ms, pms, dms = _median_ms(kern), _median_ms(plain), _device_ms(kern)
+        bms, bby = _bound(
+            LH * B * _real_points(pair),
+            GEOM_OPS_FUSED if extra else GEOM_OPS_PLAIN,
+            [*base_h, ru, *tabs_h, *got])
+        host_shape[label] = dict(ms=ms, graph_ms=dms, plain_ms=pms,
+                                 bound_ms=bms, bound_by=bby)
+        print(f"K1 syn07 {label}, the host engine's shape: L={LH} B={B} "
+              f"Nd={pair.n_data_padded} C={g.cell_coords.shape[0]} "
+              f"max_abs_err={err:.3g} (atol 1e-05, rtol 1e-06) kernel "
+              f"{ms:.4f} ms (from a graph {dms:.4f} ms) plain {pms:.4f} ms "
+              f"bound {bms:.6f} ms ({bby}) {floor}", flush=True)
+    kernels["geometric_bounds_kernel"]["host_shape"] = host_shape
+
     # K3 / K4 at the streams' shapes: two pairs of one bucket, 16 lanes
     # interleaved between them
     LS = 16
@@ -546,11 +915,10 @@ def main() -> int:
         return 0
 
     # ---- 3. registrations (the main path) ----
-    ref = _rows(os.path.join(REPO, "goicp_tpu_torch", "bench",
-                             "reference_rows.jsonl"))
-    sweep = _rows(os.path.join(REPO, "sweep383.jsonl"))
-    sweep.update(_rows(os.path.join(REPO, "sweep383_trimmed.jsonl")))
+    ref = reference_rows()
+    sweep = sweep_rows()
     cuda_eval.reset_launch_counts()
+    phase3 = {}
     for name in SIMILAR + TRIMMED:
         c = cfg if name.startswith("syn") else cfg_t
         t0 = time.perf_counter()
@@ -564,6 +932,8 @@ def main() -> int:
         got = dict(error=float(r.error), converged=bool(r.converged),
                    outer=int(r.outer_iters), inner=int(r.inner_iters),
                    evals=int(r.evals), icp_runs=int(r.icp_runs))
+        phase3[name] = dict(got, opt_comp=int(r.opt_comp),
+                            n_data=_real_points(pair))
         want, row = ref[name], sweep[name]
         row_match = all(got[k] == row[k]
                         for k in ("outer", "inner", "evals", "icp_runs"))
@@ -697,10 +1067,14 @@ def main() -> int:
         pairs, dataclasses.replace(c, packed_slots=16, packed_trans_every=8),
         width=16, chunk_steps=512))
 
+    counts7 = _entry_points(cfg, pools, ref, phase3, dev)
+    counts8 = _bench_phase(dev)
+
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"],
-         "launches": counts[kname] + counts5[kname] + counts6[kname],
+         "launches": sum(c[kname] for c in (counts, counts5, counts6,
+                                            counts7, counts8)),
          "max_abs_err": max(k["errs"]), "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None,

@@ -8,20 +8,26 @@ package, so `goicp_tpu/X/y.py` has its counterpart at
 
   config.py the search configuration (GoICPConfig)
   geom/     Rodrigues rotations, cloud normalisation
-  io/, chem/ the numpy host helpers preparation needs (6-digit
-            quantisation, c-FPFH bins, property codes, neighbour weights)
+  io/, chem/ file readers and writers (.mol2, .xyz, .cfpfh, BO1 pair
+            lists, output files) and the numpy host helpers preparation
+            needs (6-digit quantisation, property codes, neighbour weights)
+  native/   the host C++ runtime: the outer search's batched heap and the
+            .mol2 / float-table parsers, built at first use
   grid/     exact 3D EDT + nearest-occupied-cell fields, DT lookups
-  pipeline/ per-pair preparation (PairData), shape buckets
+  pipeline/ per-pair preparation (PairData), shape buckets, the pair
+            runner, the BO1 sweeps and the demo
+  cli.py    the command line: run-pair, run-bo1, run-demo
   bounds/   translation-node bound evaluation: torch gather path (CPU) and
             the four hand-written CUDA kernels (bounds/cuda_eval.py, csrc/)
   icp/      batched trimmed ICP with a closed-form 3x3 Jacobi SVD
-  search/   inner translation BnB, the device-side outer engine
-            (device_engine.py) and the cross-pair streams built on it:
+  search/   inner translation BnB, the host-streaming outer engine
+            (outer.py), the device-side outer engine (device_engine.py)
+            and the cross-pair streams built on it:
             fused_stream.py (every pair of a window advances each
             iteration) and packed_stream.py (a slot budget of lanes picked
             across the window)
   dist/     stacking prepared pairs along a pair axis (mesh.py)
-  bench/    the bench's synthetic pair pools and bucketed preparation
+  bench/    the bench (measure.py: pools, bucketed preparation, main)
 
 The port stands alone: it imports neither jax nor `goicp_tpu`.
 Everything runs in float32 with TF32 off, mirroring the
@@ -39,5 +45,9 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def default_device() -> torch.device:
-    """The first CUDA card when there is one, else the CPU."""
-    return torch.device("cuda:0" if torch.cuda.is_available() else "cpu")
+    """The first CUDA card.  Without one this raises: an entry point runs on
+    the CPU only when its caller passes device="cpu"."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device=\"cpu\" to run on "
+                           "the CPU")
+    return torch.device("cuda:0")

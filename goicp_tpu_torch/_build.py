@@ -1,4 +1,5 @@
-"""Build the CUDA kernels of `csrc/` into one shared library and load it.
+"""Build the CUDA kernels of `csrc/` into one shared library and load it;
+build the host C++ runtime of `native/` the same way (`host_library`).
 
 nvcc compiles every `csrc/*.cu` for sm_90a into a library with a plain C
 interface, which is loaded with ctypes: tensors pass as device pointers
@@ -6,7 +7,8 @@ interface, which is loaded with ctypes: tensors pass as device pointers
 all as `c_void_p`.  The library lands in `goicp_tpu_torch/_build/`, named
 by a hash of the sources and flags, so the first use builds it and later
 uses load it.  Only the repository's own sources are compiled, and there
-is no fast-math: sqrt and division stay IEEE.
+is no fast-math: sqrt and division stay IEEE.  A failed build raises; no
+caller falls back to another implementation.
 """
 
 from __future__ import annotations
@@ -25,7 +27,11 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+HOST_SRC = _PKG / "native"
+HOST_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-Wall")
+
 _lib = None
+_host_lib = None
 build_info: dict = {}    # path, seconds (0 when loaded from the cache), log
 
 _P = ctypes.c_void_p
@@ -59,6 +65,47 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+def _compile(compiler: str, flags: tuple, sources: list, stem: str):
+    """Compile sources into BUILD_DIR/<stem>_<hash of flags and sources>.so
+    unless it is there.  Returns (path, compiler log); the log is empty
+    when the library was already built."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    for path in sources:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    out = BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+    log = ""
+    if not out.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [compiler, *flags, "-o", str(tmp),
+               *(str(p) for p in sources if p.suffix in (".cu", ".cpp"))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"{os.path.basename(compiler)} failed with "
+                               f"code {proc.returncode}:\n{' '.join(cmd)}\n"
+                               f"{log}")
+        os.replace(tmp, out)
+    return out, log
+
+
+def host_library() -> ctypes.CDLL:
+    """The host C++ runtime (native/*.cpp: the outer search's batched heap,
+    the .mol2 and float-table parsers), built with the host's C++ compiler
+    at first use.  Its bindings are declared in native/__init__.py."""
+    global _host_lib
+    if _host_lib is None:
+        cxx = shutil.which("c++") or shutil.which("g++")
+        if cxx is None:
+            raise RuntimeError("no host C++ compiler (c++ or g++) on PATH: "
+                               "the native runtime is built at first use")
+        out, _ = _compile(cxx, HOST_FLAGS, sorted(HOST_SRC.glob("*.cpp")),
+                          "libgoicp_host")
+        _host_lib = ctypes.CDLL(str(out))
+    return _host_lib
+
+
 def library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     """The loaded kernel library, built first if needed.  ptxas_verbose
     adds `-Xptxas -v` (registers, shared memory and spills per kernel) to
@@ -67,24 +114,9 @@ def library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     flags = NVCC_FLAGS + (("-Xptxas", "-v") if ptxas_verbose else ())
-    sources = sorted(CSRC.glob("*.cu"))
-    h = hashlib.sha256(" ".join(flags).encode())
-    for path in sources + sorted(CSRC.glob("*.cuh")):
-        h.update(path.name.encode())
-        h.update(path.read_bytes())
-    out = BUILD_DIR / f"libgoicp_kernels_{h.hexdigest()[:16]}.so"
     t0 = time.perf_counter()
-    log = ""
-    if not out.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *flags, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                               f"{' '.join(cmd)}\n{log}")
-        os.replace(tmp, out)
+    out, log = _compile(_nvcc(), flags, sorted(CSRC.glob("*.cu"))
+                        + sorted(CSRC.glob("*.cuh")), "libgoicp_kernels")
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,8 +1,9 @@
 """Physico-chemical atom properties.
 
-Port of the parts of goicp_tpu/chem/properties.py the search uses.  The
-reference encodes 9 atom-name-derived properties as integer codes; the
-search uses dense indices 0..8 in the order below.
+Port of the parts of goicp_tpu/chem/properties.py the port uses.  The
+reference encodes 9 atom-name-derived properties
+as integer codes (the .mol2 readers return them, normalized .xyz files
+store them); the search uses dense indices 0..8 in the order below.
 """
 
 from __future__ import annotations
@@ -21,8 +22,18 @@ PROP_CODES = {
     "OD1": 0,
     "C": 1,
 }
+PROP_NAMES = list(PROP_CODES)                 # dense-index order, OG..C
 NUM_PROPS = len(PROP_CODES)                   # 9
 CODE_TO_INDEX = {code: i for i, code in enumerate(PROP_CODES.values())}
+
+# the protein-backbone properties RMSD is computed over
+RMSD_PROPS = frozenset({PROP_CODES["C"], PROP_CODES["CA"], PROP_CODES["N"],
+                        PROP_CODES["O"]})
+
+
+def string_to_prop(name: str) -> int:
+    """Atom name -> raw property code; unknown names fall back to OG."""
+    return PROP_CODES.get(name, PROP_CODES["OG"])
 
 
 def codes_to_indices(codes: np.ndarray) -> np.ndarray:

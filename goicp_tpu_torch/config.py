@@ -5,14 +5,15 @@ properties, so a configuration means the same search in both packages.
 The reference keys mirror the reference's `config.txt`; the rest shape the
 batched search (batch sizes, frontier capacities, iteration caps, the
 cross-pair streams' slot budgets) and only affect speed or pruning
-efficiency, never epsilon-optimality.  Only the fields the ported modules
-read are here: the host engine's `rot_frontier_capacity` comes with that
-engine, and reading a `config.txt` (`from_file`) comes with the CLI port.
+efficiency, never epsilon-optimality.  `from_file` reads a reference-style
+`config.txt` (`key=value`, `#` comments); keys the dataclass lacks are
+ignored, as the JAX package ignores them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +43,7 @@ class GoICPConfig:
     trans_capacity: int = 128    # translation frontier width per lane
     trans_pop: int = 8           # translation nodes expanded per iteration
     inner_max_iters: int = 200   # inner BnB iteration cap per invocation
+    rot_frontier_capacity: int = 500_000  # host engine's outer frontier cap
     device_rot_capacity: int = 2048  # device engine's outer frontier cap
     icp_max_iter: int = 200
     max_outer_steps: int = 100_000
@@ -75,3 +77,44 @@ class GoICPConfig:
     def mse_margin(self) -> float:
         """The per-point epsilon the engines search to."""
         return self.MSEThresh * self.margin_frac
+
+    def validate(self) -> "GoICPConfig":
+        if self.norm not in (1, 2):
+            raise ValueError("norm must be 1 (L1) or 2 (L2)")
+        if self.cfpfh not in (0, 1, 2, 3):
+            raise ValueError(f"cfpfh must be 0, 1, 2 or 3, not {self.cfpfh}")
+        if self.distTransSize < 2:
+            raise ValueError("distTransSize must be >= 2")
+        if not 0.0 <= self.trimFraction < 1.0:
+            raise ValueError("trimFraction must lie in [0, 1)")
+        return self
+
+    @classmethod
+    def from_file(cls, path: str) -> "GoICPConfig":
+        return cls.from_dict(parse_config_file(path))
+
+    @classmethod
+    def from_dict(cls, values: dict) -> "GoICPConfig":
+        """Field values from strings; int fields accept '8' and '8.0'."""
+        kwargs = {}
+        for f in dataclasses.fields(cls):
+            if f.name in values:
+                raw = values[f.name]
+                kwargs[f.name] = int(float(raw)) if f.type in ("int", int) \
+                    else float(raw)
+        return cls(**kwargs).validate()
+
+
+def parse_config_file(path: str) -> dict:
+    """A reference-style config file -> {key: value string}: `key=value`
+    (or `key value`, `key;value`), `#` starts a comment."""
+    values = {}
+    with open(path, "r") as fh:
+        for line in fh:
+            line = line.split("#", 1)[0].strip()
+            if not line:
+                continue
+            m = re.match(r"([A-Za-z0-9_]+)\s*[=; ]\s*(\S+)", line)
+            if m:
+                values[m.group(1)] = m.group(2)
+    return values

@@ -7,7 +7,8 @@ sweep383*.jsonl rows.
 
     python tests/test_torch_device_engine.py --write-rows
 
-regenerates the reference rows with the JAX package on the CPU.
+regenerates the reference rows of all 96 bench pairs (syn00-syn63,
+trm00-trm31) with the JAX package on the CPU (~15 min in one process).
 """
 
 import dataclasses
@@ -38,8 +39,8 @@ from tests.test_device_engine import _cfg, _pair  # noqa: E402
 torch.set_num_threads(1)
 
 ROWS = REPO / "goicp_tpu_torch" / "bench" / "reference_rows.jsonl"
-PAIRS = ["syn00", "syn01", "syn05", "syn06", "syn07", "syn13",
-         "trm00", "trm01", "trm03", "trm13"]
+BENCH_PAIRS = [f"syn{i:02d}" for i in range(64)] + \
+    [f"trm{i:02d}" for i in range(32)]
 _COUNTERS = ("outer_iters", "evals", "inner_iters", "icp_runs", "opt_comp",
              "geom_surv", "chem_corners", "converged", "last_icp")
 
@@ -118,7 +119,8 @@ def test_bench_pair_matches_jax_and_rows(name):
     want = jax.device_get(jeng.register_device(jp, cfg))
     # the port's own preparation, not a copy of the JAX pair
     tcfg = _port_cfg(cfg)
-    tp = tprep.make_count_dynamic(tprep.prepare_pair(*raw, tcfg, bucket=True))
+    tp = tprep.make_count_dynamic(tprep.prepare_pair(*raw, tcfg, bucket=True,
+                                                     device="cpu"))
     got = teng.register_device(tp, tcfg)
     _assert_same(got, want)
     with open(ROWS) as fh:
@@ -142,7 +144,7 @@ def test_bench_pair_matches_jax_and_rows(name):
 
 def write_rows():
     with open(ROWS, "w") as fh:
-        for name in PAIRS:
+        for name in BENCH_PAIRS:
             cfg, jp, _ = _bench(name)
             row = _row(jax.device_get(jeng.register_device(jp, cfg)))
             fh.write(json.dumps({"pair": name, **row}) + "\n")

@@ -204,15 +204,20 @@ def test_unported_options_raise(case, kw, item):
 
 
 def test_load_stream_state_defaults_to_the_default_device(tmp_path):
-    """A checkpoint loads onto goicp_tpu_torch.default_device() unless the
-    caller names a device."""
-    import goicp_tpu_torch
+    """A checkpoint loads onto the card (cuda:0) unless the caller names a
+    device; without a card, device=None is an error asking for "cpu"."""
     path = str(tmp_path / "state.npz")
     state = {"best": torch.arange(3, dtype=torch.float32),
              "inner": {"count": torch.tensor([2, 5], dtype=torch.int32)}}
     tfs.save_stream_state(path, state, [0, 1], [False, True], 2, {})
-    got, rows_orig, dead, next_pair, done = tfs.load_stream_state(path)
-    assert got["best"].device.type == goicp_tpu_torch.default_device().type
+    if torch.cuda.is_available():
+        assert tfs.load_stream_state(path)[0]["best"].device == \
+            torch.device("cuda:0")
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            tfs.load_stream_state(path)
+    got, rows_orig, dead, next_pair, done = tfs.load_stream_state(path,
+                                                                  "cpu")
     assert got["inner"]["count"].dtype == torch.int32
     assert torch.equal(got["best"].cpu(), state["best"])
     assert (rows_orig, dead, next_pair, done) == ([0, 1], [False, True], 2,

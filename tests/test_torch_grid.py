@@ -98,9 +98,15 @@ def test_edt_matches_brute_force():
 
 
 def test_build_grid_defaults_to_the_default_device():
-    import goicp_tpu_torch
+    """device=None means the card: cuda:0 where there is one, else an
+    error asking for device="cpu"."""
     pts, props = _random_cloud(20, 2)
-    g = tedt.build_grid(pts, props, size=8, expand_factor=2.0)
-    assert g.nearest_cell.device.type == \
-        goicp_tpu_torch.default_device().type
+    if torch.cuda.is_available():
+        g = tedt.build_grid(pts, props, size=8, expand_factor=2.0)
+        assert g.nearest_cell.device == torch.device("cuda:0")
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            tedt.build_grid(pts, props, size=8, expand_factor=2.0)
+        g = tedt.build_grid(pts, props, size=8, expand_factor=2.0,
+                            device="cpu")
     assert g.nearest_cell.dtype == torch.int32

@@ -20,18 +20,14 @@ from goicp_tpu_torch.geom import normalize as tnorm
 from goicp_tpu_torch.io import cfpfh as tcfpfh
 from goicp_tpu_torch.io import xyz as txyz
 
-# read only by the host engine, which is not ported yet
-_NOT_PORTED = {"rot_frontier_capacity"}
-
 
 @pytest.mark.parametrize("kw", [{}, dict(MSEThresh=0.02, margin_frac=0.9,
                                          trimFraction=0.1)])
 def test_config_matches_jax(kw):
     j, t = jconfig.GoICPConfig(**kw), tconfig.GoICPConfig(**kw)
     jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
-    # the port's fields, in the JAX order, less those of unported modules
-    assert list(td) == [k for k in jd if k not in _NOT_PORTED]
-    assert td == {k: jd[k] for k in td}
+    # every field, in the JAX order, with the JAX defaults
+    assert td == jd and list(td) == list(jd)
     for prop in ("doTrim", "err_diff", "mse_margin"):
         assert getattr(t, prop) == getattr(j, prop)
 

@@ -190,7 +190,7 @@ def test_scoring_batched_rows_equal_single():
     data, model = _clouds(8)
     props = np.zeros(len(model), np.int32)
     tp = pair_from_jax(jprep.prepare_pair(data, model, props[:len(data)],
-                                          props, cfg))
+                                          props, cfg), "cpu")
     rng = np.random.default_rng(4)
     Rs = torch.as_tensor(np.stack([rodrigues_np(rng.uniform(-1, 1, 3))
                                    for _ in range(3)]), dtype=torch.float32)

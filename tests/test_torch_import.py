@@ -1,6 +1,7 @@
 """The PyTorch port imports, prepares and searches (one pair, and a window
 of pairs through both cross-pair streams) without jax and without the JAX
-package, and importing its kernel module neither builds nor needs nvcc."""
+package, and importing its kernel module neither builds nor needs nvcc.
+Its default device is the card: cuda:0, and without a card an error."""
 
 import os
 import pathlib
@@ -8,6 +9,9 @@ import re
 import subprocess
 import sys
 import textwrap
+
+import pytest
+import torch
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = REPO / "goicp_tpu_torch"
@@ -22,8 +26,23 @@ _CHILD = textwrap.dedent("""
     import goicp_tpu_torch
     from goicp_tpu_torch.bounds import cuda_eval
     assert "goicp_tpu_torch._build" not in sys.modules
-    assert goicp_tpu_torch.default_device() == torch.device(
-        "cuda:0" if torch.cuda.is_available() else "cpu")
+    if torch.cuda.is_available():
+        assert goicp_tpu_torch.default_device() == torch.device("cuda:0")
+    else:
+        try:
+            goicp_tpu_torch.default_device()
+            raise AssertionError("default_device() without a card")
+        except RuntimeError as exc:
+            assert 'device="cpu"' in str(exc)
+    # the user's entry points import too (the host engine, the CLI, the
+    # pair runner, the sweeps, the demo, the bench's main)
+    from goicp_tpu_torch import cli
+    from goicp_tpu_torch.bench import measure
+    from goicp_tpu_torch.pipeline import demo, device_sweep, pair, sweep
+    from goicp_tpu_torch.search import outer
+    assert cli.main and measure.main and pair.run_pair and outer.register
+    assert sweep.run_sweep and device_sweep.run_sweep_device_batch
+    assert demo.run_demo
     from goicp_tpu_torch.pipeline.prepare import prepare_pair
     from goicp_tpu_torch.search.inner import inner_bnb
 
@@ -34,7 +53,8 @@ _CHILD = textwrap.dedent("""
     cfg = goicp_tpu_torch.GoICPConfig(regularization=0.0005,
                                       distTransSize=10, trans_capacity=32,
                                       trans_pop=4, inner_max_iters=20)
-    pair = prepare_pair(data, model, props[:32], props, cfg, pad_data_to=64)
+    pair = prepare_pair(data, model, props[:32], props, cfg, pad_data_to=64,
+                        device="cpu")
     L = 4
     pts = torch.as_tensor(rng.normal(size=(L, 64, 3)) * 0.4,
                           dtype=torch.float32)
@@ -45,7 +65,6 @@ _CHILD = textwrap.dedent("""
     assert bool(torch.isfinite(res.best_err).all())
 
     # the cross-pair stream modules, a few global iterations of each
-    from goicp_tpu_torch.bench import measure
     from goicp_tpu_torch.dist.mesh import stack_pairs
     from goicp_tpu_torch.pipeline.prepare import make_count_dynamic
     from goicp_tpu_torch.search import fused_stream, packed_stream
@@ -79,6 +98,14 @@ def test_port_runs_without_jax_or_nvcc():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+@pytest.mark.cuda
+def test_default_device_is_the_first_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import goicp_tpu_torch
+    assert goicp_tpu_torch.default_device() == torch.device("cuda:0")
 
 
 def test_no_module_imports_jax_or_the_jax_package():

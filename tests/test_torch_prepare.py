@@ -70,7 +70,7 @@ def test_prepare_pair_equals_jax(case, dynamic):
     cfg = GoICPConfig(**{"distTransSize": 12, **case["cfg"]})
     args, kw = _inputs(3, fpfh=case.get("fpfh", False))
     jp = jprep.prepare_pair(*args, cfg, **kw, **case["pad"])
-    tp = tprep.prepare_pair(*args, cfg, **kw, **case["pad"])
+    tp = tprep.prepare_pair(*args, cfg, **kw, **case["pad"], device="cpu")
     if dynamic:
         jp, tp = jprep.make_count_dynamic(jp), tprep.make_count_dynamic(tp)
     _assert_same(tp, jp)
@@ -190,13 +190,17 @@ def test_bucket_and_prepare_multi_and_reassemble():
 
 
 def test_prepare_defaults_to_the_default_device():
-    import goicp_tpu_torch
+    """device=None means the card: cuda:0 where there is one, else an
+    error asking for device="cpu" (never a silent CPU run)."""
     args, kw = _inputs(5)
     cfg = GoICPConfig(distTransSize=10)
-    p = tprep.prepare_pair(*args, cfg)
-    assert p.device == goicp_tpu_torch.default_device() \
-        or p.device.type == goicp_tpu_torch.default_device().type
     jp = jprep.prepare_pair(*args, cfg)
-    assert tprep.pair_from_jax(jp).device.type == \
-        goicp_tpu_torch.default_device().type
+    if torch.cuda.is_available():
+        assert tprep.prepare_pair(*args, cfg).device == torch.device("cuda:0")
+        assert tprep.pair_from_jax(jp).device == torch.device("cuda:0")
+    else:
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            tprep.prepare_pair(*args, cfg)
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            tprep.pair_from_jax(jp)
     assert tprep.pair_from_jax(jp, "cpu").device.type == "cpu"
