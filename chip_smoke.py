@@ -50,7 +50,11 @@ Phases, each of which fails the script (nonzero exit, no result line):
     pool.  Each pair's nearest-cell table is checked as in phase 2, and
     each result is held against the fp32 reference rows (the JAX package's
     register_device on XLA:CPU, goicp_tpu_torch/bench/reference_rows.jsonl)
-    and printed beside its sweep383*.jsonl row.
+    and printed beside its sweep383*.jsonl row.  Then syn07 again with
+    sorted_merge=1 and with chem_survivors = 8 * trans_pop (every child),
+    each equal to phase 3's syn07 in error, R, t, opt_comp, evals, outer,
+    inner and geom_surv, and with chem_survivors=8 (capped at twice the
+    outer steps; converged or not, an achievable error and a valid gap).
  4. proof: K1's and K2's launch counters, zeroed just before phase 3, are
     > 0 after it.
  5. the fused cross-pair stream: the similar pool syn00-syn15 and the
@@ -58,7 +62,10 @@ Phases, each of which fails the script (nonzero exit, no result line):
     (every pair's nearest-cell table checked as in phase 2), through register_fused_stream(width=2, chunk_steps=512).  Every pair is
     held against the port's register_device on the same prepared pair and,
     where there is one, against its fp32 reference row.  K3 and K4 must
-    have launched.
+    have launched.  Then the trimmed pool once more with escalate_capacity
+    = 2 * trans_capacity after 1 chunk of 64 global iterations: at least
+    one pair escalated, every pair converged, error within MSEThresh*Nd +
+    1e-5 of the plain stream's.
  6. the slot-packed stream on the same pools:
     register_packed_stream(width=16, chunk_steps=512) with 16 slots and
     transitions every 8 iterations; the same checks, and K3 and K4 must
@@ -74,8 +81,10 @@ Phases, each of which fails the script (nonzero exit, no result line):
     prepared pair; output files written; RMSD near 0) and with the host
     engine (converged, error within MSEThresh*Nd of the row); run-bo1
     with the fused engine over the six pairs (each row equal in error and
-    counters to phase 3's result, RMSD below 1e-3), with the host and
-    device engines over two pairs (then again: both skipped); run-demo on
+    counters to phase 3's result, RMSD below 1e-3), with the device-batch
+    engine (the compacting batch) over the six pairs (the same checks;
+    then again: every pair skipped), with the host and device engines
+    over two pairs (then again: both skipped); run-demo on
     a random 1000-point cloud and a rotated, shifted 500-point subset of
     it, on the demo's 300^3 grid (converged).  K1, K2, K3 and K4 must have
     launched.
@@ -87,6 +96,17 @@ Phases, each of which fails the script (nonzero exit, no result line):
     their counters); pairs/s and bound evaluations/s printed, and the
     pairs whose counters differ from their sweep383 rows (TPU runs).  K3
     and K4 must have launched.
+ 9. the compacting batch engine: phase 3's six similar pairs in one
+    pool-max bucket and its four trimmed pairs in another (every nearest-
+    cell table checked), each set through register_device_batch_compact
+    (chunk_steps=256, pad_to=8); every pair equal to phase 3's
+    register_device (outer, inner, evals, icp_runs, opt_comp; error to
+    1e-5) and to its fp32 row.  The similar batch is stopped after one
+    chunk (max_chunks=1, a checkpoint in a temporary directory) and
+    resumed: every pair equal to the uninterrupted run.  K3 and K4 launch
+    once per batched inner iteration: fewer times than the rows' inner
+    iterations together.  Chunks, the widths the batch compacted through,
+    and the launches are printed; K2, K3 and K4 must have launched.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -422,6 +442,23 @@ def _entry_points(cfg, pools, ref, phase3, dev):
               f"(batch {rows[0]['batch']}); every row equals phase 3 in "
               f"error and counters; max RMSD "
               f"{max(r['rmsd'] for r in rows):.3g}", flush=True)
+        out_batch = os.path.join(tmp, "bo1_device_batch")
+        rows, wall = bo1("device-batch", out_batch)
+        _require(len(rows) == len(SIMILAR), f"run-bo1 device-batch: "
+                 f"{len(rows)} rows for {len(SIMILAR)} pairs")
+        for r in rows:
+            same_as_phase3(r, "device-batch")
+            _require(r["engine"] == "device-batch",
+                     f"run-bo1 device-batch: engine {r['engine']}")
+        again, wall2 = bo1("device-batch", out_batch)
+        _require(len(again) == len(SIMILAR), "run-bo1 device-batch: the "
+                 "second call skips every pair")
+        print(f"run-bo1 --engine device-batch, {len(rows)} pairs: command "
+              f"{wall:.3f} s, batch walls "
+              f"{sorted({round(r['batch_wall_s'], 3) for r in rows})} s "
+              f"(batches {sorted({r['batch'] for r in rows})}); every row "
+              f"equals phase 3 in error and counters; again {wall2:.3f} s, "
+              f"every pair skipped", flush=True)
         for engine in ("host", "device"):
             out = os.path.join(tmp, f"bo1_{engine}")
             rows, wall = bo1(engine, out, "--limit", "2")
@@ -471,6 +508,181 @@ def _entry_points(cfg, pools, ref, phase3, dev):
           f"during phase 7: {json.dumps(counts)}", flush=True)
     for kname in counts:
         _require(counts[kname] > 0, f"{kname} launched in phase 7")
+    return counts
+
+
+def _knob_phase(cfg, pair, full):
+    """Phase 3's additions: syn07 (its phase-3 pair and result `full`) with
+    the knobs that change how the search works, never what it finds
+    (sorted_merge, chem_survivors at the full budget: the same result and
+    counters), and with a chem budget of 8 (sound: an achievable
+    incumbent, a valid gap).  Returns the kernels' launch counts."""
+    import torch
+    from goicp_tpu_torch.bounds import cuda_eval
+    from goicp_tpu_torch.search.device_engine import register_device
+
+    cuda_eval.reset_launch_counts()
+    for label, c in (
+            ("sorted_merge=1", dataclasses.replace(cfg, sorted_merge=1)),
+            (f"chem_survivors={8 * cfg.trans_pop} (every child)",
+             dataclasses.replace(cfg, chem_survivors=8 * cfg.trans_pop))):
+        t0 = time.perf_counter()
+        r = register_device(pair, c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _require(float(r.error) == float(full.error)
+                 and torch.equal(r.R, full.R) and torch.equal(r.t, full.t),
+                 f"syn07 {label}: error {float(r.error)!r}, R, t == phase "
+                 f"3's ({float(full.error)!r})")
+        for f in ("opt_comp", "evals", "outer_iters", "inner_iters",
+                  "geom_surv"):
+            _require(int(getattr(r, f)) == int(getattr(full, f)),
+                     f"syn07 {label}: {f} {int(getattr(r, f))} == phase "
+                     f"3's {int(getattr(full, f))}")
+        print(f"phase 3, syn07 {label}: register {wall:.3f} s; error, R, t, "
+              f"opt_comp, evals, outer, inner, geom_surv equal phase 3's "
+              f"(chem corners {int(r.chem_corners)}, phase 3 "
+              f"{int(full.chem_corners)})", flush=True)
+    # a small budget prunes weakly: capped at twice the lattice run's steps
+    c8 = dataclasses.replace(cfg, chem_survivors=8,
+                             max_outer_steps=2 * int(full.outer_iters))
+    t0 = time.perf_counter()
+    r = register_device(pair, c8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eps = cfg.MSEThresh * _real_points(pair)
+    _require(float(r.error) >= float(full.error) - eps - 1e-5
+             and float(r.gap) >= -1e-5,
+             f"syn07 chem_survivors=8: error {float(r.error)} >= "
+             f"{float(full.error)} - {eps} - 1e-5, gap {float(r.gap)} >= 0")
+    print(f"phase 3, syn07 chem_survivors=8 (max_outer_steps "
+          f"{c8.max_outer_steps}): register {wall:.3f} s, converged "
+          f"{bool(r.converged)}, error {float(r.error):.6g} (full budget "
+          f"{float(full.error):.6g}, eps {eps:.3g}), gap {float(r.gap):.4g}, "
+          f"outer {int(r.outer_iters)}, evals {int(r.evals)}, chem corners "
+          f"per inner iteration "
+          f"{int(r.chem_corners) / max(int(r.inner_iters), 1):.1f} (full "
+          f"budget {int(full.chem_corners) / max(int(full.inner_iters), 1):.1f})",
+          flush=True)
+    counts = cuda_eval.launch_counts()
+    print(f"launches during phase 3's additions: {json.dumps(counts)}",
+          flush=True)
+    return counts
+
+
+def _batch_phase(cfg, cfg_t, pools, ref, phase3, dev):
+    """Phase 9: the compacting batch engine on the card.  Phase 3's six
+    similar pairs in one pool-max bucket, then its four trimmed pairs,
+    through register_device_batch_compact(chunk_steps=256, pad_to=8), each
+    pair held to phase 3's register_device and to its fp32 row; then the
+    similar batch stopped after one chunk and resumed from its checkpoint.
+    Returns the kernels' launch counts of the phase."""
+    import tempfile
+
+    import torch
+    from goicp_tpu_torch.bench.measure import (_bucket_and_prepare,
+                                               _normalized_synthetic)
+    from goicp_tpu_torch.bounds import cuda_eval
+    from goicp_tpu_torch.search import chunked
+
+    cuda_eval.reset_launch_counts()
+    t_phase = time.perf_counter()
+    counters = ("outer", "inner", "evals", "icp_runs", "opt_comp")
+
+    def got_of(out, i):
+        return dict(error=float(out.error[i]),
+                    converged=bool(out.converged[i]),
+                    outer=int(out.outer_iters[i]),
+                    inner=int(out.inner_iters[i]), evals=int(out.evals[i]),
+                    icp_runs=int(out.icp_runs[i]),
+                    opt_comp=int(out.opt_comp[i]))
+
+    for label, names, c in (("similar", SIMILAR, cfg),
+                            ("trimmed", TRIMMED, cfg_t)):
+        pairs = _bucket_and_prepare(
+            [_normalized_synthetic(pools[n]) for n in names], c, device=dev)
+        for n, p in zip(names, pairs):
+            _check_table(p, f"{n} (phase 9's {label} bucket)")
+        chunked.reset_counters()
+        before = cuda_eval.launch_counts()
+        t0 = time.perf_counter()
+        out = chunked.register_device_batch_compact(pairs, c, chunk_steps=256,
+                                                    pad_to=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: v - before[k]
+                    for k, v in cuda_eval.launch_counts().items()}
+        widths = list(chunked.counters["widths"])
+        for i, name in enumerate(names):
+            got, want, row = got_of(out, i), phase3[name], ref[name]
+            _require(got["converged"]
+                     and abs(got["error"] - want["error"]) <= STREAM_ERR_TOL
+                     and all(got[k] == want[k] for k in counters),
+                     f"batch {name}: {got} vs phase 3's register_device "
+                     f"{want}")
+            _require(abs(got["error"] - row["error"]) <= ERR_TOL,
+                     f"batch {name}: error {got['error']} vs reference row "
+                     f"{row['error']}")
+            if name.startswith("syn"):
+                _require(all(got[k] == row[k] for k in
+                             ("outer", "inner", "evals", "icp_runs")),
+                         f"batch {name}: {got} vs reference row {row}")
+            else:
+                _require(abs(got["evals"] - row["evals"])
+                         <= TRIM_EVALS_REL * row["evals"],
+                         f"batch {name}: evals {got['evals']} vs reference "
+                         f"row {row['evals']}")
+        # one K3 and one K4 launch per BATCHED inner iteration: fewer than
+        # the rows' own inner iterations together, no fewer than the most
+        # of one row
+        inner = [int(x) for x in out.inner_iters]
+        k3 = launched["geometric_bounds_kernel_lanes"]
+        _require(k3 == launched["chem_incomp_kernel_lanes"]
+                 and max(inner) <= k3 < sum(inner),
+                 f"batch {label}: K3 {k3} / K4 "
+                 f"{launched['chem_incomp_kernel_lanes']} launches for the "
+                 f"rows' inner iterations {inner}")
+        print(f"phase 9 compacting batch, {label}: {len(pairs)} pairs padded "
+              f"to 8 (Nd={pairs[0].n_data_padded}, C="
+              f"{pairs[0].grid.cell_coords.shape[0]}): wall {wall:.3f} s, "
+              f"{len(widths)} chunks at widths {widths}, "
+              f"outer steps {[int(x) for x in out.outer_iters]}, inner "
+              f"iterations {inner} (sum {sum(inner)}) in {k3} batched inner "
+              f"iterations; every pair "
+              f"equals phase 3 (outer, inner, evals, icp_runs, opt_comp; "
+              f"error to 1e-5) and its fp32 row; launches "
+              f"{json.dumps(launched)}", flush=True)
+        if label != "similar":
+            continue
+        # stopped after its first chunk, resumed from the checkpoint
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "batch.npz")
+            t0 = time.perf_counter()
+            try:
+                chunked.register_device_batch_compact(
+                    pairs, c, chunk_steps=256, pad_to=8, checkpoint_path=ck,
+                    max_chunks=1)
+                _require(False, "max_chunks=1 stops the similar batch")
+            except RuntimeError as exc:
+                _require("in flight" in str(exc), f"max_chunks=1: {exc}")
+            resumed = chunked.register_device_batch_compact(
+                pairs, c, chunk_steps=256, pad_to=8, checkpoint_path=ck,
+                resume=True)
+            torch.cuda.synchronize()
+            wall2 = time.perf_counter() - t0
+        for i, name in enumerate(names):
+            a, b = got_of(resumed, i), got_of(out, i)
+            _require(a == b, f"resumed batch {name}: {a} vs the "
+                     f"uninterrupted run {b}")
+        print(f"phase 9: the similar batch stopped after one chunk and "
+              f"resumed from its checkpoint: {wall2:.3f} s, every pair "
+              f"equal to the uninterrupted run", flush=True)
+    counts = cuda_eval.launch_counts()
+    print(f"phase 9 wall {time.perf_counter() - t_phase:.3f} s; launches "
+          f"during phase 9: {json.dumps(counts)}", flush=True)
+    for kname in ("chem_incomp_kernel", "geometric_bounds_kernel_lanes",
+                  "chem_incomp_kernel_lanes"):
+        _require(counts[kname] > 0, f"{kname} launched in phase 9")
     return counts
 
 
@@ -919,6 +1131,7 @@ def main() -> int:
     sweep = sweep_rows()
     cuda_eval.reset_launch_counts()
     phase3 = {}
+    syn07 = None
     for name in SIMILAR + TRIMMED:
         c = cfg if name.startswith("syn") else cfg_t
         t0 = time.perf_counter()
@@ -934,6 +1147,8 @@ def main() -> int:
                    evals=int(r.evals), icp_runs=int(r.icp_runs))
         phase3[name] = dict(got, opt_comp=int(r.opt_comp),
                             n_data=_real_points(pair))
+        if name == "syn07":
+            syn07 = (pair, r)
         want, row = ref[name], sweep[name]
         row_match = all(got[k] == row[k]
                         for k in ("outer", "inner", "evals", "icp_runs"))
@@ -961,6 +1176,7 @@ def main() -> int:
           flush=True)
     for kname in ("geometric_bounds_kernel", "chem_incomp_kernel"):
         _require(counts[kname] > 0, f"{kname} launched on the main path")
+    counts3k = _knob_phase(cfg, *syn07)
 
     # ---- 5. and 6. the cross-pair streams ----
     stream_pools = []
@@ -989,6 +1205,8 @@ def main() -> int:
               flush=True)
         stream_pools.append((label, names, c, pairs, refs))
 
+    stream_outs = {}
+
     def run_stream(phase, engine, fn):
         """Drive one stream over both pools with the launch counts at 0,
         hold every pair against register_device and its reference row,
@@ -1001,6 +1219,7 @@ def main() -> int:
             out = fn(pairs, c)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            stream_outs[(phase, label)] = out
             sc = dict(fused_stream.counters)
             launched = {k: v - before[k]
                         for k, v in cuda_eval.launch_counts().items()}
@@ -1063,18 +1282,57 @@ def main() -> int:
 
     counts5 = run_stream(5, "fused", lambda pairs, c: register_fused_stream(
         pairs, c, width=2, chunk_steps=512))
+
+    # phase 5's addition: the trimmed pool once more, every pair alive
+    # after one chunk of 64 global iterations finished at twice the
+    # translation frontier's capacity (after 2 chunks no trimmed pair is
+    # still alive at width 2)
+    _, names, c, pairs, _ = stream_pools[1]
+    plain = stream_outs[(5, "trimmed")]
+    cuda_eval.reset_launch_counts()
+    fused_stream.reset_counters()
+    t0 = time.perf_counter()
+    esc = register_fused_stream(pairs, c, width=2, chunk_steps=64,
+                                escalate_capacity=2 * c.trans_capacity,
+                                escalate_after_chunks=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts5e = cuda_eval.launch_counts()
+    n_esc = fused_stream.counters["escalated"]
+    _require(n_esc > 0, "escalation sent a trimmed pair to the deferred "
+             "phase")
+    moved = []
+    for i, (name, pair) in enumerate(zip(names, pairs)):
+        eps = c.MSEThresh * _real_points(pair)
+        _require(bool(esc.converged[i])
+                 and abs(float(esc.error[i]) - float(plain.error[i]))
+                 <= eps + STREAM_ERR_TOL,
+                 f"escalated fused {name}: converged {esc.converged[i]}, "
+                 f"error {esc.error[i]} vs the plain stream's "
+                 f"{plain.error[i]} (eps {eps})")
+        if int(esc.evals[i]) != int(plain.evals[i]):
+            moved.append(name)
+    print(f"phase 5 fused stream, trimmed pool, escalate_capacity="
+          f"{2 * c.trans_capacity} after 1 chunk of 64: wall {wall:.3f} s; "
+          f"{n_esc} pairs escalated; every pair converged, error within "
+          f"MSEThresh*Nd + 1e-5 of the plain stream's; evals other than the "
+          f"plain run's: {moved}; evals {int(np.sum(esc.evals))} (plain "
+          f"{int(np.sum(plain.evals))}); launches {json.dumps(counts5e)}",
+          flush=True)
     counts6 = run_stream(6, "packed", lambda pairs, c: register_packed_stream(
         pairs, dataclasses.replace(c, packed_slots=16, packed_trans_every=8),
         width=16, chunk_steps=512))
 
     counts7 = _entry_points(cfg, pools, ref, phase3, dev)
     counts8 = _bench_phase(dev)
+    counts9 = _batch_phase(cfg, cfg_t, pools, ref, phase3, dev)
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"],
-         "launches": sum(c[kname] for c in (counts, counts5, counts6,
-                                            counts7, counts8)),
+         "launches": sum(c[kname] for c in (counts, counts3k, counts5,
+                                            counts5e, counts6, counts7,
+                                            counts8, counts9)),
          "max_abs_err": max(k["errs"]), "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None,

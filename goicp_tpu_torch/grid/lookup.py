@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from goicp_tpu_torch.grid.edt import round_ref
+from goicp_tpu_torch.grid.edt import exact_sqrt, round_ref
 
 
 def voxel_indices(points: torch.Tensor, consts: torch.Tensor):
@@ -46,7 +46,7 @@ def oob_extension(raw: torch.Tensor, consts: torch.Tensor):
     zero = torch.zeros_like(below)
     excess = torch.where(raw < 0, below, torch.where(raw >= size, above, zero))
     oob = torch.any((raw < 0) | (raw >= size), dim=-1)
-    return oob, torch.sqrt(torch.sum(excess * excess, dim=-1)) / consts[3]
+    return oob, exact_sqrt(torch.sum(excess * excess, dim=-1)) / consts[3]
 
 
 def dt_distance(points: torch.Tensor, dist_field: torch.Tensor,

@@ -1,14 +1,17 @@
-"""BO1 sweep through the cross-pair fused stream: many DISTINCT pairs
-registered together.
+"""BO1 sweep on the batched engines: many DISTINCT pairs registered
+together.
 
-Port of goicp_tpu/pipeline/device_sweep.py with the `fused` runner.  The
-sweep's runnable pairs are grouped into shape buckets by their own kernel
-dims (prepare.plan_buckets, up to 3), their REAL point counts moved into
-the `counts` tensor (prepare.make_count_dynamic), and each bucket's pairs
-registered by search/fused_stream.py::register_fused_stream (width 2,
+Port of goicp_tpu/pipeline/device_sweep.py.  The sweep's runnable pairs
+are grouped into shape buckets by their own kernel dims
+(prepare.plan_buckets, up to 3), their REAL point counts moved into the
+`counts` tensor (prepare.make_count_dynamic), and each bucket's pairs
+registered in chunks of `batch_size` by one of two runners: "compact"
+(`run-bo1 --engine device-batch`: search/chunked.py::
+register_device_batch_compact, the batch compacted as its pairs converge;
+a bucket's ragged later chunks padded to batch_size with pre-converged
+rows) or "fused" (search/fused_stream.py::register_fused_stream, width 2,
 512-step chunks).  Trajectories do not depend on the padding, so every
-pair's result equals its own register_device run.  The `compact` runner
-(search/chunked.py) is not ported yet (ROADMAP Queue 1 item 12).
+pair's result equals its own register_device run.
 
 Outputs are those of the per-pair sweep: output/<kind><k>.txt,
 *_rescaled.txt, cavitiesN clouds, rot proteins + resultsRMSD.txt, and one
@@ -43,13 +46,13 @@ def run_sweep_device_batch(data_root: str, cfg: GoICPConfig, out_dir: str,
                            batch_size: int = 64, verbose: bool = False,
                            runner: str = "compact", device=None):
     """data_root: reference-data layout (cavities/, cfpfh/, chains/,
-    ref_proteins/, BO1 tsv files).  runner: "fused" (the cross-pair fused
-    stream); "compact" is not ported and raises.  device: None means
-    goicp_tpu_torch.default_device(), the card."""
-    if runner != "fused":
-        raise NotImplementedError(
-            f"runner {runner!r} (search/chunked.py) is not ported yet: "
-            "ROADMAP Queue 1 item 12")
+    ref_proteins/, BO1 tsv files).  runner: "compact" (the convergence-
+    compacted batch, search/chunked.py) or "fused" (the cross-pair fused
+    stream).  device: None means goicp_tpu_torch.default_device(), the
+    card."""
+    if runner not in ("compact", "fused"):
+        raise ValueError(f"unknown runner {runner!r}")
+    from goicp_tpu_torch.search.chunked import register_device_batch_compact
     from goicp_tpu_torch.search.fused_stream import register_fused_stream
 
     device = resolve_device(device)
@@ -92,15 +95,23 @@ def run_sweep_device_batch(data_root: str, cfg: GoICPConfig, out_dir: str,
                 inputs.tgt_props, cfg, inputs.src_fpfh, inputs.tgt_fpfh,
                 nd_downsampled=n_ds, device=device, **bd))
 
-    # ---- each bucket's pairs in chunks of batch_size through the stream
+    # ---- each bucket's pairs in chunks of batch_size through the runner
     results = []
     for _, idxs in plan:
         for lo in range(0, len(idxs), batch_size):
             chunk_idxs = idxs[lo:lo + batch_size]
             chunk = [prepared[i] for i in chunk_idxs]
             t0 = time.time()
-            out = register_fused_stream(chunk, cfg, width=FUSED_WIDTH,
-                                        chunk_steps=FUSED_CHUNK)
+            if runner == "fused":
+                out = register_fused_stream(chunk, cfg, width=FUSED_WIDTH,
+                                            chunk_steps=FUSED_CHUNK)
+            else:
+                # a bucket's later ragged chunk pads to batch_size with
+                # pre-converged rows (they never search); its first
+                # chunk runs at its own width
+                out = register_device_batch_compact(
+                    chunk, cfg, pad_to=batch_size
+                    if len(chunk) < batch_size and lo > 0 else None)
             wall = time.time() - t0
             per_pair_s = wall / len(chunk)
             for j, i in enumerate(chunk_idxs):
@@ -123,7 +134,8 @@ def run_sweep_device_batch(data_root: str, cfg: GoICPConfig, out_dir: str,
                            outer_steps=reg.outer_steps,
                            bound_evals=reg.bound_evals,
                            icp_runs=reg.icp_runs, converged=reg.converged,
-                           gap=reg.gap, engine="fused", batch=len(chunk),
+                           gap=reg.gap, engine="fused" if runner == "fused"
+                           else "device-batch", batch=len(chunk),
                            batch_wall_s=wall)
                 results.append(row)
                 append_row(results_path, row)

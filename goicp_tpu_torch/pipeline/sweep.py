@@ -76,8 +76,9 @@ def run_sweep(data_root: str, cfg: GoICPConfig, out_dir: str,
     ref_proteins/ and the BO1 tsv files.
 
     engine: "host" or "device" (one pair at a time, pipeline/pair.py),
-    "fused" (the cross-pair fused stream over shape buckets,
-    pipeline/device_sweep.py), or "device-batch" (not ported: raises).
+    "fused" (the cross-pair fused stream over shape buckets) or
+    "device-batch" (the convergence-compacted batch over shape buckets;
+    both pipeline/device_sweep.py).
     device: None means goicp_tpu_torch.default_device(), the card."""
     if engine in ("device-batch", "fused"):
         from goicp_tpu_torch.pipeline.device_sweep import \

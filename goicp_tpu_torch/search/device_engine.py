@@ -1,7 +1,8 @@
-"""Device-side Go-ICP registration of one pair.
+"""Device-side Go-ICP registration: one pair, or a batch of pairs.
 
-Port of goicp_tpu/search/device_engine.py (`register_device` without a
-mesh).  The rotation frontier is a fixed-capacity tensor on the device; one
+Port of goicp_tpu/search/device_engine.py (`register_device`,
+`device_run_chunk`, `register_device_batch`, without a mesh).  The
+rotation frontier is a fixed-capacity tensor on the device; one
 outer step pops the rot_batch lowest-lb rotation cubes, expands 8 children
 each, runs the fused lane-batched inner translation BnB on every child
 lane, ICP-refines the best candidates, adopts, prunes and merges the
@@ -15,6 +16,13 @@ overflows fold the minimum dropped lb into the reported gap.
 The JAX package runs the outer loop as one lax.while_loop; here it is a
 Python loop whose predicate is read on the host once per outer step, and
 the inner search and ICP read theirs once per iteration.
+
+The JAX package batches pairs by vmapping that loop.  Here a batch state
+is the one-pair state with a leading row axis, and one batched outer step
+pops and expands every unconverged row, runs the inner searches of all
+rows as one lane batch through the per-lane-table kernels (the fused
+stream's inner step, search/fused_stream.py), then adopts, prunes and
+merges row by row.  Each row's trajectory is its own register_device's.
 """
 
 from __future__ import annotations
@@ -26,13 +34,15 @@ import numpy as np
 import torch
 
 from goicp_tpu_torch.config import GoICPConfig
+from goicp_tpu_torch.bounds.evaluate import rot_uncertainty
 from goicp_tpu_torch.bounds.error import (Score, bnb_incompatibility_count,
                                           icp_chem_terms, initial_error,
                                           score_transform)
 from goicp_tpu_torch.geom.rotation import rodrigues
 from goicp_tpu_torch.icp.icp import icp_run
 from goicp_tpu_torch.pipeline.prepare import PairData
-from goicp_tpu_torch.search.inner import inner_bnb
+from goicp_tpu_torch.search.inner import (_chem_reuse_active, inner_bnb,
+                                          root_corner_values)
 
 SQRT3 = 3.0 ** 0.5
 INF = float("inf")
@@ -160,9 +170,10 @@ def device_init(pair: PairData, cfg: GoICPConfig) -> dict:
     )
 
 
-def _make_body(pair: PairData, cfg: GoICPConfig):
-    """One outer BnB step: pop -> expand -> inner search -> ICP -> adopt ->
-    prune/merge."""
+def _pop(pair: PairData, cfg: GoICPConfig, s: dict) -> dict:
+    """The head of an outer step: pop the rot_batch lowest-lb rotation
+    nodes (sorted frontier), test convergence, expand 8 children each with
+    the pi-ball filter, and rotate the data for every child lane."""
     dev = pair.device
     Pr = cfg.rot_batch
     L = Pr * 8
@@ -171,151 +182,173 @@ def _make_body(pair: PairData, cfg: GoICPConfig):
     child_off = torch.tensor(
         [[j & 1, (j >> 1) & 1, (j >> 2) & 1] for j in range(8)],
         dtype=torch.float32, device=dev)
+    pop_lb = s["fr_lbs"][:Pr]
+    min_lb = pop_lb[0]
+    # a NaN incumbent freezes the search immediately
+    converged = torch.isinf(min_lb) | (s["opt_err"] - min_lb <= sse) \
+        | torch.isnan(s["opt_err"])
+    final_lb = torch.where(converged & ~s["converged"], min_lb,
+                           s["final_lb"])
+    parents = s["fr_nodes"][:Pr]                           # (Pr, 4)
+    expand = torch.isfinite(pop_lb) \
+        & (s["opt_err"] - pop_lb > sse) & ~converged       # (Pr,)
+
+    cw = parents[:, 3:4] / 2.0                             # (Pr,1)
+    cxyz = parents[:, None, 0:3] + child_off[None] * cw[:, None]
+    centers = (cxyz + cw[:, None] / 2.0).reshape(L, 3)
+    widths = cw[:, None].expand(Pr, 8, 1).reshape(L)
+    child_nodes = torch.cat([cxyz.reshape(L, 3), widths[:, None]], dim=1)
+    inside = (torch.linalg.norm(centers, dim=1)
+              - SQRT3 * widths / 2.0) <= math.pi
+    active = inside & torch.repeat_interleave(expand, 8)
+    R_lanes = rodrigues(centers)                           # (L,3,3)
+    pts = torch.einsum("lij,nj->lni", R_lanes, pair.data)
+    return dict(converged=converged, final_lb=final_lb,
+                fr_lbs=s["fr_lbs"][Pr:], fr_nodes=s["fr_nodes"][Pr:],
+                child_nodes=child_nodes, widths=widths, active=active,
+                R_lanes=R_lanes, pts=pts)
+
+
+def _adopt(pair: PairData, cfg: GoICPConfig, s: dict, p: dict, cand: dict,
+           icp: dict, bnb_improved, icp_improved, lb_safe, work: dict
+           ) -> dict:
+    """The tail of an outer step: adopt the ICP result when it beats the
+    candidate, else the candidate; prune and merge the children into the
+    frontier; freeze a converged search.  cand: the best lane's ub, R, t,
+    terms; icp: the refined R, t, error, terms, incompatibility count and
+    the candidate's BnB count; work: the inner search's evals, iters,
+    geom_surv, chem_corners."""
+    dev = pair.device
     Cr = cfg.device_rot_capacity
 
+    def pick(icp_v, bnb_v, old_v):
+        return torch.where(icp_improved, icp_v,
+                           torch.where(bnb_improved, bnb_v, old_v))
+
+    opt_err = pick(icp["err"], cand["ub"], s["opt_err"])
+    opt_R = pick(icp["R"], cand["R"], s["opt_R"])
+    opt_t = pick(icp["t"], cand["t"], s["opt_t"])
+    comp = pick(icp["incomp"].to(torch.int32), icp["bnb_comp"], s["comp"])
+    terms = pick(icp["terms"], cand["terms"], s["terms"])
+    last_icp = torch.where(icp_improved, True,
+                           torch.where(bnb_improved, False, s["last_icp"]))
+
+    # ---- prune + merge children into the frontier ----
+    lbs_new = torch.where(p["active"] & (lb_safe < opt_err), lb_safe, INF)
+    all_lbs = torch.cat([p["fr_lbs"], lbs_new])            # (Cr - Pr + L)
+    all_nodes = torch.cat([p["fr_nodes"], p["child_nodes"]])
+    order = torch.argsort(all_lbs, stable=True)
+    keep_lbs = all_lbs[order[:Cr]]
+    keep_nodes = all_nodes[order[:Cr]]
+    dropped = all_lbs[order[Cr:]]
+    min_drop = torch.amin(torch.where(torch.isfinite(dropped), dropped, INF))
+    # also prune kept nodes against the new incumbent
+    keep_lbs = torch.where(keep_lbs >= opt_err, INF, keep_lbs)
+
+    # frozen when converged
+    frozen = s["converged"] | p["converged"]
+
+    def keep(new, old):
+        return torch.where(frozen, old, new)
+
+    def add(total, inc):
+        return total + torch.where(frozen, 0, inc).to(total.dtype)
+
+    return dict(
+        fr_nodes=keep(keep_nodes, s["fr_nodes"]),
+        fr_lbs=keep(keep_lbs, s["fr_lbs"]),
+        opt_err=keep(opt_err, s["opt_err"]),
+        opt_R=keep(opt_R, s["opt_R"]),
+        opt_t=keep(opt_t, s["opt_t"]),
+        comp=keep(comp, s["comp"]),
+        terms=keep(terms, s["terms"]),
+        last_icp=keep(last_icp, s["last_icp"]),
+        min_dropped=keep(torch.minimum(s["min_dropped"], min_drop),
+                         s["min_dropped"]),
+        it=s["it"] + 1,
+        evals=add(s["evals"], work["evals"]),
+        inner_it=add(s["inner_it"],
+                     torch.as_tensor(work["iters"], device=dev)),
+        icp_runs=add(s["icp_runs"],
+                     bnb_improved.to(torch.int32)
+                     if cfg.icp_on_improve
+                     else torch.tensor(1, device=dev)),
+        geom_surv=add(s["geom_surv"], work["geom_surv"]),
+        chem_corners=add(s["chem_corners"],
+                         torch.as_tensor(work["chem_corners"], device=dev)),
+        converged=frozen,
+        final_lb=p["final_lb"],
+    )
+
+
+def _make_body(pair: PairData, cfg: GoICPConfig):
+    """One outer BnB step: pop -> expand -> inner search -> ICP -> adopt ->
+    prune/merge."""
     def inner(pts, widths, active, inc, with_rot_uncertainty, fused):
         return inner_bnb(pair, cfg, pts, widths, active, inc,
                          with_rot_uncertainty=with_rot_uncertainty,
                          fused=fused)
 
     def body(s):
-        # ---- pop the Pr lowest-lb rotation nodes (sorted frontier) ----
-        pop_lb = s["fr_lbs"][:Pr]
-        min_lb = pop_lb[0]
-        # a NaN incumbent freezes the search immediately
-        converged = torch.isinf(min_lb) | (s["opt_err"] - min_lb <= sse) \
-            | torch.isnan(s["opt_err"])
-        final_lb = torch.where(converged & ~s["converged"], min_lb,
-                               s["final_lb"])
-        parents = s["fr_nodes"][:Pr]                       # (Pr, 4)
-        fr_lbs = s["fr_lbs"][Pr:]
-        fr_nodes_rest = s["fr_nodes"][Pr:]
-        expand = torch.isfinite(pop_lb) \
-            & (s["opt_err"] - pop_lb > sse) & ~converged   # (Pr,)
-
-        # ---- expand 8 children per parent, pi-ball filter ----
-        cw = parents[:, 3:4] / 2.0                         # (Pr,1)
-        cxyz = parents[:, None, 0:3] + child_off[None] * cw[:, None]
-        centers = (cxyz + cw[:, None] / 2.0).reshape(L, 3)
-        widths = cw[:, None].expand(Pr, 8, 1).reshape(L)
-        child_nodes = torch.cat([cxyz.reshape(L, 3), widths[:, None]], dim=1)
-        inside = (torch.linalg.norm(centers, dim=1)
-                  - SQRT3 * widths / 2.0) <= math.pi
-        active = inside & torch.repeat_interleave(expand, 8)
-
-        # ---- rotate + inner pass(es) ----
-        R_lanes = rodrigues(centers)                       # (L,3,3)
-        pts = torch.einsum("lij,nj->lni", R_lanes, pair.data)
+        p = _pop(pair, cfg, s)
+        active = p["active"]
         if cfg.fused_inner:
-            res_ub = inner(pts, widths, active, s["opt_err"], False, True)
+            res_ub = inner(p["pts"], p["widths"], active, s["opt_err"],
+                           False, True)
             res_lb = res_ub
         else:
-            res_ub = inner(pts, widths, active, s["opt_err"], False, False)
+            res_ub = inner(p["pts"], p["widths"], active, s["opt_err"],
+                           False, False)
         ubs = torch.where(active, res_ub.best_err, INF)
         best_lane = torch.argmin(ubs)
         cand_ub = ubs[best_lane]
         incumbent = torch.minimum(s["opt_err"], cand_ub)
         if not cfg.fused_inner:
-            res_lb = inner(pts, widths, active, incumbent, True, False)
+            res_lb = inner(p["pts"], p["widths"], active, incumbent, True,
+                           False)
 
         # ---- candidate adoption (BnB) + ICP refinement ----
-        cand_R = R_lanes[best_lane]
         tn = res_ub.best_node[best_lane]
-        cand_t = tn[:3] + tn[3] / 2.0
-        cand_terms = res_ub.ub_terms[best_lane]
+        cand = dict(ub=cand_ub, R=p["R_lanes"][best_lane],
+                    t=tn[:3] + tn[3] / 2.0,
+                    terms=res_ub.ub_terms[best_lane])
         bnb_improved = ~(cand_ub >= s["opt_err"])     # NaN-infectious <
 
         # ICP gating (refine only on improvement, jly_goicp.cpp:771-854)
         do_icp = bnb_improved if cfg.icp_on_improve else None
         icp_R, icp_t, sc, icp_incomp = _icp_best_of_seeds(
-            pair, cfg, R_lanes, res_ub.best_node, ubs, enabled=do_icp)
+            pair, cfg, p["R_lanes"], res_ub.best_node, ubs, enabled=do_icp)
         icp_improved = ~(sc.error >= incumbent)       # NaN-infectious <
         if cfg.icp_on_improve:
             icp_improved = icp_improved & bnb_improved
-
-        # adopt: ICP result when it beats the candidate; else the candidate
-        opt_err = torch.where(icp_improved, sc.error,
-                              torch.where(bnb_improved, cand_ub,
-                                          s["opt_err"]))
-        opt_R = torch.where(icp_improved, icp_R,
-                            torch.where(bnb_improved, cand_R, s["opt_R"]))
-        opt_t = torch.where(icp_improved, icp_t,
-                            torch.where(bnb_improved, cand_t, s["opt_t"]))
-        bnb_comp = bnb_incompatibility_count(pair, cfg, cand_R, cand_t)
-        comp = torch.where(icp_improved, icp_incomp.to(torch.int32),
-                           torch.where(bnb_improved, bnb_comp, s["comp"]))
-        terms = torch.where(
-            icp_improved,
-            torch.stack([sc.geom, sc.incomp_term + sc.nbr_term,
-                         sc.fpfh_term]),
-            torch.where(bnb_improved, cand_terms, s["terms"]))
-        last_icp = torch.where(icp_improved, True,
-                               torch.where(bnb_improved, False,
-                                           s["last_icp"]))
-
-        # ---- prune + merge children into the frontier ----
-        lbs_new = torch.where(active & (res_lb.lb_safe < opt_err),
-                              res_lb.lb_safe, INF)
-        all_lbs = torch.cat([fr_lbs, lbs_new])             # (Cr - Pr + L)
-        all_nodes = torch.cat([fr_nodes_rest, child_nodes])
-        order = torch.argsort(all_lbs, stable=True)
-        keep_lbs = all_lbs[order[:Cr]]
-        keep_nodes = all_nodes[order[:Cr]]
-        dropped = all_lbs[order[Cr:]]
-        min_drop = torch.amin(torch.where(torch.isfinite(dropped), dropped,
-                                          INF))
-        # also prune kept nodes against the new incumbent
-        keep_lbs = torch.where(keep_lbs >= opt_err, INF, keep_lbs)
-
-        # frozen when converged
-        frozen = s["converged"] | converged
-
-        def keep(new, old):
-            return torch.where(frozen, old, new)
-
-        def add(total, inc):
-            return total + torch.where(frozen, 0, inc).to(total.dtype)
-
+        icp = dict(R=icp_R, t=icp_t, err=sc.error,
+                   terms=torch.stack([sc.geom, sc.incomp_term + sc.nbr_term,
+                                      sc.fpfh_term]),
+                   incomp=icp_incomp,
+                   bnb_comp=bnb_incompatibility_count(pair, cfg, cand["R"],
+                                                      cand["t"]))
         if cfg.fused_inner:
-            evals, iters = res_ub.evals, res_ub.iters
-            surv, corners = res_ub.geom_surv, res_ub.chem_corners
+            work = dict(evals=res_ub.evals, iters=res_ub.iters,
+                        geom_surv=res_ub.geom_surv,
+                        chem_corners=res_ub.chem_corners)
         else:
-            evals = res_ub.evals + res_lb.evals
-            iters = res_ub.iters + res_lb.iters
-            surv = res_ub.geom_surv + res_lb.geom_surv
-            corners = res_ub.chem_corners + res_lb.chem_corners
-        return dict(
-            fr_nodes=keep(keep_nodes, s["fr_nodes"]),
-            fr_lbs=keep(keep_lbs, s["fr_lbs"]),
-            opt_err=keep(opt_err, s["opt_err"]),
-            opt_R=keep(opt_R, s["opt_R"]),
-            opt_t=keep(opt_t, s["opt_t"]),
-            comp=keep(comp, s["comp"]),
-            terms=keep(terms, s["terms"]),
-            last_icp=keep(last_icp, s["last_icp"]),
-            min_dropped=keep(torch.minimum(s["min_dropped"], min_drop),
-                             s["min_dropped"]),
-            it=s["it"] + 1,
-            evals=add(s["evals"], evals),
-            inner_it=add(s["inner_it"], torch.tensor(iters, device=dev)),
-            icp_runs=add(s["icp_runs"],
-                         bnb_improved.to(torch.int32)
-                         if cfg.icp_on_improve
-                         else torch.tensor(1, device=dev)),
-            geom_surv=add(s["geom_surv"], surv),
-            chem_corners=add(s["chem_corners"],
-                             torch.tensor(corners, device=dev)),
-            converged=frozen,
-            final_lb=final_lb,
-        )
+            work = dict(evals=res_ub.evals + res_lb.evals,
+                        iters=res_ub.iters + res_lb.iters,
+                        geom_surv=res_ub.geom_surv + res_lb.geom_surv,
+                        chem_corners=res_ub.chem_corners
+                        + res_lb.chem_corners)
+        return _adopt(pair, cfg, s, p, cand, icp, bnb_improved,
+                      icp_improved, res_lb.lb_safe, work)
 
     return body
 
 
 def device_finalize(state: dict) -> DeviceResult:
-    """Search state -> DeviceResult (gap folds capacity-dropped lbs)."""
+    """Search state -> DeviceResult (gap folds capacity-dropped lbs).  A
+    batch state (leading row axis) gives a DeviceResult of batches."""
     s = state
-    remaining = torch.minimum(torch.amin(s["fr_lbs"]), s["min_dropped"])
+    remaining = torch.minimum(torch.amin(s["fr_lbs"], dim=-1),
+                              s["min_dropped"])
     bound = torch.minimum(torch.where(s["converged"], s["final_lb"],
                                       remaining), s["opt_err"])
     # when capacity dropped nodes below the incumbent, the true gap may
@@ -332,10 +365,169 @@ def device_finalize(state: dict) -> DeviceResult:
                         chem_corners=s["chem_corners"])
 
 
+def device_run_chunk(pair: PairData, cfg: GoICPConfig, state: dict,
+                     steps: int) -> dict:
+    """Advance one pair's search by at most `steps` outer iterations
+    (resumable: feed the returned state back in; device_finalize when
+    converged).  `state` itself is not modified."""
+    s = dict(state)
+    it = int(s["it"])
+    limit = min(it + int(steps), cfg.max_outer_steps)
+    body = _make_body(pair, cfg)
+    while it < limit and not bool(s["converged"]):
+        s = body(s)
+        it += 1
+    return s
+
+
 def register_device(pair: PairData, cfg: GoICPConfig) -> DeviceResult:
     """The whole Go-ICP search for one pair, on the pair's device."""
-    s = device_init(pair, cfg)
-    body = _make_body(pair, cfg)
-    while s["it"] < cfg.max_outer_steps and not bool(s["converged"]):
-        s = body(s)
-    return device_finalize(s)
+    return device_finalize(device_run_chunk(pair, cfg, device_init(pair, cfg),
+                                            cfg.max_outer_steps))
+
+
+# ---------------------------------------------------------------------------
+# B pairs of one shape bucket at once
+# ---------------------------------------------------------------------------
+
+def batch_init(pair_batch: PairData, cfg: GoICPConfig) -> dict:
+    """device_init for every row of a stacked PairData (dist/mesh.
+    stack_pairs) -> the batch state: the same dict with a leading row
+    axis, `it` a (B,) int32 tensor."""
+    from goicp_tpu_torch.search.fused_stream import _pair_row, _stack_rows
+    rows = []
+    for r in range(pair_batch.data.shape[0]):
+        st = device_init(_pair_row(pair_batch, r), cfg)
+        st["it"] = torch.tensor(0, dtype=torch.int32, device=pair_batch.device)
+        rows.append(st)
+    return _stack_rows(rows)
+
+
+def _batch_step(pairs: list, pair_batch: PairData, cfg: GoICPConfig,
+                s: dict, rows, tables) -> None:
+    """One outer step of the batch rows `rows` (host indices), in place.
+    Each row pops and expands on its own; then the inner searches of ALL
+    rows run as one lane batch (B x L lanes, the row of each lane in
+    `tables`, so each inner iteration is one K3 and one K4 launch), rows
+    whose search ended early masked until every row's has ended; then
+    each row's ICP / adopt / prune / merge, ICP only for the rows that
+    improved (one host read says which).  Rows not in `rows` keep their
+    state."""
+    from goicp_tpu_torch.search import fused_stream as fs
+    dev = pair_batch.device
+    L = cfg.rot_batch * 8
+    ndp = pair_batch.n_data_padded
+    reuse = _chem_reuse_active(cfg)
+    stepping = {}
+    inner, pts, mrd = [], [], []
+    for r, pair in enumerate(pairs):
+        st = fs._row(s, r)
+        if r in rows:
+            p = _pop(pair, cfg, st)
+            ist = fs._inner_init(cfg, L, st["opt_err"], root_cv=(
+                root_corner_values(pair, cfg, p["pts"]) if reuse else None))
+            ist["done"] = ~p["active"]
+            stepping[r] = (st, p)
+            pts.append(p["pts"])
+            mrd.append(rot_uncertainty(p["widths"], pair.norm_data))
+        else:
+            ist = fs._inner_init(cfg, L, st["opt_err"])
+            ist["done"] = torch.ones((L,), dtype=torch.bool, device=dev)
+            pts.append(torch.zeros((L, ndp, 3), dtype=torch.float32,
+                                   device=dev))
+            mrd.append(torch.zeros((L, ndp), dtype=torch.float32,
+                                   device=dev))
+        inner.append(ist)
+    bs = dict(inner=fs._stack_rows(inner), pts_rot=torch.stack(pts),
+              mrd=torch.stack(mrd))
+    while True:
+        live = ~fs._inner_complete(cfg, bs)
+        if not bool(torch.any(live)):
+            break
+        bs["inner"] = fs._inner_step(pair_batch, cfg, bs, tables, live)
+
+    done = {r: dict(inner=fs._row(bs["inner"], r), active=p["active"],
+                    R_lanes=p["R_lanes"]) for r, (_, p) in stepping.items()}
+    hs = {r: fs._harvest(d) for r, d in done.items()}
+    improved = {r: ~(hs[r]["cand_ub"] >= stepping[r][0]["opt_err"])
+                for r in stepping}                   # NaN-infectious <
+    order = sorted(stepping)
+    if cfg.icp_on_improve:
+        do_icp = dict(zip(order, torch.stack(
+            [improved[r] for r in order]).cpu().numpy()))
+    else:
+        do_icp = dict.fromkeys(order, True)
+    for r in order:
+        st, p = stepping[r]
+        h, ist = hs[r], done[r]["inner"]
+        if do_icp[r]:
+            ref = fs._refine(pairs[r], cfg, done[r], h)
+            incumbent = torch.minimum(st["opt_err"], h["cand_ub"])
+            icp_improved = ~(ref["icp_err"] >= incumbent)
+        else:
+            ref = fs._refine_dummy(dev)
+            icp_improved = torch.tensor(False, device=dev)
+        cand = dict(ub=h["cand_ub"], R=h["cand_R"], t=h["cand_t"],
+                    terms=h["cand_terms"])
+        icp = dict(R=ref["icp_R"], t=ref["icp_t"], err=ref["icp_err"],
+                   terms=ref["icp_terms"], incomp=ref["icp_incomp"],
+                   bnb_comp=ref["bnb_comp"])
+        work = dict(evals=ist["evals"], iters=ist["it"],
+                    geom_surv=ist["geom_surv"],
+                    chem_corners=ist["chem_corners"])
+        fs._write_row(s, r, _adopt(pairs[r], cfg, st, p, cand, icp,
+                                   improved[r], icp_improved, h["lb_safe"],
+                                   work))
+
+
+def batch_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
+                    steps: int) -> dict:
+    """Advance every row of a batch state by at most `steps` outer
+    iterations, each row exactly as device_run_chunk would (the outer
+    steps of the rows run in lockstep).  `state` itself is not modified.
+    The two-pass inner search (fused_inner=0) runs row by row."""
+    from goicp_tpu_torch.search import fused_stream as fs
+    s = fs._map_state(torch.clone, state)
+    B = s["converged"].shape[0]
+    pairs = [fs._pair_row(pair_batch, r) for r in range(B)]
+    if not cfg.fused_inner:
+        for r, pair in enumerate(pairs):
+            fs._write_row(s, r, device_run_chunk(pair, cfg, fs._row(s, r),
+                                                 steps))
+        return s
+    its = s["it"].cpu().numpy().astype(np.int64)
+    limit = np.minimum(its + int(steps), cfg.max_outer_steps)
+    tables = fs._window_tables(pair_batch, cfg, cfg.rot_batch * 8)
+    while True:
+        conv = s["converged"].cpu().numpy()
+        rows = np.nonzero(~conv & (its < limit))[0]
+        if not len(rows):
+            break
+        _batch_step(pairs, pair_batch, cfg, s, set(rows.tolist()), tables)
+        its[rows] += 1
+    return s
+
+
+def result_to_numpy(res: DeviceResult) -> DeviceResult:
+    """A DeviceResult of tensors -> the same of numpy arrays."""
+    return DeviceResult(*(np.asarray(v.cpu()) for v in res))
+
+
+def register_device_batch(pairs, cfg: GoICPConfig, mesh=None
+                          ) -> DeviceResult:
+    """Register B same-bucket pairs (all on one device) as one batch run to
+    convergence: every outer step of every row at once, the inner
+    searches of all rows as one lane batch.  Each row's result equals its
+    own register_device.  Returns a DeviceResult of numpy arrays with a
+    leading pair axis, in the order of `pairs`.
+
+    mesh (the pair axis across several GPUs) is not ported yet and
+    raises NotImplementedError."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (a batch across several GPUs) is not ported yet: "
+            "ROADMAP Queue 1 item 16")
+    from goicp_tpu_torch.dist.mesh import stack_pairs
+    pb = stack_pairs(list(pairs))
+    s = batch_run_chunk(pb, cfg, batch_init(pb, cfg), cfg.max_outer_steps)
+    return result_to_numpy(device_finalize(s))

@@ -33,9 +33,13 @@ Epsilon-optimality bookkeeping is identical to search/device_engine.py
 (same pop/threshold-discard/prune rules, same min-dropped-lb folding into
 the reported gap); per pair the trajectory is register_device's.
 
+Frontier-capacity escalation (escalate_capacity): a row still in flight
+after N chunks leaves the window, its translation frontier widened without
+loss (migrate_row_capacity), and finishes in a deferred phase at the deeper
+capacity.
+
 Not ported yet, each raising NotImplementedError when asked for: `mesh=`
-and the straggler handoff (multi-GPU, ROADMAP Queue 1 item 16),
-`escalate_capacity` and migrate_row_capacity (item 18).
+and the straggler handoff (multi-GPU, ROADMAP Queue 1 item 16).
 
 Reference anchors: OuterBnB/InnerBnB nesting jly_goicp.cpp:582-876 /
 :286-579 (one pair, one node at a time); the pair loop bo1_GoICP.py:40-54.
@@ -43,6 +47,7 @@ Reference anchors: OuterBnB/InnerBnB nesting jly_goicp.cpp:582-876 /
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 
@@ -70,8 +75,9 @@ _F32 = torch.float32
 _I32 = torch.int32
 
 # what the stream loops did since reset_counters(): global iterations,
-# transition events, and the host reads those two cost
-counters = dict(global_iters=0, transitions=0, host_reads=0)
+# transition events, the host reads those two cost, and the pairs sent to
+# the deferred phase of capacity escalation
+counters = dict(global_iters=0, transitions=0, host_reads=0, escalated=0)
 
 
 def reset_counters():
@@ -618,9 +624,27 @@ def load_stream_state(path: str, device=None):
 
 def migrate_row_capacity(row_state: dict, cfg: GoICPConfig,
                          cfg2: GoICPConfig) -> dict:
-    raise NotImplementedError(
-        "frontier-capacity escalation (migrate_row_capacity, "
-        "escalate_capacity) is not ported yet: ROADMAP Queue 1 item 18")
+    """Pad one row's in-flight translation frontiers from
+    cfg.trans_capacity to cfg2.trans_capacity (>=).  Lossless: the new
+    slots are empty (lb INF, node and corner payload 0), so the sorted-
+    frontier invariant and every bound hold, and the search continues as
+    if the wider frontier had never been filled past the old capacity.
+    Everything else in the row state does not depend on the capacity."""
+    C1, C2 = cfg.trans_capacity, cfg2.trans_capacity
+    if C2 < C1:
+        raise ValueError("migrate_row_capacity can only widen the frontier")
+    if (cfg2.trans_pop, cfg2.rot_batch, cfg2.device_rot_capacity) != \
+            (cfg.trans_pop, cfg.rot_batch, cfg.device_rot_capacity):
+        raise ValueError("migrate_row_capacity changes trans_capacity only")
+    pad = C2 - C1
+    if pad == 0:
+        return row_state
+    ist = dict(row_state["inner"])
+    ist["nodes"] = torch.nn.functional.pad(ist["nodes"], (0, 0, 0, pad))
+    ist["lbs"] = torch.nn.functional.pad(ist["lbs"], (0, pad), value=INF)
+    if "cvals" in ist:
+        ist["cvals"] = torch.nn.functional.pad(ist["cvals"], (0, 0, 0, pad))
+    return dict(row_state, inner=ist)
 
 
 def straggler_to_lane_sharded(pair, cfg: GoICPConfig, row_state: dict,
@@ -669,19 +693,62 @@ def register_fused_stream(pairs, cfg: GoICPConfig, width: int = 8,
     immediately (see fused_run_chunk) — pure host pacing, identical
     per-pair results.
 
-    mesh (pair-level data parallelism and the straggler handoff) and
-    escalate_capacity (frontier-capacity escalation) are not ported yet
-    and raise NotImplementedError.
+    escalate_capacity: frontier-capacity escalation for eval-heavy
+    stragglers.  A row still in flight after escalate_after_chunks chunks
+    leaves the window (its state migrated without loss to trans_capacity=
+    escalate_capacity, see migrate_row_capacity), its row refills with a
+    fresh pair, and the evicted pairs finish in a deferred phase, two at a
+    time, at the deeper capacity.  Results stay epsilon-optimal (each
+    pair's gap carries the same folded bounds); an escalated pair's
+    trajectory differs from the plain run's only after its migration.
+    escalate_capacity must exceed cfg.trans_capacity, and checkpoints are
+    not supported with it (the deferred pairs are not checkpointed): both
+    raise ValueError.
+
+    mesh (pair-level data parallelism and the straggler handoff) is not
+    ported yet and raises NotImplementedError.
 
     Returns DeviceResult of numpy arrays, batch axis in pair order."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh= (the stream across several GPUs) is not ported yet: "
             "ROADMAP Queue 1 item 16")
+    escalate = None
     if escalate_capacity is not None:
-        raise NotImplementedError(
-            "escalate_capacity is not ported yet: ROADMAP Queue 1 item 18")
-    del escalate_after_chunks
+        if escalate_capacity <= cfg.trans_capacity:
+            raise ValueError(
+                f"escalate_capacity={escalate_capacity} must exceed "
+                f"trans_capacity={cfg.trans_capacity}")
+        if checkpoint_path is not None:
+            raise ValueError("escalate_capacity is incompatible with "
+                             "checkpoint_path")
+        cfg2 = dataclasses.replace(cfg, trans_capacity=escalate_capacity)
+
+        def run_hard(hard, stacked_all):
+            """[(original pair, row state)] -> {original pair:
+            DeviceResult}: the deferred phase, the migrated rows two at a
+            time run to convergence at the deeper capacity (an odd last
+            row runs alone)."""
+            out = {}
+            for lo in range(0, len(hard), 2):
+                group = hard[lo:lo + 2]
+                idxs = [i for i, _ in group]
+                state2 = _stack_rows([migrate_row_capacity(rs, cfg, cfg2)
+                                      for _, rs in group])
+                pair_b = _take_pairs(stacked_all, idxs)
+                while True:
+                    state2 = fused_run_chunk(pair_b, cfg2, state2,
+                                             chunk_steps, eager=eager)
+                    fini = torch.stack([
+                        state2["converged"],
+                        state2["it"] >= cfg.max_outer_steps]).cpu().numpy()
+                    if (fini[0] | fini[1]).all():
+                        break
+                for j, row in enumerate(_result_rows(fused_finalize(state2))):
+                    out[idxs[j]] = row
+            return out
+
+        escalate = (escalate_after_chunks, run_hard)
 
     def run_chunk(pair_batch, cfg_, state, steps):
         return fused_run_chunk(pair_batch, cfg_, state, steps, eager=eager)
@@ -693,7 +760,8 @@ def register_fused_stream(pairs, cfg: GoICPConfig, width: int = 8,
                           init_fn=_init_batch, run_chunk=run_chunk,
                           finalize=fused_finalize,
                           inflight_fn=_fused_inflight_np,
-                          checkpoint_every=checkpoint_every)
+                          checkpoint_every=checkpoint_every,
+                          escalate=escalate)
 
 
 def _result_rows(res: DeviceResult) -> list:
@@ -706,7 +774,7 @@ def _result_rows(res: DeviceResult) -> list:
 def _stream_driver(pairs, cfg: GoICPConfig, width, chunk_steps, progress,
                    checkpoint_path, resume, max_chunks,
                    init_fn, run_chunk, finalize, inflight_fn=None,
-                   checkpoint_every: int = 1):
+                   checkpoint_every: int = 1, escalate=None):
     """Engine-generic continuous-batching host loop (window refill,
     checkpoint/resume, progress) shared by the fused and packed streams.
     init_fn(pair_batch, cfg) -> state; run_chunk(pair_batch, cfg, state,
@@ -714,7 +782,12 @@ def _stream_driver(pairs, cfg: GoICPConfig, width, chunk_steps, progress,
 
     checkpoint_every: chunks between on-disk state saves (each save copies
     the whole window state to the host).  The state is ALWAYS saved before
-    a max_chunks abort."""
+    a max_chunks abort.
+
+    escalate: (after_chunks, run_hard) or None.  A row alive after
+    after_chunks chunks is harvested into a list and its row refilled; at
+    the end run_hard(list, stacked pairs) finishes the list's pairs and
+    returns their results (register_fused_stream's escalate_capacity)."""
     B = len(pairs)
     width = min(width, B)
     stacked_all = stack_pairs(list(pairs))
@@ -725,6 +798,10 @@ def _stream_driver(pairs, cfg: GoICPConfig, width, chunk_steps, progress,
     next_pair = n0
     done: dict[int, DeviceResult] = {}
     dead = [i >= n0 for i in range(width)]
+    # capacity escalation: chunks each row has lived, and the rows
+    # harvested for the deferred phase
+    row_age = [0] * width
+    hard: list = []
 
     if resume and checkpoint_path and os.path.exists(checkpoint_path):
         state, rows_orig, dead, next_pair, done = \
@@ -741,6 +818,19 @@ def _stream_driver(pairs, cfg: GoICPConfig, width, chunk_steps, progress,
         conv = np.asarray(state["converged"].cpu())
         its = np.asarray(state["it"].cpu())
         finished = conv | (its >= cfg.max_outer_steps)
+
+        evicted: list[int] = []
+        if escalate is not None:
+            for r in range(width):
+                if dead[r] or finished[r]:
+                    continue
+                row_age[r] += 1
+                if row_age[r] >= escalate[0]:
+                    # harvest the row BEFORE a refill writes over it
+                    hard.append((rows_orig[r],
+                                 _map_state(torch.clone, _row(state, r))))
+                    evicted.append(r)
+                    counters["escalated"] += 1
 
         if progress is not None:
             # frontier_min folds the in-flight inner search's bound (the
@@ -769,17 +859,20 @@ def _stream_driver(pairs, cfg: GoICPConfig, width, chunk_steps, progress,
             rows_orig = [next_pair + i if i < n else next_pair
                          for i in range(width)]
             dead = [i >= n for i in range(width)]
+            row_age = [0] * width
             next_pair += n
             cur_pair = _take_pairs(stacked_all, rows_orig)
             state = init_fn(cur_pair, cfg)
         else:
             retired = [r for r in range(width)
-                       if finished[r] and not dead[r]]
+                       if (finished[r] or r in evicted) and not dead[r]]
             if retired:
-                res = _result_rows(finalize(state))
+                need_res = [r for r in retired if r not in evicted]
+                res = _result_rows(finalize(state)) if need_res else None
                 for r in retired:
-                    if rows_orig[r] not in done:
+                    if r not in evicted and rows_orig[r] not in done:
                         done[rows_orig[r]] = res[r]
+                    row_age[r] = 0
                     if next_pair < B:
                         sub_pair = _take_pairs(stacked_all, [next_pair])
                         _write_row(state, r, _row(init_fn(sub_pair, cfg), 0))
@@ -787,6 +880,10 @@ def _stream_driver(pairs, cfg: GoICPConfig, width, chunk_steps, progress,
                         next_pair += 1
                     else:
                         dead[r] = True
+                        if r in evicted:
+                            # no refill left: stop advancing the evicted
+                            # row's stale state
+                            state["converged"][r] = True
                 cur_pair = _take_pairs(
                     stacked_all,
                     [rows_orig[i] if not dead[i] else 0
@@ -805,6 +902,9 @@ def _stream_driver(pairs, cfg: GoICPConfig, width, chunk_steps, progress,
                 f"max_chunks={max_chunks} reached with "
                 f"{B - len(done)} pairs unfinished (state checkpointed)")
 
+    if hard:
+        # the deferred phase: evicted pairs finish at the deeper capacity
+        done.update(escalate[1](hard, stacked_all))
     rows = [done[i] for i in range(B)]
     out = DeviceResult(*(np.stack([np.asarray(getattr(r, f)) for r in rows])
                          for f in DeviceResult._fields))

@@ -13,6 +13,13 @@ The JAX package's lax.while_loop is a Python loop here: the loop predicate
 is read on the host once per iteration.  Lanes that finished keep their
 state; staged lane compaction (L -> L/2 -> L/4) gathers the still-active
 lanes into a narrower batch, which changes no lane's trajectory.
+
+Two knobs change how an iteration does its work, never what it finds:
+cfg.sorted_merge re-inserts the children by a rank merge against the
+already-sorted frontier instead of one sort of both (the same order), and
+cfg.chem_survivors > 0 evaluates the chem corner terms only for the lowest-
+lb geometric survivors (two-phase bounds; the full budget 8 * trans_pop
+gives the lattice path's trajectory).
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ import numpy as np
 import torch
 
 from goicp_tpu_torch.config import GoICPConfig
-from goicp_tpu_torch.bounds.evaluate import (_CHILD_OFFSETS,
+from goicp_tpu_torch.bounds.evaluate import (_CHILD_CORNER_TO_LATTICE,
+                                             _CHILD_OFFSETS,
                                              _LATTICE_OFFSETS,
                                              chem_bounds_from_lattice,
                                              chem_corner_values,
@@ -121,10 +129,6 @@ def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
     node yields both the plain ub (adoption candidate; best_err) and the
     uncertainty-adjusted ub/lb pair (pruning threshold / frontier key;
     lb_safe)."""
-    if cfg.sorted_merge:
-        raise NotImplementedError("sorted_merge is not ported yet")
-    if _chem_active(cfg) and cfg.chem_survivors > 0:
-        raise NotImplementedError("chem_survivors is not ported yet")
     L = pts_rot.shape[0]
     C = cfg.trans_capacity
     P = cfg.trans_pop
@@ -225,7 +229,40 @@ def _body_constants(dev: torch.device):
             torch.as_tensor(_LATTICE_OFFSETS, dtype=torch.float32,
                             device=dev),
             torch.as_tensor(_ODD_LATTICE, device=dev),
-            torch.as_tensor(_LAT_FROM_STORED, device=dev))
+            torch.as_tensor(_LAT_FROM_STORED, device=dev),
+            torch.as_tensor(_CHILD_CORNER_TO_LATTICE, device=dev))
+
+
+def _merge_sorted_keep(rest_lbs, rest_nodes, new_lbs, new_nodes, cap: int):
+    """Merge the SORTED frontier remainder (R slots, ascending) with an
+    UNSORTED block of children (B slots), keeping the `cap` lowest-lb
+    entries: one sort of the B children, then each entry's rank from one
+    (R, B) comparison matrix.  The order is the stable argsort's of
+    concat([rest, new]) (ties: rest before children, children by index).
+    NaN ranks as +inf but keeps its value, so a NaN lb stays infectious.
+
+    rest_lbs (L,R), rest_nodes (L,R,K), new_lbs (L,B), new_nodes (L,B,K)
+    -> (kept_lbs (L,cap), kept_nodes (L,cap,K), dropped_lbs (L,R+B-cap))."""
+    L, R = rest_lbs.shape
+    B = new_lbs.shape[1]
+    K = rest_nodes.shape[-1]
+    dev = rest_lbs.device
+    kc = torch.where(torch.isnan(new_lbs), INF, new_lbs)
+    kr = torch.where(torch.isnan(rest_lbs), INF, rest_lbs)
+    co = torch.argsort(kc, dim=1, stable=True)               # (L,B)
+    kcs = torch.gather(kc, 1, co)
+    vals_s = torch.gather(new_lbs, 1, co)
+    nodes_s = torch.gather(new_nodes, 1, co[..., None].expand(L, B, K))
+    less = kcs[:, None, :] < kr[:, :, None]                  # (L,R,B)
+    pos_r = torch.arange(R, device=dev)[None] + torch.sum(less, dim=2)
+    pos_c = torch.arange(B, device=dev)[None] + (R - torch.sum(less, dim=1))
+    m_lbs = torch.full((L, R + B), INF, dtype=rest_lbs.dtype, device=dev)
+    m_lbs.scatter_(1, pos_r, rest_lbs)
+    m_lbs.scatter_(1, pos_c, vals_s)
+    m_nodes = torch.zeros((L, R + B, K), dtype=rest_nodes.dtype, device=dev)
+    m_nodes.scatter_(1, pos_r[..., None].expand(L, R, K), rest_nodes)
+    m_nodes.scatter_(1, pos_c[..., None].expand(L, B, K), nodes_s)
+    return m_lbs[:, :cap], m_nodes[:, :cap], m_lbs[:, cap:]
 
 
 class IterStats(NamedTuple):
@@ -249,9 +286,11 @@ def _make_inner_body(pair, cfg, pts_rot, mrd, sse_thresh, fused):
     dev = pts_rot.device
     f32 = torch.float32
     chem = _chem_active(cfg)
+    two_phase = chem and cfg.chem_survivors > 0
+    Ssel = min(cfg.chem_survivors, P * 8) if two_phase else 0
     reuse = _chem_reuse_active(cfg)
     terms_keys = _chem_terms(cfg)
-    child_off, lattice_off, odd, lat_perm = _body_constants(dev)
+    child_off, lattice_off, odd, lat_perm, c2l = _body_constants(dev)
     rows = torch.arange(L, device=dev)
     sse_lane = sse_thresh.reshape(-1)          # (1,) or (L,)
     sse_thresh = sse_thresh.reshape(-1, 1)     # against (L, P) pops
@@ -303,7 +342,8 @@ def _make_inner_body(pair, cfg, pts_rot, mrd, sse_thresh, fused):
         alive = valid & ~(lb >= s["opt_err"][:, None])
 
         child_cv = None
-        if chem:
+        best_ubu = None
+        if chem and not two_phase:
             # chem corner terms for EVERY popped parent's shared 3x3x3
             # lattice (jly_goicp.cpp:429-550)
             corners = (parents[..., None, 0:3]
@@ -341,11 +381,70 @@ def _make_inner_body(pair, cfg, pts_rot, mrd, sse_thresh, fused):
             fpfh_t = ub_t.get("fpfh", zero).reshape(L, P * 8)
             terms = torch.stack([ub - incomp_t - fpfh_t, incomp_t, fpfh_t],
                                 dim=-1)
+        elif chem:
+            # TWO-PHASE: chem corners only for the Ssel lowest-lb geometric
+            # survivors of each lane, at the 8 corners of each, taken from
+            # the parent's lattice (the same floats, so the same chem
+            # values); results scatter back to the children's order.  A
+            # survivor past the budget keeps its geometric lb (a valid
+            # lower bound) and ub = inf (not adoptable this iteration).
+            key = torch.where(alive, lb, INF)
+            # a NaN bound is selected FIRST, so that it reaches adoption
+            # and freezes the lane as on the lattice path
+            key = torch.where(torch.isnan(lb), -INF, key)
+            sel_idx = torch.argsort(key, dim=1, stable=True)[:, :Ssel]
+            sel_ok = torch.gather(alive, 1, sel_idx)
+            corners_lat = (parents[..., None, 0:3]
+                           + lattice_off[None, None] * cw[..., None, :]
+                           ).reshape(L, P * 27, 3)
+            lat_idx = (sel_idx // 8 * 27)[..., None] + c2l[sel_idx % 8]
+            corners_sel = torch.gather(
+                corners_lat, 1,
+                lat_idx.reshape(L, Ssel * 8, 1).expand(L, Ssel * 8, 3))
+            vals = chem_corner_values(pair, cfg, pts_rot, corners_sel)
+            ub_add = 0.0
+            lb_add = 0.0
+            ub_ts = {}
+            for k_, reg in (("incomp", cfg.regularization),
+                            ("fpfh", cfg.regularizationFPFH),
+                            ("nbr", cfg.regularizationNeighbors)):
+                if k_ not in vals:
+                    continue
+                v = vals[k_].reshape(L, Ssel, 8)
+                vmax = torch.amax(v, dim=-1)
+                vmin = torch.amin(v, dim=-1)
+                ub_t_ = reg * vmax * vmax
+                ub_add = ub_add + ub_t_
+                lb_add = lb_add + reg * vmin * vmin
+                ub_ts[k_] = ub_t_
+            ub_sel = torch.where(sel_ok,
+                                 torch.gather(ub, 1, sel_idx) + ub_add, INF)
+            lb_sel = torch.where(sel_ok,
+                                 torch.gather(lb, 1, sel_idx) + lb_add, INF)
+            if fused:
+                # the min over the selected survivors is the lattice path's
+                # min over all children: the others have ubu >= lb_geom >=
+                # opt_err >= thr and cannot lower it
+                best_ubu = torch.amin(torch.where(
+                    sel_ok, torch.gather(ubu, 1, sel_idx) + ub_add, INF),
+                    dim=1)
+            ub = torch.full_like(ub, INF).scatter_(1, sel_idx, ub_sel)
+            lb = torch.where(alive, lb, INF).scatter_(1, sel_idx, lb_sel)
+            zero = torch.zeros((L, Ssel), dtype=f32, device=dev)
+            incomp_t = ub_ts.get("incomp", zero)
+            fpfh_t = ub_ts.get("fpfh", zero)
+            terms_sel = torch.stack(
+                [ub_sel - incomp_t - fpfh_t, incomp_t, fpfh_t], dim=-1)
+            terms = torch.zeros((L, P * 8, 3), dtype=f32, device=dev
+                                ).scatter_(1, sel_idx[..., None].expand(
+                                    L, Ssel, 3), terms_sel)
+            n_corners = Ssel * 8
         else:
             terms = torch.stack([ub, torch.zeros_like(ub),
                                  torch.zeros_like(ub)], dim=-1)
             n_corners = 0
-        best_ubu = torch.amin(ubu, dim=1) if fused else None
+        if fused and best_ubu is None:
+            best_ubu = torch.amin(ubu, dim=1)
 
         # adopt the best child ub per lane
         bc = torch.argmin(ub, dim=1)                         # (L,)
@@ -368,22 +467,27 @@ def _make_inner_body(pair, cfg, pts_rot, mrd, sse_thresh, fused):
             prune_ref = opt_err
         lb = torch.where(lb >= prune_ref[:, None], INF, lb)
 
-        # merge + keep the C lowest-lb nodes (one stable sort re-establishes
-        # the sorted-frontier invariant); the corner-reuse payload rides
+        # merge + keep the C lowest-lb nodes (one stable sort, or the rank
+        # merge of sorted_merge, re-establishes the sorted-frontier
+        # invariant); the corner-reuse payload rides
         child_payload = children.reshape(L, P * 8, 4)
         rest_payload = rest_nodes
         if reuse:
             child_payload = torch.cat([child_payload, child_cv], dim=-1)
             rest_payload = torch.cat([rest_nodes, rest_cv], dim=-1)
-        all_lbs = torch.cat([rest_lbs, lb], dim=1)           # (L, C+7P)
-        all_nodes = torch.cat([rest_payload, child_payload], dim=1)
-        order = torch.argsort(all_lbs, dim=1, stable=True)
-        sorted_lbs = torch.gather(all_lbs, 1, order)
-        keep_lbs = sorted_lbs[:, :C]
-        keep_payload = torch.gather(
-            all_nodes, 1,
-            order[:, :C, None].expand(L, C, all_nodes.shape[-1]))
-        dropped = sorted_lbs[:, C:]
+        if cfg.sorted_merge:
+            keep_lbs, keep_payload, dropped = _merge_sorted_keep(
+                rest_lbs, rest_payload, lb, child_payload, C)
+        else:
+            all_lbs = torch.cat([rest_lbs, lb], dim=1)       # (L, C+7P)
+            all_nodes = torch.cat([rest_payload, child_payload], dim=1)
+            order = torch.argsort(all_lbs, dim=1, stable=True)
+            sorted_lbs = torch.gather(all_lbs, 1, order)
+            keep_lbs = sorted_lbs[:, :C]
+            keep_payload = torch.gather(
+                all_nodes, 1,
+                order[:, :C, None].expand(L, C, all_nodes.shape[-1]))
+            dropped = sorted_lbs[:, C:]
         keep_nodes = keep_payload[..., :4]
         min_drop = torch.amin(torch.where(torch.isfinite(dropped), dropped,
                                           INF), dim=1)

@@ -224,8 +224,10 @@ def test_table_lookup_equals_min_over_cells(mode, case):
             g.nearest_cell, g.consts, size=size)
         assert torch.equal(got, want)
         return
-    dist = torch.sqrt(d2.to(torch.float32)).reshape(raw.shape[:-1]) \
-        / g.consts[3]
+    # numpy's float32 sqrt is correctly rounded, as the kernels'
+    # __fsqrt_rn and XLA's are
+    dist = torch.as_tensor(np.sqrt(d2.numpy().astype(np.float32))).reshape(
+        raw.shape[:-1]) / g.consts[3]
     oob, extra = oob_extension(raw, g.consts)
     dist = torch.where(oob, dist + extra, dist)
     if case == "out_of_bounds":

@@ -110,3 +110,32 @@ def test_build_grid_defaults_to_the_default_device():
         g = tedt.build_grid(pts, props, size=8, expand_factor=2.0,
                             device="cpu")
     assert g.nearest_cell.dtype == torch.int32
+
+
+def test_exact_sqrt_is_correctly_rounded():
+    """The port's float32 square roots equal numpy's correctly rounded ones
+    (and so XLA's) bit for bit: the helper over every integer below
+    3 * 1024^2 (the largest squared voxel distance at S <= 1024), and the
+    EDT's `dist` and the out-of-bounds extension over the squared distances
+    of a grid with one occupied cell in a corner."""
+    ints = np.arange(3 * 1024 ** 2, dtype=np.float32)
+    np.testing.assert_array_equal(
+        tedt.exact_sqrt(torch.as_tensor(ints)).numpy(), np.sqrt(ints))
+    size = 40
+    dist, nearest = tedt._edt_fields(
+        torch.zeros((1, 3), dtype=torch.int32), size)
+    flat = np.arange(size ** 3)
+    d2 = ((flat % size) ** 2 + ((flat // size) % size) ** 2
+          + (flat // size ** 2) ** 2).astype(np.float32)
+    assert (nearest.numpy() == 0).all()
+    np.testing.assert_array_equal(dist.numpy(), np.sqrt(d2))
+    raw = torch.as_tensor(np.stack([flat % size - size, -(flat // size % size),
+                                    flat // size ** 2 + size], axis=1),
+                          dtype=torch.int32)
+    consts = torch.tensor([0.0, 0.0, 0.0, 1.0, float(size)])
+    oob, ext = tlookup.oob_extension(raw, consts)
+    a = (raw[:, 0].numpy() - 0).astype(np.float32)
+    b = raw[:, 1].numpy().astype(np.float32)
+    c = (raw[:, 2].numpy() - size + 1).astype(np.float32)
+    assert bool(oob.all())
+    np.testing.assert_array_equal(ext.numpy(), np.sqrt(a * a + b * b + c * c))

@@ -1,6 +1,6 @@
 """The PyTorch port imports, prepares and searches (one pair, and a window
-of pairs through both cross-pair streams) without jax and without the JAX
-package, and importing its kernel module neither builds nor needs nvcc.
+of pairs through both cross-pair streams and as one batch) without jax and
+without the JAX package, and importing its kernel module neither builds nor needs nvcc.
 Its default device is the card: cuda:0, and without a card an error."""
 
 import os
@@ -83,6 +83,19 @@ _CHILD = textwrap.dedent("""
         window, scfg, packed_stream.packed_init(window, scfg), 3)
     assert min(pstate["it"].tolist()) >= 1
     assert 2 <= fused_stream.counters["global_iters"] <= 6
+
+    # the batch engines (two outer steps of the window as one batch) and
+    # the helpers off the search path
+    from goicp_tpu_torch.chem import extras
+    from goicp_tpu_torch.pipeline import visualize
+    from goicp_tpu_torch.search import chunked, device_engine
+    from goicp_tpu_torch.utils import profiling
+    bstate = device_engine.batch_run_chunk(
+        window, scfg, device_engine.batch_init(window, scfg), 2)
+    assert bstate["it"].tolist() == [2, 2]
+    assert chunked.register_device_batch_compact and chunked.load_state
+    assert extras.property_density and visualize.plot_registration
+    assert profiling.PhaseTimers and profiling.trace
     assert sys.modules["jax"] is None and sys.modules["goicp_tpu"] is None
     assert not [m for m in sys.modules
                 if m.startswith(("jax.", "goicp_tpu."))]

@@ -94,11 +94,27 @@ def test_root_corner_values_match_jax():
 
 
 def test_unported_options_raise():
+    """sorted_merge and chem_survivors (full and small budgets) run in the
+    port's inner_bnb, each equal to the JAX inner_bnb with the same knob."""
     cfg, jp, pts, widths, active = _case(seed=3)
     tp = pair_from_jax(jp, "cpu")
-    for kw in (dict(sorted_merge=1), dict(chem_survivors=8)):
-        with pytest.raises(NotImplementedError):
-            tinner.inner_bnb(tp, dataclasses.replace(cfg, **kw),
-                             torch.as_tensor(pts), torch.as_tensor(widths),
-                             torch.as_tensor(active), torch.tensor(40.0),
-                             with_rot_uncertainty=False, fused=True)
+    for kw in (dict(sorted_merge=1), dict(chem_survivors=8),
+               dict(chem_survivors=8 * cfg.trans_pop)):
+        c = dataclasses.replace(cfg, **kw)
+        want = jinner.inner_bnb(jp, c, jnp.asarray(pts), jnp.asarray(widths),
+                                jnp.asarray(active), jnp.float32(40.0),
+                                with_rot_uncertainty=False, fused=True)
+        got = tinner.inner_bnb(tp, c, torch.as_tensor(pts),
+                               torch.as_tensor(widths),
+                               torch.as_tensor(active), torch.tensor(40.0),
+                               with_rot_uncertainty=False, fused=True)
+        assert got.iters == int(want.iters), kw
+        assert int(got.evals) == int(want.evals), kw
+        assert int(got.geom_surv) == int(want.geom_surv), kw
+        assert got.chem_corners == int(want.chem_corners), kw
+        np.testing.assert_array_equal(got.best_node.numpy(),
+                                      np.asarray(want.best_node))
+        for f in ("best_err", "lb_safe", "ub_terms"):
+            np.testing.assert_allclose(getattr(got, f).numpy(),
+                                       np.asarray(getattr(want, f)),
+                                       rtol=1e-5, atol=1e-6, err_msg=f)

@@ -168,10 +168,39 @@ def test_cli_wants_the_card_by_default(bo1, tmp_path):
 
 
 def test_device_batch_runner_is_not_ported(bo1, tmp_path):
-    root, config, _ = bo1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        cli.main(["run-bo1", root, config, "--out-dir", str(tmp_path),
-                  "--engine", "device-batch", "--device", "cpu", "-q"])
+    """run-bo1 --engine device-batch runs the compacting batch runner: its
+    rows equal the JAX sweep's device-batch rows and the port's fused
+    rows, and a second run skips both pairs."""
+    root, config, ids = bo1
+    want = {r["pair"]: r for r in jrun_sweep(
+        root, JConfig(**_CFG), str(tmp_path / "jax"), engine="device-batch")}
+    rows = {}
+    for engine in ("device-batch", "fused"):
+        out = str(tmp_path / engine)
+        argv = ["run-bo1", root, config, "--out-dir", out, "--engine",
+                engine, "--device", "cpu", "-q"]
+        assert cli.main(argv) == 0
+        rows[engine] = _rows(os.path.join(out, "results_similar.jsonl"))
+        if engine == "device-batch":
+            assert cli.main(argv) == 0          # resume: both skipped
+            assert len(_rows(os.path.join(
+                out, "results_similar.jsonl"))) == 2
+    batch, fused = rows["device-batch"], rows["fused"]
+    assert [(r["source"], r["target"]) for r in batch] == ids
+    for r, f in zip(batch, fused):
+        w = want[r["pair"]]
+        assert r["engine"] == w["engine"] == "device-batch"
+        assert r["batch"] == w["batch"] == 2
+        assert abs(r["error"] - w["error"]) <= 1e-5
+        assert abs(r["error"] - f["error"]) <= 1e-5
+        for k in ("outer_steps", "bound_evals", "compatibilities",
+                  "converged"):
+            assert r[k] == w[k] == f[k], k
+        assert r["icp_runs"] == f["icp_runs"]
+        assert r["rmsd"] < 1e-4 and abs(r["rmsd"] - w["rmsd"]) < 1e-5
+        assert os.path.exists(os.path.join(str(tmp_path / "device-batch"),
+                                           "output",
+                                           f"similar{r['pair']}.txt"))
 
 
 def test_register_batch_equals_register_device():
