@@ -107,6 +107,24 @@ Phases, each of which fails the script (nonzero exit, no result line):
     once per batched inner iteration: fewer times than the rows' inner
     iterations together.  Chunks, the widths the batch compacted through,
     and the launches are printed; K2, K3 and K4 must have launched.
+10. the multi-GPU engines (goicp_tpu_torch/dist, torch.distributed) on
+    this one card, each part's ranks started by dist/spawn.run_ranks (the
+    kernels the parent built, loaded): one rank over NCCL (a 1 x 1 mesh):
+    register_device(syn07, mesh=) equal to phase 3's syn07 in error, R, t,
+    opt_comp, outer, inner, evals and icp_runs; register_device_sharded
+    (syn07, rebalance_every=4) converged within MSEThresh*Nd of phase 3,
+    gap within it too; register_fused_stream(trm00-trm07, mesh=) every pair
+    equal to phase 5's; register_device_batch_compact(mesh=) on phase 9's
+    trimmed set every pair equal to phase 9's.  Then 2 and 4 ranks sharing
+    the card over gloo (1 x n meshes; gloo carries the CUDA tensors of
+    the collectives, NCCL refuses two ranks on one card):
+    register_device(syn07, mesh=)
+    equal to phase 3 in every field above, register_device_sharded at
+    rebalance_every 1 and 4 and the straggler handoff of syn07's fused row
+    after 90 global iterations each within MSEThresh*Nd of phase 3 with
+    the gap within it, and dryrun_multichip(n).  K1, K2, K3 and K4 must
+    have launched (every rank's counts summed).  Walls are of ranks
+    sharing one card, not a scaling measurement.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -268,6 +286,21 @@ def _returns(module, name):
         yield out
     finally:
         setattr(module, name, fn)
+
+
+def _setup():
+    """(cfg, cfg_t, pools): GoICPConfig() + bench_shape, its trimmed form,
+    and the bench's synthetic pools by name."""
+    import goicp_tpu_torch
+    from goicp_tpu_torch.bench.measure import (TRIM_FRACTION, bench_shape,
+                                               synthetic_pool,
+                                               synthetic_pool_trimmed)
+    cfg = bench_shape(goicp_tpu_torch.GoICPConfig())
+    cfg_t = dataclasses.replace(cfg, trimFraction=TRIM_FRACTION,
+                                trans_capacity=256)
+    pools = {e[0]: e for e in synthetic_pool(64, seed=7)}
+    pools.update({e[0]: e for e in synthetic_pool_trimmed(32, seed=23)})
+    return cfg, cfg_t, pools
 
 
 def _prepared(name, cfg, pools, dev):
@@ -576,7 +609,8 @@ def _batch_phase(cfg, cfg_t, pools, ref, phase3, dev):
     through register_device_batch_compact(chunk_steps=256, pad_to=8), each
     pair held to phase 3's register_device and to its fp32 row; then the
     similar batch stopped after one chunk and resumed from its checkpoint.
-    Returns the kernels' launch counts of the phase."""
+    Returns the kernels' launch counts of the phase and each set's result
+    ({"similar": ..., "trimmed": ...})."""
     import tempfile
 
     import torch
@@ -588,6 +622,7 @@ def _batch_phase(cfg, cfg_t, pools, ref, phase3, dev):
     cuda_eval.reset_launch_counts()
     t_phase = time.perf_counter()
     counters = ("outer", "inner", "evals", "icp_runs", "opt_comp")
+    outs = {}
 
     def got_of(out, i):
         return dict(error=float(out.error[i]),
@@ -610,6 +645,7 @@ def _batch_phase(cfg, cfg_t, pools, ref, phase3, dev):
                                                     pad_to=8)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        outs[label] = out
         launched = {k: v - before[k]
                     for k, v in cuda_eval.launch_counts().items()}
         widths = list(chunked.counters["widths"])
@@ -683,7 +719,7 @@ def _batch_phase(cfg, cfg_t, pools, ref, phase3, dev):
     for kname in ("chem_incomp_kernel", "geometric_bounds_kernel_lanes",
                   "chem_incomp_kernel_lanes"):
         _require(counts[kname] > 0, f"{kname} launched in phase 9")
-    return counts
+    return counts, outs
 
 
 def _bench_phase(dev):
@@ -737,6 +773,162 @@ def _bench_phase(dev):
     return counts
 
 
+# phase 10's parts: (label, ranks, backend)
+PHASE10_PARTS = (("nccl", 1, "nccl"), ("gloo", 2, "gloo"), ("gloo", 4, "gloo"))
+PHASE10_MID = 90        # global iterations of syn07's fused row before the
+                        # handoff (phase 3: 186 inner iterations, 29 steps)
+FIELDS = ("error", "R", "t", "opt_comp", "outer_iters", "inner_iters",
+          "evals", "icp_runs", "converged", "gap")
+
+
+def _fields(prefix, res):
+    import torch
+    return {f"{prefix}.{f}": torch.as_tensor(getattr(res, f)).cpu().numpy()
+            for f in FIELDS}
+
+
+def phase10_rank(device, part):
+    """One rank of phase 10 (dist/spawn.run_ranks calls it in each rank's
+    process, the process group joined).  part "nccl": the 1 x 1 mesh's
+    runs; part "gloo": the 1 x n mesh's.  Returns every run's fields, the
+    walls and the launch counts of this rank."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from goicp_tpu_torch.bench.measure import (_bucket_and_prepare,
+                                               _normalized_synthetic)
+    from goicp_tpu_torch.bounds import cuda_eval
+    from goicp_tpu_torch.dist.dryrun import dryrun_multichip
+    from goicp_tpu_torch.dist.mesh import make_mesh, stack_pairs
+    from goicp_tpu_torch.search import fused_stream as fs
+    from goicp_tpu_torch.search.chunked import register_device_batch_compact
+    from goicp_tpu_torch.search.device_engine import register_device
+    from goicp_tpu_torch.search.sharded_engine import register_device_sharded
+
+    cfg, cfg_t, pools = _setup()
+    n = dist.get_world_size()
+    mesh = make_mesh(1, n, device=device)
+    syn07 = _prepared("syn07", cfg, pools, device)
+    out, walls = {}, {}
+    cuda_eval.reset_launch_counts()
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        return res
+
+    out.update(_fields("lane", timed("register_device", lambda: (
+        register_device(syn07, cfg, mesh=mesh)))))
+    if part == "nccl":
+        out.update(_fields("sharded4", timed("sharded_k4", lambda: (
+            register_device_sharded(syn07, cfg, mesh, rebalance_every=4)))))
+        stream = _bucket_and_prepare(
+            [_normalized_synthetic(pools[m]) for m in STREAM_TRIMMED], cfg_t,
+            device=device)
+        out.update(_fields("stream", timed("fused_stream", lambda: (
+            fs.register_fused_stream(stream, cfg_t, width=2, chunk_steps=512,
+                                     mesh=mesh)))))
+        batch = _bucket_and_prepare(
+            [_normalized_synthetic(pools[m]) for m in TRIMMED], cfg_t,
+            device=device)
+        out.update(_fields("compact", timed("compact_batch", lambda: (
+            register_device_batch_compact(batch, cfg_t, chunk_steps=256,
+                                          mesh=mesh)))))
+    else:
+        for k in (1, 4):
+            out.update(_fields(f"sharded{k}", timed(f"sharded_k{k}", lambda: (
+                register_device_sharded(syn07, cfg, mesh,
+                                        rebalance_every=k)))))
+        pb = stack_pairs([syn07])
+        row = fs.fused_run_chunk(pb, cfg, fs._init_batch(pb, cfg),
+                                 PHASE10_MID)
+        out["mid_flight"] = not bool(row["converged"][0])
+        out.update(_fields("handoff", timed("handoff", lambda: (
+            fs.straggler_to_lane_sharded(syn07, cfg, fs._row(row, 0),
+                                         mesh)))))
+        # raises unless every engine gives finite errors
+        timed("dryrun", lambda: dryrun_multichip(n, device=device))
+    counts = cuda_eval.launch_counts()
+    out["launch_names"] = np.array(sorted(counts))
+    out["launches"] = np.array([counts[k] for k in sorted(counts)])
+    out["wall_names"] = np.array(list(walls))
+    out["walls"] = np.array(list(walls.values()))
+    return out
+
+
+def _multi_gpu_phase(cfg, syn07, phase3, stream5, batch9):
+    """Phase 10: the multi-GPU engines on this one card (see the module
+    docstring).  cfg: GoICPConfig() + bench_shape; syn07: phase 3's
+    DeviceResult of syn07; stream5 / batch9:
+    phase 5's fused stream and phase 9's compacting batch on the trimmed
+    pairs.  Returns the kernels' launch counts of the phase, every rank's
+    summed."""
+    import numpy as np
+    import torch
+    from goicp_tpu_torch.dist.spawn import run_ranks
+
+    t_phase = time.perf_counter()
+    want = {f: torch.as_tensor(getattr(syn07, f)).cpu().numpy()
+            for f in FIELDS}
+    eps = cfg.MSEThresh * phase3["syn07"]["n_data"]
+    counts = {}
+    for label, n, backend in PHASE10_PARTS:
+        t0 = time.perf_counter()
+        outs = run_ranks("chip_smoke:phase10_rank", n, dict(part=label),
+                         device=DEVICE, backend=backend, timeout_s=300)
+        wall = time.perf_counter() - t0
+        for out in outs:
+            for k, v in zip(out["launch_names"], out["launches"]):
+                counts[str(k)] = counts.get(str(k), 0) + int(v)
+        for r, out in enumerate(outs):
+            for f in FIELDS:
+                _require(np.array_equal(out[f"lane.{f}"], want[f]),
+                         f"phase 10 {backend} x{n} rank {r}: register_device"
+                         f"(mesh=) {f} {out[f'lane.{f}']} vs phase 3 "
+                         f"{want[f]}")
+            runs = [k.split(".")[0] for k in out if k.startswith(
+                ("sharded", "handoff")) and k.endswith(".error")]
+            for run in runs:
+                err, gap = float(out[f"{run}.error"]), float(out[f"{run}.gap"])
+                _require(bool(out[f"{run}.converged"])
+                         and abs(err - float(want["error"])) <= eps
+                         and gap <= eps,
+                         f"phase 10 {backend} x{n} rank {r} {run}: error "
+                         f"{err}, gap {gap} vs phase 3 {want['error']} "
+                         f"(eps {eps})")
+            if label == "nccl":
+                for run, ref in (("stream", stream5), ("compact", batch9)):
+                    for f in FIELDS:
+                        _require(np.array_equal(out[f"{run}.{f}"],
+                                                np.asarray(getattr(ref, f))),
+                                 f"phase 10 nccl {run} {f}: "
+                                 + _first_diff(out[f"{run}.{f}"],
+                                               getattr(ref, f)))
+            else:
+                _require(bool(out["mid_flight"]),
+                         "syn07's fused row is mid-flight at the handoff")
+        rank_walls = ", ".join(f"{k} {v:.3f} s" for k, v in zip(
+            outs[0]["wall_names"], outs[0]["walls"]))
+        summary = {k: outs[0][f"{k}.{f}"].tolist()
+                   for k in ("sharded1", "sharded4", "handoff")
+                   for f in ("outer_iters",) if f"{k}.{f}" in outs[0]}
+        print(f"phase 10 {n} rank(s) over {backend} on one card: wall "
+              f"{wall:.3f} s (process start included); rank 0: "
+              f"{rank_walls}; outer steps {json.dumps(summary)}; checks "
+              f"held", flush=True)
+    print(f"phase 10 wall {time.perf_counter() - t_phase:.3f} s (ranks "
+          f"sharing one card: no scaling number); launches during phase "
+          f"10, every rank's summed: {json.dumps(counts)}", flush=True)
+    for kname in ("geometric_bounds_kernel", "chem_incomp_kernel",
+                  "geometric_bounds_kernel_lanes",
+                  "chem_incomp_kernel_lanes"):
+        _require(counts.get(kname, 0) > 0, f"{kname} launched in phase 10")
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -748,12 +940,9 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import goicp_tpu_torch
     from goicp_tpu_torch import _build
-    from goicp_tpu_torch.bench.measure import (TRIM_FRACTION,
-                                               _bucket_and_prepare,
+    from goicp_tpu_torch.bench.measure import (_bucket_and_prepare,
                                                _normalized_synthetic,
-                                               bench_shape, reference_rows,
-                                               sweep_rows, synthetic_pool,
-                                               synthetic_pool_trimmed)
+                                               reference_rows, sweep_rows)
     from goicp_tpu_torch.bounds import cuda_eval
     from goicp_tpu_torch.bounds.evaluate import rot_uncertainty
     from goicp_tpu_torch.dist.mesh import stack_pairs
@@ -791,11 +980,7 @@ def main() -> int:
           f"(the host's enqueue included); {floor_dev:.4f} ms a launch "
           f"replayed from a CUDA graph", flush=True)
 
-    cfg = bench_shape(goicp_tpu_torch.GoICPConfig())
-    cfg_t = dataclasses.replace(cfg, trimFraction=TRIM_FRACTION,
-                                trans_capacity=256)
-    pools = {e[0]: e for e in synthetic_pool(64, seed=7)}
-    pools.update({e[0]: e for e in synthetic_pool_trimmed(32, seed=23)})
+    cfg, cfg_t, pools = _setup()
 
     # ---- 2. kernels vs plain at main-path shapes ----
     rng = np.random.default_rng(2026)
@@ -1325,14 +1510,16 @@ def main() -> int:
 
     counts7 = _entry_points(cfg, pools, ref, phase3, dev)
     counts8 = _bench_phase(dev)
-    counts9 = _batch_phase(cfg, cfg_t, pools, ref, phase3, dev)
+    counts9, outs9 = _batch_phase(cfg, cfg_t, pools, ref, phase3, dev)
+    counts10 = _multi_gpu_phase(cfg, syn07[1], phase3,
+                                stream_outs[(5, "trimmed")], outs9["trimmed"])
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"],
          "launches": sum(c[kname] for c in (counts, counts3k, counts5,
                                             counts5e, counts6, counts7,
-                                            counts8, counts9)),
+                                            counts8, counts9, counts10)),
          "max_abs_err": max(k["errs"]), "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None,

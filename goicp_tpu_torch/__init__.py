@@ -25,8 +25,11 @@ package, so `goicp_tpu/X/y.py` has its counterpart at
             and the cross-pair streams built on it:
             fused_stream.py (every pair of a window advances each
             iteration) and packed_stream.py (a slot budget of lanes picked
-            across the window)
-  dist/     stacking prepared pairs along a pair axis (mesh.py)
+            across the window); sharded_engine.py, per-rank rotation
+            frontiers over several GPUs
+  dist/     the multi-GPU layer on torch.distributed: the data x search
+            mesh, its collectives and pair stacking (mesh.py), a launcher
+            of n ranks (spawn.py), every multi-GPU engine once (dryrun.py)
   bench/    the bench (measure.py: pools, bucketed preparation, main)
 
 The port stands alone: it imports neither jax nor `goicp_tpu`.

@@ -14,6 +14,7 @@ caller falls back to another implementation.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -65,18 +66,31 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _compile(compiler: str, flags: tuple, sources: list, stem: str):
+def _compile(compiler: str, flags: tuple, sources: list, stem: str,
+             log_flags: tuple = ()):
     """Compile sources into BUILD_DIR/<stem>_<hash of flags and sources>.so
-    unless it is there.  Returns (path, compiler log); the log is empty
-    when the library was already built."""
+    unless it is there.  log_flags only add to the compiler's log (the
+    same library, so not hashed).  Returns (path, compiler log); the log is
+    empty when the library was already built.  Processes that build at
+    once (the ranks of a multi-GPU run) take turns under a file lock, so
+    one builds and the others load its library; the lock goes with its
+    process."""
     h = hashlib.sha256(" ".join(flags).encode())
     for path in sources:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     out = BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
+    BUILD_DIR.mkdir(exist_ok=True)
+    with open(BUILD_DIR / f"{stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return out, _compile_locked(compiler, flags + log_flags, sources,
+                                    out)
+
+
+def _compile_locked(compiler: str, flags: tuple, sources: list,
+                    out: pathlib.Path) -> str:
     log = ""
     if not out.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [compiler, *flags, "-o", str(tmp),
                *(str(p) for p in sources if p.suffix in (".cu", ".cpp"))]
@@ -87,7 +101,7 @@ def _compile(compiler: str, flags: tuple, sources: list, stem: str):
                                f"code {proc.returncode}:\n{' '.join(cmd)}\n"
                                f"{log}")
         os.replace(tmp, out)
-    return out, log
+    return log
 
 
 def host_library() -> ctypes.CDLL:
@@ -113,10 +127,10 @@ def library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    flags = NVCC_FLAGS + (("-Xptxas", "-v") if ptxas_verbose else ())
     t0 = time.perf_counter()
-    out, log = _compile(_nvcc(), flags, sorted(CSRC.glob("*.cu"))
-                        + sorted(CSRC.glob("*.cuh")), "libgoicp_kernels")
+    out, log = _compile(_nvcc(), NVCC_FLAGS, sorted(CSRC.glob("*.cu"))
+                        + sorted(CSRC.glob("*.cuh")), "libgoicp_kernels",
+                        ("-Xptxas", "-v") if ptxas_verbose else ())
     lib = ctypes.CDLL(str(out))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

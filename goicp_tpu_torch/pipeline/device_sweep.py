@@ -16,6 +16,10 @@ pair's result equals its own register_device run.
 Outputs are those of the per-pair sweep: output/<kind><k>.txt,
 *_rescaled.txt, cavitiesN clouds, rot proteins + resultsRMSD.txt, and one
 JSONL row per pair.
+
+With a mesh (dist/mesh.py) every rank runs the sweep on the same pairs and
+the runners split the pair axis over its `data` axis; only global rank 0
+writes files (the other ranks' rows have no RMSD).
 """
 
 from __future__ import annotations
@@ -44,20 +48,34 @@ def run_sweep_device_batch(data_root: str, cfg: GoICPConfig, out_dir: str,
                            limit: int | None = None, start: int = 0,
                            resume: bool = True, with_rmsd: bool = True,
                            batch_size: int = 64, verbose: bool = False,
-                           runner: str = "compact", device=None):
+                           runner: str = "compact", device=None,
+                           mesh=None):
     """data_root: reference-data layout (cavities/, cfpfh/, chains/,
     ref_proteins/, BO1 tsv files).  runner: "compact" (the convergence-
     compacted batch, search/chunked.py) or "fused" (the cross-pair fused
     stream).  device: None means goicp_tpu_torch.default_device(), the
-    card."""
+    card (with a mesh: the mesh's device).  mesh: every rank of it calls
+    this with the same arguments; the pairs split over its `data` axis
+    and only global rank 0 writes files."""
     if runner not in ("compact", "fused"):
         raise ValueError(f"unknown runner {runner!r}")
     from goicp_tpu_torch.search.chunked import register_device_batch_compact
     from goicp_tpu_torch.search.fused_stream import register_fused_stream
 
+    fused_width = FUSED_WIDTH
+    writer = True
+    if mesh is not None:
+        import torch.distributed as dist
+        device = device or mesh.device
+        # the stream's window splits over `data`: a multiple of its size
+        fused_width = -(-max(FUSED_WIDTH, mesh.n_data) // mesh.n_data) \
+            * mesh.n_data
+        writer = dist.get_rank() == 0
     device = resolve_device(device)
-    os.makedirs(out_dir, exist_ok=True)
-    results_path = os.path.join(out_dir, f"results_{kind}.jsonl")
+    if writer:
+        os.makedirs(out_dir, exist_ok=True)
+    results_path = os.path.join(out_dir, f"results_{kind}.jsonl") \
+        if writer else os.devnull
 
     # ---- load + normalize every runnable pair (host) ----
     runnable = []      # (k, src, tgt, inputs, n_downsampled, out_file)
@@ -70,7 +88,7 @@ def run_sweep_device_batch(data_root: str, cfg: GoICPConfig, out_dir: str,
             continue
         data_file, model_file = files
         inputs = load_pair_inputs(model_file, data_file, cfg, pair_id=k,
-                                  out_dir=out_dir,
+                                  out_dir=out_dir if writer else None,
                                   cfpfh_dir=os.path.join(data_root, "cfpfh")
                                   if cfg.cfpfh != 0 else None)
         runnable.append((k, src, tgt, inputs, mol2_atom_count(data_file),
@@ -103,14 +121,15 @@ def run_sweep_device_batch(data_root: str, cfg: GoICPConfig, out_dir: str,
             chunk = [prepared[i] for i in chunk_idxs]
             t0 = time.time()
             if runner == "fused":
-                out = register_fused_stream(chunk, cfg, width=FUSED_WIDTH,
-                                            chunk_steps=FUSED_CHUNK)
+                out = register_fused_stream(chunk, cfg, width=fused_width,
+                                            chunk_steps=FUSED_CHUNK,
+                                            mesh=mesh)
             else:
                 # a bucket's later ragged chunk pads to batch_size with
                 # pre-converged rows (they never search); its first
                 # chunk runs at its own width
                 out = register_device_batch_compact(
-                    chunk, cfg, pad_to=batch_size
+                    chunk, cfg, mesh=mesh, pad_to=batch_size
                     if len(chunk) < batch_size and lo > 0 else None)
             wall = time.time() - t0
             per_pair_s = wall / len(chunk)
@@ -119,12 +138,14 @@ def run_sweep_device_batch(data_root: str, cfg: GoICPConfig, out_dir: str,
                 row_res = type(out)(*(leaf[j] for leaf in out))
                 n_data = int(np.sum(chunk[j].data_mask.cpu().numpy() > 0))
                 reg = adapt_device_result(row_res, n_data, per_pair_s)
+                rmsd = with_rmsd and writer
                 res = finish_pair_run(
-                    inputs, reg, output_file=out_file, out_dir=out_dir,
+                    inputs, reg, output_file=out_file if writer else None,
+                    out_dir=out_dir if writer else None,
                     chains_dir=os.path.join(data_root, "chains")
-                    if with_rmsd else None,
+                    if rmsd else None,
                     ref_proteins_dir=os.path.join(data_root, "ref_proteins")
-                    if with_rmsd else None)
+                    if rmsd else None)
                 row = dict(pair=k, kind=kind, source=src, target=tgt,
                            error=reg.error, geom_error=reg.geom_error,
                            incomp_error=reg.incomp_error,

@@ -106,15 +106,30 @@ def register_device_batch_compact(pairs, cfg: GoICPConfig,
     max_chunks bounds the chunks run: when it is reached, the state is
     saved and a RuntimeError raised.  pad_to: round the batch up by
     repeating pair 0, the pad rows' state pre-converged, so that they never
-    search and retire at the first compaction.  mesh (the pair axis across
-    several GPUs) is not ported yet and raises NotImplementedError."""
+    search and retire at the first compaction.  mesh: every rank of it
+    calls this with the same pairs; the pair axis splits over `data`
+    (dist/mesh.map_pair_blocks), each data rank compacting its own block,
+    and every rank returns the whole batch.  With a mesh pad_to is not
+    needed (the blocks are padded the same way) and each rank checkpoints
+    its block to a file of its own (dist/mesh.rank_path)."""
+    pairs = list(pairs)
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (a batch across several GPUs) is not ported yet: "
-            "ROADMAP Queue 1 item 16")
+        from goicp_tpu_torch.dist.mesh import map_pair_blocks, rank_path
+        path = checkpoint_path and rank_path(checkpoint_path)
+        return map_pair_blocks(mesh, pairs, lambda block, n_live: _compact(
+            block, n_live, cfg, chunk_steps, path, resume, max_chunks))
     B = len(pairs)
     n_pad = max(0, (pad_to or B) - B)
-    stacked_all = stack_pairs(list(pairs) + [pairs[0]] * n_pad)
+    out = _compact(pairs + [pairs[0]] * n_pad, B, cfg, chunk_steps,
+                   checkpoint_path, resume, max_chunks)
+    return DeviceResult(*(v[:B] for v in out))
+
+
+def _compact(pairs: list, n_live: int, cfg: GoICPConfig, chunk_steps: int,
+             checkpoint_path, resume: bool, max_chunks) -> DeviceResult:
+    """The compacting runner over every row of `pairs`, the rows from
+    n_live on pre-converged; returns every row's result."""
+    stacked_all = stack_pairs(pairs)
 
     done: dict[int, DeviceResult] = {}
     if resume and checkpoint_path and os.path.exists(checkpoint_path):
@@ -122,11 +137,10 @@ def register_device_batch_compact(pairs, cfg: GoICPConfig,
                                              stacked_all.device)
         cur_pair = _take_pairs(stacked_all, active_idx)
     else:
-        active_idx = np.arange(B + n_pad)
+        active_idx = np.arange(len(pairs))
         cur_pair = stacked_all
         state = batch_init(cur_pair, cfg)
-        if n_pad:
-            state["converged"][B:] = True
+        state["converged"][n_live:] = True
 
     # geometric chunk schedule: early chunks are short, so that pairs that
     # converge quickly retire (and the batch compacts) before long chunks
@@ -173,7 +187,7 @@ def register_device_batch_compact(pairs, cfg: GoICPConfig,
                 f"max_chunks={max_chunks} reached with {n_act} pairs in "
                 f"flight (state checkpointed)")
 
-    rows = [done[i] for i in range(B)]
+    rows = [done[i] for i in range(len(pairs))]
     return DeviceResult(*(np.stack([np.asarray(getattr(r, f)) for r in rows])
                           for f in DeviceResult._fields))
 

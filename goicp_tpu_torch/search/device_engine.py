@@ -1,7 +1,7 @@
 """Device-side Go-ICP registration: one pair, or a batch of pairs.
 
 Port of goicp_tpu/search/device_engine.py (`register_device`,
-`device_run_chunk`, `register_device_batch`, without a mesh).  The
+`device_run_chunk`, `register_device_batch`).  The
 rotation frontier is a fixed-capacity tensor on the device; one
 outer step pops the rot_batch lowest-lb rotation cubes, expands 8 children
 each, runs the fused lane-batched inner translation BnB on every child
@@ -16,6 +16,13 @@ overflows fold the minimum dropped lb into the reported gap.
 The JAX package runs the outer loop as one lax.while_loop; here it is a
 Python loop whose predicate is read on the host once per outer step, and
 the inner search and ICP read theirs once per iteration.
+
+With a mesh (dist/mesh.py), register_device splits each outer step's
+rotation lanes over the mesh's `search` axis: every search rank runs the
+inner search on its L/n lanes, the per-lane results are all-gathered, and
+the cross-lane reductions (argmin, ICP seeds, adopt, merge) run replicated,
+so the predicate every rank reads is the same.  register_device_batch
+splits the pair axis over `data`.
 
 The JAX package batches pairs by vmapping that loop.  Here a batch state
 is the one-pair state with a leading row axis, and one batched outer step
@@ -170,10 +177,12 @@ def device_init(pair: PairData, cfg: GoICPConfig) -> dict:
     )
 
 
-def _pop(pair: PairData, cfg: GoICPConfig, s: dict) -> dict:
+def _pop(pair: PairData, cfg: GoICPConfig, s: dict, min_lb=None) -> dict:
     """The head of an outer step: pop the rot_batch lowest-lb rotation
     nodes (sorted frontier), test convergence, expand 8 children each with
-    the pi-ball filter, and rotate the data for every child lane."""
+    the pi-ball filter, and rotate the data for every child lane.  min_lb:
+    the lb convergence is tested on (None: the frontier's own minimum; the
+    sharded engine passes the minimum over every rank's frontier)."""
     dev = pair.device
     Pr = cfg.rot_batch
     L = Pr * 8
@@ -183,7 +192,8 @@ def _pop(pair: PairData, cfg: GoICPConfig, s: dict) -> dict:
         [[j & 1, (j >> 1) & 1, (j >> 2) & 1] for j in range(8)],
         dtype=torch.float32, device=dev)
     pop_lb = s["fr_lbs"][:Pr]
-    min_lb = pop_lb[0]
+    if min_lb is None:
+        min_lb = pop_lb[0]
     # a NaN incumbent freezes the search immediately
     converged = torch.isinf(min_lb) | (s["opt_err"] - min_lb <= sse) \
         | torch.isnan(s["opt_err"])
@@ -203,10 +213,28 @@ def _pop(pair: PairData, cfg: GoICPConfig, s: dict) -> dict:
     active = inside & torch.repeat_interleave(expand, 8)
     R_lanes = rodrigues(centers)                           # (L,3,3)
     pts = torch.einsum("lij,nj->lni", R_lanes, pair.data)
-    return dict(converged=converged, final_lb=final_lb,
-                fr_lbs=s["fr_lbs"][Pr:], fr_nodes=s["fr_nodes"][Pr:],
-                child_nodes=child_nodes, widths=widths, active=active,
-                R_lanes=R_lanes, pts=pts)
+    return dict(converged=converged, final_lb=final_lb, pop_lb=pop_lb,
+                expand=expand, fr_lbs=s["fr_lbs"][Pr:],
+                fr_nodes=s["fr_nodes"][Pr:], child_nodes=child_nodes,
+                widths=widths, active=active, R_lanes=R_lanes, pts=pts)
+
+
+def _merge_children(cfg: GoICPConfig, p: dict, lb_safe, opt_err):
+    """Prune the popped children against the incumbent and merge them into
+    the rest of the (sorted) frontier with one stable sort.  Returns the
+    kept lbs and nodes (capacity Cr) and the minimum finite lb dropped."""
+    Cr = cfg.device_rot_capacity
+    lbs_new = torch.where(p["active"] & (lb_safe < opt_err), lb_safe, INF)
+    all_lbs = torch.cat([p["fr_lbs"], lbs_new])            # (Cr - Pr + L)
+    all_nodes = torch.cat([p["fr_nodes"], p["child_nodes"]])
+    order = torch.argsort(all_lbs, stable=True)
+    keep_lbs = all_lbs[order[:Cr]]
+    keep_nodes = all_nodes[order[:Cr]]
+    dropped = all_lbs[order[Cr:]]
+    min_drop = torch.amin(torch.where(torch.isfinite(dropped), dropped, INF))
+    # also prune kept nodes against the new incumbent
+    keep_lbs = torch.where(keep_lbs >= opt_err, INF, keep_lbs)
+    return keep_lbs, keep_nodes, min_drop
 
 
 def _adopt(pair: PairData, cfg: GoICPConfig, s: dict, p: dict, cand: dict,
@@ -219,7 +247,6 @@ def _adopt(pair: PairData, cfg: GoICPConfig, s: dict, p: dict, cand: dict,
     the candidate's BnB count; work: the inner search's evals, iters,
     geom_surv, chem_corners."""
     dev = pair.device
-    Cr = cfg.device_rot_capacity
 
     def pick(icp_v, bnb_v, old_v):
         return torch.where(icp_improved, icp_v,
@@ -233,17 +260,8 @@ def _adopt(pair: PairData, cfg: GoICPConfig, s: dict, p: dict, cand: dict,
     last_icp = torch.where(icp_improved, True,
                            torch.where(bnb_improved, False, s["last_icp"]))
 
-    # ---- prune + merge children into the frontier ----
-    lbs_new = torch.where(p["active"] & (lb_safe < opt_err), lb_safe, INF)
-    all_lbs = torch.cat([p["fr_lbs"], lbs_new])            # (Cr - Pr + L)
-    all_nodes = torch.cat([p["fr_nodes"], p["child_nodes"]])
-    order = torch.argsort(all_lbs, stable=True)
-    keep_lbs = all_lbs[order[:Cr]]
-    keep_nodes = all_nodes[order[:Cr]]
-    dropped = all_lbs[order[Cr:]]
-    min_drop = torch.amin(torch.where(torch.isfinite(dropped), dropped, INF))
-    # also prune kept nodes against the new incumbent
-    keep_lbs = torch.where(keep_lbs >= opt_err, INF, keep_lbs)
+    keep_lbs, keep_nodes, min_drop = _merge_children(cfg, p, lb_safe,
+                                                     opt_err)
 
     # frozen when converged
     frozen = s["converged"] | p["converged"]
@@ -281,13 +299,21 @@ def _adopt(pair: PairData, cfg: GoICPConfig, s: dict, p: dict, cand: dict,
     )
 
 
-def _make_body(pair: PairData, cfg: GoICPConfig):
+def _make_body(pair: PairData, cfg: GoICPConfig, mesh=None):
     """One outer BnB step: pop -> expand -> inner search -> ICP -> adopt ->
-    prune/merge."""
+    prune/merge.  With a mesh the inner search runs on this rank's block
+    of the lanes (its kernels device-local) and its results are
+    all-gathered over `search` (dist/mesh.gather_lanes)."""
     def inner(pts, widths, active, inc, with_rot_uncertainty, fused):
-        return inner_bnb(pair, cfg, pts, widths, active, inc,
-                         with_rot_uncertainty=with_rot_uncertainty,
-                         fused=fused)
+        if mesh is None:
+            return inner_bnb(pair, cfg, pts, widths, active, inc,
+                             with_rot_uncertainty=with_rot_uncertainty,
+                             fused=fused)
+        from goicp_tpu_torch.dist.mesh import gather_lanes
+        mine = mesh.block(pts.shape[0], "search")
+        return gather_lanes(inner_bnb(
+            pair, cfg, pts[mine], widths[mine], active[mine], inc,
+            with_rot_uncertainty=with_rot_uncertainty, fused=fused), mesh)
 
     def body(s):
         p = _pop(pair, cfg, s)
@@ -366,24 +392,37 @@ def device_finalize(state: dict) -> DeviceResult:
 
 
 def device_run_chunk(pair: PairData, cfg: GoICPConfig, state: dict,
-                     steps: int) -> dict:
+                     steps: int, mesh=None) -> dict:
     """Advance one pair's search by at most `steps` outer iterations
     (resumable: feed the returned state back in; device_finalize when
-    converged).  `state` itself is not modified."""
+    converged).  `state` itself is not modified.  mesh: split the lanes
+    over its `search` axis (see register_device); every rank of the mesh
+    calls this with the same pair and state."""
+    if mesh is not None and not cfg.fused_inner:
+        raise ValueError("lane sharding (mesh=...) requires fused_inner=1 "
+                         "(the two-pass inner path runs unsharded)")
     s = dict(state)
     it = int(s["it"])
     limit = min(it + int(steps), cfg.max_outer_steps)
-    body = _make_body(pair, cfg)
+    body = _make_body(pair, cfg, mesh)
     while it < limit and not bool(s["converged"]):
         s = body(s)
         it += 1
     return s
 
 
-def register_device(pair: PairData, cfg: GoICPConfig) -> DeviceResult:
-    """The whole Go-ICP search for one pair, on the pair's device."""
+def register_device(pair: PairData, cfg: GoICPConfig,
+                    mesh=None) -> DeviceResult:
+    """The whole Go-ICP search for one pair, on the pair's device.  mesh
+    (dist/mesh.Mesh): every rank of it calls this with the same pair; the
+    rotation lanes of each outer step split over its `search` axis, whose
+    size must divide rot_batch * 8, and every rank returns the result.
+    The counters are the unsharded run's (evals summed over the ranks,
+    inner iterations the slowest rank's) except chem_corners, which counts
+    the corners evaluated: with lane compaction it depends on the lane block
+    each rank searches."""
     return device_finalize(device_run_chunk(pair, cfg, device_init(pair, cfg),
-                                            cfg.max_outer_steps))
+                                            cfg.max_outer_steps, mesh=mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -513,21 +552,29 @@ def result_to_numpy(res: DeviceResult) -> DeviceResult:
     return DeviceResult(*(np.asarray(v.cpu()) for v in res))
 
 
+def _batch_rows(pairs: list, n_live: int, cfg: GoICPConfig) -> DeviceResult:
+    """Every row of `pairs` as one batch run to convergence, the rows from
+    n_live on pre-converged (they never search)."""
+    from goicp_tpu_torch.dist.mesh import stack_pairs
+    pb = stack_pairs(pairs)
+    s = batch_init(pb, cfg)
+    s["converged"][n_live:] = True
+    s = batch_run_chunk(pb, cfg, s, cfg.max_outer_steps)
+    return result_to_numpy(device_finalize(s))
+
+
 def register_device_batch(pairs, cfg: GoICPConfig, mesh=None
                           ) -> DeviceResult:
     """Register B same-bucket pairs (all on one device) as one batch run to
     convergence: every outer step of every row at once, the inner
     searches of all rows as one lane batch.  Each row's result equals its
     own register_device.  Returns a DeviceResult of numpy arrays with a
-    leading pair axis, in the order of `pairs`.
-
-    mesh (the pair axis across several GPUs) is not ported yet and
-    raises NotImplementedError."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (a batch across several GPUs) is not ported yet: "
-            "ROADMAP Queue 1 item 16")
-    from goicp_tpu_torch.dist.mesh import stack_pairs
-    pb = stack_pairs(list(pairs))
-    s = batch_run_chunk(pb, cfg, batch_init(pb, cfg), cfg.max_outer_steps)
-    return result_to_numpy(device_finalize(s))
+    leading pair axis, in the order of `pairs`.  mesh: every rank of it
+    calls this with the same pairs; the pair axis splits over `data`
+    (dist/mesh.map_pair_blocks) and every rank returns the whole batch."""
+    pairs = list(pairs)
+    if mesh is None:
+        return _batch_rows(pairs, len(pairs), cfg)
+    from goicp_tpu_torch.dist.mesh import map_pair_blocks
+    return map_pair_blocks(mesh, pairs, lambda block, n_live: _batch_rows(
+        block, n_live, cfg))

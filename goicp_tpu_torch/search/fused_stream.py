@@ -38,8 +38,12 @@ after N chunks leaves the window, its translation frontier widened without
 loss (migrate_row_capacity), and finishes in a deferred phase at the deeper
 capacity.
 
-Not ported yet, each raising NotImplementedError when asked for: `mesh=`
-and the straggler handoff (multi-GPU, ROADMAP Queue 1 item 16).
+With a mesh (dist/mesh.py) the window's rows split over the `data` axis:
+each data rank advances its block of rows, and the per-chunk flags are
+all-gathered, so that every rank makes the same refill, retirement and
+handoff decisions.  When the window has drained to one live pair and no
+refill remains, that pair's state moves to rotation-lane sharding over the
+`search` axis (straggler_to_lane_sharded).
 
 Reference anchors: OuterBnB/InnerBnB nesting jly_goicp.cpp:582-876 /
 :286-579 (one pair, one node at a time); the pair loop bo1_GoICP.py:40-54.
@@ -63,7 +67,8 @@ from goicp_tpu_torch.geom.rotation import rodrigues
 from goicp_tpu_torch.pipeline.prepare import PairData
 from goicp_tpu_torch.search.device_engine import (DeviceResult,
                                                   _icp_best_of_seeds,
-                                                  _initial_incumbent)
+                                                  _initial_incumbent,
+                                                  result_to_numpy)
 from goicp_tpu_torch.search.inner import (_PER_LANE, IterStats, _chem_active,
                                           _chem_reuse_active, _chem_terms,
                                           _make_inner_body,
@@ -508,20 +513,23 @@ def fused_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
 # results, checkpoints
 # ---------------------------------------------------------------------------
 
+def _lane_lb(ist: dict) -> torch.Tensor:
+    """(..., L) each lane's in-flight lower bound: inner_bnb's lb_safe
+    formula (min over thr / min_dropped, plus the remaining frontier min
+    for lanes not done)."""
+    rem_min = torch.amin(ist["lbs"], dim=-1)
+    lane_lb = torch.minimum(ist["thr"], ist["min_dropped"])
+    return torch.where(ist["done"], lane_lb, torch.minimum(lane_lb, rem_min))
+
+
 def _inflight_lb(state: dict) -> torch.Tensor:
     """(W,) lower bound of the popped parents' subtrees still mid-inner-
-    search: inner_bnb's lb_safe formula (min over thr / min_dropped, plus
-    the remaining frontier min for lanes not done) min-reduced over the
-    active lanes.  A pair retired at max_outer_steps removed its popped
-    parents from the rotation frontier at the transition, so their
-    subtree's lbs live ONLY here — without this fold `remaining`
-    overstates the proven bound."""
-    ist = state["inner"]
-    rem_min = torch.amin(ist["lbs"], dim=-1)                  # (W, L)
-    lane_lb = torch.minimum(ist["thr"], ist["min_dropped"])
-    lane_lb = torch.where(ist["done"], lane_lb,
-                          torch.minimum(lane_lb, rem_min))
-    return torch.amin(torch.where(state["active"], lane_lb, INF), dim=-1)
+    search: _lane_lb min-reduced over the active lanes.  A pair retired at
+    max_outer_steps removed its popped parents from the rotation frontier
+    at the transition, so their subtree's lbs live ONLY here — without
+    this fold `remaining` overstates the proven bound."""
+    return torch.amin(torch.where(state["active"], _lane_lb(state["inner"]),
+                                  INF), dim=-1)
 
 
 def fused_finalize(state: dict) -> DeviceResult:
@@ -648,10 +656,44 @@ def migrate_row_capacity(row_state: dict, cfg: GoICPConfig,
 
 
 def straggler_to_lane_sharded(pair, cfg: GoICPConfig, row_state: dict,
-                              mesh):
-    raise NotImplementedError(
-        "the straggler handoff to lane sharding needs the multi-GPU "
-        "engines, which are not ported yet: ROADMAP Queue 1 item 16")
+                              mesh) -> DeviceResult:
+    """Hand a lone in-flight straggler of a drained fused window to
+    rotation-lane sharding over `mesh`'s `search` axis: once the window
+    drains, pair-level data parallelism leaves every other rank idle, and
+    the straggler's own lanes are the parallelism left.  Every rank of the
+    mesh calls this with the same pair and row state.
+
+    The row's in-flight pop (parents popped, their children mid-inner-
+    search, no longer in fr_lbs) is re-inserted as its children with their
+    CURRENT in-flight lower bounds (_lane_lb: valid bounds for each child's
+    subtree), giving a pure rotation-frontier state that register_device's
+    lane-sharded steps (device_run_chunk(mesh=)) run to convergence.  The
+    partial inner progress of those lanes is searched again when the
+    children pop again: bounded rework, epsilon-optimality untouched."""
+    from goicp_tpu_torch.search.device_engine import (device_finalize,
+                                                      device_run_chunk)
+    ist = row_state["inner"]
+    lane_lb = _lane_lb(ist)
+    lbs_new = torch.where(row_state["active"]
+                          & (lane_lb < row_state["opt_err"]), lane_lb, INF)
+    Cr = cfg.device_rot_capacity
+    all_lbs = torch.cat([row_state["fr_lbs"], lbs_new])
+    all_nodes = torch.cat([row_state["fr_nodes"], row_state["child_nodes"]])
+    order = torch.argsort(all_lbs, stable=True)
+    dropped = all_lbs[order[Cr:]]
+    min_drop = torch.amin(torch.where(torch.isfinite(dropped), dropped, INF))
+    dstate = {k: row_state[k] for k in (
+        "opt_err", "opt_R", "opt_t", "comp", "terms", "last_icp", "it",
+        "evals", "inner_it", "icp_runs", "converged", "final_lb")}
+    dstate.update(
+        fr_nodes=all_nodes[order[:Cr]], fr_lbs=all_lbs[order[:Cr]],
+        min_dropped=torch.minimum(row_state["min_dropped"], min_drop),
+        geom_surv=row_state["geom_surv"] + ist["geom_surv"],
+        chem_corners=row_state["chem_corners"] + ist["chem_corners"])
+    while not bool(dstate["converged"]) \
+            and int(dstate["it"]) < cfg.max_outer_steps:
+        dstate = device_run_chunk(pair, cfg, dstate, 512, mesh=mesh)
+    return device_finalize(dstate)
 
 
 def _fused_inflight_np(state: dict) -> np.ndarray:
@@ -705,14 +747,17 @@ def register_fused_stream(pairs, cfg: GoICPConfig, width: int = 8,
     not supported with it (the deferred pairs are not checkpointed): both
     raise ValueError.
 
-    mesh (pair-level data parallelism and the straggler handoff) is not
-    ported yet and raises NotImplementedError.
+    mesh (dist/mesh.Mesh): every rank of it calls this with the same
+    pairs.  The window's rows split over the `data` axis (the width
+    rounded up to a multiple of its size, with dead rows that never
+    search); when the mesh also has a `search` axis of more than one rank,
+    a lone straggler left after the window drains goes to rotation-lane
+    sharding over that axis (straggler_to_lane_sharded) instead of leaving
+    the other ranks idle.  Every rank returns every pair's result; with
+    checkpoint_path each rank saves its block to a file of its own
+    (dist/mesh.rank_path).  Escalation and mesh together raise ValueError.
 
     Returns DeviceResult of numpy arrays, batch axis in pair order."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the stream across several GPUs) is not ported yet: "
-            "ROADMAP Queue 1 item 16")
     escalate = None
     if escalate_capacity is not None:
         if escalate_capacity <= cfg.trans_capacity:
@@ -722,6 +767,8 @@ def register_fused_stream(pairs, cfg: GoICPConfig, width: int = 8,
         if checkpoint_path is not None:
             raise ValueError("escalate_capacity is incompatible with "
                              "checkpoint_path")
+        if mesh is not None:
+            raise ValueError("escalate_capacity is incompatible with mesh")
         cfg2 = dataclasses.replace(cfg, trans_capacity=escalate_capacity)
 
         def run_hard(hard, stacked_all):
@@ -753,6 +800,11 @@ def register_fused_stream(pairs, cfg: GoICPConfig, width: int = 8,
     def run_chunk(pair_batch, cfg_, state, steps):
         return fused_run_chunk(pair_batch, cfg_, state, steps, eager=eager)
 
+    straggler_fn = None
+    if mesh is not None and mesh.n_search > 1:
+        def straggler_fn(pair1, row_state):
+            return straggler_to_lane_sharded(pair1, cfg, row_state, mesh)
+
     return _stream_driver(pairs, cfg, width=width, chunk_steps=chunk_steps,
                           progress=progress,
                           checkpoint_path=checkpoint_path, resume=resume,
@@ -761,7 +813,8 @@ def register_fused_stream(pairs, cfg: GoICPConfig, width: int = 8,
                           finalize=fused_finalize,
                           inflight_fn=_fused_inflight_np,
                           checkpoint_every=checkpoint_every,
-                          escalate=escalate)
+                          escalate=escalate, mesh=mesh,
+                          straggler_fn=straggler_fn)
 
 
 def _result_rows(res: DeviceResult) -> list:
@@ -774,7 +827,8 @@ def _result_rows(res: DeviceResult) -> list:
 def _stream_driver(pairs, cfg: GoICPConfig, width, chunk_steps, progress,
                    checkpoint_path, resume, max_chunks,
                    init_fn, run_chunk, finalize, inflight_fn=None,
-                   checkpoint_every: int = 1, escalate=None):
+                   checkpoint_every: int = 1, escalate=None, mesh=None,
+                   straggler_fn=None):
     """Engine-generic continuous-batching host loop (window refill,
     checkpoint/resume, progress) shared by the fused and packed streams.
     init_fn(pair_batch, cfg) -> state; run_chunk(pair_batch, cfg, state,
@@ -787,11 +841,46 @@ def _stream_driver(pairs, cfg: GoICPConfig, width, chunk_steps, progress,
     escalate: (after_chunks, run_hard) or None.  A row alive after
     after_chunks chunks is harvested into a list and its row refilled; at
     the end run_hard(list, stacked pairs) finishes the list's pairs and
-    returns their results (register_fused_stream's escalate_capacity)."""
+    returns their results (register_fused_stream's escalate_capacity).
+
+    mesh: this rank holds the window rows [lo, lo + width / n_data) (its
+    `data` block) in `state`; the window's bookkeeping (rows_orig, dead,
+    next_pair, done) is replicated, kept the same on every rank by reading
+    only all-gathered flags and results.  straggler_fn(pair, row state):
+    finishes the last live pair once no refill remains (see
+    register_fused_stream)."""
     B = len(pairs)
-    width = min(width, B)
+    n_data = 1 if mesh is None else mesh.n_data
+    # dead rows (pair 0, pre-converged, never reported) keep the width a
+    # multiple of the data axis even when fewer pairs than ranks remain
+    width = -(-min(width, B) // n_data) * n_data
+    w_loc = width // n_data
+    lo = 0 if mesh is None else mesh.data_rank * w_loc
+    local = range(lo, lo + w_loc)
     stacked_all = stack_pairs(list(pairs))
     dev = stacked_all.device
+    if mesh is not None and checkpoint_path:
+        from goicp_tpu_torch.dist.mesh import rank_path
+        checkpoint_path = rank_path(checkpoint_path)
+
+    def gather(t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows -> the window's, on every rank."""
+        return t if mesh is None else mesh.all_gather(t, "data").flatten(0, 1)
+
+    def window_rows(state) -> list:
+        res = finalize(state)
+        return _result_rows(type(res)(*(gather(v) for v in res)))
+
+    def window_pairs() -> PairData:
+        return _take_pairs(stacked_all, [0 if dead[r] else rows_orig[r]
+                                         for r in local])
+
+    def fresh_window(cur_pair) -> dict:
+        state = init_fn(cur_pair, cfg)
+        for r in local:
+            if dead[r]:
+                state["converged"][r - lo] = True
+        return state
 
     n0 = min(width, B)
     rows_orig = [i if i < n0 else 0 for i in range(width)]
@@ -806,17 +895,20 @@ def _stream_driver(pairs, cfg: GoICPConfig, width, chunk_steps, progress,
     if resume and checkpoint_path and os.path.exists(checkpoint_path):
         state, rows_orig, dead, next_pair, done = \
             load_stream_state(checkpoint_path, dev)
-        cur_pair = _take_pairs(stacked_all, rows_orig)
+        cur_pair = window_pairs()
     else:
-        cur_pair = _take_pairs(stacked_all, rows_orig)
-        state = init_fn(cur_pair, cfg)
+        cur_pair = window_pairs()
+        state = fresh_window(cur_pair)
 
     chunks = 0
     while True:
         state = run_chunk(cur_pair, cfg, state, chunk_steps)
         chunks += 1
-        conv = np.asarray(state["converged"].cpu())
-        its = np.asarray(state["it"].cpu())
+        flags = gather(torch.stack([state["converged"].to(torch.int64),
+                                    state["it"].to(torch.int64)], dim=1))
+        flags = flags.cpu().numpy()
+        conv = flags[:, 0] > 0
+        its = flags[:, 1]
         finished = conv | (its >= cfg.max_outer_steps)
 
         evicted: list[int] = []
@@ -832,50 +924,67 @@ def _stream_driver(pairs, cfg: GoICPConfig, width, chunk_steps, progress,
                     evicted.append(r)
                     counters["escalated"] += 1
 
+        # the straggler handoff: the window has drained to ONE live pair
+        # and no refill remains; its state, gathered from the rank that
+        # holds it, goes to rotation-lane sharding on every rank
+        if straggler_fn is not None and next_pair >= B:
+            live = [r for r in range(width) if not (finished[r] or dead[r])]
+            if len(live) == 1:
+                r = live[0]
+                row = _map_state(lambda x: mesh.all_gather(
+                    x[r % w_loc], "data")[r // w_loc], state)
+                done[rows_orig[r]] = result_to_numpy(straggler_fn(
+                    _pair_row(stacked_all, rows_orig[r]), row))
+                dead[r] = True
+                finished[:] = True                 # the window is served
+
         if progress is not None:
             # frontier_min folds the in-flight inner search's bound (the
             # popped parents' subtrees are no longer in fr_lbs)
             infl = inflight_fn(state) if inflight_fn is not None \
-                else np.full(width, np.inf)
-            opt = np.asarray(state["opt_err"].cpu())
-            fr0 = np.asarray(state["fr_lbs"][:, 0].cpu())
+                else np.full(w_loc, np.inf)
+            rows = gather(torch.stack([
+                state["opt_err"], state["fr_lbs"][:, 0],
+                torch.as_tensor(infl, dtype=_F32, device=dev)], dim=1))
+            rows = rows.cpu().numpy()
             progress(dict(
                 chunk=chunks,
                 rows=[{"pair": rows_orig[r], "dead": dead[r],
                        "converged": bool(conv[r]),
                        "outer": int(its[r]),
-                       "incumbent": float(opt[r]),
-                       "frontier_min": float(min(fr0[r], infl[r]))}
+                       "incumbent": float(rows[r, 0]),
+                       "frontier_min": float(min(rows[r, 1], rows[r, 2]))}
                       for r in range(width)]))
 
         if all(finished[r] or dead[r] for r in range(width)):
-            res = _result_rows(finalize(state))
+            res = window_rows(state)
             for r in range(width):
                 if not dead[r] and rows_orig[r] not in done:
                     done[rows_orig[r]] = res[r]
             if next_pair >= B:
                 break
             n = min(width, B - next_pair)
-            rows_orig = [next_pair + i if i < n else next_pair
-                         for i in range(width)]
+            rows_orig = [next_pair + i if i < n else 0 for i in range(width)]
             dead = [i >= n for i in range(width)]
             row_age = [0] * width
             next_pair += n
-            cur_pair = _take_pairs(stacked_all, rows_orig)
-            state = init_fn(cur_pair, cfg)
+            cur_pair = window_pairs()
+            state = fresh_window(cur_pair)
         else:
             retired = [r for r in range(width)
                        if (finished[r] or r in evicted) and not dead[r]]
             if retired:
                 need_res = [r for r in retired if r not in evicted]
-                res = _result_rows(finalize(state)) if need_res else None
+                res = window_rows(state) if need_res else None
                 for r in retired:
                     if r not in evicted and rows_orig[r] not in done:
                         done[rows_orig[r]] = res[r]
                     row_age[r] = 0
                     if next_pair < B:
-                        sub_pair = _take_pairs(stacked_all, [next_pair])
-                        _write_row(state, r, _row(init_fn(sub_pair, cfg), 0))
+                        if r in local:
+                            sub_pair = _take_pairs(stacked_all, [next_pair])
+                            _write_row(state, r - lo,
+                                       _row(init_fn(sub_pair, cfg), 0))
                         rows_orig[r] = next_pair
                         next_pair += 1
                     else:
@@ -883,11 +992,8 @@ def _stream_driver(pairs, cfg: GoICPConfig, width, chunk_steps, progress,
                         if r in evicted:
                             # no refill left: stop advancing the evicted
                             # row's stale state
-                            state["converged"][r] = True
-                cur_pair = _take_pairs(
-                    stacked_all,
-                    [rows_orig[i] if not dead[i] else 0
-                     for i in range(width)])
+                            state["converged"][r - lo] = True
+                cur_pair = window_pairs()
 
         # the tail runs on EVERY path (incl. a whole-window retire+refill):
         # the on-disk checkpoint never lags the in-memory state by more

@@ -18,6 +18,7 @@ from goicp_tpu.search.chunked import \
 from goicp_tpu_torch import config as tconfig
 from goicp_tpu_torch.pipeline.prepare import pair_from_jax
 from goicp_tpu_torch.search import chunked, device_engine
+from tests._torch_ranks import one_rank_mesh
 from tests.test_chunked import _batch, _cfg
 
 # The port's CPU search is a loop of small torch ops; intra-op threads only
@@ -166,7 +167,11 @@ def test_device_stream_matches_compact(case):
 
 
 def test_mesh_waits_for_the_multi_gpu_engines(case):
-    for fn in (chunked.register_device_batch_compact,
-               device_engine.register_device_batch):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            fn(case["pairs"], case["cfg"], mesh=object())
+    """mesh= is ported: both batch engines over the data axis of a one-rank
+    mesh give the unsharded rows (tests/test_torch_straggler.py runs them
+    over four ranks)."""
+    with one_rank_mesh() as mesh:
+        for fn in (chunked.register_device_batch_compact,
+                   device_engine.register_device_batch):
+            _assert_rows(fn(case["pairs"], case["cfg"], mesh=mesh),
+                         case["out"])

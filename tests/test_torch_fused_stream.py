@@ -191,20 +191,20 @@ def test_fused_stream_neighbour_term_runs_row_by_row():
 
 
 @pytest.mark.parametrize("kw,err,match", [
-    (dict(mesh=object()), NotImplementedError, "item 16"),
+    (dict(mesh=object(), escalate_capacity=32), ValueError, "with mesh"),
     (dict(escalate_capacity=16), ValueError, "must exceed"),
 ], ids=["kw0-item 16", "kw1-item 18"])
 def test_unported_options_raise(case, kw, err, match):
-    """mesh= and the straggler handoff wait for the multi-GPU engines; an
-    escalation that does not widen the frontier is an error (the JAX
-    package ignores it), and so is a migration that narrows it."""
+    """The options that still raise: escalation together with a mesh (as
+    in the JAX package; mesh= and the straggler handoff themselves are
+    ported, tests/test_torch_straggler.py); an escalation that does not
+    widen the frontier (the JAX package ignores it), and a migration that
+    narrows it."""
     with pytest.raises(err, match=match):
         tfs.register_fused_stream(case["pairs"], case["cfg"], width=2, **kw)
     with pytest.raises(ValueError, match="widen"):
         tfs.migrate_row_capacity({}, case["cfg"], dataclasses.replace(
             case["cfg"], trans_capacity=8))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tfs.straggler_to_lane_sharded(None, case["cfg"], {}, None)
 
 
 def test_load_stream_state_defaults_to_the_default_device(tmp_path):

@@ -96,6 +96,13 @@ _CHILD = textwrap.dedent("""
     assert chunked.register_device_batch_compact and chunked.load_state
     assert extras.property_density and visualize.plot_registration
     assert profiling.PhaseTimers and profiling.trace
+    # the multi-GPU modules (they need a process group to run)
+    from goicp_tpu_torch.dist import dryrun, mesh, spawn
+    from goicp_tpu_torch.search import sharded_engine
+    assert mesh.init_distributed and mesh.make_mesh and mesh.put_global
+    assert mesh.sharded_inner_step and mesh.reduce_best
+    assert sharded_engine.register_device_sharded and spawn.run_ranks
+    assert dryrun.dryrun_multichip
     assert sys.modules["jax"] is None and sys.modules["goicp_tpu"] is None
     assert not [m for m in sys.modules
                 if m.startswith(("jax.", "goicp_tpu."))]
