@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # everything; the result lines
     python3 chip_smoke.py --kernels-only   # phases 1-2; no result
+    python3 chip_smoke.py --options        # phases 1, 2 and 11; no result
 
 Phases, each of which fails the script (nonzero exit, no result line):
 
@@ -43,7 +44,11 @@ Phases, each of which fails the script (nonzero exit, no result line):
     FUNCTION needs, whatever implements it: a fixed number of operations
     per (lane, node or corner, real point) over 67 TFLOP/s (fp32 outside
     the tensor cores), against its input + output bytes over 3.35 TB/s,
-    each tensor once.
+    each tensor once.  K1 on syn07 and trm00 (there also fused with a
+    static K) and K3 run at norm 2 and again at norm 1 (the fork's L1
+    option) on the same inputs, at the same tolerances, K3 lane for lane
+    equal to K1 at each norm (norm 1's times: the JSON line's "norm1"
+    entries).
  3. registrations through the port's entry points: prepare_pair(bucket=
     True) -> make_count_dynamic -> register_device, under GoICPConfig() +
     bench_shape, on six pairs of the similar pool and four of the trimmed
@@ -125,6 +130,27 @@ Phases, each of which fails the script (nonzero exit, no result line):
     the gap within it, and dryrun_multichip(n).  K1, K2, K3 and K4 must
     have launched (every rank's counts summed).  Walls are of ranks
     sharing one card, not a scaling measurement.
+11. the fork's error options (goicp_tpu_torch/bench/options.py: l1 =
+    norm 1; fpfh = cfpfh 1 with regularizationFPFH 0.001 and seeded
+    descriptors; nbr = regularizationNeighbors 0.001), each on its 4
+    similar and 2 trimmed bench pairs through register_device, each equal
+    to its row of goicp_tpu_torch/bench/option_rows.jsonl (the JAX
+    package's register_device on XLA:CPU): error and the rescored terms
+    (geom, incomp, fpfh, nbr) within 1e-4, counters exact on similar
+    pairs, evals within 5 % on trimmed ones.  The host engine on each
+    option's first pair (unpadded), equal to the JAX host engine's result
+    in the pair's row: counters exact, error and terms within 1e-4.  Over
+    each option's similar pairs in one bucket: the fused stream (width 2)
+    and the compacting batch (l1 on the K3/K4 path, fpfh and nbr row by
+    row), every pair equal to register_device; the packed stream refuses
+    fpfh and nbr; the stream's ms per global iteration.  Then the CLI's
+    run-pair on a BO1-style root with seeded descriptor files under one
+    config of norm=1, cfpfh=1, regularizationFPFH and
+    regularizationNeighbors: a non-zero FPFH term, equal to
+    register_device on the same prepared pair.  K1, K2, K3 and K4 must
+    have launched.  After the phase's launches are read: the fused
+    stream's inner step alone (ms and kernel launches of every kernel,
+    torch.profiler) on each path.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -134,6 +160,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import statistics
@@ -163,8 +190,9 @@ PEAK_BYTES = 3.35e12    # H100 SXM device memory, bytes per second
 #                     square and the rot_unc pair fewer: 17)
 # K2/K4 then      19  the 9-wide dot 17 (9 mul, 8 add), mask minus dot 1,
 #                     the sum 1
-GEOM_OPS_FUSED = 46
-GEOM_OPS_PLAIN = 42
+# K1/K3 by (norm, fused); at norm 1 (the fork's L1 option) the squares
+# go: fused 3 fewer, plain 1
+GEOM_OPS = {(2, True): 46, (2, False): 42, (1, True): 43, (1, False): 41}
 CHEM_OPS = 44
 
 
@@ -929,6 +957,295 @@ def _multi_gpu_phase(cfg, syn07, phase3, stream5, batch9):
     return counts
 
 
+def _option_pairs(names, c, pools, dev, bucket="own"):
+    """The named bench pairs with their seeded descriptors, prepared under
+    c: bucket "own", each in its own bucket (count-dynamic); "shared", all
+    in one pool-max bucket (count-dynamic, for a stream or a batch);
+    "none", unpadded (for the host engine)."""
+    from goicp_tpu_torch.bench.measure import _normalized_synthetic
+    from goicp_tpu_torch.bench.options import seeded_descriptors
+    from goicp_tpu_torch.pipeline.prepare import (bucket_dims,
+                                                  make_count_dynamic,
+                                                  prepare_pair)
+    raws = []
+    for n in names:
+        raw = _normalized_synthetic(pools[n])
+        raws.append(raw + seeded_descriptors(raw[2], raw[3]))
+    if bucket == "none":
+        return [prepare_pair(*r[:4], c, *r[4:], device=dev) for r in raws]
+    dims: dict = {}
+    if bucket == "shared":
+        for r in raws:
+            d = bucket_dims(r[1], len(r[0]), len(r[1]), c)
+            dims = {k: max(dims.get(k, 0), v) for k, v in d.items()}
+    return [make_count_dynamic(prepare_pair(
+        *r[:4], c, *r[4:], bucket=bucket == "own", device=dev, **dims))
+        for r in raws]
+
+
+def _row_of(r, i=None):
+    """A registration's row fields (of row i of a batched result)."""
+    def at(v):
+        return v if i is None else v[i]
+    return dict(error=float(at(r.error)), converged=bool(at(r.converged)),
+                outer=int(at(r.outer_iters)), inner=int(at(r.inner_iters)),
+                evals=int(at(r.evals)), icp_runs=int(at(r.icp_runs)),
+                compat=int(at(r.opt_comp)))
+
+
+def _inner_step_cost(pairs, c, sync, n=50, n_prof=10):
+    """The fused stream's inner step (one global iteration's inner-BnB
+    step of a window of two live rows) on a state 3 global iterations into
+    the search: its mean time over n calls (one synchronize at the end)
+    and its kernel launches per call, every kernel counted (torch's and
+    the port's), from torch.profiler's launch API events over n_prof
+    calls.  The step does not change the state it is given."""
+    import torch
+    from goicp_tpu_torch.dist.mesh import stack_pairs
+    from goicp_tpu_torch.search import fused_stream as fs
+
+    pb = stack_pairs(pairs)
+    state = fs.fused_run_chunk(pb, c, fs._init_batch(pb, c), 3)
+    live = ~state["converged"] & ~fs._inner_complete(c, state)
+    _require(bool(live.all()), "both rows live 3 global iterations in")
+    tables = fs._window_tables(pb, c, state["inner"]["done"].shape[1])
+
+    def step():
+        return fs._inner_step(pb, c, state, tables, live)
+    step()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    sync()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n_prof):
+            step()
+        sync()
+    names = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+    calls = sum(e.count for e in prof.key_averages() if e.key in names)
+    return dict(step_ms=ms, step_launches=calls / n_prof)
+
+
+def _options_phase(cfg, pools, dev):
+    """Phase 11, the fork's error options (bench/options.py): see the
+    module docstring.  Returns the kernels' launch counts of the phase."""
+    import tempfile
+
+    import torch
+    from goicp_tpu_torch import cli
+    from goicp_tpu_torch.bench import options
+    from goicp_tpu_torch.bench.bo1_files import write_bo1_root, write_config
+    from goicp_tpu_torch.bounds import cuda_eval
+    from goicp_tpu_torch.bounds.error import score_transform
+    from goicp_tpu_torch.bounds.evaluate import only_incomp
+    from goicp_tpu_torch.icp.icp import nn_correspondences
+    from goicp_tpu_torch.pipeline import pair as pair_mod
+    from goicp_tpu_torch.pipeline.prepare import prepare_pair
+    from goicp_tpu_torch.search import chunked, fused_stream, outer
+    from goicp_tpu_torch.search.device_engine import register_device
+    from goicp_tpu_torch.search.packed_stream import (register_packed_stream,
+                                                      supports_packed)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    rows = options.option_rows()
+    cuda_eval.reset_launch_counts()
+    t_phase = time.perf_counter()
+    singles = {}
+    for option, names in options.OPTION_PAIRS.items():
+        t_opt = time.perf_counter()
+        for name in names:
+            trimmed = name.startswith("trm")
+            c = options.option_config(cfg, option, trimmed=trimmed)
+            pair = _option_pairs([name], c, pools, dev)[0]
+            r = register_device(pair, c)
+            sync()
+            got, row = _row_of(r), rows[(option, name)]
+            _require(got["converged"], f"{option} {name} converged")
+            _require(abs(got["error"] - row["error"]) <= ERR_TOL,
+                     f"{option} {name} error {got['error']} vs option row "
+                     f"{row['error']}")
+            if trimmed:
+                _require(abs(got["evals"] - row["evals"])
+                         <= TRIM_EVALS_REL * row["evals"],
+                         f"{option} {name} evals {got['evals']} vs option "
+                         f"row {row['evals']}")
+            else:
+                for k in ("outer", "inner", "evals", "icp_runs", "compat"):
+                    _require(got[k] == row[k], f"{option} {name} {k}: "
+                             f"{got[k]} vs option row {row[k]}")
+            idx, _ = nn_correspondences(pair.data @ r.R.T + r.t, pair.model)
+            sc = score_transform(pair, c, r.R, r.t, idx)
+            score = {k: float(getattr(sc, k)) for k in row["score"]}
+            _require(all(abs(score[k] - v) <= ERR_TOL
+                         for k, v in row["score"].items()),
+                     f"{option} {name} rescored {score} vs option row "
+                     f"{row['score']}")
+            singles[(option, name)] = got
+        print(f"phase 11 {option} ({json.dumps(options.OPTIONS[option])}): "
+              f"{len(names)} pairs through register_device in "
+              f"{time.perf_counter() - t_opt:.3f} s, each equal to its "
+              f"option row: "
+              + "; ".join(f"{n} {json.dumps(singles[(option, n)])} terms "
+                          f"{rows[(option, n)]['terms']}" for n in names),
+              flush=True)
+
+        # the host engine on the option's cheapest pair (unpadded), held
+        # to the JAX host engine's row
+        name = names[0]
+        c = options.option_config(cfg, option)
+        hpair = _option_pairs([name], c, pools, dev, bucket="none")[0]
+        t0 = time.perf_counter()
+        h = outer.register(hpair, c)
+        wall = time.perf_counter() - t0
+        want = rows[(option, name)]["host"]
+        for k, v in want.items():
+            got = getattr(h, k)
+            _require(abs(got - v) <= ERR_TOL if isinstance(v, float)
+                     else got == v, f"host engine {option} {name} {k}: "
+                     f"{got} vs option row {v}")
+        print(f"phase 11 {option} {name}, the host engine: {wall:.3f} s, "
+              f"equal to its option row: error {h.error!r} (register_device "
+              f"{singles[(option, name)]['error']!r}), outer steps "
+              f"{h.outer_steps}, evals {h.bound_evals}, icp_runs "
+              f"{h.icp_runs}", flush=True)
+
+    # the fused stream and the compacting batch over each option's similar
+    # pairs: on the K3/K4 path (l1) and on the row-by-row path (fpfh, nbr)
+    per_iter, step_pairs = {}, {}
+    for option in options.OPTIONS:
+        c = options.option_config(cfg, option)
+        names = [n for n in options.OPTION_PAIRS[option]
+                 if n.startswith("syn")]
+        pairs = _option_pairs(names, c, pools, dev, bucket="shared")
+        refs = [_row_of(register_device(p, c)) for p in pairs]
+        _require(supports_packed(pairs[0], c) == only_incomp(c),
+                 f"the packed stream refuses {option} exactly when K3/K4 do "
+                 f"not carry its terms")
+        if not only_incomp(c):
+            try:
+                register_packed_stream(pairs, c, width=2)
+                _require(False, f"the packed stream refuses {option}")
+            except ValueError as exc:
+                _require("incomp-only" in str(exc), f"{option}: {exc}")
+        for engine in ("fused", "batch"):
+            fused_stream.reset_counters()
+            before = cuda_eval.launch_counts()
+            t0 = time.perf_counter()
+            if engine == "fused":
+                out = fused_stream.register_fused_stream(pairs, c, width=2,
+                                                         chunk_steps=512)
+            else:
+                out = chunked.register_device_batch_compact(
+                    pairs, c, chunk_steps=256, pad_to=len(pairs))
+            sync()
+            wall = time.perf_counter() - t0
+            launched = {k: v - before[k]
+                        for k, v in cuda_eval.launch_counts().items()}
+            for i, name in enumerate(names):
+                got = _row_of(out, i)
+                _require(got["converged"] and abs(got["error"]
+                                                  - refs[i]["error"])
+                         <= STREAM_ERR_TOL
+                         and all(got[k] == refs[i][k] for k in
+                                 ("outer", "evals", "icp_runs", "compat")),
+                         f"{option} {engine} {name}: {got} vs "
+                         f"register_device {refs[i]}")
+                _require(abs(got["error"] - rows[(option, name)]["error"])
+                         <= ERR_TOL, f"{option} {engine} {name}: error "
+                         f"{got['error']} vs option row")
+            msg = (f"phase 11 {option} {engine}: {len(pairs)} pairs in one "
+                   f"bucket (Nd={pairs[0].n_data_padded}), wall {wall:.3f} "
+                   f"s, every pair equal to register_device; launches "
+                   f"{json.dumps(launched)}")
+            if engine == "fused":
+                g = fused_stream.counters["global_iters"]
+                per_iter[option] = dict(
+                    path="K3/K4" if only_incomp(c) else "row by row",
+                    global_iters=g, wall_ms=wall / g * 1e3)
+                step_pairs[option] = (pairs[1:3], c)
+                msg += (f"; {g} global iterations, {wall / g * 1e3:.3f} ms "
+                        f"each (transitions and ICP included)")
+            print(msg, flush=True)
+
+    # the CLI on files: run-pair with every option at once, descriptors
+    # from the files
+    name = options.OPTION_PAIRS["fpfh"][0]
+    c = dataclasses.replace(cfg, norm=1, cfpfh=1, regularizationFPFH=0.001,
+                            regularizationNeighbors=0.001)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "bo1")
+        (src, tgt), = write_bo1_root(root, [(name, *pools[name][1:], None)],
+                                     descriptor_seed=options.DESCRIPTOR_SEED)
+        config = os.path.join(root, "config.txt")
+        write_config(config, c)
+
+        def cavity(cid):
+            return os.path.join(root, "cavities", f"{cid}_cavity6.mol2")
+        nd = len(pools[name][1])
+        out_dir = os.path.join(tmp, "run_pair")
+        t0 = time.perf_counter()
+        with _returns(pair_mod, "run_pair") as res:
+            _require(cli.main(["run-pair", cavity(tgt), cavity(src), str(nd),
+                               config, os.path.join(out_dir, "output.txt"),
+                               "1", "--out-dir", out_dir, "--cfpfh-dir",
+                               os.path.join(root, "cfpfh"), "--engine",
+                               "device", "--device", str(dev), "-q"]) == 0,
+                     "run-pair with norm=1, cfpfh=1 and the neighbour term")
+        wall = time.perf_counter() - t0
+        reg = res[0].registration
+        inputs = pair_mod.load_pair_inputs(
+            cavity(tgt), cavity(src), c, cfpfh_dir=os.path.join(root, "cfpfh"),
+            write_normalized=False)
+        same = prepare_pair(inputs.src_n, inputs.tgt_n, inputs.src_props,
+                            inputs.tgt_props, c, inputs.src_fpfh,
+                            inputs.tgt_fpfh, nd_downsampled=nd, bucket=True,
+                            device=dev)
+        r = register_device(same, c)
+        _require(reg.converged and reg.fpfh_error > 0,
+                 f"run-pair {name}: converged {reg.converged}, FPFH term "
+                 f"{reg.fpfh_error}")
+        _require(abs(reg.error - float(r.error)) <= STREAM_ERR_TOL
+                 and reg.outer_steps == int(r.outer_iters)
+                 and reg.bound_evals == int(r.evals),
+                 f"run-pair {name}: error {reg.error}, outer "
+                 f"{reg.outer_steps}, evals {reg.bound_evals} vs "
+                 f"register_device on the same prepared pair {_row_of(r)}")
+        _require(os.path.exists(os.path.join(out_dir, "output.txt")),
+                 "run-pair wrote output.txt")
+        print(f"phase 11 run-pair {name} (norm=1, cfpfh=1, "
+              f"regularizationFPFH=0.001, regularizationNeighbors=0.001, "
+              f"descriptors from the files): command {wall:.3f} s, error "
+              f"{reg.error!r} = geom {reg.geom_error!r} + incomp and "
+              f"neighbours {reg.incomp_error!r} + FPFH {reg.fpfh_error!r}, "
+              f"outer {reg.outer_steps}, evals {reg.bound_evals}; equal to "
+              f"register_device on the same prepared pair", flush=True)
+
+    counts = cuda_eval.launch_counts()
+    wall = time.perf_counter() - t_phase
+    for kname in counts:
+        _require(counts[kname] > 0, f"{kname} launched in phase 11")
+    # the inner step alone, after the phase's launches were read: its calls
+    # time the step and are not the path
+    for option, (two, c) in step_pairs.items():
+        per_iter[option].update(_inner_step_cost(two, c, sync))
+        print(f"phase 11 {option}: the inner step alone on the "
+              f"{per_iter[option]['path']} path (two live rows): "
+              f"{per_iter[option]['step_ms']:.3f} ms and "
+              f"{per_iter[option]['step_launches']:.1f} kernel launches",
+              flush=True)
+    print(f"phase 11 wall {wall:.3f} s (the inner-step timings after it: "
+          f"{time.perf_counter() - t_phase - wall:.3f} s); per global "
+          f"iteration: {json.dumps(per_iter)}; launches during phase 11: "
+          f"{json.dumps(counts)}", flush=True)
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -999,6 +1316,9 @@ def main() -> int:
             replaces="goicp_tpu/bounds/pallas_eval.py:778", errs=[]),
     }
     L, B = 8, cfg.trans_pop * 8
+    k1 = kernels["geometric_bounds_kernel"]
+    k3 = kernels["geometric_bounds_kernel_lanes"]
+    k1["norm1"], k3["norm1"] = {}, {}
     for name, c in (("syn07", cfg), ("trm00", cfg_t)):
         pair = _prepared(name, c, pools, dev)
         _check_table(pair, name)
@@ -1019,43 +1339,56 @@ def main() -> int:
         g = pair.grid
         base = (pts, centers, widths)
         tabs = (pair.weights, g.cell_coords, g.nearest_cell, g.consts)
-        kw = dict(size=g.geom.size, norm=cfg.norm)
         if name == "syn07":
             cases = [("fused", unc, dict(fused=True), 1e-5, 1e-6),
                      ("plain+unc", unc, {}, 1e-5, 1e-6),
                      ("plain", None, {}, 1e-5, 1e-6)]
         else:
             k = pair.inlier_f()
+            # the same pair with static counts: K is its inlier_num
+            static = prepare_pair(*_normalized_synthetic(pools[name]), c,
+                                  bucket=True, device=dev)
+            _require(static.inlier_num < static.n_data
+                     and not static.dynamic_counts, f"{name} with a static K")
             cases = [("fused K=counts[1]", unc,
                       dict(fused=True, trim_count=k), 1e-4, 1e-5),
                      ("plain+unc K=counts[1]", unc, dict(trim_count=k),
-                      1e-4, 1e-5)]
-        for label, ru, extra, atol, rtol in cases:
-            def kern(args=(*base, ru, *tabs), kw={**kw, **extra}):
+                      1e-4, 1e-5),
+                     ("fused K static", unc,
+                      dict(fused=True, trim_k=static.inlier_num), 1e-4,
+                      1e-5)]
+        # norm 2 (GoICPConfig's), then norm 1 (the fork's L1 option)
+        for norm, (label, ru, extra, atol, rtol) in itertools.product(
+                (2, 1), cases):
+            kw = dict(size=g.geom.size, norm=norm, **extra)
+
+            def kern(args=(*base, ru, *tabs), kw=kw):
                 return cuda_eval.geometric_bounds_kernel(*args, **kw)
 
-            def plain(args=(*base, ru, *tabs), kw={**kw, **extra}):
+            def plain(args=(*base, ru, *tabs), kw=kw):
                 return cuda_eval.geometric_bounds_plain(*args, **kw)
             got, want = kern(), plain()
             torch.cuda.synchronize()
             for a, b in zip(got, want):
                 torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
             err = _max_err(got, want)
-            kernels["geometric_bounds_kernel"]["errs"].append(err)
+            k1["errs"].append(err)
             ms, pms, dms = _median_ms(kern), _median_ms(plain), _device_ms(kern)
             bms, bby = _bound(
                 L * B * _real_points(pair),
-                GEOM_OPS_FUSED if extra.get("fused") else GEOM_OPS_PLAIN,
+                GEOM_OPS[norm, bool(extra.get("fused"))],
                 [*base, ru, *tabs, extra.get("trim_count"), *got])
-            if label == "fused":
-                kernels["geometric_bounds_kernel"].update(
-                    ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
-                    graph_ms=dms)
-            print(f"K1 {name} {label}: L={L} B={B} Nd={nd} "
-                  f"C={g.cell_coords.shape[0]} max_abs_err={err:.3g} "
-                  f"(atol {atol}, rtol {rtol}) kernel {ms:.4f} ms (from a "
-                  f"graph {dms:.4f} ms) plain {pms:.4f} ms bound "
-                  f"{bms:.6f} ms ({bby}) {floor}", flush=True)
+            times = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                         graph_ms=dms)
+            if norm == 1:
+                k1["norm1"][label] = dict(times, max_abs_err=err)
+            elif label == "fused":
+                k1.update(times)
+            print(f"K1 {'norm 1 ' if norm == 1 else ''}{name} {label}: "
+                  f"L={L} B={B} Nd={nd} C={g.cell_coords.shape[0]} "
+                  f"max_abs_err={err:.3g} (atol {atol}, rtol {rtol}) kernel "
+                  f"{ms:.4f} ms (from a graph {dms:.4f} ms) plain {pms:.4f} "
+                  f"ms bound {bms:.6f} ms ({bby}) {floor}", flush=True)
         for q in (cfg.trans_pop * 19, 8):
             corners = torch.as_tensor(rng.uniform(-0.6, 0.6, (L, q, 3)),
                                       dtype=torch.float32, device=dev)
@@ -1114,7 +1447,7 @@ def main() -> int:
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
         err = _max_err(got, want)
-        kernels["geometric_bounds_kernel"]["errs"].append(err)
+        k1["errs"].append(err)
         print(f"K1 trm00 {label}, Nd=320 (rows in shared memory): "
               f"max_abs_err={err:.3g} (atol 0.0001, rtol 1e-05)", flush=True)
 
@@ -1184,11 +1517,11 @@ def main() -> int:
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-6)
         err = _max_err(got, want)
-        kernels["geometric_bounds_kernel"]["errs"].append(err)
+        k1["errs"].append(err)
         ms, pms, dms = _median_ms(kern), _median_ms(plain), _device_ms(kern)
         bms, bby = _bound(
             LH * B * _real_points(pair),
-            GEOM_OPS_FUSED if extra else GEOM_OPS_PLAIN,
+            GEOM_OPS[cfg.norm, bool(extra)],
             [*base_h, ru, *tabs_h, *got])
         host_shape[label] = dict(ms=ms, graph_ms=dms, plain_ms=pms,
                                  bound_ms=bms, bound_by=bby)
@@ -1197,7 +1530,7 @@ def main() -> int:
               f"max_abs_err={err:.3g} (atol 1e-05, rtol 1e-06) kernel "
               f"{ms:.4f} ms (from a graph {dms:.4f} ms) plain {pms:.4f} ms "
               f"bound {bms:.6f} ms ({bby}) {floor}", flush=True)
-    kernels["geometric_bounds_kernel"]["host_shape"] = host_shape
+    k1["host_shape"] = host_shape
 
     # K3 / K4 at the streams' shapes: two pairs of one bucket, 16 lanes
     # interleaved between them
@@ -1228,47 +1561,52 @@ def main() -> int:
                                            two[l % 2].norm_data)[0]
                            for l in range(LS)]).contiguous()
         kcount = st.counts[:, 1].contiguous() if trimmed else None
-        k3 = (pts, centers, widths, unc, st.weights, g.cell_coords,
+        a3 = (pts, centers, widths, unc, st.weights, g.cell_coords,
               g.nearest_cell, g.consts, kcount, lane_pair)
         # untrimmed sums reach ~60 over 256 points, where one float32 ulp
         # is 3.8e-6 and the warp's summation order differs from torch's
         atol, rtol = (1e-4, 1e-5) if trimmed else (1e-5, 1e-6)
         n_real = sum(_real_points(two[l % 2]) for l in range(LS))
         label = "dynamic K" if trimmed else "untrimmed"
+        for norm in (2, 1):
+            def kern3(a3=a3, kw=dict(size=size, norm=norm)):
+                return cuda_eval.geometric_bounds_kernel_lanes(*a3, **kw)
 
-        def kern3(k3=k3, kw=dict(size=size, norm=c.norm)):
-            return cuda_eval.geometric_bounds_kernel_lanes(*k3, **kw)
-
-        def plain3(k3=k3, kw=dict(size=size, norm=c.norm)):
-            return cuda_eval.geometric_bounds_lanes_plain(*k3, **kw)
-        got, want = kern3(), plain3()
-        torch.cuda.synchronize()
-        for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
-        for l in range(LS):
-            p = two[l % 2]
-            one = cuda_eval.geometric_bounds_kernel(
-                pts[l:l + 1], centers[l:l + 1], widths[l:l + 1],
-                unc[l:l + 1], p.weights, p.grid.cell_coords,
-                p.grid.nearest_cell, p.grid.consts,
-                p.inlier_f() if trimmed else None, size=size, norm=c.norm,
-                fused=True)
-            _require(all(torch.equal(a[l], b[0]) for a, b in zip(got, one)),
-                     f"K3 == K1 on lane {l} ({names}, {label})")
-        err = _max_err(got, want)
-        kernels["geometric_bounds_kernel_lanes"]["errs"].append(err)
-        ms, pms, dms = (_median_ms(kern3), _median_ms(plain3),
-                        _device_ms(kern3))
-        bms, bby = _bound(B * n_real, GEOM_OPS_FUSED, [*k3, *got])
-        if not trimmed:
-            kernels["geometric_bounds_kernel_lanes"].update(
-                ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
-                graph_ms=dms)
-        print(f"K3 {'+'.join(names)} {label}: L={LS} B={B} Nd={nd} "
-              f"C={g.cell_coords.shape[1]} max_abs_err={err:.3g} (atol "
-              f"{atol}, rtol {rtol}; == K1 lane for lane) kernel {ms:.4f} "
-              f"ms (from a graph {dms:.4f} ms) plain {pms:.4f} ms bound "
-              f"{bms:.6f} ms ({bby}) {floor}", flush=True)
+            def plain3(a3=a3, kw=dict(size=size, norm=norm)):
+                return cuda_eval.geometric_bounds_lanes_plain(*a3, **kw)
+            got, want = kern3(), plain3()
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+            for l in range(LS):
+                p = two[l % 2]
+                one = cuda_eval.geometric_bounds_kernel(
+                    pts[l:l + 1], centers[l:l + 1], widths[l:l + 1],
+                    unc[l:l + 1], p.weights, p.grid.cell_coords,
+                    p.grid.nearest_cell, p.grid.consts,
+                    p.inlier_f() if trimmed else None, size=size,
+                    norm=norm, fused=True)
+                _require(all(torch.equal(a[l], b[0])
+                             for a, b in zip(got, one)),
+                         f"K3 == K1 at norm {norm} on lane {l} ({names}, "
+                         f"{label})")
+            err = _max_err(got, want)
+            k3["errs"].append(err)
+            ms, pms, dms = (_median_ms(kern3), _median_ms(plain3),
+                            _device_ms(kern3))
+            bms, bby = _bound(B * n_real, GEOM_OPS[norm, True], [*a3, *got])
+            times = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                         graph_ms=dms)
+            if norm == 1:
+                k3["norm1"][label] = dict(times, max_abs_err=err)
+            elif not trimmed:
+                k3.update(times)
+            print(f"K3 {'norm 1 ' if norm == 1 else ''}{'+'.join(names)} "
+                  f"{label}: L={LS} B={B} Nd={nd} C={g.cell_coords.shape[1]} "
+                  f"max_abs_err={err:.3g} (atol {atol}, rtol {rtol}; == K1 "
+                  f"lane for lane) kernel {ms:.4f} ms (from a graph "
+                  f"{dms:.4f} ms) plain {pms:.4f} ms bound {bms:.6f} ms "
+                  f"({bby}) {floor}", flush=True)
         for q in (c.trans_pop * 19, 8):
             corners = torch.as_tensor(rng.uniform(-0.6, 0.6, (LS, q, 3)),
                                       dtype=torch.float32, device=dev)
@@ -1308,7 +1646,11 @@ def main() -> int:
                   f"{bms:.6f} ms ({bby}) {floor}", flush=True)
 
     if sys.argv[1:] == ["--kernels-only"]:
-        print("kernels only: phases 3-6 not run, no result", flush=True)
+        print("kernels only: phases 3-11 not run, no result", flush=True)
+        return 0
+    if sys.argv[1:] == ["--options"]:
+        _options_phase(cfg, pools, dev)
+        print("options only: phases 3-10 not run, no result", flush=True)
         return 0
 
     # ---- 3. registrations (the main path) ----
@@ -1513,18 +1855,21 @@ def main() -> int:
     counts9, outs9 = _batch_phase(cfg, cfg_t, pools, ref, phase3, dev)
     counts10 = _multi_gpu_phase(cfg, syn07[1], phase3,
                                 stream_outs[(5, "trimmed")], outs9["trimmed"])
+    counts11 = _options_phase(cfg, pools, dev)
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"],
          "launches": sum(c[kname] for c in (counts, counts3k, counts5,
                                             counts5e, counts6, counts7,
-                                            counts8, counts9, counts10)),
+                                            counts8, counts9, counts10,
+                                            counts11)),
          "max_abs_err": max(k["errs"]), "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None,
          "launch_floor_ms": floor_ms, "graph_ms": k["graph_ms"],
-         "graph_launch_floor_ms": floor_dev}
+         "graph_launch_floor_ms": floor_dev,
+         **({"norm1": k["norm1"]} if "norm1" in k else {})}
         for kname, k in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -3,7 +3,9 @@
 The layout the pair runner and the sweeps read (pipeline/sweep.py):
 
     cavities/<id>_cavity6.mol2          one per cavity
-    cfpfh/<id>_cavity6.cfpfh            41 zero bins per point
+    cfpfh/<id>_cavity6.cfpfh            41 bins per point: zeros, or the
+                                        seeded descriptors of
+                                        bench/options.py
     chains/<src>_protein.mol2           the data cloud as backbone CA atoms
     ref_proteins/<src>.<tgt>/aligned_<src>_protein.mol2
                                         the same atoms in the model's frame
@@ -49,17 +51,24 @@ def write_mol2(path: str, coords, prop_idx) -> None:
         fh.write("@<TRIPOS>SET\n")
 
 
-def write_cfpfh(path: str, n: int) -> None:
-    row = " ".join(["0.0"] * 41) + "\n"
+def write_cfpfh(path: str, n: int, descriptors=None) -> None:
+    """n rows of 41 zero bins, or the rows of `descriptors` (n, 41)."""
+    if descriptors is None:
+        descriptors = np.zeros((n, 41))
     with open(path, "w") as fh:
-        fh.writelines([row] * n)
+        fh.writelines(" ".join(repr(float(v)) for v in row) + "\n"
+                      for row in descriptors[:n])
 
 
-def write_bo1_root(root: str, pairs, kind: str = "similar") -> list:
+def write_bo1_root(root: str, pairs, kind: str = "similar",
+                   descriptor_seed: int | None = None) -> list:
     """pairs: [(name, data_raw (Nd,3), model_raw (Nm,3), data props,
     model props, aligned (Nd,3) or None)], props as dense indices; aligned
     is the data cloud in the model's frame, written as the RMSD path's
-    chain files when given.  Returns the TSV's [(source id, target id)]."""
+    chain files when given.  descriptor_seed: write each pair's
+    options.seeded_descriptors from this seed instead of zero
+    descriptors.  Returns the TSV's [(source id, target id)]."""
+    from goicp_tpu_torch.bench.options import seeded_descriptors
     for sub in ("cavities", "cfpfh", "chains", "ref_proteins"):
         os.makedirs(os.path.join(root, sub), exist_ok=True)
     rows = []
@@ -67,11 +76,14 @@ def write_bo1_root(root: str, pairs, kind: str = "similar") -> list:
         if len(name) != 5:
             raise ValueError(f"pair names have 5 characters, not {name!r}")
         src, tgt = f"{name}d", f"{name}m"
-        for cid, coords, props in ((src, data, dp), (tgt, model, mp)):
+        desc = (None, None) if descriptor_seed is None \
+            else seeded_descriptors(dp, mp, descriptor_seed)
+        for cid, coords, props, d in ((src, data, dp, desc[0]),
+                                      (tgt, model, mp, desc[1])):
             write_mol2(os.path.join(root, "cavities", f"{cid}_cavity6.mol2"),
                        coords, props)
             write_cfpfh(os.path.join(root, "cfpfh", f"{cid}_cavity6.cfpfh"),
-                        len(coords))
+                        len(coords), d)
         if aligned is not None:
             ca = np.full(len(data), _CA)
             write_mol2(os.path.join(root, "chains", f"{src}_protein.mol2"),

@@ -27,11 +27,13 @@ def neighbor_counts(coords: np.ndarray, radius_arg: float) -> np.ndarray:
     return (dist < np.sqrt(radius_arg)).sum(axis=1).astype(np.int32)
 
 
-def neighbor_weights(data_coords: np.ndarray, start: float = 0.035,
-                     step: float = 0.001, target_max: int = 19,
-                     max_passes: int = 10_000) -> np.ndarray:
-    """weights = 1 + 2 * minN / counts (the ponderation=1 path)."""
-    dist = _pairwise_dist(np.asarray(data_coords, dtype=np.float64))
+def adaptive_neighbor_counts(coords: np.ndarray, start: float = 0.035,
+                             step: float = 0.001, target_max: int = 19,
+                             max_passes: int = 10_000):
+    """Grow the radius argument from `start` by `step` until the largest
+    count reaches `target_max`.  Returns (counts of the final pass, minN =
+    the minimum count over all passes, the final radius argument)."""
+    dist = _pairwise_dist(np.asarray(coords, dtype=np.float64))
     r = start
     min_n = 100  # the reference's initial value
     for _ in range(max_passes):
@@ -40,6 +42,12 @@ def neighbor_weights(data_coords: np.ndarray, start: float = 0.035,
         if counts.max(initial=0) >= target_max:
             break
         r += step
+    return counts, min_n, r
+
+
+def neighbor_weights(data_coords: np.ndarray) -> np.ndarray:
+    """weights = 1 + 2 * minN / counts (the ponderation=1 path)."""
+    counts, min_n, _ = adaptive_neighbor_counts(data_coords)
     min_n = max(min_n, 1)
     counts = np.maximum(counts, 1)
     return (1.0 + 2.0 * min_n / counts).astype(np.float32)

@@ -24,6 +24,7 @@ PROP_CODES = {
 }
 PROP_NAMES = list(PROP_CODES)                 # dense-index order, OG..C
 NUM_PROPS = len(PROP_CODES)                   # 9
+PROP_INDEX = {name: i for i, name in enumerate(PROP_CODES)}
 CODE_TO_INDEX = {code: i for i, code in enumerate(PROP_CODES.values())}
 
 # the protein-backbone properties RMSD is computed over
@@ -34,6 +35,12 @@ RMSD_PROPS = frozenset({PROP_CODES["C"], PROP_CODES["CA"], PROP_CODES["N"],
 def string_to_prop(name: str) -> int:
     """Atom name -> raw property code; unknown names fall back to OG."""
     return PROP_CODES.get(name, PROP_CODES["OG"])
+
+
+def string_to_index(name: str) -> int:
+    """Atom name -> dense property index 0..8; unknown names fall back to
+    OG (0)."""
+    return PROP_INDEX.get(name, PROP_INDEX["OG"])
 
 
 def codes_to_indices(codes: np.ndarray) -> np.ndarray:

@@ -7,10 +7,11 @@ compose, iterate until err - err_new < err_diff * num or max_iter.
 
 The NN search is a brute-force squared-distance matrix
 (|x|^2 - 2 x.y + |y|^2, first-index argmin); the 3x3 SVD is the
-closed-form one-sided Jacobi of the JAX package.  icp_run runs K starts at
-once (the JAX package vmaps it): a Python loop steps every row while any
-row is still running, and rows that have stopped keep their state, as
-rows of a vmapped while_loop do.
+closed-form one-sided Jacobi of the JAX package, its square roots
+correctly rounded on every device (grid/edt.py::exact_sqrt), as XLA's.
+icp_run runs K starts at once (the JAX package vmaps it): a Python loop
+steps every row while any row is still running, and rows that have
+stopped keep their state, as rows of a vmapped while_loop do.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from goicp_tpu_torch.grid.edt import exact_sqrt
 
 
 class ICPResult(NamedTuple):
@@ -65,9 +68,9 @@ def _jacobi_svd3(H: torch.Tensor, sweeps: int = 6):
                                         torch.ones_like(apq))
         t = torch.where(
             safe,
-            torch.sign(tau) / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau)),
+            torch.sign(tau) / (torch.abs(tau) + exact_sqrt(1.0 + tau * tau)),
             torch.zeros_like(tau))
-        c = 1.0 / torch.sqrt(1.0 + t * t)
+        c = 1.0 / exact_sqrt(1.0 + t * t)
         s = t * c
 
         def apply(M):
@@ -81,7 +84,7 @@ def _jacobi_svd3(H: torch.Tensor, sweeps: int = 6):
     for _ in range(sweeps):
         for p, q in ((0, 1), (0, 2), (1, 2)):
             A, V = rot(A, V, p, q)
-    sigma = torch.sqrt(torch.sum(A * A, dim=-2))          # (..., 3)
+    sigma = exact_sqrt(torch.sum(A * A, dim=-2))         # (..., 3)
     # sort columns by sigma DESCENDING (compare-swap network, applied
     # jointly to A, V and sigma)
     for p, q in ((0, 1), (0, 2), (1, 2)):

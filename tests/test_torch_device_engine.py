@@ -8,7 +8,11 @@ sweep383*.jsonl rows.
     python tests/test_torch_device_engine.py --write-rows
 
 regenerates the reference rows of all 96 bench pairs (syn00-syn63,
-trm00-trm31) with the JAX package on the CPU (~15 min in one process).
+trm00-trm31) with the JAX package on the CPU (~25 min in one process), and
+then the rows of the fork's error options
+(goicp_tpu_torch/bench/option_rows.jsonl: each option of
+goicp_tpu_torch/bench/options.py on its six pairs, and the host engine on
+its first pair, ~5 min).
 """
 
 import dataclasses
@@ -25,10 +29,14 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 from goicp_tpu.bench import measure as jmeasure  # noqa: E402
+from goicp_tpu.bounds.error import score_transform  # noqa: E402
 from goicp_tpu.config import GoICPConfig  # noqa: E402
+from goicp_tpu.icp.icp import nn_correspondences  # noqa: E402
 from goicp_tpu.pipeline import prepare as jprep  # noqa: E402
 from goicp_tpu.search import device_engine as jeng  # noqa: E402
+from goicp_tpu.search import outer as jouter  # noqa: E402
 from goicp_tpu_torch import config as tconfig  # noqa: E402
+from goicp_tpu_torch.bench import options  # noqa: E402
 from goicp_tpu_torch.pipeline import prepare as tprep  # noqa: E402
 from goicp_tpu_torch.search import device_engine as teng  # noqa: E402
 from tests.test_device_engine import _cfg, _pair  # noqa: E402
@@ -85,19 +93,26 @@ def test_register_device_matches_jax(name, kw, pad, seed):
     _assert_same(got, want)
 
 
-def _bench(name):
+def _bench(name, option=None):
+    """(cfg, JAX pair, raw inputs) of a bench pair under GoICPConfig() +
+    bench_shape, or under one of the fork's error options (then the raw
+    inputs end with the pair's seeded c-FPFH descriptors)."""
     cfg = jmeasure.bench_shape(GoICPConfig())
-    if name.startswith("trm"):
+    trimmed = name.startswith("trm")
+    if option is not None:
+        cfg = options.option_config(cfg, option, trimmed=trimmed)
+    elif trimmed:
         cfg = dataclasses.replace(cfg, trimFraction=jmeasure.TRIM_FRACTION,
                                   trans_capacity=256)
-        pool = jmeasure.synthetic_pool_trimmed(32, seed=23)
-    else:
-        pool = jmeasure.synthetic_pool(64, seed=7)
+    pool = jmeasure.synthetic_pool_trimmed(32, seed=23) if trimmed \
+        else jmeasure.synthetic_pool(64, seed=7)
     entry = next(e for e in pool if e[0] == name)
-    data, model, dp, mp = jmeasure._normalized_synthetic(entry)
+    raw = jmeasure._normalized_synthetic(entry)
+    if option is not None:
+        raw = raw + options.seeded_descriptors(raw[2], raw[3])
     jp = jprep.make_count_dynamic(
-        jprep.prepare_pair(data, model, dp, mp, cfg, bucket=True))
-    return cfg, jp, (data, model, dp, mp)
+        jprep.prepare_pair(*raw[:4], cfg, *raw[4:], bucket=True))
+    return cfg, jp, raw
 
 
 def _row(r):
@@ -142,15 +157,62 @@ def test_bench_pair_matches_jax_and_rows(name):
         assert jrow["converged"] and sweep["converged"]
 
 
+def option_row(option, name, cfg, jp, r):
+    """A row of option_rows.jsonl: the search's result (its terms as the
+    engine carries them: geom, incomp + nbr, fpfh) and the final transform
+    rescored (score_transform with its nearest-neighbour correspondences)
+    into its four terms."""
+    R, t = jax.numpy.asarray(r.R), jax.numpy.asarray(r.t)
+    nn, _ = nn_correspondences(jp.data @ R.T + t, jp.model)
+    sc = score_transform(jp, cfg, R, t, nn)
+    return {"option": option, "pair": name, **_row(r),
+            "terms": [float(x) for x in np.asarray(r.terms)],
+            "compat": int(r.opt_comp),
+            "score": {k: float(getattr(sc, k)) for k in
+                      ("error", "geom", "incomp_term", "fpfh_term",
+                       "nbr_term")}}
+
+
 def write_rows():
     with open(ROWS, "w") as fh:
         for name in BENCH_PAIRS:
             cfg, jp, _ = _bench(name)
             row = _row(jax.device_get(jeng.register_device(jp, cfg)))
             fh.write(json.dumps({"pair": name, **row}) + "\n")
+            # every pair compiles its own programs; kept, they exhaust
+            # XLA:CPU's memory for compiled code within one process
+            jax.clear_caches()
+
+
+def host_row(cfg, raw):
+    """The JAX host engine's result on the unpadded pair: its counters,
+    error and error terms."""
+    h = jouter.register(jprep.prepare_pair(*raw[:4], cfg, *raw[4:]), cfg)
+    return {"error": float(h.error), "geom_error": float(h.geom_error),
+            "incomp_error": float(h.incomp_error),
+            "fpfh_error": float(h.fpfh_error), "converged": bool(h.converged),
+            "last_icp": bool(h.last_icp), "outer_steps": int(h.outer_steps),
+            "bound_evals": int(h.bound_evals), "icp_runs": int(h.icp_runs),
+            "optComp": int(h.optComp)}
+
+
+def write_option_rows():
+    """Every (option, pair)'s register_device row; the first pair of each
+    option also carries the host engine's result under "host"."""
+    with open(options.OPTION_ROWS, "w") as fh:
+        for option, names in options.OPTION_PAIRS.items():
+            for name in names:
+                cfg, jp, raw = _bench(name, option)
+                r = jax.device_get(jeng.register_device(jp, cfg))
+                row = option_row(option, name, cfg, jp, r)
+                if name == names[0]:
+                    row["host"] = host_row(cfg, raw)
+                fh.write(json.dumps(row) + "\n")
+                jax.clear_caches()
 
 
 if __name__ == "__main__":
     if sys.argv[1:] == ["--write-rows"]:
         jax.config.update("jax_platforms", "cpu")
         write_rows()
+        write_option_rows()

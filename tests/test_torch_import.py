@@ -37,7 +37,8 @@ _CHILD = textwrap.dedent("""
     # the user's entry points import too (the host engine, the CLI, the
     # pair runner, the sweeps, the demo, the bench's main)
     from goicp_tpu_torch import cli
-    from goicp_tpu_torch.bench import measure
+    from goicp_tpu_torch.bench import measure, options
+    assert len(options.option_rows()) == 18
     from goicp_tpu_torch.pipeline import demo, device_sweep, pair, sweep
     from goicp_tpu_torch.search import outer
     assert cli.main and measure.main and pair.run_pair and outer.register
