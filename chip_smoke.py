@@ -152,6 +152,18 @@ Phases, each of which fails the script (nonzero exit, no result line):
     stream's inner step alone (ms and kernel launches of every kernel,
     torch.profiler) on each path.
 
+12. the BO1-scale sweep tool (goicp_tpu_torch/tools/sweep383.py) at a
+    smaller depth: a subprocess runs `python -m
+    goicp_tpu_torch.tools.sweep383 --no-reference --n 16
+    --kill-after-chunks 2` (syn00-syn15 in its shape buckets), which must
+    exit 3 and leave its stream's checkpoint under its exact name in the
+    checkpoint directory; the same sweep then resumes in this process,
+    and `--trimmed --n 8` runs uninterrupted.  Every row equals phase 5's
+    fused stream on the same pair (error within 1e-5; similar: outer,
+    evals, icp_runs and compat exact; trimmed: evals within 5 %) and its
+    fp32 row; no checkpoint file is left.  K2, K3 and K4 must have
+    launched in the phase.
+
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -314,6 +326,100 @@ def _returns(module, name):
         yield out
     finally:
         setattr(module, name, fn)
+
+
+SWEEP_KILL = 2           # phase 12: chunks before the requested stop
+
+
+def _sweep_phase(stream_outs, dev):
+    """Phase 12: the sweep tool, stopped in a subprocess and resumed here,
+    then the trimmed pool; every row held to phase 5's fused stream
+    (stream_outs) and to its fp32 row.  Returns the kernels' launch counts
+    of the phase."""
+    import tempfile
+    import torch
+    from goicp_tpu_torch.bench import measure
+    from goicp_tpu_torch.bounds import cuda_eval
+    from goicp_tpu_torch.tools import sweep383
+
+    # the sweep holds each pair to its fp32 row itself (main returns 0
+    # only after bench/measure._check_parity)
+    rows = measure.fp32_rows()
+    cuda_eval.reset_launch_counts()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, n, extra in (("similar", len(STREAM_SIMILAR), []),
+                                ("trimmed", len(STREAM_TRIMMED),
+                                 ["--trimmed"])):
+            out, ck = f"{tmp}/{label}.jsonl", f"{tmp}/{label}.ckpt"
+            argv = ["--no-reference", "--n", str(n), "--out", out,
+                    "--ckpt", ck, *extra]
+            if label == "similar":
+                t0 = time.perf_counter()
+                proc = subprocess.run(
+                    [sys.executable, "-m", "goicp_tpu_torch.tools.sweep383",
+                     *argv, "--kill-after-chunks", str(SWEEP_KILL)],
+                    cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+                    capture_output=True, text=True, timeout=900)
+                killed = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+                print(f"phase 12 {label} sweep stopped after {SWEEP_KILL} "
+                      f"chunks in a subprocess: exit {proc.returncode} in "
+                      f"{time.perf_counter() - t0:.3f} s; {ck}: {killed}; "
+                      f"its last lines: "
+                      f"{proc.stdout.strip().splitlines()[-2:]}", flush=True)
+                _require(proc.returncode == 3,
+                         f"the stopped sweep exits 3, not "
+                         f"{proc.returncode}: {proc.stderr[-2000:]}")
+                stream = [f for f in killed if f.endswith(".npz")
+                          and not f.endswith(".done.npz")]
+                _require(len(stream) == 1 and "manifest.json" in killed
+                         and not [f for f in killed
+                                  if f.endswith((".npz.npz", ".tmp"))],
+                         f"one stream checkpoint under its exact name: "
+                         f"{killed}")
+            t0 = time.perf_counter()
+            _require(sweep383.main(argv) == 0, f"the {label} sweep")
+            torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t0
+            _require(not os.path.exists(ck),
+                     f"the {label} sweep removed its checkpoints: "
+                     f"{os.listdir(ck) if os.path.isdir(ck) else ck}")
+            with open(out) as fh:
+                got = [json.loads(line) for line in fh]
+            want = stream_outs[(5, label)]
+            _require(len(got) == n, f"{label} sweep: {len(got)} rows")
+            for i, g in enumerate(got):
+                name = g["pair"]
+                w = dict(error=float(want.error[i]),
+                         outer=int(want.outer_iters[i]),
+                         evals=int(want.evals[i]),
+                         icp_runs=int(want.icp_runs[i]),
+                         compat=int(want.opt_comp[i]))
+                _require(g["converged"]
+                         and abs(g["error"] - w["error"]) <= STREAM_ERR_TOL,
+                         f"sweep {name}: {g} vs phase 5 {w}")
+                if label == "similar":
+                    for k in ("outer", "evals", "icp_runs", "compat"):
+                        _require(g[k] == w[k], f"sweep {name} {k}: {g[k]} "
+                                 f"vs phase 5 {w[k]}")
+                else:
+                    _require(abs(g["evals"] - w["evals"])
+                             <= TRIM_EVALS_REL * w["evals"],
+                             f"sweep {name} evals {g['evals']} vs phase 5 "
+                             f"{w['evals']}")
+                _require(name in rows, f"sweep {name} has an fp32 row")
+            resumed = "resumed, " if label == "similar" else ""
+            print(f"phase 12 {label} sweep ({resumed}{n} pairs): "
+                  f"{wall:.3f} s in this process; every row equals phase "
+                  f"5's fused stream and, by the sweep's own gates, its "
+                  f"fp32 row; no checkpoint left", flush=True)
+    counts = cuda_eval.launch_counts()
+    print(f"phase 12 wall {time.perf_counter() - t_phase:.3f} s; launches "
+          f"during phase 12: {json.dumps(counts)}", flush=True)
+    for kname in ("chem_incomp_kernel", "geometric_bounds_kernel_lanes",
+                  "chem_incomp_kernel_lanes"):
+        _require(counts[kname] > 0, f"{kname} launched in phase 12")
+    return counts
 
 
 def _setup():
@@ -1646,11 +1752,12 @@ def main() -> int:
                   f"{bms:.6f} ms ({bby}) {floor}", flush=True)
 
     if sys.argv[1:] == ["--kernels-only"]:
-        print("kernels only: phases 3-11 not run, no result", flush=True)
+        print("kernels only: phases 3-12 not run, no result", flush=True)
         return 0
     if sys.argv[1:] == ["--options"]:
         _options_phase(cfg, pools, dev)
-        print("options only: phases 3-10 not run, no result", flush=True)
+        print("options only: phases 3-10 and 12 not run, no result",
+              flush=True)
         return 0
 
     # ---- 3. registrations (the main path) ----
@@ -1856,6 +1963,7 @@ def main() -> int:
     counts10 = _multi_gpu_phase(cfg, syn07[1], phase3,
                                 stream_outs[(5, "trimmed")], outs9["trimmed"])
     counts11 = _options_phase(cfg, pools, dev)
+    counts12 = _sweep_phase(stream_outs, dev)
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
@@ -1863,7 +1971,7 @@ def main() -> int:
          "launches": sum(c[kname] for c in (counts, counts3k, counts5,
                                             counts5e, counts6, counts7,
                                             counts8, counts9, counts10,
-                                            counts11)),
+                                            counts11, counts12)),
          "max_abs_err": max(k["errs"]), "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None,

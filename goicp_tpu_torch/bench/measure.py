@@ -49,6 +49,9 @@ from goicp_tpu_torch.io.xyz import quantize_like_file
 REPO = pathlib.Path(__file__).resolve().parents[2]
 REF = str(REPO / "reference")    # the BO1 reference data, where it is put
 REFERENCE_ROWS = pathlib.Path(__file__).with_name("reference_rows.jsonl")
+# the fp32 rows of the next pairs by index, syn64-syn79 and trm32-trm39,
+# which the 383-pair sweeps (goicp_tpu_torch/tools/sweep383.py) reach
+SWEEP_FP32_ROWS = pathlib.Path(__file__).with_name("sweep_rows_fp32.jsonl")
 BATCH = 64
 TRIM_BATCH = 32
 TRIM_FRACTION = 0.1  # the trimmed pool's trimFraction
@@ -57,6 +60,7 @@ FUSED_CHUNK = 512    # global iterations per chunk
 SIMILAR_BUCKETS = 4
 TRIM_BUCKETS = 3
 ERR_TOL = 1e-4       # |error - fp32 reference row|
+TRIM_EVALS_REL = 0.05  # trimmed pairs: evals within 5 % of the fp32 row
 # BO1 pairs 1 and 2 (source -> target cavity) and their sweep383 row names
 REAL_PAIRS = (("2x86_3", "1eq2_6"), ("2ktd_1", "4imo_2"))
 REAL_NAMES = ("similar1_2x86_3->1eq2_6", "similar2_2ktd_1->4imo_2")
@@ -263,6 +267,13 @@ def reference_rows() -> dict:
     return _read_rows(REFERENCE_ROWS)
 
 
+def fp32_rows() -> dict:
+    """{pair name: row} of every fp32 row: reference_rows() and the rows
+    of syn64-syn79 and trm32-trm39 (sweep_rows_fp32.jsonl, made the same
+    way)."""
+    return {**reference_rows(), **_read_rows(SWEEP_FP32_ROWS)}
+
+
 def sweep_rows() -> dict:
     """{pair name: row} of sweep383.jsonl and sweep383_trimmed.jsonl: the
     JAX package's sweeps on a TPU v5e, whose counters fp32 does not always
@@ -284,9 +295,10 @@ def _check_parity(out, cfg, batch_pairs, names, rows=None):
       * the convergence-margin guard: with margin_frac < 1 every gap sits
         below margin_frac * MSEThresh * inliers (+1e-3), so a numeric
         perturbation cannot flip a pair to unconverged;
-      * with rows (reference_rows()): each pair with an fp32 reference row
-        within ERR_TOL of its error, and each synthetic similar pair's
-        outer, inner, evals and icp_runs equal to its row's."""
+      * with rows (reference_rows() or fp32_rows()): each pair with an
+        fp32 reference row within ERR_TOL of its error, each synthetic
+        similar pair's outer, inner, evals and icp_runs equal to its row's,
+        each trimmed pair's evals within TRIM_EVALS_REL of its row's."""
     err = np.asarray(out.error)
     conv = np.asarray(out.converged)
     _require(bool(conv.all()),
@@ -320,6 +332,10 @@ def _check_parity(out, cfg, batch_pairs, names, rows=None):
             for k, v in got.items():
                 _require(int(v[i]) == row[k],
                          f"{name} {k} {int(v[i])} vs reference row {row[k]}")
+        elif name.startswith("trm"):
+            ev = int(got["evals"][i])
+            _require(abs(ev - row["evals"]) <= TRIM_EVALS_REL * row["evals"],
+                     f"{name} evals {ev} vs reference row {row['evals']}")
 
 
 def _counters(out) -> dict:

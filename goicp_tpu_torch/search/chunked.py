@@ -31,7 +31,8 @@ from goicp_tpu_torch.search.device_engine import (DeviceResult,
                                                   batch_run_chunk,
                                                   device_finalize,
                                                   result_to_numpy)
-from goicp_tpu_torch.search.fused_stream import _take_pairs
+from goicp_tpu_torch.search.fused_stream import (StreamStopped, _take_pairs,
+                                                 savez_exact)
 
 # what the compacting runner did since reset_counters(): the batch width
 # of each chunk it ran
@@ -60,9 +61,9 @@ def _row_result(res: DeviceResult, row: int) -> DeviceResult:
 
 
 def save_state(path: str, state: dict, active_idx, done: dict) -> None:
-    """Write an in-flight batch: the per-row search state, the original
-    pair of each row (active_idx) and the results retired so far, by
-    original pair."""
+    """Write an in-flight batch to exactly `path`: the per-row search
+    state, the original pair of each row (active_idx) and the results
+    retired so far, by original pair."""
     blob = {f"state_{k}": np.asarray(v.cpu()) for k, v in state.items()}
     blob["active_idx"] = np.asarray(active_idx, np.int64)
     blob["done_idx"] = np.asarray(sorted(done.keys()), np.int64)
@@ -70,7 +71,7 @@ def save_state(path: str, state: dict, active_idx, done: dict) -> None:
         blob[f"done_{f}"] = np.stack(
             [np.asarray(getattr(done[i], f)) for i in sorted(done.keys())]) \
             if done else np.zeros((0,))
-    np.savez(path, **blob)
+    savez_exact(path, blob)
 
 
 def load_state(path: str, device=None):
@@ -104,12 +105,12 @@ def register_device_batch_compact(pairs, cfg: GoICPConfig,
     order of `pairs`.  checkpoint_path: save the in-flight state after
     every chunk; resume=True restarts from that file (same pairs, cfg).
     max_chunks bounds the chunks run: when it is reached, the state is
-    saved and a RuntimeError raised.  pad_to: round the batch up by
-    repeating pair 0, the pad rows' state pre-converged, so that they never
-    search and retire at the first compaction.  mesh: every rank of it
-    calls this with the same pairs; the pair axis splits over `data`
-    (dist/mesh.map_pair_blocks), each data rank compacting its own block,
-    and every rank returns the whole batch.  With a mesh pad_to is not
+    saved and StreamStopped (a RuntimeError) raised.  pad_to: round the
+    batch up by repeating pair 0, the pad rows' state pre-converged, so
+    that they never search and retire at the first compaction.  mesh:
+    every rank of it calls this with the same pairs; the pair axis splits
+    over `data` (dist/mesh.map_pair_blocks), each data rank compacting
+    its own block, and every rank returns the whole batch.  With a mesh pad_to is not
     needed (the blocks are padded the same way) and each rank checkpoints
     its block to a file of its own (dist/mesh.rank_path)."""
     pairs = list(pairs)
@@ -183,7 +184,7 @@ def _compact(pairs: list, n_live: int, cfg: GoICPConfig, chunk_steps: int,
         if checkpoint_path:
             save_state(checkpoint_path, state, active_idx, done)
         if hit_cap:
-            raise RuntimeError(
+            raise StreamStopped(
                 f"max_chunks={max_chunks} reached with {n_act} pairs in "
                 f"flight (state checkpointed)")
 

@@ -54,6 +54,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
+import tempfile
 
 import numpy as np
 import torch
@@ -88,6 +89,11 @@ counters = dict(global_iters=0, transitions=0, host_reads=0, escalated=0)
 def reset_counters():
     for k in counters:
         counters[k] = 0
+
+
+class StreamStopped(RuntimeError):
+    """A stream (or the compacting batch) stopped at its max_chunks, its
+    state checkpointed: the requested stop, and no other error."""
 
 
 # ---------------------------------------------------------------------------
@@ -607,7 +613,25 @@ def save_stream_state(path: str, state: dict, rows_orig, dead, next_pair,
         blob[f"done_{f}"] = np.stack(
             [np.asarray(getattr(done[i], f))
              for i in sorted(done.keys())]) if done else np.zeros((0,))
-    np.savez(path, **blob)
+    savez_exact(path, blob)
+
+
+def savez_exact(path: str, blob: dict) -> None:
+    """np.savez of `blob` to exactly `path` (given a name, np.savez itself
+    appends `.npz` when it is missing), through a temporary file in the
+    same directory and os.replace: a kill during the write leaves the
+    previous file at `path` whole."""
+    fd, tmp = tempfile.mkstemp(prefix=os.path.basename(path) + ".",
+                               suffix=".tmp",
+                               dir=os.path.dirname(os.path.abspath(path)))
+    try:
+        with os.fdopen(fd, "wb") as fh:
+            np.savez(fh, **blob)
+        os.replace(tmp, path)
+    except BaseException:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise
 
 
 def load_stream_state(path: str, device=None):
@@ -727,9 +751,10 @@ def register_fused_stream(pairs, cfg: GoICPConfig, width: int = 8,
 
     checkpoint_path: save the in-flight window state after every chunk;
     resume=True restarts from that file (same pairs, cfg) and converges to
-    the identical results (the search is deterministic).  max_chunks
-    bounds the chunks executed (kill/restart tests): when hit, the state
-    is saved and a RuntimeError raised.
+    the identical results (the search is deterministic).  The file is
+    written at exactly checkpoint_path, whatever its suffix.  max_chunks
+    bounds the chunks executed (kill/restart): when hit, the state is
+    saved and StreamStopped (a RuntimeError) raised.
 
     eager: end a chunk early when a row newly finishes so it refills
     immediately (see fused_run_chunk) — pure host pacing, identical
@@ -1004,7 +1029,7 @@ def _stream_driver(pairs, cfg: GoICPConfig, width, chunk_steps, progress,
             save_stream_state(checkpoint_path, state, rows_orig, dead,
                               next_pair, done)
         if hit_cap:
-            raise RuntimeError(
+            raise StreamStopped(
                 f"max_chunks={max_chunks} reached with "
                 f"{B - len(done)} pairs unfinished (state checkpointed)")
 

@@ -13,6 +13,20 @@ then the rows of the fork's error options
 (goicp_tpu_torch/bench/option_rows.jsonl: each option of
 goicp_tpu_torch/bench/options.py on its six pairs, and the host engine on
 its first pair, ~5 min).
+
+    python tests/test_torch_device_engine.py --write-sweep-rows
+
+writes the fp32 rows of the next pairs by index, syn64-syn79 and
+trm32-trm39 (goicp_tpu_torch/bench/sweep_rows_fp32.jsonl, ~20 min; syn72's
+13,047 inner iterations are most of it), which the port's sweep383 holds
+its pools to beside the bench rows.
+
+    python tests/test_torch_device_engine.py --trace-steps syn72
+
+steps the JAX and the port's register_device on a bench pair one outer
+step at a time on the CPU and prints the first step whose counters or
+incumbent differ in the two packages, and each package's final counters
+(syn72: ~1 min for JAX, ~7 min for the port).
 """
 
 import dataclasses
@@ -49,6 +63,9 @@ torch.set_num_threads(1)
 ROWS = REPO / "goicp_tpu_torch" / "bench" / "reference_rows.jsonl"
 BENCH_PAIRS = [f"syn{i:02d}" for i in range(64)] + \
     [f"trm{i:02d}" for i in range(32)]
+SWEEP_ROWS = REPO / "goicp_tpu_torch" / "bench" / "sweep_rows_fp32.jsonl"
+SWEEP_PAIRS = [f"syn{i:02d}" for i in range(64, 80)] + \
+    [f"trm{i:02d}" for i in range(32, 40)]
 _COUNTERS = ("outer_iters", "evals", "inner_iters", "icp_runs", "opt_comp",
              "geom_surv", "chem_corners", "converged", "last_icp")
 
@@ -104,8 +121,10 @@ def _bench(name, option=None):
     elif trimmed:
         cfg = dataclasses.replace(cfg, trimFraction=jmeasure.TRIM_FRACTION,
                                   trans_capacity=256)
-    pool = jmeasure.synthetic_pool_trimmed(32, seed=23) if trimmed \
-        else jmeasure.synthetic_pool(64, seed=7)
+    # both draws are prefix-stable: a pool of index + 1 pairs holds the pair
+    n = int(name[3:]) + 1
+    pool = jmeasure.synthetic_pool_trimmed(n, seed=23) if trimmed \
+        else jmeasure.synthetic_pool(n, seed=7)
     entry = next(e for e in pool if e[0] == name)
     raw = jmeasure._normalized_synthetic(entry)
     if option is not None:
@@ -173,9 +192,9 @@ def option_row(option, name, cfg, jp, r):
                        "nbr_term")}}
 
 
-def write_rows():
-    with open(ROWS, "w") as fh:
-        for name in BENCH_PAIRS:
+def write_rows(path=ROWS, names=BENCH_PAIRS):
+    with open(path, "w") as fh:
+        for name in names:
             cfg, jp, _ = _bench(name)
             row = _row(jax.device_get(jeng.register_device(jp, cfg)))
             fh.write(json.dumps({"pair": name, **row}) + "\n")
@@ -211,8 +230,47 @@ def write_option_rows():
                 jax.clear_caches()
 
 
+def trace_steps(name):
+    """Both packages' register_device on one bench pair, an outer step at
+    a time: (it, inner_it, evals, icp_runs, opt_err) after each step."""
+    cfg, jp, _ = _bench(name)
+    tcfg = _port_cfg(cfg)
+    tp = tprep.pair_from_jax(jp, "cpu")
+    run = jax.jit(jeng.device_run_chunk, static_argnames=("cfg", "mesh"))
+    js = jax.jit(jeng.device_init, static_argnames=("cfg",))(jp, cfg)
+    ts = teng.device_init(tp, tcfg)
+
+    def rec(s):
+        return (int(s["it"]), int(s["inner_it"]), int(s["evals"]),
+                int(s["icp_runs"]), float(s["opt_err"]))
+
+    def done(s):
+        return bool(s["converged"]) or int(s["it"]) >= cfg.max_outer_steps
+    first = {}
+    while not (done(js) and done(ts)):
+        if not done(js):
+            js = run(jp, cfg, js, np.int32(1))
+        if not done(ts):
+            ts = teng.device_run_chunk(tp, tcfg, ts, 1)
+        j, t = rec(js), rec(ts)
+        for what, k in (("counters", slice(0, 4)), ("incumbent", 4)):
+            if what not in first and j[k] != t[k]:
+                first[what] = (j, t)
+                print(f"{name}: first {what} split after outer step "
+                      f"{j[0]}: JAX {j}, port {t}", flush=True)
+    print(f"{name}: final (it, inner_it, evals, icp_runs, opt_err): JAX "
+          f"{rec(js)}, port {rec(ts)}")
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--write-rows"]:
         jax.config.update("jax_platforms", "cpu")
         write_rows()
         write_option_rows()
+    elif sys.argv[1:] == ["--write-sweep-rows"]:
+        jax.config.update("jax_platforms", "cpu")
+        write_rows(SWEEP_ROWS, SWEEP_PAIRS)
+    elif sys.argv[1:2] == ["--trace-steps"]:
+        jax.config.update("jax_platforms", "cpu")
+        torch.set_num_threads(1)
+        trace_steps(sys.argv[2])

@@ -35,7 +35,7 @@ _CHILD = textwrap.dedent("""
         except RuntimeError as exc:
             assert 'device="cpu"' in str(exc)
     # the user's entry points import too (the host engine, the CLI, the
-    # pair runner, the sweeps, the demo, the bench's main)
+    # pair runner, the sweeps, the demo, the bench's main, the sweep tool)
     from goicp_tpu_torch import cli
     from goicp_tpu_torch.bench import measure, options
     assert len(options.option_rows()) == 18
@@ -44,6 +44,10 @@ _CHILD = textwrap.dedent("""
     assert cli.main and measure.main and pair.run_pair and outer.register
     assert sweep.run_sweep and device_sweep.run_sweep_device_batch
     assert demo.run_demo
+    # the BO1-scale sweep tool, and the fp32 rows its gates read
+    from goicp_tpu_torch.tools import sweep383
+    assert sweep383.main and sweep383.run_sweep
+    assert len(measure.fp32_rows()) == 96 + 24
     from goicp_tpu_torch.pipeline.prepare import prepare_pair
     from goicp_tpu_torch.search.inner import inner_bnb
 
