@@ -15,24 +15,29 @@ Phases, each of which fails the script (nonzero exit, no result line):
     graph_launch_floor_ms).
  2. kernels vs plain: each kernel's wrapper on card tensors at main-path
     shapes (a prepared bench pair, lanes/centers/widths from a numpy seed),
-    held against its plain torch version on the same inputs: K1 untrimmed
-    (fused and plain modes) to atol 1e-5 + rtol 1e-6, K1 with the dynamic K
-    read from counts[1] to rtol 1e-5 / atol 1e-4, K2 at Q=152 and Q=8
-    exactly, and K1's trimmed modes once more on rows of 320 points, which
-    go through the shared-memory scratch.  The per-lane-table kernels K3
-    and K4 at the streams' shapes:
-    two prepared pairs of one bucket, 16 lanes interleaved between them,
-    same tolerances, and lane for lane EQUAL to K1 / K2 run with that
-    lane's pair.  (The per-point distances are the same float32 in kernel
-    and plain version; the sums differ in order: a warp's per-thread
-    partial sums and shuffles against torch's, and, trimmed, "below the
-    K-th value plus its ties" against a sorted prefix.  Sums over 256
-    points reach ~60, where one float32 ulp is 3.8e-6.)  Every prepared
-    pair used here has its Grid.nearest_cell, the table the kernels trust,
-    held equal to nearest_occupied over all S^3 voxels.  One more pair is
-    prepared on a 64^3 grid, whose 1 MB table does not fit a block's shared
-    memory: K1 and K2 with the tables read from device memory, same
-    tolerances.  K1 once more at the host-streaming engine's shape
+    held against its plain torch version on the same inputs, bit for bit:
+    K1 untrimmed (fused and plain modes), K1 with the dynamic K read from
+    counts[1] and with a static K, K2 at Q=152 and Q=8, and K1's trimmed
+    modes once more on rows of 320 points, which go through the
+    shared-memory scratch.  The per-lane-table kernels K3 and K4 at the
+    streams' shapes: two prepared pairs of one bucket, 16 lanes
+    interleaved between them, equal to their plain versions and lane for
+    lane to K1 / K2 run with that lane's pair.  (Kernel and plain version
+    take the same float32 per-point distances and sum them in one order,
+    utils/fp32.py's: each of a warp's 32 lanes adds its points t, t+32,
+    ... and an xor butterfly combines the lanes; trimmed, the values below
+    the K-th smallest, then its ties.)  The ordered-sum kernel
+    (csrc/ordered_sum.cu) at the ICP's shapes on syn07, equal to its plain
+    version bit for bit and timed the same way, beside torch.sum; so the
+    fixed-order products (csrc/fp32_products.cu: sq_dist3, det3, cross3,
+    dot_fma), beside torch.linalg.det, torch.linalg.cross and
+    torch.matmul.  Every
+    prepared pair used here has its Grid.nearest_cell, the table the
+    kernels trust, held equal to nearest_occupied over all S^3 voxels.
+    One more pair is prepared on a 64^3 grid, whose 1 MB table does not
+    fit a block's shared memory: K1 and K2 with the tables read from
+    device memory, bit for bit.  K1 once more at the host-streaming
+    engine's shape
     (GoICPConfig's rot_batch 8: 64 lanes of 64 nodes) on syn07, fused,
     plain+unc and plain, timed like the others.  Times from CUDA events:
     a kernel's `ms` is the median of
@@ -48,7 +53,7 @@ Phases, each of which fails the script (nonzero exit, no result line):
     static K) and K3 run at norm 2 and again at norm 1 (the fork's L1
     option) on the same inputs, at the same tolerances, K3 lane for lane
     equal to K1 at each norm (norm 1's times: the JSON line's "norm1"
-    entries).
+    entries).  max |kernel - plain| is 0 in every case.
  3. registrations through the port's entry points: prepare_pair(bucket=
     True) -> make_count_dynamic -> register_device, under GoICPConfig() +
     bench_shape, on six pairs of the similar pool and four of the trimmed
@@ -60,21 +65,22 @@ Phases, each of which fails the script (nonzero exit, no result line):
     each equal to phase 3's syn07 in error, R, t, opt_comp, evals, outer,
     inner and geom_surv, and with chem_survivors=8 (capped at twice the
     outer steps; converged or not, an achievable error and a valid gap).
- 4. proof: K1's and K2's launch counters, zeroed just before phase 3, are
-    > 0 after it.
+ 4. proof: K1's, K2's and the fixed-order kernels' launch counters,
+    zeroed just before phase 3, are > 0 after it.
  5. the fused cross-pair stream: the similar pool syn00-syn15 and the
     trimmed pool trm00-trm07, each prepared into one pool-max bucket
-    (every pair's nearest-cell table checked as in phase 2), through register_fused_stream(width=2, chunk_steps=512).  Every pair is
-    held against the port's register_device on the same prepared pair and,
-    where there is one, against its fp32 reference row.  K3 and K4 must
-    have launched.  Then the trimmed pool once more with escalate_capacity
-    = 2 * trans_capacity after 1 chunk of 64 global iterations: at least
-    one pair escalated, every pair converged, error within MSEThresh*Nd +
-    1e-5 of the plain stream's.
+    (every pair's nearest-cell table checked as in phase 2), through
+    register_fused_stream(width=2, chunk_steps=512).  Every pair is held
+    against the port's register_device on the same prepared pair and,
+    where there is one, against its fp32 reference row.  K3, K4 and the
+    fixed-order kernels must have launched.  Then the trimmed pool once
+    more with escalate_capacity = 2 * trans_capacity after 1 chunk of 64
+    global iterations: at least one pair escalated, every pair converged,
+    error within MSEThresh*Nd + 1e-5 of the plain stream's.
  6. the slot-packed stream on the same pools:
     register_packed_stream(width=16, chunk_steps=512) with 16 slots and
-    transitions every 8 iterations; the same checks, and K3 and K4 must
-    have launched again.
+    transitions every 8 iterations; the same checks, and K3, K4 and the
+    fixed-order kernels must have launched again.
  7. the user's entry points, from files: a BO1-style data root written
     in a temporary directory (goicp_tpu_torch/bench/bo1_files.py) holding
     syn00, syn01, syn05, syn06, syn13 and syn07 as .mol2 cavities, c-FPFH
@@ -163,6 +169,20 @@ Phases, each of which fails the script (nonzero exit, no result line):
     evals, icp_runs and compat exact; trimmed: evals within 5 %) and its
     fp32 row; no checkpoint file is left.  K2, K3 and K4 must have
     launched in the phase.
+13. one answer on both devices: every bench pair (syn00-syn63,
+    trm00-trm31) prepared on the card and on the CPU in this process,
+    the two prepared pairs equal bit for bit, then on each device
+    initial_error, rodrigues of 8 seeded rotations and the data rotated
+    by them, one ICP event from the identity and 4 seeded starts with
+    its rescoring, and score_transform at the 8 rotations: the card's
+    results equal the CPU's bit for bit.  Then syn72's register_device on
+    the card, equal in every counter and every float32 bit to the row
+    the port wrote on the CPU (goicp_tpu_torch/bench/cpu_rows.jsonl,
+    `python -m goicp_tpu_torch.bench.cpu_rows --write`); K1, K2 and the
+    fixed-order kernels must have launched.  Last, the kernel launches of one
+    global iteration's inner step and of one ICP iteration
+    (goicp_tpu_torch/bench/launch_counts.py) beside those of the tree
+    before the fixed order (commit 1025156).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -190,6 +210,15 @@ STREAM_TRIMMED = [f"trm{i:02d}" for i in range(8)]
 ERR_TOL = 1e-4          # |error - reference error|
 STREAM_ERR_TOL = 1e-5   # |stream error - register_device error|
 TRIM_EVALS_REL = 0.05   # trimmed pairs: evals within 5 % of the reference
+# goicp_tpu_torch/bench/launch_counts.py on the tree before the fixed
+# float32 order (commit 1025156), on the H100 in the same call as this
+# tree's first whole run: kernel launches of one global iteration's inner
+# step (two live rows) and of one ICP iteration (four seeds)
+BEFORE_FIXED_ORDER_LAUNCHES = {"global_iteration": 131.0,
+                               "icp_iteration": 1006.0}
+# the fixed-order kernels every ICP event launches (utils/fp32.py)
+FIXED_ORDER = ("ordered_sum", "sq_dist3", "det3", "cross3", "dot_fma")
+FIXED_ORDER_PRODUCTS = FIXED_ORDER[1:]
 PEAK_OPS = 67e12        # H100 SXM fp32 outside the tensor cores, per second
 PEAK_BYTES = 3.35e12    # H100 SXM device memory, bytes per second
 # Operations the functions need per (lane, node or corner, real point):
@@ -255,6 +284,14 @@ def _device_ms(fn, n=50, reps=7, warm_s=0.03):
         b.synchronize()
         times.append(a.elapsed_time(b) / n)
     return statistics.median(times)
+
+
+def _same_bits(got, want):
+    """Every float32 of got equals want's bit for bit."""
+    import torch
+    return all(g.shape == w.shape and torch.equal(
+        g.contiguous().view(torch.int32), w.contiguous().view(torch.int32))
+        for g, w in zip(got, want))
 
 
 def _max_err(got, want):
@@ -1352,6 +1389,224 @@ def _options_phase(cfg, pools, dev):
     return counts
 
 
+def _ordered_sum_checks(k, cfg, pools, dev, floor):
+    """Phase 2's check of the ordered-sum kernel (utils/fp32.py) at the
+    ICP's shapes on syn07 (an event of icp_seeds rows): the rotated
+    points' dot products (rows of 3), the sum over the points of the
+    correspondence matrix H (rows of Nd, 9 apart) and the Kabsch's
+    sequential 3-term sums, each equal to ordered_sum_plain on the same
+    card tensor bit for bit, timed like the bound kernels; the library
+    call is torch.sum on the same input (the same sum in its own order).
+    The first case's numbers go to the kernels line."""
+    import numpy as np
+    import torch
+    from goicp_tpu_torch.utils import fp32
+    pair = _prepared("syn07", cfg, pools, dev)
+    K = cfg.icp_seeds
+    rng = np.random.default_rng(11)
+    pts = torch.as_tensor(rng.uniform(-0.8, 0.8, (K, pair.n_data_padded, 3)),
+                          dtype=torch.float32, device=dev)
+    A = torch.as_tensor(rng.normal(size=(K, 3, 3)), dtype=torch.float32,
+                        device=dev)
+    cases = (
+        ("rotated points, dot3", A[:, None, :, :] * pair.data[None, :, None],
+         -1, 32),
+        ("H, sum over the points", pts[:, :, :, None] * pts[:, :, None, :],
+         1, 32),
+        ("Kabsch, sequential 3-term", A * A, -1, 1))
+    for i, (label, x, dim, lanes) in enumerate(cases):
+        x = x.contiguous()
+
+        def kern(x=x, dim=dim, lanes=lanes):
+            return fp32.ordered_sum(x, dim, lanes)
+
+        def plain(x=x, dim=dim, lanes=lanes):
+            return fp32.ordered_sum_plain(x, dim, lanes)
+
+        def library(x=x, dim=dim):
+            return torch.sum(x, dim=dim)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        _require(_same_bits([got], [want]),
+                 f"ordered_sum == plain bit for bit ({label})")
+        err = _max_err([got], [want])
+        k["errs"].append(err)
+        ms, pms, dms, lms = (_median_ms(kern), _median_ms(plain),
+                             _device_ms(kern), _median_ms(library))
+        n = x.shape[dim]
+        bms, bby = _bound(got.numel(), n, [x, got])
+        if i == 0:
+            k.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                     graph_ms=dms, library_ms=lms)
+        print(f"ordered_sum {label}: x {tuple(x.shape)} over dim {dim}, "
+              f"lanes {lanes}: max_abs_err={err:.3g} (bit for bit) kernel "
+              f"{ms:.4f} ms (from a graph {dms:.4f} ms) plain {pms:.4f} ms "
+              f"torch.sum {lms:.4f} ms bound {bms:.6f} ms ({bby}) {floor}",
+              flush=True)
+
+
+def _product_checks(kernels, cfg, pools, dev, floor):
+    """Phase 2's check of the fixed-order product kernels (utils/fp32.py,
+    csrc/fp32_products.cu) at the ICP's shapes on syn07 (an event of
+    icp_seeds rows): sq_dist3 on the rotated points against the model,
+    det3 and dot_fma (R = V (d U)^T) on the Kabsch's 3x3 matrices and
+    cross3 on a column of one against a row of another (strided operands,
+    as the Jacobi's completion passes them), each equal to its plain
+    version (the elementwise torch form) on the same card tensors bit for
+    bit, timed like the bound kernels.  The library call computes the same
+    function in its own order: torch.linalg.det, torch.linalg.cross,
+    torch.matmul; none for the squared distance matrix (torch.cdist takes
+    the square root)."""
+    import numpy as np
+    import torch
+    from goicp_tpu_torch.utils import fp32
+    pair = _prepared("syn07", cfg, pools, dev)
+    K = cfg.icp_seeds
+    rng = np.random.default_rng(12)
+    pts = torch.as_tensor(rng.uniform(-0.8, 0.8, (K, pair.n_data_padded, 3)),
+                          dtype=torch.float32, device=dev)
+    V, U = (torch.as_tensor(rng.normal(size=(K, 3, 3)), dtype=torch.float32,
+                            device=dev) for _ in range(2))
+    Vb, Ub = V[..., :, None, :], U[..., None, :, :]
+    # name: (kernel, plain, library, args, function evaluations, operations
+    # per evaluation)
+    cases = {
+        "sq_dist3": (fp32.sq_dist3, fp32.sq_dist3_plain, None,
+                     (pts, pair.model), pts.shape[0] * pts.shape[1]
+                     * pair.model.shape[0], 8),
+        "det3": (fp32.det3, fp32.det3_plain, torch.linalg.det, (V,), K, 14),
+        "cross3": (fp32.cross3, fp32.cross3_plain, torch.linalg.cross,
+                   (V[:, :, 0], U[:, 1]), K, 9),
+        "dot_fma": (fp32.dot_fma, fp32.dot_fma_plain,
+                    lambda a, b: torch.matmul(V, U.transpose(-1, -2)),
+                    (Vb, Ub), K * 9, 5),
+    }
+    for name, (kern_fn, plain_fn, lib_fn, args, n_eval, ops) in cases.items():
+        k = kernels[name]
+
+        def kern(fn=kern_fn, args=args):
+            return fn(*args)
+
+        def plain(fn=plain_fn, args=args):
+            return fn(*args)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        _require(_same_bits([got], [want]),
+                 f"{name} == plain bit for bit")
+        err = _max_err([got], [want])
+        k["errs"].append(err)
+        ms, pms, dms = _median_ms(kern), _median_ms(plain), _device_ms(kern)
+        lms = None if lib_fn is None else _median_ms(
+            lambda fn=lib_fn, args=args: fn(*args))
+        bms, bby = _bound(n_eval, ops, [*args, got])
+        k.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                 graph_ms=dms, library_ms=lms)
+        shapes = " x ".join(str(tuple(a.shape)) for a in args)
+        lib = "none" if lms is None else f"{lms:.4f} ms"
+        print(f"{name}: {shapes}: max_abs_err={err:.3g} (bit for bit) "
+              f"kernel {ms:.4f} ms (from a graph {dms:.4f} ms) plain "
+              f"{pms:.4f} ms library {lib} bound {bms:.6f} ms ({bby}) "
+              f"{floor}", flush=True)
+
+
+def _one_answer_phase(dev):
+    """Phase 13: one answer on both devices (see the module docstring).
+    The CPU's side of the bench pairs runs in a child process while this
+    one computes the card's.  Returns the launch counts of syn72's
+    registration."""
+    import tempfile
+    import torch
+    from goicp_tpu_torch.bench import cpu_rows, launch_counts
+    from goicp_tpu_torch.bounds import cuda_eval
+    from goicp_tpu_torch.search.device_engine import register_device
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path, log = os.path.join(tmp, "cpu.pt"), os.path.join(tmp, "log")
+        code = ("import sys, torch; from goicp_tpu_torch.bench import "
+                "cpu_rows; torch.set_num_threads(6); "
+                "cpu_rows.write_pair_results(sys.argv[1])")
+        with open(log, "w") as fh:
+            child = subprocess.Popen(
+                [sys.executable, "-c", code, path], cwd=REPO,
+                env=dict(os.environ, PYTHONPATH=REPO), stdout=fh,
+                stderr=subprocess.STDOUT)
+        try:
+            card = {}
+            for name in cpu_rows.BENCH_PAIRS:
+                c, pg = cpu_rows.bench_pair(name, dev)
+                card[name] = (cpu_rows.pair_digest(pg),
+                              cpu_rows.pair_results(pg, c))
+            t_card = time.perf_counter() - t_phase
+            rc = child.wait(timeout=900)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        with open(log) as fh:
+            tail = fh.read()[-2000:]
+        _require(rc == 0, f"phase 13's CPU child exited {rc}: {tail}")
+        cpu = torch.load(path, weights_only=False)   # written by the child
+    n_checks, failed = 0, []
+    for name, (digest, results) in card.items():
+        cdigest, cresults = cpu[name]
+        leaves = [k for k in digest if digest[k] != cdigest.get(k)]
+        if leaves:
+            failed.append((name, "prepare_pair", leaves))
+        for label in results:
+            diffs = cpu_rows.differences(results[label], cresults[label])
+            if diffs:
+                failed.append((name, label, diffs[:2]))
+            n_checks += 1
+    for name, label, diffs in failed:
+        print(f"phase 13 {name} {label}: the card differs from the CPU: "
+              f"{diffs}", flush=True)
+    _require(not failed, f"phase 13: {len(failed)} of {n_checks} results "
+             f"on the card == the CPU's bit for bit")
+    t_pairs = time.perf_counter() - t_phase
+    print(f"phase 13: {len(card)} bench pairs prepared on the card and on "
+          f"the CPU (a child process, at the same time), the prepared "
+          f"pairs and {n_checks // len(card)} results per pair equal bit "
+          f"for bit ({n_checks} checks; card {t_card:.3f} s, both "
+          f"{t_pairs:.3f} s)", flush=True)
+
+    # the main path: syn72's registration against the port's CPU row
+    want = cpu_rows.read_rows()["syn72"]
+    c72, p72 = cpu_rows.bench_pair("syn72", dev)
+    cuda_eval.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = register_device(p72, c72)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = cuda_eval.launch_counts()
+    got = cpu_rows.row_of(r)
+    want_row = {k: v for k, v in want.items() if k != "pair"}
+
+    def counters(row):
+        return json.dumps({k: v for k, v in row.items() if k != "bits"})
+    print(f"phase 13 syn72 register_device on the card: {wall:.3f} s | card "
+          f"{counters(got)} | CPU row {counters(want_row)} | launches "
+          f"{json.dumps(counts)}", flush=True)
+    _require(got == want_row,
+             f"phase 13 syn72 on the card == the port's CPU row in every "
+             f"counter and bit: {got} vs {want}")
+    for kname in ("geometric_bounds_kernel", "chem_incomp_kernel",
+                  *FIXED_ORDER):
+        _require(counts[kname] > 0, f"{kname} launched in phase 13")
+
+    # launches of the two host-dispatched loops, after the path's counts
+    loops = dict(global_iteration=launch_counts.global_iteration(),
+                 icp_iteration=launch_counts.icp_iteration())
+    for loop, v in loops.items():
+        print(f"phase 13 launches per {loop.replace('_', ' ')}: "
+              f"{v['launches']:.1f} ({v['ms']:.3f} ms on the host clock); "
+              f"before the fixed order: "
+              f"{BEFORE_FIXED_ORDER_LAUNCHES[loop]}", flush=True)
+    print(f"phase 13 wall {time.perf_counter() - t_phase:.3f} s", flush=True)
+    return counts
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1420,6 +1675,14 @@ def main() -> int:
         "chem_incomp_kernel_lanes": dict(
             source="goicp_tpu_torch/csrc/chem_incomp.cu",
             replaces="goicp_tpu/bounds/pallas_eval.py:778", errs=[]),
+        # not TPU kernels: the fixed-order sum and products of
+        # utils/fp32.py
+        "ordered_sum": dict(
+            source="goicp_tpu_torch/csrc/ordered_sum.cu", replaces=None,
+            errs=[]),
+        **{name: dict(source="goicp_tpu_torch/csrc/fp32_products.cu",
+                      replaces=None, errs=[])
+           for name in FIXED_ORDER_PRODUCTS},
     }
     L, B = 8, cfg.trans_pop * 8
     k1 = kernels["geometric_bounds_kernel"]
@@ -1446,9 +1709,9 @@ def main() -> int:
         base = (pts, centers, widths)
         tabs = (pair.weights, g.cell_coords, g.nearest_cell, g.consts)
         if name == "syn07":
-            cases = [("fused", unc, dict(fused=True), 1e-5, 1e-6),
-                     ("plain+unc", unc, {}, 1e-5, 1e-6),
-                     ("plain", None, {}, 1e-5, 1e-6)]
+            cases = [("fused", unc, dict(fused=True)),
+                     ("plain+unc", unc, {}),
+                     ("plain", None, {})]
         else:
             k = pair.inlier_f()
             # the same pair with static counts: K is its inlier_num
@@ -1457,14 +1720,12 @@ def main() -> int:
             _require(static.inlier_num < static.n_data
                      and not static.dynamic_counts, f"{name} with a static K")
             cases = [("fused K=counts[1]", unc,
-                      dict(fused=True, trim_count=k), 1e-4, 1e-5),
-                     ("plain+unc K=counts[1]", unc, dict(trim_count=k),
-                      1e-4, 1e-5),
+                      dict(fused=True, trim_count=k)),
+                     ("plain+unc K=counts[1]", unc, dict(trim_count=k)),
                      ("fused K static", unc,
-                      dict(fused=True, trim_k=static.inlier_num), 1e-4,
-                      1e-5)]
+                      dict(fused=True, trim_k=static.inlier_num))]
         # norm 2 (GoICPConfig's), then norm 1 (the fork's L1 option)
-        for norm, (label, ru, extra, atol, rtol) in itertools.product(
+        for norm, (label, ru, extra) in itertools.product(
                 (2, 1), cases):
             kw = dict(size=g.geom.size, norm=norm, **extra)
 
@@ -1475,8 +1736,8 @@ def main() -> int:
                 return cuda_eval.geometric_bounds_plain(*args, **kw)
             got, want = kern(), plain()
             torch.cuda.synchronize()
-            for a, b in zip(got, want):
-                torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+            _require(_same_bits(got, want),
+                     f"K1 == plain bit for bit ({name} {label}, norm {norm})")
             err = _max_err(got, want)
             k1["errs"].append(err)
             ms, pms, dms = _median_ms(kern), _median_ms(plain), _device_ms(kern)
@@ -1492,7 +1753,7 @@ def main() -> int:
                 k1.update(times)
             print(f"K1 {'norm 1 ' if norm == 1 else ''}{name} {label}: "
                   f"L={L} B={B} Nd={nd} C={g.cell_coords.shape[0]} "
-                  f"max_abs_err={err:.3g} (atol {atol}, rtol {rtol}) kernel "
+                  f"max_abs_err={err:.3g} (bit for bit) kernel "
                   f"{ms:.4f} ms (from a graph {dms:.4f} ms) plain {pms:.4f} "
                   f"ms bound {bms:.6f} ms ({bby}) {floor}", flush=True)
         for q in (cfg.trans_pop * 19, 8):
@@ -1550,12 +1811,12 @@ def main() -> int:
         kw_long = dict(size=g.geom.size, norm=cfg.norm, **extra)
         got = cuda_eval.geometric_bounds_kernel(*args, **kw_long)
         want = cuda_eval.geometric_bounds_plain(*args, **kw_long)
-        for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+        _require(_same_bits(got, want),
+                 f"K1 == plain bit for bit (trm00 {label}, Nd=320)")
         err = _max_err(got, want)
         k1["errs"].append(err)
         print(f"K1 trm00 {label}, Nd=320 (rows in shared memory): "
-              f"max_abs_err={err:.3g} (atol 0.0001, rtol 1e-05)", flush=True)
+              f"max_abs_err={err:.3g} (bit for bit)", flush=True)
 
     # the tables in device memory: a 64^3 grid (1 MB of nearest cells) does
     # not fit a block's shared memory
@@ -1572,8 +1833,10 @@ def main() -> int:
     kw64 = dict(size=64, norm=cfg.norm, fused=True)
     got = cuda_eval.geometric_bounds_kernel(*a64, **kw64)
     want = cuda_eval.geometric_bounds_plain(*a64, **kw64)
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+    _require(_same_bits(got, want),
+             "K1 == plain bit for bit with the tables in device memory "
+             "(S=64)")
+    k1["errs"].append(_max_err(got, want))
     corners64 = torch.as_tensor(
         np.random.default_rng(64).uniform(-0.6, 0.6,
                                           (L, cfg.trans_pop * 19, 3)),
@@ -1586,7 +1849,7 @@ def main() -> int:
     ms1 = _device_ms(lambda: cuda_eval.geometric_bounds_kernel(*a64, **kw64))
     ms2 = _device_ms(lambda: cuda_eval.chem_incomp_kernel(*c64, size=64))
     print(f"S=64, tables in device memory: K1 trm00 fused K=counts[1] "
-          f"max_abs_err={_max_err(got, want):.3g} (atol 0.0001, rtol 1e-05) "
+          f"max_abs_err={_max_err(got, want):.3g} (bit for bit) "
           f"kernel {ms1:.4f} ms from a graph; K2 Q={corners64.shape[1]} "
           f"exact, kernel {ms2:.4f} ms from a graph", flush=True)
 
@@ -1620,8 +1883,8 @@ def main() -> int:
             return cuda_eval.geometric_bounds_plain(*args, **kw)
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        for a, b in zip(got, want):
-            torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-6)
+        _require(_same_bits(got, want),
+                 f"K1 == plain bit for bit (syn07 {label}, L={LH})")
         err = _max_err(got, want)
         k1["errs"].append(err)
         ms, pms, dms = _median_ms(kern), _median_ms(plain), _device_ms(kern)
@@ -1633,7 +1896,7 @@ def main() -> int:
                                  bound_ms=bms, bound_by=bby)
         print(f"K1 syn07 {label}, the host engine's shape: L={LH} B={B} "
               f"Nd={pair.n_data_padded} C={g.cell_coords.shape[0]} "
-              f"max_abs_err={err:.3g} (atol 1e-05, rtol 1e-06) kernel "
+              f"max_abs_err={err:.3g} (bit for bit) kernel "
               f"{ms:.4f} ms (from a graph {dms:.4f} ms) plain {pms:.4f} ms "
               f"bound {bms:.6f} ms ({bby}) {floor}", flush=True)
     k1["host_shape"] = host_shape
@@ -1669,9 +1932,6 @@ def main() -> int:
         kcount = st.counts[:, 1].contiguous() if trimmed else None
         a3 = (pts, centers, widths, unc, st.weights, g.cell_coords,
               g.nearest_cell, g.consts, kcount, lane_pair)
-        # untrimmed sums reach ~60 over 256 points, where one float32 ulp
-        # is 3.8e-6 and the warp's summation order differs from torch's
-        atol, rtol = (1e-4, 1e-5) if trimmed else (1e-5, 1e-6)
         n_real = sum(_real_points(two[l % 2]) for l in range(LS))
         label = "dynamic K" if trimmed else "untrimmed"
         for norm in (2, 1):
@@ -1682,8 +1942,9 @@ def main() -> int:
                 return cuda_eval.geometric_bounds_lanes_plain(*a3, **kw)
             got, want = kern3(), plain3()
             torch.cuda.synchronize()
-            for a, b in zip(got, want):
-                torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+            _require(_same_bits(got, want),
+                     f"K3 == plain bit for bit ({names}, {label}, norm "
+                     f"{norm})")
             for l in range(LS):
                 p = two[l % 2]
                 one = cuda_eval.geometric_bounds_kernel(
@@ -1709,7 +1970,7 @@ def main() -> int:
                 k3.update(times)
             print(f"K3 {'norm 1 ' if norm == 1 else ''}{'+'.join(names)} "
                   f"{label}: L={LS} B={B} Nd={nd} C={g.cell_coords.shape[1]} "
-                  f"max_abs_err={err:.3g} (atol {atol}, rtol {rtol}; == K1 "
+                  f"max_abs_err={err:.3g} (bit for bit; == K1 "
                   f"lane for lane) kernel {ms:.4f} ms (from a graph "
                   f"{dms:.4f} ms) plain {pms:.4f} ms bound {bms:.6f} ms "
                   f"({bby}) {floor}", flush=True)
@@ -1751,8 +2012,11 @@ def main() -> int:
                   f"(from a graph {dms:.4f} ms) plain {pms:.4f} ms bound "
                   f"{bms:.6f} ms ({bby}) {floor}", flush=True)
 
+    _ordered_sum_checks(kernels["ordered_sum"], cfg, pools, dev, floor)
+    _product_checks(kernels, cfg, pools, dev, floor)
+
     if sys.argv[1:] == ["--kernels-only"]:
-        print("kernels only: phases 3-12 not run, no result", flush=True)
+        print("kernels only: phases 3-13 not run, no result", flush=True)
         return 0
     if sys.argv[1:] == ["--options"]:
         _options_phase(cfg, pools, dev)
@@ -1808,7 +2072,8 @@ def main() -> int:
     # ---- 4. proof the main path ran the kernels ----
     print(f"launches during the registrations: {json.dumps(counts)}",
           flush=True)
-    for kname in ("geometric_bounds_kernel", "chem_incomp_kernel"):
+    for kname in ("geometric_bounds_kernel", "chem_incomp_kernel",
+                  *FIXED_ORDER):
         _require(counts[kname] > 0, f"{kname} launched on the main path")
     counts3k = _knob_phase(cfg, *syn07)
 
@@ -1909,7 +2174,7 @@ def main() -> int:
         print(f"launches during phase {phase}: {json.dumps(phase_counts)}",
               flush=True)
         for kname in ("geometric_bounds_kernel_lanes",
-                      "chem_incomp_kernel_lanes"):
+                      "chem_incomp_kernel_lanes", *FIXED_ORDER):
             _require(phase_counts[kname] > 0,
                      f"{kname} launched by the {engine} stream")
         return phase_counts
@@ -1964,17 +2229,18 @@ def main() -> int:
                                 stream_outs[(5, "trimmed")], outs9["trimmed"])
     counts11 = _options_phase(cfg, pools, dev)
     counts12 = _sweep_phase(stream_outs, dev)
+    counts13 = _one_answer_phase(dev)
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
          "replaces": k["replaces"],
-         "launches": sum(c[kname] for c in (counts, counts3k, counts5,
-                                            counts5e, counts6, counts7,
-                                            counts8, counts9, counts10,
-                                            counts11, counts12)),
+         "launches": sum(c.get(kname, 0)
+                         for c in (counts, counts3k, counts5, counts5e,
+                                   counts6, counts7, counts8, counts9,
+                                   counts10, counts11, counts12, counts13)),
          "max_abs_err": max(k["errs"]), "ms": k["ms"],
          "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-         "bound_by": k["bound_by"], "library_ms": None,
+         "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
          "launch_floor_ms": floor_ms, "graph_ms": k["graph_ms"],
          "graph_launch_floor_ms": floor_dev,
          **({"norm1": k["norm1"]} if "norm1" in k else {})}

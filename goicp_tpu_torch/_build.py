@@ -37,6 +37,7 @@ build_info: dict = {}    # path, seconds (0 when loaded from the cache), log
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _SIGNATURES = {
     # pts, centers, widths, rot_unc, weights, cells, nearest_cell, consts,
     # trim_count, out0, out1, out2, L, B, Nd, C, size, norm, fused, trim_k,
@@ -52,6 +53,15 @@ _SIGNATURES = {
     # pts, corners, cell_compat, prop_onehot, data_mask, nearest_cell,
     # consts, lane_pair, out, L, Q, Nd, C, size, stream
     "goicp_chem_incomp_lanes": [_P] * 9 + [_I] * 5 + [_P],
+    # x, out, rows, n, inner, lanes, stream
+    "goicp_ordered_sum": [_P, _P, _L, _I, _L, _I, _P],
+    # points, model, out, rows, model points, stream
+    "goicp_sq_dist3": [_P, _P, _P, _L, _I, _P],
+    # mats, out, batch, stream
+    "goicp_det3": [_P, _P, _L, _P],
+    # a, b, out, meta (15 int64: sizes, strides, last axis), stream
+    "goicp_cross3": [_P, _P, _P, ctypes.POINTER(_L), _P],
+    "goicp_dot_fma": [_P, _P, _P, ctypes.POINTER(_L), _P],
     # stream
     "goicp_empty_launch": [_P],
 }

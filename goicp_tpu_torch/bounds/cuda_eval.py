@@ -43,6 +43,8 @@ import torch
 from goicp_tpu_torch.grid.edt import exact_sqrt
 from goicp_tpu_torch.grid.lookup import (flat_index, oob_extension,
                                          voxel_indices)
+from goicp_tpu_torch.utils.fp32 import (cross3, det3, dot_fma, ordered_sum,
+                                        sq_dist3)
 
 SQRT3 = float(np.sqrt(3.0))
 MAX_POINTS = 8192     # points per row: two trimmed rows fit a block's memory
@@ -53,44 +55,69 @@ MAX_SIZE = 1024       # grid size: voxels pack 10 bits per axis
 # plain torch versions (same functions, same inputs)
 # ---------------------------------------------------------------------------
 
-def _trim(vals: torch.Tensor, mask: torch.Tensor, k, static: bool):
-    """Keep the k smallest masked values per row (padding forced to +inf):
-    static k -> the first k sorted values; a 0-d tensor k -> all sorted
-    values with ranks >= k zeroed (a where, not a multiply: dropped slots
-    may hold +inf)."""
-    vs = torch.sort(torch.where(mask, vals, torch.inf), dim=-1).values
+def _sum_k_smallest(vals, mask, k, static: bool, fs):
+    """K1/K3's trimmed sums (geom_bounds.cu::sum_k_smallest) of each row of
+    vals (L,B,Nd): the K-th smallest real value kth (padding forced to
+    +inf), then for each function g of fs the sum of g(v) over the values
+    strictly below it, in K1/K3's order (utils/fp32.py::ordered_sum), plus
+    (K - their count) copies of g(kth).  K: static k, clipped to Nd, or
+    from a 0-d tensor k on the device: 0 unless k > 0, Nd when k >= Nd,
+    else ceil(k); a row with K = 0 sums to 0."""
+    vals = torch.where(mask, vals, torch.inf)
+    nd = vals.shape[-1]
+    srt = torch.sort(vals, dim=-1).values
     if static:
-        return vs[..., :k]
-    keep = torch.arange(vs.shape[-1], device=vs.device) < k
-    return torch.where(keep, vs, torch.zeros_like(vs))
+        K = min(int(k), nd)
+        kth = srt[..., K - 1:K]
+    else:
+        kf = k.to(torch.float32)
+        K = torch.where(kf > 0, torch.where(kf >= nd, float(nd),
+                                            torch.ceil(kf)),
+                        0.0).to(torch.int64)
+        idx = torch.clamp(K - 1, min=0).expand(srt.shape[:-1] + (1,))
+        kth = torch.gather(srt, -1, idx)
+    below = vals < kth
+    zero = torch.zeros_like(vals)
+    ties = (K - torch.sum(below, dim=-1)).to(torch.float32)
+    out = []
+    for g in fs:
+        s = ordered_sum(torch.where(below, g(vals), zero)) \
+            + ties * g(kth)[..., 0]
+        out.append(s if static else torch.where(K > 0, s, 0.0))
+    return out
 
 
 def reduce_bounds(dis, widths, rot_unc, norm: int, fused: bool,
                   mask=None, k=None, static: bool = False):
-    """Per-node bound sums from per-point weighted distances.
+    """Per-node bound sums from per-point weighted distances, in K1/K3's
+    order: every sum over the Nd points is utils/fp32.py::ordered_sum
+    (lanes 32), the trimmed ones _sum_k_smallest, so that the kernels
+    and this function agree bit for bit.
 
     dis (L,B,Nd) = w * d; widths (L,B); rot_unc (L,Nd) or None; trimming
-    when k is given (see _trim; mask (…,Nd) bool marks real points).
-    Returns (ub, lb) or, fused, (ub_plain, ubu, lbu), each (L,B)."""
+    when k is given (static k, or a 0-d tensor k read on the device; mask
+    (…,Nd) bool marks real points).  Returns (ub, lb) or, fused,
+    (ub_plain, ubu, lbu), each (L,B)."""
     def f(v):
         return v * v if norm == 2 else v
 
-    def kept_of(v):
-        return v if k is None else _trim(v, mask, k, static)
-
     s3w = ((SQRT3 / 2.0) * widths)[:, :, None]
+
+    def lbf(v):
+        return f(torch.clamp(v - s3w, min=0.0))
+
+    def sums(v, *fs):
+        if k is None:
+            return [ordered_sum(g(v)) for g in fs]
+        return _sum_k_smallest(v, mask, k, static, fs)
+
     if fused:
         disu = torch.clamp(dis if rot_unc is None
                            else dis - rot_unc[:, None, :], min=0.0)
-        kept, keptu = kept_of(dis), kept_of(disu)
-        lb_d = torch.clamp(keptu - s3w, min=0.0)
-        return (torch.sum(f(kept), dim=-1), torch.sum(f(keptu), dim=-1),
-                torch.sum(f(lb_d), dim=-1))
+        return (*sums(dis, f), *sums(disu, f, lbf))
     if rot_unc is not None:
         dis = dis - rot_unc[:, None, :]
-    kept = kept_of(torch.clamp(dis, min=0.0))
-    lb_d = torch.clamp(kept - s3w, min=0.0)
-    return torch.sum(f(kept), dim=-1), torch.sum(f(lb_d), dim=-1)
+    return tuple(sums(torch.clamp(dis, min=0.0), f, lbf))
 
 
 def point_distances(pts_rot, centers, cell_coords, nearest_cell, consts):
@@ -412,8 +439,11 @@ def chem_incomp_kernel_lanes(pts_rot, corners, cell_compat, prop_onehot,
 
 chem_incomp_kernel_lanes.launches = 0
 
+# the four bound kernels and the fixed-order kernels of utils/fp32.py,
+# whose launch counts every run reads together
 _KERNELS = (geometric_bounds_kernel, chem_incomp_kernel,
-            geometric_bounds_kernel_lanes, chem_incomp_kernel_lanes)
+            geometric_bounds_kernel_lanes, chem_incomp_kernel_lanes,
+            ordered_sum, sq_dist3, det3, cross3, dot_fma)
 
 
 def launch_counts() -> dict:

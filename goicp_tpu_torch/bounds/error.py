@@ -10,7 +10,8 @@ including the reference quirks:
   * worst-case chem seeds: reg*Nd^2, regFPFH*800^2, regN*(6 Nd)^2 (:623-625).
 
 Transforms may carry a leading batch axis: R (..., 3, 3), t (..., 3),
-nn_idx (..., Nd) -> scores of shape (...).
+nn_idx (..., Nd) -> scores of shape (...).  Float sums and the rotated
+points take utils/fp32.py's fixed order, the same on every device.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from goicp_tpu_torch.chem.properties import compatibility_matrix
 from goicp_tpu_torch.config import GoICPConfig
 from goicp_tpu_torch.grid.lookup import dt_distance, nearest_cell_id
 from goicp_tpu_torch.pipeline.prepare import PairData
+from goicp_tpu_torch.utils.fp32 import ordered_sum, rotate
 
 
 class Score(NamedTuple):
@@ -41,12 +43,11 @@ def _compat(device: torch.device) -> torch.Tensor:
 
 
 def _norm_sum(vals: torch.Tensor, norm: int) -> torch.Tensor:
-    return torch.sum(vals * vals, dim=-1) if norm == 2 \
-        else torch.sum(vals, dim=-1)
+    return ordered_sum(vals * vals) if norm == 2 else ordered_sum(vals)
 
 
 def _transform(pair: PairData, R: torch.Tensor, t: torch.Tensor):
-    return torch.matmul(pair.data, R.transpose(-1, -2)) + t[..., None, :]
+    return rotate(R, pair.data) + t[..., None, :]
 
 
 def trimmed_smallest(vals: torch.Tensor, inlier_num: int) -> torch.Tensor:
@@ -94,9 +95,9 @@ def icp_chem_terms(pair: PairData, cfg: GoICPConfig, nn_idx: torch.Tensor):
 
     fpfh_term = zero
     if cfg.regularizationFPFH > 0 and cfg.cfpfh != 0:
-        fp = torch.sum(torch.sum(torch.abs(pair.data_fpfh
-                                           - pair.model_fpfh[nn_idx]),
-                                 dim=-1) * mask, dim=-1) / pair.nd_f()
+        fp = ordered_sum(ordered_sum(torch.abs(pair.data_fpfh
+                                               - pair.model_fpfh[nn_idx]))
+                         * mask) / pair.nd_f()
         fpfh_term = cfg.regularizationFPFH * fp * fp
     return nbr_term, incomp_term, fpfh_term, incomp
 
@@ -128,7 +129,7 @@ def score_transform(pair: PairData, cfg: GoICPConfig, R: torch.Tensor,
         kept = trimmed_smallest_dynamic(d, pair.inlier_f(), mask=real) \
             if pair.dynamic_counts \
             else trimmed_smallest(d, pair.inlier_num)  # unweighted (quirk)
-        geom = torch.sum(kept * kept, dim=-1)          # always squared (quirk)
+        geom = ordered_sum(kept * kept)                # always squared (quirk)
     else:
         wd = pair.weights * d                          # padding weight == 0
         geom = _norm_sum(wd, cfg.norm)

@@ -37,6 +37,7 @@ from goicp_tpu_torch.bounds.cuda_eval import reduce_bounds
 from goicp_tpu_torch.grid.lookup import (dt_distance, flat_index,
                                          nearest_cell_id, voxel_indices)
 from goicp_tpu_torch.pipeline.prepare import PairData
+from goicp_tpu_torch.utils.fp32 import dot3, ordered_sum, sin32
 
 SQRT3 = float(np.sqrt(3.0))
 
@@ -194,7 +195,7 @@ def chem_corner_values(pair: PairData, cfg: GoICPConfig, pts_rot, corners):
             out["incomp"] = torch.sum(~comp, dim=-1).to(torch.float32)
         if cfg.regularizationFPFH > 0 and cfg.cfpfh != 0:
             fp = pair.fpfh_voxel.reshape(-1)[rows]
-            out["fpfh"] = torch.sum(fp, dim=-1) / pair.nd_f()
+            out["fpfh"] = ordered_sum(fp) / pair.nd_f()
         if cfg.regularizationNeighbors > 0:
             cid = nearest_cell_id(pos, pair.grid.nearest_cell,
                                   pair.grid.consts)
@@ -207,14 +208,15 @@ def chem_corner_values(pair: PairData, cfg: GoICPConfig, pts_rot, corners):
             out["incomp"] = torch.sum(~comp, dim=-1).to(torch.float32)
         if cfg.regularizationFPFH > 0 and cfg.cfpfh != 0:
             fp = pair.fpfh_table.reshape(-1)[rows]
-            out["fpfh"] = torch.sum(fp, dim=-1) / pair.nd_f()
+            out["fpfh"] = ordered_sum(fp) / pair.nd_f()
     if cfg.regularizationNeighbors > 0:
         # nearest model point within the nearest occupied cell (argmin of
         # true distances over the cell's padded point list)
         cpts = pair.grid.cell_points.long()[cid.long()]     # (L,Q,Nd,K)
         valid = cpts >= 0
         mpts = pair.model[torch.clamp(cpts, min=0)]         # (L,Q,Nd,K,3)
-        d2 = torch.sum((pos[..., None, :] - mpts) ** 2, dim=-1)
+        diff = pos[..., None, :] - mpts
+        d2 = dot3(diff, diff)
         d2 = torch.where(valid, d2, torch.inf)
         k_best = torch.argmin(d2, dim=-1)                   # (L,Q,Nd)
         nn_pt = torch.gather(cpts, -1, k_best[..., None])[..., 0]
@@ -265,4 +267,4 @@ def rot_uncertainty(widths: torch.Tensor, norm_data: torch.Tensor):
     """maxRotDis for rotation cubes of width w (L,) -> (L, Nd)
     (jly_goicp.cpp:185-206): 2 sin(min(sqrt(3) w/2, pi)/2) * ||p||."""
     angle = torch.clamp(SQRT3 * widths / 2.0, max=math.pi)
-    return 2.0 * torch.sin(angle / 2.0)[:, None] * norm_data[None, :]
+    return 2.0 * sin32(angle / 2.0)[:, None] * norm_data[None, :]

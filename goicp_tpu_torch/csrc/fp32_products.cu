@@ -1,0 +1,207 @@
+// The fixed-order products of goicp_tpu_torch/utils/fp32.py on the card,
+// each one launch where its torch form takes several.
+//
+// Not ports of TPU kernels.  They exist so that the ICP keeps the launch
+// count of its library calls (matmul, linalg.cross, einsum) while it
+// takes utils/fp32.py's written-down order:
+//
+//   sq_dist3   d2[r, m] = (dot3(p_r, p_r) - 2 dot3(p_r, q_m)) + dot3(q_m, q_m)
+//              for points p (R, 3) and a model q (M, 3): the ICP's nearest-
+//              neighbour distance matrix, without the (R, M, 3) products;
+//   det3       det M = dot3_seq(M0, cross3(M1, M2)) of (B, 3, 3) matrices;
+//   cross3     (a1 b2 - a2 b1, a2 b0 - a0 b2, a0 b1 - a1 b0) of broadcast
+//              3-vectors a and b;
+//   dot_fma    a chain of FMAs over the last axis of broadcast a and b,
+//              taken in float64 and rounded once to float32 per step.
+//
+// dot3 is ordered_sum's warp order for three terms, (z0 + z2) + z1 with
+// z_k = +0 + a_k b_k; dot3_seq its sequential order ((z0 + a1 b1) + a2 b2).
+// Every product and sum is an explicit round-to-nearest intrinsic, which
+// the compiler may not contract into an FMA.  One thread per output value;
+// what bounds them on the H100 is the launch: the ICP's matrices are a few
+// hundred KB (sq_dist3) or a few hundred bytes (det3, cross3, dot_fma).
+#include "common.cuh"
+
+namespace goicp {
+
+constexpr int kThreads = 256;
+constexpr int kDims = 4;   // leading (broadcast) dims of cross3 and dot_fma
+
+__device__ __forceinline__ float dot3_warp(const float* a, const float* b) {
+  const float z0 = __fadd_rn(0.0f, __fmul_rn(a[0], b[0]));
+  const float z1 = __fadd_rn(0.0f, __fmul_rn(a[1], b[1]));
+  const float z2 = __fadd_rn(0.0f, __fmul_rn(a[2], b[2]));
+  return __fadd_rn(__fadd_rn(z0, z2), z1);
+}
+
+__global__ void sq_dist3_kernel(const float* __restrict__ p,
+                                const float* __restrict__ q,
+                                float* __restrict__ out, long long rows,
+                                int m) {
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (idx >= rows * m) return;
+  const long long r = idx / m;
+  const int j = static_cast<int>(idx - r * m);
+  float pr[3], qj[3];
+  for (int k = 0; k < 3; ++k) {
+    pr[k] = __ldg(p + 3 * r + k);
+    qj[k] = __ldg(q + 3 * static_cast<long long>(j) + k);
+  }
+  const float pp = dot3_warp(pr, pr), pq = dot3_warp(pr, qj),
+              qq = dot3_warp(qj, qj);
+  out[idx] = __fadd_rn(__fsub_rn(pp, __fmul_rn(2.0f, pq)), qq);
+}
+
+__global__ void det3_kernel(const float* __restrict__ mats,
+                            float* __restrict__ out, long long batch) {
+  const long long b =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (b >= batch) return;
+  const float* M = mats + 9 * b;
+  const float* u = M + 3;
+  const float* v = M + 6;
+  const float c0 = __fsub_rn(__fmul_rn(u[1], v[2]), __fmul_rn(u[2], v[1]));
+  const float c1 = __fsub_rn(__fmul_rn(u[2], v[0]), __fmul_rn(u[0], v[2]));
+  const float c2 = __fsub_rn(__fmul_rn(u[0], v[1]), __fmul_rn(u[1], v[0]));
+  float acc = __fadd_rn(0.0f, __fmul_rn(M[0], c0));
+  acc = __fadd_rn(acc, __fmul_rn(M[1], c1));
+  out[b] = __fadd_rn(acc, __fmul_rn(M[2], c2));
+}
+
+// The broadcast shape of two operands (cross3, dot_fma): kDims leading
+// dims (size and each operand's stride in floats, a stride of 0 where it
+// broadcasts), then the last axis.
+struct BroadcastShape {
+  long long size[kDims], sa[kDims], sb[kDims];
+  long long la, lb;   // strides of the last axis
+  int n;              // its length
+};
+
+// offsets of leading index `row` (the last dim fastest) in a and b
+__device__ __forceinline__ void broadcast_offsets(const BroadcastShape& s,
+                                                  long long row,
+                                                  long long* oa,
+                                                  long long* ob) {
+  *oa = 0;
+  *ob = 0;
+  for (int d = kDims - 1; d >= 0; --d) {
+    const long long i = row % s.size[d];
+    row /= s.size[d];
+    *oa += i * s.sa[d];
+    *ob += i * s.sb[d];
+  }
+}
+
+__global__ void cross3_kernel(const float* __restrict__ a,
+                              const float* __restrict__ b,
+                              float* __restrict__ out, BroadcastShape s,
+                              long long rows) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (row >= rows) return;
+  long long oa, ob;
+  broadcast_offsets(s, row, &oa, &ob);
+  float x[3], y[3];
+  for (int k = 0; k < 3; ++k) {
+    x[k] = __ldg(a + oa + k * s.la);
+    y[k] = __ldg(b + ob + k * s.lb);
+  }
+  for (int k = 0; k < 3; ++k) {
+    const int i = (k + 1) % 3, j = (k + 2) % 3;
+    out[3 * row + k] =
+        __fsub_rn(__fmul_rn(x[i], y[j]), __fmul_rn(x[j], y[i]));
+  }
+}
+
+__global__ void dot_fma_kernel(const float* __restrict__ a,
+                               const float* __restrict__ b,
+                               float* __restrict__ out, BroadcastShape s,
+                               long long rows) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (row >= rows) return;
+  long long oa, ob;
+  broadcast_offsets(s, row, &oa, &ob);
+  float acc = __fmul_rn(__ldg(a + oa), __ldg(b + ob));
+  for (int k = 1; k < s.n; ++k) {
+    const double prod =
+        __dmul_rn(static_cast<double>(__ldg(a + oa + k * s.la)),
+                  static_cast<double>(__ldg(b + ob + k * s.lb)));
+    acc = __double2float_rn(__dadd_rn(prod, static_cast<double>(acc)));
+  }
+  out[row] = acc;
+}
+
+inline int launch_status(long long blocks) {
+  return blocks > 0x7fffffffLL ? static_cast<int>(cudaErrorInvalidValue) : 0;
+}
+
+// meta: size[4], stride of a[4], stride of b[4], a's and b's stride of the
+// last axis, its length (15 values); rows = the product of the sizes
+inline BroadcastShape read_shape(const long long* meta, long long* rows) {
+  BroadcastShape s;
+  *rows = 1;
+  for (int d = 0; d < kDims; ++d) {
+    s.size[d] = meta[d];
+    s.sa[d] = meta[kDims + d];
+    s.sb[d] = meta[2 * kDims + d];
+    *rows *= s.size[d] > 0 ? s.size[d] : 0;
+  }
+  s.la = meta[3 * kDims];
+  s.lb = meta[3 * kDims + 1];
+  s.n = static_cast<int>(meta[3 * kDims + 2]);
+  return s;
+}
+
+}  // namespace goicp
+
+extern "C" int goicp_sq_dist3(const float* p, const float* q, float* out,
+                              long long rows, int m, void* stream) {
+  using namespace goicp;
+  if (rows <= 0 || m <= 0) return 0;
+  const long long blocks = (rows * m + kThreads - 1) / kThreads;
+  if (int err = launch_status(blocks)) return err;
+  sq_dist3_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(p, q, out, rows, m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int goicp_det3(const float* mats, float* out, long long batch,
+                          void* stream) {
+  using namespace goicp;
+  if (batch <= 0) return 0;
+  const long long blocks = (batch + kThreads - 1) / kThreads;
+  if (int err = launch_status(blocks)) return err;
+  det3_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(mats, out, batch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int goicp_cross3(const float* a, const float* b, float* out,
+                            const long long* meta, void* stream) {
+  using namespace goicp;
+  long long rows;
+  const BroadcastShape s = read_shape(meta, &rows);
+  if (rows == 0) return 0;
+  if (s.n != 3) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (rows + kThreads - 1) / kThreads;
+  if (int err = launch_status(blocks)) return err;
+  cross3_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(a, b, out, s, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int goicp_dot_fma(const float* a, const float* b, float* out,
+                             const long long* meta, void* stream) {
+  using namespace goicp;
+  long long rows;
+  const BroadcastShape s = read_shape(meta, &rows);
+  if (rows == 0) return 0;
+  if (s.n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (rows + kThreads - 1) / kThreads;
+  if (int err = launch_status(blocks)) return err;
+  dot_fma_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                   static_cast<cudaStream_t>(stream)>>>(a, b, out, s, rows);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -2,7 +2,8 @@
 
 Port of goicp_tpu/geom/rotation.py.  The BnB parameterizes SO(3) by the
 angle-axis ball of radius pi; a rotation cube's center converts to a matrix
-via Rodrigues.  Zero angle maps to identity.
+via Rodrigues.  Zero angle maps to identity.  The angle, cos and sin take
+utils/fp32.py's fixed forms, the same on every device.
 """
 
 from __future__ import annotations
@@ -10,15 +11,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from goicp_tpu_torch.utils.fp32 import cos32, norm3, sin32
+
 
 def rodrigues(v: torch.Tensor) -> torch.Tensor:
     """Angle-axis vectors (..., 3) -> rotation matrices (..., 3, 3)."""
-    t = torch.linalg.norm(v, dim=-1, keepdim=True)
+    t = norm3(v)[..., None]
     safe_t = torch.where(t > 0, t, torch.ones_like(t))
     u = v / safe_t
     u = torch.where(t > 0, u, torch.zeros_like(u))
-    ct = torch.cos(t)[..., None]                      # (..., 1, 1)
-    st = torch.sin(t)[..., None]
+    ct = cos32(t)[..., None]                          # (..., 1, 1)
+    st = sin32(t)[..., None]
     one_ct = 1.0 - ct
 
     ux, uy, uz = u[..., 0], u[..., 1], u[..., 2]

@@ -9,6 +9,12 @@ The NN search is a brute-force squared-distance matrix
 (|x|^2 - 2 x.y + |y|^2, first-index argmin); the 3x3 SVD is the
 closed-form one-sided Jacobi of the JAX package, its square roots
 correctly rounded on every device (grid/edt.py::exact_sqrt), as XLA's.
+Every sum and product takes the fixed order of utils/fp32.py, so the
+card and the CPU give the same bits: the sums over the points and the
+3x3 products of the loop K1/K3's order, the Kabsch (kabsch_from_H) the
+orders that XLA:CPU takes op by op (sequential sums; its last product an
+FMA chain, fp32.dot_fma), in which it equals the JAX package's
+kabsch_from_H run op by op bit for bit.
 icp_run runs K starts at once (the JAX package vmaps it): a Python loop
 steps every row while any row is still running, and rows that have
 stopped keep their state, as rows of a vmapped while_loop do.
@@ -21,6 +27,11 @@ from typing import NamedTuple
 import torch
 
 from goicp_tpu_torch.grid.edt import exact_sqrt
+from goicp_tpu_torch.utils.fp32 import (cross3, det3, dot3, dot_fma,
+                                        matmul3, matvec3, ordered_sum,
+                                        rotate, sq_dist3)
+
+SEQ = 1    # ordered_sum's sequential order (lanes=1), the Kabsch's
 
 
 class ICPResult(NamedTuple):
@@ -34,9 +45,7 @@ class ICPResult(NamedTuple):
 def nn_correspondences(points: torch.Tensor, model: torch.Tensor):
     """points (..., N, 3) x model (M, 3) -> (nn_idx (..., N) i64,
     sq_dist (..., N)).  Exact 1-NN via the expanded distance matrix."""
-    cross = torch.matmul(points, model.T)
-    d2 = (torch.sum(points * points, dim=-1)[..., None]
-          - 2.0 * cross + torch.sum(model * model, dim=-1))
+    d2 = sq_dist3(points, model)
     idx = torch.argmin(d2, dim=-1)
     best = torch.gather(d2, -1, idx[..., None])[..., 0]
     return idx, torch.clamp(best, min=0.0)
@@ -59,9 +68,9 @@ def _jacobi_svd3(H: torch.Tensor, sweeps: int = 6):
 
     def rot(A, V, p, q):
         ap, aq = A[..., :, p], A[..., :, q]
-        app = torch.sum(ap * ap, dim=-1)
-        aqq = torch.sum(aq * aq, dim=-1)
-        apq = torch.sum(ap * aq, dim=-1)
+        app = dot3(ap, ap, SEQ)
+        aqq = dot3(aq, aq, SEQ)
+        apq = dot3(ap, aq, SEQ)
         # Givens rotation zeroing the (p,q) column inner product
         safe = torch.abs(apq) > 1e-30
         tau = (aqq - app) / torch.where(safe, 2.0 * apq,
@@ -84,7 +93,7 @@ def _jacobi_svd3(H: torch.Tensor, sweeps: int = 6):
     for _ in range(sweeps):
         for p, q in ((0, 1), (0, 2), (1, 2)):
             A, V = rot(A, V, p, q)
-    sigma = exact_sqrt(torch.sum(A * A, dim=-2))         # (..., 3)
+    sigma = exact_sqrt(ordered_sum(A * A, -2, SEQ))      # (..., 3)
     # sort columns by sigma DESCENDING (compare-swap network, applied
     # jointly to A, V and sigma)
     for p, q in ((0, 1), (0, 2), (1, 2)):
@@ -109,11 +118,11 @@ def _jacobi_svd3(H: torch.Tensor, sweeps: int = 6):
     # branch-free orthonormal completion of degenerate columns
     e = (torch.argmin(torch.abs(u0), dim=-1)[..., None]
          == torch.arange(3, device=H.device)).to(u0.dtype)
-    alt1 = torch.linalg.cross(u0, e)
-    alt1 = alt1 / torch.clamp(torch.linalg.norm(alt1, dim=-1, keepdim=True),
-                              min=1e-30)
+    alt1 = cross3(u0, e)
+    alt1 = alt1 / torch.clamp(exact_sqrt(dot3(alt1, alt1, SEQ)),
+                              min=1e-30)[..., None]
     u1 = torch.where(ok[..., 1:2], u1, alt1)
-    u2 = torch.where(ok[..., 2:3], u2, torch.linalg.cross(u0, u1))
+    u2 = torch.where(ok[..., 2:3], u2, cross3(u0, u1))
     U = torch.stack([u0, u1, u2], dim=-1)
     return U, sigma, V
 
@@ -124,13 +133,9 @@ def kabsch(q_d: torch.Tensor, q_m: torch.Tensor,
     SVD with det correction.  Optional per-row 0/1 weights."""
     if w is not None:
         q_d = q_d * w[..., None]
-    H = torch.matmul(q_d.transpose(-1, -2), q_m)          # (..., 3, 3)
+    H = ordered_sum(q_d[..., :, :, None] * q_m[..., :, None, :],
+                    -3)                                    # (..., 3, 3)
     return kabsch_from_H(H)
-
-
-def _det3(M: torch.Tensor) -> torch.Tensor:
-    return torch.sum(M[..., 0, :] * torch.linalg.cross(M[..., 1, :],
-                                                       M[..., 2, :]), dim=-1)
 
 
 def kabsch_from_H(H: torch.Tensor) -> torch.Tensor:
@@ -140,11 +145,11 @@ def kabsch_from_H(H: torch.Tensor) -> torch.Tensor:
     hmax = torch.amax(torch.abs(H), dim=(-2, -1), keepdim=True)
     Hn = H / torch.clamp(hmax, min=1e-30)             # scale-invariant
     U, sigma, V = _jacobi_svd3(Hn)
-    det = _det3(V) * _det3(U)          # det(V U^T), both orthonormal
+    det = det3(V) * det3(U)          # det(V U^T), both orthonormal
     small = torch.argmin(sigma, dim=-1)
     d = torch.where(torch.arange(3, device=H.device) == small[..., None],
                     det[..., None], torch.ones_like(sigma))   # (..., 3)
-    R = torch.matmul(V * d[..., None, :], U.transpose(-1, -2))
+    R = dot_fma(V[..., :, None, :], (d[..., None, :] * U)[..., None, :, :])
     eye = torch.eye(3, dtype=H.dtype, device=H.device).expand(R.shape)
     return torch.where(hmax > 0, R, eye)
 
@@ -186,7 +191,7 @@ def icp_run(data: torch.Tensor, model: torch.Tensor, R0: torch.Tensor,
         running = (~converged) & (it < max_iter)
         if not bool(running.any()):
             break
-        pts = torch.matmul(data, R.transpose(-1, -2)) + t[:, None, :]
+        pts = rotate(R, data) + t[:, None, :]
         idx, d2 = nn_correspondences(pts, model)
         if data_mask is not None:
             d2 = torch.where(data_mask > 0, d2, 1.0e12)
@@ -202,19 +207,18 @@ def icp_run(data: torch.Tensor, model: torch.Tensor, R0: torch.Tensor,
                 1, keep, torch.ones_like(keep, dtype=torch.float32))
         else:
             mask = torch.ones((K, n), device=dev)
-        err_new = torch.sum(d2 * mask, dim=-1)
+        err_new = ordered_sum(d2 * mask)
         conv = (err > 0) & (err - err_new < err_diff * cnt)
 
         m_corr = model[idx]                                # (K,Nd,3)
         mw = mask[..., None]
-        mu_d = torch.sum(pts * mw, dim=1) / cnt
-        mu_m = torch.sum(m_corr * mw, dim=1) / cnt
+        mu_d = ordered_sum(pts * mw, 1) / cnt
+        mu_m = ordered_sum(m_corr * mw, 1) / cnt
         R_ = kabsch((pts - mu_d[:, None, :]) * mw,
                     (m_corr - mu_m[:, None, :]) * mw)
-        t_ = mu_m - torch.matmul(R_, mu_d[..., None])[..., 0]
-        R_next = torch.where(conv[:, None, None], R, torch.matmul(R_, R))
-        t_next = torch.where(conv[:, None],
-                             t, torch.matmul(R_, t[..., None])[..., 0] + t_)
+        t_ = mu_m - matvec3(R_, mu_d)
+        R_next = torch.where(conv[:, None, None], R, matmul3(R_, R))
+        t_next = torch.where(conv[:, None], t, matvec3(R_, t) + t_)
 
         r1 = running[:, None]
         R = torch.where(running[:, None, None], R_next, R)

@@ -29,6 +29,7 @@ from goicp_tpu_torch.config import GoICPConfig
 from goicp_tpu_torch.grid.edt import (Grid, GridGeometry, build_grid,
                                       grid_geometry, round_ref_np)
 from goicp_tpu_torch.io.cfpfh import select_bins
+from goicp_tpu_torch.utils.fp32 import norm3, ordered_sum
 
 
 @dataclasses.dataclass
@@ -138,8 +139,7 @@ def _chem_tables(grid: Grid, data_props: torch.Tensor,
         pt = cell_points[:, k]                         # (C,)
         valid = pt >= 0
         fm = model_fpfh[torch.clamp(pt, min=0)]        # (C, B)
-        d = torch.sum(torch.abs(data_fpfh[:, None, :] - fm[None, :, :]),
-                      dim=-1)
+        d = ordered_sum(torch.abs(data_fpfh[:, None, :] - fm[None, :, :]))
         d = torch.where(valid[None, :], d, torch.full_like(d, float("inf")))
         fpfh_table = torch.minimum(fpfh_table, d)
     # cells with no points (padding) keep +inf; real lookups never hit them
@@ -324,7 +324,7 @@ def prepare_pair(source: np.ndarray, target: np.ndarray,
 
     # a tiny cloud with a large trimFraction must keep >= 1 inlier
     inlier = max(1, int(nd * (1 - cfg.trimFraction))) if cfg.doTrim else nd
-    norm_data = torch.linalg.norm(src_t, dim=1) * mask_t
+    norm_data = norm3(src_t) * mask_t
     return PairData(
         data=src_t, model=dev(tgt), weights=dev(weights),
         data_props=sp_t, model_props=dev(tp),

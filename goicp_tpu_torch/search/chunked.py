@@ -31,8 +31,8 @@ from goicp_tpu_torch.search.device_engine import (DeviceResult,
                                                   batch_run_chunk,
                                                   device_finalize,
                                                   result_to_numpy)
-from goicp_tpu_torch.search.fused_stream import (StreamStopped, _take_pairs,
-                                                 savez_exact)
+from goicp_tpu_torch.search.fused_stream import StreamStopped, _take_pairs
+from goicp_tpu_torch.utils.npz import savez_exact
 
 # what the compacting runner did since reset_counters(): the batch width
 # of each chunk it ran

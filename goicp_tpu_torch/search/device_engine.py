@@ -50,6 +50,7 @@ from goicp_tpu_torch.icp.icp import icp_run
 from goicp_tpu_torch.pipeline.prepare import PairData
 from goicp_tpu_torch.search.inner import (_chem_reuse_active, inner_bnb,
                                           root_corner_values)
+from goicp_tpu_torch.utils.fp32 import norm3, rotate
 
 SQRT3 = 3.0 ** 0.5
 INF = float("inf")
@@ -208,11 +209,11 @@ def _pop(pair: PairData, cfg: GoICPConfig, s: dict, min_lb=None) -> dict:
     centers = (cxyz + cw[:, None] / 2.0).reshape(L, 3)
     widths = cw[:, None].expand(Pr, 8, 1).reshape(L)
     child_nodes = torch.cat([cxyz.reshape(L, 3), widths[:, None]], dim=1)
-    inside = (torch.linalg.norm(centers, dim=1)
+    inside = (norm3(centers)
               - SQRT3 * widths / 2.0) <= math.pi
     active = inside & torch.repeat_interleave(expand, 8)
     R_lanes = rodrigues(centers)                           # (L,3,3)
-    pts = torch.einsum("lij,nj->lni", R_lanes, pair.data)
+    pts = rotate(R_lanes, pair.data)
     return dict(converged=converged, final_lb=final_lb, pop_lb=pop_lb,
                 expand=expand, fr_lbs=s["fr_lbs"][Pr:],
                 fr_nodes=s["fr_nodes"][Pr:], child_nodes=child_nodes,

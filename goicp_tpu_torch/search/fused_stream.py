@@ -54,7 +54,6 @@ from __future__ import annotations
 import dataclasses
 import math
 import os
-import tempfile
 
 import numpy as np
 import torch
@@ -74,6 +73,8 @@ from goicp_tpu_torch.search.inner import (_PER_LANE, IterStats, _chem_active,
                                           _chem_reuse_active, _chem_terms,
                                           _make_inner_body,
                                           root_corner_values)
+from goicp_tpu_torch.utils.fp32 import norm3, rotate
+from goicp_tpu_torch.utils.npz import savez_exact
 
 SQRT3 = 3.0 ** 0.5
 INF = float("inf")
@@ -385,11 +386,11 @@ def _advance(pair: PairData, cfg: GoICPConfig, s: dict, h: dict, r: dict,
     centers = (cxyz + cw[:, None] / 2.0).reshape(L, 3)
     widths = cw[:, None].expand(Pr, 8, 1).reshape(L)
     child_nodes = torch.cat([cxyz.reshape(L, 3), widths[:, None]], dim=1)
-    inside = (torch.linalg.norm(centers, dim=1)
+    inside = (norm3(centers)
               - SQRT3 * widths / 2.0) <= math.pi
     active = inside & torch.repeat_interleave(expand, 8)
     R_lanes = rodrigues(centers)
-    pts = torch.einsum("lij,nj->lni", R_lanes, pair.data)
+    pts = rotate(R_lanes, pair.data)
     mrd = rot_uncertainty(widths, pair.norm_data)
     root_cv = root_corner_values(pair, cfg, pts) \
         if _chem_reuse_active(cfg) else None
@@ -614,24 +615,6 @@ def save_stream_state(path: str, state: dict, rows_orig, dead, next_pair,
             [np.asarray(getattr(done[i], f))
              for i in sorted(done.keys())]) if done else np.zeros((0,))
     savez_exact(path, blob)
-
-
-def savez_exact(path: str, blob: dict) -> None:
-    """np.savez of `blob` to exactly `path` (given a name, np.savez itself
-    appends `.npz` when it is missing), through a temporary file in the
-    same directory and os.replace: a kill during the write leaves the
-    previous file at `path` whole."""
-    fd, tmp = tempfile.mkstemp(prefix=os.path.basename(path) + ".",
-                               suffix=".tmp",
-                               dir=os.path.dirname(os.path.abspath(path)))
-    try:
-        with os.fdopen(fd, "wb") as fh:
-            np.savez(fh, **blob)
-        os.replace(tmp, path)
-    except BaseException:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise
 
 
 def load_stream_state(path: str, device=None):

@@ -33,6 +33,8 @@ from goicp_tpu_torch.geom.rotation import rodrigues
 from goicp_tpu_torch.native import NativeFrontier
 from goicp_tpu_torch.pipeline.prepare import PairData
 from goicp_tpu_torch.search.inner import inner_bnb
+from goicp_tpu_torch.utils.fp32 import rotate
+from goicp_tpu_torch.utils.npz import savez_exact
 
 SQRT3 = math.sqrt(3.0)
 
@@ -100,11 +102,12 @@ def frontier_drain(frontier):
 
 
 def save_checkpoint(path: str, frontier, opt_state: dict) -> None:
-    """Serialize the search state (frontier + incumbent) so a stopped
-    registration resumes instead of restarting."""
+    """Serialize the search state (frontier + incumbent) to exactly `path`
+    (with or without `.npz`), so a stopped registration resumes instead of
+    restarting."""
     lbs, a, b, c, w, level, ub = frontier_drain(frontier)
-    np.savez(path, lbs=lbs, a=a, b=b, c=c, w=w, level=level, ub=ub,
-             **{f"opt_{k}": v for k, v in opt_state.items()})
+    savez_exact(path, dict(lbs=lbs, a=a, b=b, c=c, w=w, level=level, ub=ub,
+                           **{f"opt_{k}": v for k, v in opt_state.items()}))
 
 
 def load_checkpoint(path: str):
@@ -157,7 +160,7 @@ def to_host(*tensors) -> list:
 
 def _rotate_lanes(data: torch.Tensor, centers: torch.Tensor):
     R = rodrigues(centers)                              # (L,3,3)
-    return R, torch.einsum("lij,nj->lni", R, data)
+    return R, rotate(R, data)
 
 
 def step_bounds(pair: PairData, cfg: GoICPConfig, centers: torch.Tensor,

@@ -52,8 +52,8 @@ from goicp_tpu_torch.bounds import cuda_eval
 from goicp_tpu_torch.config import GoICPConfig
 from goicp_tpu_torch.search.device_engine import DeviceResult
 from goicp_tpu_torch.search.fused_stream import (StreamStopped,
-                                                 register_fused_stream,
-                                                 savez_exact)
+                                                 register_fused_stream)
+from goicp_tpu_torch.utils.npz import savez_exact
 
 REPO = measure.REPO
 _MANIFEST = "manifest.json"
@@ -325,6 +325,7 @@ def main(argv=None) -> int:
         device=_device_line(dev), buckets=plan,
         launches_this_process=launches, max_memory_allocated=peak,
         pairs_with_fp32_row=sum(n in rows for n in names),
+        fp32_rows_missed=measure.fp32_row_failures(res, names, rows),
         counters_equal_tpu_row=sum(n in tpu and n not in differ
                                    for n in names),
         counters_differ_from_tpu_row=differ)), flush=True)

@@ -469,7 +469,8 @@ def test_lane_wrappers_take_plain_versions_on_cpu():
     before = cuda_eval.launch_counts()
     assert set(before) == {"geometric_bounds_kernel", "chem_incomp_kernel",
                            "geometric_bounds_kernel_lanes",
-                           "chem_incomp_kernel_lanes"}
+                           "chem_incomp_kernel_lanes", "ordered_sum",
+                           "sq_dist3", "det3", "cross3", "dot_fma"}
     k3 = _k3_args(stacked, a, True)
     for g, w in zip(
             cuda_eval.geometric_bounds_kernel_lanes(*k3, size=size, norm=2),

@@ -25,6 +25,8 @@ _CHILD = textwrap.dedent("""
 
     import goicp_tpu_torch
     from goicp_tpu_torch.bounds import cuda_eval
+    from goicp_tpu_torch.utils import fp32    # the fixed float32 order
+    assert fp32.ordered_sum(torch.ones(40)).item() == 40.0
     assert "goicp_tpu_torch._build" not in sys.modules
     if torch.cuda.is_available():
         assert goicp_tpu_torch.default_device() == torch.device("cuda:0")

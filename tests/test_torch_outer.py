@@ -104,6 +104,30 @@ def test_checkpointed_run_resumes_to_the_same_result(tmp_path):
     np.testing.assert_array_equal(resumed.t, whole.t)
 
 
+def test_checkpoint_without_npz_suffix_resumes(tmp_path):
+    """A checkpoint_path without `.npz` is the file written and the file
+    resumed (np.savez alone would write `search.ckpt.npz` and the resume
+    would start over)."""
+    data, model, props, *_ = _synth(60, 1)
+    cfg = GoICPConfig(**_FAST)
+    pair = prepare_pair(data, model, props, props, cfg, device="cpu")
+    whole = touter.register(pair, cfg)
+    ck = tmp_path / "search.ckpt"
+    stopped = touter.register(
+        pair, dataclasses.replace(cfg, max_outer_steps=5),
+        checkpoint_path=str(ck), checkpoint_every=2)
+    assert stopped.outer_steps == 5 and not stopped.converged
+    assert [p.name for p in tmp_path.iterdir()] == ["search.ckpt"]
+    resumed = touter.register(pair, cfg, checkpoint_path=str(ck))
+    assert not ck.exists()                          # finished: removed
+    assert resumed.converged == whole.converged is True
+    assert resumed.outer_steps == whole.outer_steps > 5
+    assert resumed.error == whole.error
+    assert resumed.optComp == whole.optComp
+    np.testing.assert_array_equal(resumed.R, whole.R)
+    np.testing.assert_array_equal(resumed.t, whole.t)
+
+
 def test_checkpoint_file_matches_jax_format(tmp_path):
     heaps = (touter.make_frontier(0), jouter.PyFrontier(0))
     for h in heaps:
