@@ -31,7 +31,13 @@ Phases, each of which fails the script (nonzero exit, no result line):
     version bit for bit and timed the same way, beside torch.sum; so the
     fixed-order products (csrc/fp32_products.cu: sq_dist3, det3, cross3,
     dot_fma), beside torch.linalg.det, torch.linalg.cross and
-    torch.matmul.  Every
+    torch.matmul.  The ICP kernel (csrc/icp.cu): icp_run, one launch an
+    ICP event, held to icp_run_plain on the same card tensors bit for bit
+    in R, t, nn_idx, err and iters, on syn07 (4 seeds untrimmed; its
+    padded bucket with row 1 disabled), trm00 (count + dynamic trim; a
+    static trim), the demo's 1000 / 500 points and 4,200 / 4,200 points
+    (the workspace in device memory); kabsch3 held to kabsch_from_H on
+    zero, rank 1, rank 2, reflected and seeded H.  Every
     prepared pair used here has its Grid.nearest_cell, the table the
     kernels trust, held equal to nearest_occupied over all S^3 voxels.
     One more pair is prepared on a 64^3 grid, whose 1 MB table does not
@@ -65,22 +71,25 @@ Phases, each of which fails the script (nonzero exit, no result line):
     each equal to phase 3's syn07 in error, R, t, opt_comp, evals, outer,
     inner and geom_surv, and with chem_survivors=8 (capped at twice the
     outer steps; converged or not, an achievable error and a valid gap).
- 4. proof: K1's, K2's and the fixed-order kernels' launch counters,
-    zeroed just before phase 3, are > 0 after it.
+ 4. proof: the launch counters of K1, K2, the ordered sum and the ICP
+    kernel, zeroed just before phase 3, are > 0 after it; sq_dist3, det3
+    and cross3, whose only caller was the plain ICP loop, are 0 (so in
+    phases 5, 6, 7 and 13; phase 11's row checks launch sq_dist3 through
+    nn_correspondences themselves).
  5. the fused cross-pair stream: the similar pool syn00-syn15 and the
     trimmed pool trm00-trm07, each prepared into one pool-max bucket
     (every pair's nearest-cell table checked as in phase 2), through
     register_fused_stream(width=2, chunk_steps=512).  Every pair is held
     against the port's register_device on the same prepared pair and,
-    where there is one, against its fp32 reference row.  K3, K4 and the
-    fixed-order kernels must have launched.  Then the trimmed pool once
+    where there is one, against its fp32 reference row.  K3, K4, the
+    ordered sum and the ICP kernel must have launched.  Then the trimmed pool once
     more with escalate_capacity = 2 * trans_capacity after 1 chunk of 64
     global iterations: at least one pair escalated, every pair converged,
     error within MSEThresh*Nd + 1e-5 of the plain stream's.
  6. the slot-packed stream on the same pools:
     register_packed_stream(width=16, chunk_steps=512) with 16 slots and
-    transitions every 8 iterations; the same checks, and K3, K4 and the
-    fixed-order kernels must have launched again.
+    transitions every 8 iterations; the same checks, and K3, K4, the
+    ordered sum and the ICP kernel must have launched again.
  7. the user's entry points, from files: a BO1-style data root written
     in a temporary directory (goicp_tpu_torch/bench/bo1_files.py) holding
     syn00, syn01, syn05, syn06, syn13 and syn07 as .mol2 cavities, c-FPFH
@@ -178,11 +187,13 @@ Phases, each of which fails the script (nonzero exit, no result line):
     results equal the CPU's bit for bit.  Then syn72's register_device on
     the card, equal in every counter and every float32 bit to the row
     the port wrote on the CPU (goicp_tpu_torch/bench/cpu_rows.jsonl,
-    `python -m goicp_tpu_torch.bench.cpu_rows --write`); K1, K2 and the
-    fixed-order kernels must have launched.  Last, the kernel launches of one
-    global iteration's inner step and of one ICP iteration
-    (goicp_tpu_torch/bench/launch_counts.py) beside those of the tree
-    before the fixed order (commit 1025156).
+    `python -m goicp_tpu_torch.bench.cpu_rows --write`); K1, K2, the
+    ordered sum and the ICP kernel must have launched.  Last, the kernel
+    launches of one global iteration's inner step and of one ICP
+    iteration (goicp_tpu_torch/bench/launch_counts.py) beside those of the
+    trees before the fixed order (commit 1025156) and before the ICP
+    kernel (ce5be19), and an ICP event's: one launch of csrc/icp.cu and no
+    host read.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -216,9 +227,33 @@ TRIM_EVALS_REL = 0.05   # trimmed pairs: evals within 5 % of the reference
 # step (two live rows) and of one ICP iteration (four seeds)
 BEFORE_FIXED_ORDER_LAUNCHES = {"global_iteration": 131.0,
                                "icp_iteration": 1006.0}
-# the fixed-order kernels every ICP event launches (utils/fp32.py)
-FIXED_ORDER = ("ordered_sum", "sq_dist3", "det3", "cross3", "dot_fma")
-FIXED_ORDER_PRODUCTS = FIXED_ORDER[1:]
+# the same on the tree before the ICP kernel (commit ce5be19, PERF.md)
+BEFORE_ICP_KERNEL_LAUNCHES = {"global_iteration": 131.0,
+                              "icp_iteration": 1004.0}
+# the fixed-order products of utils/fp32.py (csrc/fp32_products.cu)
+FIXED_ORDER_PRODUCTS = ("sq_dist3", "det3", "cross3", "dot_fma")
+# what every registration launches besides the bound kernels: the rescoring's
+# ordered sums and the ICP event (csrc/icp.cu); and the products whose only
+# caller was the plain ICP loop, now launched 0 times on the main path
+PATH_KERNELS = ("ordered_sum", "icp_run")
+OFF_PATH = ("sq_dist3", "det3", "cross3")
+CHECK_ONLY = ("kabsch3",)   # the ICP kernel's Kabsch alone: phase 2 only
+# phase 2's ICP event whose workspace lies in device memory
+BIG_ICP_POINTS, BIG_ICP_ITERS = 4200, 8
+
+
+def ICP_OPS(nd, m):
+    """Operations of one ICP iteration of a row (csrc/icp.cu): the NN
+    search 9 a (point, model point) pair (a dot3 5, the distance 3, the
+    compare 1); per point the rotation 18, |p|^2 5, the 7 masked sums 14
+    and H's 9 sums of 6; the Kabsch ~KABSCH_OPS."""
+    return 9 * nd * m + (18 + 5 + 14 + 54) * nd + KABSCH_OPS
+
+
+# a Kabsch (kabsch_from_H): 18 Givens rotations of 68 operations, sigma
+# 21, U 9, the completion 28, the determinants 29, D U^T 9, R 45, max|H|
+# and the scaling 18
+KABSCH_OPS = 18 * 68 + 21 + 9 + 28 + 29 + 9 + 45 + 18
 PEAK_OPS = 67e12        # H100 SXM fp32 outside the tensor cores, per second
 PEAK_BYTES = 3.35e12    # H100 SXM device memory, bytes per second
 # Operations the functions need per (lane, node or corner, real point):
@@ -292,6 +327,14 @@ def _same_bits(got, want):
     return all(g.shape == w.shape and torch.equal(
         g.contiguous().view(torch.int32), w.contiguous().view(torch.int32))
         for g, w in zip(got, want))
+
+
+def _off_path(counts, where):
+    """The products whose only caller was the plain ICP loop launched 0
+    times: every ICP event went through csrc/icp.cu."""
+    _require(all(counts[k] == 0 for k in OFF_PATH),
+             f"{', '.join(OFF_PATH)} launched 0 times in {where}: "
+             f"{ {k: counts[k] for k in OFF_PATH} }")
 
 
 def _max_err(got, want):
@@ -711,7 +754,9 @@ def _entry_points(cfg, pools, ref, phase3, dev):
     print(f"phase 7 wall {time.perf_counter() - t_phase:.3f} s; launches "
           f"during phase 7: {json.dumps(counts)}", flush=True)
     for kname in counts:
-        _require(counts[kname] > 0, f"{kname} launched in phase 7")
+        _require(counts[kname] > 0 or kname in OFF_PATH + CHECK_ONLY,
+                 f"{kname} launched in phase 7")
+    _off_path(counts, "phase 7")
     return counts
 
 
@@ -1371,8 +1416,11 @@ def _options_phase(cfg, pools, dev):
 
     counts = cuda_eval.launch_counts()
     wall = time.perf_counter() - t_phase
+    # (sq_dist3 launches here too: the rescoring check's
+    # nn_correspondences above)
     for kname in counts:
-        _require(counts[kname] > 0, f"{kname} launched in phase 11")
+        _require(counts[kname] > 0 or kname in OFF_PATH + CHECK_ONLY,
+                 f"{kname} launched in phase 11")
     # the inner step alone, after the phase's launches were read: its calls
     # time the step and are not the path
     for option, (two, c) in step_pairs.items():
@@ -1509,6 +1557,165 @@ def _product_checks(kernels, cfg, pools, dev, floor):
               f"{floor}", flush=True)
 
 
+def _icp_bound(res, nd, m, mode, tensors):
+    """(bound_ms, bound_by) of an ICP event that ran res.iters iterations
+    per row: ICP_OPS per iteration (the trimmed modes' stable ranks ~2
+    Nd^2 more) over PEAK_OPS against the inputs and outputs once over
+    PEAK_BYTES."""
+    from goicp_tpu_torch.icp.icp import MODE_DYN_TRIM, MODE_TRIM
+    per_iter = ICP_OPS(nd, m) + (2 * nd * nd if mode in (MODE_TRIM,
+                                                          MODE_DYN_TRIM)
+                                 else 0)
+    t_ops = int(res.iters.sum()) * per_iter / PEAK_OPS
+    t_bytes = _nbytes(*tensors, *res) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _icp_checks(kernels, cfg, cfg_t, pools, dev, floor):
+    """Phase 2's check of csrc/icp.cu: icp_run (one launch an ICP event)
+    against icp_run_plain (the host loop of torch ops, its sums and
+    products launching the fixed-order kernels) on the same card tensors,
+    bit for bit in R, t, nn_idx, err and iters, in every mask mode: syn07
+    with the outer step's 4 seeds untrimmed (its real points) and as the
+    engine calls it on its padded bucket (data_mask and count) with row 1
+    disabled, trm00 with count + dynamic_trim and with a static trim, the
+    demo's 1000 / 500 points, and one row of 4,200 / 4,200 points, whose
+    workspace does not fit shared memory and lies in device memory.  Then
+    kabsch3 against kabsch_from_H on degenerate H (zero, rank 1, rank 2,
+    a reflection) and seeded ones.  syn07's untrimmed event is timed both
+    ways (the kernels line's numbers); no one PyTorch call computes
+    either function."""
+    import numpy as np
+    import torch
+    from goicp_tpu_torch.geom.rotation import rodrigues_np
+    from goicp_tpu_torch.icp import icp as ticp
+    from goicp_tpu_torch.pipeline.prepare import prepare_pair
+    from goicp_tpu_torch.bench.measure import _normalized_synthetic
+    rng = np.random.default_rng(13)
+    K = cfg.icp_seeds
+
+    def starts(k):
+        R0 = torch.as_tensor(np.stack([rodrigues_np(v) for v in rng.uniform(
+            -0.3, 0.3, (k, 3))]), dtype=torch.float32, device=dev)
+        t0 = torch.as_tensor(rng.uniform(-0.05, 0.05, (k, 3)),
+                             dtype=torch.float32, device=dev)
+        return R0, t0
+
+    def engine_kw(pair, c):
+        """icp_run's keywords as the engine passes them (device_engine.
+        _icp_from)."""
+        return dict(inlier_num=pair.inlier_num, max_iter=c.icp_max_iter,
+                    err_diff=c.err_diff,
+                    data_mask=pair.data_mask if pair.padded else None,
+                    count=pair.inlier_f() if pair.dynamic_counts else None,
+                    dynamic_trim=pair.dynamic_counts and c.doTrim)
+
+    syn07 = _prepared("syn07", cfg, pools, dev)
+    real07 = syn07.data[syn07.data_mask > 0].contiguous()
+    trm00 = _prepared("trm00", cfg_t, pools, dev)
+    static00 = prepare_pair(*_normalized_synthetic(pools["trm00"]), cfg_t,
+                            bucket=True, device=dev)
+    demo_model = rng.uniform(-0.7, 0.7, (DEMO_POINTS[0], 3))
+    demo_data = (demo_model[:DEMO_POINTS[1]] - rng.uniform(-0.1, 0.1, 3)) \
+        @ rodrigues_np(rng.uniform(-0.3, 0.3, 3))
+    big = rng.uniform(-0.7, 0.7, (BIG_ICP_POINTS, 3))
+    big_data = (big - 0.01) @ rodrigues_np(np.array([0.02, -0.01, 0.03]))
+    f32 = dict(dtype=torch.float32, device=dev)
+    R4, t4 = starts(K)
+    cases = [
+        ("syn07, 4 seeds, untrimmed", real07, syn07.model, R4, t4,
+         dict(inlier_num=real07.shape[0], max_iter=cfg.icp_max_iter,
+              err_diff=cfg.err_diff)),
+        ("syn07 padded bucket (data_mask, count), row 1 disabled",
+         syn07.data, syn07.model, *starts(K),
+         dict(engine_kw(syn07, cfg), enabled=torch.tensor(
+             [True, False, True, True][:K], device=dev))),
+        ("trm00 count + dynamic_trim", trm00.data, trm00.model, *starts(K),
+         engine_kw(trm00, cfg_t)),
+        ("trm00 static trim", static00.data, static00.model, *starts(K),
+         engine_kw(static00, cfg_t)),
+        (f"demo {DEMO_POINTS[0]} / {DEMO_POINTS[1]} points",
+         torch.as_tensor(demo_data, **f32), torch.as_tensor(demo_model, **f32),
+         *starts(K), dict(inlier_num=DEMO_POINTS[1], max_iter=cfg.icp_max_iter,
+                          err_diff=cfg.err_diff)),
+        (f"{BIG_ICP_POINTS} / {BIG_ICP_POINTS} points, workspace in device "
+         f"memory", torch.as_tensor(big_data, **f32),
+         torch.as_tensor(big, **f32), *starts(1),
+         dict(inlier_num=BIG_ICP_POINTS, max_iter=BIG_ICP_ITERS,
+              err_diff=cfg.err_diff)),
+    ]
+    _require(static00.inlier_num < static00.n_data
+             and not static00.dynamic_counts, "trm00 with a static trim")
+    _require(4 * (10 + 4) * BIG_ICP_POINTS > ticp.ICP_SMEM_BYTES,
+             "the last event's workspace does not fit shared memory")
+    k = kernels["icp_run"]
+    for i, (label, data, model, R0, t0, kw) in enumerate(cases):
+        nd, m = data.shape[0], model.shape[0]
+
+        def kern(a=(data, model, R0, t0), kw=kw):
+            return ticp.icp_run(*a, **kw)
+
+        def plain(a=(data, model, R0, t0), kw=kw):
+            return ticp.icp_run_plain(*a, **kw)
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        _require(_same_bits([got.R, got.t, got.err], [want.R, want.t,
+                                                      want.err])
+                 and torch.equal(got.nn_idx, want.nn_idx)
+                 and torch.equal(got.iters, want.iters),
+                 f"icp_run == icp_run_plain bit for bit ({label}): iters "
+                 f"{got.iters.tolist()} vs {want.iters.tolist()}, err "
+                 f"{got.err.tolist()} vs {want.err.tolist()}")
+        err = _max_err([got.R, got.t, got.err], [want.R, want.t, want.err])
+        k["errs"].append(err)
+        mode = ticp.icp_mode(nd, kw["inlier_num"], kw.get("count"),
+                             kw.get("data_mask"), kw.get("dynamic_trim",
+                                                         False))
+        ms, dms = _median_ms(kern, n=7), _device_ms(kern, n=5, reps=3)
+        bms, bby = _icp_bound(got, nd, m, mode,
+                              [data, model, R0, t0, kw.get("data_mask")])
+        times = f"kernel {ms:.4f} ms (from a graph {dms:.4f} ms)"
+        if i == 0:
+            pms = _median_ms(plain, n=5)
+            k.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                     graph_ms=dms, library_ms=None)
+            times += f" plain {pms:.4f} ms"
+        print(f"icp_run {label}: Nd={nd} M={m} K={R0.shape[0]} mode {mode} "
+              f"iters {got.iters.tolist()}: max_abs_err={err:.3g} (bit for "
+              f"bit) {times} bound {bms:.6f} ms ({bby}) library none "
+              f"{floor}", flush=True)
+
+    # the Kabsch alone, on degenerate and seeded H
+    H = [np.zeros((3, 3)), np.outer(rng.normal(size=3), rng.normal(size=3)),
+         rng.normal(size=(3, 2)) @ rng.normal(size=(2, 3)),
+         np.diag([1.0, 2.0, -3.0]) @ rodrigues_np(rng.uniform(-1, 1, 3))]
+    H = torch.as_tensor(np.concatenate([np.stack(H), rng.normal(
+        size=(K * 16 - len(H), 3, 3)) * 10.0 ** rng.uniform(
+            -4, 3, (K * 16 - len(H), 1, 1))]), **f32)
+    k = kernels["kabsch3"]
+
+    def kern3():
+        return ticp.kabsch3(H)
+
+    def plain3():
+        return ticp.kabsch_from_H(H)
+    got, want = kern3(), plain3()
+    torch.cuda.synchronize()
+    _require(_same_bits([got], [want]), "kabsch3 == kabsch_from_H bit for "
+             "bit (zero, rank 1, rank 2, a reflection, seeded H)")
+    err = _max_err([got], [want])
+    k["errs"].append(err)
+    ms, pms, dms = _median_ms(kern3), _median_ms(plain3), _device_ms(kern3)
+    bms, bby = _bound(H.shape[0], KABSCH_OPS, [H, got])
+    k.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, graph_ms=dms,
+             library_ms=None)
+    print(f"kabsch3: H {tuple(H.shape)} (zero, rank 1, rank 2, a reflection, "
+          f"seeded): max_abs_err={err:.3g} (bit for bit) kernel {ms:.4f} ms "
+          f"(from a graph {dms:.4f} ms) plain {pms:.4f} ms bound {bms:.6f} "
+          f"ms ({bby}) library none {floor}", flush=True)
+
+
 def _one_answer_phase(dev):
     """Phase 13: one answer on both devices (see the module docstring).
     The CPU's side of the bench pairs runs in a child process while this
@@ -1592,17 +1799,29 @@ def _one_answer_phase(dev):
              f"phase 13 syn72 on the card == the port's CPU row in every "
              f"counter and bit: {got} vs {want}")
     for kname in ("geometric_bounds_kernel", "chem_incomp_kernel",
-                  *FIXED_ORDER):
+                  *PATH_KERNELS):
         _require(counts[kname] > 0, f"{kname} launched in phase 13")
+    _off_path(counts, "phase 13")
 
-    # launches of the two host-dispatched loops, after the path's counts
+    # launches of the host-dispatched loops, after the path's counts
     loops = dict(global_iteration=launch_counts.global_iteration(),
                  icp_iteration=launch_counts.icp_iteration())
     for loop, v in loops.items():
         print(f"phase 13 launches per {loop.replace('_', ' ')}: "
               f"{v['launches']:.1f} ({v['ms']:.3f} ms on the host clock); "
               f"before the fixed order: "
-              f"{BEFORE_FIXED_ORDER_LAUNCHES[loop]}", flush=True)
+              f"{BEFORE_FIXED_ORDER_LAUNCHES[loop]}, before the ICP kernel: "
+              f"{BEFORE_ICP_KERNEL_LAUNCHES[loop]}", flush=True)
+    ev = launch_counts.icp_event()
+    print(f"phase 13 an ICP event ({launch_counts.ICP_SEEDS} seeds, "
+          f"iterations {ev['iterations']}): {ev['launches']:.1f} kernel "
+          f"launches, {ev['host_reads']:.1f} host reads, "
+          f"{ev['icp_run_launches']:.1f} launches of csrc/icp.cu, "
+          f"{ev['ms']:.3f} ms on the host clock", flush=True)
+    _require(ev["icp_run_launches"] == 1 and ev["host_reads"] == 0
+             and loops["icp_iteration"]["launches"] == 0,
+             f"an ICP event is one launch of csrc/icp.cu and no host read, "
+             f"0 launches an iteration: {ev}, {loops['icp_iteration']}")
     print(f"phase 13 wall {time.perf_counter() - t_phase:.3f} s", flush=True)
     return counts
 
@@ -1683,6 +1902,10 @@ def main() -> int:
         **{name: dict(source="goicp_tpu_torch/csrc/fp32_products.cu",
                       replaces=None, errs=[])
            for name in FIXED_ORDER_PRODUCTS},
+        # not TPU kernels: the ICP event and its Kabsch (icp/icp.py)
+        **{name: dict(source="goicp_tpu_torch/csrc/icp.cu", replaces=None,
+                      errs=[])
+           for name in ("icp_run", "kabsch3")},
     }
     L, B = 8, cfg.trans_pop * 8
     k1 = kernels["geometric_bounds_kernel"]
@@ -2014,6 +2237,7 @@ def main() -> int:
 
     _ordered_sum_checks(kernels["ordered_sum"], cfg, pools, dev, floor)
     _product_checks(kernels, cfg, pools, dev, floor)
+    _icp_checks(kernels, cfg, cfg_t, pools, dev, floor)
 
     if sys.argv[1:] == ["--kernels-only"]:
         print("kernels only: phases 3-13 not run, no result", flush=True)
@@ -2073,8 +2297,9 @@ def main() -> int:
     print(f"launches during the registrations: {json.dumps(counts)}",
           flush=True)
     for kname in ("geometric_bounds_kernel", "chem_incomp_kernel",
-                  *FIXED_ORDER):
+                  *PATH_KERNELS):
         _require(counts[kname] > 0, f"{kname} launched on the main path")
+    _off_path(counts, "phase 3")
     counts3k = _knob_phase(cfg, *syn07)
 
     # ---- 5. and 6. the cross-pair streams ----
@@ -2174,9 +2399,10 @@ def main() -> int:
         print(f"launches during phase {phase}: {json.dumps(phase_counts)}",
               flush=True)
         for kname in ("geometric_bounds_kernel_lanes",
-                      "chem_incomp_kernel_lanes", *FIXED_ORDER):
+                      "chem_incomp_kernel_lanes", *PATH_KERNELS):
             _require(phase_counts[kname] > 0,
                      f"{kname} launched by the {engine} stream")
+        _off_path(phase_counts, f"phase {phase}")
         return phase_counts
 
     counts5 = run_stream(5, "fused", lambda pairs, c: register_fused_stream(

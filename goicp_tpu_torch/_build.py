@@ -1,8 +1,9 @@
 """Build the CUDA kernels of `csrc/` into one shared library and load it;
 build the host C++ runtime of `native/` the same way (`host_library`).
 
-nvcc compiles every `csrc/*.cu` for sm_90a into a library with a plain C
-interface, which is loaded with ctypes: tensors pass as device pointers
+nvcc compiles every `csrc/*.cu` for sm_90a (one process per source, all
+at once) and links them into a library with a plain C interface, which
+is loaded with ctypes: tensors pass as device pointers
 (`data_ptr()`) and the stream as `torch.cuda.current_stream().cuda_stream`,
 all as `c_void_p`.  The library lands in `goicp_tpu_torch/_build/`, named
 by a hash of the sources and flags, so the first use builds it and later
@@ -62,6 +63,12 @@ _SIGNATURES = {
     # a, b, out, meta (15 int64: sizes, strides, last axis), stream
     "goicp_cross3": [_P, _P, _P, ctypes.POINTER(_L), _P],
     "goicp_dot_fma": [_P, _P, _P, ctypes.POINTER(_L), _P],
+    # data, model, R0, t0, data_mask, count, enabled, workspace, R, t,
+    # nn_idx, err, iters, K, Nd, M, inlier_num, max_iter, mode, err_diff,
+    # stream
+    "goicp_icp_run": [_P] * 13 + [_I] * 6 + [ctypes.c_float, _P],
+    # H, R, batch, stream
+    "goicp_kabsch3": [_P, _P, _L, _P],
     # stream
     "goicp_empty_launch": [_P],
 }
@@ -97,20 +104,39 @@ def _compile(compiler: str, flags: tuple, sources: list, stem: str,
                                     out)
 
 
+def _run(cmds: list) -> str:
+    """Run the commands at once, each in its own process; their output in
+    order.  Raises with the first failure's command and output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{os.path.basename(cmd[0])} failed with "
+                               f"code {p.returncode}:\n{' '.join(cmd)}\n"
+                               f"{log}")
+    return "".join(logs)
+
+
 def _compile_locked(compiler: str, flags: tuple, sources: list,
                     out: pathlib.Path) -> str:
-    log = ""
-    if not out.exists():
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [compiler, *flags, "-o", str(tmp),
-               *(str(p) for p in sources if p.suffix in (".cu", ".cpp"))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"{os.path.basename(compiler)} failed with "
-                               f"code {proc.returncode}:\n{' '.join(cmd)}\n"
-                               f"{log}")
+    """Compile every source into an object file, all at once (one compiler
+    process each), then link them into `out`."""
+    if out.exists():
+        return ""
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    units = [p for p in sources if p.suffix in (".cu", ".cpp")]
+    objs = [tmp.with_name(f"{tmp.name}.{p.name}.o") for p in units]
+    obj_flags = [f for f in flags if f != "-shared"]
+    try:
+        log = _run([[compiler, *obj_flags, "-c", str(p), "-o", str(o)]
+                    for p, o in zip(units, objs)])
+        log += _run([[compiler, *flags, "-o", str(tmp), *map(str, objs)]])
         os.replace(tmp, out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     return log
 
 

@@ -1,21 +1,26 @@
-"""Kernel launches of the two loops the host dispatches one small kernel
-at a time, counted on the card with torch.profiler (every kernel, torch's
-and the port's, from the launch API events):
+"""Kernel launches of the loops the host dispatches, counted on the card
+with torch.profiler (every kernel, torch's and the port's, from the
+launch API events; host reads from torch's `_local_scalar_dense`, which
+every `.item()` and `bool()` of a card tensor goes through):
 
   * one global iteration of the fused stream: the inner step of a window
     of two live rows on the K3/K4 path (syn03 and syn12, whose searches
     are still live 3 global iterations in);
-  * one ICP iteration: an ICP event from four seeds on a bench pair (the
-    outer step's icp_seeds), its convergence test switched off so that it
-    runs a fixed number of iterations; the launches of 3 iterations less
-    those of 2.
+  * one ICP event: icp_run from four seeds on a bench pair (the outer
+    step's icp_seeds) as the engine calls it, at the configuration's
+    max_iter and err_diff: its launches, host reads, host-clock ms,
+    icp_run's own launch count (csrc/icp.cu) and the rows' iterations;
+  * one ICP iteration: the same event with its convergence test switched
+    off so that it runs a fixed number of iterations; the launches of 3
+    iterations less those of 2 (0 when the event is one launch).
 
     python goicp_tpu_torch/bench/launch_counts.py [--json PATH]
 
-prints one JSON object (the two counts, each loop's host-clock ms, the
-card's name and power limit).  It uses only functions the port has had
-since its cross-pair streams, so the same script counts an older tree's
-launches too: put that tree first on PYTHONPATH.  Needs a card.
+prints one JSON object (the counts, each loop's host-clock ms, the card's
+name and power limit).  It uses only functions the port has had since
+its cross-pair streams, so the same script counts an older tree's
+launches too: put that tree first on PYTHONPATH (its icp_run has no
+launch count: null).  Needs a card.
 """
 
 from __future__ import annotations
@@ -51,8 +56,9 @@ def _bench_pairs(names, device, bucket_together: bool):
                  for r in raw]
 
 
-def _launches(fn, n: int) -> float:
-    """Kernel launches per call of fn over n profiled calls."""
+def _profile(fn, n: int) -> tuple:
+    """(kernel launches, host reads) per call of fn over n profiled
+    calls."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -60,7 +66,15 @@ def _launches(fn, n: int) -> float:
             fn()
         torch.cuda.synchronize()
     names = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
-    return sum(e.count for e in prof.key_averages() if e.key in names) / n
+    events = prof.key_averages()
+    return (sum(e.count for e in events if e.key in names) / n,
+            sum(e.count for e in events
+                if e.key == "aten::_local_scalar_dense") / n)
+
+
+def _launches(fn, n: int) -> float:
+    """Kernel launches per call of fn over n profiled calls."""
+    return _profile(fn, n)[0]
 
 
 def _host_ms(fn, n: int) -> float:
@@ -90,9 +104,9 @@ def global_iteration(device="cuda", n=10) -> dict:
     return dict(launches=_launches(step, n), ms=_host_ms(step, 5 * n))
 
 
-def icp_iteration(device="cuda", n=3) -> dict:
-    """Launches and ms of one ICP iteration of an event from ICP_SEEDS
-    seeds, the difference of a 3- and a 2-iteration event."""
+def _icp_event_fn(device):
+    """(cfg, event): event(max_iter, err_diff) is a thunk running icp_run
+    from ICP_SEEDS seeds near the identity on PAIR_ICP's padded bucket."""
     from goicp_tpu_torch.geom.rotation import rodrigues_np
     from goicp_tpu_torch.icp.icp import icp_run
     cfg, (pair,) = _bench_pairs((PAIR_ICP,), device, bucket_together=False)
@@ -101,15 +115,38 @@ def icp_iteration(device="cuda", n=3) -> dict:
         -0.3, 0.3, (ICP_SEEDS, 3))]), dtype=torch.float32, device=device)
     t0 = torch.zeros((ICP_SEEDS, 3), device=device)
 
-    def event(iters):
-        # err_diff -inf: no row converges, every row runs `iters`
+    def event(iters, err_diff):
         return lambda: icp_run(
             pair.data, pair.model, R0, t0, inlier_num=pair.inlier_num,
-            max_iter=iters, err_diff=-float("inf"),
+            max_iter=iters, err_diff=err_diff,
             data_mask=pair.data_mask, count=pair.inlier_f(),
             dynamic_trim=pair.dynamic_counts and cfg.doTrim)
-    return dict(launches=_launches(event(3), n) - _launches(event(2), n),
-                ms=_host_ms(event(3), n) - _host_ms(event(2), n))
+    return cfg, event
+
+
+def icp_iteration(device="cuda", n=3) -> dict:
+    """Launches and ms of one ICP iteration of an event from ICP_SEEDS
+    seeds, the difference of a 3- and a 2-iteration event (err_diff -inf:
+    no row converges, every row runs max_iter)."""
+    _, event = _icp_event_fn(device)
+    e3, e2 = event(3, -float("inf")), event(2, -float("inf"))
+    return dict(launches=_launches(e3, n) - _launches(e2, n),
+                ms=_host_ms(e3, n) - _host_ms(e2, n))
+
+
+def icp_event(device="cuda", n=3) -> dict:
+    """Launches, host reads and ms of one ICP event as the engine runs it
+    (the configuration's max_iter and err_diff), icp_run's own launches
+    per event and the rows' iterations."""
+    from goicp_tpu_torch.icp import icp
+    cfg, event = _icp_event_fn(device)
+    fn = event(cfg.icp_max_iter, cfg.err_diff)
+    counter = getattr(icp.icp_run, "launches", None)
+    launches, reads = _profile(fn, n)
+    own = (None if counter is None
+           else (icp.icp_run.launches - counter) / n)
+    return dict(launches=launches, host_reads=reads, icp_run_launches=own,
+                iterations=fn().iters.tolist(), ms=_host_ms(fn, n))
 
 
 def card() -> str:
@@ -128,7 +165,7 @@ def main(argv=None) -> int:
     import goicp_tpu_torch
     out = dict(package=goicp_tpu_torch.__file__, card=card(),
                global_iteration=global_iteration(),
-               icp_iteration=icp_iteration())
+               icp_iteration=icp_iteration(), icp_event=icp_event())
     print(json.dumps(out), flush=True)
     if a.json:
         with open(a.json, "w") as fh:

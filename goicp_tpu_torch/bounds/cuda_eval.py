@@ -43,6 +43,7 @@ import torch
 from goicp_tpu_torch.grid.edt import exact_sqrt
 from goicp_tpu_torch.grid.lookup import (flat_index, oob_extension,
                                          voxel_indices)
+from goicp_tpu_torch.icp.icp import icp_run, kabsch3
 from goicp_tpu_torch.utils.fp32 import (cross3, det3, dot_fma, ordered_sum,
                                         sq_dist3)
 
@@ -439,11 +440,11 @@ def chem_incomp_kernel_lanes(pts_rot, corners, cell_compat, prop_onehot,
 
 chem_incomp_kernel_lanes.launches = 0
 
-# the four bound kernels and the fixed-order kernels of utils/fp32.py,
-# whose launch counts every run reads together
+# the four bound kernels, the fixed-order kernels of utils/fp32.py and the
+# ICP's (icp/icp.py), whose launch counts every run reads together
 _KERNELS = (geometric_bounds_kernel, chem_incomp_kernel,
             geometric_bounds_kernel_lanes, chem_incomp_kernel_lanes,
-            ordered_sum, sq_dist3, det3, cross3, dot_fma)
+            ordered_sum, sq_dist3, det3, cross3, dot_fma, icp_run, kabsch3)
 
 
 def launch_counts() -> dict:

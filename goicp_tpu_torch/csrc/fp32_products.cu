@@ -14,25 +14,20 @@
 //   dot_fma    a chain of FMAs over the last axis of broadcast a and b,
 //              taken in float64 and rounded once to float32 per step.
 //
-// dot3 is ordered_sum's warp order for three terms, (z0 + z2) + z1 with
-// z_k = +0 + a_k b_k; dot3_seq its sequential order ((z0 + a1 b1) + a2 b2).
-// Every product and sum is an explicit round-to-nearest intrinsic, which
-// the compiler may not contract into an FMA.  One thread per output value;
-// what bounds them on the H100 is the launch: the ICP's matrices are a few
-// hundred KB (sq_dist3) or a few hundred bytes (det3, cross3, dot_fma).
+// The orders (dot3's warp and sequential ones, the cross product, the
+// FMA chain) are fp32_order.cuh's, shared with icp.cu.  One thread per
+// output value; what bounds them on the H100 is the launch: the ICP's
+// matrices are a few hundred KB (sq_dist3) or a few hundred bytes (det3,
+// cross3, dot_fma).  Since the ICP event is one launch of icp.cu, the
+// registration path no longer launches sq_dist3, det3 or cross3; dot_fma
+// still takes the preparation's point norms (fp32.norm3).
 #include "common.cuh"
+#include "fp32_order.cuh"
 
 namespace goicp {
 
 constexpr int kThreads = 256;
 constexpr int kDims = 4;   // leading (broadcast) dims of cross3 and dot_fma
-
-__device__ __forceinline__ float dot3_warp(const float* a, const float* b) {
-  const float z0 = __fadd_rn(0.0f, __fmul_rn(a[0], b[0]));
-  const float z1 = __fadd_rn(0.0f, __fmul_rn(a[1], b[1]));
-  const float z2 = __fadd_rn(0.0f, __fmul_rn(a[2], b[2]));
-  return __fadd_rn(__fadd_rn(z0, z2), z1);
-}
 
 __global__ void sq_dist3_kernel(const float* __restrict__ p,
                                 const float* __restrict__ q,
@@ -48,9 +43,8 @@ __global__ void sq_dist3_kernel(const float* __restrict__ p,
     pr[k] = __ldg(p + 3 * r + k);
     qj[k] = __ldg(q + 3 * static_cast<long long>(j) + k);
   }
-  const float pp = dot3_warp(pr, pr), pq = dot3_warp(pr, qj),
-              qq = dot3_warp(qj, qj);
-  out[idx] = __fadd_rn(__fsub_rn(pp, __fmul_rn(2.0f, pq)), qq);
+  out[idx] = sq_dist_from(dot3_warp(pr, pr), dot3_warp(pr, qj),
+                          dot3_warp(qj, qj));
 }
 
 __global__ void det3_kernel(const float* __restrict__ mats,
@@ -58,15 +52,7 @@ __global__ void det3_kernel(const float* __restrict__ mats,
   const long long b =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (b >= batch) return;
-  const float* M = mats + 9 * b;
-  const float* u = M + 3;
-  const float* v = M + 6;
-  const float c0 = __fsub_rn(__fmul_rn(u[1], v[2]), __fmul_rn(u[2], v[1]));
-  const float c1 = __fsub_rn(__fmul_rn(u[2], v[0]), __fmul_rn(u[0], v[2]));
-  const float c2 = __fsub_rn(__fmul_rn(u[0], v[1]), __fmul_rn(u[1], v[0]));
-  float acc = __fadd_rn(0.0f, __fmul_rn(M[0], c0));
-  acc = __fadd_rn(acc, __fmul_rn(M[1], c1));
-  out[b] = __fadd_rn(acc, __fmul_rn(M[2], c2));
+  out[b] = det3_rows(mats + 9 * b);
 }
 
 // The broadcast shape of two operands (cross3, dot_fma): kDims leading
@@ -107,11 +93,7 @@ __global__ void cross3_kernel(const float* __restrict__ a,
     x[k] = __ldg(a + oa + k * s.la);
     y[k] = __ldg(b + ob + k * s.lb);
   }
-  for (int k = 0; k < 3; ++k) {
-    const int i = (k + 1) % 3, j = (k + 2) % 3;
-    out[3 * row + k] =
-        __fsub_rn(__fmul_rn(x[i], y[j]), __fmul_rn(x[j], y[i]));
-  }
+  cross3(x, y, out + 3 * row);
 }
 
 __global__ void dot_fma_kernel(const float* __restrict__ a,
@@ -124,12 +106,9 @@ __global__ void dot_fma_kernel(const float* __restrict__ a,
   long long oa, ob;
   broadcast_offsets(s, row, &oa, &ob);
   float acc = __fmul_rn(__ldg(a + oa), __ldg(b + ob));
-  for (int k = 1; k < s.n; ++k) {
-    const double prod =
-        __dmul_rn(static_cast<double>(__ldg(a + oa + k * s.la)),
-                  static_cast<double>(__ldg(b + ob + k * s.lb)));
-    acc = __double2float_rn(__dadd_rn(prod, static_cast<double>(acc)));
-  }
+  for (int k = 1; k < s.n; ++k)
+    acc = dot_fma_step(__ldg(a + oa + k * s.la), __ldg(b + ob + k * s.lb),
+                       acc);
   out[row] = acc;
 }
 

@@ -15,9 +15,17 @@ card and the CPU give the same bits: the sums over the points and the
 orders that XLA:CPU takes op by op (sequential sums; its last product an
 FMA chain, fp32.dot_fma), in which it equals the JAX package's
 kabsch_from_H run op by op bit for bit.
-icp_run runs K starts at once (the JAX package vmaps it): a Python loop
-steps every row while any row is still running, and rows that have
-stopped keep their state, as rows of a vmapped while_loop do.
+icp_run runs K starts at once (the JAX package vmaps it).  On CUDA
+tensors it is one launch of csrc/icp.cu (goicp_icp_run): a block per row
+loops that row's iterations on the card, no host read, counted in
+`icp_run.launches`.  On CPU tensors it is icp_run_plain, a Python loop
+that steps every row while any row is still running (rows that have
+stopped keep their state, as rows of a vmapped while_loop do); any other
+device, or a mix, raises.  The kernel takes the plain loop's orders step
+by step, so the two give the same bits; on card tensors the plain loop
+is the kernel's yardstick (its sums then launch the kernels of
+utils/fp32.py).  kabsch3 is the kernel's Kabsch alone (goicp_kabsch3),
+kabsch_from_H's twin on the card.
 """
 
 from __future__ import annotations
@@ -27,11 +35,17 @@ from typing import NamedTuple
 import torch
 
 from goicp_tpu_torch.grid.edt import exact_sqrt
-from goicp_tpu_torch.utils.fp32 import (cross3, det3, dot3, dot_fma,
-                                        matmul3, matvec3, ordered_sum,
-                                        rotate, sq_dist3)
+from goicp_tpu_torch.utils.fp32 import (_check_f32, _launch, _on_cpu,
+                                        _ptr, _stream, cross3, det3, dot3,
+                                        dot_fma, matmul3, matvec3,
+                                        ordered_sum, rotate, sq_dist3)
 
 SEQ = 1    # ordered_sum's sequential order (lanes=1), the Kabsch's
+# csrc/icp.cu: a row's workspace (10 Nd + 4 M floats) in shared memory at
+# most this many bytes (kIcpSmemMax), else in device memory
+ICP_SMEM_BYTES = 227 * 1024 - 1024
+# csrc/icp.cu's masks: untrimmed, static trim, data_mask, dynamic trim
+MODE_ALL, MODE_TRIM, MODE_COUNT, MODE_DYN_TRIM = range(4)
 
 
 class ICPResult(NamedTuple):
@@ -154,6 +168,46 @@ def kabsch_from_H(H: torch.Tensor) -> torch.Tensor:
     return torch.where(hmax > 0, R, eye)
 
 
+def kabsch3(H: torch.Tensor) -> torch.Tensor:
+    """kabsch_from_H of (..., 3, 3) float32 H: one launch of csrc/icp.cu's
+    goicp_kabsch3 (the ICP kernel's own Kabsch, a thread per matrix) on a
+    CUDA tensor, kabsch_from_H on a CPU one."""
+    if _on_cpu(H):
+        return kabsch_from_H(H)
+    _check_f32(H)
+    if H.shape[-2:] != (3, 3):
+        raise ValueError(f"kabsch3 takes (..., 3, 3), got {tuple(H.shape)}")
+    H = H.contiguous()
+    out = torch.empty_like(H)
+    if out.numel() == 0:
+        return out
+    _launch("goicp_kabsch3", "kabsch3", _ptr(H), _ptr(out), H.numel() // 9,
+            _stream(H))
+    kabsch3.launches += 1
+    return out
+
+
+kabsch3.launches = 0
+
+
+def icp_mode(n: int, inlier_num: int, count, data_mask,
+             dynamic_trim: bool) -> int:
+    """The kept set of an ICP iteration (csrc/icp.cu's mask modes), in
+    icp_run_plain's order of precedence: dynamic trim (the `count`
+    smallest distances), the data_mask rows (count given), a static trim
+    (the inlier_num smallest, inlier_num < n) or every row."""
+    if dynamic_trim:
+        if count is None:
+            raise ValueError("dynamic_trim needs count")
+        return MODE_DYN_TRIM
+    if count is not None:
+        if data_mask is None:
+            raise ValueError("count without dynamic_trim keeps the "
+                             "data_mask rows: data_mask is needed")
+        return MODE_COUNT
+    return MODE_TRIM if inlier_num < n else MODE_ALL
+
+
 def icp_run(data: torch.Tensor, model: torch.Tensor, R0: torch.Tensor,
             t0: torch.Tensor, *, inlier_num: int, max_iter: int,
             err_diff: float, data_mask: torch.Tensor | None = None,
@@ -169,7 +223,70 @@ def icp_run(data: torch.Tensor, model: torch.Tensor, R0: torch.Tensor,
     data_mask rows) or, with dynamic_trim, the REAL inlier count (the
     `count` smallest NN distances, by an exact rank mask over a stable
     argsort).  enabled (bool, scalar or (K,)): rows where it is False run
-    zero iterations and return (R0, t0, err=-1, nn_idx=0)."""
+    zero iterations and return (R0, t0, err=-1, nn_idx=0).
+
+    CUDA tensors: one launch of csrc/icp.cu; CPU tensors: icp_run_plain;
+    other devices, or a mix of devices, raise."""
+    mode = icp_mode(data.shape[0], inlier_num, count, data_mask,
+                    dynamic_trim)
+    kw = dict(inlier_num=inlier_num, max_iter=max_iter, err_diff=err_diff,
+              data_mask=data_mask, count=count, dynamic_trim=dynamic_trim,
+              enabled=enabled)
+    if _on_cpu(*(x for x in (data, model, R0, t0, data_mask, count)
+                 if x is not None)):
+        return icp_run_plain(data, model, R0, t0, **kw)
+    dev = data.device
+    _check_f32(data, model, *(x for x in (data_mask, count)
+                              if x is not None))
+    data, model = data.contiguous(), model.contiguous()
+    R0 = R0.to(torch.float32).contiguous()
+    t0 = t0.to(torch.float32).contiguous()
+    K, nd, m = R0.shape[0], data.shape[0], model.shape[0]
+    if (data.shape != (nd, 3) or model.shape != (m, 3) or nd == 0 or m == 0
+            or R0.shape != (K, 3, 3) or t0.shape != (K, 3)
+            or (data_mask is not None and data_mask.shape != (nd,))
+            or (count is not None and count.numel() != 1)):
+        raise ValueError(
+            f"icp_run takes data (Nd,3), model (M,3) with Nd, M > 0, R0 "
+            f"(K,3,3), t0 (K,3), data_mask (Nd,), a scalar count; got "
+            f"{tuple(data.shape)}, {tuple(model.shape)}, {tuple(R0.shape)}, "
+            f"{tuple(t0.shape)}, "
+            f"{None if data_mask is None else tuple(data_mask.shape)}, "
+            f"{None if count is None else tuple(count.shape)}")
+    out = ICPResult(
+        R=torch.empty((K, 3, 3), dtype=torch.float32, device=dev),
+        t=torch.empty((K, 3), dtype=torch.float32, device=dev),
+        nn_idx=torch.empty((K, nd), dtype=torch.int64, device=dev),
+        err=torch.empty((K,), dtype=torch.float32, device=dev),
+        iters=torch.empty((K,), dtype=torch.int32, device=dev))
+    if K == 0:
+        return out
+    en = None if enabled is None else torch.as_tensor(
+        enabled, device=dev).to(torch.bool).expand(K).contiguous()
+    mask = None if data_mask is None else data_mask.contiguous()
+    words = 10 * nd + 4 * m
+    ws = None if 4 * words <= ICP_SMEM_BYTES else torch.empty(
+        K * words, dtype=torch.float32, device=dev)
+    _launch("goicp_icp_run", "icp_run", _ptr(data), _ptr(model), _ptr(R0),
+            _ptr(t0), _ptr(mask), _ptr(count), _ptr(en), _ptr(ws),
+            *(_ptr(x) for x in out), K, nd, m, int(inlier_num),
+            int(max_iter), mode, float(err_diff), _stream(data))
+    icp_run.launches += 1
+    return out
+
+
+icp_run.launches = 0
+
+
+def icp_run_plain(data: torch.Tensor, model: torch.Tensor, R0: torch.Tensor,
+                  t0: torch.Tensor, *, inlier_num: int, max_iter: int,
+                  err_diff: float, data_mask: torch.Tensor | None = None,
+                  count: torch.Tensor | None = None,
+                  dynamic_trim: bool = False,
+                  enabled: torch.Tensor | None = None) -> ICPResult:
+    """icp_run as a host loop of torch ops (the module docstring): every
+    row is stepped while any row is still running, one host read an
+    iteration."""
     n = data.shape[0]
     K = R0.shape[0]
     dev = data.device

@@ -113,8 +113,9 @@ def _on_cpu(*xs: torch.Tensor) -> bool:
     raise ValueError(f"no fixed-order kernel for devices {sorted(kinds)}")
 
 
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
+def _ptr(x: torch.Tensor | None) -> ctypes.c_void_p:
+    """A tensor's device pointer for a kernel, NULL for None."""
+    return ctypes.c_void_p(None if x is None else x.data_ptr())
 
 
 def _stream(x: torch.Tensor) -> ctypes.c_void_p:
