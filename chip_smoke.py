@@ -27,10 +27,16 @@ Phases, each of which fails the script (nonzero exit, no result line):
     utils/fp32.py's: each of a warp's 32 lanes adds its points t, t+32,
     ... and an xor butterfly combines the lanes; trimmed, the values below
     the K-th smallest, then its ties.)  The ordered-sum kernel
-    (csrc/ordered_sum.cu) at the ICP's shapes on syn07, equal to its plain
-    version bit for bit and timed the same way, beside torch.sum; so the
+    (csrc/ordered_sum.cu) at the rescoring's and the ICP's shapes on
+    syn07, equal to its plain version bit for bit and timed the same way,
+    in turns with torch.sum; rotate (csrc/ordered_sum.cu) at an outer
+    transition's shape (8 R x syn07's data) and a rescoring's (4 R, + t),
+    norm3 at the rotation centres' (8, 3) and the preparation's (syn07's
+    data) and sincos32 at (8,) (csrc/fp32_products.cu), each equal to its
+    plain version bit for bit, in turns with torch.matmul, torch.baddbmm
+    and torch.linalg.vector_norm (sincos32 has no one torch call); so the
     fixed-order products (csrc/fp32_products.cu: sq_dist3, det3, cross3,
-    dot_fma), beside torch.linalg.det, torch.linalg.cross and
+    dot_fma), in turns with torch.linalg.det, torch.linalg.cross and
     torch.matmul.  The ICP kernel (csrc/icp.cu): icp_run, one launch an
     ICP event, held to icp_run_plain on the same card tensors bit for bit
     in R, t, nn_idx, err and iters, on syn07 (4 seeds untrimmed; its
@@ -54,12 +60,13 @@ Phases, each of which fails the script (nonzero exit, no result line):
     bound and the empty kernel's two times.  The bound counts what the
     FUNCTION needs, whatever implements it: a fixed number of operations
     per (lane, node or corner, real point) over 67 TFLOP/s (fp32 outside
-    the tensor cores), against its input + output bytes over 3.35 TB/s,
-    each tensor once.  K1 on syn07 and trm00 (there also fused with a
-    static K) and K3 run at norm 2 and again at norm 1 (the fork's L1
-    option) on the same inputs, at the same tolerances, K3 lane for lane
-    equal to K1 at each norm (norm 1's times: the JSON line's "norm1"
-    entries).  max |kernel - plain| is 0 in every case.
+    the tensor cores; sincos32's float64 operations over 34 TFLOP/s),
+    against its input + output bytes over 3.35 TB/s, each tensor once.
+    K1 on syn07 and trm00 (there also fused with a static K) and K3 run
+    at norm 2 and again at norm 1 (the fork's L1 option) on the same
+    inputs, at the same tolerances, K3 lane for lane equal to K1 at each
+    norm (norm 1's times: the JSON line's "norm1" entries).  max |kernel
+    - plain| is 0 in every case.
  3. registrations through the port's entry points: prepare_pair(bucket=
     True) -> make_count_dynamic -> register_device, under GoICPConfig() +
     bench_shape, on six pairs of the similar pool and four of the trimmed
@@ -71,10 +78,11 @@ Phases, each of which fails the script (nonzero exit, no result line):
     each equal to phase 3's syn07 in error, R, t, opt_comp, evals, outer,
     inner and geom_surv, and with chem_survivors=8 (capped at twice the
     outer steps; converged or not, an achievable error and a valid gap).
- 4. proof: the launch counters of K1, K2, the ordered sum and the ICP
-    kernel, zeroed just before phase 3, are > 0 after it; sq_dist3, det3
-    and cross3, whose only caller was the plain ICP loop, are 0 (so in
-    phases 5, 6, 7 and 13; phase 11's row checks launch sq_dist3 through
+ 4. proof: the launch counters of K1, K2, the ordered sum, rotate, norm3,
+    sincos32 and the ICP kernel, zeroed just before phase 3, are > 0 after
+    it; sq_dist3, det3 and cross3, whose only caller was the plain ICP
+    loop, and dot_fma, whose other caller was norm3, are 0 (so in phases
+    5, 6, 7 and 13; phase 11's row checks launch sq_dist3 through
     nn_correspondences themselves).
  5. the fused cross-pair stream: the similar pool syn00-syn15 and the
     trimmed pool trm00-trm07, each prepared into one pool-max bucket
@@ -82,14 +90,16 @@ Phases, each of which fails the script (nonzero exit, no result line):
     register_fused_stream(width=2, chunk_steps=512).  Every pair is held
     against the port's register_device on the same prepared pair and,
     where there is one, against its fp32 reference row.  K3, K4, the
-    ordered sum and the ICP kernel must have launched.  Then the trimmed pool once
-    more with escalate_capacity = 2 * trans_capacity after 1 chunk of 64
-    global iterations: at least one pair escalated, every pair converged,
-    error within MSEThresh*Nd + 1e-5 of the plain stream's.
+    ordered sum, rotate, norm3, sincos32 and the ICP kernel must have
+    launched.  Then the trimmed pool once more with escalate_capacity =
+    2 * trans_capacity after 1 chunk of 64 global iterations: at least
+    one pair escalated, every pair converged, error within MSEThresh*Nd +
+    1e-5 of the plain stream's.
  6. the slot-packed stream on the same pools:
     register_packed_stream(width=16, chunk_steps=512) with 16 slots and
     transitions every 8 iterations; the same checks, and K3, K4, the
-    ordered sum and the ICP kernel must have launched again.
+    ordered sum, rotate, norm3, sincos32 and the ICP kernel must have
+    launched again.
  7. the user's entry points, from files: a BO1-style data root written
     in a temporary directory (goicp_tpu_torch/bench/bo1_files.py) holding
     syn00, syn01, syn05, syn06, syn13 and syn07 as .mol2 cavities, c-FPFH
@@ -188,12 +198,13 @@ Phases, each of which fails the script (nonzero exit, no result line):
     the card, equal in every counter and every float32 bit to the row
     the port wrote on the CPU (goicp_tpu_torch/bench/cpu_rows.jsonl,
     `python -m goicp_tpu_torch.bench.cpu_rows --write`); K1, K2, the
-    ordered sum and the ICP kernel must have launched.  Last, the kernel
-    launches of one global iteration's inner step and of one ICP
-    iteration (goicp_tpu_torch/bench/launch_counts.py) beside those of the
+    ordered sum, rotate, norm3, sincos32 and the ICP kernel must have
+    launched.  Last, the kernel launches of one global iteration's inner
+    step and of one ICP iteration
+    (goicp_tpu_torch/bench/launch_counts.py) beside those of the
     trees before the fixed order (commit 1025156) and before the ICP
-    kernel (ce5be19), and an ICP event's: one launch of csrc/icp.cu and no
-    host read.
+    kernel (ce5be19), those of one outer transition and of one rescoring,
+    and an ICP event's: one launch of csrc/icp.cu and no host read.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -230,13 +241,26 @@ BEFORE_FIXED_ORDER_LAUNCHES = {"global_iteration": 131.0,
 # the same on the tree before the ICP kernel (commit ce5be19, PERF.md)
 BEFORE_ICP_KERNEL_LAUNCHES = {"global_iteration": 131.0,
                               "icp_iteration": 1004.0}
+# launch_counts.py on the tree before rotate, norm3 and sincos32 were one
+# launch each (commit 90724d7), on the H100 in one call with this tree:
+# one outer transition (device_engine._pop) and one rescoring
+# (score_transform at 4 transforms)
+BEFORE_FUSED_ORDER_LAUNCHES = {"outer transition": 72.0, "rescoring": 89.0}
 # the fixed-order products of utils/fp32.py (csrc/fp32_products.cu)
 FIXED_ORDER_PRODUCTS = ("sq_dist3", "det3", "cross3", "dot_fma")
+# the fixed-order functions that take an outer transition's and a
+# rescoring's neighbouring ops into one launch each (utils/fp32.py): name
+# -> source
+FUSED_ORDER = {"rotate": "goicp_tpu_torch/csrc/ordered_sum.cu",
+               "norm3": "goicp_tpu_torch/csrc/fp32_products.cu",
+               "sincos32": "goicp_tpu_torch/csrc/fp32_products.cu"}
 # what every registration launches besides the bound kernels: the rescoring's
-# ordered sums and the ICP event (csrc/icp.cu); and the products whose only
-# caller was the plain ICP loop, now launched 0 times on the main path
-PATH_KERNELS = ("ordered_sum", "icp_run")
-OFF_PATH = ("sq_dist3", "det3", "cross3")
+# ordered sums, the ICP event (csrc/icp.cu), and every outer transition's
+# norms, sin and cos and rotated points; and the products whose callers
+# (the plain ICP loop; norm3 before it was one launch) no longer run on the
+# card, now launched 0 times on the main path
+PATH_KERNELS = ("ordered_sum", "icp_run", *FUSED_ORDER)
+OFF_PATH = ("sq_dist3", "det3", "cross3", "dot_fma")
 CHECK_ONLY = ("kabsch3",)   # the ICP kernel's Kabsch alone: phase 2 only
 # phase 2's ICP event whose workspace lies in device memory
 BIG_ICP_POINTS, BIG_ICP_ITERS = 4200, 8
@@ -255,6 +279,8 @@ def ICP_OPS(nd, m):
 # and the scaling 18
 KABSCH_OPS = 18 * 68 + 21 + 9 + 28 + 29 + 9 + 45 + 18
 PEAK_OPS = 67e12        # H100 SXM fp32 outside the tensor cores, per second
+PEAK_OPS_F64 = 34e12    # H100 SXM fp64 outside the tensor cores, per second
+# (NVIDIA's H100 data sheet, SXM part)
 PEAK_BYTES = 3.35e12    # H100 SXM device memory, bytes per second
 # Operations the functions need per (lane, node or corner, real point):
 #   voxelize      21  3 axes x (add, sub, mul, add, trunc, max, min)
@@ -321,6 +347,15 @@ def _device_ms(fn, n=50, reps=7, warm_s=0.03):
     return statistics.median(times)
 
 
+def _in_turns(kern, library, n=25):
+    """(kernel ms, library ms): _median_ms of each in turns, kernel,
+    library, library, kernel, each the mean of its two turns, so that a
+    drift of the clocks or the host weighs on both alike."""
+    k1, l1, l2, k2 = (_median_ms(kern, n), _median_ms(library, n),
+                      _median_ms(library, n), _median_ms(kern, n))
+    return (k1 + k2) / 2, (l1 + l2) / 2
+
+
 def _same_bits(got, want):
     """Every float32 of got equals want's bit for bit."""
     import torch
@@ -330,8 +365,9 @@ def _same_bits(got, want):
 
 
 def _off_path(counts, where):
-    """The products whose only caller was the plain ICP loop launched 0
-    times: every ICP event went through csrc/icp.cu."""
+    """The products whose callers no longer run on the card launched 0
+    times: every ICP event went through csrc/icp.cu, every norm through
+    norm3's own kernel."""
     _require(all(counts[k] == 0 for k in OFF_PATH),
              f"{', '.join(OFF_PATH)} launched 0 times in {where}: "
              f"{ {k: counts[k] for k in OFF_PATH} }")
@@ -1439,13 +1475,16 @@ def _options_phase(cfg, pools, dev):
 
 def _ordered_sum_checks(k, cfg, pools, dev, floor):
     """Phase 2's check of the ordered-sum kernel (utils/fp32.py) at the
-    ICP's shapes on syn07 (an event of icp_seeds rows): the rotated
+    main path's and the ICP's shapes on syn07 (icp_seeds rows): the
+    rescoring's sums over the points (rows of Nd, what the main path
+    launches it for since rotate took the rotated points), the rotated
     points' dot products (rows of 3), the sum over the points of the
     correspondence matrix H (rows of Nd, 9 apart) and the Kabsch's
     sequential 3-term sums, each equal to ordered_sum_plain on the same
     card tensor bit for bit, timed like the bound kernels; the library
-    call is torch.sum on the same input (the same sum in its own order).
-    The first case's numbers go to the kernels line."""
+    call is torch.sum on the same input (the same sum in its own order),
+    timed in turns with the kernel.  The first case's numbers go to the
+    kernels line."""
     import numpy as np
     import torch
     from goicp_tpu_torch.utils import fp32
@@ -1457,6 +1496,8 @@ def _ordered_sum_checks(k, cfg, pools, dev, floor):
     A = torch.as_tensor(rng.normal(size=(K, 3, 3)), dtype=torch.float32,
                         device=dev)
     cases = (
+        ("the rescoring's sums, rows of Nd", pts[..., 0] * pts[..., 1], -1,
+         32),
         ("rotated points, dot3", A[:, None, :, :] * pair.data[None, :, None],
          -1, 32),
         ("H, sum over the points", pts[:, :, :, None] * pts[:, :, None, :],
@@ -1479,8 +1520,8 @@ def _ordered_sum_checks(k, cfg, pools, dev, floor):
                  f"ordered_sum == plain bit for bit ({label})")
         err = _max_err([got], [want])
         k["errs"].append(err)
-        ms, pms, dms, lms = (_median_ms(kern), _median_ms(plain),
-                             _device_ms(kern), _median_ms(library))
+        (ms, lms), pms, dms = (_in_turns(kern, library), _median_ms(plain),
+                               _device_ms(kern))
         n = x.shape[dim]
         bms, bby = _bound(got.numel(), n, [x, got])
         if i == 0:
@@ -1489,8 +1530,8 @@ def _ordered_sum_checks(k, cfg, pools, dev, floor):
         print(f"ordered_sum {label}: x {tuple(x.shape)} over dim {dim}, "
               f"lanes {lanes}: max_abs_err={err:.3g} (bit for bit) kernel "
               f"{ms:.4f} ms (from a graph {dms:.4f} ms) plain {pms:.4f} ms "
-              f"torch.sum {lms:.4f} ms bound {bms:.6f} ms ({bby}) {floor}",
-              flush=True)
+              f"torch.sum {lms:.4f} ms (in turns) bound {bms:.6f} ms "
+              f"({bby}) {floor}", flush=True)
 
 
 def _product_checks(kernels, cfg, pools, dev, floor):
@@ -1543,18 +1584,128 @@ def _product_checks(kernels, cfg, pools, dev, floor):
                  f"{name} == plain bit for bit")
         err = _max_err([got], [want])
         k["errs"].append(err)
-        ms, pms, dms = _median_ms(kern), _median_ms(plain), _device_ms(kern)
-        lms = None if lib_fn is None else _median_ms(
-            lambda fn=lib_fn, args=args: fn(*args))
+        pms, dms = _median_ms(plain), _device_ms(kern)
+        if lib_fn is None:
+            ms, lms = _median_ms(kern), None
+        else:
+            ms, lms = _in_turns(kern, lambda fn=lib_fn, args=args: fn(*args))
         bms, bby = _bound(n_eval, ops, [*args, got])
         k.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
                  graph_ms=dms, library_ms=lms)
         shapes = " x ".join(str(tuple(a.shape)) for a in args)
-        lib = "none" if lms is None else f"{lms:.4f} ms"
+        lib = "none" if lms is None else f"{lms:.4f} ms (in turns)"
         print(f"{name}: {shapes}: max_abs_err={err:.3g} (bit for bit) "
               f"kernel {ms:.4f} ms (from a graph {dms:.4f} ms) plain "
               f"{pms:.4f} ms library {lib} bound {bms:.6f} ms ({bby}) "
               f"{floor}", flush=True)
+
+
+# operations a function needs: rotate 5 a coordinate (3 products, 2 sums)
+# and 1 more with t; norm3 6 a vector (a product, two FMAs of 2, a square
+# root); sincos32 40 float64 operations an angle (the reduction 6, z 1, two
+# Horner chains of 14, sin r 3, cos r 2)
+ROTATE_OPS, NORM3_OPS, SINCOS_OPS = 15, 6, 40
+
+
+def _fused_checks(kernels, cfg, pools, dev, floor):
+    """Phase 2's check of the fixed-order functions that are one launch
+    each (utils/fp32.py): rotate at an outer transition's shape (8 R from
+    8 seeded rotation centres through rodrigues, times syn07's data) and
+    at the rescoring's (4 R, with t), norm3 at the centres' shape (8, 3)
+    and the preparation's (syn07's data), sincos32 at (8,) (the centres'
+    angles), each equal to its plain version (rotate_plain, norm3_plain,
+    sincos32_plain: elementwise torch ops, launching no kernel of ours) on
+    the same card tensors bit for bit, timed like the bound kernels; the
+    library call (torch.matmul, torch.baddbmm, torch.linalg.vector_norm;
+    none computes sin and cos at once, so sincos32 has none, and torch.sin
+    + torch.cos is printed beside it) is timed in turns with the kernel.
+    The first case of each goes to the kernels line."""
+    import numpy as np
+    import torch
+    from goicp_tpu_torch.geom.rotation import rodrigues
+    from goicp_tpu_torch.utils import fp32
+    pair = _prepared("syn07", cfg, pools, dev)
+    rng = np.random.default_rng(14)
+    centers = torch.as_tensor(rng.uniform(-1.8, 1.8, (8, 3)),
+                              dtype=torch.float32, device=dev)
+    R8 = rodrigues(centers)
+    R4 = R8[:4].contiguous()
+    t4 = torch.as_tensor(rng.uniform(-0.05, 0.05, (4, 3)),
+                         dtype=torch.float32, device=dev)
+    data = pair.data
+    n = data.shape[0]
+    angles = fp32.norm3(centers)
+    data_b = data.expand(4, n, 3)
+    # name, kernel, plain, library (None: none), function evaluations,
+    # operations each, float64 operations or not, inputs
+    cases = (
+        ("rotate", "8 R x syn07's data (an outer transition)",
+         lambda: fp32.rotate(R8, data), lambda: fp32.rotate_plain(R8, data),
+         lambda: torch.matmul(data, R8.transpose(-1, -2)), 8 * n,
+         ROTATE_OPS, False, (R8, data)),
+        ("rotate", "4 R x syn07's data + t (a rescoring)",
+         lambda: fp32.rotate(R4, data, t4),
+         lambda: fp32.rotate_plain(R4, data, t4),
+         lambda: torch.baddbmm(t4[:, None, :], data_b,
+                               R4.transpose(-1, -2)), 4 * n,
+         ROTATE_OPS + 3, False, (R4, data, t4)),
+        ("norm3", "the rotation centres (8, 3)",
+         lambda: fp32.norm3(centers), lambda: fp32.norm3_plain(centers),
+         lambda: torch.linalg.vector_norm(centers, dim=-1), 8, NORM3_OPS,
+         False, (centers,)),
+        ("norm3", "syn07's data (the preparation)",
+         lambda: fp32.norm3(data), lambda: fp32.norm3_plain(data),
+         lambda: torch.linalg.vector_norm(data, dim=-1), n, NORM3_OPS,
+         False, (data,)),
+        ("sincos32", "the centres' angles (8,)",
+         lambda: fp32.sincos32(angles), lambda: fp32.sincos32_plain(angles),
+         None, 8, SINCOS_OPS, True, (angles,)),
+    )
+    seen = set()
+    for name, label, kern, plain, library, n_eval, ops, f64, ins in cases:
+        k = kernels[name]
+        got, want = kern(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        _require(_same_bits(got, want), f"{name} == plain bit for bit "
+                 f"({label})")
+        err = _max_err(got, want)
+        k["errs"].append(err)
+        pms, dms = _median_ms(plain), _device_ms(kern)
+        if library is None:
+            ms, lms = _median_ms(kern), None
+            sin_cos = _median_ms(lambda: (torch.sin(angles),
+                                          torch.cos(angles)))
+            extra = f"; torch.sin + torch.cos {sin_cos:.4f} ms"
+        else:
+            ms, lms = _in_turns(kern, library)
+            extra = ""
+        t_ops = n_eval * ops / (PEAK_OPS_F64 if f64 else PEAK_OPS)
+        t_bytes = _nbytes(*ins, *got) / PEAK_BYTES
+        bms = max(t_ops, t_bytes) * 1e3
+        bby = "operations" if t_ops >= t_bytes else "bytes"
+        if name not in seen:
+            seen.add(name)
+            k.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                     graph_ms=dms, library_ms=lms)
+        lib = "none" if lms is None else f"{lms:.4f} ms (in turns)"
+        print(f"{name} {label}: max_abs_err={err:.3g} (bit for bit) kernel "
+              f"{ms:.4f} ms (from a graph {dms:.4f} ms) plain {pms:.4f} ms "
+              f"library {lib}{extra} bound {bms:.6f} ms ({bby}) {floor}",
+              flush=True)
+    # wide inputs, untimed: 2^16 angles in [-8, 8], 2^16 vectors over six
+    # decades
+    ang = torch.as_tensor(rng.uniform(-8.0, 8.0, 2**16), dtype=torch.float32,
+                          device=dev)
+    vec = torch.as_tensor(rng.normal(size=(2**16, 3))
+                          * 10.0 ** rng.uniform(-3, 3, (2**16, 1)),
+                          dtype=torch.float32, device=dev)
+    _require(_same_bits(fp32.sincos32(ang), fp32.sincos32_plain(ang))
+             and _same_bits([fp32.norm3(vec)], [fp32.norm3_plain(vec)]),
+             "sincos32 and norm3 == plain bit for bit on 2^16 inputs")
+    print("sincos32 on 2^16 angles in [-8, 8], norm3 on 2^16 vectors over "
+          "six decades: bit for bit", flush=True)
 
 
 def _icp_bound(res, nd, m, mode, tensors):
@@ -1812,6 +1963,13 @@ def _one_answer_phase(dev):
               f"before the fixed order: "
               f"{BEFORE_FIXED_ORDER_LAUNCHES[loop]}, before the ICP kernel: "
               f"{BEFORE_ICP_KERNEL_LAUNCHES[loop]}", flush=True)
+    for name, fn in (("outer transition", launch_counts.transition),
+                     ("rescoring", launch_counts.rescoring)):
+        v = fn()
+        print(f"phase 13 launches per {name}: {v['launches']:.1f} "
+              f"({v['ms']:.3f} ms on the host clock); before rotate, norm3 "
+              f"and sincos32 were one launch each: "
+              f"{BEFORE_FUSED_ORDER_LAUNCHES[name]}", flush=True)
     ev = launch_counts.icp_event()
     print(f"phase 13 an ICP event ({launch_counts.ICP_SEEDS} seeds, "
           f"iterations {ev['iterations']}): {ev['launches']:.1f} kernel "
@@ -1899,6 +2057,8 @@ def main() -> int:
         "ordered_sum": dict(
             source="goicp_tpu_torch/csrc/ordered_sum.cu", replaces=None,
             errs=[]),
+        **{name: dict(source=src, replaces=None, errs=[])
+           for name, src in FUSED_ORDER.items()},
         **{name: dict(source="goicp_tpu_torch/csrc/fp32_products.cu",
                       replaces=None, errs=[])
            for name in FIXED_ORDER_PRODUCTS},
@@ -2236,6 +2396,7 @@ def main() -> int:
                   f"{bms:.6f} ms ({bby}) {floor}", flush=True)
 
     _ordered_sum_checks(kernels["ordered_sum"], cfg, pools, dev, floor)
+    _fused_checks(kernels, cfg, pools, dev, floor)
     _product_checks(kernels, cfg, pools, dev, floor)
     _icp_checks(kernels, cfg, cfg_t, pools, dev, floor)
 

@@ -3,10 +3,10 @@ build the host C++ runtime of `native/` the same way (`host_library`).
 
 nvcc compiles every `csrc/*.cu` for sm_90a (one process per source, all
 at once) and links them into a library with a plain C interface, which
-is loaded with ctypes: tensors pass as device pointers
-(`data_ptr()`) and the stream as `torch.cuda.current_stream().cuda_stream`,
-all as `c_void_p`.  The library lands in `goicp_tpu_torch/_build/`, named
-by a hash of the sources and flags, so the first use builds it and later
+is loaded with ctypes: tensors pass as device pointers (`data_ptr()`)
+and the stream as the current stream's handle, Python ints declared
+`c_void_p`.  The library lands in `goicp_tpu_torch/_build/`, named by a
+hash of the sources and flags, so the first use builds it and later
 uses load it.  Only the repository's own sources are compiled, and there
 is no fast-math: sqrt and division stay IEEE.  A failed build raises; no
 caller falls back to another implementation.
@@ -56,6 +56,8 @@ _SIGNATURES = {
     "goicp_chem_incomp_lanes": [_P] * 9 + [_I] * 5 + [_P],
     # x, out, rows, n, inner, lanes, stream
     "goicp_ordered_sum": [_P, _P, _L, _I, _L, _I, _P],
+    # R, points, t (NULL: none), out, batch, points, stream
+    "goicp_rotate": [_P, _P, _P, _P, _L, _I, _P],
     # points, model, out, rows, model points, stream
     "goicp_sq_dist3": [_P, _P, _P, _L, _I, _P],
     # mats, out, batch, stream
@@ -63,6 +65,10 @@ _SIGNATURES = {
     # a, b, out, meta (15 int64: sizes, strides, last axis), stream
     "goicp_cross3": [_P, _P, _P, ctypes.POINTER(_L), _P],
     "goicp_dot_fma": [_P, _P, _P, ctypes.POINTER(_L), _P],
+    # v, out, rows, stream
+    "goicp_norm3": [_P, _P, _L, _P],
+    # x, sin, cos, n, stream
+    "goicp_sincos32": [_P, _P, _P, _L, _P],
     # data, model, R0, t0, data_mask, count, enabled, workspace, R, t,
     # nn_idx, err, iters, K, Nd, M, inlier_num, max_iter, mode, err_diff,
     # stream

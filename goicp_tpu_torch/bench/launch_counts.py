@@ -12,7 +12,12 @@ every `.item()` and `bool()` of a card tensor goes through):
     icp_run's own launch count (csrc/icp.cu) and the rows' iterations;
   * one ICP iteration: the same event with its convergence test switched
     off so that it runs a fixed number of iterations; the launches of 3
-    iterations less those of 2 (0 when the event is one launch).
+    iterations less those of 2 (0 when the event is one launch);
+  * one outer transition: device_engine._pop on that pair's first state
+    (pop the lowest-lb rotation node, expand its 8 children, the pi-ball
+    filter by norm3, rodrigues, the data rotated for every lane);
+  * one rescoring: score_transform of that pair at four seeded transforms
+    and their nearest-neighbour correspondences (the ICP event's).
 
     python goicp_tpu_torch/bench/launch_counts.py [--json PATH]
 
@@ -149,6 +154,36 @@ def icp_event(device="cuda", n=3) -> dict:
                 iterations=fn().iters.tolist(), ms=_host_ms(fn, n))
 
 
+def transition(device="cuda", n=10) -> dict:
+    """Launches and ms of one outer transition (device_engine._pop)."""
+    from goicp_tpu_torch.search import device_engine as eng
+    cfg, (pair,) = _bench_pairs((PAIR_ICP,), device, bucket_together=False)
+    state = eng.device_init(pair, cfg)
+
+    def step():
+        return eng._pop(pair, cfg, state)
+    return dict(launches=_launches(step, n), ms=_host_ms(step, 5 * n))
+
+
+def rescoring(device="cuda", n=10) -> dict:
+    """Launches and ms of one score_transform at ICP_SEEDS transforms."""
+    from goicp_tpu_torch.bounds.error import score_transform
+    from goicp_tpu_torch.geom.rotation import rodrigues_np
+    from goicp_tpu_torch.icp.icp import nn_correspondences
+    cfg, (pair,) = _bench_pairs((PAIR_ICP,), device, bucket_together=False)
+    rng = np.random.default_rng(9)
+    R = torch.as_tensor(np.stack([rodrigues_np(v) for v in rng.uniform(
+        -0.3, 0.3, (ICP_SEEDS, 3))]), dtype=torch.float32, device=device)
+    t = torch.as_tensor(rng.uniform(-0.05, 0.05, (ICP_SEEDS, 3)),
+                        dtype=torch.float32, device=device)
+    pts = torch.einsum("kij,nj->kni", R, pair.data) + t[:, None, :]
+    nn_idx, _ = nn_correspondences(pts, pair.model)
+
+    def score():
+        return score_transform(pair, cfg, R, t, nn_idx)
+    return dict(launches=_launches(score, n), ms=_host_ms(score, 5 * n))
+
+
 def card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -165,7 +200,8 @@ def main(argv=None) -> int:
     import goicp_tpu_torch
     out = dict(package=goicp_tpu_torch.__file__, card=card(),
                global_iteration=global_iteration(),
-               icp_iteration=icp_iteration(), icp_event=icp_event())
+               icp_iteration=icp_iteration(), icp_event=icp_event(),
+               transition=transition(), rescoring=rescoring())
     print(json.dumps(out), flush=True)
     if a.json:
         with open(a.json, "w") as fh:

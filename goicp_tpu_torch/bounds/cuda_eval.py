@@ -44,7 +44,8 @@ from goicp_tpu_torch.grid.edt import exact_sqrt
 from goicp_tpu_torch.grid.lookup import (flat_index, oob_extension,
                                          voxel_indices)
 from goicp_tpu_torch.icp.icp import icp_run, kabsch3
-from goicp_tpu_torch.utils.fp32 import (cross3, det3, dot_fma, ordered_sum,
+from goicp_tpu_torch.utils.fp32 import (cross3, det3, dot_fma, norm3,
+                                        ordered_sum, rotate, sincos32,
                                         sq_dist3)
 
 SQRT3 = float(np.sqrt(3.0))
@@ -444,7 +445,8 @@ chem_incomp_kernel_lanes.launches = 0
 # ICP's (icp/icp.py), whose launch counts every run reads together
 _KERNELS = (geometric_bounds_kernel, chem_incomp_kernel,
             geometric_bounds_kernel_lanes, chem_incomp_kernel_lanes,
-            ordered_sum, sq_dist3, det3, cross3, dot_fma, icp_run, kabsch3)
+            ordered_sum, rotate, norm3, sincos32, sq_dist3, det3, cross3,
+            dot_fma, icp_run, kabsch3)
 
 
 def launch_counts() -> dict:

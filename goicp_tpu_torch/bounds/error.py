@@ -47,7 +47,7 @@ def _norm_sum(vals: torch.Tensor, norm: int) -> torch.Tensor:
 
 
 def _transform(pair: PairData, R: torch.Tensor, t: torch.Tensor):
-    return rotate(R, pair.data) + t[..., None, :]
+    return rotate(R, pair.data, t)
 
 
 def trimmed_smallest(vals: torch.Tensor, inlier_num: int) -> torch.Tensor:

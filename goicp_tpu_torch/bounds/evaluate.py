@@ -37,7 +37,7 @@ from goicp_tpu_torch.bounds.cuda_eval import reduce_bounds
 from goicp_tpu_torch.grid.lookup import (dt_distance, flat_index,
                                          nearest_cell_id, voxel_indices)
 from goicp_tpu_torch.pipeline.prepare import PairData
-from goicp_tpu_torch.utils.fp32 import dot3, ordered_sum, sin32
+from goicp_tpu_torch.utils.fp32 import dot3, ordered_sum, sincos32
 
 SQRT3 = float(np.sqrt(3.0))
 
@@ -267,4 +267,4 @@ def rot_uncertainty(widths: torch.Tensor, norm_data: torch.Tensor):
     """maxRotDis for rotation cubes of width w (L,) -> (L, Nd)
     (jly_goicp.cpp:185-206): 2 sin(min(sqrt(3) w/2, pi)/2) * ||p||."""
     angle = torch.clamp(SQRT3 * widths / 2.0, max=math.pi)
-    return 2.0 * sin32(angle / 2.0)[:, None] * norm_data[None, :]
+    return 2.0 * sincos32(angle / 2.0)[0][:, None] * norm_data[None, :]

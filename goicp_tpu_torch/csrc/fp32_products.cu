@@ -1,9 +1,10 @@
 // The fixed-order products of goicp_tpu_torch/utils/fp32.py on the card,
 // each one launch where its torch form takes several.
 //
-// Not ports of TPU kernels.  They exist so that the ICP keeps the launch
-// count of its library calls (matmul, linalg.cross, einsum) while it
-// takes utils/fp32.py's written-down order:
+// Not ports of TPU kernels.  They exist so that the registration path
+// takes utils/fp32.py's written-down order at the launch count of the
+// library calls they replace (matmul, linalg.cross, linalg.norm, cos,
+// sin):
 //
 //   sq_dist3   d2[r, m] = (dot3(p_r, p_r) - 2 dot3(p_r, q_m)) + dot3(q_m, q_m)
 //              for points p (R, 3) and a model q (M, 3): the ICP's nearest-
@@ -11,16 +12,30 @@
 //   det3       det M = dot3_seq(M0, cross3(M1, M2)) of (B, 3, 3) matrices;
 //   cross3     (a1 b2 - a2 b1, a2 b0 - a0 b2, a0 b1 - a1 b0) of broadcast
 //              3-vectors a and b;
-//   dot_fma    a chain of FMAs over the last axis of broadcast a and b,
-//              taken in float64 and rounded once to float32 per step.
+//   dot_fma    a chain of float32 FMAs over the last axis of broadcast a
+//              and b;
+//   norm3      sqrt(fma(v2, v2, fma(v1, v1, v0 v0))) of 3-vectors: it
+//              replaces fp32.py's exact_sqrt(dot_fma(v, v)), four
+//              launches (the chain, and the square root taken in float64
+//              as a cast, a sqrt and a cast back); __fsqrt_rn is the
+//              correctly rounded square root, which exact_sqrt is too;
+//   sincos32   sin and cos of float32 angles in float64 (fp32_order.cuh),
+//              both in one launch: it replaces fp32.py's cos32 and sin32,
+//              six launches (a cast, the device's libm call and a cast
+//              back, twice) whose libm differed between the card and the
+//              CPU.
 //
 // The orders (dot3's warp and sequential ones, the cross product, the
-// FMA chain) are fp32_order.cuh's, shared with icp.cu.  One thread per
-// output value; what bounds them on the H100 is the launch: the ICP's
-// matrices are a few hundred KB (sq_dist3) or a few hundred bytes (det3,
-// cross3, dot_fma).  Since the ICP event is one launch of icp.cu, the
-// registration path no longer launches sq_dist3, det3 or cross3; dot_fma
-// still takes the preparation's point norms (fp32.norm3).
+// FMA chain, the sin and cos polynomials) are fp32_order.cuh's, shared
+// with icp.cu.  One thread per output value; what bounds them on the
+// H100 is the launch: the ICP's matrices are a few hundred KB (sq_dist3),
+// the rest a few hundred bytes (8 rotation centres, 3x3 matrices) to ~5
+// KB (the preparation's point norms).  So each takes its whole function
+// into one launch and its wrapper (fp32.py) keeps the host's work per
+// call to a few checks and one C call.  Since the ICP event is one
+// launch of icp.cu, the registration path launches none of sq_dist3,
+// det3, cross3 or dot_fma; norm3 and sincos32 are on it (the outer
+// transition, rodrigues, the preparation, the rotation uncertainty).
 #include "common.cuh"
 #include "fp32_order.cuh"
 
@@ -112,6 +127,28 @@ __global__ void dot_fma_kernel(const float* __restrict__ a,
   out[row] = acc;
 }
 
+__global__ void norm3_kernel(const float* __restrict__ v,
+                             float* __restrict__ out, long long rows) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (row >= rows) return;
+  const float x = __ldg(v + 3 * row), y = __ldg(v + 3 * row + 1),
+              z = __ldg(v + 3 * row + 2);
+  float acc = __fmul_rn(x, x);
+  acc = dot_fma_step(y, y, acc);
+  acc = dot_fma_step(z, z, acc);
+  out[row] = __fsqrt_rn(acc);
+}
+
+__global__ void sincos32_kernel(const float* __restrict__ x,
+                                float* __restrict__ s, float* __restrict__ c,
+                                long long n) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  sincos32(__ldg(x + i), s + i, c + i);
+}
+
 inline int launch_status(long long blocks) {
   return blocks > 0x7fffffffLL ? static_cast<int>(cudaErrorInvalidValue) : 0;
 }
@@ -182,5 +219,27 @@ extern "C" int goicp_dot_fma(const float* a, const float* b, float* out,
   if (int err = launch_status(blocks)) return err;
   dot_fma_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(a, b, out, s, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int goicp_norm3(const float* v, float* out, long long rows,
+                           void* stream) {
+  using namespace goicp;
+  if (rows <= 0) return 0;
+  const long long blocks = (rows + kThreads - 1) / kThreads;
+  if (int err = launch_status(blocks)) return err;
+  norm3_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                 static_cast<cudaStream_t>(stream)>>>(v, out, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int goicp_sincos32(const float* x, float* s, float* c,
+                              long long n, void* stream) {
+  using namespace goicp;
+  if (n <= 0) return 0;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (int err = launch_status(blocks)) return err;
+  sincos32_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(x, s, c, n);
   return static_cast<int>(cudaGetLastError());
 }

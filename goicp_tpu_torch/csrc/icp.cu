@@ -37,10 +37,12 @@
 //   6. kabsch_from_H (below) on one thread, then t_, R_next and t_next by
 //      matvec3's and matmul3's dot3_warp.
 // Every product and sum is an explicit round-to-nearest intrinsic (no FMA
-// contraction); Python scalars of the plain loop (1e-30, 1e-5, 1e12,
-// err_diff) act in float32, as torch rounds them; torch.clamp, sign,
-// amax and argmin keep torch's NaN and signed-zero rules.  The NN search
-// assumes finite points (its argmin does not look for NaN).
+// contraction) except R = V (dU)^T's chain, fp32_order.cuh's dot_fma_step
+// (__fmaf_rn, one rounding a step, as fp32.py's dot_fma); Python scalars
+// of the plain loop (1e-30, 1e-5, 1e12, err_diff) act in float32, as
+// torch rounds them; torch.clamp, sign, amax and argmin keep torch's NaN
+// and signed-zero rules.  The NN search assumes finite points (its
+// argmin does not look for NaN).
 #include "common.cuh"
 #include "fp32_order.cuh"
 

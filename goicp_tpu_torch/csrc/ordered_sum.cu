@@ -24,7 +24,22 @@
 // chain of n / lanes loads and adds per lane); the rows of the ICP and
 // the rescoring are 3 to ~300 terms long, and the bytes read are a few
 // hundred KB at most.
+//
+// rotate: every point of a cloud rotated by every R of a batch, and
+// shifted by its t where one is given, in one launch.  Not a port of a
+// TPU kernel either: it replaces fp32.py's rotate composition, a
+// broadcast product that wrote a (B, N, 3, 3) tensor, the ordered sum
+// over it and an add of t (three launches, the first of them the only
+// large write).  out[b, n, i] = dot3_warp(R[b, i, :], p[n, :]), which is
+// the ordered sum's warp order for three terms, (z0 + z2) + z1, then
+// __fadd_rn(., t[b, i]).  One thread per output point; a block's threads
+// read the same few R rows, which stay in L1.  What bounds it on the
+// H100: the launch.  The outer transition rotates 192-256 points by 8
+// matrices (~20 KB out), the rescoring by 4 to 8 (~10 KB); the design
+// takes the product, the sum and the shift into one launch and writes
+// only the output.
 #include "common.cuh"
+#include "fp32_order.cuh"
 
 namespace goicp {
 
@@ -47,7 +62,50 @@ __global__ void ordered_sum_kernel(const float* __restrict__ x,
   if (tid == 0) out[row] = acc;
 }
 
+constexpr int kRotateThreads = 128;
+
+template <bool kShift>
+__global__ void rotate_kernel(const float* __restrict__ R,
+                              const float* __restrict__ pts,
+                              const float* __restrict__ t,
+                              float* __restrict__ out, long long batch,
+                              int n) {
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * kRotateThreads + threadIdx.x;
+  if (idx >= batch * n) return;
+  const long long b = idx / n;
+  const long long j = idx - b * n;
+  float r[9], p[3];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) r[k] = __ldg(R + 9 * b + k);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) p[k] = __ldg(pts + 3 * j + k);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    float v = dot3_warp(r + 3 * i, p);
+    if (kShift) v = __fadd_rn(v, __ldg(t + 3 * b + i));
+    out[3 * idx + i] = v;
+  }
+}
+
 }  // namespace goicp
+
+extern "C" int goicp_rotate(const float* R, const float* pts, const float* t,
+                            float* out, long long batch, int n,
+                            void* stream) {
+  using namespace goicp;
+  if (batch <= 0 || n <= 0) return 0;
+  const long long blocks = (batch * n + kRotateThreads - 1) / kRotateThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (t != nullptr)
+    rotate_kernel<true><<<static_cast<unsigned>(blocks), kRotateThreads, 0,
+                          s>>>(R, pts, t, out, batch, n);
+  else
+    rotate_kernel<false><<<static_cast<unsigned>(blocks), kRotateThreads, 0,
+                           s>>>(R, pts, t, out, batch, n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int goicp_ordered_sum(const float* x, float* out, long long rows,
                                  int n, long long inner, int lanes,

@@ -2,7 +2,8 @@
 
 Port of goicp_tpu/geom/rotation.py.  The BnB parameterizes SO(3) by the
 angle-axis ball of radius pi; a rotation cube's center converts to a matrix
-via Rodrigues.  Zero angle maps to identity.  The angle, cos and sin take
+via Rodrigues.  Zero angle maps to identity.  The angle (norm3) and its
+sin and cos (sincos32, one launch for both on the card) take
 utils/fp32.py's fixed forms, the same on every device.
 """
 
@@ -11,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from goicp_tpu_torch.utils.fp32 import cos32, norm3, sin32
+from goicp_tpu_torch.utils.fp32 import norm3, sincos32
 
 
 def rodrigues(v: torch.Tensor) -> torch.Tensor:
@@ -20,8 +21,8 @@ def rodrigues(v: torch.Tensor) -> torch.Tensor:
     safe_t = torch.where(t > 0, t, torch.ones_like(t))
     u = v / safe_t
     u = torch.where(t > 0, u, torch.zeros_like(u))
-    ct = cos32(t)[..., None]                          # (..., 1, 1)
-    st = sin32(t)[..., None]
+    st, ct = sincos32(t)
+    st, ct = st[..., None], ct[..., None]             # (..., 1, 1)
     one_ct = 1.0 - ct
 
     ux, uy, uz = u[..., 0], u[..., 1], u[..., 2]

@@ -37,7 +37,7 @@ import torch
 from goicp_tpu_torch.grid.edt import exact_sqrt
 from goicp_tpu_torch.utils.fp32 import (_check_f32, _launch, _on_cpu,
                                         _ptr, _stream, cross3, det3, dot3,
-                                        dot_fma, matmul3, matvec3,
+                                        dot_fma, kernels, matmul3, matvec3,
                                         ordered_sum, rotate, sq_dist3)
 
 SEQ = 1    # ordered_sum's sequential order (lanes=1), the Kabsch's
@@ -181,8 +181,8 @@ def kabsch3(H: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(H)
     if out.numel() == 0:
         return out
-    _launch("goicp_kabsch3", "kabsch3", _ptr(H), _ptr(out), H.numel() // 9,
-            _stream(H))
+    _launch(kernels.goicp_kabsch3(H.data_ptr(), out.data_ptr(),
+                                  H.numel() // 9, _stream(H)), "kabsch3")
     kabsch3.launches += 1
     return out
 
@@ -267,10 +267,11 @@ def icp_run(data: torch.Tensor, model: torch.Tensor, R0: torch.Tensor,
     words = 10 * nd + 4 * m
     ws = None if 4 * words <= ICP_SMEM_BYTES else torch.empty(
         K * words, dtype=torch.float32, device=dev)
-    _launch("goicp_icp_run", "icp_run", _ptr(data), _ptr(model), _ptr(R0),
-            _ptr(t0), _ptr(mask), _ptr(count), _ptr(en), _ptr(ws),
-            *(_ptr(x) for x in out), K, nd, m, int(inlier_num),
-            int(max_iter), mode, float(err_diff), _stream(data))
+    _launch(kernels.goicp_icp_run(
+        _ptr(data), _ptr(model), _ptr(R0), _ptr(t0), _ptr(mask), _ptr(count),
+        _ptr(en), _ptr(ws), *(_ptr(x) for x in out), K, nd, m,
+        int(inlier_num), int(max_iter), mode, float(err_diff),
+        _stream(data)), "icp_run")
     icp_run.launches += 1
     return out
 
@@ -308,7 +309,7 @@ def icp_run_plain(data: torch.Tensor, model: torch.Tensor, R0: torch.Tensor,
         running = (~converged) & (it < max_iter)
         if not bool(running.any()):
             break
-        pts = rotate(R, data) + t[:, None, :]
+        pts = rotate(R, data, t)
         idx, d2 = nn_correspondences(pts, model)
         if data_mask is not None:
             d2 = torch.where(data_mask > 0, d2, 1.0e12)

@@ -470,6 +470,7 @@ def test_lane_wrappers_take_plain_versions_on_cpu():
     assert set(before) == {"geometric_bounds_kernel", "chem_incomp_kernel",
                            "geometric_bounds_kernel_lanes",
                            "chem_incomp_kernel_lanes", "ordered_sum",
+                           "rotate", "norm3", "sincos32",
                            "sq_dist3", "det3", "cross3", "dot_fma",
                            "icp_run", "kabsch3"}
     k3 = _k3_args(stacked, a, True)

@@ -84,8 +84,9 @@ def test_compact_matches_jax_batch_and_register_device(case):
     want = jax.device_get(jcompact(case["jpairs"], case["jcfg"],
                                    chunk_steps=8))
     # pair 0's trajectory splits between the packages as register_device's
-    # does (ROADMAP Queue 3): its identity error is a sum over points taken
-    # in another order (3.3831165 in JAX, 3.3831155 here), a near-tie pop
+    # does (ROADMAP Queue 3; re-examined on the tree with the float32 FMA
+    # and sincos32): its identity error is a sum over points taken in
+    # another order (3.3831165 in JAX, 3.3831158 here), a near-tie pop
     # follows, and both converge to error 0 in 83 and 107 outer steps
     _assert_rows(out, _take_rows(want, [1, 2, 3]), rows=[1, 2, 3])
     assert bool(want.converged[0]) and abs(

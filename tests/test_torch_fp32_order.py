@@ -1,7 +1,7 @@
 """The port's fixed float32 order (goicp_tpu_torch/utils/fp32.py) against
 numpy specifications written from its docstring, bit for bit: the
 ordered sum, the bound kernels' plain twins in every mode, the 3x3
-products, norms, cross products and the float64-rounded cos and sin.  An
+products, norms, cross products and sincos32's sin and cos.  An
 ICP event and a rescoring give the same bits under 1 and 4 intra-op
 threads.  The Kabsch equals the JAX package's kabsch_from_H run op by op
 on the correspondence matrix at which syn72's registration first splits
@@ -59,9 +59,17 @@ def np_ordered_sum(x, lanes=32):
 
 
 def np_fma(a, b, c):
-    """A float32 FMA taken in float64, as fp32.dot_fma takes it."""
-    return (a.astype(np.float64) * b.astype(np.float64)
-            + c.astype(np.float64)).astype(F32)
+    """A correctly rounded float32 FMA a*b + c, as fp32.dot_fma takes it:
+    the float64 sum (the product exact there) rounded to odd, its error
+    found by TwoSum, then rounded once to float32."""
+    p = np.asarray(a, np.float64) * np.asarray(b, np.float64)
+    c = np.asarray(c, np.float64)
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    step = (e != 0) & ((s.view(np.int64) & 1) == 0)
+    return np.where(step, np.nextafter(s, np.copysign(np.inf, e)),
+                    s).astype(F32)
 
 
 def np_dot_fma(a, b):
@@ -230,10 +238,11 @@ def test_products_norms_and_trig_equal_numpy_step_by_step():
                             axis=-1)),
     }
     ang = rng.uniform(-4.0, 4.0, size=4096).astype(F32)
-    cases["cos32"] = (fp32.cos32(torch.from_numpy(ang)),
-                      np.cos(ang.astype(np.float64)).astype(F32))
-    cases["sin32"] = (fp32.sin32(torch.from_numpy(ang)),
-                      np.sin(ang.astype(np.float64)).astype(F32))
+    sin32, cos32 = fp32.sincos32(torch.from_numpy(ang))
+    cases["sincos32, cos"] = (cos32,
+                              np.cos(ang.astype(np.float64)).astype(F32))
+    cases["sincos32, sin"] = (sin32,
+                              np.sin(ang.astype(np.float64)).astype(F32))
     for name, (got, want) in cases.items():
         np.testing.assert_array_equal(bits(got.numpy()), bits(want),
                                       err_msg=name)

@@ -56,7 +56,15 @@ def det3_rows(M):
 
 
 def dot_fma_step(a, b, acc):
-    return F32(np.float64(a) * np.float64(b) + np.float64(acc))
+    """__fmaf_rn(a, b, acc): a b + acc rounded once to float32 (the float64
+    sum rounded to odd by TwoSum, then to float32)."""
+    p, c = np.float64(a) * np.float64(b), np.float64(acc)
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    if e != 0 and np.array(s).view(np.int64) & 1 == 0:
+        s = np.nextafter(s, np.copysign(np.inf, e))
+    return F32(s)
 
 
 def clamp_min(x, lo):

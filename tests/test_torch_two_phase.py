@@ -6,7 +6,9 @@ exact, error within 1e-5):
   * a budget covering every child (8 * trans_pop) gives the lattice path's
     trajectory, fused and two-pass;
   * a small budget stays sound (an achievable incumbent, a valid gap) and
-    evaluates fewer chem corners per inner iteration;
+    evaluates fewer chem corners per inner iteration; at the JAX test's
+    own MSEThresh 0.01, where the two packages' trajectories once split
+    (at the initial ICP's means), the first 40 outer steps are equal too;
   * the counters exist without chem terms;
   * the fused stream with a budget gives register_device's results."""
 
@@ -74,6 +76,17 @@ def test_small_budget_sound_and_cheaper_per_eval():
     assert float(rS.gap) >= -1e-5
     assert (int(rS.chem_corners) / max(int(rS.inner_iters), 1)
             < int(r0.chem_corners) / max(int(r0.inner_iters), 1))
+
+
+def test_small_budget_at_msethresh_001_matches_jax():
+    """tests/test_two_phase.py's configuration itself (MSEThresh 0.01,
+    chem_survivors=8), cut to 40 outer steps: every counter equal to the
+    JAX package's, error, R, t and gap within 1e-5.  (Run to its 600
+    steps, neither search converges, and the two stay equal: 14,647,392
+    evals each, errors 3.55729008 and 3.55729032.)"""
+    jcfg = _jcfg(chem_survivors=8, max_outer_steps=40)
+    r = _both(jcfg, _pair(jcfg))
+    assert int(r.outer_iters) == 40 and not bool(r.converged)
 
 
 def test_counters_present_without_chem():
