@@ -65,8 +65,18 @@ Phases, each of which fails the script (nonzero exit, no result line):
     K1 on syn07 and trm00 (there also fused with a static K) and K3 run
     at norm 2 and again at norm 1 (the fork's L1 option) on the same
     inputs, at the same tolerances, K3 lane for lane equal to K1 at each
-    norm (norm 1's times: the JSON line's "norm1" entries).  max |kernel
-    - plain| is 0 in every case.
+    norm (norm 1's times: the JSON line's "norm1" entries).  The inner
+    step kernel (csrc/inner.cu, goicp_inner_step: a whole inner-BnB
+    iteration, K1-K4's bodies inside it) held to inner_step_plain, the
+    torch body, every output field, counter and the active-lane count bit
+    for bit over a few steps in each mode of STEP_MODES (fused, plain with
+    and without rotation uncertainty, corner reuse or 27 corners, no chem
+    term, sorted_merge, norm 1, dynamic and static K, a pop of 80 with a
+    capacity of 5000, two pairs' lanes interleaved as two window rows, one
+    of them not live; done lanes in every mode) and on built NaN/INF lbs through both merge orders; timed
+    at the streams' shape (16 lanes of syn00 + syn01) and at
+    register_device's (syn07, 8 lanes).  max |kernel - plain| is 0 in
+    every case.
  3. registrations through the port's entry points: prepare_pair(bucket=
     True) -> make_count_dynamic -> register_device, under GoICPConfig() +
     bench_shape, on six pairs of the similar pool and four of the trimmed
@@ -78,28 +88,33 @@ Phases, each of which fails the script (nonzero exit, no result line):
     each equal to phase 3's syn07 in error, R, t, opt_comp, evals, outer,
     inner and geom_surv, and with chem_survivors=8 (capped at twice the
     outer steps; converged or not, an achievable error and a valid gap).
- 4. proof: the launch counters of K1, K2, the ordered sum, rotate, norm3,
-    sincos32 and the ICP kernel, zeroed just before phase 3, are > 0 after
-    it; sq_dist3, det3 and cross3, whose only caller was the plain ICP
-    loop, and dot_fma, whose other caller was norm3, are 0 (so in phases
-    5, 6, 7 and 13; phase 11's row checks launch sq_dist3 through
-    nn_correspondences themselves).
+ 4. proof: the launch counters of the inner step kernel, K2 (the root
+    corners, the compat count), the ordered sum, rotate, norm3, sincos32
+    and the ICP kernel, zeroed just before phase 3, are > 0 after it, and
+    the torch inner body ran no iteration on the card (so in phases 5-9,
+    12 and 13: every inner iteration was one launch of csrc/inner.cu);
+    sq_dist3, det3 and cross3, whose only caller was the plain ICP loop,
+    and dot_fma, whose other caller was norm3, are 0 (so in phases 5, 6,
+    7 and 13; phase 11's row checks launch sq_dist3 through
+    nn_correspondences themselves).  K1, K3 and K4 launch on their own
+    only in phase 2 and for the configurations the step does not carry.
  5. the fused cross-pair stream: the similar pool syn00-syn15 and the
     trimmed pool trm00-trm07, each prepared into one pool-max bucket
     (every pair's nearest-cell table checked as in phase 2), through
     register_fused_stream(width=2, chunk_steps=512).  Every pair is held
     against the port's register_device on the same prepared pair and,
-    where there is one, against its fp32 reference row.  K3, K4, the
-    ordered sum, rotate, norm3, sincos32 and the ICP kernel must have
-    launched.  Then the trimmed pool once more with escalate_capacity =
+    where there is one, against its fp32 reference row.  The inner step
+    kernel (no torch body on the card), the ordered sum, rotate, norm3,
+    sincos32 and the ICP kernel must have launched.  Then the trimmed pool
+    once more with escalate_capacity =
     2 * trans_capacity after 1 chunk of 64 global iterations: at least
     one pair escalated, every pair converged, error within MSEThresh*Nd +
     1e-5 of the plain stream's.
  6. the slot-packed stream on the same pools:
     register_packed_stream(width=16, chunk_steps=512) with 16 slots and
-    transitions every 8 iterations; the same checks, and K3, K4, the
-    ordered sum, rotate, norm3, sincos32 and the ICP kernel must have
-    launched again.
+    transitions every 8 iterations; the same checks, and the inner step
+    kernel, the ordered sum, rotate, norm3, sincos32 and the ICP kernel
+    must have launched again.
  7. the user's entry points, from files: a BO1-style data root written
     in a temporary directory (goicp_tpu_torch/bench/bo1_files.py) holding
     syn00, syn01, syn05, syn06, syn13 and syn07 as .mol2 cavities, c-FPFH
@@ -116,16 +131,17 @@ Phases, each of which fails the script (nonzero exit, no result line):
     then again: every pair skipped), with the host and device engines
     over two pairs (then again: both skipped); run-demo on
     a random 1000-point cloud and a rotated, shifted 500-point subset of
-    it, on the demo's 300^3 grid (converged).  K1, K2, K3 and K4 must have
-    launched.
+    it, on the demo's 300^3 grid (converged).  The inner step kernel
+    (no torch body on the card) and every kernel but K1, K3, K4 and the
+    off-path products must have launched.
  8. the bench's own code at a smaller depth: bench/measure.py's similar
     pool of 16 pairs in 4 shape buckets and its trimmed pool of 8, no
     reference data, one timed pass each through the fused stream (width
     2, 512-step chunks), held to measure._check_parity (converged, the
     margin guard, the fp32 reference rows' errors and, on the similar pool,
     their counters); pairs/s and bound evaluations/s printed, and the
-    pairs whose counters differ from their sweep383 rows (TPU runs).  K3
-    and K4 must have launched.
+    pairs whose counters differ from their sweep383 rows (TPU runs).  The
+    inner step kernel must have launched, the torch body not on the card.
  9. the compacting batch engine: phase 3's six similar pairs in one
     pool-max bucket and its four trimmed pairs in another (every nearest-
     cell table checked), each set through register_device_batch_compact
@@ -133,10 +149,11 @@ Phases, each of which fails the script (nonzero exit, no result line):
     register_device (outer, inner, evals, icp_runs, opt_comp; error to
     1e-5) and to its fp32 row.  The similar batch is stopped after one
     chunk (max_chunks=1, a checkpoint in a temporary directory) and
-    resumed: every pair equal to the uninterrupted run.  K3 and K4 launch
-    once per batched inner iteration: fewer times than the rows' inner
-    iterations together.  Chunks, the widths the batch compacted through,
-    and the launches are printed; K2, K3 and K4 must have launched.
+    resumed: every pair equal to the uninterrupted run.  The inner step
+    kernel launches once per batched inner iteration: fewer times than
+    the rows' inner iterations together.  Chunks, the widths the batch
+    compacted through, and the launches are printed; K2 and the inner
+    step must have launched, the torch body not on the card.
 10. the multi-GPU engines (goicp_tpu_torch/dist, torch.distributed) on
     this one card, each part's ranks started by dist/spawn.run_ranks (the
     kernels the parent built, loaded): one rank over NCCL (a 1 x 1 mesh):
@@ -152,8 +169,8 @@ Phases, each of which fails the script (nonzero exit, no result line):
     equal to phase 3 in every field above, register_device_sharded at
     rebalance_every 1 and 4 and the straggler handoff of syn07's fused row
     after 90 global iterations each within MSEThresh*Nd of phase 3 with
-    the gap within it, and dryrun_multichip(n).  K1, K2, K3 and K4 must
-    have launched (every rank's counts summed).  Walls are of ranks
+    the gap within it, and dryrun_multichip(n).  The inner step kernel and
+    K2 must have launched (every rank's counts summed).  Walls are of ranks
     sharing one card, not a scaling measurement.
 11. the fork's error options (goicp_tpu_torch/bench/options.py: l1 =
     norm 1; fpfh = cfpfh 1 with regularizationFPFH 0.001 and seeded
@@ -166,14 +183,16 @@ Phases, each of which fails the script (nonzero exit, no result line):
     option's first pair (unpadded), equal to the JAX host engine's result
     in the pair's row: counters exact, error and terms within 1e-4.  Over
     each option's similar pairs in one bucket: the fused stream (width 2)
-    and the compacting batch (l1 on the K3/K4 path, fpfh and nbr row by
+    and the compacting batch (l1 on the step kernel, fpfh and nbr row by
     row), every pair equal to register_device; the packed stream refuses
     fpfh and nbr; the stream's ms per global iteration.  Then the CLI's
     run-pair on a BO1-style root with seeded descriptor files under one
     config of norm=1, cfpfh=1, regularizationFPFH and
     regularizationNeighbors: a non-zero FPFH term, equal to
-    register_device on the same prepared pair.  K1, K2, K3 and K4 must
-    have launched.  After the phase's launches are read: the fused
+    register_device on the same prepared pair.  Every kernel but K3, K4
+    and the off-path products must have launched (K1 by the c-FPFH and
+    neighbour options' torch body).  After the phase's launches are read:
+    the fused
     stream's inner step alone (ms and kernel launches of every kernel,
     torch.profiler) on each path.
 
@@ -186,8 +205,8 @@ Phases, each of which fails the script (nonzero exit, no result line):
     and `--trimmed --n 8` runs uninterrupted.  Every row equals phase 5's
     fused stream on the same pair (error within 1e-5; similar: outer,
     evals, icp_runs and compat exact; trimmed: evals within 5 %) and its
-    fp32 row; no checkpoint file is left.  K2, K3 and K4 must have
-    launched in the phase.
+    fp32 row; no checkpoint file is left.  K2 and the inner step kernel
+    must have launched in the phase, the torch body not on the card.
 13. one answer on both devices: every bench pair (syn00-syn63,
     trm00-trm31) prepared on the card and on the CPU in this process,
     the two prepared pairs equal bit for bit, then on each device
@@ -197,10 +216,11 @@ Phases, each of which fails the script (nonzero exit, no result line):
     results equal the CPU's bit for bit.  Then syn72's register_device on
     the card, equal in every counter and every float32 bit to the row
     the port wrote on the CPU (goicp_tpu_torch/bench/cpu_rows.jsonl,
-    `python -m goicp_tpu_torch.bench.cpu_rows --write`); K1, K2, the
-    ordered sum, rotate, norm3, sincos32 and the ICP kernel must have
-    launched.  Last, the kernel launches of one global iteration's inner
-    step and of one ICP iteration
+    `python -m goicp_tpu_torch.bench.cpu_rows --write`); the inner step
+    kernel (no torch body on the card), K2, the ordered sum, rotate,
+    norm3, sincos32 and the ICP kernel must have launched.  Last, the
+    kernel launches of one global iteration's inner step, of one
+    register_device inner iteration and of one ICP iteration
     (goicp_tpu_torch/bench/launch_counts.py) beside those of the
     trees before the fixed order (commit 1025156) and before the ICP
     kernel (ce5be19), those of one outer transition and of one rescoring,
@@ -262,6 +282,12 @@ FUSED_ORDER = {"rotate": "goicp_tpu_torch/csrc/ordered_sum.cu",
 PATH_KERNELS = ("ordered_sum", "icp_run", *FUSED_ORDER)
 OFF_PATH = ("sq_dist3", "det3", "cross3", "dot_fma")
 CHECK_ONLY = ("kabsch3",)   # the ICP kernel's Kabsch alone: phase 2 only
+# K1, K3 and K4, whose bodies run inside the inner step kernel
+# (csrc/inner.cu) on the main path: their own launches are phase 2's and
+# those of the configurations the step does not carry (phase 3's two-phase
+# chem, phase 11's c-FPFH and neighbour terms)
+IN_STEP = ("geometric_bounds_kernel", "geometric_bounds_kernel_lanes",
+           "chem_incomp_kernel_lanes")
 # phase 2's ICP event whose workspace lies in device memory
 BIG_ICP_POINTS, BIG_ICP_ITERS = 4200, 8
 
@@ -371,6 +397,17 @@ def _off_path(counts, where):
     _require(all(counts[k] == 0 for k in OFF_PATH),
              f"{', '.join(OFF_PATH)} launched 0 times in {where}: "
              f"{ {k: counts[k] for k in OFF_PATH} }")
+
+
+def _step_path(counts, where):
+    """The inner step kernel launched, and the torch body ran no inner
+    iteration on the card since the counts were zeroed: every inner
+    iteration of `where` was one launch of csrc/inner.cu."""
+    from goicp_tpu_torch.search import inner
+    body = inner.body_on_card["iterations"]
+    _require(counts["inner_step"] > 0 and body == 0,
+             f"inner_step launched ({counts['inner_step']}) and the torch "
+             f"body ran no iteration on the card ({body}) in {where}")
 
 
 def _max_err(got, want):
@@ -532,9 +569,9 @@ def _sweep_phase(stream_outs, dev):
     counts = cuda_eval.launch_counts()
     print(f"phase 12 wall {time.perf_counter() - t_phase:.3f} s; launches "
           f"during phase 12: {json.dumps(counts)}", flush=True)
-    for kname in ("chem_incomp_kernel", "geometric_bounds_kernel_lanes",
-                  "chem_incomp_kernel_lanes"):
-        _require(counts[kname] > 0, f"{kname} launched in phase 12")
+    _require(counts["chem_incomp_kernel"] > 0,
+             "chem_incomp_kernel launched in phase 12")
+    _step_path(counts, "phase 12")
     return counts
 
 
@@ -790,8 +827,10 @@ def _entry_points(cfg, pools, ref, phase3, dev):
     print(f"phase 7 wall {time.perf_counter() - t_phase:.3f} s; launches "
           f"during phase 7: {json.dumps(counts)}", flush=True)
     for kname in counts:
-        _require(counts[kname] > 0 or kname in OFF_PATH + CHECK_ONLY,
+        _require(counts[kname] > 0
+                 or kname in OFF_PATH + CHECK_ONLY + IN_STEP,
                  f"{kname} launched in phase 7")
+    _step_path(counts, "phase 7")
     _off_path(counts, "phase 7")
     return counts
 
@@ -920,16 +959,14 @@ def _batch_phase(cfg, cfg_t, pools, ref, phase3, dev):
                          <= TRIM_EVALS_REL * row["evals"],
                          f"batch {name}: evals {got['evals']} vs reference "
                          f"row {row['evals']}")
-        # one K3 and one K4 launch per BATCHED inner iteration: fewer than
+        # one inner step launch per BATCHED inner iteration: fewer than
         # the rows' own inner iterations together, no fewer than the most
         # of one row
         inner = [int(x) for x in out.inner_iters]
-        k3 = launched["geometric_bounds_kernel_lanes"]
-        _require(k3 == launched["chem_incomp_kernel_lanes"]
-                 and max(inner) <= k3 < sum(inner),
-                 f"batch {label}: K3 {k3} / K4 "
-                 f"{launched['chem_incomp_kernel_lanes']} launches for the "
-                 f"rows' inner iterations {inner}")
+        k3 = launched["inner_step"]
+        _require(max(inner) <= k3 < sum(inner),
+                 f"batch {label}: inner_step {k3} launches for the rows' "
+                 f"inner iterations {inner}")
         print(f"phase 9 compacting batch, {label}: {len(pairs)} pairs padded "
               f"to 8 (Nd={pairs[0].n_data_padded}, C="
               f"{pairs[0].grid.cell_coords.shape[0]}): wall {wall:.3f} s, "
@@ -968,9 +1005,9 @@ def _batch_phase(cfg, cfg_t, pools, ref, phase3, dev):
     counts = cuda_eval.launch_counts()
     print(f"phase 9 wall {time.perf_counter() - t_phase:.3f} s; launches "
           f"during phase 9: {json.dumps(counts)}", flush=True)
-    for kname in ("chem_incomp_kernel", "geometric_bounds_kernel_lanes",
-                  "chem_incomp_kernel_lanes"):
-        _require(counts[kname] > 0, f"{kname} launched in phase 9")
+    _require(counts["chem_incomp_kernel"] > 0,
+             "chem_incomp_kernel launched in phase 9")
+    _step_path(counts, "phase 9")
     return counts, outs
 
 
@@ -1019,9 +1056,7 @@ def _bench_phase(dev):
     counts = cuda_eval.launch_counts()
     print(f"phase 8 wall {time.perf_counter() - t_phase:.3f} s; launches "
           f"during phase 8: {json.dumps(counts)}", flush=True)
-    for kname in ("geometric_bounds_kernel_lanes",
-                  "chem_incomp_kernel_lanes"):
-        _require(counts[kname] > 0, f"{kname} launched in phase 8")
+    _step_path(counts, "phase 8")
     return counts
 
 
@@ -1174,9 +1209,7 @@ def _multi_gpu_phase(cfg, syn07, phase3, stream5, batch9):
     print(f"phase 10 wall {time.perf_counter() - t_phase:.3f} s (ranks "
           f"sharing one card: no scaling number); launches during phase "
           f"10, every rank's summed: {json.dumps(counts)}", flush=True)
-    for kname in ("geometric_bounds_kernel", "chem_incomp_kernel",
-                  "geometric_bounds_kernel_lanes",
-                  "chem_incomp_kernel_lanes"):
+    for kname in ("inner_step", "chem_incomp_kernel"):
         _require(counts.get(kname, 0) > 0, f"{kname} launched in phase 10")
     return counts
 
@@ -1390,7 +1423,7 @@ def _options_phase(cfg, pools, dev):
             if engine == "fused":
                 g = fused_stream.counters["global_iters"]
                 per_iter[option] = dict(
-                    path="K3/K4" if only_incomp(c) else "row by row",
+                    path="step kernel" if only_incomp(c) else "row by row",
                     global_iters=g, wall_ms=wall / g * 1e3)
                 step_pairs[option] = (pairs[1:3], c)
                 msg += (f"; {g} global iterations, {wall / g * 1e3:.3f} ms "
@@ -1455,7 +1488,8 @@ def _options_phase(cfg, pools, dev):
     # (sq_dist3 launches here too: the rescoring check's
     # nn_correspondences above)
     for kname in counts:
-        _require(counts[kname] > 0 or kname in OFF_PATH + CHECK_ONLY,
+        _require(counts[kname] > 0
+                 or kname in OFF_PATH + CHECK_ONLY + IN_STEP[1:],
                  f"{kname} launched in phase 11")
     # the inner step alone, after the phase's launches were read: its calls
     # time the step and are not the path
@@ -1723,6 +1757,250 @@ def _icp_bound(res, nd, m, mode, tensors):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+# the inner step's modes in phase 2: (label, pair set, cfg changes, fused,
+# rotation uncertainty, K static)
+STEP_MODES = (
+    ("syn07 fused, corner reuse", "syn07", {}, True, True, False),
+    ("syn07 fused, 27 corners", "syn07", dict(chem_reuse=0), True, True,
+     False),
+    ("syn07 fused, no chem term", "syn07", dict(regularization=0.0), True,
+     True, False),
+    ("syn07 fused, sorted_merge", "syn07", dict(sorted_merge=1), True, True,
+     False),
+    ("syn07 fused, norm 1", "syn07", dict(norm=1), True, True, False),
+    ("syn07 plain + unc", "syn07", {}, False, True, False),
+    ("syn07 plain", "syn07", {}, False, False, False),
+    ("trm00 fused, K = counts[1]", "trm00", {}, True, True, False),
+    ("trm00 fused, K static", "trm00", {}, True, True, True),
+    ("trm00 plain + unc, K static", "trm00", {}, False, True, True),
+    ("syn07 fused, P 80, C 5000", "syn07",
+     dict(trans_pop=80, trans_capacity=5000), True, True, False),
+    ("syn00 + syn01 lanes interleaved", ("syn00", "syn01"), {}, True, True,
+     False),
+    ("trm00 + trm01 lanes interleaved", ("trm00", "trm01"), {}, True, True,
+     False),
+)
+STEP_WARM = 3          # plain steps before the compared ones
+STEP_INC = 1e4         # the lanes' first incumbent: above every ub
+STEP_COMPARED = 3      # kernel vs plain, each on the state both reached
+
+
+def _step_inputs(names, c, pools, dev, rng, static=False):
+    """(pair or LaneTables, L lanes' points, rotation widths, active mask,
+    groups): one prepared pair (8 lanes, register_device's shape; static:
+    prepared without count-dynamic, so its K is the inlier count) or two
+    pairs in one bucket with 16 lanes interleaved between them (the
+    streams' shape, two window rows)."""
+    import numpy as np
+    import torch
+    from goicp_tpu_torch.bench.measure import (_bucket_and_prepare,
+                                               _normalized_synthetic)
+    from goicp_tpu_torch.bounds.evaluate import lane_tables
+    from goicp_tpu_torch.dist.mesh import stack_pairs
+    from goicp_tpu_torch.geom.rotation import rodrigues_np
+    from goicp_tpu_torch.pipeline.prepare import prepare_pair
+    if isinstance(names, str):
+        pair = prepare_pair(*_normalized_synthetic(pools[names]), c,
+                            bucket=True, device=dev) if static \
+            else _prepared(names, c, pools, dev)
+        pairs, lane_pair, L = [pair], [0] * 8, 8
+    else:
+        pairs = _bucket_and_prepare([_normalized_synthetic(pools[n])
+                                     for n in names], c, device=dev)
+        lane_pair = [0, 1, 1, 0, 1, 0, 0, 1, 1, 0, 0, 1, 0, 1, 1, 0]
+        L = 16
+    rots = np.stack([rodrigues_np(v) for v in rng.uniform(-2.5, 2.5,
+                                                          (L, 3))])
+    pts = torch.stack([
+        torch.as_tensor(rots[l], dtype=torch.float32, device=dev)
+        @ pairs[w].data.T for l, w in enumerate(lane_pair)]).transpose(1, 2)
+    pts = torch.as_tensor(np.asarray(pts.cpu()), device=dev).contiguous()
+    widths = torch.as_tensor(rng.uniform(0.05, 0.6, L), dtype=torch.float32,
+                             device=dev)
+    active = torch.as_tensor(rng.uniform(size=L) < 0.8, device=dev)
+    active[0] = True
+    if len(pairs) == 1:
+        return pairs[0], pairs, lane_pair, pts, widths, active
+    tables = lane_tables(stack_pairs(pairs), c, torch.as_tensor(
+        lane_pair, dtype=torch.int32, device=dev))
+    return tables, pairs, lane_pair, pts, widths, active
+
+
+def _step_root(pairs, lane_pair, c, pts, active, inc):
+    """inner_bnb's initial lanes (inner.initial_lanes) with the incumbent
+    `inc`, each lane's root corner payload from its own pair."""
+    import torch
+    from goicp_tpu_torch.search import inner
+    s = inner.initial_lanes(pairs[0], c, pts, active,
+                            torch.tensor(inc, device=pts.device))
+    for w, pair in enumerate(pairs[1:], 1):
+        sel = torch.tensor([l for l, p in enumerate(lane_pair) if p == w],
+                           device=pts.device)
+        if "cvals" in s:
+            s["cvals"][sel, 0] = inner.root_corner_values(pair, c, pts[sel])
+    return s
+
+
+def _step_same(got, want):
+    """Every field of two step results equal: float32 bit for bit, NaN to
+    NaN; -> the fields that differ."""
+    import torch
+    bad = []
+    for part in (0, 1):
+        for k, w in want[part].items():
+            g = got[part][k]
+            if g.dtype == torch.float32:
+                ok = g.shape == w.shape and bool(torch.all(
+                    (g.view(torch.int32) == w.view(torch.int32))
+                    | (torch.isnan(g) & torch.isnan(w))))
+            else:
+                ok = torch.equal(g.to(w.dtype), w)
+            if not ok:
+                bad.append(f"{k}: {_first_diff(g.cpu(), w.cpu())}")
+    for f in ("evals", "geom_surv", "n_active"):
+        if not torch.equal(getattr(got[2], f), getattr(want[2], f).to(
+                getattr(got[2], f).dtype)):
+            bad.append(f)
+    if got[2].corners_per_lane != want[2].corners_per_lane:
+        bad.append("corners_per_lane")
+    return bad
+
+
+def _step_checks(k, cfg, cfg_t, pools, dev, floor):
+    """Phase 2's check of the inner step kernel (csrc/inner.cu,
+    search/inner.py::inner_step): one whole inner-BnB iteration for a lane
+    batch, held to inner_step_plain (the torch body; on the card its bounds
+    are K1-K4's launches) on the same card tensors, every output field,
+    counter and the active-lane count bit for bit, in each mode of
+    STEP_MODES: from the root state (about a fifth of the lanes done from
+    the start), STEP_WARM plain steps, then STEP_COMPARED steps compared,
+    the two-pair cases as two window rows of 8 lanes with per-row
+    counters, the second row not live in the last step.  Then built NaN
+    and INF lbs (a frontier entry NaN, another INF, a popped parent's lb
+    NaN, a stored corner NaN, so that a child's ub and lb are NaN and a
+    lane adopts a NaN) through both merge orders.  Timed at the streams'
+    shape (syn00 + syn01, 16 lanes) and at register_device's (syn07, 8
+    lanes); the kernels line takes the former.  The bound: K3's and K4's
+    operations on the children and corners this step evaluates (its
+    evals and corners), over the fp32 peak, against the state, points
+    and tables read once and the state written once."""
+    import numpy as np
+    import torch
+    from goicp_tpu_torch.bounds.evaluate import LaneTables, rot_uncertainty
+    from goicp_tpu_torch.search import inner
+    rng = np.random.default_rng(2027)
+    timed = {}
+    for label, names, over, fused, unc, static in STEP_MODES:
+        c = dataclasses.replace(cfg_t if "trm" in label else cfg, **over)
+        pair, pairs, lane_pair, pts, widths, active = _step_inputs(
+            names, c, pools, dev, rng, static)
+        mrd = torch.cat([
+            rot_uncertainty(widths[l:l + 1], pairs[w].norm_data)
+            for l, w in enumerate(lane_pair)]) if (fused or unc) else None
+        s = _step_root(pairs, lane_pair, c, pts, active, STEP_INC)
+        groups = len(pairs)
+        cnt = {key: torch.zeros((groups,), dtype=torch.int32, device=dev)
+               for key in inner._COUNTERS}
+        for _ in range(STEP_WARM):
+            s, cnt, _ = inner.inner_step_plain(pair, c, s, pts, mrd, fused,
+                                               groups=groups, counters=cnt)
+        for i in range(STEP_COMPARED):
+            live = None
+            if groups == 2 and i == STEP_COMPARED - 1:
+                live = torch.tensor([True, False], device=dev)
+            args = (pair, c, s, pts, mrd, fused)
+            kw = dict(live=live, groups=groups, counters=cnt)
+            got = inner.inner_step(*args, **kw)
+            want = inner.inner_step_plain(*args, **kw)
+            torch.cuda.synchronize()
+            bad = _step_same(got, want)
+            _require(not bad, f"inner_step == plain bit for bit ({label}, "
+                     f"step {i}): {bad}")
+            s, cnt = got[0], got[1]
+        k["errs"].append(0.0)
+        print(f"inner_step {label}: L={pts.shape[0]} Nd={pts.shape[1]} "
+              f"C={c.trans_capacity} P={c.trans_pop} evals "
+              f"{int(cnt['evals'].sum())} after {STEP_WARM + STEP_COMPARED} "
+              f"steps, {int(got[2].n_active)} lanes active: every field, "
+              f"counter and the active count bit for bit", flush=True)
+        if label.startswith(("syn00", "syn07 fused, corner")):
+            timed[label] = (pair, c, s, pts, mrd, fused, groups, cnt)
+
+    # built NaN / INF lbs, through both merge orders
+    for merge in (0, 1):
+        c = dataclasses.replace(cfg, sorted_merge=merge)
+        pair, pairs, lane_pair, pts, widths, _ = _step_inputs(
+            "syn07", c, pools, dev, rng)
+        active = torch.ones(8, dtype=torch.bool, device=dev)
+        mrd = rot_uncertainty(widths, pair.norm_data)
+        s = _step_root(pairs, lane_pair, c, pts, active, STEP_INC)
+        for _ in range(2):
+            s, _, _ = inner.inner_step_plain(pair, c, s, pts, mrd, True)
+        lbs, cv = s["lbs"].clone(), s["cvals"].clone()
+        fin = torch.isfinite(lbs).sum(dim=1).tolist()
+        _require(min(fin) > c.trans_pop + 2, "NaN case: frontiers filled")
+        lbs[0, fin[0] - 1] = float("nan")
+        lbs[0, fin[0] - 2] = float("inf")
+        lbs[1, fin[1] - 1] = float("inf")
+        lbs[1, fin[1]] = float("nan")
+        lbs[3, 1] = float("nan")
+        cv[4, 0, 3] = float("nan")
+        s = dict(s, lbs=lbs, cvals=cv)
+        got = inner.inner_step(pair, c, s, pts, mrd, True)
+        want = inner.inner_step_plain(pair, c, s, pts, mrd, True)
+        torch.cuda.synchronize()
+        bad = _step_same(got, want)
+        _require(not bad and bool(torch.isnan(got[0]["opt_err"][4])),
+                 f"inner_step == plain with NaN/INF lbs (sorted_merge="
+                 f"{merge}): {bad}")
+        k["errs"].append(0.0)
+        print(f"inner_step NaN/INF lbs, sorted_merge={merge}: every field "
+              f"bit for bit (lane 4 adopted a NaN child)", flush=True)
+
+    for label, (pair, c, s, pts, mrd, fused, groups, cnt) in timed.items():
+        # the kernel as the loops call it: its outputs from a run's buffers
+        def kern(a=(pair, c, s, pts, mrd, fused), kw=dict(
+                groups=groups, counters=cnt, bufs=inner.StepBuffers())):
+            return inner.inner_step(*a, **kw)
+
+        def plain(a=(pair, c, s, pts, mrd, fused), kw=dict(
+                groups=groups, counters=cnt)):
+            return inner.inner_step_plain(*a, **kw)
+        out = kern()
+        ms, pms, dms = (_median_ms(kern), _median_ms(plain),
+                        _device_ms(kern))
+        if isinstance(pair, LaneTables):
+            real = (pair.data_mask > 0).sum(dim=1)[pair.lane_pair.long()]
+            tabs = [pair.weights, pair.cell_coords, pair.nearest_cell,
+                    pair.consts, pair.cell_compat, pair.prop_onehot,
+                    pair.data_mask]
+        else:
+            real = torch.full((pts.shape[0],), _real_points(pair),
+                              device=dev)
+            tabs = [pair.weights, pair.grid.cell_coords,
+                    pair.grid.nearest_cell, pair.grid.consts,
+                    pair.cell_compat, pair.prop_onehot, pair.data_mask]
+        # per lane: its evaluated children and (not done) its corners, over
+        # its pair's real points
+        ops = int(torch.sum(real * (
+            out[2].evals * GEOM_OPS[(c.norm, fused)]
+            + (~out[0]["done"]).to(torch.int32) * out[2].corners_per_lane
+            * CHEM_OPS)))
+        state = [s[f] for f in s] + [pts, mrd]
+        t_ops = ops / PEAK_OPS
+        t_bytes = (_nbytes(*state, *tabs) + _nbytes(*out[0].values())) \
+            / PEAK_BYTES
+        bms, bby = max(t_ops, t_bytes) * 1e3, \
+            "operations" if t_ops >= t_bytes else "bytes"
+        if label.startswith("syn00"):
+            k.update(ms=ms, plain_ms=pms, graph_ms=dms, bound_ms=bms,
+                     bound_by=bby)
+        print(f"inner_step timed, {label}: L={pts.shape[0]} kernel "
+              f"{ms:.4f} ms (from a graph {dms:.4f} ms) plain {pms:.4f} ms "
+              f"bound {bms:.6f} ms ({bby}; {ops} operations) {floor}",
+              flush=True)
+
+
 def _icp_checks(kernels, cfg, cfg_t, pools, dev, floor):
     """Phase 2's check of csrc/icp.cu: icp_run (one launch an ICP event)
     against icp_run_plain (the host loop of torch ops, its sums and
@@ -1949,9 +2227,9 @@ def _one_answer_phase(dev):
     _require(got == want_row,
              f"phase 13 syn72 on the card == the port's CPU row in every "
              f"counter and bit: {got} vs {want}")
-    for kname in ("geometric_bounds_kernel", "chem_incomp_kernel",
-                  *PATH_KERNELS):
+    for kname in ("chem_incomp_kernel", *PATH_KERNELS):
         _require(counts[kname] > 0, f"{kname} launched in phase 13")
+    _step_path(counts, "phase 13")
     _off_path(counts, "phase 13")
 
     # launches of the host-dispatched loops, after the path's counts
@@ -1963,6 +2241,16 @@ def _one_answer_phase(dev):
               f"before the fixed order: "
               f"{BEFORE_FIXED_ORDER_LAUNCHES[loop]}, before the ICP kernel: "
               f"{BEFORE_ICP_KERNEL_LAUNCHES[loop]}", flush=True)
+    one = launch_counts.one_pair_iteration()
+    print(f"phase 13 launches per register_device inner iteration: "
+          f"{one['launches']:.1f}, {one['host_reads']:.1f} host reads "
+          f"({one['ms']:.3f} ms on the host clock)", flush=True)
+    _require(loops["global_iteration"]["launches"] <= 8
+             and one["launches"] <= 8 and one["host_reads"] == 1,
+             f"a global iteration's inner step and a register_device inner "
+             f"iteration are at most 8 launches (131 before the inner step "
+             f"kernel), the latter with one host read: "
+             f"{loops['global_iteration']}, {one}")
     for name, fn in (("outer transition", launch_counts.transition),
                      ("rescoring", launch_counts.rescoring)):
         v = fn()
@@ -2066,6 +2354,11 @@ def main() -> int:
         **{name: dict(source="goicp_tpu_torch/csrc/icp.cu", replaces=None,
                       errs=[])
            for name in ("icp_run", "kabsch3")},
+        # the whole inner-BnB iteration XLA runs around K3/K4 (the JAX
+        # package's body), K1-K4's bodies inside it
+        "inner_step": dict(source="goicp_tpu_torch/csrc/inner.cu",
+                           replaces="goicp_tpu/search/inner.py:281",
+                           errs=[]),
     }
     L, B = 8, cfg.trans_pop * 8
     k1 = kernels["geometric_bounds_kernel"]
@@ -2399,6 +2692,7 @@ def main() -> int:
     _fused_checks(kernels, cfg, pools, dev, floor)
     _product_checks(kernels, cfg, pools, dev, floor)
     _icp_checks(kernels, cfg, cfg_t, pools, dev, floor)
+    _step_checks(kernels["inner_step"], cfg, cfg_t, pools, dev, floor)
 
     if sys.argv[1:] == ["--kernels-only"]:
         print("kernels only: phases 3-13 not run, no result", flush=True)
@@ -2457,9 +2751,9 @@ def main() -> int:
     # ---- 4. proof the main path ran the kernels ----
     print(f"launches during the registrations: {json.dumps(counts)}",
           flush=True)
-    for kname in ("geometric_bounds_kernel", "chem_incomp_kernel",
-                  *PATH_KERNELS):
+    for kname in ("chem_incomp_kernel", *PATH_KERNELS):
         _require(counts[kname] > 0, f"{kname} launched on the main path")
+    _step_path(counts, "phase 3")
     _off_path(counts, "phase 3")
     counts3k = _knob_phase(cfg, *syn07)
 
@@ -2559,10 +2853,10 @@ def main() -> int:
         phase_counts = cuda_eval.launch_counts()
         print(f"launches during phase {phase}: {json.dumps(phase_counts)}",
               flush=True)
-        for kname in ("geometric_bounds_kernel_lanes",
-                      "chem_incomp_kernel_lanes", *PATH_KERNELS):
+        for kname in PATH_KERNELS:
             _require(phase_counts[kname] > 0,
                      f"{kname} launched by the {engine} stream")
+        _step_path(phase_counts, f"phase {phase} ({engine} stream)")
         _off_path(phase_counts, f"phase {phase}")
         return phase_counts
 
@@ -2630,7 +2924,10 @@ def main() -> int:
          "bound_by": k["bound_by"], "library_ms": k.get("library_ms"),
          "launch_floor_ms": floor_ms, "graph_ms": k["graph_ms"],
          "graph_launch_floor_ms": floor_dev,
-         **({"norm1": k["norm1"]} if "norm1" in k else {})}
+         **({"norm1": k["norm1"]} if "norm1" in k else {}),
+         # K1-K4's bodies also run inside every inner step launch
+         **({"body_runs_in": "inner_step"} if kname in IN_STEP
+            or kname == "chem_incomp_kernel" else {})}
         for kname, k in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -75,6 +75,13 @@ _SIGNATURES = {
     "goicp_icp_run": [_P] * 13 + [_I] * 6 + [ctypes.c_float, _P],
     # H, R, batch, stream
     "goicp_kabsch3": [_P, _P, _L, _P],
+    # pts, rot_unc, weights, cells, nearest_cell, consts, trim_count,
+    # cell_compat, prop_onehot, data_mask, lane_pair, sse; nodes, lbs,
+    # cvals, opt_err, thr, best_node, ub_terms, min_dropped, done, live;
+    # it, evals, geom_surv, chem_corners in; the 8 float outputs, done,
+    # stats, scratch; L, cap, pop, group, Nd, n_cells, size, norm, fused,
+    # trim_k, reuse, sorted_merge; reg; stream
+    "goicp_inner_step": [_P] * 37 + [_I] * 12 + [ctypes.c_float, _P],
     # stream
     "goicp_empty_launch": [_P],
 }

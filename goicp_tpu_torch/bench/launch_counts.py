@@ -4,8 +4,15 @@ launch API events; host reads from torch's `_local_scalar_dense`, which
 every `.item()` and `bool()` of a card tensor goes through):
 
   * one global iteration of the fused stream: the inner step of a window
-    of two live rows on the K3/K4 path (syn03 and syn12, whose searches
-    are still live 3 global iterations in);
+    of two live rows (syn03 and syn12, whose searches are still live 3
+    global iterations in; one launch of csrc/inner.cu on a tree that has
+    it, K3, K4 and ~130 torch ops around them before);
+  * one register_device inner iteration: inner_bnb's loop body on syn07's
+    first outer step (its 8 lanes 3 iterations in), the step and the host
+    read of its active-lane count (trees that have search/inner.py's
+    inner_step); on a tree whose inner_step can write into a run's two
+    output sets in turn (inner.StepBuffers), that iteration too (ms_bufs),
+    timed in turns with the one that allocates its outputs (ms);
   * one ICP event: icp_run from four seeds on a bench pair (the outer
     step's icp_seeds) as the engine calls it, at the configuration's
     max_iter and err_diff: its launches, host reads, host-clock ms,
@@ -109,6 +116,45 @@ def global_iteration(device="cuda", n=10) -> dict:
     return dict(launches=_launches(step, n), ms=_host_ms(step, 5 * n))
 
 
+def one_pair_iteration(device="cuda", n=10) -> dict:
+    """Launches, host reads and ms of one inner iteration of
+    register_device: inner_bnb's loop body (the step with its counters,
+    then the read of the active lanes) on syn07's first outer step; with
+    inner.StepBuffers (a tree that has it), ms and ms_bufs each the mean
+    of two runs of 20 n iterations in the order ms, ms_bufs, ms_bufs, ms."""
+    from goicp_tpu_torch.bounds.evaluate import rot_uncertainty
+    from goicp_tpu_torch.search import device_engine as eng
+    from goicp_tpu_torch.search import inner
+    cfg, (pair,) = _bench_pairs((PAIR_ICP,), device, bucket_together=False)
+    p = eng._pop(pair, cfg, eng.device_init(pair, cfg))
+    lanes = inner.initial_lanes(pair, cfg, p["pts"], p["active"],
+                                eng.device_init(pair, cfg)["opt_err"])
+    mrd = rot_uncertainty(p["widths"], pair.norm_data)
+    cnt = {k: torch.zeros((1,), dtype=torch.int32, device=device)
+           for k in ("evals", "geom_surv")}
+    for _ in range(3):
+        lanes, cnt, _ = inner.inner_step(pair, cfg, lanes, p["pts"], mrd,
+                                         True, counters=cnt)
+
+    def iteration(**kw):
+        _, _, stats = inner.inner_step(pair, cfg, lanes, p["pts"], mrd, True,
+                                       counters=cnt, **kw)
+        return int(stats.n_active)
+    launches, reads = _profile(iteration, n)
+    out = dict(launches=launches, host_reads=reads)
+    if hasattr(inner, "StepBuffers"):
+        bufs = inner.StepBuffers()
+
+        def with_bufs():
+            return iteration(bufs=bufs)
+        t = [_host_ms(f, 20 * n)
+             for f in (iteration, with_bufs, with_bufs, iteration)]
+        out.update(ms=(t[0] + t[3]) / 2, ms_bufs=(t[1] + t[2]) / 2)
+    else:
+        out["ms"] = _host_ms(iteration, 20 * n)
+    return out
+
+
 def _icp_event_fn(device):
     """(cfg, event): event(max_iter, err_diff) is a thunk running icp_run
     from ICP_SEEDS seeds near the identity on PAIR_ICP's padded bucket."""
@@ -184,6 +230,11 @@ def rescoring(device="cuda", n=10) -> dict:
     return dict(launches=_launches(score, n), ms=_host_ms(score, 5 * n))
 
 
+def _has_inner_step() -> bool:
+    from goicp_tpu_torch.search import inner
+    return hasattr(inner, "inner_step")
+
+
 def card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -200,6 +251,8 @@ def main(argv=None) -> int:
     import goicp_tpu_torch
     out = dict(package=goicp_tpu_torch.__file__, card=card(),
                global_iteration=global_iteration(),
+               one_pair_iteration=one_pair_iteration()
+               if _has_inner_step() else None,
                icp_iteration=icp_iteration(), icp_event=icp_event(),
                transition=transition(), rescoring=rescoring())
     print(json.dumps(out), flush=True)

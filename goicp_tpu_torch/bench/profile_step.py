@@ -11,10 +11,11 @@ every global iteration; the transition events; inside them the ICP refine
 block), which gives each phase's calls, seconds and ms per call.  Then, on
 a mid-search window state, the mean over 200 calls (one synchronize at
 the end) and the launches per call (torch.profiler over 20
-calls) of: the stream's inner step, the inner-BnB body alone on the
-window's W*L lanes (per-lane tables, K3/K4), and the same body on one
-pair's L lanes (K1/K2), each also with the one host read its loop pays per
-iteration.  register_device's wall on each pair stands beside the stream's.
+calls) of: the stream's inner step (one launch of csrc/inner.cu), the
+torch inner body alone (inner_step_plain's, off the main path on the card)
+on the window's W*L lanes (per-lane tables, K3/K4), and the same body on
+one pair's L lanes (K1/K2), each also with the one host read its loop
+pays per iteration.  register_device's wall on each pair stands beside the stream's.
 Prints one JSON object.  Needs a CUDA card.
 """
 

@@ -442,20 +442,32 @@ def chem_incomp_kernel_lanes(pts_rot, corners, cell_compat, prop_onehot,
 chem_incomp_kernel_lanes.launches = 0
 
 # the four bound kernels, the fixed-order kernels of utils/fp32.py and the
-# ICP's (icp/icp.py), whose launch counts every run reads together
+# ICP's (icp/icp.py), whose launch counts every run reads together with
+# the inner step's
 _KERNELS = (geometric_bounds_kernel, chem_incomp_kernel,
             geometric_bounds_kernel_lanes, chem_incomp_kernel_lanes,
             ordered_sum, rotate, norm3, sincos32, sq_dist3, det3, cross3,
             dot_fma, icp_run, kabsch3)
 
 
+def _all_kernels() -> tuple:
+    """_KERNELS and the inner step's (search/inner.py, which imports this
+    module)."""
+    from goicp_tpu_torch.search.inner import inner_step
+    return _KERNELS + (inner_step,)
+
+
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in _KERNELS}
+    return {k.__name__: k.launches for k in _all_kernels()}
 
 
 def reset_launch_counts():
-    for k in _KERNELS:
+    """Zero every kernel's launch count and the torch body's iterations on
+    the card (search/inner.py::body_on_card)."""
+    from goicp_tpu_torch.search.inner import body_on_card
+    for k in _all_kernels():
         k.launches = 0
+    body_on_card["iterations"] = 0
 
 
 def empty_launch(device) -> None:

@@ -68,8 +68,9 @@ class LaneTables(NamedTuple):
     prop_onehot: torch.Tensor   # (W, Nd, 9)
     data_mask: torch.Tensor     # (W, Nd)
     sse: torch.Tensor           # (W,) the search epsilon of each pair
-    lane_pair: torch.Tensor | None    # (L,) i32
+    lane_pair: torch.Tensor | None    # (L,) i32; None: every lane pair 0
     size: int
+    trim_k: int = 0             # static K (one pair of static counts)
 
 
 def only_incomp(cfg: GoICPConfig) -> bool:
@@ -94,6 +95,31 @@ def lane_tables(pair_batch: PairData, cfg: GoICPConfig,
         cell_compat=p.cell_compat, prop_onehot=p.prop_onehot,
         data_mask=p.data_mask, sse=sse, lane_pair=lane_pair,
         size=p.grid.geom.size)
+
+
+def one_pair_tables(pair: PairData, cfg: GoICPConfig) -> LaneTables:
+    """The LaneTables of ONE pair (W = 1, lane_pair None: every lane reads
+    pair 0) in the pair's trim mode, for the inner step kernel of the
+    one-pair engines.  Built once per pair, epsilon and trim switch, and
+    kept on the pair: its views and the (1,) epsilon cost no launch after
+    the first outer step."""
+    key = (cfg.mse_margin, bool(cfg.doTrim))
+    cache = pair.__dict__.setdefault("_one_pair_tables", {})
+    if key not in cache:
+        trim = _trim_mode(pair, cfg)
+        g = pair.grid
+        sse = torch.tensor(cfg.mse_margin, dtype=torch.float32,
+                           device=pair.device) * pair.inlier_f()
+        cache[key] = LaneTables(
+            weights=pair.weights[None], cell_coords=g.cell_coords[None],
+            nearest_cell=g.nearest_cell[None], consts=g.consts[None],
+            trim_count=pair.counts[1:2] if trim == "dynamic" else None,
+            cell_compat=pair.cell_compat[None],
+            prop_onehot=pair.prop_onehot[None],
+            data_mask=pair.data_mask[None], sse=sse.reshape(1),
+            lane_pair=None, size=g.geom.size,
+            trim_k=pair.inlier_num if trim == "static" else 0)
+    return cache[key]
 
 
 def _trim_mode(pair: PairData, cfg: GoICPConfig) -> str:

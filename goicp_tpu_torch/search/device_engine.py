@@ -48,8 +48,8 @@ from goicp_tpu_torch.bounds.error import (Score, bnb_incompatibility_count,
 from goicp_tpu_torch.geom.rotation import rodrigues
 from goicp_tpu_torch.icp.icp import icp_run
 from goicp_tpu_torch.pipeline.prepare import PairData
-from goicp_tpu_torch.search.inner import (_chem_reuse_active, inner_bnb,
-                                          root_corner_values)
+from goicp_tpu_torch.search.inner import (StepBuffers, _chem_reuse_active,
+                                          inner_bnb, root_corner_values)
 from goicp_tpu_torch.utils.fp32 import norm3, rotate
 
 SQRT3 = 3.0 ** 0.5
@@ -480,11 +480,12 @@ def _batch_step(pairs: list, pair_batch: PairData, cfg: GoICPConfig,
         inner.append(ist)
     bs = dict(inner=fs._stack_rows(inner), pts_rot=torch.stack(pts),
               mrd=torch.stack(mrd))
+    bufs = StepBuffers()
     while True:
         live = ~fs._inner_complete(cfg, bs)
         if not bool(torch.any(live)):
             break
-        bs["inner"] = fs._inner_step(pair_batch, cfg, bs, tables, live)
+        bs["inner"] = fs._inner_step(pair_batch, cfg, bs, tables, live, bufs)
 
     done = {r: dict(inner=fs._row(bs["inner"], r), active=p["active"],
                     R_lanes=p["R_lanes"]) for r, (_, p) in stepping.items()}

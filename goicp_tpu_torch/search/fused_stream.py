@@ -11,14 +11,15 @@ over pairs of that pair's OWN (inner iterations + outer transitions).
 The JAX package writes the engine as per-pair functions under jax.vmap
 inside one lax.while_loop.  Here the batch axes are written out:
 
-  * the inner iteration, which runs every step, flattens the window's
-    (W, L) lanes into W*L lanes and runs the ONE inner-BnB body of
-    search/inner.py over them.  Lanes of different pairs read different
-    tables, so the bounds go through the per-lane-table kernels K3 and K4
-    (bounds/cuda_eval.py; their plain versions on the CPU): one launch each
-    per global iteration, whatever W.  Configurations with FPFH or
-    neighbour chem terms, which those kernels do not carry, run the body
-    once per window row instead;
+  * the inner iteration, which runs every step, takes the window's (W, L)
+    lanes as W*L lanes in ONE inner step (search/inner.py::inner_step):
+    lanes of different pairs read their own pair's tables through a
+    LaneTables, and on the card the whole iteration, the rows that are
+    not live kept and their counters advanced, is one launch of
+    csrc/inner.cu whatever W (inner_step_plain, the torch body, on the
+    CPU).  Configurations with FPFH or neighbour chem terms, which the
+    per-lane tables do not carry, run the body once per window row
+    instead;
   * the transition, which is rare, runs per transitioning row on that
     row's slice of the state, with the per-pair functions of
     search/device_engine.py.  Rows that do not transition, and rows that
@@ -69,9 +70,10 @@ from goicp_tpu_torch.search.device_engine import (DeviceResult,
                                                   _icp_best_of_seeds,
                                                   _initial_incumbent,
                                                   result_to_numpy)
-from goicp_tpu_torch.search.inner import (_PER_LANE, IterStats, _chem_active,
+from goicp_tpu_torch.search.inner import (_PER_LANE, _chem_active,
                                           _chem_reuse_active, _chem_terms,
-                                          _make_inner_body,
+                                          StepBuffers, inner_iteration,
+                                          inner_step_plain,
                                           root_corner_values)
 from goicp_tpu_torch.utils.fp32 import norm3, rotate
 from goicp_tpu_torch.utils.npz import savez_exact
@@ -230,49 +232,33 @@ def _init_batch(pair_batch: PairData, cfg: GoICPConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 def _inner_step(pair_batch: PairData, cfg: GoICPConfig, s: dict,
-                tables, live: torch.Tensor) -> dict:
+                tables, live: torch.Tensor, bufs=None) -> dict:
     """One inner-BnB iteration for every row where `live` (W,) holds; the
-    other rows keep their inner state.  tables: the window's LaneTables, or
-    None for configurations K3/K4 do not carry (then row by row)."""
+    other rows keep their inner state.  tables: the window's LaneTables
+    (the rows' W x L lanes in one step: one launch of the inner step
+    kernel on the card), or None for configurations K3/K4 do not carry
+    (then row by row, the torch body).  `s` is not written.  bufs: the
+    loop's inner.StepBuffers, which the kernel's outputs then come from."""
     ist = s["inner"]
     W, L = ist["done"].shape
-    lanes = {k: ist[k].reshape((W * L,) + ist[k].shape[2:])
-             for k in _PER_LANE if k in ist}
+    lanes = {k: ist[k] for k in _PER_LANE if k in ist}
     pts = s["pts_rot"].reshape((W * L,) + s["pts_rot"].shape[2:])
     mrd = s["mrd"].reshape(W * L, -1)
+    counters = {k: ist[k] for k in ("it", "evals", "geom_surv",
+                                    "chem_corners")}
     if tables is not None:
-        sse = tables.sse[tables.lane_pair.long()]
-        new, stats = _make_inner_body(tables, cfg, pts, mrd, sse,
-                                      fused=True)(lanes)
-    else:
-        outs = []
-        for r in range(W):
-            pair = _pair_row(pair_batch, r)
-            sse = torch.tensor(cfg.mse_margin, dtype=_F32,
-                               device=pair.device) * pair.inlier_f()
-            body = _make_inner_body(pair, cfg, s["pts_rot"][r], s["mrd"][r],
-                                    sse, fused=True)
-            outs.append(body({k: ist[k][r] for k in lanes}))
-        new = {k: torch.cat([o[0][k] for o in outs]) for k in lanes}
-        stats = IterStats(
-            evals=torch.cat([o[1].evals for o in outs]),
-            geom_surv=torch.cat([o[1].geom_surv for o in outs]),
-            corners_per_lane=outs[0][1].corners_per_lane)
-
-    def keep(new_v, old_v):
-        m = live.reshape((W,) + (1,) * (old_v.ndim - 1))
-        return torch.where(m, new_v.reshape(old_v.shape), old_v)
-
-    def add(total, inc):
-        return total + torch.where(live, inc, 0).to(total.dtype)
-
-    out = {k: keep(new[k], ist[k]) for k in lanes}
-    out.update(
-        it=add(ist["it"], 1),
-        evals=add(ist["evals"], stats.evals.reshape(W, L).sum(dim=1)),
-        geom_surv=add(ist["geom_surv"],
-                      stats.geom_surv.reshape(W, L).sum(dim=1)),
-        chem_corners=add(ist["chem_corners"], L * stats.corners_per_lane))
+        new, cnt, _ = inner_iteration(tables, cfg, lanes, pts, mrd, True,
+                                      live=live, groups=W,
+                                      counters=counters, bufs=bufs)
+        return dict(new, **cnt)
+    outs = []
+    for r in range(W):
+        outs.append(inner_step_plain(
+            _pair_row(pair_batch, r), cfg, {k: v[r] for k, v in lanes.items()},
+            s["pts_rot"][r], s["mrd"][r], True, live=live[r:r + 1],
+            counters={k: v[r:r + 1] for k, v in counters.items()}))
+    out = {k: torch.stack([o[0][k] for o in outs]) for k in lanes}
+    out.update({k: torch.cat([o[1][k] for o in outs]) for k in counters})
     return out
 
 
@@ -488,6 +474,7 @@ def fused_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
     W, L = s["inner"]["done"].shape
     K = _trans_budget(cfg, W)
     tables = _window_tables(pair_batch, cfg, L)
+    bufs = StepBuffers()
     fin0 = None
     g = 0
     while True:
@@ -510,7 +497,7 @@ def fused_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
         # one inner iteration for every pair still mid-search (the body
         # is harmless on done inner states; `where` keeps them anyway)
         live = ~s["converged"] & ~_inner_complete(cfg, s)
-        s["inner"] = _inner_step(pair_batch, cfg, s, tables, live)
+        s["inner"] = _inner_step(pair_batch, cfg, s, tables, live, bufs)
         g += 1
         counters["global_iters"] += 1
     return s

@@ -20,6 +20,15 @@ already-sorted frontier instead of one sort of both (the same order), and
 cfg.chem_survivors > 0 evaluates the chem corner terms only for the lowest-
 lb geometric survivors (two-phase bounds; the full budget 8 * trans_pop
 gives the lattice path's trajectory).
+
+Every engine runs its iterations through inner_step: on the card ONE
+launch of csrc/inner.cu (goicp_inner_step) per iteration, on the CPU
+inner_step_plain, the torch body (_make_inner_body) at the same interface,
+which is also the kernel's yardstick.  kernel_carries says which
+configurations the kernel computes: no chem term or the incompatibility
+count alone on the lattice path (chem_survivors 0), at any pop and
+capacity whose arrays fit a block; the others (two-phase chem, c-FPFH,
+neighbour terms) run inner_step_plain on both devices.
 """
 
 from __future__ import annotations
@@ -31,15 +40,18 @@ import numpy as np
 import torch
 
 from goicp_tpu_torch.config import GoICPConfig
+from goicp_tpu_torch.bounds import cuda_eval
 from goicp_tpu_torch.bounds.evaluate import (_CHILD_CORNER_TO_LATTICE,
                                              _CHILD_OFFSETS,
-                                             _LATTICE_OFFSETS,
+                                             _LATTICE_OFFSETS, LaneTables,
                                              chem_bounds_from_lattice,
                                              chem_corner_values,
                                              geometric_bounds,
                                              geometric_bounds_fused,
+                                             one_pair_tables, only_incomp,
                                              rot_uncertainty)
 from goicp_tpu_torch.pipeline.prepare import PairData
+from goicp_tpu_torch.utils.fp32 import _launch, _ptr, _stream, kernels
 
 INF = float("inf")
 
@@ -116,6 +128,42 @@ def root_corner_values(pair: PairData, cfg: GoICPConfig,
 _PER_LANE = ("nodes", "lbs", "opt_err", "thr", "best_node", "ub_terms",
              "min_dropped", "done", "cvals")
 
+# iterations the torch body ran on CUDA tensors (none inside the step
+# kernel's envelope; chip_smoke.py zeroes and reads it beside the launch
+# counts)
+body_on_card = {"iterations": 0}
+
+
+def initial_lanes(pair, cfg: GoICPConfig, pts_rot: torch.Tensor,
+                  active: torch.Tensor, opt_error_init) -> dict:
+    """A fresh inner search's per-lane fields (_PER_LANE): the root node,
+    the incumbent opt_error_init (0-d) in opt_err and thr, done = ~active,
+    and under corner reuse the root's corner payload (`pair` a PairData,
+    every lane of it)."""
+    L = pts_rot.shape[0]
+    C = cfg.trans_capacity
+    dev = pts_rot.device
+    f32 = torch.float32
+    root = torch.tensor([cfg.transMinX, cfg.transMinY, cfg.transMinZ,
+                         cfg.transWidth], dtype=f32, device=dev)
+    nodes0 = torch.zeros((L, C, 4), dtype=f32, device=dev)
+    nodes0[:, 0] = root
+    lbs0 = torch.full((L, C), INF, dtype=f32, device=dev)
+    lbs0[:, 0] = 0.0
+    inc = torch.ones((L,), dtype=f32, device=dev) * opt_error_init
+    s = dict(
+        nodes=nodes0, lbs=lbs0, opt_err=inc, thr=inc.clone(),
+        best_node=torch.zeros((L, 4), dtype=f32, device=dev),
+        ub_terms=torch.zeros((L, 3), dtype=f32, device=dev),
+        min_dropped=torch.full((L,), INF, dtype=f32, device=dev),
+        done=~active)
+    if _chem_reuse_active(cfg):
+        T = len(_chem_terms(cfg))
+        cvals = torch.zeros((L, C, 8 * T), dtype=f32, device=dev)
+        cvals[:, 0] = root_corner_values(pair, cfg, pts_rot)
+        s["cvals"] = cvals
+    return s
+
 
 def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
               rot_widths: torch.Tensor, active: torch.Tensor,
@@ -134,51 +182,32 @@ def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
     P = cfg.trans_pop
     assert P < C, "trans_pop must be < trans_capacity (sorted-slice pop)"
     dev = pts_rot.device
-    f32 = torch.float32
-    sse_thresh = torch.tensor(cfg.mse_margin, dtype=f32, device=dev) \
-        * pair.inlier_f()
-
     mrd = rot_uncertainty(rot_widths, pair.norm_data) \
         if (with_rot_uncertainty or fused) else None
-
-    root = torch.tensor([cfg.transMinX, cfg.transMinY, cfg.transMinZ,
-                         cfg.transWidth], dtype=f32, device=dev)
-    nodes0 = torch.zeros((L, C, 4), dtype=f32, device=dev)
-    nodes0[:, 0] = root
-    lbs0 = torch.full((L, C), INF, dtype=f32, device=dev)
-    lbs0[:, 0] = 0.0
-    inc = torch.ones((L,), dtype=f32, device=dev) * opt_error_init
-
     s = dict(
-        nodes=nodes0, lbs=lbs0, opt_err=inc, thr=inc.clone(),
-        best_node=torch.zeros((L, 4), dtype=f32, device=dev),
-        ub_terms=torch.zeros((L, 3), dtype=f32, device=dev),
-        min_dropped=torch.full((L,), INF, dtype=f32, device=dev),
-        done=~active,
-        it=0, evals=torch.zeros((), dtype=torch.int64, device=dev),
-        geom_surv=torch.zeros((), dtype=torch.int64, device=dev),
-        chem_corners=0,
-    )
-    if _chem_reuse_active(cfg):
-        T = len(_chem_terms(cfg))
-        cvals = torch.zeros((L, C, 8 * T), dtype=f32, device=dev)
-        cvals[:, 0] = root_corner_values(pair, cfg, pts_rot)
-        s["cvals"] = cvals
+        initial_lanes(pair, cfg, pts_rot, active, opt_error_init),
+        it=0, chem_corners=0,
+        # the step's counters of the one lane group: evals, geom_surv
+        counters={k: torch.zeros((1,), dtype=torch.int32, device=dev)
+                  for k in ("evals", "geom_surv")})
+
+    bufs = StepBuffers()
 
     def run(s, pts, mrd_s, stop_count: int):
         """Iterate while some lane is active (and, with stop_count > 0,
-        while more lanes are active than the next stage's width)."""
-        body = _make_inner_body(pair, cfg, pts, mrd_s, sse_thresh, fused)
+        while more lanes are active than the next stage's width): one
+        step and one host read of its active-lane count an iteration."""
+        n_active = int(torch.sum(~s["done"]))
         while s["it"] < cfg.inner_max_iters:
-            n_active = int(torch.sum(~s["done"]))
             if n_active == 0 or (stop_count > 0 and n_active <= stop_count):
                 break
-            lanes, stats = body(s)
-            s = dict(lanes, it=s["it"] + 1,
-                     evals=s["evals"] + torch.sum(stats.evals),
-                     geom_surv=s["geom_surv"] + torch.sum(stats.geom_surv),
+            lanes, cnt, stats = inner_iteration(
+                pair, cfg, {k: s[k] for k in _PER_LANE if k in s}, pts,
+                mrd_s, fused, counters=s["counters"], bufs=bufs)
+            s = dict(lanes, it=s["it"] + 1, counters=cnt,
                      chem_corners=s["chem_corners"]
                      + stats.corners_per_lane * pts.shape[0])
+            n_active = int(stats.n_active)
         return s
 
     stage_widths = [L]
@@ -214,10 +243,12 @@ def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
     lb_safe = torch.minimum(s["thr"] if fused else s["opt_err"],
                             s["min_dropped"])
     lb_safe = torch.where(finished, lb_safe, torch.minimum(lb_safe, rem_min))
+    cnt = s["counters"]
     return InnerResult(best_err=s["opt_err"], best_node=s["best_node"],
                        lb_safe=lb_safe, ub_terms=s["ub_terms"],
-                       iters=s["it"], evals=s["evals"],
-                       geom_surv=s["geom_surv"],
+                       iters=s["it"],
+                       evals=cnt["evals"].reshape(()).to(torch.int64),
+                       geom_surv=cnt["geom_surv"].reshape(()).to(torch.int64),
                        chem_corners=s["chem_corners"])
 
 
@@ -296,6 +327,8 @@ def _make_inner_body(pair, cfg, pts_rot, mrd, sse_thresh, fused):
     sse_thresh = sse_thresh.reshape(-1, 1)     # against (L, P) pops
 
     def body(s):
+        if pts_rot.is_cuda:
+            body_on_card["iterations"] += 1
         # SORTED-FRONTIER INVARIANT: lbs[l] is ascending (INF = empty), so
         # popping the P lowest-lb nodes is a slice
         lbs = s["lbs"]
@@ -508,3 +541,272 @@ def _make_inner_body(pair, cfg, pts_rot, mrd, sse_thresh, fused):
                               corners_per_lane=n_corners)
 
     return body
+
+
+# ---------------------------------------------------------------------------
+# the step: one iteration at the kernel's interface
+# ---------------------------------------------------------------------------
+
+_COUNTERS = ("it", "evals", "geom_surv", "chem_corners")
+
+
+class StepStats(NamedTuple):
+    """What one step did, per lane, beside the state it returns."""
+    evals: torch.Tensor        # (L,) int32 bound evaluations of each lane
+    geom_surv: torch.Tensor    # (L,) int32 children past the geometric lb
+    n_active: torch.Tensor     # () int32 lanes not done after the step
+    corners_per_lane: int      # chem corners evaluated for every lane
+
+
+def kernel_carries(cfg: GoICPConfig) -> bool:
+    """Does csrc/inner.cu compute the iteration of `cfg`?  Yes with no
+    chem term or the incompatibility count alone on the lattice path; no
+    for two-phase chem (chem_survivors > 0), c-FPFH and neighbour terms,
+    which run inner_step_plain on either device."""
+    return not _chem_active(cfg) or (only_incomp(cfg)
+                                     and cfg.chem_survivors <= 0)
+
+
+def _step_sse(pair, cfg: GoICPConfig) -> torch.Tensor:
+    """The search epsilon as the body takes it: one value, or one per lane
+    (a LaneTables' pair of each lane)."""
+    if isinstance(pair, LaneTables):
+        return pair.sse if pair.lane_pair is None \
+            else pair.sse[pair.lane_pair.long()]
+    return torch.tensor(cfg.mse_margin, dtype=torch.float32,
+                        device=pair.device) * pair.inlier_f()
+
+
+def inner_step_plain(pair, cfg: GoICPConfig, lanes: dict, pts, mrd,
+                     fused: bool, live=None, groups: int = 1,
+                     counters: dict | None = None):
+    """One inner-BnB iteration in plain torch: the body of _make_inner_body
+    at inner_step's interface (see there).  The CPU's route, the kernel's
+    yardstick, and the route of the configurations the kernel does not
+    carry."""
+    lead = lanes["done"].shape
+    L = lanes["done"].numel()
+    G = L // groups
+    flat = {k: v.reshape((L,) + v.shape[len(lead):])
+            for k, v in lanes.items()}
+    new, st = _make_inner_body(pair, cfg, pts, mrd, _step_sse(pair, cfg),
+                               fused)(flat)
+    evals = st.evals.to(torch.int32)
+    surv = st.geom_surv.to(torch.int32)
+    if live is not None:
+        m = live.repeat_interleave(G)
+        new = {k: torch.where(m.reshape((L,) + (1,) * (v.ndim - 1)), v,
+                              flat[k]) for k, v in new.items()}
+        evals = torch.where(m, evals, 0)
+        surv = torch.where(m, surv, 0)
+        lv = live.to(torch.int32)
+    else:
+        lv = torch.ones((groups,), dtype=torch.int32, device=pts.device)
+    adds = dict(it=lv, evals=evals.reshape(groups, G).sum(dim=1),
+                geom_surv=surv.reshape(groups, G).sum(dim=1),
+                chem_corners=lv * (G * st.corners_per_lane))
+    counters = counters or {}
+    cnt = {k: (adds[k] + counters[k] if k in counters else adds[k]
+               ).to(torch.int32) for k in _COUNTERS}
+    out = {k: v.reshape(lanes[k].shape) for k, v in new.items()}
+    return out, cnt, StepStats(
+        evals=evals, geom_surv=surv,
+        n_active=torch.sum(~new["done"]).to(torch.int32),
+        corners_per_lane=st.corners_per_lane)
+
+
+def _bad_input(items, dev):
+    """Raise for the first of items (name, tensor, numel, dtype) that is not
+    a contiguous tensor of that type and size on `dev`."""
+    for name, x, n, dt in items:
+        if x.device != dev or x.dtype != dt or x.numel() != n \
+                or not x.is_contiguous():
+            raise ValueError(
+                f"inner_step: {name} must be a contiguous {dt} tensor of {n} "
+                f"elements on {dev}; got {x.dtype} {tuple(x.shape)} on "
+                f"{x.device}")
+
+
+def _inputs_ok(items, idx: int) -> bool:
+    return all(x.get_device() == idx and x.dtype == dt and x.numel() == n
+               and x.is_contiguous() for _, x, n, dt in items)
+
+
+def _table_ptrs(t: LaneTables, key: tuple, chem: bool, dev,
+                bufs: "StepBuffers | None") -> list:
+    """The tables' pointers for goicp_inner_step, the tables checked; with
+    a run's bufs only the first time this object comes with these sizes
+    (the one-pair engines and the fused stream pass one object a run)."""
+    if bufs is not None and bufs.tables[0] is t and bufs.tables[1] == key:
+        return bufs.tables[2]
+    L, nd, n_cells, W = key[:4]
+    f32, i32 = torch.float32, torch.int32
+    items = [("weights", t.weights, W * nd, f32),
+             ("cell_coords", t.cell_coords, W * n_cells * 3, i32),
+             ("nearest_cell", t.nearest_cell, W * t.size ** 3, i32),
+             ("consts", t.consts, W * 5, f32), ("sse", t.sse, W, f32)]
+    if t.trim_count is not None:
+        items.append(("trim_count", t.trim_count, W, f32))
+    if t.lane_pair is not None:
+        items.append(("lane_pair", t.lane_pair, L, i32))
+    if chem:
+        items += [("cell_compat", t.cell_compat, W * n_cells * 9, f32),
+                  ("prop_onehot", t.prop_onehot, W * nd * 9, f32),
+                  ("data_mask", t.data_mask, W * nd, f32)]
+    _bad_input(items, dev)
+    ptrs = [t.weights.data_ptr(), t.cell_coords.data_ptr(),
+            t.nearest_cell.data_ptr(), t.consts.data_ptr(),
+            _ptr(t.trim_count), _ptr(t.cell_compat) if chem else None,
+            _ptr(t.prop_onehot) if chem else None,
+            _ptr(t.data_mask) if chem else None, _ptr(t.lane_pair),
+            t.sse.data_ptr()]
+    if bufs is not None:
+        bufs.tables = (t, key, ptrs)
+    return ptrs
+
+
+class StepBuffers:
+    """The outputs of a loop's inner steps, two sets used in turn: a step
+    writes into a set that holds none of its inputs (no lane field and no
+    counter in its memory), so a loop that feeds each step's output to the
+    next allocates nothing after its second step.  Made per run: what a
+    step returned stays valid until the step after next of the same run
+    writes over it.  Also the run's checked tables and their pointers."""
+
+    def __init__(self):
+        self.sets: list = []
+        self.tables: tuple = (None, None, None)
+
+
+def _step_outputs(lanes: dict, inputs: list, L: int, C: int, reuse: bool,
+                  groups: int, scratch: int, pts, bufs: StepBuffers | None):
+    """(out lanes, counters, StepStats parts, output pointers) for one
+    step: a set of bufs whose memory holds none of `inputs`, or a new one;
+    the float fields and the kernel's scratch (`scratch` floats) packed in
+    one allocation, the int32 stats, counters, active count and the
+    launch's L + 1 tickets in another, done in a third."""
+    key = (lanes["done"].shape, C, reuse, groups, scratch)
+    if bufs is not None:
+        held = {x.untyped_storage().data_ptr() for x in inputs}
+        for k, st in bufs.sets:
+            if k == key and held.isdisjoint(st[4]):
+                return st[:4]
+    sizes = (L * C * 4, L * C, L * C * 8 if reuse else 0, L, L, L * 4,
+             L * 3, L, scratch)
+    o = pts.new_empty(sum(sizes)).split(sizes)
+    names = ("nodes", "lbs", "cvals", "opt_err", "thr", "best_node",
+             "ub_terms", "min_dropped")
+    out = {k: v.view(lanes[k].shape) for k, v in zip(names, o)
+           if k in lanes}
+    out["done"] = lanes["done"].new_empty(lanes["done"].shape)
+    stats = torch.empty((2 * L + 4 * groups + 1 + L + 1,),
+                        dtype=torch.int32, device=pts.device)
+    cnt = dict(zip(_COUNTERS, stats[2 * L:2 * L + 4 * groups].view(
+        4, groups)))
+    parts = (stats[:L], stats[L:2 * L], stats[2 * L + 4 * groups])
+    ptrs = [x.data_ptr() for x in o[:8]] + [
+        out["done"].data_ptr(), stats.data_ptr(), o[8].data_ptr()]
+    st = (out, cnt, parts, ptrs)
+    if bufs is not None:
+        mem = {x.untyped_storage().data_ptr() for x in (o[0], out["done"],
+                                                        stats)}
+        bufs.sets = (bufs.sets + [(key, st + (mem,))])[-2:]
+    return st
+
+
+def inner_step(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
+               live=None, groups: int = 1, counters: dict | None = None,
+               bufs: StepBuffers | None = None):
+    """One inner-BnB iteration for a batch of lanes: on CUDA tensors one
+    launch of csrc/inner.cu (goicp_inner_step) or a raise, on CPU tensors
+    inner_step_plain.
+
+    pair: a PairData (every lane of that pair; on the card its one-pair
+    tables, evaluate.one_pair_tables) or a LaneTables (each lane the pair
+    lane_pair says).  lanes: the per-lane fields of _PER_LANE with any
+    leading shape (L lanes in all; contiguous on the card), pts (L, Nd, 3),
+    mrd (L, Nd) or None (no rotation uncertainty).  The lanes fall in
+    `groups` runs of L / groups: live (groups,) bool or None (all live)
+    says which groups step, the others keep their state whole; counters
+    (groups,) int32 among it / evals / geom_surv / chem_corners (missing:
+    0) get the step's counts of each live group added.  Returns (new
+    lanes, the four counters, StepStats); nothing given is written.  bufs:
+    the run's StepBuffers, which the outputs then come from (on the card;
+    the plain step allocates).  Raises on the card for a configuration
+    the kernel does not carry (kernel_carries), shapes past
+    cuda_eval.in_envelope, and a pop or capacity whose arrays do not fit
+    a block (the launcher's refusal)."""
+    if cuda_eval._route(pts) == "cpu":
+        return inner_step_plain(pair, cfg, lanes, pts, mrd, fused, live,
+                                groups, counters)
+    t = pair if isinstance(pair, LaneTables) else one_pair_tables(pair, cfg)
+    dev = pts.device
+    f32 = torch.float32
+    done = lanes["done"]
+    L = done.numel()
+    nd = pts.shape[-2]
+    W, n_cells = t.cell_coords.shape[:2]
+    C = cfg.trans_capacity
+    P = cfg.trans_pop
+    chem = _chem_active(cfg)
+    reuse = _chem_reuse_active(cfg)
+    if not kernel_carries(cfg) or L % groups:
+        raise ValueError("inner_step: the step kernel does not carry this "
+                         "configuration (kernel_carries) or these groups")
+    cuda_eval._check_envelope("inner_step", nd, n_cells, t.size)
+    tab = _table_ptrs(t, (L, nd, n_cells, W), chem, dev, bufs)
+    counters = counters or {}
+    cnt_in = [counters.get(k) for k in _COUNTERS]
+    items = [("pts", pts, L * nd * 3, f32), ("done", done, L, torch.bool),
+             ("nodes", lanes["nodes"], L * C * 4, f32),
+             ("lbs", lanes["lbs"], L * C, f32),
+             ("best_node", lanes["best_node"], L * 4, f32),
+             ("ub_terms", lanes["ub_terms"], L * 3, f32),
+             ("opt_err", lanes["opt_err"], L, f32),
+             ("thr", lanes["thr"], L, f32),
+             ("min_dropped", lanes["min_dropped"], L, f32)]
+    if mrd is not None:
+        items.append(("mrd", mrd, L * nd, f32))
+    if reuse:
+        items.append(("cvals", lanes["cvals"], L * C * 8, f32))
+    if live is not None:
+        items.append(("live", live, groups, torch.bool))
+    items += [(k, v, groups, torch.int32) for k, v in counters.items()]
+    if not _inputs_ok(items, pts.get_device()):
+        _bad_input(items, dev)
+    Q = ((19 if reuse else 27) * P) if chem else 0
+    out, cnt, parts, optrs = _step_outputs(
+        lanes, [x for _, x, _, _ in items], L, C, reuse, groups,
+        L * (24 * P + Q), pts, bufs)
+    _launch(kernels.goicp_inner_step(
+        pts.data_ptr(), _ptr(mrd), *tab, lanes["nodes"].data_ptr(),
+        lanes["lbs"].data_ptr(), _ptr(lanes["cvals"]) if reuse else None,
+        lanes["opt_err"].data_ptr(), lanes["thr"].data_ptr(),
+        lanes["best_node"].data_ptr(), lanes["ub_terms"].data_ptr(),
+        lanes["min_dropped"].data_ptr(), done.data_ptr(), _ptr(live),
+        *(_ptr(c) for c in cnt_in), *optrs, L, C, P, L // groups, nd,
+        n_cells, t.size, cfg.norm, int(fused), t.trim_k, int(reuse),
+        int(cfg.sorted_merge), float(cfg.regularization), _stream(pts)),
+        "inner_step")
+    inner_step.launches += 1
+    return dict(out), dict(cnt), StepStats(
+        evals=parts[0], geom_surv=parts[1], n_active=parts[2],
+        corners_per_lane=Q)
+
+
+inner_step.launches = 0
+
+
+def inner_iteration(pair, cfg: GoICPConfig, lanes: dict, pts, mrd,
+                    fused: bool, live=None, groups: int = 1,
+                    counters: dict | None = None,
+                    bufs: StepBuffers | None = None):
+    """The iteration every engine runs: inner_step for the configurations
+    the kernel carries (kernel_carries; on the card one launch, whatever
+    the shapes: those it cannot take raise), inner_step_plain for the
+    others; the same arguments and results."""
+    if kernel_carries(cfg):
+        return inner_step(pair, cfg, lanes, pts, mrd, fused, live, groups,
+                          counters, bufs)
+    return inner_step_plain(pair, cfg, lanes, pts, mrd, fused, live, groups,
+                            counters)

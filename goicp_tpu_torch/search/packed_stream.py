@@ -10,8 +10,8 @@ pool of W*L lanes, and each global iteration
   2. gathers their frontier bundles; their pair's kernel tables are NOT
      gathered: the per-lane-table kernels K3 and K4 (bounds/cuda_eval.py)
      follow `lane_pair` to the per-pair tables;
-  3. runs ONE inner-BnB iteration (the body of search/inner.py) on the
-     packed (S, ...) batch;
+  3. runs ONE inner-BnB iteration (search/inner.py::inner_step: one
+     launch of csrc/inner.cu on the card) on the packed (S, ...) batch;
   4. scatters the updated bundles back.
 Per-lane trajectories are those of the fused/device engines (each lane's
 search depends only on its own state), so results match register_device
@@ -43,7 +43,7 @@ from goicp_tpu_torch.config import GoICPConfig
 from goicp_tpu_torch.pipeline.prepare import PairData
 from goicp_tpu_torch.search import fused_stream as fs
 from goicp_tpu_torch.search.device_engine import DeviceResult
-from goicp_tpu_torch.search.inner import _make_inner_body
+from goicp_tpu_torch.search.inner import StepBuffers, inner_iteration
 
 INF = float("inf")
 
@@ -151,16 +151,20 @@ def packed_init(pair_batch: PairData, cfg: GoICPConfig) -> dict:
 # the packed inner iteration
 # ---------------------------------------------------------------------------
 
-def _packed_iter(cfg: GoICPConfig, tables, sn, ss, pm, live, sv=None):
+def _packed_iter(cfg: GoICPConfig, tables, sn, ss, pm, live, sv=None,
+                 bufs=None):
     """One inner-BnB iteration on S packed lanes (possibly from different
-    pairs; tables.lane_pair says which).  The iteration is the body of
-    search/inner.py; here only the bundles are unpacked and repacked.
-    sv (S,C,8): the corner-reuse payload rows when cfg.chem_reuse."""
-    lanes = _lane_dict(sn, ss, sv)
-    sse = tables.sse[tables.lane_pair.long()]
-    new, stats = _make_inner_body(tables, cfg, pm[..., :3].contiguous(),
-                                  pm[..., 3].contiguous(), sse,
-                                  fused=True)(lanes)
+    pairs; tables.lane_pair says which): one inner step
+    (search/inner.py::inner_step, one launch on the card) over the bundles
+    unpacked into the step's fields, then repacked.  Dead slots (padding
+    when fewer than S lanes are live) keep their state.  sv (S,C,8): the
+    corner-reuse payload rows when cfg.chem_reuse; bufs the loop's
+    inner.StepBuffers."""
+    lanes = {k: v.contiguous() for k, v in _lane_dict(sn, ss, sv).items()}
+    new, _, stats = inner_iteration(
+        tables, cfg, lanes, pm[..., :3].contiguous(),
+        pm[..., 3].contiguous(), True, live=live, groups=live.shape[0],
+        bufs=bufs)
     done = new["done"]
     sn_new = torch.cat([new["nodes"], new["lbs"][..., None]], dim=-1)
     ss_new = torch.cat([
@@ -172,13 +176,9 @@ def _packed_iter(cfg: GoICPConfig, tables, sn, ss, pm, live, sv=None):
         (ss[:, _GSURV] + stats.geom_surv)[:, None],
         (ss[:, _CHEMC] + float(stats.corners_per_lane))[:, None],
         ss[:, 15:]], dim=-1)
-    # dead slots (padding when fewer than S lanes are live) keep state
-    sn_new = torch.where(live[:, None, None], sn_new, sn)
+    # the step kept the dead slots' lanes; their counters stay too
     ss_new = torch.where(live[:, None], ss_new, ss)
-    sv_new = None
-    if sv is not None:
-        sv_new = torch.where(live[:, None, None], new["cvals"], sv)
-    return sn_new, ss_new, sv_new
+    return sn_new, ss_new, new.get("cvals")
 
 
 # ---------------------------------------------------------------------------
@@ -214,6 +214,7 @@ def packed_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
     K = fs._trans_budget(cfg, W)
     tables = lane_tables(pair_batch, cfg)
     far = torch.tensor(float(2 ** 30), device=s["ss"].device)
+    bufs = StepBuffers()
 
     def lane_live_of(live_pair):
         return ~_lane_over(s, cfg).reshape(WL) \
@@ -256,7 +257,8 @@ def packed_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
 
         sn_n, ss_n, sv_n = _packed_iter(
             cfg, tables._replace(lane_pair=spair), snf[slots], ssf[slots],
-            pmf[slots], live, sv=svf[slots] if svf is not None else None)
+            pmf[slots], live, sv=svf[slots] if svf is not None else None,
+            bufs=bufs)
         snf.index_copy_(0, slots, sn_n)
         ssf.index_copy_(0, slots, ss_n)
         if sv_n is not None:

@@ -58,8 +58,9 @@ from goicp_tpu_torch.utils.npz import savez_exact
 REPO = measure.REPO
 _MANIFEST = "manifest.json"
 _WALLS = "walls.json"
-_STREAM_KERNELS = ("chem_incomp_kernel", "geometric_bounds_kernel_lanes",
-                   "chem_incomp_kernel_lanes")
+# the kernels a stream launches besides the transitions' (K3/K4's bodies
+# run inside the inner step)
+_STREAM_KERNELS = ("chem_incomp_kernel", "inner_step")
 
 
 def _write_json(path: str, obj) -> None:

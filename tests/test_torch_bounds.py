@@ -472,7 +472,7 @@ def test_lane_wrappers_take_plain_versions_on_cpu():
                            "chem_incomp_kernel_lanes", "ordered_sum",
                            "rotate", "norm3", "sincos32",
                            "sq_dist3", "det3", "cross3", "dot_fma",
-                           "icp_run", "kabsch3"}
+                           "icp_run", "kabsch3", "inner_step"}
     k3 = _k3_args(stacked, a, True)
     for g, w in zip(
             cuda_eval.geometric_bounds_kernel_lanes(*k3, size=size, norm=2),
