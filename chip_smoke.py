@@ -75,8 +75,20 @@ Phases, each of which fails the script (nonzero exit, no result line):
     capacity of 5000, two pairs' lanes interleaved as two window rows, one
     of them not live; done lanes in every mode) and on built NaN/INF lbs through both merge orders; timed
     at the streams' shape (16 lanes of syn00 + syn01) and at
-    register_device's (syn07, 8 lanes).  max |kernel - plain| is 0 in
-    every case.
+    register_device's (syn07, 8 lanes).  The transition kernels
+    (csrc/transition.cu: goicp_harvest and goicp_advance) held to
+    harvest_plain and advance_plain, the engines' torch code, every
+    output bit for bit: the streams' mode ("both") on three windows 40
+    global iterations in (similar with and without corner reuse,
+    trimmed) in seven cases (as run, improved by the BnB candidate or by
+    the ICP, a converging row, a NaN lane, INF lbs, a full frontier),
+    every merged frontier first checked sorted and NaN-free (the merge
+    path's precondition), the outputs new and
+    written in place; register_device's pop (with a
+    given min_lb too), harvest and adoption (no refine, refined, frozen)
+    on syn07; the batch engine's pop into B-row outputs and adoption in
+    place; timed at the streams' shape (syn02 + syn03) and at
+    register_device's.  max |kernel - plain| is 0 in every case.
  3. registrations through the port's entry points: prepare_pair(bucket=
     True) -> make_count_dynamic -> register_device, under GoICPConfig() +
     bench_shape, on six pairs of the similar pool and four of the trimmed
@@ -88,11 +100,14 @@ Phases, each of which fails the script (nonzero exit, no result line):
     each equal to phase 3's syn07 in error, R, t, opt_comp, evals, outer,
     inner and geom_surv, and with chem_survivors=8 (capped at twice the
     outer steps; converged or not, an achievable error and a valid gap).
- 4. proof: the launch counters of the inner step kernel, K2 (the root
-    corners, the compat count), the ordered sum, rotate, norm3, sincos32
-    and the ICP kernel, zeroed just before phase 3, are > 0 after it, and
-    the torch inner body ran no iteration on the card (so in phases 5-9,
-    12 and 13: every inner iteration was one launch of csrc/inner.cu);
+ 4. proof: the launch counters of the inner step kernel, the
+    transition kernels (harvest, advance: the pop with its root corners
+    through K2's body, the adoption), the ordered sum, rotate, norm3,
+    sincos32 and the ICP kernel, zeroed just before phase 3, are > 0
+    after it, and neither the torch inner body nor the torch transition
+    ran on the card (so in phases 5-9, 12 and 13: every inner iteration
+    was one launch of csrc/inner.cu, every outer transition went through
+    csrc/transition.cu);
     sq_dist3, det3 and cross3, whose only caller was the plain ICP loop,
     and dot_fma, whose other caller was norm3, are 0 (so in phases 5, 6,
     7 and 13; phase 11's row checks launch sq_dist3 through
@@ -223,8 +238,11 @@ Phases, each of which fails the script (nonzero exit, no result line):
     register_device inner iteration and of one ICP iteration
     (goicp_tpu_torch/bench/launch_counts.py) beside those of the
     trees before the fixed order (commit 1025156) and before the ICP
-    kernel (ce5be19), those of one outer transition and of one rescoring,
-    and an ICP event's: one launch of csrc/icp.cu and no host read.
+    kernel (ce5be19), those of one rescoring, of a fused-stream
+    transition of 8 rows (at most 3 launches and 1 host read) and of a
+    register_device outer step beside the tree before the transition
+    kernel (789170e), and an ICP event's: one launch of csrc/icp.cu and
+    no host read.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -266,6 +284,14 @@ BEFORE_ICP_KERNEL_LAUNCHES = {"global_iteration": 131.0,
 # one outer transition (device_engine._pop) and one rescoring
 # (score_transform at 4 transforms)
 BEFORE_FUSED_ORDER_LAUNCHES = {"outer transition": 72.0, "rescoring": 89.0}
+# launch_counts.py on the tree before the transition kernel (commit
+# 789170e), on the H100 in one call with this tree (in turns): a
+# fused-stream transition of 8 rows and a register_device outer step
+# (syn07, 3 steps in)
+BEFORE_TRANSITION_KERNEL = {
+    "transition": "1177 launches, 40 host reads, 145 syncs",
+    "outer_step": "366 launches (360 besides its 6 inner iterations), "
+                  "24 host reads, 31 syncs"}
 # the fixed-order products of utils/fp32.py (csrc/fp32_products.cu)
 FIXED_ORDER_PRODUCTS = ("sq_dist3", "det3", "cross3", "dot_fma")
 # the fixed-order functions that take an outer transition's and a
@@ -400,14 +426,21 @@ def _off_path(counts, where):
 
 
 def _step_path(counts, where):
-    """The inner step kernel launched, and the torch body ran no inner
-    iteration on the card since the counts were zeroed: every inner
-    iteration of `where` was one launch of csrc/inner.cu."""
-    from goicp_tpu_torch.search import inner
+    """The inner step kernel and the transition kernels launched, and
+    neither the torch body nor the torch transition ran on the card since
+    the counts were zeroed: every inner iteration of `where` was one launch
+    of csrc/inner.cu, every outer transition went through
+    csrc/transition.cu."""
+    from goicp_tpu_torch.search import inner, transition
     body = inner.body_on_card["iterations"]
     _require(counts["inner_step"] > 0 and body == 0,
              f"inner_step launched ({counts['inner_step']}) and the torch "
              f"body ran no iteration on the card ({body}) in {where}")
+    rows = transition.plain_on_card["rows"]
+    _require(counts["harvest"] > 0 and counts["advance"] > 0 and rows == 0,
+             f"harvest ({counts['harvest']}) and advance "
+             f"({counts['advance']}) launched and the torch transition ran "
+             f"no row on the card ({rows}) in {where}")
 
 
 def _max_err(got, want):
@@ -569,8 +602,8 @@ def _sweep_phase(stream_outs, dev):
     counts = cuda_eval.launch_counts()
     print(f"phase 12 wall {time.perf_counter() - t_phase:.3f} s; launches "
           f"during phase 12: {json.dumps(counts)}", flush=True)
-    _require(counts["chem_incomp_kernel"] > 0,
-             "chem_incomp_kernel launched in phase 12")
+    _require(counts["advance"] > 0,
+             "advance (the root corners, K2's body) launched in phase 12")
     _step_path(counts, "phase 12")
     return counts
 
@@ -1005,8 +1038,8 @@ def _batch_phase(cfg, cfg_t, pools, ref, phase3, dev):
     counts = cuda_eval.launch_counts()
     print(f"phase 9 wall {time.perf_counter() - t_phase:.3f} s; launches "
           f"during phase 9: {json.dumps(counts)}", flush=True)
-    _require(counts["chem_incomp_kernel"] > 0,
-             "chem_incomp_kernel launched in phase 9")
+    _require(counts["advance"] > 0,
+             "advance (the root corners, K2's body) launched in phase 9")
     _step_path(counts, "phase 9")
     return counts, outs
 
@@ -1209,7 +1242,7 @@ def _multi_gpu_phase(cfg, syn07, phase3, stream5, batch9):
     print(f"phase 10 wall {time.perf_counter() - t_phase:.3f} s (ranks "
           f"sharing one card: no scaling number); launches during phase "
           f"10, every rank's summed: {json.dumps(counts)}", flush=True)
-    for kname in ("inner_step", "chem_incomp_kernel"):
+    for kname in ("inner_step", "harvest", "advance"):
         _require(counts.get(kname, 0) > 0, f"{kname} launched in phase 10")
     return counts
 
@@ -2001,6 +2034,407 @@ def _step_checks(k, cfg, cfg_t, pools, dev, floor):
               flush=True)
 
 
+def _tree_diff(got, want, where=""):
+    """The fields of two (nested) results that differ: float32 bit for
+    bit, NaN to NaN, other types exactly."""
+    import torch
+    bad = []
+    for k, w in want.items():
+        g = got[k]
+        if isinstance(w, dict):
+            bad += _tree_diff(g, w, f"{where}{k}.")
+            continue
+        if not isinstance(w, torch.Tensor):
+            if g != w:
+                bad.append(f"{where}{k}: {g} vs {w}")
+            continue
+        if w.dtype == torch.float32:
+            ok = g.shape == w.shape and bool(torch.all(
+                (g.view(torch.int32) == w.view(torch.int32))
+                | (torch.isnan(g) & torch.isnan(w))))
+        else:
+            ok = g.shape == w.shape and torch.equal(g, w)
+        if not ok:
+            bad.append(f"{where}{k}: {_first_diff(g.cpu(), w.cpu())}")
+    return bad
+
+
+# the streams' transition cases of phase 2 (row 0 edited)
+STREAM_TRANSITION_CASES = ("as run", "improved by the BnB candidate",
+                           "improved by the ICP", "converging", "NaN lane",
+                           "INF lbs", "full frontier")
+
+
+def _sorted_rest(lbs):
+    """Each row of lbs ascending with no NaN: what goicp_advance's merge
+    path requires of the frontier (every engine keeps it so)."""
+    import torch
+    return not bool(torch.isnan(lbs).any()) and bool(
+        (lbs[..., 1:] >= lbs[..., :-1]).all())
+
+
+def _stream_case(s0, case, c, dev):
+    """A copy of a window state edited into one of
+    STREAM_TRANSITION_CASES (its first row not converged, e, edited), the
+    rows that transition (those not converged: e first) and the refine
+    block they take."""
+    import torch
+    from goicp_tpu_torch.search import fused_stream as fs
+    from goicp_tpu_torch.search import transition as tr
+    s = fs._map_state(torch.clone, s0)
+    ist = s["inner"]
+    rows = [w for w in range(s["opt_err"].shape[0])
+            if not bool(s["converged"][w])]
+    e = rows[0]
+    r = None
+    if case.startswith("improved"):
+        h = tr.harvest_plain(s, rows)
+        s["opt_err"][e] = h["cand_ub"][0] * 2 + 1
+        r = tr.refine_rows(len(rows), dev)
+        h = tr.harvest_plain(s, rows)
+        factor = 0.5 if case.endswith("ICP") else 2.0
+        tr.set_refine(r, 0, dict(
+            icp_R=torch.tensor([[0., -1., 0.], [1., 0., 0.], [0., 0., 1.]],
+                               device=dev),
+            icp_t=torch.tensor([0.01, -0.02, 0.03], device=dev),
+            icp_err=h["incumbent"][0] * factor,
+            icp_terms=torch.tensor([1.5, 0.25, 0.0], device=dev),
+            icp_incomp=torch.tensor(7, dtype=torch.int32, device=dev),
+            bnb_comp=torch.tensor(5, dtype=torch.int32, device=dev)))
+    elif case == "converging":
+        s["opt_err"][e] = 1e-9
+        ist["opt_err"][e] = torch.clamp(ist["opt_err"][e], min=1.0)
+    elif case == "NaN lane":
+        ist["opt_err"][e, int(torch.argmax(s["active"][e].to(torch.int32)))] \
+            = float("nan")
+    elif case == "INF lbs":
+        ist["lbs"][e, :, 1] = float("inf")
+        ist["thr"][e, 1] = float("inf")
+        ist["min_dropped"][e, 2] = float("inf")
+        s["fr_lbs"][e, 1:] = float("inf")
+    elif case == "full frontier":
+        Cr = c.device_rot_capacity
+        g = torch.Generator(device="cpu").manual_seed(3)
+        s["fr_lbs"][e] = torch.sort(torch.rand(Cr, generator=g)).values.to(
+            dev) * 50.0
+        nodes = torch.rand((Cr, 4), generator=g).to(dev) * 6.0 - 3.0
+        nodes[:, 3] = 0.7853982
+        s["fr_nodes"][e] = nodes
+        s["opt_err"][e] = 1e3
+    return s, rows, r
+
+
+def _transition_checks(kernels, cfg, cfg_t, pools, dev, floor):
+    """Phase 2's check of the transition kernels (csrc/transition.cu,
+    search/transition.py): goicp_harvest and goicp_advance held to
+    harvest_plain and advance_plain, the torch code of the engines, on the
+    same card tensors, every output field bit for bit (NaN to NaN), in
+    every mode.  The streams' ("both"): windows of the similar pool
+    (syn02, syn03, syn00, syn01), the trimmed pool (trm00 + trm01) and the
+    similar pool without corner reuse (syn02 + syn03), each 40 global
+    iterations into
+    its fused stream, every non-converged row transitioning, in each case
+    of STREAM_TRANSITION_CASES; the outputs as new tensors and written in
+    place into a copy of the window (the fused stream's way), both equal.
+    register_device's: syn07 from its first state and 5 outer steps in,
+    the pop (and the sharded engine's pop with a given min_lb), the inner
+    search from the pop's lanes, the harvest, the adoption with and
+    without a refine block and of a frozen row.  The batch engine's: the
+    pop of rows 0 and 2 of a 3-row batch into B-row outputs, the harvest,
+    and the adoption written in place, one row frozen.  Timed: harvest and
+    advance at the streams' shape (syn02 + syn03, both rows) and at
+    register_device's (syn07: pop, harvest, adopt).  Every frontier the
+    merge reads is checked sorted and NaN-free first (the merge path's
+    precondition).  The bound: bytes, what each kernel must read
+    (harvest_reads, advance_reads: the fields it reads, each once, not
+    the whole state it is handed) and the outputs written once, against
+    the operations (the rotated points 15 a point, the rotation uncertainty
+    1, the root corners' counts CHEM_OPS a corner and real point, the
+    lanes' lb minimum 1 a frontier entry) over the fp32 peak."""
+    import torch
+    from goicp_tpu_torch.bench.measure import (_bucket_and_prepare,
+                                               _normalized_synthetic)
+    from goicp_tpu_torch.dist.mesh import stack_pairs
+    from goicp_tpu_torch.search import device_engine as eng
+    from goicp_tpu_torch.search import fused_stream as fs
+    from goicp_tpu_torch.search import inner
+    from goicp_tpu_torch.search import transition as tr
+    kh, ka = kernels["harvest"], kernels["advance"]
+
+    def same(got, want, where):
+        torch.cuda.synchronize()
+        bad = _tree_diff(got, want)
+        _require(not bad, f"{where}: kernel == plain bit for bit: {bad}")
+        kh["errs"].append(0.0)
+        ka["errs"].append(0.0)
+
+    windows = {}
+    for label, names, c in (
+            ("similar", ("syn02", "syn03", "syn00", "syn01"), cfg),
+            ("trimmed", ("trm00", "trm01"), cfg_t),
+            ("similar, no corner reuse", ("syn02", "syn03"),
+             dataclasses.replace(cfg, chem_reuse=0))):
+        pairs = _bucket_and_prepare(
+            [_normalized_synthetic(pools[n]) for n in names], c, device=dev)
+        pb = stack_pairs(pairs)
+        s0 = fs.fused_run_chunk(pb, c, fs._init_batch(pb, c), 40)
+        tabs = fs._transition_tables(pb, c)
+        windows[label] = (pb, c, s0, tabs)
+        for case in STREAM_TRANSITION_CASES:
+            s, rows, r = _stream_case(s0, case, c, dev)
+            _require(_sorted_rest(s["fr_lbs"][rows]),
+                     f"the merge's precondition: a sorted, NaN-free "
+                     f"frontier ({label}, {case})")
+            h = tr.harvest(c, s, rows)
+            same(h, tr.harvest_plain(s, rows), f"harvest ({label}, {case})")
+            got = tr.advance("both", c, pb, s, rows, tables=tabs, h=h, r=r)
+            want = tr.advance_plain("both", c, pb, s, rows, h=h, r=r)
+            same(got, want, f"advance both ({label}, {case})")
+            win = fs._map_state(torch.clone, s)
+            tr.advance("both", c, pb, win, rows, tables=tabs, h=h, r=r,
+                       out=win)
+            idx = torch.tensor(rows, device=dev)
+            same(fs._map_state(lambda x: x[idx], win), want,
+                 f"advance both in place ({label}, {case})")
+            if case == "improved by the ICP":
+                _require(bool(got["last_icp"][0]), "the ICP's row adopted")
+            if case == "converging":
+                _require(bool(got["converged"][0]), "the row converged")
+            if case == "full frontier":
+                _require(bool(torch.isfinite(got["min_dropped"][0])),
+                         "the full frontier dropped finite lbs")
+        print(f"transition, the streams ({label}, {len(names)} rows): "
+              f"harvest and advance (both modes' outputs, new and in "
+              f"place) bit for bit in {len(STREAM_TRANSITION_CASES)} "
+              f"cases", flush=True)
+
+    # register_device's: one row, pop / harvest / adopt
+    pair = _prepared("syn07", cfg, pools, dev)
+    pb1, tabs1 = eng._one_row(pair, cfg)
+    st0 = eng.device_init(pair, cfg)
+    timed1 = None
+    for label, st in (("first state", st0),
+                      ("5 outer steps in",
+                       eng.device_run_chunk(pair, cfg, st0, 5))):
+        s1 = eng._as_row(st)
+        _require(_sorted_rest(s1["fr_lbs"]),
+                 f"the merge's precondition (syn07 {label})")
+        for ml in (None, st["fr_lbs"][:1] * 0.5):
+            got = tr.advance("pop", cfg, pb1, s1, [0], tables=tabs1,
+                             min_lb=ml)
+            same(got, tr.advance_plain("pop", cfg, pb1, s1, [0], min_lb=ml),
+                 f"advance pop (syn07 {label}, min_lb "
+                 f"{'given' if ml is not None else 'the frontier'})")
+        p = got
+        res, lanes = inner.inner_bnb(
+            pair, cfg, p["pts"][0], p["widths"][0], p["active"][0],
+            st["opt_err"], False, True,
+            lanes0={k: v[0] for k, v in p["lanes"].items()},
+            mrd=p["mrd"][0], raw=True)
+        src = eng._harvest_src(dict(batch=p), st["opt_err"], res)
+        lb = eng._lb_lanes(lanes)
+        h = tr.harvest(cfg, src, [0], lb=lb, conv=p["converged"])
+        same(h, tr.harvest_plain(src, [0], lb=lb, conv=p["converged"]),
+             f"harvest (syn07 {label})")
+        r = tr.refine_rows(1, dev)
+        tr.set_refine(r, 0, dict(
+            icp_R=torch.eye(3, device=dev), icp_t=torch.zeros(3, device=dev),
+            icp_err=h["incumbent"][0] * 0.5, icp_terms=torch.ones(3,
+                                                                  device=dev),
+            icp_incomp=torch.tensor(3, dtype=torch.int32, device=dev),
+            bnb_comp=torch.tensor(2, dtype=torch.int32, device=dev)))
+        work = eng._work(res, res, True)
+        for rr, frozen in ((None, False), (r, False), (None, True)):
+            sa = dict(s1, converged=torch.ones_like(s1["converged"])) \
+                if frozen else s1
+            got = tr.advance("adopt", cfg, pb1, sa, [0], tables=tabs1, h=h,
+                             r=rr, p=p, work=work)
+            same(got, tr.advance_plain("adopt", cfg, pb1, sa, [0], h=h, r=rr,
+                                       p=p, work=work),
+                 f"advance adopt (syn07 {label}, "
+                 f"{'refined' if rr is not None else 'no refine'}"
+                 f"{', frozen' if frozen else ''})")
+        timed1 = (s1, p, h, work)
+        print(f"transition, register_device (syn07 {label}): pop (and "
+              f"with a given min_lb), harvest, adopt (no refine, refined, "
+              f"frozen) bit for bit", flush=True)
+
+    # the batch engine's: rows 0 and 2 of three, B-row outputs
+    pb3, c3 = windows["similar"][0], cfg
+    pb3 = pb3.map_tensors(lambda t: t[:3].contiguous())
+    tabs3 = fs._transition_tables(pb3, c3)
+    sb = eng.batch_init(pb3, c3)
+    rows = [0, 2]
+    nd = pb3.n_data_padded
+    outs = [tr.outputs("pop", c3, 3, nd, dev) for _ in range(2)]
+    got = tr.advance("pop", c3, pb3, sb, rows, tables=tabs3, out=outs[0])
+    want = tr.advance_plain("pop", c3, pb3, sb, rows, out=outs[1])
+    idx = torch.tensor(rows, device=dev)
+    same(fs._map_state(lambda x: x[idx], got),
+         fs._map_state(lambda x: x[idx], want), "advance pop into B rows")
+    src = dict(inner=got["lanes"], active=got["active"],
+               R_lanes=got["R_lanes"], opt_err=sb["opt_err"])
+    h = tr.harvest(c3, src, rows, conv=got["converged"])
+    same(h, tr.harvest_plain(src, rows, conv=got["converged"]),
+         "harvest of B rows")
+    got["converged"][2] = True          # row 2 frozen
+    zero = torch.zeros(3, dtype=torch.int32, device=dev)
+    work = dict(evals=zero + 5, iters=zero + 2, geom_surv=zero + 3,
+                chem_corners=zero + 7)
+    s_k, s_p = (fs._map_state(torch.clone, sb) for _ in range(2))
+    tr.advance("adopt", c3, pb3, s_k, rows, tables=tabs3, h=h, p=got,
+               work=work, out=s_k)
+    tr.advance_plain("adopt", c3, pb3, s_p, rows, h=h, p=got, work=work,
+                     out=s_p)
+    same(s_k, s_p, "advance adopt in place into B rows (one frozen)")
+    print("transition, the batch engine (rows 0 and 2 of 3): pop into "
+          "B-row outputs, harvest, adopt in place with a frozen row, bit "
+          "for bit", flush=True)
+
+    # times: the streams' shape (syn02 + syn03, both rows transitioning)
+    # and register_device's (syn07: pop, harvest, adopt)
+    L = cfg.rot_batch * 8
+    pb2 = windows["similar"][0].map_tensors(lambda t: t[:2].contiguous())
+    s02 = fs._map_state(lambda x: x[:2].contiguous(), windows["similar"][2])
+    tabs2 = fs._transition_tables(pb2, cfg)
+    rows2 = [0, 1]
+    h2 = tr.harvest(cfg, s02, rows2)
+    s1, p1, _, work1 = timed1
+    src1 = eng._harvest_src(dict(batch=p1), s1["opt_err"][0], res)
+    lb1 = eng._lb_lanes(lanes)
+    h1 = tr.harvest(cfg, src1, [0], lb=lb1)
+
+    def stream_h(plain=False):
+        return (tr.harvest_plain(s02, rows2) if plain
+                else tr.harvest(cfg, s02, rows2))
+
+    def stream_a(plain=False):
+        if plain:
+            return tr.advance_plain("both", cfg, pb2, s02, rows2, h=h2)
+        return tr.advance("both", cfg, pb2, s02, rows2, tables=tabs2, h=h2)
+
+    def one_h(plain=False):
+        return (tr.harvest_plain(src1, [0], lb=lb1) if plain
+                else tr.harvest(cfg, src1, [0], lb=lb1))
+
+    def one_a(plain=False):
+        if plain:
+            return (tr.advance_plain("pop", cfg, pb1, s1, [0]),
+                    tr.advance_plain("adopt", cfg, pb1, s1, [0], h=h1, p=p1,
+                                     work=work1))
+        return (tr.advance("pop", cfg, pb1, s1, [0], tables=tabs1),
+                tr.advance("adopt", cfg, pb1, s1, [0], tables=tabs1, h=h1,
+                           p=p1, work=work1))
+
+    def per_row(x):
+        """One row's bytes of a tensor whose first axis is the rows."""
+        return x.numel() * x.element_size() // x.shape[0]
+
+    def harvest_reads(src, lb=None):
+        """The bytes goicp_harvest reads a row: each lane's lb fields
+        (its frontier's lbs, thr, min_dropped, done), active flag and ub,
+        the argmin lane's best node, R and terms, the row's incumbent."""
+        lst = src["inner"] if lb is None else lb
+        ist = src["inner"]
+        L = src["active"].shape[1]
+        return (sum(per_row(lst[k]) for k in ("lbs", "thr", "min_dropped",
+                                              "done"))
+                + per_row(src["active"]) + per_row(ist["opt_err"])
+                + (per_row(ist["best_node"]) + per_row(ist["ub_terms"])
+                   + per_row(src["R_lanes"])) // L
+                + per_row(src["opt_err"]))
+
+    def advance_reads(mode, s, pb, tabs, children, lb_safe):
+        """The bytes goicp_advance reads a row in `mode`: adopt (adopt,
+        both) the frontier's rest (all of it in both), the children's
+        nodes, active flags and lb_safe, and the row's scalars (the
+        improved flag, the incumbent and the R, t, terms, comp and
+        last_icp it is picked from, min_dropped, the counters and the
+        inner search's, and in adopt the pop's converged and final_lb);
+        pop (pop, both) the parents (pop alone: adopt hands them over in
+        shared memory), sse, converged, final_lb, each pair's data and
+        point norms once, and under corner reuse K2's tables."""
+        Pr, Cr = cfg.rot_batch, cfg.device_rot_capacity
+        node = 20                               # an lb and a node
+        b = 0
+        if mode != "pop":
+            b += (Cr - (Pr if mode == "adopt" else 0)) * node
+            b += per_row(children["child_nodes"]) \
+                + per_row(children["active"]) + per_row(lb_safe)
+            b += 1 + 4 + 36 + 12 + 12 + 4 + 1 + 4 + 5 * 4 + 4 * 4
+            b += 4 if isinstance(s.get("it"), torch.Tensor) else 0
+            b += 1 + 1 + 4 if mode == "adopt" else 0
+        if mode != "adopt":
+            b += (Pr * node + 4 if mode == "pop" else 0) + 4 + 1 + 4
+            b += per_row(pb.data) + per_row(pb.norm_data)
+            if inner._chem_reuse_active(cfg):
+                b += sum(per_row(x) for x in (
+                    tabs.cell_compat, tabs.prop_onehot, tabs.data_mask,
+                    tabs.nearest_cell, tabs.consts))
+        return b
+
+    def written(out):
+        return sum(_nbytes(*_leaves(o)) for o in out)
+
+    def lane_ops(nd, real, rows):
+        # the rotated points 15 and the uncertainty 1 a point, the root
+        # corners' counts
+        return rows * (L * nd * 16 + 8 * L * real * CHEM_OPS)
+
+    two = _bucket_and_prepare([_normalized_synthetic(pools[n])
+                               for n in ("syn02", "syn03")], cfg, device=dev)
+    for shape, fh, fa, h_read, h_ops, a_read, a_ops in (
+            ("the streams' shape (syn02 + syn03)", stream_h, stream_a,
+             2 * harvest_reads(s02), s02["inner"]["lbs"].numel(),
+             2 * advance_reads("both", s02, pb2, tabs2, s02, h2["lb_safe"]),
+             lane_ops(pb2.n_data_padded,
+                      max(_real_points(q) for q in two), 2)),
+            ("register_device's shape (syn07)", one_h, one_a,
+             harvest_reads(src1, lb1), lb1["lbs"].numel(),
+             advance_reads("pop", s1, pb1, tabs1, None, None)
+             + advance_reads("adopt", s1, pb1, tabs1, p1, h1["lb_safe"]),
+             lane_ops(pb1.n_data_padded, _real_points(pair), 1))):
+        times = {}
+        for name, fn, reads, ops in (("harvest", fh, h_read, h_ops),
+                                     ("advance", fa, a_read, a_ops)):
+            out = fn()
+            out = out if isinstance(out, tuple) else (out,)
+            # `improved` is a view of `flags`
+            nbytes = reads + written(
+                {k: v for k, v in o.items() if k != "improved"} for o in out)
+            t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
+            times[name] = dict(
+                ms=_median_ms(fn), graph_ms=_device_ms(fn),
+                plain_ms=_median_ms(lambda fn=fn: fn(plain=True)),
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None)
+            v = times[name]
+            print(f"transition timed, {shape}: {name} kernel "
+                  f"{v['ms']:.4f} ms (from a graph {v['graph_ms']:.4f} ms) "
+                  f"plain {v['plain_ms']:.4f} ms bound {v['bound_ms']:.6f} "
+                  f"ms ({v['bound_by']}; {nbytes} bytes, {ops} operations) "
+                  f"{floor}", flush=True)
+        if shape.startswith("the streams"):
+            kh.update(times["harvest"])
+            ka.update(times["advance"])
+        else:
+            kh["register_device_shape"] = times["harvest"]
+            ka["register_device_shape"] = times["advance"]
+
+
+def _leaves(d):
+    """The tensors of a (nested) dict."""
+    import torch
+    out = []
+    for v in d.values():
+        if isinstance(v, dict):
+            out += _leaves(v)
+        elif isinstance(v, torch.Tensor):
+            out.append(v)
+    return out
+
+
 def _icp_checks(kernels, cfg, cfg_t, pools, dev, floor):
     """Phase 2's check of csrc/icp.cu: icp_run (one launch an ICP event)
     against icp_run_plain (the host loop of torch ops, its sums and
@@ -2227,7 +2661,7 @@ def _one_answer_phase(dev):
     _require(got == want_row,
              f"phase 13 syn72 on the card == the port's CPU row in every "
              f"counter and bit: {got} vs {want}")
-    for kname in ("chem_incomp_kernel", *PATH_KERNELS):
+    for kname in PATH_KERNELS:
         _require(counts[kname] > 0, f"{kname} launched in phase 13")
     _step_path(counts, "phase 13")
     _off_path(counts, "phase 13")
@@ -2251,13 +2685,30 @@ def _one_answer_phase(dev):
              f"iteration are at most 8 launches (131 before the inner step "
              f"kernel), the latter with one host read: "
              f"{loops['global_iteration']}, {one}")
-    for name, fn in (("outer transition", launch_counts.transition),
-                     ("rescoring", launch_counts.rescoring)):
-        v = fn()
-        print(f"phase 13 launches per {name}: {v['launches']:.1f} "
-              f"({v['ms']:.3f} ms on the host clock); before rotate, norm3 "
-              f"and sincos32 were one launch each: "
-              f"{BEFORE_FUSED_ORDER_LAUNCHES[name]}", flush=True)
+    v = launch_counts.rescoring()
+    print(f"phase 13 launches per rescoring: {v['launches']:.1f} "
+          f"({v['ms']:.3f} ms on the host clock); before rotate, norm3 and "
+          f"sincos32 were one launch each: "
+          f"{BEFORE_FUSED_ORDER_LAUNCHES['rescoring']}", flush=True)
+    tb, st = launch_counts.transition(), launch_counts.outer_step()
+    print(f"phase 13 a fused-stream transition of {tb['rows']} rows: "
+          f"{tb['launches']:.1f} launches, {tb['host_reads']:.1f} host "
+          f"reads, {tb['syncs']:.1f} syncs, {tb['ms']:.3f} ms on the host "
+          f"clock "
+          f"({tb['launches_per_row']:.2f} launches and "
+          f"{tb['ms_per_row']:.3f} ms a row); before the transition "
+          f"kernel: {BEFORE_TRANSITION_KERNEL['transition']}", flush=True)
+    print(f"phase 13 a register_device outer step: {st['launches']:.1f} "
+          f"launches, {st['host_reads']:.1f} host reads, {st['syncs']:.1f} "
+          f"syncs, {st['ms']:.3f} ms "
+          f"on the host clock, {st['inner_iterations']} inner iterations "
+          f"(besides them {st['launches_besides_inner']:.1f} launches, "
+          f"{st['host_reads_besides_inner']:.1f} host reads); before the "
+          f"transition kernel: {BEFORE_TRANSITION_KERNEL['outer_step']}",
+          flush=True)
+    _require(tb["launches"] <= 3 and tb["syncs"] <= 1,
+             f"a stream transition batch is at most three launches and one "
+             f"host read (a sync): {tb}")
     ev = launch_counts.icp_event()
     print(f"phase 13 an ICP event ({launch_counts.ICP_SEEDS} seeds, "
           f"iterations {ev['iterations']}): {ev['launches']:.1f} kernel "
@@ -2359,6 +2810,14 @@ def main() -> int:
         "inner_step": dict(source="goicp_tpu_torch/csrc/inner.cu",
                            replaces="goicp_tpu/search/inner.py:281",
                            errs=[]),
+        # the outer-step transition XLA runs around the inner search (the
+        # JAX package's _harvest and _advance, vmapped over the window)
+        "harvest": dict(source="goicp_tpu_torch/csrc/transition.cu",
+                        replaces="goicp_tpu/search/fused_stream.py:131",
+                        errs=[]),
+        "advance": dict(source="goicp_tpu_torch/csrc/transition.cu",
+                        replaces="goicp_tpu/search/fused_stream.py:177",
+                        errs=[]),
     }
     L, B = 8, cfg.trans_pop * 8
     k1 = kernels["geometric_bounds_kernel"]
@@ -2693,6 +3152,7 @@ def main() -> int:
     _product_checks(kernels, cfg, pools, dev, floor)
     _icp_checks(kernels, cfg, cfg_t, pools, dev, floor)
     _step_checks(kernels["inner_step"], cfg, cfg_t, pools, dev, floor)
+    _transition_checks(kernels, cfg, cfg_t, pools, dev, floor)
 
     if sys.argv[1:] == ["--kernels-only"]:
         print("kernels only: phases 3-13 not run, no result", flush=True)
@@ -2751,7 +3211,7 @@ def main() -> int:
     # ---- 4. proof the main path ran the kernels ----
     print(f"launches during the registrations: {json.dumps(counts)}",
           flush=True)
-    for kname in ("chem_incomp_kernel", *PATH_KERNELS):
+    for kname in PATH_KERNELS:
         _require(counts[kname] > 0, f"{kname} launched on the main path")
     _step_path(counts, "phase 3")
     _off_path(counts, "phase 3")
@@ -2925,9 +3385,11 @@ def main() -> int:
          "launch_floor_ms": floor_ms, "graph_ms": k["graph_ms"],
          "graph_launch_floor_ms": floor_dev,
          **({"norm1": k["norm1"]} if "norm1" in k else {}),
-         # K1-K4's bodies also run inside every inner step launch
-         **({"body_runs_in": "inner_step"} if kname in IN_STEP
-            or kname == "chem_incomp_kernel" else {})}
+         # K1-K4's bodies also run inside every inner step launch, K2's
+         # in every pop of the transition (the root corners) too
+         **({"body_runs_in": "inner_step"} if kname in IN_STEP else
+            {"body_runs_in": "inner_step, advance"}
+            if kname == "chem_incomp_kernel" else {})}
         for kname, k in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

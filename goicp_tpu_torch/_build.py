@@ -82,6 +82,14 @@ _SIGNATURES = {
     # stats, scratch; L, cap, pop, group, Nd, n_cells, size, norm, fused,
     # trim_k, reuse, sorted_merge; reg; stream
     "goicp_inner_step": [_P] * 37 + [_I] * 12 + [ctypes.c_float, _P],
+    # slots, n_slots, ints, n_ints, rows, n, stream
+    "goicp_harvest": [ctypes.POINTER(ctypes.c_ulonglong), _I,
+                      ctypes.POINTER(_I), _I, ctypes.POINTER(_I), _I, _P],
+    # slots, n_slots, ints, n_ints, root, rows, out_rows (NULL: 0..n-1), n,
+    # stream
+    "goicp_advance": [ctypes.POINTER(ctypes.c_ulonglong), _I,
+                      ctypes.POINTER(_I), _I, ctypes.POINTER(ctypes.c_float),
+                      ctypes.POINTER(_I), ctypes.POINTER(_I), _I, _P],
     # stream
     "goicp_empty_launch": [_P],
 }

@@ -20,9 +20,26 @@ every `.item()` and `bool()` of a card tensor goes through):
   * one ICP iteration: the same event with its convergence test switched
     off so that it runs a fixed number of iterations; the launches of 3
     iterations less those of 2 (0 when the event is one launch);
-  * one outer transition: device_engine._pop on that pair's first state
-    (pop the lowest-lb rotation node, expand its 8 children, the pi-ball
-    filter by norm3, rodrigues, the data rotated for every lane);
+  * one outer transition of the fused stream: fused_stream.
+    _transition_batch, as fused_run_chunk runs it (the rows' new states
+    written back into the window), of every row of a window of
+    TRANSITION_ROWS bench pairs from their first state, where no row
+    improves (so no ICP): harvest, adopt, merge, pop, rotate and the fresh
+    inner state of each row; its launches, host reads, syncs (the host's
+    waits on the card: reads, `.cpu()` copies and pageable host-to-card
+    copies) and host-clock ms, and per row;
+  * one outer transition of the packed stream: packed_stream.
+    _transition, as packed_run_chunk runs it, of the same rows from their
+    first packed state: the bundles unpacked into the fused layout, the
+    fused stream's transition, the rows repacked and written back; its
+    launches, host reads, syncs and host-clock ms, and per row;
+  * one register_device outer step: device_engine._make_body's body on
+    syn07 after 3 outer steps, as device_run_chunk runs it (with the
+    loop's host read of `converged` where the body does not read it
+    itself): launches, host reads, syncs, host-clock ms, the inner
+    iterations it ran, and the launches and host reads beside them (less
+    one inner step launch and one host read per inner iteration: the
+    step's own);
   * one rescoring: score_transform of that pair at four seeded transforms
     and their nearest-neighbour correspondences (the ICP event's).
 
@@ -47,6 +64,8 @@ import numpy as np
 import torch
 
 PAIRS_STEP = ("syn03", "syn12")
+TRANSITION_ROWS = ("syn00", "syn01", "syn02", "syn03", "syn04", "syn05",
+                   "syn06", "syn07")
 PAIR_ICP = "syn07"
 ICP_SEEDS = 4
 
@@ -68,9 +87,10 @@ def _bench_pairs(names, device, bucket_together: bool):
                  for r in raw]
 
 
-def _profile(fn, n: int) -> tuple:
+def _profile(fn, n: int, syncs: bool = False) -> tuple:
     """(kernel launches, host reads) per call of fn over n profiled
-    calls."""
+    calls; syncs: also the host's waits on the card (stream syncs: a
+    read's, a `.cpu()`'s and a pageable host-to-card copy's)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -79,9 +99,13 @@ def _profile(fn, n: int) -> tuple:
         torch.cuda.synchronize()
     names = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
     events = prof.key_averages()
-    return (sum(e.count for e in events if e.key in names) / n,
-            sum(e.count for e in events
-                if e.key == "aten::_local_scalar_dense") / n)
+    out = (sum(e.count for e in events if e.key in names) / n,
+           sum(e.count for e in events
+               if e.key == "aten::_local_scalar_dense") / n)
+    if syncs:
+        out += (sum(e.count for e in events
+                    if e.key == "cudaStreamSynchronize") / n,)
+    return out
 
 
 def _launches(fn, n: int) -> float:
@@ -200,15 +224,86 @@ def icp_event(device="cuda", n=3) -> dict:
                 iterations=fn().iters.tolist(), ms=_host_ms(fn, n))
 
 
-def transition(device="cuda", n=10) -> dict:
-    """Launches and ms of one outer transition (device_engine._pop)."""
-    from goicp_tpu_torch.search import device_engine as eng
-    cfg, (pair,) = _bench_pairs((PAIR_ICP,), device, bucket_together=False)
-    state = eng.device_init(pair, cfg)
+def transition(device="cuda", n=5) -> dict:
+    """Launches, host reads and ms of one fused-stream transition of every
+    row of a window of TRANSITION_ROWS pairs (their first one: the root
+    popped), the rows' new states written back into the window."""
+    import inspect
+    from goicp_tpu_torch.dist.mesh import stack_pairs
+    from goicp_tpu_torch.search import fused_stream as fs
+    cfg, pairs = _bench_pairs(TRANSITION_ROWS, device, bucket_together=True)
+    pb = stack_pairs(pairs)
+    rows = list(range(len(pairs)))
+    init = fs._init_batch(pb, cfg)
+    in_place = "in_place" in inspect.signature(fs._transition_batch).parameters
+    states = iter([fs._map_state(torch.clone, init)
+                   for _ in range(4 * n + 4)])
 
     def step():
-        return eng._pop(pair, cfg, state)
-    return dict(launches=_launches(step, n), ms=_host_ms(step, 5 * n))
+        s = next(states)
+        if in_place:
+            fs._transition_batch(pb, cfg, s, rows, in_place=True)
+        else:
+            for r, new in zip(rows, fs._transition_batch(pb, cfg, s, rows)):
+                fs._write_row(s, r, new)
+        return s
+    step()                  # the window's tables, made once
+    launches, reads, syncs = _profile(step, n, syncs=True)
+    ms = _host_ms(step, 3 * n)
+    return dict(rows=len(rows), launches=launches, host_reads=reads,
+                syncs=syncs, ms=ms, launches_per_row=launches / len(rows),
+                ms_per_row=ms / len(rows))
+
+
+def packed_transition(device="cuda", n=5) -> dict:
+    """Launches, host reads and ms of one packed-stream transition of every
+    row of a window of TRANSITION_ROWS pairs (their first one), the rows
+    written back into the packed window."""
+    from goicp_tpu_torch.dist.mesh import stack_pairs
+    from goicp_tpu_torch.search import fused_stream as fs
+    from goicp_tpu_torch.search import packed_stream as ps
+    cfg, pairs = _bench_pairs(TRANSITION_ROWS, device, bucket_together=True)
+    pb = stack_pairs(pairs)
+    rows = np.arange(len(pairs))
+    init = ps.packed_init(pb, cfg)
+    states = iter([fs._map_state(torch.clone, init)
+                   for _ in range(4 * n + 4)])
+
+    def step():
+        s = next(states)
+        ps._transition(pb, cfg, s, rows)
+        return s
+    step()                  # the window's tables, made once
+    launches, reads, syncs = _profile(step, n, syncs=True)
+    ms = _host_ms(step, 3 * n)
+    return dict(rows=len(rows), launches=launches, host_reads=reads,
+                syncs=syncs, ms=ms, launches_per_row=launches / len(rows),
+                ms_per_row=ms / len(rows))
+
+
+def outer_step(device="cuda", n=3) -> dict:
+    """Launches, host reads and ms of one register_device outer step
+    (device_engine._make_body's body, with the loop's read of `converged`
+    where the body does not read it itself) on PAIR_ICP after 3 steps,
+    and the inner iterations it ran."""
+    from goicp_tpu_torch.search import device_engine as eng
+    cfg, (pair,) = _bench_pairs((PAIR_ICP,), device, bucket_together=False)
+    s0 = eng.device_run_chunk(pair, cfg, eng.device_init(pair, cfg), 3)
+    body = eng._make_body(pair, cfg)
+
+    def step():
+        out = body(s0)
+        if isinstance(out, tuple):
+            return out[0]
+        bool(out["converged"])          # the loop's read on such a tree
+        return out
+    s1 = step()
+    inner = int(s1["inner_it"]) - int(s0["inner_it"])
+    launches, reads, syncs = _profile(step, n, syncs=True)
+    return dict(launches=launches, host_reads=reads, syncs=syncs,
+                ms=_host_ms(step, 2 * n), inner_iterations=inner,
+                launches_besides_inner=launches - inner,
+                host_reads_besides_inner=reads - inner)
 
 
 def rescoring(device="cuda", n=10) -> dict:
@@ -254,7 +349,10 @@ def main(argv=None) -> int:
                one_pair_iteration=one_pair_iteration()
                if _has_inner_step() else None,
                icp_iteration=icp_iteration(), icp_event=icp_event(),
-               transition=transition(), rescoring=rescoring())
+               transition=transition(),
+               packed_transition=packed_transition(),
+               outer_step=outer_step(),
+               rescoring=rescoring())
     print(json.dumps(out), flush=True)
     if a.json:
         with open(a.json, "w") as fh:

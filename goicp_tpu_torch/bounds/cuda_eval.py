@@ -451,10 +451,11 @@ _KERNELS = (geometric_bounds_kernel, chem_incomp_kernel,
 
 
 def _all_kernels() -> tuple:
-    """_KERNELS and the inner step's (search/inner.py, which imports this
-    module)."""
+    """_KERNELS, the inner step's (search/inner.py) and the transition's
+    (search/transition.py), which import this module."""
     from goicp_tpu_torch.search.inner import inner_step
-    return _KERNELS + (inner_step,)
+    from goicp_tpu_torch.search.transition import advance, harvest
+    return _KERNELS + (inner_step, harvest, advance)
 
 
 def launch_counts() -> dict:
@@ -462,12 +463,15 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts():
-    """Zero every kernel's launch count and the torch body's iterations on
-    the card (search/inner.py::body_on_card)."""
+    """Zero every kernel's launch count, the torch body's iterations on
+    the card (search/inner.py::body_on_card) and the torch transition's
+    rows on the card (search/transition.py::plain_on_card)."""
     from goicp_tpu_torch.search.inner import body_on_card
+    from goicp_tpu_torch.search.transition import plain_on_card
     for k in _all_kernels():
         k.launches = 0
     body_on_card["iterations"] = 0
+    plain_on_card["rows"] = 0
 
 
 def empty_launch(device) -> None:

@@ -27,7 +27,8 @@
 //
 // The orders (dot3's warp and sequential ones, the cross product, the
 // FMA chain, the sin and cos polynomials) are fp32_order.cuh's, shared
-// with icp.cu.  One thread per output value; what bounds them on the
+// with icp.cu; norm3's body (norm3_of) is rot_body.cuh's, shared with the
+// outer-step transition (transition.cu).  One thread per output value; what bounds them on the
 // H100 is the launch: the ICP's matrices are a few hundred KB (sq_dist3),
 // the rest a few hundred bytes (8 rotation centres, 3x3 matrices) to ~5
 // KB (the preparation's point norms).  So each takes its whole function
@@ -38,6 +39,7 @@
 // transition, rodrigues, the preparation, the rotation uncertainty).
 #include "common.cuh"
 #include "fp32_order.cuh"
+#include "rot_body.cuh"
 
 namespace goicp {
 
@@ -132,12 +134,8 @@ __global__ void norm3_kernel(const float* __restrict__ v,
   const long long row =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (row >= rows) return;
-  const float x = __ldg(v + 3 * row), y = __ldg(v + 3 * row + 1),
-              z = __ldg(v + 3 * row + 2);
-  float acc = __fmul_rn(x, x);
-  acc = dot_fma_step(y, y, acc);
-  acc = dot_fma_step(z, z, acc);
-  out[row] = __fsqrt_rn(acc);
+  out[row] = norm3_of(__ldg(v + 3 * row), __ldg(v + 3 * row + 1),
+                      __ldg(v + 3 * row + 2));
 }
 
 __global__ void sincos32_kernel(const float* __restrict__ x,

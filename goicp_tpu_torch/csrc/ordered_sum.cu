@@ -32,7 +32,9 @@
 // over it and an add of t (three launches, the first of them the only
 // large write).  out[b, n, i] = dot3_warp(R[b, i, :], p[n, :]), which is
 // the ordered sum's warp order for three terms, (z0 + z2) + z1, then
-// __fadd_rn(., t[b, i]).  One thread per output point; a block's threads
+// __fadd_rn(., t[b, i]); the per-point code (rotate_point) is
+// rot_body.cuh's, shared with the outer-step transition (transition.cu).
+// One thread per output point; a block's threads
 // read the same few R rows, which stay in L1.  What bounds it on the
 // H100: the launch.  The outer transition rotates 192-256 points by 8
 // matrices (~20 KB out), the rescoring by 4 to 8 (~10 KB); the design
@@ -40,6 +42,7 @@
 // only the output.
 #include "common.cuh"
 #include "fp32_order.cuh"
+#include "rot_body.cuh"
 
 namespace goicp {
 
@@ -80,12 +83,11 @@ __global__ void rotate_kernel(const float* __restrict__ R,
   for (int k = 0; k < 9; ++k) r[k] = __ldg(R + 9 * b + k);
 #pragma unroll
   for (int k = 0; k < 3; ++k) p[k] = __ldg(pts + 3 * j + k);
+  float v[3];
+  rotate_point(r, p, v);
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    float v = dot3_warp(r + 3 * i, p);
-    if (kShift) v = __fadd_rn(v, __ldg(t + 3 * b + i));
-    out[3 * idx + i] = v;
-  }
+  for (int i = 0; i < 3; ++i)
+    out[3 * idx + i] = kShift ? __fadd_rn(v[i], __ldg(t + 3 * b + i)) : v[i];
 }
 
 }  // namespace goicp

@@ -20,9 +20,11 @@ inside one lax.while_loop.  Here the batch axes are written out:
     CPU).  Configurations with FPFH or neighbour chem terms, which the
     per-lane tables do not carry, run the body once per window row
     instead;
-  * the transition, which is rare, runs per transitioning row on that
-    row's slice of the state, with the per-pair functions of
-    search/device_engine.py.  Rows that do not transition, and rows that
+  * the transition, which is rare, serves every transitioning row of
+    the event at once (search/transition.py: on the card one harvest
+    launch, one host read, the refine of the rows that improved, and one
+    advance of two launches that writes the rows' new state into the
+    window in place).  Rows that do not transition, and rows that
     converged, are not touched.
 
 The loop is a Python loop: each global iteration reads ONE small tensor on
@@ -53,32 +55,27 @@ Reference anchors: OuterBnB/InnerBnB nesting jly_goicp.cpp:582-876 /
 from __future__ import annotations
 
 import dataclasses
-import math
 import os
 
 import numpy as np
 import torch
 
 from goicp_tpu_torch.bounds.error import bnb_incompatibility_count
-from goicp_tpu_torch.bounds.evaluate import (lane_tables, only_incomp,
-                                             rot_uncertainty)
+from goicp_tpu_torch.bounds.evaluate import lane_tables, only_incomp
 from goicp_tpu_torch.config import GoICPConfig
 from goicp_tpu_torch.dist.mesh import stack_pairs
-from goicp_tpu_torch.geom.rotation import rodrigues
 from goicp_tpu_torch.pipeline.prepare import PairData
 from goicp_tpu_torch.search.device_engine import (DeviceResult,
                                                   _icp_best_of_seeds,
                                                   _initial_incumbent,
                                                   result_to_numpy)
+from goicp_tpu_torch.search import transition
 from goicp_tpu_torch.search.inner import (_PER_LANE, _chem_active,
-                                          _chem_reuse_active, _chem_terms,
                                           StepBuffers, inner_iteration,
-                                          inner_step_plain,
-                                          root_corner_values)
-from goicp_tpu_torch.utils.fp32 import norm3, rotate
+                                          inner_step_plain)
+from goicp_tpu_torch.search.transition import _inner_init
 from goicp_tpu_torch.utils.npz import savez_exact
 
-SQRT3 = 3.0 ** 0.5
 INF = float("inf")
 _F32 = torch.float32
 _I32 = torch.int32
@@ -145,39 +142,6 @@ def _take_pairs(pair_batch: PairData, idx) -> PairData:
 
 def _i32(v, dev):
     return torch.tensor(v, dtype=_I32, device=dev)
-
-
-def _inner_init(cfg: GoICPConfig, L: int, opt_err: torch.Tensor,
-                root_cv=None) -> dict:
-    """Fresh inner-search state for one pair's L rotation lanes (the
-    per-lane translation frontier of search/inner.py, as carried state).
-    root_cv (L, 8*T): the root node's corner-reuse chem payload (required
-    for a REAL search when cfg.chem_reuse; the dummy init passes None)."""
-    dev = opt_err.device
-    C = cfg.trans_capacity
-    root = torch.tensor([cfg.transMinX, cfg.transMinY, cfg.transMinZ,
-                         cfg.transWidth], dtype=_F32, device=dev)
-    nodes = torch.zeros((L, C, 4), dtype=_F32, device=dev)
-    nodes[:, 0] = root
-    lbs = torch.full((L, C), INF, dtype=_F32, device=dev)
-    lbs[:, 0] = 0.0
-    inc = opt_err.to(_F32).expand(L).clone()
-    st = dict(
-        nodes=nodes, lbs=lbs, opt_err=inc, thr=inc.clone(),
-        best_node=torch.zeros((L, 4), dtype=_F32, device=dev),
-        ub_terms=torch.zeros((L, 3), dtype=_F32, device=dev),
-        min_dropped=torch.full((L,), INF, dtype=_F32, device=dev),
-        done=torch.zeros((L,), dtype=torch.bool, device=dev),
-        it=_i32(0, dev), evals=_i32(0, dev),
-        geom_surv=_i32(0, dev), chem_corners=_i32(0, dev),
-    )
-    if _chem_reuse_active(cfg):
-        cv = torch.zeros((L, C, 8 * len(_chem_terms(cfg))), dtype=_F32,
-                         device=dev)
-        if root_cv is not None:
-            cv[:, 0] = root_cv
-        st["cvals"] = cv
-    return st
 
 
 def fused_init(pair: PairData, cfg: GoICPConfig) -> dict:
@@ -272,23 +236,6 @@ def _inner_complete(cfg: GoICPConfig, s: dict) -> torch.Tensor:
 # the outer-step transition (per transitioning row)
 # ---------------------------------------------------------------------------
 
-def _harvest(s: dict) -> dict:
-    """Per-pair inner-search finalize (inner_bnb's post-loop code, fused
-    path) + candidate extraction."""
-    ist = s["inner"]
-    rem_min = torch.amin(ist["lbs"], dim=1)
-    lb_safe = torch.minimum(ist["thr"], ist["min_dropped"])
-    lb_safe = torch.where(ist["done"], lb_safe,
-                          torch.minimum(lb_safe, rem_min))
-    ubs = torch.where(s["active"], ist["opt_err"], INF)
-    best_lane = torch.argmin(ubs)
-    tn = ist["best_node"][best_lane]
-    return dict(lb_safe=lb_safe, ubs=ubs, cand_ub=ubs[best_lane],
-                cand_R=s["R_lanes"][best_lane],
-                cand_t=tn[:3] + tn[3] / 2.0,
-                cand_terms=ist["ub_terms"][best_lane])
-
-
 def _refine(pair: PairData, cfg: GoICPConfig, s: dict, h: dict) -> dict:
     """Per-pair ICP refinement + BnB compat count for an improving
     candidate.  The expensive block of a transition: the caller runs it
@@ -305,138 +252,51 @@ def _refine(pair: PairData, cfg: GoICPConfig, s: dict, h: dict) -> dict:
                 bnb_comp=bnb_comp.to(_I32))
 
 
-def _refine_dummy(dev) -> dict:
-    return dict(icp_R=torch.eye(3, dtype=_F32, device=dev),
-                icp_t=torch.zeros(3, dtype=_F32, device=dev),
-                icp_err=torch.tensor(INF, dtype=_F32, device=dev),
-                icp_terms=torch.zeros(3, dtype=_F32, device=dev),
-                icp_incomp=_i32(0, dev), bnb_comp=_i32(0, dev))
-
-
-def _advance(pair: PairData, cfg: GoICPConfig, s: dict, h: dict, r: dict,
-             bnb_improved, icp_improved) -> dict:
-    """Per-pair adopt + prune/merge + pop + rotate + fresh inner state, for
-    a row that transitions (live, inner search complete).  Mirrors
-    device_engine._make_body's tail.  Returns the row's new state."""
-    dev = pair.device
-    Pr = cfg.rot_batch
-    L = Pr * 8
-    Cr = cfg.device_rot_capacity
-    sse = torch.tensor(cfg.mse_margin, dtype=_F32, device=dev) \
-        * pair.inlier_f()
-    child_off = torch.tensor(
-        [[j & 1, (j >> 1) & 1, (j >> 2) & 1] for j in range(8)],
-        dtype=_F32, device=dev)
-    ist = s["inner"]
-    lb_safe = h["lb_safe"]
-    cand_ub = h["cand_ub"]
-
-    def adopt(icp_v, bnb_v, old_v):
-        return torch.where(icp_improved, icp_v,
-                           torch.where(bnb_improved, bnb_v, old_v))
-
-    opt_err = adopt(r["icp_err"], cand_ub, s["opt_err"])
-    opt_R = adopt(r["icp_R"], h["cand_R"], s["opt_R"])
-    opt_t = adopt(r["icp_t"], h["cand_t"], s["opt_t"])
-    comp = adopt(r["icp_incomp"], r["bnb_comp"], s["comp"]).to(_I32)
-    terms = adopt(r["icp_terms"], h["cand_terms"], s["terms"])
-    last_icp = icp_improved | (~bnb_improved & s["last_icp"])
-
-    # ---- prune + merge children into the (sorted) rotation frontier ----
-    lbs_new = torch.where(s["active"] & (lb_safe < opt_err), lb_safe, INF)
-    all_lbs = torch.cat([s["fr_lbs"], lbs_new])
-    all_nodes = torch.cat([s["fr_nodes"], s["child_nodes"]])
-    order = torch.argsort(all_lbs, stable=True)
-    keep_lbs = all_lbs[order[:Cr]]
-    keep_nodes = all_nodes[order[:Cr]]
-    dropped = all_lbs[order[Cr:]]
-    min_drop = torch.amin(torch.where(torch.isfinite(dropped), dropped, INF))
-    keep_lbs = torch.where(keep_lbs >= opt_err, INF, keep_lbs)
-
-    # ---- convergence check + pop the next Pr parents ----
-    pop_lb = keep_lbs[:Pr]
-    min_lb = pop_lb[0]
-    converged = torch.isinf(min_lb) | (opt_err - min_lb <= sse) \
-        | torch.isnan(opt_err)    # numeric guard: freeze on NaN incumbent
-    final_lb = torch.where(converged & ~s["converged"], min_lb,
-                           s["final_lb"])
-    parents = keep_nodes[:Pr]
-    rest_lbs = torch.cat([keep_lbs[Pr:],
-                          torch.full((Pr,), INF, dtype=_F32, device=dev)])
-    rest_nodes = torch.cat([keep_nodes[Pr:],
-                            torch.zeros((Pr, 4), dtype=_F32, device=dev)])
-    expand = torch.isfinite(pop_lb) & (opt_err - pop_lb > sse) & ~converged
-
-    cw = parents[:, 3:4] / 2.0
-    cxyz = parents[:, None, 0:3] + child_off[None] * cw[:, None]
-    centers = (cxyz + cw[:, None] / 2.0).reshape(L, 3)
-    widths = cw[:, None].expand(Pr, 8, 1).reshape(L)
-    child_nodes = torch.cat([cxyz.reshape(L, 3), widths[:, None]], dim=1)
-    inside = (norm3(centers)
-              - SQRT3 * widths / 2.0) <= math.pi
-    active = inside & torch.repeat_interleave(expand, 8)
-    R_lanes = rodrigues(centers)
-    pts = rotate(R_lanes, pair.data)
-    mrd = rot_uncertainty(widths, pair.norm_data)
-    root_cv = root_corner_values(pair, cfg, pts) \
-        if _chem_reuse_active(cfg) else None
-    inner_new = _inner_init(cfg, L, opt_err, root_cv=root_cv)
-    inner_new["done"] = ~active | converged
-
-    return dict(
-        fr_nodes=rest_nodes, fr_lbs=rest_lbs,
-        opt_err=opt_err, opt_R=opt_R, opt_t=opt_t, comp=comp, terms=terms,
-        last_icp=last_icp,
-        min_dropped=torch.minimum(s["min_dropped"], min_drop),
-        # one `it` per pop performed — each transition pops exactly once,
-        # matching device_engine's one-increment-per-body (including its
-        # final convergence-detecting pop)
-        it=s["it"] + 1,
-        evals=s["evals"] + ist["evals"],
-        inner_it=s["inner_it"] + ist["it"],
-        icp_runs=s["icp_runs"] + (bnb_improved.to(_I32)
-                                  if cfg.icp_on_improve else 1),
-        geom_surv=s["geom_surv"] + ist["geom_surv"],
-        chem_corners=s["chem_corners"] + ist["chem_corners"],
-        converged=s["converged"] | converged,
-        final_lb=final_lb,
-        inner=inner_new,
-        pts_rot=pts, mrd=mrd, widths=widths, active=active,
-        child_nodes=child_nodes, R_lanes=R_lanes,
-    )
+def _transition_tables(pair_batch: PairData, cfg: GoICPConfig):
+    """The window's LaneTables for the transition kernel (its epsilon and
+    K2's tables), made once per window object and configuration."""
+    key = (cfg.mse_margin, bool(cfg.doTrim))
+    cache = pair_batch.__dict__.setdefault("_transition_tables", {})
+    if key not in cache:
+        cache[key] = lane_tables(pair_batch, cfg)
+    return cache[key]
 
 
 def _transition_batch(pair_batch: PairData, cfg: GoICPConfig, s: dict,
-                      rows) -> list:
+                      rows, in_place: bool = False):
     """Outer-step transition of the window rows `rows` (host indices of
-    live rows whose inner search completed): harvest each, read ONCE on
-    the host which of them improved, run the ICP/compat refine block only
-    for those, then adopt/merge/pop.  `s` only needs s[k][r] to be row r's
-    value.  The adopt ordering is device_engine._make_body's, so the
-    per-pair trajectory matches register_device.  Returns the rows' new
-    states, in order; `s` is left as it was."""
+    live rows whose inner search completed): one harvest of every row
+    (search/transition.py), ONE host read of which of them improved, the
+    ICP/compat refine block only for those, then one advance (adopt,
+    merge, pop, rotate, fresh inner state) of every row: on the card three
+    launches whatever the number of rows, plus the refine of the rows
+    that improved.  The adopt ordering is device_engine._make_body's, so
+    the per-pair trajectory matches register_device.  in_place: the rows'
+    new states are written into `s` (the kernel's own scatter) and None is
+    returned; else `s` is left as it was and the rows' new states are
+    returned as one state of len(rows) rows, in order (`s` then only
+    needs s[k][r] to be row r's value)."""
     counters["transitions"] += 1
-    pairs = [_pair_row(pair_batch, int(r)) for r in rows]
-    states = [_row(s, int(r)) for r in rows]
-    hs = [_harvest(st) for st in states]
-    improved = [~(h["cand_ub"] >= st["opt_err"])       # NaN-infectious <
-                for h, st in zip(hs, states)]
+    rows = [int(r) for r in rows]
+    h = transition.harvest(cfg, s, rows)
     if cfg.icp_on_improve:
-        do_icp = torch.stack(improved).cpu().numpy()
+        do_icp = h["flags"].cpu().numpy()[:, 0]
         counters["host_reads"] += 1
     else:
-        do_icp = np.ones(len(states), bool)
-    out = []
-    for pair, st, h, imp, icp in zip(pairs, states, hs, improved, do_icp):
-        if icp:
-            r = _refine(pair, cfg, st, h)
-            incumbent = torch.minimum(st["opt_err"], h["cand_ub"])
-            icp_improved = ~(r["icp_err"] >= incumbent)  # NaN-infectious <
-        else:
-            r = _refine_dummy(pair.device)
-            icp_improved = torch.tensor(False, device=pair.device)
-        out.append(_advance(pair, cfg, st, h, r, imp, icp_improved))
-    return out
+        do_icp = np.ones(len(rows), bool)
+    r = None
+    if do_icp.any():
+        r = transition.refine_rows(len(rows), pair_batch.device)
+        for j in np.nonzero(do_icp)[0]:
+            w = rows[j]
+            transition.set_refine(r, j, _refine(
+                _pair_row(pair_batch, w), cfg, _row(s, w),
+                {k: h[k][j] for k in ("ubs", "cand_R", "cand_t")}))
+    new = transition.advance(
+        "both", cfg, pair_batch, s, rows,
+        tables=_transition_tables(pair_batch, cfg), h=h, r=r,
+        out=s if in_place else None)
+    return None if in_place else new
 
 
 def _window_tables(pair_batch: PairData, cfg: GoICPConfig, L: int):
@@ -491,9 +351,7 @@ def fused_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
             break
         rows = np.nonzero(flags[2] & ~flags[1])[0][:K]
         if len(rows):
-            for r, new in zip(rows, _transition_batch(pair_batch, cfg, s,
-                                                      rows)):
-                _write_row(s, int(r), new)
+            _transition_batch(pair_batch, cfg, s, rows, in_place=True)
         # one inner iteration for every pair still mid-search (the body
         # is harmless on done inner states; `where` keeps them anyway)
         live = ~s["converged"] & ~_inner_complete(cfg, s)

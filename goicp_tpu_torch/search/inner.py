@@ -168,7 +168,9 @@ def initial_lanes(pair, cfg: GoICPConfig, pts_rot: torch.Tensor,
 def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
               rot_widths: torch.Tensor, active: torch.Tensor,
               opt_error_init: torch.Tensor, with_rot_uncertainty: bool,
-              fused: bool = False) -> InnerResult:
+              fused: bool = False, lanes0: dict | None = None,
+              mrd: torch.Tensor | None = None,
+              raw: bool = False):
     """pts_rot (L, Nd, 3) pre-rotated data; rot_widths (L,); active (L,)
     bool; opt_error_init 0-d incumbent.
 
@@ -176,16 +178,25 @@ def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
     rotation uncertainty, lb with maxRotDis) as ONE search: each evaluated
     node yields both the plain ub (adoption candidate; best_err) and the
     uncertainty-adjusted ub/lb pair (pruning threshold / frontier key;
-    lb_safe)."""
+    lb_safe).
+
+    lanes0: the initial lanes (initial_lanes' fields, as the transition's
+    pop writes them; None: built here); mrd (L, Nd): the rotation
+    uncertainty of the lanes (None: computed here when needed).  raw=True
+    leaves lb_safe to the caller (the transition's harvest) and returns
+    (InnerResult with lb_safe None and the step's 0-d int32 evals and
+    geom_surv, the final per-lane fields)."""
     L = pts_rot.shape[0]
     C = cfg.trans_capacity
     P = cfg.trans_pop
     assert P < C, "trans_pop must be < trans_capacity (sorted-slice pop)"
     dev = pts_rot.device
-    mrd = rot_uncertainty(rot_widths, pair.norm_data) \
-        if (with_rot_uncertainty or fused) else None
+    if mrd is None and (with_rot_uncertainty or fused):
+        mrd = rot_uncertainty(rot_widths, pair.norm_data)
+    if lanes0 is None:
+        lanes0 = initial_lanes(pair, cfg, pts_rot, active, opt_error_init)
     s = dict(
-        initial_lanes(pair, cfg, pts_rot, active, opt_error_init),
+        lanes0,
         it=0, chem_corners=0,
         # the step's counters of the one lane group: evals, geom_surv
         counters={k: torch.zeros((1,), dtype=torch.int32, device=dev)
@@ -236,6 +247,14 @@ def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
                 merged[k] = sub[k]
         s = merged
 
+    cnt = s["counters"]
+    if raw:
+        return InnerResult(best_err=s["opt_err"], best_node=s["best_node"],
+                           lb_safe=None, ub_terms=s["ub_terms"],
+                           iters=s["it"], evals=cnt["evals"].reshape(()),
+                           geom_surv=cnt["geom_surv"].reshape(()),
+                           chem_corners=s["chem_corners"]), \
+            {k: s[k] for k in _PER_LANE if k in s}
     # safe lower bound: lanes that did not finish also fold in the remaining
     # frontier min (they would have kept searching)
     rem_min = torch.amin(s["lbs"], dim=1)
@@ -243,7 +262,6 @@ def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
     lb_safe = torch.minimum(s["thr"] if fused else s["opt_err"],
                             s["min_dropped"])
     lb_safe = torch.where(finished, lb_safe, torch.minimum(lb_safe, rem_min))
-    cnt = s["counters"]
     return InnerResult(best_err=s["opt_err"], best_node=s["best_node"],
                        lb_safe=lb_safe, ub_terms=s["ub_terms"],
                        iters=s["it"],

@@ -187,11 +187,14 @@ def _packed_iter(cfg: GoICPConfig, tables, sn, ss, pm, live, sv=None,
 
 def _transition(pair_batch: PairData, cfg: GoICPConfig, s: dict, rows):
     """Transition the window rows `rows` in place: the fused engine's
-    per-row transition on the unpacked view, repacked with the rows' lane
-    counters reset."""
-    new_rows = fs._transition_batch(pair_batch, cfg, _fused_state(s), rows)
-    for r, new in zip(rows, new_rows):
-        fs._write_row(s, int(r), _repack(new))
+    transition of those rows on the unpacked view, repacked with the rows'
+    lane counters reset and written back with one scatter a field."""
+    new = _repack(fs._transition_batch(pair_batch, cfg, _fused_state(s),
+                                       rows))
+    idx = torch.as_tensor(np.asarray(rows, dtype=np.int64),
+                          device=s["ss"].device)
+    for k, v in new.items():
+        s[k].index_copy_(0, idx, v)
 
 
 def _lane_over(s: dict, cfg: GoICPConfig) -> torch.Tensor:

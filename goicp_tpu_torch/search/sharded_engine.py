@@ -39,10 +39,10 @@ from goicp_tpu_torch.config import GoICPConfig
 from goicp_tpu_torch.dist.mesh import MAX, MIN, SUM, Mesh
 from goicp_tpu_torch.pipeline.prepare import PairData
 from goicp_tpu_torch.search.device_engine import (DeviceResult,
-                                                  _icp_best_of_seeds,
-                                                  _merge_children, _pop,
+                                                  _icp_best_of_seeds, _pop,
                                                   device_init)
 from goicp_tpu_torch.search.inner import inner_bnb
+from goicp_tpu_torch.search.transition import _merge_children
 
 INF = float("inf")
 AXIS = "search"
@@ -131,7 +131,8 @@ def register_device_sharded(pair: PairData, cfg: GoICPConfig, mesh: Mesh,
         # ---- this rank's lanes: the fused inner search, device-local ----
         active = p["active"]
         res = inner_bnb(pair, cfg, p["pts"], p["widths"], active,
-                        s["opt_err"], with_rot_uncertainty=False, fused=True)
+                        s["opt_err"], with_rot_uncertainty=False, fused=True,
+                        lanes0=p["lanes"], mrd=p["mrd"])
         ubs = torch.where(active, res.best_err, INF)
         best_lane = torch.argmin(ubs)
         cand_ub = ubs[best_lane]
