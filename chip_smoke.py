@@ -75,7 +75,17 @@ Phases, each of which fails the script (nonzero exit, no result line):
     capacity of 5000, two pairs' lanes interleaved as two window rows, one
     of them not live; done lanes in every mode) and on built NaN/INF lbs through both merge orders; timed
     at the streams' shape (16 lanes of syn00 + syn01) and at
-    register_device's (syn07, 8 lanes).  The transition kernels
+    register_device's (syn07, 8 lanes).  The inner run (csrc/inner.cu,
+    goicp_inner_run: the iterations of a search in one launch, a lane a
+    thread-block cluster, a grid barrier between iterations) held to
+    inner_run_plain, the torch loops it replaces, every lane field,
+    counter and the iteration count bit for bit, over the same cases in
+    its three stop modes (search: inner_bnb's whole search; groups: the
+    batch engine's; stream: the fused stream's, both groups live, one
+    live, and `once`), and syn07 at 256 lanes, more than the card holds
+    clusters at once (the lanes stride); timed in mode search on syn07
+    (the kernels line) and in mode stream on syn00 + syn01, beside the
+    same iterations as inner_step launches from a CUDA graph.  The transition kernels
     (csrc/transition.cu: goicp_harvest and goicp_advance) held to
     harvest_plain and advance_plain, the engines' torch code, every
     output bit for bit: the streams' mode ("both") on three windows 40
@@ -100,14 +110,16 @@ Phases, each of which fails the script (nonzero exit, no result line):
     each equal to phase 3's syn07 in error, R, t, opt_comp, evals, outer,
     inner and geom_surv, and with chem_survivors=8 (capped at twice the
     outer steps; converged or not, an achievable error and a valid gap).
- 4. proof: the launch counters of the inner step kernel, the
+ 4. proof: the launch counters of the inner run kernel, the
     transition kernels (harvest, advance: the pop with its root corners
     through K2's body, the adoption), the ordered sum, rotate, norm3,
     sincos32 and the ICP kernel, zeroed just before phase 3, are > 0
-    after it, and neither the torch inner body nor the torch transition
-    ran on the card (so in phases 5-9, 12 and 13: every inner iteration
-    was one launch of csrc/inner.cu, every outer transition went through
-    csrc/transition.cu);
+    after it, the inner step kernel's is 0, and neither the torch inner
+    body nor the torch transition ran on the card (so in phases 5 and
+    7-13: every inner search, or a stream's iterations up to a
+    transition, was one launch of csrc/inner.cu's run; phase 6's packed
+    stream launches the inner step, one an iteration; every outer
+    transition went through csrc/transition.cu);
     sq_dist3, det3 and cross3, whose only caller was the plain ICP loop,
     and dot_fma, whose other caller was norm3, are 0 (so in phases 5, 6,
     7 and 13; phase 11's row checks launch sq_dist3 through
@@ -292,6 +304,11 @@ BEFORE_TRANSITION_KERNEL = {
     "transition": "1177 launches, 40 host reads, 145 syncs",
     "outer_step": "366 launches (360 besides its 6 inner iterations), "
                   "24 host reads, 31 syncs"}
+# the same on the tree before the inner run (commit 9dad47d, PERF.md
+# §5): a register_device outer step (syn07, 3 steps in)
+BEFORE_INNER_RUN = {
+    "outer_step": "67 launches (61 besides its 6 inner iterations), 9 host "
+                  "reads, 10 syncs"}
 # the fixed-order products of utils/fp32.py (csrc/fp32_products.cu)
 FIXED_ORDER_PRODUCTS = ("sq_dist3", "det3", "cross3", "dot_fma")
 # the fixed-order functions that take an outer transition's and a
@@ -425,17 +442,23 @@ def _off_path(counts, where):
              f"{ {k: counts[k] for k in OFF_PATH} }")
 
 
-def _step_path(counts, where):
-    """The inner step kernel and the transition kernels launched, and
+def _step_path(counts, where, loop="inner_run"):
+    """The inner kernel `loop` and the transition kernels launched, and
     neither the torch body nor the torch transition ran on the card since
-    the counts were zeroed: every inner iteration of `where` was one launch
-    of csrc/inner.cu, every outer transition went through
-    csrc/transition.cu."""
+    the counts were zeroed: every inner search of `where` ran in launches
+    of csrc/inner.cu (inner_run: a whole search, or a stream's iterations
+    up to a transition, in one launch, and inner_step then launched no
+    time; inner_step: the packed stream's one launch an iteration), every
+    outer transition went through csrc/transition.cu."""
     from goicp_tpu_torch.search import inner, transition
     body = inner.body_on_card["iterations"]
-    _require(counts["inner_step"] > 0 and body == 0,
-             f"inner_step launched ({counts['inner_step']}) and the torch "
-             f"body ran no iteration on the card ({body}) in {where}")
+    _require(counts[loop] > 0 and body == 0,
+             f"{loop} launched ({counts[loop]}) and the torch body ran no "
+             f"iteration on the card ({body}) in {where}")
+    if loop == "inner_run":
+        _require(counts["inner_step"] == 0,
+                 f"inner_step launched no time in {where} (every inner "
+                 f"search a run): {counts['inner_step']}")
     rows = transition.plain_on_card["rows"]
     _require(counts["harvest"] > 0 and counts["advance"] > 0 and rows == 0,
              f"harvest ({counts['harvest']}) and advance "
@@ -861,7 +884,8 @@ def _entry_points(cfg, pools, ref, phase3, dev):
           f"during phase 7: {json.dumps(counts)}", flush=True)
     for kname in counts:
         _require(counts[kname] > 0
-                 or kname in OFF_PATH + CHECK_ONLY + IN_STEP,
+                 or kname in OFF_PATH + CHECK_ONLY + IN_STEP
+                 + ("inner_step",),
                  f"{kname} launched in phase 7")
     _step_path(counts, "phase 7")
     _off_path(counts, "phase 7")
@@ -992,21 +1016,24 @@ def _batch_phase(cfg, cfg_t, pools, ref, phase3, dev):
                          <= TRIM_EVALS_REL * row["evals"],
                          f"batch {name}: evals {got['evals']} vs reference "
                          f"row {row['evals']}")
-        # one inner step launch per BATCHED inner iteration: fewer than
-        # the rows' own inner iterations together, no fewer than the most
-        # of one row
+        # one inner run launch per BATCHED outer step (every stepping
+        # row's inner search in it): fewer than the rows' own outer steps
+        # together, no fewer than the most of one row; no inner step
         inner = [int(x) for x in out.inner_iters]
-        k3 = launched["inner_step"]
-        _require(max(inner) <= k3 < sum(inner),
-                 f"batch {label}: inner_step {k3} launches for the rows' "
-                 f"inner iterations {inner}")
+        outer = [int(x) for x in out.outer_iters]
+        k3 = launched["inner_run"]
+        _require(max(outer) <= k3 < sum(outer)
+                 and launched["inner_step"] == 0,
+                 f"batch {label}: inner_run {k3} launches for the rows' "
+                 f"outer steps {outer}, inner_step "
+                 f"{launched['inner_step']}")
         print(f"phase 9 compacting batch, {label}: {len(pairs)} pairs padded "
               f"to 8 (Nd={pairs[0].n_data_padded}, C="
               f"{pairs[0].grid.cell_coords.shape[0]}): wall {wall:.3f} s, "
               f"{len(widths)} chunks at widths {widths}, "
               f"outer steps {[int(x) for x in out.outer_iters]}, inner "
-              f"iterations {inner} (sum {sum(inner)}) in {k3} batched inner "
-              f"iterations; every pair "
+              f"iterations {inner} (sum {sum(inner)}) in {k3} inner runs "
+              f"(one a batched outer step); every pair "
               f"equals phase 3 (outer, inner, evals, icp_runs, opt_comp; "
               f"error to 1e-5) and its fp32 row; launches "
               f"{json.dumps(launched)}", flush=True)
@@ -1242,8 +1269,11 @@ def _multi_gpu_phase(cfg, syn07, phase3, stream5, batch9):
     print(f"phase 10 wall {time.perf_counter() - t_phase:.3f} s (ranks "
           f"sharing one card: no scaling number); launches during phase "
           f"10, every rank's summed: {json.dumps(counts)}", flush=True)
-    for kname in ("inner_step", "harvest", "advance"):
+    for kname in ("inner_run", "harvest", "advance"):
         _require(counts.get(kname, 0) > 0, f"{kname} launched in phase 10")
+    _require(counts.get("inner_step", 0) == 0,
+             f"inner_step launched no time in phase 10: "
+             f"{counts.get('inner_step')}")
     return counts
 
 
@@ -1522,7 +1552,8 @@ def _options_phase(cfg, pools, dev):
     # nn_correspondences above)
     for kname in counts:
         _require(counts[kname] > 0
-                 or kname in OFF_PATH + CHECK_ONLY + IN_STEP[1:],
+                 or kname in OFF_PATH + CHECK_ONLY + IN_STEP[1:]
+                 + ("inner_step",),
                  f"{kname} launched in phase 11")
     # the inner step alone, after the phase's launches were read: its calls
     # time the step and are not the path
@@ -1818,11 +1849,11 @@ STEP_INC = 1e4         # the lanes' first incumbent: above every ub
 STEP_COMPARED = 3      # kernel vs plain, each on the state both reached
 
 
-def _step_inputs(names, c, pools, dev, rng, static=False):
+def _step_inputs(names, c, pools, dev, rng, static=False, lanes=8):
     """(pair or LaneTables, L lanes' points, rotation widths, active mask,
-    groups): one prepared pair (8 lanes, register_device's shape; static:
-    prepared without count-dynamic, so its K is the inlier count) or two
-    pairs in one bucket with 16 lanes interleaved between them (the
+    groups): one prepared pair (`lanes` lanes, 8: register_device's shape;
+    static: prepared without count-dynamic, so its K is the inlier count)
+    or two pairs in one bucket with 16 lanes interleaved between them (the
     streams' shape, two window rows)."""
     import numpy as np
     import torch
@@ -1836,7 +1867,7 @@ def _step_inputs(names, c, pools, dev, rng, static=False):
         pair = prepare_pair(*_normalized_synthetic(pools[names]), c,
                             bucket=True, device=dev) if static \
             else _prepared(names, c, pools, dev)
-        pairs, lane_pair, L = [pair], [0] * 8, 8
+        pairs, lane_pair, L = [pair], [0] * lanes, lanes
     else:
         pairs = _bucket_and_prepare([_normalized_synthetic(pools[n])
                                      for n in names], c, device=dev)
@@ -2032,6 +2063,195 @@ def _step_checks(k, cfg, cfg_t, pools, dev, floor):
               f"{ms:.4f} ms (from a graph {dms:.4f} ms) plain {pms:.4f} ms "
               f"bound {bms:.6f} ms ({bby}; {ops} operations) {floor}",
               flush=True)
+
+
+# the run's cases in phase 2 beside STEP_MODES': a lane batch larger than
+# the grid the card holds at once, so that the lanes stride over the
+# clusters (register_device's configuration, syn07, RUN_MANY_LANES lanes)
+RUN_MANY_LANES = 256
+RUN_STREAM_STEPS = 40  # mode stream's cap in phase 2
+
+
+def _run_same(got, want):
+    """Every lane field and counter of two inner runs and their iteration
+    counts equal: float32 bit for bit, NaN to NaN; -> what differs."""
+    import torch
+    bad = []
+    for part in ("lanes", "counters"):
+        g_d, w_d = getattr(got, part), getattr(want, part)
+        for k, w in w_d.items():
+            g = g_d[k]
+            if g.dtype == torch.float32:
+                ok = g.shape == w.shape and bool(torch.all(
+                    (g.view(torch.int32) == w.view(torch.int32))
+                    | (torch.isnan(g) & torch.isnan(w))))
+            else:
+                ok = g.shape == w.shape and torch.equal(g.to(w.dtype), w)
+            if not ok:
+                bad.append(f"{part} {k}: {_first_diff(g.cpu(), w.cpu())}")
+    if int(got.iters) != int(want.iters):
+        bad.append(f"iters {int(got.iters)} vs {int(want.iters)}")
+    return bad
+
+
+def _run_bound(pair, out, c, fused, state, tabs):
+    """(bound_ms, bound_by, operations) of one run: per evaluated child
+    GEOM_OPS and per expanded parent its share of the lattice (corners /
+    trans_pop corners) CHEM_OPS, each over its pair's real points (the
+    fewest of a window's pairs), over the fp32 peak; against the lanes'
+    state, points and tables read once and the state written once."""
+    import torch
+    from goicp_tpu_torch.bounds.evaluate import LaneTables
+    from goicp_tpu_torch.search import inner
+    real = int((pair.data_mask > 0).sum(dim=-1).min()) \
+        if isinstance(pair, LaneTables) else _real_points(pair)
+    evals = int(out.counters["evals"].sum())
+    per_parent = ((19 if inner._chem_reuse_active(c) else 27)
+                  if inner._chem_active(c) else 0)
+    ops = real * (evals * GEOM_OPS[(c.norm, fused)]
+                  + evals // 8 * per_parent * CHEM_OPS)
+    t_ops = ops / PEAK_OPS
+    t_bytes = (_nbytes(*state, *tabs) + _nbytes(*out.lanes.values())) \
+        / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", ops)
+
+
+def _run_checks(k, kernels, cfg, cfg_t, pools, dev, floor):
+    """Phase 2's check of the inner run (csrc/inner.cu goicp_inner_run,
+    search/inner.py::inner_run): the iterations of a search in one launch,
+    held to inner_run_plain (the torch loops it replaces, each step the
+    torch body) on the same card tensors, every lane field, counter and
+    the iteration count bit for bit, in each case of STEP_MODES from the
+    root state (about a fifth of the lanes done from the start) in the
+    three stop modes: "search" (inner_bnb's whole search), "groups" (two
+    groups, each until its own search is complete), "stream" (two groups:
+    both live until one completes or RUN_STREAM_STEPS iterations; only
+    the first live; `once`: one iteration).  Then syn07 at
+    RUN_MANY_LANES lanes, more than the card holds clusters at once, so
+    that the lanes stride.  Timed in mode search at register_device's
+    shape (syn07, 8 lanes; the kernels line takes it; once more without
+    the chem term) and in mode stream
+    at the streams' (syn00 + syn01, 16 lanes): single launches (ms), from
+    a CUDA graph (graph_ms) beside the same iterations as inner_step
+    launches replayed from a graph, and the plain loop (a host read an
+    iteration)."""
+    import numpy as np
+    import torch
+    from goicp_tpu_torch.bounds.evaluate import LaneTables, rot_uncertainty
+    from goicp_tpu_torch.search import inner
+    rng = np.random.default_rng(2028)
+    timed = {}
+    cases = [m + (8,) for m in STEP_MODES] + [
+        (f"syn07 fused, {RUN_MANY_LANES} lanes", "syn07", {}, True, True,
+         False, RUN_MANY_LANES)]
+    for label, names, over, fused, unc, static, n_lanes in cases:
+        c = dataclasses.replace(cfg_t if "trm" in label else cfg, **over)
+        pair, pairs, lane_pair, pts, widths, active = _step_inputs(
+            names, c, pools, dev, rng, static, lanes=n_lanes)
+        mrd = torch.cat([
+            rot_uncertainty(widths[l:l + 1], pairs[w].norm_data)
+            for l, w in enumerate(lane_pair)]) if (fused or unc) else None
+        s = _step_root(pairs, lane_pair, c, pts, active, STEP_INC)
+        L = pts.shape[0]
+        t = torch.tensor
+        runs = [("search", {}), ("groups", dict(groups=2))]
+        if n_lanes == 8 or len(pairs) == 2:
+            runs += [
+                ("stream", dict(groups=2, steps=RUN_STREAM_STEPS)),
+                ("stream, the first live", dict(
+                    groups=2, steps=RUN_STREAM_STEPS,
+                    live=t([True, False], device=dev),
+                    watch=t([True, True], device=dev))),
+                ("stream, once", dict(groups=2, steps=RUN_STREAM_STEPS,
+                                      once=t(True, device=dev)))]
+        said = []
+        for mode_label, kw in runs:
+            mode = mode_label.split(",")[0]
+            if "groups" in kw:
+                kw = dict(kw, counters={
+                    key: t([3, 5], dtype=torch.int32, device=dev)
+                    for key in inner._COUNTERS})
+            args = (pair, c, s, pts, mrd, fused, mode)
+            got = inner.inner_run(*args, **kw)
+            want = inner.inner_run_plain(*args, **kw)
+            torch.cuda.synchronize()
+            bad = _run_same(got, want)
+            _require(not bad, f"inner_run == plain bit for bit ({label}, "
+                     f"{mode_label}): {bad}")
+            said.append(f"{mode_label} {int(got.iters)} iterations")
+            if n_lanes > 8:
+                _require(L > int(got.clusters),
+                         f"{label}: {L} lanes stride over the "
+                         f"{int(got.clusters)} clusters the card holds")
+                said.append(f"on {int(got.clusters)} clusters")
+            if (mode_label in ("search", "stream") and label.startswith(
+                    ("syn00", "syn07 fused, corner"))) or (
+                    mode_label == "search"
+                    and label == "syn07 fused, no chem term"):
+                timed[(label, mode)] = (pair, c, s, pts, mrd, fused, kw,
+                                        got)
+        k["errs"].append(0.0)
+        print(f"inner_run {label}: L={L} Nd={pts.shape[1]} "
+              f"C={c.trans_capacity} P={c.trans_pop}: "
+              + ", ".join(said) + "; every field, counter and the "
+              "iteration count bit for bit", flush=True)
+
+    k3k4 = sum(kernels[n].get("graph_ms", 0.0) for n in (
+        "geometric_bounds_kernel_lanes", "chem_incomp_kernel_lanes"))
+    for (label, mode), (pair, c, s, pts, mrd, fused, kw, out) in \
+            timed.items():
+        n_it = int(out.iters)
+
+        def run(a=(pair, c, s, pts, mrd, fused, mode), kw=kw):
+            return inner.inner_run(*a, **kw)
+
+        def plain(a=(pair, c, s, pts, mrd, fused, mode), kw=kw):
+            return inner.inner_run_plain(*a, **kw)
+
+        groups = kw.get("groups", 1)
+        counters = kw.get("counters")
+
+        def steps(a=(pair, c, s, pts, mrd, fused), bufs=inner.StepBuffers()):
+            # the same iterations as steps: one launch each
+            st = a[2]
+            cnt = counters
+            for _ in range(n_it):
+                st, cnt, _ = inner.inner_step(*a[:2], st, *a[3:],
+                                              groups=groups, counters=cnt,
+                                              bufs=bufs)
+            return st
+        ms, pms = _median_ms(run), _median_ms(plain, n=5)
+        try:
+            dms = _device_ms(run, n=10)
+        except RuntimeError as e:          # a graph the card would not take
+            print(f"inner_run {label} {mode}: no CUDA graph ({e})",
+                  flush=True)
+            dms = None
+        sms = _device_ms(steps, n=5)
+        if isinstance(pair, LaneTables):
+            tabs = [pair.weights, pair.cell_coords, pair.nearest_cell,
+                    pair.consts, pair.cell_compat, pair.prop_onehot,
+                    pair.data_mask]
+        else:
+            tabs = [pair.weights, pair.grid.cell_coords,
+                    pair.grid.nearest_cell, pair.grid.consts,
+                    pair.cell_compat, pair.prop_onehot, pair.data_mask]
+        bms, bby, ops = _run_bound(pair, out, c, fused,
+                                   [s[f] for f in s] + [pts, mrd], tabs)
+        if mode == "search" and label.startswith("syn07 fused, corner"):
+            k.update(ms=ms, plain_ms=pms, graph_ms=dms, bound_ms=bms,
+                     bound_by=bby, iterations=n_it,
+                     steps_graph_ms=sms)
+        per = "not measured" if dms is None else f"{dms / n_it:.4f} ms"
+        print(f"inner_run timed, {label}, mode {mode}: L={pts.shape[0]} "
+              f"{n_it} iterations in one launch: {ms:.4f} ms (from a graph "
+              f"{'not measured' if dms is None else f'{dms:.4f} ms'}, "
+              f"{per} an iteration); the same iterations as inner_step "
+              f"launches from a graph {sms:.4f} ms ({sms / n_it:.4f} ms an "
+              f"iteration; K3 + K4 alone {k3k4:.4f} ms a launch); plain "
+              f"loop {pms:.4f} ms; bound {bms:.6f} ms ({bby}; {ops} "
+              f"operations) {floor}", flush=True)
 
 
 def _tree_diff(got, want, where=""):
@@ -2703,9 +2923,14 @@ def _one_answer_phase(dev):
           f"syncs, {st['ms']:.3f} ms "
           f"on the host clock, {st['inner_iterations']} inner iterations "
           f"(besides them {st['launches_besides_inner']:.1f} launches, "
-          f"{st['host_reads_besides_inner']:.1f} host reads); before the "
-          f"transition kernel: {BEFORE_TRANSITION_KERNEL['outer_step']}",
+          f"{st['host_reads_besides_inner']:.1f} host reads; the inner "
+          f"kernels' own {st['inner_launches']:.1f} launches); before the "
+          f"transition kernel: {BEFORE_TRANSITION_KERNEL['outer_step']}; "
+          f"before the inner run: {BEFORE_INNER_RUN['outer_step']}",
           flush=True)
+    _require(st["inner_launches"] == 1,
+             f"a register_device outer step's inner search is one launch "
+             f"of the inner run: {st}")
     _require(tb["launches"] <= 3 and tb["syncs"] <= 1,
              f"a stream transition batch is at most three launches and one "
              f"host read (a sync): {tb}")
@@ -2810,6 +3035,11 @@ def main() -> int:
         "inner_step": dict(source="goicp_tpu_torch/csrc/inner.cu",
                            replaces="goicp_tpu/search/inner.py:281",
                            errs=[]),
+        # the loops around that iteration (the JAX package's
+        # lax.while_loops of the inner search and of the fused stream)
+        "inner_run": dict(source="goicp_tpu_torch/csrc/inner.cu",
+                          replaces="goicp_tpu/search/inner.py:207",
+                          errs=[]),
         # the outer-step transition XLA runs around the inner search (the
         # JAX package's _harvest and _advance, vmapped over the window)
         "harvest": dict(source="goicp_tpu_torch/csrc/transition.cu",
@@ -3152,6 +3382,7 @@ def main() -> int:
     _product_checks(kernels, cfg, pools, dev, floor)
     _icp_checks(kernels, cfg, cfg_t, pools, dev, floor)
     _step_checks(kernels["inner_step"], cfg, cfg_t, pools, dev, floor)
+    _run_checks(kernels["inner_run"], kernels, cfg, cfg_t, pools, dev, floor)
     _transition_checks(kernels, cfg, cfg_t, pools, dev, floor)
 
     if sys.argv[1:] == ["--kernels-only"]:
@@ -3316,7 +3547,8 @@ def main() -> int:
         for kname in PATH_KERNELS:
             _require(phase_counts[kname] > 0,
                      f"{kname} launched by the {engine} stream")
-        _step_path(phase_counts, f"phase {phase} ({engine} stream)")
+        _step_path(phase_counts, f"phase {phase} ({engine} stream)",
+                   "inner_step" if engine == "packed" else "inner_run")
         _off_path(phase_counts, f"phase {phase}")
         return phase_counts
 
@@ -3385,11 +3617,14 @@ def main() -> int:
          "launch_floor_ms": floor_ms, "graph_ms": k["graph_ms"],
          "graph_launch_floor_ms": floor_dev,
          **({"norm1": k["norm1"]} if "norm1" in k else {}),
-         # K1-K4's bodies also run inside every inner step launch, K2's
-         # in every pop of the transition (the root corners) too
-         **({"body_runs_in": "inner_step"} if kname in IN_STEP else
-            {"body_runs_in": "inner_step, advance"}
-            if kname == "chem_incomp_kernel" else {})}
+         # K1-K4's bodies also run inside every inner run and inner step
+         # launch, K2's in every pop of the transition (the root corners)
+         # too
+         **({"body_runs_in": "inner_run, inner_step"} if kname in IN_STEP
+            else {"body_runs_in": "inner_run, inner_step, advance"}
+            if kname == "chem_incomp_kernel" else {}),
+         **({k2: k[k2] for k2 in ("iterations", "steps_graph_ms")}
+            if kname == "inner_run" else {})}
         for kname, k in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

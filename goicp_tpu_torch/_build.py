@@ -82,6 +82,12 @@ _SIGNATURES = {
     # stats, scratch; L, cap, pop, group, Nd, n_cells, size, norm, fused,
     # trim_k, reuse, sorted_merge; reg; stream
     "goicp_inner_step": [_P] * 37 + [_I] * 12 + [ctypes.c_float, _P],
+    # the step's 12 table pointers and 9 input lane fields; live, watch,
+    # once; it, evals, geom_surv, chem_corners in; output sets A and B (9
+    # each); the int words; L, cap, pop, group, Nd, n_cells, size, norm,
+    # fused, trim_k, reuse, sorted_merge, mode, max_iters, steps,
+    # stage_w1, stage_w2; reg; stream
+    "goicp_inner_run": [_P] * 47 + [_I] * 17 + [ctypes.c_float, _P],
     # slots, n_slots, ints, n_ints, rows, n, stream
     "goicp_harvest": [ctypes.POINTER(ctypes.c_ulonglong), _I,
                       ctypes.POINTER(_I), _I, ctypes.POINTER(_I), _I, _P],

@@ -258,6 +258,9 @@ def _explain_step(pc, pg, cfg, s_cpu):
     rg = eng.inner_bnb(pg, cfg, p_g["pts"], p_g["widths"], p_g["active"],
                        s_gpu["opt_err"], with_rot_uncertainty=False,
                        fused=True)
+    # the card's counts are 0-d tensors (one launch, no host read), the
+    # CPU's ints
+    rg = rg._replace(iters=int(rg.iters), chem_corners=int(rg.chem_corners))
     if _first("the inner search (bound sums)", differences(rg, rc)):
         return
     ubs = torch.where(p_c["active"], rc.best_err, eng.INF)

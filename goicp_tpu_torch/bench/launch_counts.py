@@ -37,9 +37,16 @@ every `.item()` and `bool()` of a card tensor goes through):
     syn07 after 3 outer steps, as device_run_chunk runs it (with the
     loop's host read of `converged` where the body does not read it
     itself): launches, host reads, syncs, host-clock ms, the inner
-    iterations it ran, and the launches and host reads beside them (less
-    one inner step launch and one host read per inner iteration: the
-    step's own);
+    iterations it ran, the launches of the inner search's own kernels
+    (csrc/inner.cu: inner_step and inner_run, by their launch counts) and
+    the launches and host reads beside them (less those launches and, on
+    a tree whose inner search is a loop of steps, one host read per inner
+    iteration: the loop's own);
+  * one chunk of the fused stream: fused_run_chunk of a window of the 16
+    bench pairs syn00-syn15 from their first state, STREAM_STEPS global
+    iterations at most: the global iterations, transition events and host
+    reads it counts (fused_stream.counters), host reads per global
+    iteration, and host-clock ms;
   * one rescoring: score_transform of that pair at four seeded transforms
     and their nearest-neighbour correspondences (the ICP event's).
 
@@ -66,6 +73,8 @@ import torch
 PAIRS_STEP = ("syn03", "syn12")
 TRANSITION_ROWS = ("syn00", "syn01", "syn02", "syn03", "syn04", "syn05",
                    "syn06", "syn07")
+STREAM_ROWS = tuple(f"syn{i:02d}" for i in range(16))
+STREAM_STEPS = 512
 PAIR_ICP = "syn07"
 ICP_SEEDS = 4
 
@@ -297,13 +306,45 @@ def outer_step(device="cuda", n=3) -> dict:
             return out[0]
         bool(out["converged"])          # the loop's read on such a tree
         return out
+    from goicp_tpu_torch.search import inner as inner_mod
+    kernels = [getattr(inner_mod, k) for k in ("inner_step", "inner_run")
+               if hasattr(getattr(inner_mod, k, None), "launches")]
     s1 = step()
     inner = int(s1["inner_it"]) - int(s0["inner_it"])
+    before = sum(k.launches for k in kernels)
     launches, reads, syncs = _profile(step, n, syncs=True)
+    own = (sum(k.launches for k in kernels) - before) / n
+    # a loop of steps reads the host once an inner iteration; a run, never
+    loop_reads = 0 if hasattr(inner_mod, "inner_run") else inner
     return dict(launches=launches, host_reads=reads, syncs=syncs,
                 ms=_host_ms(step, 2 * n), inner_iterations=inner,
-                launches_besides_inner=launches - inner,
-                host_reads_besides_inner=reads - inner)
+                inner_launches=own, launches_besides_inner=launches - own,
+                host_reads_besides_inner=reads - loop_reads)
+
+
+def stream_chunk(device="cuda") -> dict:
+    """One fused_run_chunk of STREAM_STEPS global iterations at most over
+    a window of STREAM_ROWS from their first state: what the stream's own
+    counters count (global iterations, transition events, host reads) and
+    the host reads per global iteration, with its host-clock ms."""
+    from goicp_tpu_torch.dist.mesh import stack_pairs
+    from goicp_tpu_torch.search import fused_stream as fs
+    cfg, pairs = _bench_pairs(STREAM_ROWS, device, bucket_together=True)
+    pb = stack_pairs(pairs)
+    init = fs._init_batch(pb, cfg)
+    fs.fused_run_chunk(pb, cfg, init, 4)        # the window's tables
+    torch.cuda.synchronize()
+    fs.reset_counters()
+    t0 = time.perf_counter()
+    fs.fused_run_chunk(pb, cfg, init, STREAM_STEPS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    c = dict(fs.counters)
+    return dict(rows=len(pairs), steps=STREAM_STEPS,
+                global_iters=c["global_iters"],
+                transitions=c["transitions"], host_reads=c["host_reads"],
+                host_reads_per_global_iter=c["host_reads"]
+                / max(c["global_iters"], 1), ms=ms)
 
 
 def rescoring(device="cuda", n=10) -> dict:
@@ -351,7 +392,7 @@ def main(argv=None) -> int:
                icp_iteration=icp_iteration(), icp_event=icp_event(),
                transition=transition(),
                packed_transition=packed_transition(),
-               outer_step=outer_step(),
+               outer_step=outer_step(), stream_chunk=stream_chunk(),
                rescoring=rescoring())
     print(json.dumps(out), flush=True)
     if a.json:

@@ -6,9 +6,10 @@
 The named pairs of the similar pool (bench search shape, one shape bucket)
 run through register_fused_stream(width=2, chunk_steps=512) twice: once
 untouched (the wall), once with the stream's three phases wrapped in
-timers that synchronize the device before and after (the inner step of
-every global iteration; the transition events; inside them the ICP refine
-block), which gives each phase's calls, seconds and ms per call.  Then, on
+timers that synchronize the device before and after (the inner runs,
+each the global iterations up to the next transition; the transition
+events; inside them the ICP refine block), which gives each phase's
+calls, seconds and ms per call.  Then, on
 a mid-search window state, the mean over 200 calls (one synchronize at
 the end) and the launches per call (torch.profiler over 20
 calls) of: the stream's inner step (one launch of csrc/inner.cu), the
@@ -116,7 +117,7 @@ def main(argv=None) -> int:
         one_by_one.append(time.perf_counter() - t0)
     out["register_device_wall_s"] = one_by_one
     phases = {k: dict(s=0.0, calls=0)
-              for k in ("_inner_step", "_transition_batch", "_refine")}
+              for k in ("_inner_run", "_transition_batch", "_refine")}
     plain = {k: getattr(fs, k) for k in phases}
     try:
         for k in phases:
@@ -130,7 +131,7 @@ def main(argv=None) -> int:
     for k, p in phases.items():
         p["ms_per_call"] = 1e3 * p["s"] / max(p["calls"], 1)
     out["phases"] = phases
-    out["other_s"] = out["timed_wall_s"] - phases["_inner_step"]["s"] \
+    out["other_s"] = out["timed_wall_s"] - phases["_inner_run"]["s"] \
         - phases["_transition_batch"]["s"]
 
     # ---- one iteration's pieces on a mid-search window state ----

@@ -451,11 +451,11 @@ _KERNELS = (geometric_bounds_kernel, chem_incomp_kernel,
 
 
 def _all_kernels() -> tuple:
-    """_KERNELS, the inner step's (search/inner.py) and the transition's
-    (search/transition.py), which import this module."""
-    from goicp_tpu_torch.search.inner import inner_step
+    """_KERNELS, the inner step's and run's (search/inner.py) and the
+    transition's (search/transition.py), which import this module."""
+    from goicp_tpu_torch.search.inner import inner_run, inner_step
     from goicp_tpu_torch.search.transition import advance, harvest
-    return _KERNELS + (inner_step, harvest, advance)
+    return _KERNELS + (inner_step, inner_run, harvest, advance)
 
 
 def launch_counts() -> dict:

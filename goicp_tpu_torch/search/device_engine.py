@@ -15,8 +15,8 @@ overflows fold the minimum dropped lb into the reported gap.
 
 The JAX package runs the outer loop as one lax.while_loop; here it is a
 Python loop that reads the host once per outer step (the harvest's
-flags: improved, converged), and the inner search reads its predicate
-once per iteration.  The pop, the harvest and the adoption are
+flags: improved, converged); the inner search is one launch of the inner
+run on the card (search/inner.py::inner_run), no host read.  The pop, the harvest and the adoption are
 search/transition.py's (on the card csrc/transition.cu); the ICP, its
 rescoring and the BnB compat count run only on a step whose candidate
 improved (every step with icp_on_improve=0).
@@ -53,7 +53,7 @@ from goicp_tpu_torch.geom.rotation import rodrigues
 from goicp_tpu_torch.icp.icp import icp_run
 from goicp_tpu_torch.pipeline.prepare import PairData
 from goicp_tpu_torch.search import transition
-from goicp_tpu_torch.search.inner import InnerResult, StepBuffers, inner_bnb
+from goicp_tpu_torch.search.inner import InnerResult, inner_bnb
 
 INF = float("inf")
 
@@ -408,9 +408,10 @@ def _batch_step(pairs: list, pair_batch: PairData, cfg: GoICPConfig,
     One pop of every stepping row (search/transition.py: on the card one
     advance, two launches), writing each row's lanes into a B-row lane
     batch whose other rows are done; then the inner searches of ALL rows
-    as one lane batch (B x L lanes, the row of each lane in `tables`, so
-    each inner iteration is one inner step launch), rows whose search
-    ended early masked until every row's has ended; then one harvest of
+    as one lane batch (B x L lanes, the row of each lane in `tables`: on
+    the card one launch of the inner run, search/inner.py::inner_run in
+    mode "groups"), rows whose search ended early masked until every
+    row's has ended; then one harvest of
     the stepping rows, one host read of which improved (and which
     converged at the pop), the ICP/compat refine block only for the rows
     that improved and did not converge, and one adoption of every
@@ -428,12 +429,7 @@ def _batch_step(pairs: list, pair_batch: PairData, cfg: GoICPConfig,
     bs = dict(inner=dict(p["lanes"], it=cnt[0], evals=cnt[1],
                          geom_surv=cnt[2], chem_corners=cnt[3]),
               pts_rot=p["pts"], mrd=p["mrd"])
-    bufs = StepBuffers()
-    while True:
-        live = ~fs._inner_complete(cfg, bs)
-        if not bool(torch.any(live)):
-            break
-        bs["inner"] = fs._inner_step(pair_batch, cfg, bs, tables, live, bufs)
+    bs["inner"], _ = fs._inner_run(pair_batch, cfg, bs, tables, "groups")
 
     ist = bs["inner"]
     h = transition.harvest(cfg, dict(inner=ist, active=p["active"],

@@ -11,15 +11,15 @@ over pairs of that pair's OWN (inner iterations + outer transitions).
 The JAX package writes the engine as per-pair functions under jax.vmap
 inside one lax.while_loop.  Here the batch axes are written out:
 
-  * the inner iteration, which runs every step, takes the window's (W, L)
-    lanes as W*L lanes in ONE inner step (search/inner.py::inner_step):
-    lanes of different pairs read their own pair's tables through a
-    LaneTables, and on the card the whole iteration, the rows that are
-    not live kept and their counters advanced, is one launch of
-    csrc/inner.cu whatever W (inner_step_plain, the torch body, on the
-    CPU).  Configurations with FPFH or neighbour chem terms, which the
-    per-lane tables do not carry, run the body once per window row
-    instead;
+  * the inner iterations, one every global iteration, take the window's
+    (W, L) lanes as W*L lanes (search/inner.py::inner_run, mode
+    "stream"): lanes of different pairs read their own pair's tables
+    through a LaneTables, and on the card every global iteration up to
+    the next one at which a transition is due is ONE launch of
+    csrc/inner.cu whatever W, the rows that are not live kept and their
+    counters advanced (the plain loop of the torch body on the CPU).
+    Configurations with FPFH or neighbour chem terms, which the per-lane
+    tables do not carry, run the body once per window row instead;
   * the transition, which is rare, serves every transitioning row of
     the event at once (search/transition.py: on the card one harvest
     launch, one host read, the refine of the rows that improved, and one
@@ -27,8 +27,9 @@ inside one lax.while_loop.  Here the batch axes are written out:
     window in place).  Rows that do not transition, and rows that
     converged, are not touched.
 
-The loop is a Python loop: each global iteration reads ONE small tensor on
-the host (which rows finished, which completed their inner search), and a
+The loop is a Python loop over transition events: it reads ONE small
+tensor on the host (which rows finished, which completed their inner
+search, and how many global iterations the last inner run made), and a
 transition event reads one more (which of its rows improved) before it
 decides about ICP.  `counters` counts both.
 
@@ -70,8 +71,9 @@ from goicp_tpu_torch.search.device_engine import (DeviceResult,
                                                   _initial_incumbent,
                                                   result_to_numpy)
 from goicp_tpu_torch.search import transition
-from goicp_tpu_torch.search.inner import (_PER_LANE, _chem_active,
-                                          StepBuffers, inner_iteration,
+from goicp_tpu_torch.search.inner import (_COUNTERS, _PER_LANE,
+                                          _chem_active, inner_iteration,
+                                          inner_loop, inner_run_plain,
                                           inner_step_plain)
 from goicp_tpu_torch.search.transition import _inner_init
 from goicp_tpu_torch.utils.npz import savez_exact
@@ -226,6 +228,39 @@ def _inner_step(pair_batch: PairData, cfg: GoICPConfig, s: dict,
     return out
 
 
+def _inner_run(pair_batch: PairData, cfg: GoICPConfig, s: dict, tables,
+               mode: str, live=None, watch=None, once=None, steps: int = 0):
+    """The inner iterations of every row in one run (search/inner.py::
+    inner_run): mode "groups" until every row's inner search is complete
+    (the batch engine), "stream" the global iterations up to the next
+    transition (fused_run_chunk: the rows `live` (W,) says step, until a
+    row `watch` marks completes its search or `steps` iterations ran, or
+    after one iteration when the 0-d `once` is true).
+    tables: as _inner_step's; with None the rows step one by one through
+    the torch body.  `s` is not written.  Returns (the new inner state
+    with its counters, the iterations run: an int, or a 0-d int32 tensor
+    on the card, where the whole run is one launch of csrc/inner.cu)."""
+    ist = s["inner"]
+    W, L = ist["done"].shape
+    lanes = {k: ist[k] for k in _PER_LANE if k in ist}
+    counters = {k: ist[k] for k in _COUNTERS}
+    if tables is not None:
+        pts = s["pts_rot"].reshape((W * L,) + s["pts_rot"].shape[2:])
+        r = inner_loop(tables, cfg, lanes, pts, s["mrd"].reshape(W * L, -1),
+                       True, mode, live=live, watch=watch, once=once,
+                       groups=W, counters=counters, steps=steps)
+    else:
+        def step(lanes, live, cnt):
+            new = _inner_step(pair_batch, cfg, dict(s, inner=dict(
+                lanes, **cnt)), None, live)
+            return ({k: new[k] for k in lanes},
+                    {k: new[k] for k in _COUNTERS})
+        r = inner_run_plain(None, cfg, lanes, None, None, True, mode,
+                            live=live, watch=watch, once=once, groups=W,
+                            counters=counters, steps=steps, step=step)
+    return dict(r.lanes, **r.counters), r.iters
+
+
 def _inner_complete(cfg: GoICPConfig, s: dict) -> torch.Tensor:
     """(W,) has each pair's in-flight inner search finished?"""
     return torch.all(s["inner"]["done"], dim=-1) \
@@ -334,16 +369,26 @@ def fused_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
     W, L = s["inner"]["done"].shape
     K = _trans_budget(cfg, W)
     tables = _window_tables(pair_batch, cfg, L)
-    bufs = StepBuffers()
-    fin0 = None
+    fin0 = fin0_dev = None
     g = 0
+    n = 0          # the global iterations of the last inner run
     while True:
         finished = s["converged"] | (s["it"] >= cfg.max_outer_steps)
         flags = torch.stack([finished, s["converged"],
-                             _inner_complete(cfg, s)]).cpu().numpy()
+                             _inner_complete(cfg, s)])
+        if isinstance(n, torch.Tensor):
+            # the run's iteration count rides in the flags' one copy
+            both = torch.cat([flags.reshape(-1).to(_I32),
+                              n.reshape(1)]).cpu().numpy()
+            flags, n = both[:-1].reshape(3, W) != 0, int(both[-1])
+        else:
+            flags = flags.cpu().numpy()
         counters["host_reads"] += 1
+        g += n
+        counters["global_iters"] += n
         if fin0 is None:
             fin0 = flags[0].copy()
+            fin0_dev = finished
         go = bool((~flags[0]).any()) and g < steps
         if eager:
             go = go and not bool((flags[0] & ~fin0).any())
@@ -352,12 +397,20 @@ def fused_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
         rows = np.nonzero(flags[2] & ~flags[1])[0][:K]
         if len(rows):
             _transition_batch(pair_batch, cfg, s, rows, in_place=True)
-        # one inner iteration for every pair still mid-search (the body
-        # is harmless on done inner states; `where` keeps them anyway)
+        # inner iterations for every pair still mid-search (the body is
+        # harmless on done inner states; `where` keeps them anyway) up to
+        # the next global iteration at which the loop above would act: a
+        # transition due, `steps` reached, or (one iteration) every row
+        # finished or, eager, a row newly finished; nothing else it reads
+        # changes in between
         live = ~s["converged"] & ~_inner_complete(cfg, s)
-        s["inner"] = _inner_step(pair_batch, cfg, s, tables, live, bufs)
-        g += 1
-        counters["global_iters"] += 1
+        fin = s["converged"] | (s["it"] >= cfg.max_outer_steps)
+        once = torch.all(fin)
+        if eager:
+            once = once | torch.any(fin & ~fin0_dev)
+        s["inner"], n = _inner_run(pair_batch, cfg, s, tables, "stream",
+                                   live=live, watch=~s["converged"],
+                                   once=once, steps=steps - g)
     return s
 
 

@@ -9,10 +9,15 @@ evaluates all 8P children (bounds/evaluate.py), prunes and re-inserts with
 one stable sort.  Epsilon-optimality under capacity overflow is kept by
 folding the minimum lb of dropped nodes into the returned lower bound.
 
-The JAX package's lax.while_loop is a Python loop here: the loop predicate
-is read on the host once per iteration.  Lanes that finished keep their
-state; staged lane compaction (L -> L/2 -> L/4) gathers the still-active
-lanes into a narrower batch, which changes no lane's trajectory.
+The JAX package's lax.while_loops run on the card here too: inner_run is
+ONE launch of csrc/inner.cu (goicp_inner_run) that iterates until the
+search ends, with no host read in between (a lane a thread-block cluster,
+a grid barrier between iterations).  Its plain twin inner_run_plain is
+the Python loop that reads the predicate on the host once per iteration,
+with the staged lane compaction (L -> L/2 -> L/4: the still-active lanes
+gathered into a narrower batch, which changes no lane's trajectory); the
+kernel leaves the lanes in place and keeps only the compaction's trace
+in the chem_corners counter.  Lanes that finished keep their state.
 
 Two knobs change how an iteration does its work, never what it finds:
 cfg.sorted_merge re-inserts the children by a rank merge against the
@@ -21,14 +26,18 @@ cfg.chem_survivors > 0 evaluates the chem corner terms only for the lowest-
 lb geometric survivors (two-phase bounds; the full budget 8 * trans_pop
 gives the lattice path's trajectory).
 
-Every engine runs its iterations through inner_step: on the card ONE
-launch of csrc/inner.cu (goicp_inner_step) per iteration, on the CPU
-inner_step_plain, the torch body (_make_inner_body) at the same interface,
-which is also the kernel's yardstick.  kernel_carries says which
-configurations the kernel computes: no chem term or the incompatibility
-count alone on the lattice path (chem_survivors 0), at any pop and
-capacity whose arrays fit a block; the others (two-phase chem, c-FPFH,
-neighbour terms) run inner_step_plain on both devices.
+One iteration is inner_step: on the card ONE launch of csrc/inner.cu
+(goicp_inner_step), on the CPU inner_step_plain, the torch body
+(_make_inner_body) at the same interface, which is also the kernel's
+yardstick.  The engines run their loops through inner_loop: inner_bnb,
+the batch engine's and the mesh's lane blocks a whole search in one run
+(modes "search" and "groups"), the fused stream its global iterations
+between two transitions ("stream"); the packed stream still steps
+(inner_iteration).  kernel_carries says which configurations the kernels
+compute: no chem term or the incompatibility count alone on the lattice
+path (chem_survivors 0), at any pop and capacity whose arrays fit a
+block; the others (two-phase chem, c-FPFH, neighbour terms) run the
+plain loops on both devices.
 """
 
 from __future__ import annotations
@@ -185,76 +194,33 @@ def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
     uncertainty of the lanes (None: computed here when needed).  raw=True
     leaves lb_safe to the caller (the transition's harvest) and returns
     (InnerResult with lb_safe None and the step's 0-d int32 evals and
-    geom_surv, the final per-lane fields)."""
-    L = pts_rot.shape[0]
+    geom_surv, the final per-lane fields).
+
+    On the card, for the configurations the kernel carries, the whole
+    search is one launch of goicp_inner_run (inner_run, mode "search"):
+    iters and chem_corners are then 0-d int32 tensors on the card and
+    nothing is read on the host; elsewhere the loop of _search_plain, and
+    they are ints."""
     C = cfg.trans_capacity
     P = cfg.trans_pop
     assert P < C, "trans_pop must be < trans_capacity (sorted-slice pop)"
-    dev = pts_rot.device
     if mrd is None and (with_rot_uncertainty or fused):
         mrd = rot_uncertainty(rot_widths, pair.norm_data)
     if lanes0 is None:
         lanes0 = initial_lanes(pair, cfg, pts_rot, active, opt_error_init)
-    s = dict(
-        lanes0,
-        it=0, chem_corners=0,
-        # the step's counters of the one lane group: evals, geom_surv
-        counters={k: torch.zeros((1,), dtype=torch.int32, device=dev)
-                  for k in ("evals", "geom_surv")})
-
-    bufs = StepBuffers()
-
-    def run(s, pts, mrd_s, stop_count: int):
-        """Iterate while some lane is active (and, with stop_count > 0,
-        while more lanes are active than the next stage's width): one
-        step and one host read of its active-lane count an iteration."""
-        n_active = int(torch.sum(~s["done"]))
-        while s["it"] < cfg.inner_max_iters:
-            if n_active == 0 or (stop_count > 0 and n_active <= stop_count):
-                break
-            lanes, cnt, stats = inner_iteration(
-                pair, cfg, {k: s[k] for k in _PER_LANE if k in s}, pts,
-                mrd_s, fused, counters=s["counters"], bufs=bufs)
-            s = dict(lanes, it=s["it"] + 1, counters=cnt,
-                     chem_corners=s["chem_corners"]
-                     + stats.corners_per_lane * pts.shape[0])
-            n_active = int(stats.n_active)
-        return s
-
-    stage_widths = [L]
-    if cfg.lane_compaction and L >= 4:
-        for w in (L // 2, max(L // 4, 1)):
-            if w < stage_widths[-1]:
-                stage_widths.append(w)
-
-    s = run(s, pts_rot, mrd, stage_widths[1] if len(stage_widths) > 1 else 0)
-    for i in range(1, len(stage_widths)):
-        w = stage_widths[i]
-        nxt = stage_widths[i + 1] if i + 1 < len(stage_widths) else 0
-        # active lanes first (stable: in lane order)
-        perm = torch.argsort(s["done"].to(torch.int32), stable=True)
-        take = perm[:w]
-        sub = {k: (v[take] if k in _PER_LANE else v) for k, v in s.items()}
-        sub = run(sub, pts_rot[take], mrd[take] if mrd is not None else None,
-                  nxt)
-        merged = {}
-        for k, v in s.items():
-            if k in _PER_LANE:
-                v = v.clone()
-                v[take] = sub[k]
-                merged[k] = v
-            else:
-                merged[k] = sub[k]
-        s = merged
-
-    cnt = s["counters"]
+    if kernel_carries(cfg) and cuda_eval._route(pts_rot) == "cuda":
+        r = inner_run(pair, cfg, lanes0, pts_rot, mrd, fused, "search")
+        s, cnt = r.lanes, r.counters
+        iters, corners = r.iters, cnt["chem_corners"].reshape(())
+    else:
+        s, iters, corners, cnt = _search_plain(pair, cfg, lanes0, pts_rot,
+                                               mrd, fused)
     if raw:
         return InnerResult(best_err=s["opt_err"], best_node=s["best_node"],
                            lb_safe=None, ub_terms=s["ub_terms"],
-                           iters=s["it"], evals=cnt["evals"].reshape(()),
+                           iters=iters, evals=cnt["evals"].reshape(()),
                            geom_surv=cnt["geom_surv"].reshape(()),
-                           chem_corners=s["chem_corners"]), \
-            {k: s[k] for k in _PER_LANE if k in s}
+                           chem_corners=corners), s
     # safe lower bound: lanes that did not finish also fold in the remaining
     # frontier min (they would have kept searching)
     rem_min = torch.amin(s["lbs"], dim=1)
@@ -264,10 +230,82 @@ def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
     lb_safe = torch.where(finished, lb_safe, torch.minimum(lb_safe, rem_min))
     return InnerResult(best_err=s["opt_err"], best_node=s["best_node"],
                        lb_safe=lb_safe, ub_terms=s["ub_terms"],
-                       iters=s["it"],
+                       iters=iters,
                        evals=cnt["evals"].reshape(()).to(torch.int64),
                        geom_surv=cnt["geom_surv"].reshape(()).to(torch.int64),
-                       chem_corners=s["chem_corners"])
+                       chem_corners=corners)
+
+
+def _stage_widths(cfg: GoICPConfig, L: int) -> list:
+    """The staged compaction's batch widths: L, then L/2 and L/4 (the
+    JAX package's rule; none with lane_compaction 0 or L < 4)."""
+    widths = [L]
+    if cfg.lane_compaction and L >= 4:
+        for w in (L // 2, max(L // 4, 1)):
+            if w < widths[-1]:
+                widths.append(w)
+    return widths
+
+
+def _search_plain(pair, cfg: GoICPConfig, lanes0: dict, pts_rot, mrd,
+                  fused: bool):
+    """inner_bnb's loop on the plain step (the JAX package's while_loops):
+    iterate while some lane is active and it < inner_max_iters, with the
+    staged lane compaction L -> L/2 -> L/4 (the active lanes gathered into
+    a narrower batch once they fit it), one host read of the active-lane
+    count an iteration.  -> (final lanes, it, chem_corners (ints), the
+    evals and geom_surv counters ((1,) int32))."""
+    L = pts_rot.shape[0]
+    dev = pts_rot.device
+    s = dict(
+        lanes0,
+        it=0, chem_corners=0,
+        counters={k: torch.zeros((1,), dtype=torch.int32, device=dev)
+                  for k in ("evals", "geom_surv")})
+
+    def run(s, pair_s, pts, mrd_s, stop_count: int):
+        """Iterate while some lane is active (and, with stop_count > 0,
+        while more lanes are active than the next stage's width)."""
+        n_active = int(torch.sum(~s["done"]))
+        while s["it"] < cfg.inner_max_iters:
+            if n_active == 0 or (stop_count > 0 and n_active <= stop_count):
+                break
+            lanes, cnt, stats = inner_step_plain(
+                pair_s, cfg, {k: s[k] for k in _PER_LANE if k in s}, pts,
+                mrd_s, fused, counters=s["counters"])
+            s = dict(lanes, it=s["it"] + 1, counters=cnt,
+                     chem_corners=s["chem_corners"]
+                     + stats.corners_per_lane * pts.shape[0])
+            n_active = int(stats.n_active)
+        return s
+
+    stage_widths = _stage_widths(cfg, L)
+    s = run(s, pair, pts_rot, mrd,
+            stage_widths[1] if len(stage_widths) > 1 else 0)
+    for i in range(1, len(stage_widths)):
+        w = stage_widths[i]
+        nxt = stage_widths[i + 1] if i + 1 < len(stage_widths) else 0
+        # active lanes first (stable: in lane order)
+        perm = torch.argsort(s["done"].to(torch.int32), stable=True)
+        take = perm[:w]
+        sub = {k: (v[take] if k in _PER_LANE else v) for k, v in s.items()}
+        sub_pair = pair
+        if isinstance(pair, LaneTables) and pair.lane_pair is not None:
+            # lanes of several pairs: each keeps its own
+            sub_pair = pair._replace(lane_pair=pair.lane_pair[take])
+        sub = run(sub, sub_pair, pts_rot[take],
+                  mrd[take] if mrd is not None else None, nxt)
+        merged = {}
+        for k, v in s.items():
+            if k in _PER_LANE:
+                v = v.clone()
+                v[take] = sub[k]
+                merged[k] = v
+            else:
+                merged[k] = sub[k]
+        s = merged
+    return ({k: s[k] for k in _PER_LANE if k in s}, s["it"],
+            s["chem_corners"], s["counters"])
 
 
 @functools.lru_cache(maxsize=8)
@@ -650,6 +688,28 @@ def _inputs_ok(items, idx: int) -> bool:
                and x.is_contiguous() for _, x, n, dt in items)
 
 
+def _lane_items(lanes: dict, pts, mrd, C: int, reuse: bool) -> list:
+    """The lanes' fields, points and rotation uncertainty as a kernel of
+    csrc/inner.cu reads them: (name, tensor, numel, dtype) for
+    _inputs_ok / _bad_input."""
+    f32 = torch.float32
+    L, nd = lanes["done"].numel(), pts.shape[-2]
+    items = [("pts", pts, L * nd * 3, f32),
+             ("done", lanes["done"], L, torch.bool),
+             ("nodes", lanes["nodes"], L * C * 4, f32),
+             ("lbs", lanes["lbs"], L * C, f32),
+             ("best_node", lanes["best_node"], L * 4, f32),
+             ("ub_terms", lanes["ub_terms"], L * 3, f32),
+             ("opt_err", lanes["opt_err"], L, f32),
+             ("thr", lanes["thr"], L, f32),
+             ("min_dropped", lanes["min_dropped"], L, f32)]
+    if mrd is not None:
+        items.append(("mrd", mrd, L * nd, f32))
+    if reuse:
+        items.append(("cvals", lanes["cvals"], L * C * 8, f32))
+    return items
+
+
 def _table_ptrs(t: LaneTables, key: tuple, chem: bool, dev,
                 bufs: "StepBuffers | None") -> list:
     """The tables' pointers for goicp_inner_step, the tables checked; with
@@ -759,7 +819,6 @@ def inner_step(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
                                 groups, counters)
     t = pair if isinstance(pair, LaneTables) else one_pair_tables(pair, cfg)
     dev = pts.device
-    f32 = torch.float32
     done = lanes["done"]
     L = done.numel()
     nd = pts.shape[-2]
@@ -775,18 +834,7 @@ def inner_step(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
     tab = _table_ptrs(t, (L, nd, n_cells, W), chem, dev, bufs)
     counters = counters or {}
     cnt_in = [counters.get(k) for k in _COUNTERS]
-    items = [("pts", pts, L * nd * 3, f32), ("done", done, L, torch.bool),
-             ("nodes", lanes["nodes"], L * C * 4, f32),
-             ("lbs", lanes["lbs"], L * C, f32),
-             ("best_node", lanes["best_node"], L * 4, f32),
-             ("ub_terms", lanes["ub_terms"], L * 3, f32),
-             ("opt_err", lanes["opt_err"], L, f32),
-             ("thr", lanes["thr"], L, f32),
-             ("min_dropped", lanes["min_dropped"], L, f32)]
-    if mrd is not None:
-        items.append(("mrd", mrd, L * nd, f32))
-    if reuse:
-        items.append(("cvals", lanes["cvals"], L * C * 8, f32))
+    items = _lane_items(lanes, pts, mrd, C, reuse)
     if live is not None:
         items.append(("live", live, groups, torch.bool))
     items += [(k, v, groups, torch.int32) for k, v in counters.items()]
@@ -828,3 +876,206 @@ def inner_iteration(pair, cfg: GoICPConfig, lanes: dict, pts, mrd,
                           counters, bufs)
     return inner_step_plain(pair, cfg, lanes, pts, mrd, fused, live, groups,
                             counters)
+
+
+# ---------------------------------------------------------------------------
+# the run: the iterations of a search in one launch
+# ---------------------------------------------------------------------------
+
+_RUN_MODES = {"search": 0, "groups": 1, "stream": 2}
+
+
+class RunResult(NamedTuple):
+    """What an inner run leaves: the lanes' fields after it, the four
+    counters of each group after it, and the iterations it made."""
+    lanes: dict
+    counters: dict             # it, evals, geom_surv, chem_corners (groups,)
+    iters: object              # an int (plain), a 0-d int32 tensor (kernel)
+    clusters: object = None    # the kernel's grid in clusters (0-d int32)
+
+
+def _complete(cfg: GoICPConfig, lanes: dict, cnt: dict,
+              groups: int) -> torch.Tensor:
+    """(groups,) is each group's search complete: every lane done, or its
+    `it` at inner_max_iters (fused_stream._inner_complete's rule)."""
+    return torch.all(lanes["done"].reshape(groups, -1), dim=1) \
+        | (cnt["it"] >= cfg.inner_max_iters)
+
+
+def inner_run_plain(pair, cfg: GoICPConfig, lanes: dict, pts, mrd,
+                    fused: bool, mode: str, live=None, watch=None,
+                    once=None, groups: int = 1,
+                    counters: dict | None = None, steps: int = 0,
+                    step=None) -> RunResult:
+    """The torch loops the run kernel replaces, at inner_run's interface
+    (see there): mode "search" inner_bnb's loop with its staged compaction
+    (_search_plain), "groups" the batch engine's loop (every group live
+    until its search is complete), "stream" the fused stream's global
+    iterations between two transitions; each step is inner_step_plain, or
+    step(lanes, live, counters) -> (lanes, counters) where given (the
+    fused stream's row-by-row body).  The CPU's route, the route of the
+    configurations the kernel does not carry, and the kernel's yardstick;
+    it reads the host after every iteration."""
+    if mode == "search":
+        new, it, corners, cnt = _search_plain(pair, cfg, lanes, pts, mrd,
+                                              fused)
+        dev = lanes["done"].device
+        return RunResult(new, dict(
+            it=torch.tensor([it], dtype=torch.int32, device=dev),
+            evals=cnt["evals"], geom_surv=cnt["geom_surv"],
+            chem_corners=torch.tensor([corners], dtype=torch.int32,
+                                      device=dev)), it)
+    if step is None:
+        def step(lanes, live, cnt):
+            new, cnt, _ = inner_step_plain(pair, cfg, lanes, pts, mrd, fused,
+                                           live, groups, cnt)
+            return new, cnt
+    dev = lanes["done"].device
+    cnt = {k: counters[k] if counters and k in counters
+           else torch.zeros((groups,), dtype=torch.int32, device=dev)
+           for k in _COUNTERS}
+    n = 0
+    if mode == "groups":
+        while True:
+            lv = ~_complete(cfg, lanes, cnt, groups)
+            if not bool(torch.any(lv)):
+                break
+            lanes, cnt = step(lanes, lv, cnt)
+            n += 1
+    elif mode == "stream":
+        if steps < 1:
+            raise ValueError("inner_run: mode stream needs steps >= 1")
+        while True:
+            lanes, cnt = step(lanes, live, cnt)
+            n += 1
+            due = _complete(cfg, lanes, cnt, groups)
+            if watch is not None:
+                due = due & watch
+            if n >= steps or bool(torch.any(due)) \
+                    or (once is not None and bool(once)):
+                break
+    else:
+        raise ValueError(f"inner_run: unknown mode {mode!r}")
+    return RunResult(lanes, cnt, n)
+
+
+def _run_outputs(lanes: dict, L: int, C: int, reuse: bool, groups: int,
+                 pts):
+    """One allocation for a run: the output sets A (returned) and B, each
+    the float fields packed and done, and the int32 words (counters
+    (4, groups), info (4), the barrier's 4, frozen (L), lane stats (2 L),
+    live_next (groups)).  -> (A's fields shaped as `lanes`, A's and B's
+    pointers, the int words)."""
+    sizes = (L * C * 4, L * C, L * C * 8 if reuse else 0, L, L, L * 4,
+             L * 3, L)
+    F = sum(sizes)
+    n_int = 4 * groups + 8 + 3 * L + groups
+    buf = pts.new_empty(2 * F + n_int + (2 * L + 3) // 4)
+    ints = buf[2 * F:2 * F + n_int].view(torch.int32)
+    dones = buf[2 * F + n_int:].view(torch.uint8)[:2 * L].view(torch.bool)
+    names = ("nodes", "lbs", "cvals", "opt_err", "thr", "best_node",
+             "ub_terms", "min_dropped")
+    sets = []
+    for i in (0, 1):
+        o = buf[i * F:(i + 1) * F].split(sizes)
+        sets.append([x.data_ptr() for x in o]
+                    + [dones[i * L:(i + 1) * L].data_ptr()])
+        if i == 0:
+            out = {k: v.view(lanes[k].shape) for k, v in zip(names, o)
+                   if k in lanes}
+            out["done"] = dones[:L].view(lanes["done"].shape)
+    return out, sets, ints
+
+
+def inner_run(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
+              mode: str, live=None, watch=None, once=None, groups: int = 1,
+              counters: dict | None = None, steps: int = 0) -> RunResult:
+    """The inner iterations of a whole search, or of a stretch of one: on
+    CUDA tensors ONE launch of csrc/inner.cu (goicp_inner_run: a lane a
+    thread-block cluster, as many clusters as the card holds at once, a
+    grid barrier between iterations, no host read) or a raise, on CPU
+    tensors inner_run_plain.
+
+    pair, lanes, pts, mrd, fused: as inner_step's.  The lanes fall in
+    `groups` runs of L / groups with counters (groups,) int32 among it /
+    evals / geom_surv / chem_corners (missing: 0).  mode:
+      "search": inner_bnb's loop, one group: while some lane is not done
+        and it < inner_max_iters; chem_corners counts corners_per_lane x
+        the width of the stage the staged compaction would be in;
+      "groups": the batch engine's: while some group's search is not
+        complete (every lane done or its it >= inner_max_iters), each
+        group stepping until its own is;
+      "stream": the fused stream's global iterations: the groups `live`
+        (groups,) bool says (None: all) step, at least once, until a group
+        `watch` (groups,) bool marks (None: all) has a complete search or
+        `steps` iterations ran, or after one iteration when `once` (a 0-d
+        bool) is true.
+    An iteration counts only the groups that step in it.  Returns
+    RunResult: the lanes' fields (new tensors, shaped as `lanes`), the
+    counters after the run and the iterations it made (a 0-d int32 tensor
+    on the card); nothing given is written.  Raises on the card for a
+    configuration the kernel does not carry (kernel_carries), shapes past
+    cuda_eval.in_envelope, a pop or capacity whose arrays do not fit a
+    block, and a shape of which not one cluster fits the card: no path
+    falls back to the step or the torch loop."""
+    if cuda_eval._route(pts) == "cpu":
+        return inner_run_plain(pair, cfg, lanes, pts, mrd, fused, mode,
+                               live, watch, once, groups, counters, steps)
+    t = pair if isinstance(pair, LaneTables) else one_pair_tables(pair, cfg)
+    dev = pts.device
+    done = lanes["done"]
+    L = done.numel()
+    nd = pts.shape[-2]
+    W, n_cells = t.cell_coords.shape[:2]
+    C = cfg.trans_capacity
+    P = cfg.trans_pop
+    chem = _chem_active(cfg)
+    reuse = _chem_reuse_active(cfg)
+    if not kernel_carries(cfg) or L % groups or mode not in _RUN_MODES:
+        raise ValueError("inner_run: the run kernel does not carry this "
+                         "configuration (kernel_carries), these groups or "
+                         f"mode {mode!r}")
+    if mode == "stream" and steps < 1:
+        raise ValueError("inner_run: mode stream needs steps >= 1")
+    cuda_eval._check_envelope("inner_run", nd, n_cells, t.size)
+    tab = _table_ptrs(t, (L, nd, n_cells, W), chem, dev, None)
+    counters = counters or {}
+    items = _lane_items(lanes, pts, mrd, C, reuse)
+    for name, x, n in (("live", live, groups), ("watch", watch, groups),
+                       ("once", once, 1)):
+        if x is not None:
+            items.append((name, x, n, torch.bool))
+    items += [(k, v, groups, torch.int32) for k, v in counters.items()]
+    if not _inputs_ok(items, pts.get_device()):
+        _bad_input(items, dev)
+    out, sets, ints = _run_outputs(lanes, L, C, reuse, groups, pts)
+    widths = _stage_widths(cfg, L) + [0, 0] if mode == "search" else [0] * 3
+    _launch(kernels.goicp_inner_run(
+        pts.data_ptr(), _ptr(mrd), *tab, lanes["nodes"].data_ptr(),
+        lanes["lbs"].data_ptr(), _ptr(lanes["cvals"]) if reuse else None,
+        lanes["opt_err"].data_ptr(), lanes["thr"].data_ptr(),
+        lanes["best_node"].data_ptr(), lanes["ub_terms"].data_ptr(),
+        lanes["min_dropped"].data_ptr(), done.data_ptr(), _ptr(live),
+        _ptr(watch), _ptr(once), *(_ptr(counters.get(k)) for k in _COUNTERS),
+        *sets[0], *sets[1], ints.data_ptr(), L, C, P, L // groups, nd,
+        n_cells, t.size, cfg.norm, int(fused), t.trim_k, int(reuse),
+        int(cfg.sorted_merge), _RUN_MODES[mode], cfg.inner_max_iters,
+        int(steps), widths[1], widths[2], float(cfg.regularization),
+        _stream(pts)), "inner_run")
+    inner_run.launches += 1
+    cnt = dict(zip(_COUNTERS, ints[:4 * groups].view(4, groups)))
+    return RunResult(out, cnt, ints[4 * groups], ints[4 * groups + 2])
+
+
+inner_run.launches = 0
+
+
+def inner_loop(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
+               mode: str, **kw) -> RunResult:
+    """The inner loop every engine runs: inner_run for the configurations
+    the kernel carries (kernel_carries; on the card one launch, whatever
+    the shapes: those it cannot take raise), inner_run_plain for the
+    others; the same arguments and results."""
+    if kernel_carries(cfg):
+        return inner_run(pair, cfg, lanes, pts, mrd, fused, mode, **kw)
+    return inner_run_plain(pair, cfg, lanes, pts, mrd, fused, mode, **kw)

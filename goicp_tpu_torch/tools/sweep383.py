@@ -59,8 +59,8 @@ REPO = measure.REPO
 _MANIFEST = "manifest.json"
 _WALLS = "walls.json"
 # the kernels a stream launches besides the transitions' (K3/K4's bodies
-# run inside the inner step)
-_STREAM_KERNELS = ("chem_incomp_kernel", "inner_step")
+# run inside the inner run)
+_STREAM_KERNELS = ("chem_incomp_kernel", "inner_run")
 
 
 def _write_json(path: str, obj) -> None:
