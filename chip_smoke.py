@@ -88,17 +88,23 @@ Phases, each of which fails the script (nonzero exit, no result line):
     same iterations as inner_step launches from a CUDA graph.  The transition kernels
     (csrc/transition.cu: goicp_harvest and goicp_advance) held to
     harvest_plain and advance_plain, the engines' torch code, every
-    output bit for bit: the streams' mode ("both") on three windows 40
-    global iterations in (similar with and without corner reuse,
-    trimmed) in seven cases (as run, improved by the BnB candidate or by
-    the ICP, a converging row, a NaN lane, INF lbs, a full frontier),
-    every merged frontier first checked sorted and NaN-free (the merge
-    path's precondition), the outputs new and
-    written in place; register_device's pop (with a
-    given min_lb too), harvest and adoption (no refine, refined, frozen)
-    on syn07; the batch engine's pop into B-row outputs and adoption in
-    place; timed at the streams' shape (syn02 + syn03) and at
-    register_device's.  max |kernel - plain| is 0 in every case.
+    output bit for bit: the streams' mode ("both", one launch of a
+    thread-block cluster a row) on four windows 40 global iterations in
+    (similar with and without corner reuse, trimmed, and rot_batch 4, so
+    that a cluster block serves 4 lanes) in seven cases (as run, improved
+    by the BnB candidate or by the ICP, a converging row, a NaN lane, INF
+    lbs, a full frontier), every merged frontier first checked sorted and
+    NaN-free (the merge path's precondition), the outputs new, written in
+    place and taken from a run's two output sets in turn (the kept
+    argument blocks of search/transition.py); a kept block whose tensor
+    was replaced re-checked and repointed (the harvest and the advance on
+    the new values); register_device's pop (with a given min_lb too, and
+    at rot_batch 4), harvest and adoption (no refine, refined, frozen) on
+    syn07; the batch engine's pop into B-row outputs and at out_rows,
+    and adoption in place; timed at the streams' shape (syn02 + syn03)
+    and at register_device's, each call with the run's buffers (the main
+    path's) and with a block built a call.  max |kernel - plain| is 0 in
+    every case.
  3. registrations through the port's entry points: prepare_pair(bucket=
     True) -> make_count_dynamic -> register_device, under GoICPConfig() +
     bench_shape, on six pairs of the similar pool and four of the trimmed
@@ -251,9 +257,10 @@ Phases, each of which fails the script (nonzero exit, no result line):
     (goicp_tpu_torch/bench/launch_counts.py) beside those of the
     trees before the fixed order (commit 1025156) and before the ICP
     kernel (ce5be19), those of one rescoring, of a fused-stream
-    transition of 8 rows (at most 3 launches and 1 host read) and of a
-    register_device outer step beside the tree before the transition
-    kernel (789170e), and an ICP event's: one launch of csrc/icp.cu and
+    transition of 8 rows (at most 2 launches and 1 host read) and of a
+    register_device outer step (at most 4 launches) beside the trees
+    before the transition kernel (789170e) and before advance was one
+    launch (fd41384), and an ICP event's: one launch of csrc/icp.cu and
     no host read.
 
 The second-to-last line is a JSON object with one entry per kernel; the
@@ -309,6 +316,13 @@ BEFORE_TRANSITION_KERNEL = {
 BEFORE_INNER_RUN = {
     "outer_step": "67 launches (61 besides its 6 inner iterations), 9 host "
                   "reads, 10 syncs"}
+# the same on the tree before advance was one launch (commit fd41384,
+# PERF.md §5): a fused-stream transition of 8 rows and a register_device
+# outer step (syn07, 3 steps in)
+BEFORE_ONE_LAUNCH_ADVANCE = {
+    "transition": "3 launches, 0 host reads, 1 sync",
+    "outer_step": "5 launches (4 besides its inner search's 1), 0 host "
+                  "reads, 1 sync"}
 # the fixed-order products of utils/fp32.py (csrc/fp32_products.cu)
 FIXED_ORDER_PRODUCTS = ("sq_dist3", "det3", "cross3", "dot_fma")
 # the fixed-order functions that take an outer transition's and a
@@ -2393,7 +2407,9 @@ def _transition_checks(kernels, cfg, cfg_t, pools, dev, floor):
             ("similar", ("syn02", "syn03", "syn00", "syn01"), cfg),
             ("trimmed", ("trm00", "trm01"), cfg_t),
             ("similar, no corner reuse", ("syn02", "syn03"),
-             dataclasses.replace(cfg, chem_reuse=0))):
+             dataclasses.replace(cfg, chem_reuse=0)),
+            ("similar, rot_batch 4 (4 lanes a cluster block)",
+             ("syn02", "syn03"), dataclasses.replace(cfg, rot_batch=4))):
         pairs = _bucket_and_prepare(
             [_normalized_synthetic(pools[n]) for n in names], c, device=dev)
         pb = stack_pairs(pairs)
@@ -2416,6 +2432,22 @@ def _transition_checks(kernels, cfg, cfg_t, pools, dev, floor):
             idx = torch.tensor(rows, device=dev)
             same(fs._map_state(lambda x: x[idx], win), want,
                  f"advance both in place ({label}, {case})")
+            # the main path's way: the harvest's outputs from a run's two
+            # sets, the blocks kept; twice, so that both sets serve
+            bufs = tr.TransitionBuffers()
+            for turn in range(2):
+                hb = tr.harvest(c, s, rows, bufs=bufs)
+                same(hb, h, f"harvest into the sets ({label}, {case}, "
+                     f"turn {turn})")
+                got = tr.advance("both", c, pb, s, rows, tables=tabs, h=hb,
+                                 r=r, bufs=bufs)
+                same(got, want, f"advance both into the sets ({label}, "
+                     f"{case}, turn {turn})")
+            win = fs._map_state(torch.clone, s)
+            tr.advance("both", c, pb, win, rows, tables=tabs, h=hb, r=r,
+                       out=win, bufs=bufs)
+            same(fs._map_state(lambda x: x[idx], win), want,
+                 f"advance both in place, a kept block ({label}, {case})")
             if case == "improved by the ICP":
                 _require(bool(got["last_icp"][0]), "the ICP's row adopted")
             if case == "converging":
@@ -2424,15 +2456,59 @@ def _transition_checks(kernels, cfg, cfg_t, pools, dev, floor):
                 _require(bool(torch.isfinite(got["min_dropped"][0])),
                          "the full frontier dropped finite lbs")
         print(f"transition, the streams ({label}, {len(names)} rows): "
-              f"harvest and advance (both modes' outputs, new and in "
-              f"place) bit for bit in {len(STREAM_TRANSITION_CASES)} "
-              f"cases", flush=True)
+              f"harvest and advance (both modes' outputs, new, in place "
+              f"and from a run's two output sets) bit for bit in "
+              f"{len(STREAM_TRANSITION_CASES)} cases", flush=True)
+
+    # a kept block whose tensor was replaced is re-checked and repointed,
+    # not launched with the old pointer: the harvest and the advance of a
+    # window whose incumbents are replaced by other values
+    pb, c, s0, tabs = windows["similar"]
+    rows = [w for w in range(s0["opt_err"].shape[0])
+            if not bool(s0["converged"][w])]
+    bufs = tr.TransitionBuffers()
+    for _ in range(2):
+        h0 = tr.harvest(c, s0, rows, bufs=bufs)
+        tr.advance("both", c, pb, s0, rows, tables=tabs, h=h0, bufs=bufs)
+
+    def checked():
+        """(blocks kept, slots re-checked in them) over bufs' sites."""
+        blocks = list(bufs.blocks.values())
+        return len(blocks), sum(b.rechecked for b in blocks)
+    before = checked()
+    s2 = dict(s0, opt_err=torch.full_like(s0["opt_err"], -1.0))
+    h2 = tr.harvest(c, s2, rows, bufs=bufs)
+    same(h2, tr.harvest_plain(s2, rows), "harvest, a replaced tensor")
+    _require(not torch.equal(h2["incumbent"], h0["incumbent"]),
+             "the replaced incumbents change the harvest")
+    got = tr.advance("both", c, pb, s2, rows, tables=tabs, h=h2, bufs=bufs)
+    same(got, tr.advance_plain("both", c, pb, s2, rows, h=h2),
+         "advance both, a replaced tensor")
+    after = checked()
+    # each call found no block of its tensors: a new one was built (or
+    # an old one re-checked where its tensors differ)
+    _require(after[0] + after[1] >= before[0] + before[1] + 2,
+             f"a block built or re-checked for each call with the "
+             f"replaced tensor: {before} -> {after}")
+    rechecked = f"{after[0] - before[0]} blocks built, " \
+        f"{after[1] - before[1]} slots re-checked"
+    print(f"transition, kept blocks: a replaced tensor not launched with "
+          f"the old pointer ({rechecked}), harvest and advance "
+          f"bit for bit with the plain versions on the new values",
+          flush=True)
 
     # register_device's: one row, pop / harvest / adopt
     pair = _prepared("syn07", cfg, pools, dev)
     pb1, tabs1 = eng._one_row(pair, cfg)
     st0 = eng.device_init(pair, cfg)
     timed1 = None
+    cfg4 = dataclasses.replace(cfg, rot_batch=4)
+    pb4, tabs4 = eng._one_row(pair, cfg4)
+    s4 = eng._as_row(eng.device_init(pair, cfg4))
+    for ml in (None, s4["fr_lbs"][:, 0] * 0.5):
+        same(tr.advance("pop", cfg4, pb4, s4, [0], tables=tabs4, min_lb=ml),
+             tr.advance_plain("pop", cfg4, pb4, s4, [0], min_lb=ml),
+             "advance pop (syn07, rot_batch 4)")
     for label, st in (("first state", st0),
                       ("5 outer steps in",
                        eng.device_run_chunk(pair, cfg, st0, 5))):
@@ -2474,7 +2550,7 @@ def _transition_checks(kernels, cfg, cfg_t, pools, dev, floor):
                  f"advance adopt (syn07 {label}, "
                  f"{'refined' if rr is not None else 'no refine'}"
                  f"{', frozen' if frozen else ''})")
-        timed1 = (s1, p, h, work)
+        timed1 = (st, p, h, work)
         print(f"transition, register_device (syn07 {label}): pop (and "
               f"with a given min_lb), harvest, adopt (no refine, refined, "
               f"frozen) bit for bit", flush=True)
@@ -2492,6 +2568,12 @@ def _transition_checks(kernels, cfg, cfg_t, pools, dev, floor):
     idx = torch.tensor(rows, device=dev)
     same(fs._map_state(lambda x: x[idx], got),
          fs._map_state(lambda x: x[idx], want), "advance pop into B rows")
+    outs2 = [tr.outputs("pop", c3, 2, nd, dev) for _ in range(2)]
+    same(tr.advance("pop", c3, pb3, sb, rows, tables=tabs3, out=outs2[0],
+                    out_rows=[1, 0]),
+         tr.advance_plain("pop", c3, pb3, sb, rows, out=outs2[1],
+                          out_rows=[1, 0]),
+         "advance pop into out_rows [1, 0]")
     src = dict(inner=got["lanes"], active=got["active"],
                R_lanes=got["R_lanes"], opt_err=sb["opt_err"])
     h = tr.harvest(c3, src, rows, conv=got["converged"])
@@ -2508,8 +2590,8 @@ def _transition_checks(kernels, cfg, cfg_t, pools, dev, floor):
                      out=s_p)
     same(s_k, s_p, "advance adopt in place into B rows (one frozen)")
     print("transition, the batch engine (rows 0 and 2 of 3): pop into "
-          "B-row outputs, harvest, adopt in place with a frozen row, bit "
-          "for bit", flush=True)
+          "B-row outputs and at out_rows, harvest, adopt in place with a "
+          "frozen row, bit for bit", flush=True)
 
     # times: the streams' shape (syn02 + syn03, both rows transitioning)
     # and register_device's (syn07: pop, harvest, adopt)
@@ -2519,32 +2601,53 @@ def _transition_checks(kernels, cfg, cfg_t, pools, dev, floor):
     tabs2 = fs._transition_tables(pb2, cfg)
     rows2 = [0, 1]
     h2 = tr.harvest(cfg, s02, rows2)
-    s1, p1, _, work1 = timed1
-    src1 = eng._harvest_src(dict(batch=p1), s1["opt_err"][0], res)
+    st1, p1, _, work1 = timed1
+    s1 = eng._as_row(st1)
+    src1 = eng._harvest_src(dict(batch=p1), st1["opt_err"], res)
     lb1 = eng._lb_lanes(lanes)
     h1 = tr.harvest(cfg, src1, [0], lb=lb1)
 
-    def stream_h(plain=False):
-        return (tr.harvest_plain(s02, rows2) if plain
-                else tr.harvest(cfg, s02, rows2))
+    # the main path's calls: the run's TransitionBuffers kept (blocks
+    # reused, outputs from the two sets; the stream's advance in place;
+    # register_device's calls given the 1-row views made anew a call, as
+    # its outer step makes them); `per_call=True`: without them (a block
+    # built and outputs allocated a call: the packed stream's way)
+    bufs2, bufs1 = tr.TransitionBuffers(), tr.TransitionBuffers()
+    win2 = fs._map_state(torch.clone, s02)
 
-    def stream_a(plain=False):
+    def stream_h(plain=False, per_call=False):
+        if plain:
+            return tr.harvest_plain(s02, rows2)
+        return tr.harvest(cfg, s02, rows2,
+                          bufs=None if per_call else bufs2)
+
+    def stream_a(plain=False, per_call=False):
         if plain:
             return tr.advance_plain("both", cfg, pb2, s02, rows2, h=h2)
-        return tr.advance("both", cfg, pb2, s02, rows2, tables=tabs2, h=h2)
+        if per_call:
+            return tr.advance("both", cfg, pb2, s02, rows2, tables=tabs2,
+                              h=h2)
+        return tr.advance("both", cfg, pb2, win2, rows2, tables=tabs2,
+                          h=h2, out=win2, bufs=bufs2)
 
-    def one_h(plain=False):
-        return (tr.harvest_plain(src1, [0], lb=lb1) if plain
-                else tr.harvest(cfg, src1, [0], lb=lb1))
+    def one_h(plain=False, per_call=False):
+        if plain:
+            return tr.harvest_plain(src1, [0], lb=lb1)
+        return tr.harvest(cfg, eng._harvest_src(dict(batch=p1),
+                                                st1["opt_err"], res), [0],
+                          lb=eng._lb_lanes(lanes),
+                          bufs=None if per_call else bufs1)
 
-    def one_a(plain=False):
+    def one_a(plain=False, per_call=False):
         if plain:
             return (tr.advance_plain("pop", cfg, pb1, s1, [0]),
                     tr.advance_plain("adopt", cfg, pb1, s1, [0], h=h1, p=p1,
                                      work=work1))
-        return (tr.advance("pop", cfg, pb1, s1, [0], tables=tabs1),
-                tr.advance("adopt", cfg, pb1, s1, [0], tables=tabs1, h=h1,
-                           p=p1, work=work1))
+        b = None if per_call else bufs1
+        return (tr.advance("pop", cfg, pb1, eng._as_row(st1), [0],
+                           tables=tabs1, bufs=b),
+                tr.advance("adopt", cfg, pb1, eng._as_row(st1), [0],
+                           tables=tabs1, h=h1, p=p1, work=work1, bufs=b))
 
     def per_row(x):
         """One row's bytes of a tensor whose first axis is the rows."""
@@ -2625,13 +2728,18 @@ def _transition_checks(kernels, cfg, cfg_t, pools, dev, floor):
             t_ops, t_bytes = ops / PEAK_OPS, nbytes / PEAK_BYTES
             times[name] = dict(
                 ms=_median_ms(fn), graph_ms=_device_ms(fn),
+                ms_per_call_block=_median_ms(
+                    lambda fn=fn: fn(per_call=True)),
                 plain_ms=_median_ms(lambda fn=fn: fn(plain=True)),
                 bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 library_ms=None)
             v = times[name]
             print(f"transition timed, {shape}: {name} kernel "
-                  f"{v['ms']:.4f} ms (from a graph {v['graph_ms']:.4f} ms) "
+                  f"{v['ms']:.4f} ms with the run's buffers (a block built "
+                  f"and outputs allocated a call: "
+                  f"{v['ms_per_call_block']:.4f} ms; from a graph "
+                  f"{v['graph_ms']:.4f} ms) "
                   f"plain {v['plain_ms']:.4f} ms bound {v['bound_ms']:.6f} "
                   f"ms ({v['bound_by']}; {nbytes} bytes, {ops} operations) "
                   f"{floor}", flush=True)
@@ -2917,7 +3025,9 @@ def _one_answer_phase(dev):
           f"clock "
           f"({tb['launches_per_row']:.2f} launches and "
           f"{tb['ms_per_row']:.3f} ms a row); before the transition "
-          f"kernel: {BEFORE_TRANSITION_KERNEL['transition']}", flush=True)
+          f"kernel: {BEFORE_TRANSITION_KERNEL['transition']}; before "
+          f"advance was one launch: "
+          f"{BEFORE_ONE_LAUNCH_ADVANCE['transition']}", flush=True)
     print(f"phase 13 a register_device outer step: {st['launches']:.1f} "
           f"launches, {st['host_reads']:.1f} host reads, {st['syncs']:.1f} "
           f"syncs, {st['ms']:.3f} ms "
@@ -2926,14 +3036,16 @@ def _one_answer_phase(dev):
           f"{st['host_reads_besides_inner']:.1f} host reads; the inner "
           f"kernels' own {st['inner_launches']:.1f} launches); before the "
           f"transition kernel: {BEFORE_TRANSITION_KERNEL['outer_step']}; "
-          f"before the inner run: {BEFORE_INNER_RUN['outer_step']}",
-          flush=True)
-    _require(st["inner_launches"] == 1,
-             f"a register_device outer step's inner search is one launch "
+          f"before the inner run: {BEFORE_INNER_RUN['outer_step']}; "
+          f"before advance was one launch: "
+          f"{BEFORE_ONE_LAUNCH_ADVANCE['outer_step']}", flush=True)
+    _require(st["inner_launches"] == 1 and st["launches"] <= 4,
+             f"a register_device outer step is at most four launches (pop, "
+             f"the inner run, harvest, adopt), its inner search one launch "
              f"of the inner run: {st}")
-    _require(tb["launches"] <= 3 and tb["syncs"] <= 1,
-             f"a stream transition batch is at most three launches and one "
-             f"host read (a sync): {tb}")
+    _require(tb["launches"] <= 2 and tb["syncs"] <= 1,
+             f"a stream transition batch is at most two launches (harvest, "
+             f"advance) and one host read (a sync): {tb}")
     ev = launch_counts.icp_event()
     print(f"phase 13 an ICP event ({launch_counts.ICP_SEEDS} seeds, "
           f"iterations {ev['iterations']}): {ev['launches']:.1f} kernel "

@@ -2,6 +2,7 @@
 utils/fp32.py on the card, and of each step a launch path is made of.
 
     python goicp_tpu_torch/bench/host_path.py [--calls N] [--json PATH]
+        [--transition-only]
 
 Each number is time.perf_counter() around N calls (default 10,000) of one
 thunk and a final torch.cuda.synchronize(), divided by N, in µs: the
@@ -17,6 +18,13 @@ cos take two).  The ladder builds ordered_sum's call up from the bare C
 call one piece at a time, beside the same call made the older way (as
 at commit 90724d7: a lookup per call, c_void_p pointers, a Stream
 object); the steps are the pieces of a launch path, each timed alone.
+
+The transition's wrappers (search/transition.py: harvest; advance in
+modes pop, adopt and both) are timed at the streams' shape (syn02 +
+syn03) and register_device's (syn07), up to each call's enqueue (their
+card time is near their host path's), as the main path calls them and,
+on a tree that keeps argument blocks and output sets, with a block
+built and outputs allocated a call.
 
 Like launch_counts.py, it times an older tree's wrappers when that tree
 comes first on PYTHONPATH: where the older tree has no such function, the
@@ -202,10 +210,90 @@ def steps(dev, calls: int) -> dict:
             for k, f in thunks.items()}
 
 
+def _enqueue_us(fn, calls: int) -> float:
+    """The host's µs per call of fn up to its last enqueue (no wait for
+    the card at the end): a transition kernel's card time (~0.004-0.02
+    ms) is near its host path's, so timing to a final synchronize would
+    time the card.  calls stays below the launch queue's depth."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def transition(dev, calls: int = 400) -> dict:
+    """µs per call (host, up to the enqueue) of the transition's wrappers
+    at the streams' shape (syn02 + syn03, both rows, 40 global iterations
+    in: harvest, and advance "both" written in place) and at
+    register_device's (syn07's first outer step: advance "pop", harvest,
+    advance "adopt", each given the 1-row views of the state and the
+    inner search's results made anew a call, as the outer step makes
+    them): "main" as the main path calls them on this tree (with a run's
+    TransitionBuffers where the tree has them: argument blocks kept,
+    outputs from two sets in turn), "per call" without them
+    (a block built and outputs allocated a call; null on a tree without
+    TransitionBuffers, whose every call is that)."""
+    import inspect
+    from goicp_tpu_torch.bench.launch_counts import _bench_pairs
+    from goicp_tpu_torch.dist.mesh import stack_pairs
+    from goicp_tpu_torch.search import device_engine as eng
+    from goicp_tpu_torch.search import fused_stream as fs
+    from goicp_tpu_torch.search import inner
+    from goicp_tpu_torch.search import transition as tr
+    has = "bufs" in inspect.signature(tr.advance).parameters
+    cfg, pairs = _bench_pairs(("syn02", "syn03"), dev, bucket_together=True)
+    pb = stack_pairs(pairs)
+    s = fs.fused_run_chunk(pb, cfg, fs._init_batch(pb, cfg), 40)
+    tabs = fs._transition_tables(pb, cfg)
+    rows = [0, 1]
+    h = tr.harvest(cfg, s, rows)
+    win = fs._map_state(torch.clone, s)
+    cfg1, (pair,) = _bench_pairs(("syn07",), dev, bucket_together=False)
+    pb1, tabs1 = eng._one_row(pair, cfg1)
+    st = eng.device_init(pair, cfg1)
+    p1 = tr.advance("pop", cfg1, pb1, eng._as_row(st), [0], tables=tabs1)
+    res, lanes = inner.inner_bnb(
+        pair, cfg1, p1["pts"][0], p1["widths"][0], p1["active"][0],
+        st["opt_err"], False, True,
+        lanes0={k: v[0] for k, v in p1["lanes"].items()}, mrd=p1["mrd"][0],
+        raw=True)
+    h1 = tr.harvest(cfg1, eng._harvest_src(dict(batch=p1), st["opt_err"],
+                                           res), [0], lb=eng._lb_lanes(lanes))
+
+    def thunks(kw):
+        return {
+            "harvest, the streams' 2 rows":
+                lambda: tr.harvest(cfg, s, rows, **kw),
+            "advance both in place, the streams' 2 rows":
+                lambda: tr.advance("both", cfg, pb, win, rows, tables=tabs,
+                                   h=h, out=win, **kw),
+            "advance pop, syn07": lambda: tr.advance(
+                "pop", cfg1, pb1, eng._as_row(st), [0], tables=tabs1, **kw),
+            "harvest, syn07": lambda: tr.harvest(
+                cfg1, eng._harvest_src(dict(batch=p1), st["opt_err"], res),
+                [0], lb=eng._lb_lanes(lanes), **kw),
+            "advance adopt, syn07": lambda: tr.advance(
+                "adopt", cfg1, pb1, eng._as_row(st), [0], tables=tabs1, h=h1,
+                p=p1, work=eng._work(res, res, True), **kw)}
+    main = thunks({"bufs": tr.TransitionBuffers()} if has else {})
+    per_call = thunks({}) if has else None
+    return {k: dict(main=_enqueue_us(f, calls),
+                    per_call=None if per_call is None
+                    else _enqueue_us(per_call[k], calls))
+            for k, f in main.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--calls", type=int, default=10_000)
     ap.add_argument("--json", help="also write the object to this file")
+    ap.add_argument("--transition-only", action="store_true",
+                    help="time the transition's wrappers alone")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("host_path needs a CUDA device", file=sys.stderr)
@@ -214,8 +302,12 @@ def main(argv=None) -> int:
     from goicp_tpu_torch.bench.launch_counts import card
     dev = torch.device("cuda")
     out = dict(package=goicp_tpu_torch.__file__, card=card(),
-               calls=a.calls, wrappers_us=wrappers(dev, a.calls),
-               ladder_us=ladder(dev, a.calls), steps_us=steps(dev, a.calls))
+               calls=a.calls)
+    if not a.transition_only:
+        out.update(wrappers_us=wrappers(dev, a.calls),
+                   ladder_us=ladder(dev, a.calls),
+                   steps_us=steps(dev, a.calls))
+    out["transition_us"] = transition(dev)
     print(json.dumps(out), flush=True)
     if a.json:
         with open(a.json, "w") as fh:

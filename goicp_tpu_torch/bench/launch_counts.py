@@ -22,21 +22,30 @@ every `.item()` and `bool()` of a card tensor goes through):
     iterations less those of 2 (0 when the event is one launch);
   * one outer transition of the fused stream: fused_stream.
     _transition_batch, as fused_run_chunk runs it (the rows' new states
-    written back into the window), of every row of a window of
-    TRANSITION_ROWS bench pairs from their first state, where no row
-    improves (so no ICP): harvest, adopt, merge, pop, rotate and the fresh
-    inner state of each row; its launches, host reads, syncs (the host's
-    waits on the card: reads, `.cpu()` copies and pageable host-to-card
-    copies) and host-clock ms, and per row;
+    written back into the window, with the loop's TransitionBuffers on a
+    tree that has them), of every row of a window of TRANSITION_ROWS
+    bench pairs, each call on a fresh copy of their first state
+    (`transition`) and, as a loop's calls meet them, each call on the
+    state the one before wrote, in place (`transition_chained`: a call
+    finds the tensors of the call before, so a tree that keeps its
+    argument blocks reuses them), where no row improves (so no ICP):
+    harvest, adopt, merge, pop, rotate and the fresh inner state of each
+    row; its launches, host reads, syncs (the host's waits on the card:
+    reads, `.cpu()` copies and pageable host-to-card copies) and
+    host-clock ms, and per row;
   * one outer transition of the packed stream: packed_stream.
     _transition, as packed_run_chunk runs it, of the same rows from their
     first packed state: the bundles unpacked into the fused layout, the
     fused stream's transition, the rows repacked and written back; its
     launches, host reads, syncs and host-clock ms, and per row;
   * one register_device outer step: device_engine._make_body's body on
-    syn07 after 3 outer steps, as device_run_chunk runs it (with the
-    loop's host read of `converged` where the body does not read it
-    itself): launches, host reads, syncs, host-clock ms, the inner
+    syn07, with the loop's host read of `converged` where the body does
+    not read it itself: every step from the same state, 3 outer steps in
+    (`outer_step`), and, as device_run_chunk runs it, each step fed the
+    state the step before returned, from 7 steps in
+    (`outer_step_chained`; syn07's steps 7-17 improve on no incumbent,
+    so no ICP runs in them, where step 3's successors do): launches,
+    host reads, syncs, host-clock ms, the inner
     iterations it ran, the launches of the inner search's own kernels
     (csrc/inner.cu: inner_step and inner_run, by their launch counts) and
     the launches and host reads beside them (less those launches and, on
@@ -62,6 +71,7 @@ launch count: null).  Needs a card.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import subprocess
 import sys
@@ -76,6 +86,7 @@ TRANSITION_ROWS = ("syn00", "syn01", "syn02", "syn03", "syn04", "syn05",
 STREAM_ROWS = tuple(f"syn{i:02d}" for i in range(16))
 STREAM_STEPS = 512
 PAIR_ICP = "syn07"
+OUTER_FROM = 7      # syn07's outer steps 6, 19 and 27 improve (0-based)
 ICP_SEEDS = 4
 
 
@@ -233,10 +244,14 @@ def icp_event(device="cuda", n=3) -> dict:
                 iterations=fn().iters.tolist(), ms=_host_ms(fn, n))
 
 
-def transition(device="cuda", n=5) -> dict:
+def transition(device="cuda", n=5, chained: bool = False) -> dict:
     """Launches, host reads and ms of one fused-stream transition of every
-    row of a window of TRANSITION_ROWS pairs (their first one: the root
-    popped), the rows' new states written back into the window."""
+    row of a window of TRANSITION_ROWS pairs, as fused_run_chunk runs it:
+    the rows' new states written into the window in place, with the
+    loop's transition.TransitionBuffers on a tree that has them.  Each
+    call on a fresh copy of the window's first state (the root popped);
+    chained: each call on the window the call before wrote (no inner
+    search between them: their lanes are fresh)."""
     import inspect
     from goicp_tpu_torch.dist.mesh import stack_pairs
     from goicp_tpu_torch.search import fused_stream as fs
@@ -244,14 +259,18 @@ def transition(device="cuda", n=5) -> dict:
     pb = stack_pairs(pairs)
     rows = list(range(len(pairs)))
     init = fs._init_batch(pb, cfg)
-    in_place = "in_place" in inspect.signature(fs._transition_batch).parameters
-    states = iter([fs._map_state(torch.clone, init)
-                   for _ in range(4 * n + 4)])
+    params = inspect.signature(fs._transition_batch).parameters
+    kw = {}
+    if "bufs" in params:
+        from goicp_tpu_torch.search.transition import TransitionBuffers
+        kw["bufs"] = TransitionBuffers()
+    states = itertools.repeat(init) if chained else iter(
+        [fs._map_state(torch.clone, init) for _ in range(4 * n + 4)])
 
     def step():
         s = next(states)
-        if in_place:
-            fs._transition_batch(pb, cfg, s, rows, in_place=True)
+        if "in_place" in params:
+            fs._transition_batch(pb, cfg, s, rows, in_place=True, **kw)
         else:
             for r, new in zip(rows, fs._transition_batch(pb, cfg, s, rows)):
                 fs._write_row(s, r, new)
@@ -290,21 +309,29 @@ def packed_transition(device="cuda", n=5) -> dict:
                 ms_per_row=ms / len(rows))
 
 
-def outer_step(device="cuda", n=3) -> dict:
+def outer_step(device="cuda", n=3, chained: bool = False) -> dict:
     """Launches, host reads and ms of one register_device outer step
     (device_engine._make_body's body, with the loop's read of `converged`
-    where the body does not read it itself) on PAIR_ICP after 3 steps,
-    and the inner iterations it ran."""
+    where the body does not read it itself) on PAIR_ICP, and the inner
+    iterations of the first: every step from the state 3 steps in; chained:
+    each step fed the state the one before returned, as device_run_chunk
+    runs it, from OUTER_FROM steps in (steps OUTER_FROM to OUTER_FROM + 10
+    improve on no incumbent, so no ICP event runs in them)."""
     from goicp_tpu_torch.search import device_engine as eng
     cfg, (pair,) = _bench_pairs((PAIR_ICP,), device, bucket_together=False)
-    s0 = eng.device_run_chunk(pair, cfg, eng.device_init(pair, cfg), 3)
+    s0 = eng.device_run_chunk(pair, cfg, eng.device_init(pair, cfg),
+                              OUTER_FROM if chained else 3)
     body = eng._make_body(pair, cfg)
+    state = [s0]
 
     def step():
-        out = body(s0)
+        out = body(state[0])
         if isinstance(out, tuple):
-            return out[0]
-        bool(out["converged"])          # the loop's read on such a tree
+            out = out[0]
+        else:
+            bool(out["converged"])      # the loop's read on such a tree
+        if chained:
+            state[0] = out
         return out
     from goicp_tpu_torch.search import inner as inner_mod
     kernels = [getattr(inner_mod, k) for k in ("inner_step", "inner_run")
@@ -391,8 +418,11 @@ def main(argv=None) -> int:
                if _has_inner_step() else None,
                icp_iteration=icp_iteration(), icp_event=icp_event(),
                transition=transition(),
+               transition_chained=transition(chained=True),
                packed_transition=packed_transition(),
-               outer_step=outer_step(), stream_chunk=stream_chunk(),
+               outer_step=outer_step(),
+               outer_step_chained=outer_step(chained=True),
+               stream_chunk=stream_chunk(),
                rescoring=rescoring())
     print(json.dumps(out), flush=True)
     if a.json:

@@ -1,7 +1,8 @@
 // The incompatibility-count body of K2 and K4 (chem_incomp.cu), shared
 // with the inner step (inner.cu), which runs it on the lattice corners it
 // builds in shared memory: one source, so that the standalone kernels and
-// the step compile the same per-point code.  What it computes and why it
+// the step compile the same per-point code (point_incomp, which the
+// transition's root corners in transition.cu run too).  What it computes and why it
 // is laid out so is written in chem_incomp.cu.
 #pragma once
 
@@ -23,6 +24,16 @@ struct ChemParams {
   int per_block, blocks_per_lane;
   int stage_tables, stage_points;
 };
+
+// One point's incompatibility: round((mask > 0) - onehot . compat[cell]),
+// the dot product summed in order from 0, one rounding a step.
+__device__ __forceinline__ int point_incomp(const float* oh, const float* h,
+                                            float m) {
+  float s = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) s = __fadd_rn(s, __fmul_rn(oh[k], h[k]));
+  return __float2int_rn(__fsub_rn(m > 0.0f ? 1.0f : 0.0f, s));
+}
 
 // Words of shared memory the body lays out from `smem`: the point data and
 // the tables where the stage flags say so.
@@ -136,14 +147,10 @@ __device__ __forceinline__ void chem_incomp_body(
 #pragma unroll
       for (int u = 0; u < kChunk; ++u) {
         const int i = tid + 32 * (j0 + u);
-        const float* oh = onehot + 9 * min(i, p.Nd - 1);
-        const float* h = compat + 9 * static_cast<size_t>(table[flat[u]]);
-        float s = 0.0f;
-#pragma unroll
-        for (int k = 0; k < 9; ++k)
-          s = __fadd_rn(s, __fmul_rn(oh[k], h[k]));
-        const float m = mask[min(i, p.Nd - 1)];
-        const int inc = __float2int_rn(__fsub_rn(m > 0.0f ? 1.0f : 0.0f, s));
+        const int inc = point_incomp(
+            onehot + 9 * min(i, p.Nd - 1),
+            compat + 9 * static_cast<size_t>(table[flat[u]]),
+            mask[min(i, p.Nd - 1)]);
         count += i < p.Nd ? inc : 0;
       }
     }

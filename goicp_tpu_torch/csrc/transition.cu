@@ -33,9 +33,19 @@
 //   both   (the streams' _advance): adopt on the whole frontier, then pop
 //          the next parents from the merged one; the rest is shifted up
 //          and padded with inf lbs and zero nodes.
-// A block serves one row: the frontier (2,048 nodes x 5 floats at the
-// default capacity, 40 KB) is staged in shared memory first, so a row may
-// be written over itself (the streams write their window state in place).
+// goicp_advance is one launch in every mode, a thread-block cluster a row
+// (one block in adopt mode).  Rank 0 does the row's work: it stages the
+// frontier (2,048 nodes x 5 floats at the default capacity, 40 KB) in
+// shared memory with one bulk copy a field (cp.async.bulk, completed on an
+// mbarrier; the host requires 16-byte aligned frontier rows) and, while the
+// copy is in flight, loads the scalars the adoption and the pop read (a
+// load a thread), writes the adopted values and counters and forms the
+// children's keys and ranks; then the merge into shared memory, written
+// out with one bulk copy a field, the pop and rodrigues.  A row may be
+// written over itself (the streams write their window state in place):
+// each of rank 0's threads reads an element before it writes it, the
+// frontier is read whole before any of it is written, and the other
+// blocks write only after the cluster barrier that follows.
 // The merge is a merge path: each child is ranked among the children
 // (ties by index), each frontier entry placed after the children below it,
 // and each child after the entries at or below it (binary searches):
@@ -46,11 +56,16 @@
 // fails `lb < opt_err` and goes in as inf; the kept entries are pruned to
 // inf, never to NaN).  A state that breaks it is merged in another order
 // than the torch code's, which the bit-for-bit checks against the CPU
-// show.  The per-lane
-// work (the rotated data, the uncertainty, the root corners through K2's
-// body, chem_body.cuh, and the fresh lanes) runs in a second launch, a
-// block a (row, lane).  So a transition batch is three launches, whatever
-// its number of rows: harvest, then advance's two.
+// show.  The per-lane work (the rotated data, the uncertainty, the root
+// corners through K2's body, chem_body.cuh, and the fresh lanes) is
+// spread over the cluster's K = min(8, L) blocks, L / K lanes each: every
+// block starts loading the pair's data, point norms and K2's tables into
+// its own shared memory at once; rank 0 writes each block's lanes' R,
+// rotation factor and active flag and the incumbent into that block's
+// shared memory (distributed shared memory: a lane block never reads the
+// row being written), and after the cluster barrier every block writes
+// its lanes.  So a transition batch is two launches, whatever its number
+// of rows: harvest, then advance.
 //
 // Every float step is the torch code's, one rounding each, with the
 // round-to-nearest intrinsics nvcc may not contract: cxyz + off * cw,
@@ -63,15 +78,30 @@
 //
 // What bounds it on the H100: latency.  A batch moves ~50 KB a row (the
 // frontier read and written once) plus the fresh lanes (L x C x 13
-// floats) and the rotated points; the launches, and the dependent steps
-// of one block, are the cost.
+// floats) and the rotated points, microseconds of bandwidth; the cost is
+// one serial chain a row (stage, merge, pop, rodrigues) and the launches.
+// One launch instead of a row kernel and a lane kernel removes a launch
+// and the lanes' wait for it; the bulk copy puts the frontier's load
+// under the scalars and the children's ranks; the lane blocks' loads run
+// under rank 0's chain, and each block stages the pair's tables once for
+// its L / K lanes instead of once a lane.  What it did not buy, measured
+// on the H100 (chip_smoke.py phase 2's graph_ms, PERF.md §6): the
+// launch's card time, ~0.018 ms for two rows as for the two launches
+// before; rank 0's serial chain is what is left.
+#include <cooperative_groups.h>
+
 #include "chem_body.cuh"
 #include "rot_body.cuh"
 
 namespace goicp {
 
+namespace cg = cooperative_groups;
+
 constexpr int kMaxRows = 256;      // rows a launch carries in its parameters
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;      // a harvest block
+// an advance block: rank 0's chain is one dependent pass a frontier entry
+// or lane a thread, so the more threads, the shorter it is
+constexpr int kAdvThreads = 1024;
 constexpr float kSqrt3f = 1.7320508075688772f;   // float32(sqrt(3))
 constexpr float kPif = 3.141592653589793f;       // float32(pi)
 
@@ -229,12 +259,85 @@ enum AdvanceInt {
   kSEvals, kSIt, kSSurv, kSCorners, kAInts
 };
 
+// The shared memory of an advance block, in 32-bit words from the start
+// of the dynamic region, every region 16-byte aligned.  The row region is
+// rank 0's alone (the other blocks of the cluster hold it unused: one
+// launch, one size); the lane region is every block's.  The regions a
+// stage flag names are staged where they fit, in that order (else read
+// from device memory through the same pointers).
+struct AdvanceLayout {
+  // the row region: the old and the new frontier's lbs and nodes, the
+  // children's keys, the keys sorted, the children's nodes and ranks
+  // (adopt, both); the parents (lb, node)
+  size_t fl, fn, ol, on, ck, cs, cn, cr, par;
+  // the lane region (pop, both): the block's lanes' R, 2 sin(angle / 2),
+  // active flags and root corner counts; the pair's data and point norms
+  // (stage_data), the lanes' rotated points (stage_pts), the pair's
+  // one-hot rows and mask (stage_pm), its nearest-cell table and
+  // compatibility rows (stage_tab)
+  size_t lR, l2s, la, cv, data, norm, pts, onehot, mask, table, compat;
+  int stage_data, stage_pts, stage_pm, stage_tab;
+  size_t words;
+};
+
+inline size_t take_words(size_t* at, size_t n) {
+  const size_t here = *at;
+  *at += region_words(n);
+  return here;
+}
+
+inline AdvanceLayout advance_layout(int mode, int Cr, int Pr, int L, int Nd,
+                                    int lanes_per_block, bool corners,
+                                    int n_vox, int n_cells) {
+  const bool adopts = mode != kPop, pops = mode != kAdopt;
+  const size_t fr = adopts ? static_cast<size_t>(Cr) : 0;
+  const size_t ch = adopts ? static_cast<size_t>(L) : 0;
+  const size_t lb = pops ? static_cast<size_t>(lanes_per_block) : 0;
+  const size_t nd = Nd;
+  AdvanceLayout a{};
+  size_t w = 0;
+  a.fl = take_words(&w, fr);
+  a.fn = take_words(&w, 4 * fr);
+  a.ol = take_words(&w, fr);
+  a.on = take_words(&w, 4 * fr);
+  a.ck = take_words(&w, ch);
+  a.cs = take_words(&w, ch);
+  a.cn = take_words(&w, 4 * ch);
+  a.cr = take_words(&w, ch);
+  a.par = take_words(&w, 5 * static_cast<size_t>(Pr));
+  a.lR = take_words(&w, 9 * lb);
+  a.l2s = take_words(&w, lb);
+  a.la = take_words(&w, lb);
+  a.cv = take_words(&w, 8 * lb);
+  const size_t cap = kMaxDynamicSmem / 4;
+  auto fits = [&](size_t n) { return pops && w + n <= cap; };
+  if ((a.stage_data = fits(region_words(3 * nd) + region_words(nd)))) {
+    a.data = take_words(&w, 3 * nd);
+    a.norm = take_words(&w, nd);
+  }
+  if ((a.stage_pts = corners && fits(region_words(3 * nd * lb))))
+    a.pts = take_words(&w, 3 * nd * lb);
+  if ((a.stage_pm = corners && fits(region_words(9 * nd) + region_words(nd)))) {
+    a.onehot = take_words(&w, 9 * nd);
+    a.mask = take_words(&w, nd);
+  }
+  if ((a.stage_tab = corners && fits(region_words(n_vox) +
+                                     region_words(9 * static_cast<size_t>(n_cells))))) {
+    a.table = take_words(&w, n_vox);
+    a.compat = take_words(&w, 9 * static_cast<size_t>(n_cells));
+  }
+  a.words = w;
+  return a;
+}
+
 struct AdvanceParams {
   const void* p[kASlots];
   int mode, L, Cr, Pr, C, Nd, icp_on_improve;
+  int K;                // the cluster's blocks (1 in adopt mode)
   int s_work[4];        // evals, it, geom_surv, chem_corners when null
   float root[4];        // the translation root: x, y, z, width
-  ChemParams chem;      // pts set per block; cell_compat null: no corners
+  ChemParams chem;      // K2's tables (cell_compat null: no corners)
+  AdvanceLayout lay;
   int rows[kMaxRows];
   int out_rows[kMaxRows];
 };
@@ -244,350 +347,551 @@ __device__ __forceinline__ T get_(const void* p, size_t i, T fallback) {
   return p != nullptr ? static_cast<const T*>(p)[i] : fallback;
 }
 
-// One block a row: adopt (adopt, both), merge, then pop (pop, both).
-__global__ void __launch_bounds__(kThreads) advance_row_kernel(
-    AdvanceParams ap) {
-  extern __shared__ __align__(16) float sm[];
-  __shared__ float s_f[8];        // opt_new, min_drop, min_lb, final_lb
-  __shared__ int s_b[4];          // improved, icp_improved, frozen, conv
-  __shared__ float s_red[kThreads / 32];
-
-  const void* const* p = ap.p;
-  const int i = blockIdx.x, w = ap.rows[i], o = ap.out_rows[i];
-  const int L = ap.L, Cr = ap.Cr, Pr = ap.Pr, mode = ap.mode;
-  const int t = threadIdx.x, warp = t >> 5, tid = t & 31;
-  const float inf = inf_();
-  const bool adopts = mode != kPop;
-  // the frontier's rest merged with the children: all of it (both) or
-  // what the pop left (adopt)
-  const int r0 = mode == kAdopt ? Pr : 0, R = Cr - r0;
-  const size_t wc = static_cast<size_t>(w) * Cr, oc = static_cast<size_t>(o) * Cr;
-  const size_t wl = static_cast<size_t>(w) * L, ol = static_cast<size_t>(o) * L;
-
-  float* s_fl = sm;                       // (Cr,) the old frontier's lbs
-  float* s_fn = s_fl + Cr;                // (Cr, 4) and nodes
-  float* s_ck = s_fn + 4 * Cr;            // (L,) the children's keys
-  float* s_cs = s_ck + L;                 // (L,) the keys sorted
-  float* s_cn = s_cs + L;                 // (L, 4) the children's nodes
-  int* s_cr = reinterpret_cast<int*>(s_cn + 4 * L);   // (L,) their ranks
-  float* s_par = mode == kPop ? sm     // (Pr, 5) the parents: lb, node
-                               : reinterpret_cast<float*>(s_cr + L);
-
-  if (adopts) {
-    // ---- adopt: the scalars ----
-    if (t == 0) {
-      const unsigned char* flags = in_<unsigned char>(p[kFlags]);
-      const bool improved = flags[2 * i] != 0;
-      const bool do_icp = get_<unsigned char>(p[kDoIcp], i, 0) != 0;
-      const float icp_err = do_icp ? in_<float>(p[kIcpErr])[i] : inf;
-      const bool icp_improved =
-          do_icp && !(icp_err >= in_<float>(p[kIncumbent])[i]);
-      const float opt_old = in_<float>(p[kOptErr])[w];
-      s_f[0] = icp_improved ? icp_err
-                            : (improved ? in_<float>(p[kCandUb])[i] : opt_old);
-      s_b[0] = improved;
-      s_b[1] = icp_improved;
-      s_b[2] = mode == kAdopt && (in_<unsigned char>(p[kConverged])[w] ||
-                                  in_<unsigned char>(p[kPConv])[w]);
-    }
-    // ---- stage the old frontier and the children ----
-    for (int e = t; e < Cr; e += kThreads) {
-      s_fl[e] = in_<float>(p[kFrLbs])[wc + e];
-      for (int a = 0; a < 4; ++a)
-        s_fn[4 * e + a] = in_<float>(p[kFrNodes])[4 * (wc + e) + a];
-    }
-    for (int j = t; j < L; j += kThreads)
-      for (int a = 0; a < 4; ++a)
-        s_cn[4 * j + a] = in_<float>(p[kChildNodes])[4 * (wl + j) + a];
-    __syncthreads();
-    const float opt_new = s_f[0];
-    for (int j = t; j < L; j += kThreads) {
-      const float lb = in_<float>(p[kLbSafe])[static_cast<size_t>(i) * L + j];
-      s_ck[j] = in_<unsigned char>(p[kActive])[wl + j] && lb < opt_new ? lb
-                                                                        : inf;
-    }
-    __syncthreads();
-    // each child's rank among the children: smaller keys, then ties by
-    // index
-    for (int j = t; j < L; j += kThreads) {
-      const float k = s_ck[j];
-      int rank = 0;
-      for (int m = 0; m < L; ++m)
-        rank += s_ck[m] < k || (m < j && s_ck[m] == k);
-      s_cr[j] = rank;
-      s_cs[rank] = k;
-    }
-    __syncthreads();
-
-    // ---- the merge: each entry's place; the kept ones written ----
-    // both: position q < Pr is parent q, position q < Cr goes to q - Pr;
-    // adopt: position q < Cr goes to q (frozen: the old frontier instead).
-    const bool frozen = s_b[2] != 0;
-    float drop = inf;
-    for (int e = t; e < R + L; e += kThreads) {
-      const float v = e < R ? s_fl[r0 + e] : s_ck[e - R];
-      const float* node = e < R ? s_fn + 4 * (r0 + e) : s_cn + 4 * (e - R);
-      int pos;
-      if (e < R) {
-        int lo = 0, hi = L;      // children with a key < v
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (s_cs[mid] < v) lo = mid + 1; else hi = mid;
-        }
-        pos = e + lo;
-      } else {
-        const int j = e - R;
-        int lo = 0, hi = R;      // rest entries with a value <= v
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (s_fl[r0 + mid] <= v) lo = mid + 1; else hi = mid;
-        }
-        pos = s_cr[j] + lo;
-      }
-      if (pos >= Cr) {
-        if (finite_(v)) drop = fminf(drop, v);
-        continue;
-      }
-      const float kept = v >= opt_new ? inf : v;   // prune vs the incumbent
-      if (mode == kBoth && pos < Pr) {
-        s_par[5 * pos] = kept;
-        for (int a = 0; a < 4; ++a) s_par[5 * pos + 1 + a] = node[a];
-        continue;
-      }
-      if (frozen) continue;
-      const int q = mode == kBoth ? pos - Pr : pos;
-      out_<float>(p[kOFrLbs])[oc + q] = kept;
-      for (int a = 0; a < 4; ++a)
-        out_<float>(p[kOFrNodes])[4 * (oc + q) + a] = node[a];
-    }
-    for (int off = 16; off > 0; off >>= 1)
-      drop = fminf(drop, __shfl_xor_sync(0xffffffffu, drop, off));
-    if (tid == 0) s_red[warp] = drop;
-    if (frozen)   // a frozen row keeps its whole old frontier
-      for (int e = t; e < Cr; e += kThreads) {
-        out_<float>(p[kOFrLbs])[oc + e] = s_fl[e];
-        for (int a = 0; a < 4; ++a)
-          out_<float>(p[kOFrNodes])[4 * (oc + e) + a] = s_fn[4 * e + a];
-      }
-    if (mode == kBoth)   // the rest shifted up: inf lbs, zero nodes behind
-      for (int e = Cr - Pr + t; e < Cr; e += kThreads) {
-        out_<float>(p[kOFrLbs])[oc + e] = inf;
-        for (int a = 0; a < 4; ++a)
-          out_<float>(p[kOFrNodes])[4 * (oc + e) + a] = 0.0f;
-      }
-    __syncthreads();
-
-    // ---- the row's adopted values and counters ----
-    if (t == 0) {
-      float md = inf;
-      for (int k = 0; k < kThreads / 32; ++k) md = fminf(md, s_red[k]);
-      const bool improved = s_b[0] != 0, icp_improved = s_b[1] != 0;
-      const bool do_icp = get_<unsigned char>(p[kDoIcp], i, 0) != 0;
-      const bool keep_old = frozen;
-      const float md_old = in_<float>(p[kMinDropped])[w];
-      out_<float>(p[kOOptErr])[o] = keep_old ? in_<float>(p[kOptErr])[w] : opt_new;
-      out_<float>(p[kOMinDropped])[o] = keep_old ? md_old : min_nan(md_old, md);
-      // the refine block's values; a row that did not refine takes the
-      // dummies (identity, 0, inf, 0, 0, 0), which no pick selects
-      for (int k = 0; k < 9; ++k) {
-        const float icp_v =
-            do_icp ? in_<float>(p[kIcpR])[9 * i + k] : (k % 4 == 0 ? 1.0f : 0.0f);
-        const float v = icp_improved ? icp_v
-                        : improved   ? in_<float>(p[kCandR])[9 * i + k]
-                                     : in_<float>(p[kOptR])[9 * w + k];
-        out_<float>(p[kOOptR])[9 * o + k] =
-            keep_old ? in_<float>(p[kOptR])[9 * w + k] : v;
-      }
-      for (int a = 0; a < 3; ++a) {
-        const float it_v = do_icp ? in_<float>(p[kIcpT])[3 * i + a] : 0.0f;
-        const float tv = icp_improved ? it_v
-                         : improved   ? in_<float>(p[kCandT])[3 * i + a]
-                                      : in_<float>(p[kOptT])[3 * w + a];
-        out_<float>(p[kOOptT])[3 * o + a] =
-            keep_old ? in_<float>(p[kOptT])[3 * w + a] : tv;
-        const float im_v = do_icp ? in_<float>(p[kIcpTerms])[3 * i + a] : 0.0f;
-        const float mv = icp_improved ? im_v
-                         : improved   ? in_<float>(p[kCandTerms])[3 * i + a]
-                                      : in_<float>(p[kTerms])[3 * w + a];
-        out_<float>(p[kOTerms])[3 * o + a] =
-            keep_old ? in_<float>(p[kTerms])[3 * w + a] : mv;
-      }
-      const int comp_old = in_<int>(p[kComp])[w];
-      const int comp = icp_improved ? (do_icp ? in_<int>(p[kIcpIncomp])[i] : 0)
-                       : improved   ? (do_icp ? in_<int>(p[kBnbComp])[i] : 0)
-                                    : comp_old;
-      out_<int>(p[kOComp])[o] = keep_old ? comp_old : comp;
-      const bool li_old = in_<unsigned char>(p[kLastIcp])[w] != 0;
-      const bool li = icp_improved || (!improved && li_old);
-      out_<unsigned char>(p[kOLastIcp])[o] = keep_old ? li_old : li;
-      // the counters: + the inner search's work (none when frozen)
-      const int z = frozen ? 0 : 1;
-      const int adds[4] = {
-          get_<int>(p[kWEvals], w, ap.s_work[0]),
-          get_<int>(p[kWIt], w, ap.s_work[1]),
-          get_<int>(p[kWSurv], w, ap.s_work[2]),
-          get_<int>(p[kWCorners], w, ap.s_work[3])};
-      const int slots[4][2] = {{kEvals, kOEvals}, {kInnerIt, kOInnerIt},
-                               {kGeomSurv, kOGeomSurv},
-                               {kChemCorners, kOChemCorners}};
-      for (int k = 0; k < 4; ++k)
-        out_<int>(p[slots[k][1]])[o] = in_<int>(p[slots[k][0]])[w] + z * adds[k];
-      out_<int>(p[kOIcpRuns])[o] =
-          in_<int>(p[kIcpRuns])[w] + z * (ap.icp_on_improve ? improved : 1);
-      if (p[kIt] != nullptr && p[kOIt] != nullptr)
-        out_<int>(p[kOIt])[o] = in_<int>(p[kIt])[w] + 1;
-      if (mode == kAdopt) {
-        out_<unsigned char>(p[kOConverged])[o] = frozen;
-        out_<float>(p[kOFinalLb])[o] = in_<float>(p[kPFinal])[w];
-      }
-    }
-    if (mode == kAdopt) return;
-    __syncthreads();
-  } else {
-    for (int e = t; e < 5 * Pr; e += kThreads) {
-      const int q = e / 5, a = e % 5;
-      s_par[e] = a == 0 ? in_<float>(p[kFrLbs])[wc + q]
-                        : in_<float>(p[kFrNodes])[4 * (wc + q) + a - 1];
-    }
-    __syncthreads();
-  }
-
-  // ---- the pop: convergence, final_lb, the parents' expand flags ----
-  const float opt = mode == kBoth ? s_f[0] : in_<float>(p[kOptErr])[w];
-  const float sse = in_<float>(p[kSse])[w];
-  if (t == 0) {
-    const float min_lb = get_<float>(p[kMinLb], i, s_par[0]);
-    const bool conv = fabsf(min_lb) == inf || __fsub_rn(opt, min_lb) <= sse ||
-                      nan_(opt);
-    const bool conv_old = in_<unsigned char>(p[kConverged])[w] != 0;
-    const float final_lb =
-        conv && !conv_old ? min_lb : in_<float>(p[kFinalLb])[w];
-    s_b[3] = conv;
-    out_<unsigned char>(p[kOConverged])[o] = mode == kBoth ? (conv_old || conv)
-                                                           : conv;
-    out_<float>(p[kOFinalLb])[o] = final_lb;
-    if (mode == kBoth) {   // the new inner search's counters
-      out_<int>(p[kOIIt])[o] = 0;
-      out_<int>(p[kOIEvals])[o] = 0;
-      out_<int>(p[kOISurv])[o] = 0;
-      out_<int>(p[kOICorners])[o] = 0;
-    }
-  }
-  __syncthreads();
-  const bool conv = s_b[3] != 0;
-  for (int q = t; q < Pr; q += kThreads) {
-    const float lb = s_par[5 * q];
-    const bool ex = finite_(lb) && __fsub_rn(opt, lb) > sse && !conv;
-    if (p[kOPopLb] != nullptr) {
-      out_<float>(p[kOPopLb])[static_cast<size_t>(o) * Pr + q] = lb;
-      out_<unsigned char>(p[kOExpand])[static_cast<size_t>(o) * Pr + q] = ex;
-    }
-  }
-
-  // ---- the children: nodes, widths, the pi-ball, rodrigues ----
-  for (int l = t; l < L; l += kThreads) {
-    const int q = l >> 3, c = l & 7;
-    const float* par = s_par + 5 * q;
-    const float lb = par[0];
-    const bool ex = finite_(lb) && __fsub_rn(opt, lb) > sse && !conv;
-    const float cw = __fdiv_rn(par[4], 2.0f);
-    const float half = __fdiv_rn(cw, 2.0f);
-    float cxyz[3], cen[3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const float off = static_cast<float>((c >> a) & 1);
-      cxyz[a] = __fadd_rn(par[1 + a], __fmul_rn(off, cw));
-      cen[a] = __fadd_rn(cxyz[a], half);
-    }
-    const float nrm = norm3_of(cen[0], cen[1], cen[2]);
-    const bool inside =
-        __fsub_rn(nrm, __fdiv_rn(__fmul_rn(kSqrt3f, cw), 2.0f)) <= kPif;
-    float R[9];
-    rodrigues_of(cen, nrm, R);
-    float* cn = out_<float>(p[kOChildNodes]) + 4 * (ol + l);
-    for (int a = 0; a < 3; ++a) cn[a] = cxyz[a];
-    cn[3] = cw;
-    out_<float>(p[kOWidths])[ol + l] = cw;
-    out_<unsigned char>(p[kOActive])[ol + l] = inside && ex;
-    for (int k = 0; k < 9; ++k) out_<float>(p[kORLanes])[9 * (ol + l) + k] = R[k];
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// One block a (row, lane): the rotated data, the rotation uncertainty, the
-// root corners' counts and the fresh inner state.  Reads what the row
-// kernel wrote: the lane's R, width and active flag (and, both, the
-// adopted incumbent).
-__global__ void __launch_bounds__(kThreads) advance_lane_kernel(
-    AdvanceParams ap) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float s_R[9], s_corner[8 * 3], s_cv[8];
-  const void* const* p = ap.p;
-  const int L = ap.L, C = ap.C, Nd = ap.Nd;
-  const int i = blockIdx.x / L, l = blockIdx.x % L;
-  const int w = ap.rows[i], o = ap.out_rows[i];
-  const int t = threadIdx.x;
-  const size_t ol = static_cast<size_t>(o) * L + l;
-  const float inf = inf_();
-  const bool corners = ap.chem.cell_compat != nullptr;
+// the frontier's bulk copy: one thread arms the barrier with the bytes to
+// come and starts the copies; every thread waits on phase 0
+__device__ __forceinline__ void bar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
 
-  if (t < 9) s_R[t] = in_<float>(p[kORLanes])[9 * ol + t];
-  if (corners && t < 24) {
-    const int k = t / 3, a = t % 3;
-    const float off = static_cast<float>((k >> a) & 1);
-    s_corner[t] = __fadd_rn(ap.root[a], __fmul_rn(off, ap.root[3]));
+__device__ __forceinline__ void bar_expect(unsigned long long* bar,
+                                           uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_wait0(unsigned long long* bar) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar))
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// shared memory written by threads, then read by a bulk copy
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the cluster barrier in two halves: every block arrives at its start and
+// waits before the first access to another block's shared memory (which
+// must not come before that block has started)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// One cluster of K blocks a row (one block in adopt mode).  Rank 0 does
+// the row's work: adopt (adopt, both), merge, then pop (pop, both), and
+// writes each block's lanes' R, rotation factor and active flag, and the
+// incumbent, into that block's shared memory.  Every block then serves
+// L / K lanes: the rotated data, the rotation uncertainty, the root
+// corners' counts and the fresh inner state.
+__global__ void __launch_bounds__(kAdvThreads) advance_kernel(AdvanceParams ap) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float s_f[2];        // the adopted incumbent; a lane block's copy
+  __shared__ int s_b[4];          // improved, icp_improved, frozen, conv
+  __shared__ float s_red[kAdvThreads / 32];
+  __shared__ float s_in[8];       // the adoption's inputs
+  __shared__ float s_pp[5];       // min_lb, converged, final_lb, sse, min_dropped
+  __shared__ float s_corner[8 * 3];
+  __shared__ __align__(8) unsigned long long s_bar;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const void* const* p = ap.p;
+  const int K = ap.K;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int i = blockIdx.x / K, w = ap.rows[i], o = ap.out_rows[i];
+  const int L = ap.L, Cr = ap.Cr, Pr = ap.Pr, mode = ap.mode, Nd = ap.Nd;
+  const int t = threadIdx.x, warp = t >> 5, tid = t & 31;
+  const float inf = inf_();
+  const bool adopts = mode != kPop, pops = mode != kAdopt;
+  const AdvanceLayout& lay = ap.lay;
+  const int lpb = L / K, l0 = rank * lpb;     // this block's lanes
+  const size_t wc = static_cast<size_t>(w) * Cr, oc = static_cast<size_t>(o) * Cr;
+  const size_t wl = static_cast<size_t>(w) * L, ol = static_cast<size_t>(o) * L;
+  const bool corners = ap.chem.cell_compat != nullptr;
+  const ChemParams& c = ap.chem;
+  if (pops) cluster_arrive();
+
+  // ---- every block: start the lanes' loads (the pair's data and point
+  // norms, and K2's one-hot rows, mask and tables) before anything else ----
+  const size_t pw = static_cast<size_t>(w);
+  const float* g_data = in_<float>(p[kData]) + pw * Nd * 3;
+  const float* g_norm = in_<float>(p[kNormData]) + pw * Nd;
+  const float* g_onehot = corners ? c.prop_onehot + pw * Nd * 9 : nullptr;
+  const float* g_mask = corners ? c.data_mask + pw * Nd : nullptr;
+  const int* g_table = corners ? c.nearest_cell + pw * c.n_vox : nullptr;
+  const float* g_compat = corners ? c.cell_compat + pw * c.C * 9 : nullptr;
+  if (pops) {
+    if (lay.stage_data) {
+      async_copy_words(sm + lay.data, g_data, 3 * Nd);
+      async_copy_words(sm + lay.norm, g_norm, Nd);
+    }
+    if (lay.stage_pm) {
+      async_copy_words(sm + lay.onehot, g_onehot, 9 * Nd);
+      async_copy_words(sm + lay.mask, g_mask, Nd);
+    }
+    if (lay.stage_tab) {
+      async_copy_words(sm + lay.table, g_table, c.n_vox);
+      async_copy_words(sm + lay.compat, g_compat, 9 * c.C);
+    }
+    if (t < 24) {
+      const int k = t / 3, a = t % 3;
+      const float off = static_cast<float>((k >> a) & 1);
+      s_corner[t] = __fadd_rn(ap.root[a], __fmul_rn(off, ap.root[3]));
+    }
   }
+  async_commit();
+
+  bool stored = false;      // rank 0's thread 0 has bulk stores in flight
+  if (rank == 0) {
+    float* s_fl = sm + lay.fl;             // (Cr,) the old frontier's lbs
+    float* s_fn = sm + lay.fn;             // (Cr, 4) and nodes
+    float* s_ol = sm + lay.ol;             // (Cr,) the new frontier's lbs
+    float* s_on = sm + lay.on;             // (Cr, 4) and nodes
+    float* s_ck = sm + lay.ck;             // (L,) the children's keys
+    float* s_cs = sm + lay.cs;             // (L,) the keys sorted
+    float* s_cn = sm + lay.cn;             // (L, 4) the children's nodes
+    int* s_cr = reinterpret_cast<int*>(sm + lay.cr);   // (L,) their ranks
+    float* s_par = sm + lay.par;           // (Pr, 5) the parents: lb, node
+    // the frontier's rest merged with the children: all of it (both) or
+    // what the pop left (adopt)
+    const int r0 = mode == kAdopt ? Pr : 0, R = Cr - r0;
+
+    // ---- the pop's scalars, loaded now (no load on the chain after the
+    // merge) ----
+    if (pops && t >= 8 && t < 12) {
+      float v;
+      switch (t) {
+        case 8: v = get_<float>(p[kMinLb], i, 0.0f); break;
+        case 9: v = in_<unsigned char>(p[kConverged])[w]; break;
+        case 10: v = in_<float>(p[kFinalLb])[w]; break;
+        default: v = in_<float>(p[kSse])[w]; break;
+      }
+      s_pp[t - 8] = v;
+    }
+    if (adopts) {
+      // ---- the old frontier: one bulk copy a field (the host checked
+      // that both ends are 16-byte aligned), in flight while the scalars,
+      // the adopted values, the children's keys and their ranks are
+      // formed ----
+      const float* g_fl = in_<float>(p[kFrLbs]) + wc;
+      const float* g_fn = in_<float>(p[kFrNodes]) + 4 * wc;
+      const uint32_t b_fl = 4 * static_cast<uint32_t>(Cr), b_fn = 4 * b_fl;
+      if (t == 0) bar_init(&s_bar);
+      __syncthreads();
+      if (t == 0) {
+        bar_expect(&s_bar, b_fl + b_fn);
+        bulk_load(s_fl, g_fl, b_fl, &s_bar);
+        bulk_load(s_fn, g_fn, b_fn, &s_bar);
+      }
+      // ---- adopt: the scalars, their loads in flight together (a load a
+      // thread), then combined ----
+      if (t < 8) {
+        float v;
+        switch (t) {
+          case 0: v = in_<unsigned char>(p[kFlags])[2 * i]; break;
+          case 1: v = get_<unsigned char>(p[kDoIcp], i, 0); break;
+          case 2: v = get_<float>(p[kIcpErr], i, inf); break;
+          case 3: v = in_<float>(p[kIncumbent])[i]; break;
+          case 4: v = in_<float>(p[kOptErr])[w]; break;
+          case 5: v = in_<float>(p[kCandUb])[i]; break;
+          case 6: v = in_<unsigned char>(p[kConverged])[w]; break;
+          default: v = get_<unsigned char>(p[kPConv], w, 0); break;
+        }
+        s_in[t] = v;
+      }
+      if (t == 12) s_pp[4] = in_<float>(p[kMinDropped])[w];
+      for (int j = t; j < L; j += kAdvThreads)
+        for (int a = 0; a < 4; ++a)
+          s_cn[4 * j + a] = in_<float>(p[kChildNodes])[4 * (wl + j) + a];
+      __syncthreads();
+      if (t == 0) {
+        const bool improved = s_in[0] != 0.0f;
+        const bool do_icp = s_in[1] != 0.0f;
+        const float icp_err = do_icp ? s_in[2] : inf;
+        const bool icp_improved = do_icp && !(icp_err >= s_in[3]);
+        s_f[0] = icp_improved ? icp_err : (improved ? s_in[5] : s_in[4]);
+        s_b[0] = improved;
+        s_b[1] = icp_improved;
+        s_b[2] = mode == kAdopt && (s_in[6] != 0.0f || s_in[7] != 0.0f);
+      }
+      __syncthreads();
+      const float opt_new = s_f[0];
+      const bool improved = s_b[0] != 0, icp_improved = s_b[1] != 0;
+      const bool frozen = s_b[2] != 0;
+      const bool do_icp = s_in[1] != 0.0f;
+
+      // ---- the row's adopted values and counters, a thread a value, their
+      // loads in flight together and with the frontier's copy (each
+      // element is read and written by one thread, so a row written over
+      // itself reads it before it writes it); opt_err and min_dropped
+      // after the merge ----
+      {
+        // a row that did not refine takes the refine block's dummies
+        // (identity, 0, inf, 0, 0, 0), which no pick selects
+        auto pick = [&](int old_slot, int cand_slot, int icp_slot, int k,
+                        int per, float dummy) {
+          const float old_v = in_<float>(p[old_slot])[per * w + k];
+          const float icp_v =
+              do_icp ? in_<float>(p[icp_slot])[per * i + k] : dummy;
+          const float v = icp_improved ? icp_v
+                          : improved   ? in_<float>(p[cand_slot])[per * i + k]
+                                       : old_v;
+          return frozen ? old_v : v;
+        };
+        if (t < 9) {
+          out_<float>(p[kOOptR])[9 * o + t] =
+              pick(kOptR, kCandR, kIcpR, t, 9, t % 4 == 0 ? 1.0f : 0.0f);
+        } else if (t < 12) {
+          out_<float>(p[kOOptT])[3 * o + t - 9] =
+              pick(kOptT, kCandT, kIcpT, t - 9, 3, 0.0f);
+        } else if (t < 15) {
+          out_<float>(p[kOTerms])[3 * o + t - 12] =
+              pick(kTerms, kCandTerms, kIcpTerms, t - 12, 3, 0.0f);
+        } else if (t == 15) {
+          const int comp_old = in_<int>(p[kComp])[w];
+          const int comp =
+              icp_improved ? (do_icp ? in_<int>(p[kIcpIncomp])[i] : 0)
+              : improved   ? (do_icp ? in_<int>(p[kBnbComp])[i] : 0)
+                           : comp_old;
+          out_<int>(p[kOComp])[o] = frozen ? comp_old : comp;
+        } else if (t == 16) {
+          const bool li_old = in_<unsigned char>(p[kLastIcp])[w] != 0;
+          const bool li = icp_improved || (!improved && li_old);
+          out_<unsigned char>(p[kOLastIcp])[o] = frozen ? li_old : li;
+        } else if (t < 21) {
+          // the counters: + the inner search's work (none when frozen)
+          const int k = t - 17;
+          const int in_slot[4] = {kEvals, kInnerIt, kGeomSurv, kChemCorners};
+          const int out_slot[4] = {kOEvals, kOInnerIt, kOGeomSurv,
+                                   kOChemCorners};
+          const int work_slot[4] = {kWEvals, kWIt, kWSurv, kWCorners};
+          const int add = get_<int>(p[work_slot[k]], w, ap.s_work[k]);
+          out_<int>(p[out_slot[k]])[o] =
+              in_<int>(p[in_slot[k]])[w] + (frozen ? 0 : add);
+        } else if (t == 21) {
+          out_<int>(p[kOIcpRuns])[o] =
+              in_<int>(p[kIcpRuns])[w] +
+              (frozen ? 0 : (ap.icp_on_improve ? improved : 1));
+        } else if (t == 22) {
+          if (p[kIt] != nullptr && p[kOIt] != nullptr)
+            out_<int>(p[kOIt])[o] = in_<int>(p[kIt])[w] + 1;
+        } else if (t == 24 && mode == kAdopt) {
+          out_<float>(p[kOFinalLb])[o] = in_<float>(p[kPFinal])[w];
+        }
+      }
+
+      for (int j = t; j < L; j += kAdvThreads) {
+        const float lb = in_<float>(p[kLbSafe])[static_cast<size_t>(i) * L + j];
+        s_ck[j] =
+            in_<unsigned char>(p[kActive])[wl + j] && lb < opt_new ? lb : inf;
+      }
+      __syncthreads();
+      // each child's rank among the children: smaller keys, then ties by
+      // index
+      for (int j = t; j < L; j += kAdvThreads) {
+        const float k = s_ck[j];
+        int rank_j = 0;
+        for (int m = 0; m < L; ++m)
+          rank_j += s_ck[m] < k || (m < j && s_ck[m] == k);
+        s_cr[j] = rank_j;
+        s_cs[rank_j] = k;
+      }
+      bar_wait0(&s_bar);
+      __syncthreads();
+
+      // ---- the merge into shared memory: each entry's place ----
+      // both: position q < Pr is parent q, position q < Cr goes to q - Pr;
+      // adopt: position q < Cr goes to q (frozen: the old frontier instead).
+      float drop = inf;
+      for (int e = t; e < R + L; e += kAdvThreads) {
+        const float v = e < R ? s_fl[r0 + e] : s_ck[e - R];
+        const float4 node = e < R ? reinterpret_cast<const float4*>(s_fn)[r0 + e]
+                                  : reinterpret_cast<const float4*>(s_cn)[e - R];
+        int pos;
+        if (e < R) {
+          int lo = 0, hi = L;      // children with a key < v
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (s_cs[mid] < v) lo = mid + 1; else hi = mid;
+          }
+          pos = e + lo;
+        } else {
+          const int j = e - R;
+          int lo = 0, hi = R;      // rest entries with a value <= v
+          while (lo < hi) {
+            const int mid = (lo + hi) >> 1;
+            if (s_fl[r0 + mid] <= v) lo = mid + 1; else hi = mid;
+          }
+          pos = s_cr[j] + lo;
+        }
+        if (pos >= Cr) {
+          if (finite_(v)) drop = fminf(drop, v);
+          continue;
+        }
+        const float kept = v >= opt_new ? inf : v;   // prune vs the incumbent
+        if (mode == kBoth && pos < Pr) {
+          float* par = s_par + 5 * pos;
+          par[0] = kept;
+          par[1] = node.x;
+          par[2] = node.y;
+          par[3] = node.z;
+          par[4] = node.w;
+        } else {
+          const int q = mode == kBoth ? pos - Pr : pos;
+          s_ol[q] = kept;
+          reinterpret_cast<float4*>(s_on)[q] = node;
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1)
+        drop = fminf(drop, __shfl_xor_sync(0xffffffffu, drop, off));
+      if (tid == 0) s_red[warp] = drop;
+      if (mode == kBoth)   // the rest shifted up: inf lbs, zero nodes behind
+        for (int e = Cr - Pr + t; e < Cr; e += kAdvThreads) {
+          s_ol[e] = inf;
+          reinterpret_cast<float4*>(s_on)[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      // ---- the new frontier (a frozen row: its old one) out of shared
+      // memory, one bulk copy a field ----
+      const float* src_l = frozen ? s_fl : s_ol;
+      const float* src_n = frozen ? s_fn : s_on;
+      fence_async_shared();
+      __syncthreads();
+      if (t == 0) {
+        bulk_store(out_<float>(p[kOFrLbs]) + oc, src_l, b_fl);
+        bulk_store(out_<float>(p[kOFrNodes]) + 4 * oc, src_n, b_fn);
+        bulk_commit();
+        stored = true;
+      }
+      if (t == 0) {
+        float md = inf;
+        for (int k = 0; k < kAdvThreads / 32; ++k) md = fminf(md, s_red[k]);
+        const float md_old = s_pp[4];
+        out_<float>(p[kOOptErr])[o] = frozen ? s_in[4] : opt_new;
+        out_<float>(p[kOMinDropped])[o] = frozen ? md_old : min_nan(md_old, md);
+        if (mode == kAdopt) out_<unsigned char>(p[kOConverged])[o] = frozen;
+      }
+      if (mode == kAdopt) {
+        if (stored) bulk_wait_all();
+        return;
+      }
+    } else {
+      for (int e = t; e < 5 * Pr; e += kAdvThreads) {
+        const int q = e / 5, a = e % 5;
+        s_par[e] = a == 0 ? in_<float>(p[kFrLbs])[wc + q]
+                          : in_<float>(p[kFrNodes])[4 * (wc + q) + a - 1];
+      }
+      if (t == 0) s_f[0] = in_<float>(p[kOptErr])[w];
+      __syncthreads();
+    }
+
+    // ---- the pop: convergence, final_lb, the parents' expand flags ----
+    const float opt = s_f[0];
+    const float sse = s_pp[3];
+    if (t == 0) {
+      const float min_lb = p[kMinLb] != nullptr ? s_pp[0] : s_par[0];
+      const bool conv = fabsf(min_lb) == inf ||
+                        __fsub_rn(opt, min_lb) <= sse || nan_(opt);
+      const bool conv_old = s_pp[1] != 0.0f;
+      const float final_lb = conv && !conv_old ? min_lb : s_pp[2];
+      s_b[3] = conv;
+      out_<unsigned char>(p[kOConverged])[o] =
+          mode == kBoth ? (conv_old || conv) : conv;
+      out_<float>(p[kOFinalLb])[o] = final_lb;
+      if (mode == kBoth) {   // the new inner search's counters
+        out_<int>(p[kOIIt])[o] = 0;
+        out_<int>(p[kOIEvals])[o] = 0;
+        out_<int>(p[kOISurv])[o] = 0;
+        out_<int>(p[kOICorners])[o] = 0;
+      }
+    }
+    __syncthreads();
+    const bool conv = s_b[3] != 0;
+    for (int q = t; q < Pr; q += kAdvThreads) {
+      const float lb = s_par[5 * q];
+      const bool ex = finite_(lb) && __fsub_rn(opt, lb) > sse && !conv;
+      if (p[kOPopLb] != nullptr) {
+        out_<float>(p[kOPopLb])[static_cast<size_t>(o) * Pr + q] = lb;
+        out_<unsigned char>(p[kOExpand])[static_cast<size_t>(o) * Pr + q] = ex;
+      }
+    }
+
+    // ---- the children: nodes, widths, the pi-ball, rodrigues, and each
+    // lane's rotation factor 2 sin(min(sqrt3 w / 2, pi) / 2), written into
+    // the shared memory of the block that serves the lane ----
+    cluster_wait();                       // every block has started
+    for (int l = t; l < L; l += kAdvThreads) {
+      const int q = l >> 3, ci = l & 7;
+      const float* par = s_par + 5 * q;
+      const float lb = par[0];
+      const bool ex = finite_(lb) && __fsub_rn(opt, lb) > sse && !conv;
+      const float cw = __fdiv_rn(par[4], 2.0f);
+      const float half = __fdiv_rn(cw, 2.0f);
+      float cxyz[3], cen[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float off = static_cast<float>((ci >> a) & 1);
+        cxyz[a] = __fadd_rn(par[1 + a], __fmul_rn(off, cw));
+        cen[a] = __fadd_rn(cxyz[a], half);
+      }
+      const float nrm = norm3_of(cen[0], cen[1], cen[2]);
+      const bool inside =
+          __fsub_rn(nrm, __fdiv_rn(__fmul_rn(kSqrt3f, cw), 2.0f)) <= kPif;
+      float Rl[9];
+      rodrigues_of(cen, nrm, Rl);
+      float ang = __fdiv_rn(__fmul_rn(kSqrt3f, cw), 2.0f);
+      ang = ang > kPif ? kPif : ang;        // clamp(max=pi); NaN stays
+      float sn, cs;
+      sincos32(__fdiv_rn(ang, 2.0f), &sn, &cs);
+      float* cn = out_<float>(p[kOChildNodes]) + 4 * (ol + l);
+      for (int a = 0; a < 3; ++a) cn[a] = cxyz[a];
+      cn[3] = cw;
+      out_<float>(p[kOWidths])[ol + l] = cw;
+      out_<unsigned char>(p[kOActive])[ol + l] = inside && ex;
+      for (int k = 0; k < 9; ++k)
+        out_<float>(p[kORLanes])[9 * (ol + l) + k] = Rl[k];
+      const int owner = l / lpb, j = l - owner * lpb;
+      float* dst = cluster.map_shared_rank(sm, owner);
+      for (int k = 0; k < 9; ++k) dst[lay.lR + 9 * j + k] = Rl[k];
+      dst[lay.l2s + j] = __fmul_rn(2.0f, sn);
+      dst[lay.la + j] = inside && ex ? 1.0f : 0.0f;
+    }
+    if (t < K) *cluster.map_shared_rank(&s_f[1], t) = opt;
+  } else if (pops) {
+    cluster_wait();
+  }
+  if (!pops) return;
+
+  // ---- every block: its lanes' R, rotation factor, active flag and the
+  // incumbent in its own shared memory after the cluster barrier ----
+  cluster.sync();
+  async_wait<0>();
   __syncthreads();
 
-  // the data rotated by the lane's R, and 2 sin(min(sqrt3 w / 2, pi) / 2)
-  // times each point's norm
-  const float wd = in_<float>(p[kOWidths])[ol];
-  float ang = __fdiv_rn(__fmul_rn(kSqrt3f, wd), 2.0f);
-  ang = ang > kPif ? kPif : ang;        // clamp(max=pi); NaN stays
-  float sn, cs;
-  sincos32(__fdiv_rn(ang, 2.0f), &sn, &cs);
-  const float two_s = __fmul_rn(2.0f, sn);
-  const float* data = in_<float>(p[kData]) + static_cast<size_t>(w) * Nd * 3;
-  const float* nrm = in_<float>(p[kNormData]) + static_cast<size_t>(w) * Nd;
-  float* pts = out_<float>(p[kOPts]) + ol * Nd * 3;
-  float* mrd = out_<float>(p[kOMrd]) + ol * Nd;
-  for (int n = t; n < Nd; n += kThreads) {
+  // ---- the rotated data and the rotation uncertainty of the block's
+  // lanes (kept in shared memory for the corners where they fit) ----
+  const float* data = lay.stage_data ? sm + lay.data : g_data;
+  const float* nrm = lay.stage_data ? sm + lay.norm : g_norm;
+  float* o_pts = out_<float>(p[kOPts]);
+  float* o_mrd = out_<float>(p[kOMrd]);
+  float* pts = lay.stage_pts ? sm + lay.pts : o_pts + (ol + l0) * Nd * 3;
+  for (int e = t; e < lpb * Nd; e += kAdvThreads) {
+    const int j = e / Nd, n = e - j * Nd;
+    const size_t lane = ol + l0 + j;
     float v[3];
-    rotate_point(s_R, data + 3 * n, v);
-    for (int a = 0; a < 3; ++a) pts[3 * n + a] = v[a];
-    mrd[n] = __fmul_rn(two_s, nrm[n]);
+    rotate_point(sm + lay.lR + 9 * j, data + 3 * n, v);
+    for (int a = 0; a < 3; ++a) {
+      o_pts[(lane * Nd + n) * 3 + a] = v[a];
+      if (lay.stage_pts) pts[3 * e + a] = v[a];
+    }
+    o_mrd[lane * Nd + n] = __fmul_rn(sm[lay.l2s + j], nrm[n]);
   }
 
-  // the root translation cube's 8 corner counts (K2's body, the lane's
-  // rotated points just written)
+  // ---- the root translation cube's 8 corner counts of each lane, a warp
+  // a (lane, corner): K2's per-point code (chem_body.cuh's point_incomp)
+  // on the lane's rotated points ----
+  float* s_cv = sm + lay.cv;
   if (corners) {
-    __threadfence();
     __syncthreads();
-    ChemParams c = ap.chem;
-    c.pts = out_<float>(p[kOPts]) + static_cast<size_t>(o) * L * Nd * 3;
-    chem_incomp_body<true>(c, l, w, smem, 0, 8, s_corner, s_cv);
+    const float* onehot = lay.stage_pm ? sm + lay.onehot : g_onehot;
+    const float* mask = lay.stage_pm ? sm + lay.mask : g_mask;
+    const int* table =
+        lay.stage_tab ? reinterpret_cast<const int*>(sm + lay.table) : g_table;
+    const float* compat = lay.stage_tab ? sm + lay.compat : g_compat;
+    const GridConsts g = load_consts(c.consts + pw * 5);
+    for (int jq = warp; jq < 8 * lpb; jq += kAdvThreads / 32) {
+      const int j = jq >> 3;
+      const float* cor = s_corner + 3 * (jq & 7);
+      const float* pj = pts + static_cast<size_t>(j) * Nd * 3;
+      int count = 0;
+      for (int n = tid; n < Nd; n += 32) {
+        const float* pt = pj + 3 * n;
+        const int vx = clamp_voxel(voxel_raw(pt[0], cor[0], g.lo[0], g.scale), g.size);
+        const int vy = clamp_voxel(voxel_raw(pt[1], cor[1], g.lo[1], g.scale), g.size);
+        const int vz = clamp_voxel(voxel_raw(pt[2], cor[2], g.lo[2], g.scale), g.size);
+        count += point_incomp(
+            onehot + 9 * n,
+            compat + 9 * static_cast<size_t>(table[flat_voxel(vx, vy, vz, g.size)]),
+            mask[n]);
+      }
+      count = warp_sum(count);
+      if (tid == 0) s_cv[jq] = static_cast<float>(count);
+    }
     __syncthreads();
   }
 
-  // the fresh inner state: the root at slot 0, the incumbent, done =
-  // !active (a converged pop leaves no lane active)
-  const float inc = ap.mode == kBoth ? in_<float>(p[kOOptErr])[o]
-                                     : in_<float>(p[kOptErr])[w];
-  float* nodes = out_<float>(p[kONodes]) + ol * C * 4;
-  float* lbs = out_<float>(p[kOLbs]) + ol * C;
-  for (int k = t; k < 4 * C; k += kThreads) nodes[k] = k < 4 ? ap.root[k] : 0.0f;
-  for (int k = t; k < C; k += kThreads) lbs[k] = k == 0 ? 0.0f : inf;
+  // ---- the fresh inner state: the root at slot 0, the incumbent, done =
+  // !active (a converged pop leaves no lane active) ----
+  const int C = ap.C;
+  const float inc = s_f[1];
+  const size_t lb0 = ol + l0;
+  float* nodes = out_<float>(p[kONodes]) + lb0 * C * 4;
+  float* lbs = out_<float>(p[kOLbs]) + lb0 * C;
+  for (int e = t; e < lpb * 4 * C; e += kAdvThreads) {
+    const int k = e % (4 * C);
+    nodes[e] = k < 4 ? ap.root[k] : 0.0f;
+  }
+  for (int e = t; e < lpb * C; e += kAdvThreads) lbs[e] = e % C == 0 ? 0.0f : inf;
   if (p[kOCvals] != nullptr) {
-    float* cv = out_<float>(p[kOCvals]) + ol * C * 8;
-    for (int k = t; k < 8 * C; k += kThreads) cv[k] = k < 8 ? s_cv[k] : 0.0f;
+    float* cv = out_<float>(p[kOCvals]) + lb0 * C * 8;
+    for (int e = t; e < lpb * 8 * C; e += kAdvThreads) {
+      const int j = e / (8 * C), k = e - j * 8 * C;
+      cv[e] = k < 8 ? s_cv[8 * j + k] : 0.0f;
+    }
   }
-  if (t < 4) out_<float>(p[kOBestNode])[4 * ol + t] = 0.0f;
-  if (t < 3) out_<float>(p[kOUbTerms])[3 * ol + t] = 0.0f;
-  if (t == 0) {
-    out_<float>(p[kOIOpt])[ol] = inc;
-    out_<float>(p[kOIThr])[ol] = inc;
-    out_<float>(p[kOIMinDropped])[ol] = inf;
-    out_<unsigned char>(p[kODone])[ol] = !in_<unsigned char>(p[kOActive])[ol];
+  for (int e = t; e < lpb * 4; e += kAdvThreads)
+    out_<float>(p[kOBestNode])[4 * lb0 + e] = 0.0f;
+  for (int e = t; e < lpb * 3; e += kAdvThreads)
+    out_<float>(p[kOUbTerms])[3 * lb0 + e] = 0.0f;
+  for (int j = t; j < lpb; j += kAdvThreads) {
+    out_<float>(p[kOIOpt])[lb0 + j] = inc;
+    out_<float>(p[kOIThr])[lb0 + j] = inc;
+    out_<float>(p[kOIMinDropped])[lb0 + j] = inf;
+    out_<unsigned char>(p[kODone])[lb0 + j] = !(sm[lay.la + j] != 0.0f);
   }
+  if (stored) bulk_wait_all();   // the frontier's stores read shared memory
 }
 
 inline int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
@@ -633,11 +937,48 @@ extern "C" int goicp_harvest(const unsigned long long* slots, int n_slots,
   return 0;
 }
 
-// The row kernel, then (pop, both) the lane kernel, for n rows (in
-// launches of at most kMaxRows): slots are the AdvanceSlot pointers, ints
+// How many clusters of K advance blocks of `smem` bytes the card holds at
+// once, asked once a shape.
+static cudaError_t advance_clusters(int K, size_t smem, int* n) {
+  struct Entry {
+    int K;
+    size_t smem;
+    int n;
+  };
+  static Entry cache[16];
+  static int used = 0;
+  for (int e = 0; e < used; ++e)
+    if (cache[e].K == K && cache[e].smem == smem) {
+      *n = cache[e].n;
+      return cudaSuccess;
+    }
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(K);
+  cfg.blockDim = dim3(goicp::kAdvThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(n, goicp::advance_kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (used < 16) cache[used++] = Entry{K, smem, *n};
+  return cudaSuccess;
+}
+
+// One launch of advance_kernel for n rows (in launches of at most
+// kMaxRows): a cluster of min(8, L) blocks a row in pop and both modes,
+// one block a row in adopt mode.  slots are the AdvanceSlot pointers, ints
 // the AdvanceInt values, root the translation root (x, y, z, width),
 // out_rows null: row k of the outputs is k.  cudaErrorInvalidValue for a
-// frontier whose arrays do not fit a block's shared memory.
+// frontier whose arrays do not fit a block's shared memory or (adopt and
+// both modes) whose rows are not 16-byte aligned (the bulk copies' rule:
+// Cr a multiple of 4 and the four frontier arrays 16-byte aligned),
+// cudaErrorCooperativeLaunchTooLarge where not one cluster fits the card.
 extern "C" int goicp_advance(const unsigned long long* slots, int n_slots,
                              const int* ints, int n_ints, const float* root,
                              const int* rows, const int* out_rows, int n,
@@ -659,38 +1000,48 @@ extern "C" int goicp_advance(const unsigned long long* slots, int n_slots,
   if (ap.mode < kBoth || ap.mode > kAdopt || ap.Pr <= 0 || ap.L != 8 * ap.Pr ||
       ap.Cr <= ap.Pr || ap.C <= 0 || ap.Nd <= 0)
     return invalid();
+  if (ap.mode != kPop) {
+    if (ap.Cr % 4 != 0) return invalid();
+    const int frontier[4] = {kFrLbs, kFrNodes, kOFrLbs, kOFrNodes};
+    for (int k : frontier)
+      if (slots[k] % 16 != 0) return invalid();
+  }
+  ap.K = ap.mode == kAdopt ? 1 : (ap.L < 8 ? ap.L : 8);
+  const int lanes_per_block = ap.L / ap.K;
   ChemParams& c = ap.chem;
   c.cell_compat = static_cast<const float*>(ap.p[kCellCompat]);
   c.prop_onehot = static_cast<const float*>(ap.p[kPropOnehot]);
   c.data_mask = static_cast<const float*>(ap.p[kDataMask]);
   c.nearest_cell = static_cast<const int*>(ap.p[kNearestCell]);
   c.consts = static_cast<const float*>(ap.p[kConsts]);
-  c.L = ap.L;
-  c.Q = 8;
-  c.Nd = ap.Nd;
   c.C = ints[kNCells];
   c.n_vox = ints[kSize] * ints[kSize] * ints[kSize];
 
-  // the row kernel's shared memory: the frontier, the children, the
-  // parents (the pop alone stages only the parents)
-  const size_t row_words =
-      (ap.mode == kPop ? 0 : 5 * static_cast<size_t>(ap.Cr) + 8 * ap.L) +
-      5 * static_cast<size_t>(ap.Pr);
-  if (4 * row_words > kMaxDynamicSmem) return invalid();
-  static size_t granted_row = 0, granted_lane = 0;
-  cudaError_t err = allow_smem(advance_row_kernel, 4 * row_words, &granted_row);
+  // the shared memory: the row's and the lanes' regions, then what of
+  // the data, the rotated points and K2's rows and tables fits
+  ap.lay = advance_layout(ap.mode, ap.Cr, ap.Pr, ap.L, ap.Nd, lanes_per_block,
+                          c.cell_compat != nullptr, c.n_vox, c.C);
+  const size_t smem = 4 * ap.lay.words;
+  if (smem > kMaxDynamicSmem) return invalid();
+  static size_t granted = 0;
+  cudaError_t err = allow_smem(advance_kernel, smem, &granted);
   if (err != cudaSuccess) return static_cast<int>(err);
-  size_t lane_words = 0;
-  if (c.cell_compat != nullptr) {
-    c.stage_points = 4 * chem_points_words(c) <= kMaxDynamicSmem;
-    if (c.stage_points) lane_words += chem_points_words(c);
-    c.stage_tables = 4 * (lane_words + chem_tables_words(c)) <= kMaxDynamicSmem;
-    if (c.stage_tables) lane_words += chem_tables_words(c);
-    err = allow_smem(advance_lane_kernel, 4 * lane_words, &granted_lane);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  int fit = 0;
+  err = advance_clusters(ap.K, smem, &fit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (fit < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
 
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ap.K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(kAdvThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
   for (int r0 = 0; r0 < n; r0 += kMaxRows) {
     const int m = n - r0 < kMaxRows ? n - r0 : kMaxRows;
     AdvanceParams a = ap;
@@ -720,10 +1071,9 @@ extern "C" int goicp_advance(const unsigned long long* slots, int n_slots,
     shift(kBnbComp, 4);
     shift(kDoIcp, 1);
     shift(kMinLb, 4);
-    advance_row_kernel<<<m, kThreads, 4 * row_words, s>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    if (ap.mode == kAdopt) continue;
-    advance_lane_kernel<<<m * ap.L, kThreads, 4 * lane_words, s>>>(a);
+    cfg.gridDim = dim3(m * ap.K);
+    if ((err = cudaLaunchKernelEx(&cfg, advance_kernel, a)) != cudaSuccess)
+      return static_cast<int>(err);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
   }
   return 0;

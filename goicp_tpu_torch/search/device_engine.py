@@ -198,7 +198,8 @@ def _as_row(s: dict) -> dict:
             for k, v in s.items()}
 
 
-def _pop(pair: PairData, cfg: GoICPConfig, s: dict, min_lb=None) -> dict:
+def _pop(pair: PairData, cfg: GoICPConfig, s: dict, min_lb=None,
+         bufs=None) -> dict:
     """The head of an outer step (search/transition.py, advance in pop
     mode): pop the rot_batch lowest-lb rotation nodes (sorted frontier),
     test convergence, expand 8 children each with the pi-ball filter,
@@ -206,11 +207,13 @@ def _pop(pair: PairData, cfg: GoICPConfig, s: dict, min_lb=None) -> dict:
     and the inner search's fresh lanes (`lanes`).  min_lb: the lb
     convergence is tested on (None: the frontier's own minimum; the
     sharded engine passes the minimum over every rank's frontier).  Also
-    the rest of the frontier (fr_lbs, fr_nodes: views of s's)."""
+    the rest of the frontier (fr_lbs, fr_nodes: views of s's).  bufs: the
+    run's transition.TransitionBuffers, whose two sets the pop's outputs
+    come from in turn."""
     pb, tabs = _one_row(pair, cfg)
     p = transition.advance("pop", cfg, pb, _as_row(s), [0], tables=tabs,
                            min_lb=None if min_lb is None
-                           else min_lb.reshape(1))
+                           else min_lb.reshape(1), bufs=bufs)
     out = {k: v[0] for k, v in p.items() if k != "lanes"}
     out.update(lanes={k: v[0] for k, v in p["lanes"].items()},
                fr_lbs=s["fr_lbs"][cfg.rot_batch:],
@@ -250,7 +253,10 @@ def _make_body(pair: PairData, cfg: GoICPConfig, mesh=None):
     """One outer BnB step: pop -> expand -> inner search -> ICP -> adopt ->
     prune/merge, body(s) -> (new state, converged on the host).  The pop,
     the harvest and the adoption are search/transition.py's (on the card
-    csrc/transition.cu: four launches); the step reads the host ONCE, the
+    csrc/transition.cu: three launches, their outputs from the run's two
+    sets in turn, the states alternating between the adoption's two: a
+    state the body returned is valid until the step after next); the
+    step reads the host ONCE, the
     harvest's flags (improved, converged), and runs the ICP, its rescoring
     and the BnB compat count only when the candidate improved (always with
     icp_on_improve=0), never for a converged step, whose result is frozen.
@@ -260,6 +266,9 @@ def _make_body(pair: PairData, cfg: GoICPConfig, mesh=None):
     calls on the same replicated values."""
     pb, tabs = _one_row(pair, cfg)
     L = cfg.rot_batch * 8
+    # the run's transition and inner-run outputs, two sets used in turn,
+    # and its argument blocks
+    bufs = transition.TransitionBuffers()
 
     def inner(p, inc, with_rot_uncertainty, fused, lanes0, mrd):
         """(InnerResult, its final lanes; None over a mesh: lb_safe
@@ -268,7 +277,8 @@ def _make_body(pair: PairData, cfg: GoICPConfig, mesh=None):
         if mesh is None:
             return inner_bnb(pair, cfg, pts, widths, active, inc,
                              with_rot_uncertainty=with_rot_uncertainty,
-                             fused=fused, lanes0=lanes0, mrd=mrd, raw=True)
+                             fused=fused, lanes0=lanes0, mrd=mrd, raw=True,
+                             bufs=bufs)
         from goicp_tpu_torch.dist.mesh import gather_lanes
         mine = mesh.block(L, "search")
         return gather_lanes(inner_bnb(
@@ -278,7 +288,7 @@ def _make_body(pair: PairData, cfg: GoICPConfig, mesh=None):
             mrd=None if mrd is None else mrd[mine]), mesh), None
 
     def body(s):
-        p = _pop(pair, cfg, s)
+        p = _pop(pair, cfg, s, bufs=bufs)
         conv = p["batch"]["converged"]
         if cfg.fused_inner:
             res_ub, lanes = inner(p, s["opt_err"], False, True, p["lanes"],
@@ -289,7 +299,8 @@ def _make_body(pair: PairData, cfg: GoICPConfig, mesh=None):
                                   p["lanes"], None)
             h1 = transition.harvest(cfg, _harvest_src(p, s["opt_err"],
                                                       res_ub), [0],
-                                    fused=False, lb=_lb_lanes(lanes))
+                                    fused=False, lb=_lb_lanes(lanes),
+                                    bufs=bufs)
             # the lb pass starts from the same root at the candidate's
             # incumbent
             inc = torch.ones((L,), dtype=torch.float32,
@@ -301,7 +312,8 @@ def _make_body(pair: PairData, cfg: GoICPConfig, mesh=None):
         h = transition.harvest(
             cfg, _harvest_src(p, s["opt_err"], res_ub), [0],
             fused=bool(cfg.fused_inner), lb=lb, conv=conv,
-            lb_safe=None if lb is not None else res_lb.lb_safe[None])
+            lb_safe=None if lb is not None else res_lb.lb_safe[None],
+            bufs=bufs)
         flags = h["flags"].cpu().numpy()[0]          # the one host read
         improved, converged = bool(flags[0]), bool(flags[1])
         r = None
@@ -320,7 +332,8 @@ def _make_body(pair: PairData, cfg: GoICPConfig, mesh=None):
                         torch.int32)))
         new = transition.advance(
             "adopt", cfg, pb, _as_row(s), [0], tables=tabs, h=h, r=r,
-            p=p["batch"], work=_work(res_ub, res_lb, cfg.fused_inner))
+            p=p["batch"], work=_work(res_ub, res_lb, cfg.fused_inner),
+            bufs=bufs)
         new = {k: v[0] for k, v in new.items()}
         new["it"] = s["it"] + 1
         return new, converged
@@ -403,10 +416,10 @@ def batch_init(pair_batch: PairData, cfg: GoICPConfig) -> dict:
 
 
 def _batch_step(pairs: list, pair_batch: PairData, cfg: GoICPConfig,
-                s: dict, rows, tables) -> None:
+                s: dict, rows, tables, p: dict, bufs) -> None:
     """One outer step of the batch rows `rows` (host indices), in place.
     One pop of every stepping row (search/transition.py: on the card one
-    advance, two launches), writing each row's lanes into a B-row lane
+    launch of advance), writing each row's lanes into a B-row lane
     batch whose other rows are done; then the inner searches of ALL rows
     as one lane batch (B x L lanes, the row of each lane in `tables`: on
     the card one launch of the inner run, search/inner.py::inner_run in
@@ -416,26 +429,29 @@ def _batch_step(pairs: list, pair_batch: PairData, cfg: GoICPConfig,
     converged at the pop), the ICP/compat refine block only for the rows
     that improved and did not converge, and one adoption of every
     stepping row, written into `s`.  Rows not in `rows` keep their
-    state."""
+    state.  p: the run's B-row pop outputs (transition.outputs), written
+    at the stepping rows; bufs: the run's transition.TransitionBuffers
+    (the harvest's and the inner run's outputs from its two sets in turn,
+    and the calls' argument blocks)."""
     from goicp_tpu_torch.search import fused_stream as fs
     dev = pair_batch.device
     B = len(pairs)
     rows = sorted(rows)
-    p = transition.outputs("pop", cfg, B, pair_batch.n_data_padded, dev)
     p["lanes"]["done"].fill_(True)     # the idle rows' lanes stay done
     p = transition.advance("pop", cfg, pair_batch, s, rows, tables=tables,
-                           out=p)
+                           out=p, bufs=bufs)
     cnt = torch.zeros((4, B), dtype=torch.int32, device=dev)
     bs = dict(inner=dict(p["lanes"], it=cnt[0], evals=cnt[1],
                          geom_surv=cnt[2], chem_corners=cnt[3]),
               pts_rot=p["pts"], mrd=p["mrd"])
-    bs["inner"], _ = fs._inner_run(pair_batch, cfg, bs, tables, "groups")
+    bs["inner"], _ = fs._inner_run(pair_batch, cfg, bs, tables, "groups",
+                                   bufs=bufs)
 
     ist = bs["inner"]
     h = transition.harvest(cfg, dict(inner=ist, active=p["active"],
                                      R_lanes=p["R_lanes"],
                                      opt_err=s["opt_err"]), rows,
-                           conv=p["converged"])
+                           conv=p["converged"], bufs=bufs)
     flags = h["flags"].cpu().numpy()                 # the one host read
     r = None
     for j, w in enumerate(rows):
@@ -451,7 +467,7 @@ def _batch_step(pairs: list, pair_batch: PairData, cfg: GoICPConfig,
                        work=dict(evals=ist["evals"], iters=ist["it"],
                                  geom_surv=ist["geom_surv"],
                                  chem_corners=ist["chem_corners"]),
-                       out=s)
+                       out=s, bufs=bufs)
 
 
 def batch_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
@@ -472,12 +488,16 @@ def batch_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
     its = s["it"].cpu().numpy().astype(np.int64)
     limit = np.minimum(its + int(steps), cfg.max_outer_steps)
     tables = fs._window_tables(pair_batch, cfg, cfg.rot_batch * 8)
+    pop = transition.outputs("pop", cfg, B, pair_batch.n_data_padded,
+                             pair_batch.device)
+    bufs = transition.TransitionBuffers()
     while True:
         conv = s["converged"].cpu().numpy()
         rows = np.nonzero(~conv & (its < limit))[0]
         if not len(rows):
             break
-        _batch_step(pairs, pair_batch, cfg, s, set(rows.tolist()), tables)
+        _batch_step(pairs, pair_batch, cfg, s, set(rows.tolist()), tables,
+                    pop, bufs)
         its[rows] += 1
     return s
 

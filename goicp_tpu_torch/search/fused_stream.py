@@ -229,7 +229,8 @@ def _inner_step(pair_batch: PairData, cfg: GoICPConfig, s: dict,
 
 
 def _inner_run(pair_batch: PairData, cfg: GoICPConfig, s: dict, tables,
-               mode: str, live=None, watch=None, once=None, steps: int = 0):
+               mode: str, live=None, watch=None, once=None, steps: int = 0,
+               bufs=None):
     """The inner iterations of every row in one run (search/inner.py::
     inner_run): mode "groups" until every row's inner search is complete
     (the batch engine), "stream" the global iterations up to the next
@@ -239,7 +240,9 @@ def _inner_run(pair_batch: PairData, cfg: GoICPConfig, s: dict, tables,
     tables: as _inner_step's; with None the rows step one by one through
     the torch body.  `s` is not written.  Returns (the new inner state
     with its counters, the iterations run: an int, or a 0-d int32 tensor
-    on the card, where the whole run is one launch of csrc/inner.cu)."""
+    on the card, where the whole run is one launch of csrc/inner.cu).
+    bufs: the loop's transition.TransitionBuffers, whose two allocations
+    the run's outputs then come from in turn (inner.inner_run)."""
     ist = s["inner"]
     W, L = ist["done"].shape
     lanes = {k: ist[k] for k in _PER_LANE if k in ist}
@@ -248,7 +251,7 @@ def _inner_run(pair_batch: PairData, cfg: GoICPConfig, s: dict, tables,
         pts = s["pts_rot"].reshape((W * L,) + s["pts_rot"].shape[2:])
         r = inner_loop(tables, cfg, lanes, pts, s["mrd"].reshape(W * L, -1),
                        True, mode, live=live, watch=watch, once=once,
-                       groups=W, counters=counters, steps=steps)
+                       groups=W, counters=counters, steps=steps, bufs=bufs)
     else:
         def step(lanes, live, cnt):
             new = _inner_step(pair_batch, cfg, dict(s, inner=dict(
@@ -298,7 +301,7 @@ def _transition_tables(pair_batch: PairData, cfg: GoICPConfig):
 
 
 def _transition_batch(pair_batch: PairData, cfg: GoICPConfig, s: dict,
-                      rows, in_place: bool = False):
+                      rows, in_place: bool = False, bufs=None):
     """Outer-step transition of the window rows `rows` (host indices of
     live rows whose inner search completed): one harvest of every row
     (search/transition.py), ONE host read of which of them improved, the
@@ -310,10 +313,13 @@ def _transition_batch(pair_batch: PairData, cfg: GoICPConfig, s: dict,
     new states are written into `s` (the kernel's own scatter) and None is
     returned; else `s` is left as it was and the rows' new states are
     returned as one state of len(rows) rows, in order (`s` then only
-    needs s[k][r] to be row r's value)."""
+    needs s[k][r] to be row r's value).  bufs: the loop's
+    transition.TransitionBuffers (the harvest's outputs from its two sets
+    in turn, and the calls' argument blocks, re-checked only where the
+    window's tensors changed)."""
     counters["transitions"] += 1
     rows = [int(r) for r in rows]
-    h = transition.harvest(cfg, s, rows)
+    h = transition.harvest(cfg, s, rows, bufs=bufs)
     if cfg.icp_on_improve:
         do_icp = h["flags"].cpu().numpy()[:, 0]
         counters["host_reads"] += 1
@@ -330,7 +336,7 @@ def _transition_batch(pair_batch: PairData, cfg: GoICPConfig, s: dict,
     new = transition.advance(
         "both", cfg, pair_batch, s, rows,
         tables=_transition_tables(pair_batch, cfg), h=h, r=r,
-        out=s if in_place else None)
+        out=s if in_place else None, bufs=bufs)
     return None if in_place else new
 
 
@@ -369,6 +375,7 @@ def fused_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
     W, L = s["inner"]["done"].shape
     K = _trans_budget(cfg, W)
     tables = _window_tables(pair_batch, cfg, L)
+    bufs = transition.TransitionBuffers()
     fin0 = fin0_dev = None
     g = 0
     n = 0          # the global iterations of the last inner run
@@ -396,7 +403,8 @@ def fused_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
             break
         rows = np.nonzero(flags[2] & ~flags[1])[0][:K]
         if len(rows):
-            _transition_batch(pair_batch, cfg, s, rows, in_place=True)
+            _transition_batch(pair_batch, cfg, s, rows, in_place=True,
+                              bufs=bufs)
         # inner iterations for every pair still mid-search (the body is
         # harmless on done inner states; `where` keeps them anyway) up to
         # the next global iteration at which the loop above would act: a
@@ -410,7 +418,7 @@ def fused_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
             once = once | torch.any(fin & ~fin0_dev)
         s["inner"], n = _inner_run(pair_batch, cfg, s, tables, "stream",
                                    live=live, watch=~s["converged"],
-                                   once=once, steps=steps - g)
+                                   once=once, steps=steps - g, bufs=bufs)
     return s
 
 

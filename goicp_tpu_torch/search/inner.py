@@ -179,7 +179,7 @@ def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
               opt_error_init: torch.Tensor, with_rot_uncertainty: bool,
               fused: bool = False, lanes0: dict | None = None,
               mrd: torch.Tensor | None = None,
-              raw: bool = False):
+              raw: bool = False, bufs=None):
     """pts_rot (L, Nd, 3) pre-rotated data; rot_widths (L,); active (L,)
     bool; opt_error_init 0-d incumbent.
 
@@ -200,7 +200,8 @@ def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
     search is one launch of goicp_inner_run (inner_run, mode "search"):
     iters and chem_corners are then 0-d int32 tensors on the card and
     nothing is read on the host; elsewhere the loop of _search_plain, and
-    they are ints."""
+    they are ints.  bufs: the run's search/transition.py TransitionBuffers
+    (see inner_run)."""
     C = cfg.trans_capacity
     P = cfg.trans_pop
     assert P < C, "trans_pop must be < trans_capacity (sorted-slice pop)"
@@ -209,7 +210,8 @@ def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
     if lanes0 is None:
         lanes0 = initial_lanes(pair, cfg, pts_rot, active, opt_error_init)
     if kernel_carries(cfg) and cuda_eval._route(pts_rot) == "cuda":
-        r = inner_run(pair, cfg, lanes0, pts_rot, mrd, fused, "search")
+        r = inner_run(pair, cfg, lanes0, pts_rot, mrd, fused, "search",
+                      bufs=bufs)
         s, cnt = r.lanes, r.counters
         iters, corners = r.iters, cnt["chem_corners"].reshape(())
     else:
@@ -960,12 +962,13 @@ def inner_run_plain(pair, cfg: GoICPConfig, lanes: dict, pts, mrd,
 
 
 def _run_outputs(lanes: dict, L: int, C: int, reuse: bool, groups: int,
-                 pts):
+                 pts) -> dict:
     """One allocation for a run: the output sets A (returned) and B, each
     the float fields packed and done, and the int32 words (counters
     (4, groups), info (4), the barrier's 4, frozen (L), lane stats (2 L),
-    live_next (groups)).  -> (A's fields shaped as `lanes`, A's and B's
-    pointers, the int words)."""
+    live_next (groups)).  -> out (A's fields shaped as `lanes`), sets (A's
+    and B's pointers), ints, and the RunResult's views of the words: cnt,
+    iters, clusters."""
     sizes = (L * C * 4, L * C, L * C * 8 if reuse else 0, L, L, L * 4,
              L * 3, L)
     F = sum(sizes)
@@ -984,12 +987,15 @@ def _run_outputs(lanes: dict, L: int, C: int, reuse: bool, groups: int,
             out = {k: v.view(lanes[k].shape) for k, v in zip(names, o)
                    if k in lanes}
             out["done"] = dones[:L].view(lanes["done"].shape)
-    return out, sets, ints
+    return dict(out=out, sets=sets, ints=ints,
+                cnt=dict(zip(_COUNTERS, ints[:4 * groups].view(4, groups))),
+                iters=ints[4 * groups], clusters=ints[4 * groups + 2])
 
 
 def inner_run(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
               mode: str, live=None, watch=None, once=None, groups: int = 1,
-              counters: dict | None = None, steps: int = 0) -> RunResult:
+              counters: dict | None = None, steps: int = 0,
+              bufs=None) -> RunResult:
     """The inner iterations of a whole search, or of a stretch of one: on
     CUDA tensors ONE launch of csrc/inner.cu (goicp_inner_run: a lane a
     thread-block cluster, as many clusters as the card holds at once, a
@@ -1048,7 +1054,14 @@ def inner_run(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
     items += [(k, v, groups, torch.int32) for k, v in counters.items()]
     if not _inputs_ok(items, pts.get_device()):
         _bad_input(items, dev)
-    out, sets, ints = _run_outputs(lanes, L, C, reuse, groups, pts)
+    if bufs is None:
+        o = _run_outputs(lanes, L, C, reuse, groups, pts)
+    else:
+        _, o = bufs.take(("inner_run", L, C, reuse, groups, done.shape, nd),
+                         lambda: _run_outputs(lanes, L, C, reuse, groups,
+                                              pts),
+                         [*lanes.values(), *counters.values()])
+    out, sets, ints = o["out"], o["sets"], o["ints"]
     widths = _stage_widths(cfg, L) + [0, 0] if mode == "search" else [0] * 3
     _launch(kernels.goicp_inner_run(
         pts.data_ptr(), _ptr(mrd), *tab, lanes["nodes"].data_ptr(),
@@ -1063,19 +1076,19 @@ def inner_run(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
         int(steps), widths[1], widths[2], float(cfg.regularization),
         _stream(pts)), "inner_run")
     inner_run.launches += 1
-    cnt = dict(zip(_COUNTERS, ints[:4 * groups].view(4, groups)))
-    return RunResult(out, cnt, ints[4 * groups], ints[4 * groups + 2])
+    return RunResult(out, o["cnt"], o["iters"], o["clusters"])
 
 
 inner_run.launches = 0
 
 
 def inner_loop(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
-               mode: str, **kw) -> RunResult:
+               mode: str, bufs=None, **kw) -> RunResult:
     """The inner loop every engine runs: inner_run for the configurations
     the kernel carries (kernel_carries; on the card one launch, whatever
     the shapes: those it cannot take raise), inner_run_plain for the
-    others; the same arguments and results."""
+    others; the same arguments and results (bufs: inner_run's)."""
     if kernel_carries(cfg):
-        return inner_run(pair, cfg, lanes, pts, mrd, fused, mode, **kw)
+        return inner_run(pair, cfg, lanes, pts, mrd, fused, mode, bufs=bufs,
+                         **kw)
     return inner_run_plain(pair, cfg, lanes, pts, mrd, fused, mode, **kw)

@@ -42,7 +42,8 @@ from goicp_tpu_torch.search.device_engine import (DeviceResult,
                                                   _icp_best_of_seeds, _pop,
                                                   device_init)
 from goicp_tpu_torch.search.inner import inner_bnb
-from goicp_tpu_torch.search.transition import _merge_children
+from goicp_tpu_torch.search.transition import (TransitionBuffers,
+                                               _merge_children)
 
 INF = float("inf")
 AXIS = "search"
@@ -109,10 +110,11 @@ def register_device_sharded(pair: PairData, cfg: GoICPConfig, mesh: Mesh,
     Cr = cfg.device_rot_capacity
     dev = pair.device
     s = _local_init(pair, cfg, mesh)
+    bufs = TransitionBuffers()      # the pops' outputs, two sets in turn
     it = 0
     while it < cfg.max_outer_steps and not bool(s["converged"]):
         g_min = mesh.all_reduce(s["fr_lbs"][0], MIN, AXIS)
-        p = _pop(pair, cfg, s, min_lb=g_min)
+        p = _pop(pair, cfg, s, min_lb=g_min, bufs=bufs)
         expand = p["expand"]
         if stats:
             # the global top-(n*Pr) threshold over the union of the local

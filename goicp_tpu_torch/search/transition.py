@@ -31,8 +31,8 @@ _merge_children / _adopt, inner_bnb's lb_safe), at the kernel's interface:
 the CPU's route and the kernel's yardstick.  harvest and advance route by
 configuration (route): on a CUDA device the configurations the inner step
 kernel carries (search/inner.py::kernel_carries) take csrc/transition.cu
-(goicp_harvest: one launch; goicp_advance: one launch in adopt mode, two
-in pop and both, whatever the number of rows); the others (two-phase chem,
+(goicp_harvest and goicp_advance: one launch each in every mode, whatever
+the number of rows); the others (two-phase chem,
 c-FPFH, the neighbour term) keep the torch code on the card, counted in
 `plain_on_card`.  No wrapper falls back on a failed build or launch.
 
@@ -75,9 +75,11 @@ plain_on_card = {"rows": 0}
 
 
 def kernel_carries(cfg: GoICPConfig) -> bool:
-    """Does csrc/transition.cu compute the transition of `cfg`?  Exactly
-    when the inner step kernel computes its iteration."""
-    return inner_mod.kernel_carries(cfg)
+    """Does csrc/transition.cu compute the transition of `cfg`?  When the
+    inner step kernel computes its iteration and a frontier row is whole
+    16-byte words (device_rot_capacity a multiple of 4), which the kernel
+    stages and writes back with bulk copies."""
+    return inner_mod.kernel_carries(cfg) and cfg.device_rot_capacity % 4 == 0
 
 
 def route(cfg: GoICPConfig, x: torch.Tensor) -> str:
@@ -125,22 +127,37 @@ _HARVEST_KEYS = ("lb_safe", "ubs", "cand_ub", "incumbent", "cand_R",
 
 
 def harvest_plain(src: dict, rows, fused: bool = True, lb=None,
-                  lb_safe=None, conv=None) -> dict:
-    """harvest in torch ops, row by row (see harvest)."""
+                  lb_safe=None, conv=None, out=None) -> dict:
+    """harvest in torch ops, row by row (see harvest); out: the outputs
+    to write, row j for served row j (None: new tensors)."""
     rows = [int(r) for r in rows]
     _count_plain(src["opt_err"], len(rows))
     hs = [_harvest_row(src, r, fused, lb, lb_safe) for r in rows]
-    out = {k: torch.stack([h[k] for h in hs]) for k in _HARVEST_KEYS}
+    new = {k: torch.stack([h[k] for h in hs]) for k in _HARVEST_KEYS}
     no = torch.zeros((), dtype=_B, device=src["opt_err"].device)
-    out["flags"] = torch.stack([torch.stack(
+    new["flags"] = torch.stack([torch.stack(
         [h["improved"], no if conv is None else conv[r]])
         for h, r in zip(hs, rows)])
+    if out is None:
+        new["improved"] = new["flags"][:, 0]
+        return new
+    for k, v in new.items():
+        out[k][:len(rows)] = v
+    return out
+
+
+def _harvest_out(n: int, L: int, dev) -> dict:
+    out = _alloc(dict(lb_safe=((L,), _F32), ubs=((L,), _F32),
+                      cand_ub=((), _F32), incumbent=((), _F32),
+                      cand_R=((3, 3), _F32), cand_t=((3,), _F32),
+                      cand_terms=((3,), _F32), flags=((2,), _B)), n, dev)
     out["improved"] = out["flags"][:, 0]
     return out
 
 
 def harvest(cfg: GoICPConfig, src: dict, rows, fused: bool = True, lb=None,
-            lb_safe=None, conv=None) -> dict:
+            lb_safe=None, conv=None, bufs: "TransitionBuffers | None" = None
+            ) -> dict:
     """A finished inner search's harvest for the rows `rows` of `src`:
     src["inner"] the lanes (W, L, ...) (lbs, thr, opt_err, min_dropped,
     done, best_node, ub_terms), src["active"] (W, L), src["R_lanes"] (W, L,
@@ -151,47 +168,54 @@ def harvest(cfg: GoICPConfig, src: dict, rows, fused: bool = True, lb=None,
 
     Returns, one row per served row: lb_safe, ubs (n, L), cand_ub,
     incumbent (n,), cand_R (n, 3, 3), cand_t, cand_terms (n, 3), flags
-    (n, 2) bool [improved, converged] and improved (= flags[:, 0]).  On
-    the card one launch of goicp_harvest (route), else harvest_plain."""
-    if route(cfg, src["opt_err"]) == "plain":
-        return harvest_plain(src, rows, fused, lb, lb_safe, conv)
+    (n, 2) bool [improved, converged] and improved (= flags[:, 0]).  bufs:
+    the run's TransitionBuffers, whose two output sets for n rows the
+    result then comes from, in turn (valid until the harvest after next
+    of n rows), and which keeps the call's argument block; None: new
+    outputs and a block built for the call.  On the card one launch of
+    goicp_harvest (route), else harvest_plain."""
     rows = [int(r) for r in rows]
     n = len(rows)
     ist = src["inner"]
     lst = ist if lb is None else lb
     W, L = src["active"].shape
     dev = src["opt_err"].device
-    C = lst["lbs"].shape[-1] if lb_safe is None else 1
-    ref = None if lb_safe is not None else lst["thr"] if fused \
-        else lst["opt_err"]
-    outs = _alloc(dict(lb_safe=((L,), _F32), ubs=((L,), _F32),
-                       cand_ub=((), _F32), incumbent=((), _F32),
-                       cand_R=((3, 3), _F32), cand_t=((3,), _F32),
-                       cand_terms=((3,), _F32), flags=((2,), _B)), n, dev)
-    slots = dict(
-        lbs=None if lb_safe is not None else (lst["lbs"], (L, C), _F32),
-        ref=None if lb_safe is not None else (ref, (L,), _F32),
-        lmin_drop=None if lb_safe is not None
-        else (lst["min_dropped"], (L,), _F32),
-        ldone=None if lb_safe is not None else (lst["done"], (L,), _B),
-        lb_in=None if lb_safe is None else (lb_safe, (L,), _F32),
-        ub_err=(ist["opt_err"], (L,), _F32),
-        best_node=(ist["best_node"], (L, 4), _F32),
-        ub_terms=(ist["ub_terms"], (L, 3), _F32),
-        active=(src["active"], (L,), _B),
-        R_lanes=(src["R_lanes"], (L, 3, 3), _F32),
-        opt_err=(src["opt_err"], (), _F32),
-        conv=None if conv is None else (conv, (), _B))
-    hold: list = []
-    ptrs = [_checked(k, slots[k], W, dev, hold) for k in _HARVEST_IN]
-    ptrs += [outs[k].data_ptr() for k in _HARVEST_OUT]
-    _launch(kernels.goicp_harvest(
-        (ctypes.c_ulonglong * len(ptrs))(*ptrs), len(ptrs),
-        (ctypes.c_int * 2)(L, C), 2, (ctypes.c_int * n)(*rows), n,
-        _stream(src["opt_err"])), "harvest")
+    given = lb_safe is not None
+    C = 1 if given else lst["lbs"].shape[-1]
+    ins = (None if given else lst["lbs"],
+           None if given else lst["thr"] if fused else lst["opt_err"],
+           None if given else lst["min_dropped"],
+           None if given else lst["done"], lb_safe, ist["opt_err"],
+           ist["best_node"], ist["ub_terms"], src["active"], src["R_lanes"],
+           src["opt_err"], conv)
+    kind = ("harvest", n, L, C, W)
+
+    def alloc():
+        return _harvest_out(n, L, dev)
+
+    if route(cfg, src["opt_err"]) == "plain":
+        out = None if bufs is None else bufs.take(kind, alloc, ins)[1]
+        return harvest_plain(src, rows, fused, lb, lb_safe, conv, out)
+
+    def specs():
+        return tuple((k, shp, dt, W) for k, (shp, dt) in zip(_HARVEST_IN, (
+            ((L, C), _F32), ((L,), _F32), ((L,), _F32), ((L,), _B),
+            ((L,), _F32), ((L,), _F32), ((L, 4), _F32), ((L, 3), _F32),
+            ((L,), _B), ((L, 3, 3), _F32), ((), _F32), ((), _B)))) + tuple(
+            (k, shp, dt, n) for k, (shp, dt) in zip(_HARVEST_OUT, (
+                ((L,), _F32), ((L,), _F32), ((), _F32), ((), _F32),
+                ((3, 3), _F32), ((3,), _F32), ((3,), _F32), ((2,), _B))))
+
+    out, blk = _call_block(
+        bufs, kind, alloc, ins, lambda o: tuple(o[k] for k in _HARVEST_OUT),
+        lambda t: TransitionArgs(specs(), t, len(_HARVEST_IN), dev, (L, C),
+                                 n=n))
+    blk.rows[:] = rows
+    _launch(kernels.goicp_harvest(blk.ptrs, len(blk.ptrs), blk.ints, 2,
+                                  blk.rows, n, _stream(src["opt_err"])),
+            "harvest")
     harvest.launches += 1
-    outs["improved"] = outs["flags"][:, 0]
-    return outs
+    return out
 
 
 harvest.launches = 0
@@ -201,6 +225,144 @@ _HARVEST_IN = ("lbs", "ref", "lmin_drop", "ldone", "lb_in", "ub_err",
                "conv")
 _HARVEST_OUT = ("lb_safe", "ubs", "cand_ub", "incumbent", "cand_R", "cand_t",
                 "cand_terms", "flags")
+
+
+# ---------------------------------------------------------------------------
+# argument blocks and output sets
+# ---------------------------------------------------------------------------
+
+def _storages(xs) -> set:
+    return {x.untyped_storage().data_ptr() for x in xs if x is not None}
+
+
+class TransitionArgs:
+    """One call site's checked slots, ready to pass to goicp_harvest or
+    goicp_advance: the packed pointer array (`ptrs`), the ints, the
+    translation root and a buffer for the served rows (and out_rows).
+
+    Built from the slot tensors with _checked's rules (and its ValueError,
+    naming the slot).  The block holds the tensors it was checked for;
+    bind(tensors) re-checks only the slots that now hold another tensor
+    object (`rechecked` counts them), so a call with the same tensors
+    costs one comparison a slot.  An input that had to be copied (a
+    strided view: _checked's hold) makes the block single-use: its copy
+    is of this call's values."""
+
+    def __init__(self, specs: tuple, tensors: tuple, n_in: int, dev, ints,
+                 root=None, n: int = 0, out_rows: bool = False):
+        self.specs = specs      # per slot: (name, per-row shape, dtype, rows)
+        self.n_in = n_in        # the first n_in slots are inputs
+        self.dev = dev
+        self.ptrs = (ctypes.c_ulonglong * len(specs))()
+        self.ints = (ctypes.c_int * len(ints))(*ints)
+        self.root = None if root is None else (ctypes.c_float * 4)(*root)
+        self.rows = (ctypes.c_int * max(n, 1))()
+        self.out_rows = (ctypes.c_int * max(n, 1))() if out_rows else None
+        self.copies: dict = {}
+        self.rechecked = 0
+        self.tensors: tuple = (None,) * len(specs)
+        self._check(range(len(specs)), tensors)
+
+    @property
+    def reusable(self) -> bool:
+        return not self.copies
+
+    def _check(self, slots, tensors: tuple):
+        for i in slots:
+            name, shape, dt, rows = self.specs[i]
+            x = tensors[i]
+            hold: list | None = [] if i < self.n_in else None
+            self.ptrs[i] = _checked(name, None if x is None else (x, shape, dt),
+                                    rows, self.dev, hold)
+            if hold:
+                self.copies[i] = hold[0]
+            else:
+                self.copies.pop(i, None)
+        self.tensors = tensors
+
+    def bind(self, tensors: tuple) -> "TransitionArgs":
+        """The block for `tensors`: the slots whose tensors are not the
+        block's re-checked."""
+        changed = [i for i, (a, b) in enumerate(zip(tensors, self.tensors))
+                   if a is not b]
+        self.rechecked += len(changed)
+        self._check(changed, tensors)
+        return self
+
+
+class TransitionBuffers:
+    """A run's transition buffers: the outputs of each kind of call (the
+    harvest of n rows, the pop, the adoption, and the inner run between
+    them: inner.inner_run(bufs=)) in two sets used in turn, as
+    search/inner.py's StepBuffers keeps the inner step's, and an argument
+    block (TransitionArgs) for each set and for each kind of call into
+    outputs of its caller.  A call writes into the set whose turn it is
+    unless that set holds one of its inputs (then the other; a new set,
+    with a block built for the call, where both do), so what a call
+    returned stays valid until the call after next of its kind.  Made
+    once per run.  The CPU route (harvest_plain, advance_plain) takes the
+    same sets."""
+
+    def __init__(self):
+        self.sets: dict = {}        # kind -> [(outputs, storages) or None] * 2
+        self.turn: dict = {}
+        self.blocks: dict = {}      # (kind, set index or "out") -> block
+
+    def take(self, kind, alloc, inputs=()) -> tuple:
+        """(index, outputs): the next output set of `kind` that holds none
+        of `inputs`; (None, new outputs) where both do."""
+        pair = self.sets.setdefault(kind, [None, None])
+        first = self.turn.get(kind, 0)
+        held = _storages(inputs)
+        for idx in (first, 1 - first):
+            if pair[idx] is None:
+                out = alloc()
+                pair[idx] = (out, _storages(_leaves(out)))
+            out, mem = pair[idx]
+            if mem.isdisjoint(held):
+                self.turn[kind] = 1 - idx
+                return idx, out
+        return None, alloc()
+
+    def block(self, site, tensors: tuple, make) -> TransitionArgs:
+        """The argument block of `site` bound to `tensors` (made with
+        make(tensors) the first time, and kept while it is reusable)."""
+        blk = self.blocks.get(site)
+        blk = make(tensors) if blk is None else blk.bind(tensors)
+        if blk.reusable:
+            self.blocks[site] = blk
+        else:
+            self.blocks.pop(site, None)
+        return blk
+
+
+def _leaves(d: dict) -> list:
+    out = []
+    for v in d.values():
+        if isinstance(v, dict):
+            out += _leaves(v)
+        elif isinstance(v, torch.Tensor):
+            out.append(v)
+    return out
+
+
+def _call_block(bufs, kind, alloc, ins: tuple, outs, make, out=None,
+                extra: tuple = ()):
+    """(outputs, argument block) of one kernel call with the input slot
+    tensors `ins`; outs(o) gives the output slot tensors of outputs o.
+    out None: the set of `kind` bufs.take hands out, or new outputs
+    without bufs; else out itself.  The block is bufs' for that set (or
+    for `kind` into a caller's out) and `extra` (what else the block's
+    slots and ints depend on), or built for the call."""
+    if out is None:
+        idx, out = (None, alloc()) if bufs is None \
+            else bufs.take(kind, alloc, ins)
+    else:
+        idx = "out"
+    t = ins + outs(out)
+    if bufs is None or idx is None:
+        return out, make(t)
+    return out, bufs.block(kind + (idx,) + extra, t, make)
 
 
 # ---------------------------------------------------------------------------
@@ -569,6 +731,9 @@ def advance_plain(mode: str, cfg: GoICPConfig, pairs, s: dict, rows, *,
 
 # goicp_advance's pointer slots, in csrc/transition.cu's AdvanceSlot order:
 # _ADV_ROWS, _ADV_SERVED, _ADV_PAIRS, then _ADV_OUT
+_NO = "\0"     # a key no dict holds: its slot is None
+_IT = 9        # `it` among _ADV_STATE
+_INNER_COUNTERS = ("evals", "it", "geom_surv", "chem_corners")
 _ADV_STATE = ("fr_nodes", "fr_lbs", "opt_err", "opt_R", "opt_t", "comp",
               "terms", "last_icp", "min_dropped", "it", "evals", "inner_it",
               "icp_runs", "geom_surv", "chem_corners", "converged",
@@ -590,6 +755,23 @@ _ADV_OUT = tuple("o_" + k for k in _ADV_STATE) + (
     "o_iit", "o_ievals", "o_isurv", "o_icorners")
 _MODES = {"both": 0, "pop": 1, "adopt": 2}
 _WORK = ("evals", "iters", "geom_surv", "chem_corners")
+_REFINE_KEYS = tuple(k for k, _, _ in _REFINE)
+# the fields each mode's slots are read from (_NO: the slot is None)
+_STATE_READS = dict(both=_ADV_STATE, adopt=_ADV_STATE, pop=tuple(
+    k if k in ("fr_nodes", "fr_lbs", "opt_err", "converged", "final_lb")
+    else _NO for k in _ADV_STATE))
+_LANE_KEYS = ("nodes", "lbs", "opt_err", "thr", "best_node", "ub_terms",
+              "min_dropped", "done", "cvals")     # o_nodes .. o_cvals
+_LANE0 = _ADV_OUT.index("o_nodes")
+_OUT_KEYS = dict(
+    adopt=_ADV_STATE + (_NO,) * (len(_ADV_OUT) - len(_ADV_STATE)),
+    pop=(_NO,) * 15 + ("converged", "final_lb", "pop_lb", "expand",
+                       "child_nodes", "widths", "active", "R_lanes", "pts",
+                       "mrd"),
+    both=_ADV_STATE + (_NO, _NO, "child_nodes", "widths", "active",
+                       "R_lanes", "pts_rot", "mrd"))
+_OUT_LANE_KEYS = dict(pop=_LANE_KEYS + (_NO,) * 4,
+                      both=_LANE_KEYS + _INNER_COUNTERS)
 
 
 def _state_spec(cfg: GoICPConfig) -> dict:
@@ -626,15 +808,18 @@ def _pop_spec(cfg: GoICPConfig, L: int, nd: int) -> dict:
 
 def _alloc(spec: dict, n: int, dev, zero: bool = False) -> dict:
     """Empty (zero: zeroed) tensors of (n,) + shape for every entry of
-    spec, one allocation per dtype, each a contiguous view."""
+    spec, one allocation per dtype, each a contiguous view starting on a
+    16-byte boundary (where goicp_advance's bulk copies need it)."""
     out = {}
     for dt in {d for _, d in spec.values()}:
         names = [k for k, (_, d) in spec.items() if d == dt]
         sizes = [n * math.prod(spec[k][0]) for k in names]
+        per = 16 // dt.itemsize
+        spans = [-(-m // per) * per for m in sizes]
         buf = (torch.zeros if zero else torch.empty)(
-            (sum(sizes),), dtype=dt, device=dev)
-        for k, part in zip(names, buf.split(sizes)):
-            out[k] = part.view((n,) + spec[k][0])
+            (sum(spans),), dtype=dt, device=dev)
+        for k, m, part in zip(names, sizes, buf.split(spans)):
+            out[k] = part[:m].view((n,) + spec[k][0])
     return {k: out[k] for k in spec}
 
 
@@ -691,9 +876,82 @@ def _checked(name: str, item, rows: int, dev, hold=None) -> int:
     return x.data_ptr()
 
 
+def _advance_specs(cfg: GoICPConfig, W: int, n: int, Wo: int, L: int,
+                   nd: int, n_cells: int, S: int, reuse: bool) -> tuple:
+    """(name, per-row shape, dtype, rows) of each of goicp_advance's
+    slots: the state's, the pairs' (W rows), the served (n) and the
+    outputs' (Wo)."""
+    st = _state_spec(cfg)
+    pop = _pop_spec(cfg, L, nd)
+    lane = _lane_spec(cfg, L, reuse)
+    hn = dict(lb_safe=((L,), _F32), cand_ub=((), _F32),
+              incumbent=((), _F32), cand_R=((3, 3), _F32),
+              cand_t=((3,), _F32), cand_terms=((3,), _F32),
+              flags=((2,), _B), min_lb=((), _F32),
+              **{k: (shp, dt) for k, shp, dt in _REFINE})
+    spec = dict(st, active=((L,), _B), child_nodes=((L, 4), _F32),
+                p_conv=((), _B), p_final=((), _F32),
+                **{k: ((), _I32) for k in ("w_evals", "w_it", "w_surv",
+                                           "w_corners")},
+                data=((nd, 3), _F32), norm_data=((nd,), _F32),
+                sse=((), _F32), cell_compat=((n_cells, 9), _F32),
+                prop_onehot=((nd, 9), _F32), data_mask=((nd,), _F32),
+                nearest_cell=((S ** 3,), _I32), consts=((5,), _F32))
+    for k in _ADV_STATE:
+        spec["o_" + k] = st[k]
+    for k in ("pop_lb", "expand", "child_nodes", "widths", "active",
+              "R_lanes", "pts", "mrd"):
+        spec["o_" + k] = pop[k]
+    for o, k in zip(_ADV_OUT[_LANE0:], _LANE_KEYS):
+        spec[o] = lane.get(k, ((), _F32))
+    for o in ("o_iit", "o_ievals", "o_isurv", "o_icorners"):
+        spec[o] = ((), _I32)
+    return tuple((k, *spec[k], W) for k in _ADV_ROWS) \
+        + tuple((k, *hn[k], n) for k in _ADV_SERVED) \
+        + tuple((k, *spec[k], W) for k in _ADV_PAIRS) \
+        + tuple((k, *spec[k], Wo) for k in _ADV_OUT)
+
+
+
+def _advance_ins(mode: str, pairs, s: dict, tables, h, r, p, work, min_lb,
+                 reuse: bool) -> tuple:
+    """The input slot tensors of goicp_advance (None where a slot is not
+    used) and the inner search's work given as Python ints."""
+    state = tuple(map(s.get, _STATE_READS[mode]))
+    if not isinstance(state[_IT], torch.Tensor):
+        state = state[:_IT] + (None,) + state[_IT + 1:]
+    scal = [0, 0, 0, 0]
+    if mode == "both":
+        ctx = (s["active"], s["child_nodes"], None, None) + tuple(
+            map(s["inner"].get, _INNER_COUNTERS))
+    elif mode == "adopt":
+        ws = []
+        for j, k in enumerate(_WORK):
+            v = work[k]
+            if isinstance(v, torch.Tensor):
+                ws.append(v.to(_I32).reshape(-1))
+            else:
+                ws.append(None)
+                scal[j] = int(v)
+        ctx = (p["active"], p["child_nodes"], p["converged"],
+               p["final_lb"], *ws)
+    else:
+        ctx = (None,) * 8
+    if mode == "pop":
+        served = (None,) * 14
+    else:
+        served = tuple(map(h.get, _ADV_SERVED[:7])) + (
+            (None,) * 7 if r is None else tuple(map(r.get, _REFINE_KEYS)))
+    pin = (pairs.data, pairs.norm_data, tables.sse) + (
+        (tables.cell_compat, tables.prop_onehot, tables.data_mask,
+         tables.nearest_cell, tables.consts) if reuse and mode != "adopt"
+        else (None,) * 5)
+    return state + ctx + served + (min_lb,) + pin, scal
+
+
 def advance(mode: str, cfg: GoICPConfig, pairs, s: dict, rows, *, tables,
             h=None, r=None, p=None, work=None, min_lb=None, out=None,
-            out_rows=None) -> dict:
+            out_rows=None, bufs: TransitionBuffers | None = None) -> dict:
     """The transition's pop, adoption or both for the rows `rows` of the
     W-row state `s` (see the module docstring), each row with its own pair
     (row w of the W-stacked PairData `pairs`; tables: their LaneTables,
@@ -717,99 +975,65 @@ def advance(mode: str, cfg: GoICPConfig, pairs, s: dict, rows, *, tables,
         Returns the rows' new window state.
 
     out / out_rows: write the results there (rows out_rows; None: the
-    served rows' own indices) instead of into new tensors; where out is s
+    served rows' own indices) instead of into new outputs; where out is s
     itself a row may only be written over itself (out_rows None), each
-    row served once.  On the card
-    (route) one launch of goicp_advance (two kernels in pop and both
-    modes), else advance_plain."""
-    if route(cfg, s["opt_err"]) == "plain":
-        return advance_plain(mode, cfg, pairs, s, rows, h=h, r=r, p=p,
-                             work=work, min_lb=min_lb, out=out,
-                             out_rows=out_rows)
+    row served once.  bufs: the run's TransitionBuffers: new outputs come
+    from its two sets for the mode in turn (valid until the call after
+    next of that mode and shape), and the call's argument block is kept
+    there, re-checked only where its tensors changed; None: new outputs
+    and a block built for the call.  On the card (route) one launch of
+    goicp_advance, else advance_plain."""
     rows = [int(w) for w in rows]
     n = len(rows)
     dev = s["opt_err"].device
     Pr = cfg.rot_batch
     L = Pr * 8
-    C = cfg.trans_capacity
     W = s["opt_err"].shape[0]
     nd = pairs.data.shape[-2]
+    kind = ("advance", mode, n, nd, W)
+
+    def alloc():
+        return outputs(mode, cfg, n, nd, dev)
+
     reuse = _chem_reuse_active(cfg)
-    cuda_eval._check_envelope("transition", nd,
-                              tables.cell_coords.shape[-2], tables.size)
-    if out is None:
-        out = outputs(mode, cfg, n, nd, dev)
-        out_rows = None
-    elif out_rows is None:
+    if route(cfg, s["opt_err"]) == "plain":
+        if out is None and bufs is not None:
+            ins, _ = _advance_ins(mode, pairs, s, tables, h, r, p, work,
+                                  min_lb, reuse)
+            out = bufs.take(kind, alloc, ins)[1]
+            out_rows = list(range(n))
+        return advance_plain(mode, cfg, pairs, s, rows, h=h, r=r, p=p,
+                             work=work, min_lb=min_lb, out=out,
+                             out_rows=out_rows)
+    n_cells, S = tables.cell_compat.shape[-2], tables.size
+    ins, scal = _advance_ins(mode, pairs, s, tables, h, r, p, work, min_lb,
+                             reuse)
+    ints = (_MODES[mode], n, L, cfg.device_rot_capacity, Pr,
+            cfg.trans_capacity, nd, n_cells, S, int(cfg.icp_on_improve),
+            *scal)
+    cuda_eval._check_envelope("transition", nd, n_cells, S)
+    given = out is not None
+    if given and out_rows is None:
         out_rows = rows
-    Wo = out["opt_err" if mode != "pop" else "final_lb"].shape[0]
-    st = _state_spec(cfg)
-    ins: dict = {}
-    for k in (_ADV_STATE if mode != "pop" else
-              ("fr_nodes", "fr_lbs", "opt_err", "converged", "final_lb")):
-        if k == "it" and not isinstance(s.get("it"), torch.Tensor):
-            continue
-        ins[k] = (s[k], *st[k])
-    scal = [0, 0, 0, 0]
-    if mode == "both":
-        ins.update(active=(s["active"], (L,), _B),
-                   child_nodes=(s["child_nodes"], (L, 4), _F32))
-        ist = s["inner"]
-        ins.update(w_evals=(ist["evals"], (), _I32),
-                   w_it=(ist["it"], (), _I32),
-                   w_surv=(ist["geom_surv"], (), _I32),
-                   w_corners=(ist["chem_corners"], (), _I32))
-    elif mode == "adopt":
-        ins.update(active=(p["active"], (L,), _B),
-                   child_nodes=(p["child_nodes"], (L, 4), _F32),
-                   p_conv=(p["converged"], (), _B),
-                   p_final=(p["final_lb"], (), _F32))
-        for j, (k, slot) in enumerate(zip(_WORK, ("w_evals", "w_it",
-                                                  "w_surv", "w_corners"))):
-            v = work[k]
-            if isinstance(v, torch.Tensor):
-                ins[slot] = (v.to(_I32).reshape(-1), (), _I32)
-            else:
-                scal[j] = int(v)
-    if mode != "pop":
-        hn = dict(lb_safe=((L,), _F32), cand_ub=((), _F32),
-                  incumbent=((), _F32), cand_R=((3, 3), _F32),
-                  cand_t=((3,), _F32), cand_terms=((3,), _F32),
-                  flags=((2,), _B))
-        hin = {k: (h[k], *hn[k]) for k in hn}
-        rin = {} if r is None else {k: (r[k], shp, dt)
-                                    for k, shp, dt in _REFINE}
-    else:
-        hin, rin = {}, {}
-    if min_lb is not None:
-        hin["min_lb"] = (min_lb, (), _F32)
-    pin = dict(data=(pairs.data, (nd, 3), _F32),
-               norm_data=(pairs.norm_data, (nd,), _F32),
-               sse=(tables.sse, (), _F32))
-    if reuse and mode != "adopt":
-        n_cells, S = tables.cell_compat.shape[-2], tables.size
-        pin.update(cell_compat=(tables.cell_compat, (n_cells, 9), _F32),
-                   prop_onehot=(tables.prop_onehot, (nd, 9), _F32),
-                   data_mask=(tables.data_mask, (nd,), _F32),
-                   nearest_cell=(tables.nearest_cell, (S ** 3,), _I32),
-                   consts=(tables.consts, (5,), _F32))
-    hold: list = []
-    ptrs = [_checked(k, ins.get(k), W, dev, hold) for k in _ADV_ROWS]
-    ptrs += [_checked(k, hin.get(k, rin.get(k)), n, dev, hold)
-             for k in _ADV_SERVED]
-    ptrs += [_checked(k, pin.get(k), W, dev, hold) for k in _ADV_PAIRS]
-    outs = _out_slots(mode, out, cfg, L, nd, reuse)
-    ptrs += [_checked(k, outs.get(k), Wo, dev) for k in _ADV_OUT]
-    ints = [_MODES[mode], n, L, cfg.device_rot_capacity, Pr, C, nd,
-            tables.cell_compat.shape[-2], tables.size, int(cfg.icp_on_improve),
-            *scal]
-    root = (cfg.transMinX, cfg.transMinY, cfg.transMinZ, cfg.transWidth)
+    Wo = out["opt_err" if mode != "pop" else "final_lb"].shape[0] if given \
+        else n
+
+    def make(t):
+        return TransitionArgs(
+            _advance_specs(cfg, W, n, Wo, L, nd, n_cells, S, reuse), t,
+            len(ins), dev, ints, (cfg.transMinX, cfg.transMinY, cfg.transMinZ,
+                                  cfg.transWidth), n=n, out_rows=given)
+
+    out, blk = _call_block(bufs, kind, alloc, ins,
+                           lambda o: _out_tensors(mode, o), make, out,
+                           (ints, Wo))
+    blk.rows[:] = rows
+    if given:
+        blk.out_rows[:] = [int(o) for o in out_rows]
     _launch(kernels.goicp_advance(
-        (ctypes.c_ulonglong * len(ptrs))(*ptrs), len(ptrs),
-        (ctypes.c_int * len(ints))(*ints), len(ints),
-        (ctypes.c_float * 4)(*root), (ctypes.c_int * n)(*rows),
-        None if out_rows is None else (ctypes.c_int * n)(*out_rows), n,
-        _stream(s["opt_err"])), f"advance ({mode})")
+        blk.ptrs, len(blk.ptrs), blk.ints, len(blk.ints), blk.root,
+        blk.rows, blk.out_rows, n, _stream(s["opt_err"])),
+        f"advance ({mode})")
     advance.launches += 1
     return out
 
@@ -817,40 +1041,11 @@ def advance(mode: str, cfg: GoICPConfig, pairs, s: dict, rows, *, tables,
 advance.launches = 0
 
 
-def _out_slots(mode: str, out: dict, cfg: GoICPConfig, L: int, nd: int,
-               reuse: bool) -> dict:
-    """The output slots of `mode` from out's fields: (tensor, per-row
-    shape, dtype)."""
-    st = _state_spec(cfg)
-    pop = _pop_spec(cfg, L, nd)
-    lane = _lane_spec(cfg, L, reuse)
-    slots = {}
-    if mode != "pop":
-        for k in _ADV_STATE:
-            if k in out:
-                slots["o_" + k] = (out[k], *st[k])
+def _out_tensors(mode: str, out: dict) -> tuple:
+    """goicp_advance's output slot tensors from out's fields (None where
+    the mode writes no such field)."""
     if mode == "adopt":
-        return slots
-    if mode == "pop":
-        for k in ("converged", "final_lb"):
-            slots["o_" + k] = (out[k], *pop[k])
-        slots.update(o_pop_lb=(out["pop_lb"], *pop["pop_lb"]),
-                     o_expand=(out["expand"], *pop["expand"]),
-                     o_pts=(out["pts"], *pop["pts"]))
-        lanes = out["lanes"]
-    else:
-        slots["o_pts"] = (out["pts_rot"], *pop["pts"])
-        lanes = out["inner"]
-        slots.update({o: (lanes[k], (), _I32) for o, k in (
-            ("o_iit", "it"), ("o_ievals", "evals"), ("o_isurv", "geom_surv"),
-            ("o_icorners", "chem_corners"))})
-    for k in ("child_nodes", "widths", "active", "R_lanes", "mrd"):
-        slots["o_" + k] = (out[k], *pop[k])
-    for o, k in (("o_nodes", "nodes"), ("o_lbs", "lbs"), ("o_iopt", "opt_err"),
-                 ("o_ithr", "thr"), ("o_best_node", "best_node"),
-                 ("o_ub_terms", "ub_terms"),
-                 ("o_imin_dropped", "min_dropped"), ("o_done", "done"),
-                 ("o_cvals", "cvals")):
-        if k in lane:
-            slots[o] = (lanes[k], *lane[k])
-    return slots
+        return tuple(map(out.get, _OUT_KEYS["adopt"]))
+    lanes = out["lanes" if mode == "pop" else "inner"]
+    return tuple(map(out.get, _OUT_KEYS[mode])) \
+        + tuple(map(lanes.get, _OUT_LANE_KEYS[mode]))
