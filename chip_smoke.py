@@ -77,14 +77,19 @@ Phases, each of which fails the script (nonzero exit, no result line):
     at the streams' shape (16 lanes of syn00 + syn01) and at
     register_device's (syn07, 8 lanes).  The inner run (csrc/inner.cu,
     goicp_inner_run: the iterations of a search in one launch, a lane a
-    thread-block cluster, a grid barrier between iterations) held to
-    inner_run_plain, the torch loops it replaces, every lane field,
-    counter and the iteration count bit for bit, over the same cases in
-    its three stop modes (search: inner_bnb's whole search; groups: the
-    batch engine's; stream: the fused stream's, both groups live, one
-    live, and `once`), and syn07 at 256 lanes, more than the card holds
-    clusters at once (the lanes stride); timed in mode search on syn07
-    (the kernels line) and in mode stream on syn00 + syn01, beside the
+    thread-block cluster holding its state in shared memory, no grid
+    barrier in modes search and groups) held to inner_run_plain, the
+    torch loops it replaces, every lane field, counter and the iteration
+    count bit for bit, over the same cases in its three stop modes
+    (search: inner_bnb's whole search; groups: the batch engine's; stream:
+    the fused stream's, both groups live, one live, and `once`), and
+    syn07 at 256 lanes, more than the card holds clusters at once (search
+    and groups: a cluster takes one lane after another; stream: the lanes
+    stride, their state in device memory), each case printing the lanes
+    that ran resident and strided; timed in mode search on syn07 (the
+    kernels line) and in mode stream on syn00 + syn01 as the engines call
+    it (the run's buffers: one kernel launch and no memset a call,
+    checked), beside a call that builds its block and outputs and the
     same iterations as inner_step launches from a CUDA graph.  The transition kernels
     (csrc/transition.cu: goicp_harvest and goicp_advance) held to
     harvest_plain and advance_plain, the engines' torch code, every
@@ -428,6 +433,29 @@ def _device_ms(fn, n=50, reps=7, warm_s=0.03):
         b.synchronize()
         times.append(a.elapsed_time(b) / n)
     return statistics.median(times)
+
+
+def _launches_memsets(fn, n=10):
+    """(kernel launches, memsets) a call of fn, from torch.profiler's
+    launch API events over n calls (after two, which may make a run's two
+    output sets)."""
+    import torch
+    fn()
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    count = {e.key: e.count for e in events}
+    launches = sum(count.get(k, 0) for k in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    memsets = sum(v for k_, v in count.items() if "emset" in k_
+                  and k_.startswith("cuda"))
+    return launches / n, memsets / n
 
 
 def _in_turns(kern, library, n=25):
@@ -1988,6 +2016,8 @@ def _step_checks(k, cfg, cfg_t, pools, dev, floor):
                 live = torch.tensor([True, False], device=dev)
             args = (pair, c, s, pts, mrd, fused)
             kw = dict(live=live, groups=groups, counters=cnt)
+            _require(_merge_ordered(s["lbs"], c),
+                     f"{label}: the rest in the merge's order")
             got = inner.inner_step(*args, **kw)
             want = inner.inner_step_plain(*args, **kw)
             torch.cuda.synchronize()
@@ -2017,10 +2047,18 @@ def _step_checks(k, cfg, cfg_t, pools, dev, floor):
         lbs, cv = s["lbs"].clone(), s["cvals"].clone()
         fin = torch.isfinite(lbs).sum(dim=1).tolist()
         _require(min(fin) > c.trans_pop + 2, "NaN case: frontiers filled")
-        lbs[0, fin[0] - 1] = float("nan")
+        # NaN after +inf under sorted_merge 0, among them under 1: the
+        # frontier past the pop stays in the merge's order
+        if merge:
+            lbs[0, fin[0] - 1] = float("nan")
+            lbs[1, fin[1]] = float("nan")
+        else:
+            lbs[0, fin[0] - 1:] = float("nan")
+            lbs[1, -1] = float("nan")
         lbs[0, fin[0] - 2] = float("inf")
         lbs[1, fin[1] - 1] = float("inf")
-        lbs[1, fin[1]] = float("nan")
+        _require(_merge_ordered(lbs, c), "NaN case: the rest in the "
+                 "merge's order")
         lbs[3, 1] = float("nan")
         cv[4, 0, 3] = float("nan")
         s = dict(s, lbs=lbs, cvals=cv)
@@ -2079,9 +2117,23 @@ def _step_checks(k, cfg, cfg_t, pools, dev, floor):
               flush=True)
 
 
+def _merge_ordered(lbs, c):
+    """Each row's frontier past the pop (entries trans_pop..C-1) in the
+    inner merge's order, which csrc/inner.cu's merge requires and every
+    merge leaves: ascending, NaN ranked as +inf (sorted_merge 1) or after
+    it (sorted_merge 0)."""
+    import torch
+    rest = lbs[..., c.trans_pop:]
+    nan = torch.isnan(rest)
+    key = torch.where(nan, float("inf"), rest)
+    return bool((key[..., 1:] >= key[..., :-1]).all()) and (
+        bool(c.sorted_merge) or bool((nan[..., :-1] <= nan[..., 1:]).all()))
+
+
 # the run's cases in phase 2 beside STEP_MODES': a lane batch larger than
-# the grid the card holds at once, so that the lanes stride over the
-# clusters (register_device's configuration, syn07, RUN_MANY_LANES lanes)
+# the grid the card holds at once (register_device's configuration, syn07,
+# RUN_MANY_LANES lanes): clusters take lanes one after another, or the
+# lanes stride over them (mode stream)
 RUN_MANY_LANES = 256
 RUN_STREAM_STEPS = 40  # mode stream's cap in phase 2
 
@@ -2141,19 +2193,24 @@ def _run_checks(k, kernels, cfg, cfg_t, pools, dev, floor):
     three stop modes: "search" (inner_bnb's whole search), "groups" (two
     groups, each until its own search is complete), "stream" (two groups:
     both live until one completes or RUN_STREAM_STEPS iterations; only
-    the first live; `once`: one iteration).  Then syn07 at
-    RUN_MANY_LANES lanes, more than the card holds clusters at once, so
-    that the lanes stride.  Timed in mode search at register_device's
-    shape (syn07, 8 lanes; the kernels line takes it; once more without
-    the chem term) and in mode stream
-    at the streams' (syn00 + syn01, 16 lanes): single launches (ms), from
-    a CUDA graph (graph_ms) beside the same iterations as inner_step
-    launches replayed from a graph, and the plain loop (a host read an
-    iteration)."""
+    the first live; `once`: one iteration), each printing the lanes whose
+    state stayed in a cluster's shared memory and those that strided.
+    Then syn07 at RUN_MANY_LANES lanes, more than the card holds clusters
+    at once: in modes search and groups a cluster takes one lane after
+    another, in mode stream the lanes stride.  Timed in mode search at
+    register_device's shape (syn07, 8 lanes; the kernels line takes it;
+    once more without the chem term) and in mode stream at the streams'
+    (syn00 + syn01, 16 lanes): single calls with the run's buffers as the
+    engines make them (ms; one kernel launch and no memset a call,
+    counted by torch.profiler) and with a block built and outputs
+    allocated a call, from a CUDA graph (graph_ms) beside the same
+    iterations as inner_step launches replayed from a graph, and the
+    plain loop (a host read an iteration)."""
     import numpy as np
     import torch
     from goicp_tpu_torch.bounds.evaluate import LaneTables, rot_uncertainty
     from goicp_tpu_torch.search import inner
+    from goicp_tpu_torch.search.args import TransitionBuffers
     rng = np.random.default_rng(2028)
     timed = {}
     cases = [m + (8,) for m in STEP_MODES] + [
@@ -2167,10 +2224,15 @@ def _run_checks(k, kernels, cfg, cfg_t, pools, dev, floor):
             rot_uncertainty(widths[l:l + 1], pairs[w].norm_data)
             for l, w in enumerate(lane_pair)]) if (fused or unc) else None
         s = _step_root(pairs, lane_pair, c, pts, active, STEP_INC)
+        _require(_merge_ordered(s["lbs"], c),
+                 f"{label}: the rest in the merge's order")
         L = pts.shape[0]
         t = torch.tensor
         runs = [("search", {}), ("groups", dict(groups=2))]
-        if n_lanes == 8 or len(pairs) == 2:
+        if n_lanes > 8:
+            # more lanes than clusters: the stream strides over them
+            runs.append(("stream", dict(groups=2, steps=RUN_STREAM_STEPS)))
+        else:
             runs += [
                 ("stream", dict(groups=2, steps=RUN_STREAM_STEPS)),
                 ("stream, the first live", dict(
@@ -2193,7 +2255,9 @@ def _run_checks(k, kernels, cfg, cfg_t, pools, dev, floor):
             bad = _run_same(got, want)
             _require(not bad, f"inner_run == plain bit for bit ({label}, "
                      f"{mode_label}): {bad}")
-            said.append(f"{mode_label} {int(got.iters)} iterations")
+            said.append(f"{mode_label} {int(got.iters)} iterations, "
+                        f"{int(got.resident)} lanes resident, "
+                        f"{L - int(got.resident)} strided")
             if n_lanes > 8:
                 _require(L > int(got.clusters),
                          f"{label}: {L} lanes stride over the "
@@ -2220,6 +2284,11 @@ def _run_checks(k, kernels, cfg, cfg_t, pools, dev, floor):
         def run(a=(pair, c, s, pts, mrd, fused, mode), kw=kw):
             return inner.inner_run(*a, **kw)
 
+        def run_bufs(a=(pair, c, s, pts, mrd, fused, mode),
+                     kw=dict(kw, bufs=TransitionBuffers())):
+            # as the engines call it: the run's buffers, a block kept
+            return inner.inner_run(*a, **kw)
+
         def plain(a=(pair, c, s, pts, mrd, fused, mode), kw=kw):
             return inner.inner_run_plain(*a, **kw)
 
@@ -2235,9 +2304,15 @@ def _run_checks(k, kernels, cfg, cfg_t, pools, dev, floor):
                                               groups=groups, counters=cnt,
                                               bufs=bufs)
             return st
-        ms, pms = _median_ms(run), _median_ms(plain, n=5)
+        ms, pms = _median_ms(run_bufs), _median_ms(plain, n=5)
+        ms_new = _median_ms(run)
+        launches, memsets = _launches_memsets(run_bufs)
+        _require(launches == 1 and memsets == 0,
+                 f"inner_run {label} {mode}: one kernel launch and no "
+                 f"memset a call with the run's buffers: {launches} "
+                 f"launches, {memsets} memsets")
         try:
-            dms = _device_ms(run, n=10)
+            dms = _device_ms(run_bufs, n=10)
         except RuntimeError as e:          # a graph the card would not take
             print(f"inner_run {label} {mode}: no CUDA graph ({e})",
                   flush=True)
@@ -2256,10 +2331,14 @@ def _run_checks(k, kernels, cfg, cfg_t, pools, dev, floor):
         if mode == "search" and label.startswith("syn07 fused, corner"):
             k.update(ms=ms, plain_ms=pms, graph_ms=dms, bound_ms=bms,
                      bound_by=bby, iterations=n_it,
-                     steps_graph_ms=sms)
+                     steps_graph_ms=sms, ms_block_a_call=ms_new)
         per = "not measured" if dms is None else f"{dms / n_it:.4f} ms"
+        host = "not measured" if dms is None else f"{ms - dms:.4f} ms"
         print(f"inner_run timed, {label}, mode {mode}: L={pts.shape[0]} "
-              f"{n_it} iterations in one launch: {ms:.4f} ms (from a graph "
+              f"{n_it} iterations in one launch ({int(out.resident)} lanes "
+              f"resident): {ms:.4f} ms with the run's buffers (host "
+              f"{host}; 1 launch, 0 memsets; a block built and outputs "
+              f"allocated a call {ms_new:.4f} ms) (from a graph "
               f"{'not measured' if dms is None else f'{dms:.4f} ms'}, "
               f"{per} an iteration); the same iterations as inner_step "
               f"launches from a graph {sms:.4f} ms ({sms / n_it:.4f} ms an "
@@ -2393,6 +2472,7 @@ def _transition_checks(kernels, cfg, cfg_t, pools, dev, floor):
     from goicp_tpu_torch.search import fused_stream as fs
     from goicp_tpu_torch.search import inner
     from goicp_tpu_torch.search import transition as tr
+    from goicp_tpu_torch.search.args import TransitionBuffers
     kh, ka = kernels["harvest"], kernels["advance"]
 
     def same(got, want, where):
@@ -2434,7 +2514,7 @@ def _transition_checks(kernels, cfg, cfg_t, pools, dev, floor):
                  f"advance both in place ({label}, {case})")
             # the main path's way: the harvest's outputs from a run's two
             # sets, the blocks kept; twice, so that both sets serve
-            bufs = tr.TransitionBuffers()
+            bufs = TransitionBuffers()
             for turn in range(2):
                 hb = tr.harvest(c, s, rows, bufs=bufs)
                 same(hb, h, f"harvest into the sets ({label}, {case}, "
@@ -2466,7 +2546,7 @@ def _transition_checks(kernels, cfg, cfg_t, pools, dev, floor):
     pb, c, s0, tabs = windows["similar"]
     rows = [w for w in range(s0["opt_err"].shape[0])
             if not bool(s0["converged"][w])]
-    bufs = tr.TransitionBuffers()
+    bufs = TransitionBuffers()
     for _ in range(2):
         h0 = tr.harvest(c, s0, rows, bufs=bufs)
         tr.advance("both", c, pb, s0, rows, tables=tabs, h=h0, bufs=bufs)
@@ -2612,7 +2692,7 @@ def _transition_checks(kernels, cfg, cfg_t, pools, dev, floor):
     # register_device's calls given the 1-row views made anew a call, as
     # its outer step makes them); `per_call=True`: without them (a block
     # built and outputs allocated a call: the packed stream's way)
-    bufs2, bufs1 = tr.TransitionBuffers(), tr.TransitionBuffers()
+    bufs2, bufs1 = TransitionBuffers(), TransitionBuffers()
     win2 = fs._map_state(torch.clone, s02)
 
     def stream_h(plain=False, per_call=False):

@@ -82,12 +82,12 @@ _SIGNATURES = {
     # stats, scratch; L, cap, pop, group, Nd, n_cells, size, norm, fused,
     # trim_k, reuse, sorted_merge; reg; stream
     "goicp_inner_step": [_P] * 37 + [_I] * 12 + [ctypes.c_float, _P],
-    # the step's 12 table pointers and 9 input lane fields; live, watch,
-    # once; it, evals, geom_surv, chem_corners in; output sets A and B (9
-    # each); the int words; L, cap, pop, group, Nd, n_cells, size, norm,
-    # fused, trim_k, reuse, sorted_merge, mode, max_iters, steps,
-    # stage_w1, stage_w2; reg; stream
-    "goicp_inner_run": [_P] * 47 + [_I] * 17 + [ctypes.c_float, _P],
+    # slots (47: search/inner.py::_run_specs), n_slots, ints (17), n_ints,
+    # reg, stream
+    "goicp_inner_run": [ctypes.POINTER(ctypes.c_ulonglong), _I,
+                        ctypes.POINTER(_I), _I, ctypes.c_float, _P],
+    # p, bytes, stream
+    "goicp_zero_words": [_P, _L, _P],
     # slots, n_slots, ints, n_ints, rows, n, stream
     "goicp_harvest": [ctypes.POINTER(ctypes.c_ulonglong), _I,
                       ctypes.POINTER(_I), _I, ctypes.POINTER(_I), _I, _P],
@@ -183,6 +183,30 @@ def host_library() -> ctypes.CDLL:
     return _host_lib
 
 
+def _declare(lib: ctypes.CDLL, every: bool = True) -> ctypes.CDLL:
+    """Declare the C functions of _SIGNATURES in lib (every: all of them
+    must be there; else those it holds)."""
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name) if every else getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def variant(sources: tuple, defines: tuple, csrc: pathlib.Path = CSRC,
+            stem: str = "libgoicp_variant") -> ctypes.CDLL:
+    """A library of some of the kernel sources (names in csrc, every header
+    of csrc beside them) built with extra `-D` defines, for a measurement
+    that compiles stop points into a kernel (bench/inner_stops.py).  Named
+    by the hash of its sources and flags like library()'s, so a variant is
+    built once; builds of distinct stems may run at once."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    out, _ = _compile(_nvcc(), flags, [csrc / n for n in sources]
+                      + sorted(csrc.glob("*.cuh")), stem)
+    return _declare(ctypes.CDLL(str(out)), every=False)
+
+
 def library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     """The loaded kernel library, built first if needed.  ptxas_verbose
     adds `-Xptxas -v` (registers, shared memory and spills per kernel) to
@@ -194,11 +218,7 @@ def library(ptxas_verbose: bool = False) -> ctypes.CDLL:
     out, log = _compile(_nvcc(), NVCC_FLAGS, sorted(CSRC.glob("*.cu"))
                         + sorted(CSRC.glob("*.cuh")), "libgoicp_kernels",
                         ("-Xptxas", "-v") if ptxas_verbose else ())
-    lib = ctypes.CDLL(str(out))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    lib = _declare(ctypes.CDLL(str(out)))
     build_info.update(path=str(out), seconds=time.perf_counter() - t0,
                       log=log)
     _lib = lib

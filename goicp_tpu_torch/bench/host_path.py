@@ -246,6 +246,10 @@ def transition(dev, calls: int = 400) -> dict:
     from goicp_tpu_torch.search import inner
     from goicp_tpu_torch.search import transition as tr
     has = "bufs" in inspect.signature(tr.advance).parameters
+    try:
+        from goicp_tpu_torch.search.args import TransitionBuffers
+    except ImportError:         # an older tree keeps them in transition.py
+        TransitionBuffers = getattr(tr, "TransitionBuffers", None)
     cfg, pairs = _bench_pairs(("syn02", "syn03"), dev, bucket_together=True)
     pb = stack_pairs(pairs)
     s = fs.fused_run_chunk(pb, cfg, fs._init_batch(pb, cfg), 40)
@@ -280,7 +284,7 @@ def transition(dev, calls: int = 400) -> dict:
             "advance adopt, syn07": lambda: tr.advance(
                 "adopt", cfg1, pb1, eng._as_row(st), [0], tables=tabs1, h=h1,
                 p=p1, work=eng._work(res, res, True), **kw)}
-    main = thunks({"bufs": tr.TransitionBuffers()} if has else {})
+    main = thunks({"bufs": TransitionBuffers()} if has else {})
     per_call = thunks({}) if has else None
     return {k: dict(main=_enqueue_us(f, calls),
                     per_call=None if per_call is None

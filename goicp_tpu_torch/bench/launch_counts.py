@@ -262,7 +262,10 @@ def transition(device="cuda", n=5, chained: bool = False) -> dict:
     params = inspect.signature(fs._transition_batch).parameters
     kw = {}
     if "bufs" in params:
-        from goicp_tpu_torch.search.transition import TransitionBuffers
+        try:
+            from goicp_tpu_torch.search.args import TransitionBuffers
+        except ImportError:     # an older tree keeps them in transition.py
+            from goicp_tpu_torch.search.transition import TransitionBuffers
         kw["bufs"] = TransitionBuffers()
     states = itertools.repeat(init) if chained else iter(
         [fs._map_state(torch.clone, init) for _ in range(4 * n + 4)])

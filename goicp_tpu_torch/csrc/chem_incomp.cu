@@ -51,8 +51,8 @@ __device__ __forceinline__ void chem_incomp_block(const ChemParams& p,
                                                   int lane, int pair) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int q0 = (blockIdx.x % p.blocks_per_lane) * p.per_block;
-  chem_incomp_body<false>(p, lane, pair, smem, q0, min(q0 + p.per_block, p.Q),
-                          p.corners, p.out);
+  chem_incomp_body<false>(p, lane, pair, chem_stage(p, lane, pair, smem, true),
+                          q0, min(q0 + p.per_block, p.Q), p.corners, p.out);
 }
 
 __global__ void chem_incomp_kernel(ChemParams p) {

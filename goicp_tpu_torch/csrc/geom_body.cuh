@@ -145,7 +145,8 @@ __host__ __device__ __forceinline__ size_t geom_rows_words(
 __host__ __device__ __forceinline__ size_t geom_points_words(
     const GeomParams& p) {
   const size_t row = region_words(p.Nd);
-  return region_words(3 * p.Nd) + row + (p.rot_unc != nullptr ? row : 0);
+  return region_words(3 * p.Nd) + row + (p.rot_unc != nullptr ? row : 0) +
+         region_words(6);   // the grid constants and the trim count
 }
 
 __host__ __device__ __forceinline__ size_t geom_tables_words(
@@ -153,69 +154,111 @@ __host__ __device__ __forceinline__ size_t geom_tables_words(
   return region_words(p.n_vox) + region_words(3 * p.C);
 }
 
-// The nodes [n0, n_end) of one lane, one warp per node at a time, called
-// by the whole block.  `pair` selects the table rows (always 0 for K1).
-// kLocal = false: the nodes' centres, widths and outputs are the lane's
-// rows of (L, B) arrays in device memory (K1, K3); kLocal = true: they
-// are arrays of this block indexed by the node alone, which may lie in
-// shared memory (the inner step).
-template <bool kLocal>
-__device__ __forceinline__ void geom_bounds_body(
-    const GeomParams& p, int lane, int pair, unsigned char* smem, int n0,
-    int n_end, const float* centers, const float* widths, float* out0,
-    float* out1, float* out2) {
-  const int warp = threadIdx.x >> 5, tid = threadIdx.x & 31;
+// Where the body reads a lane's point data and its pair's tables (shared
+// memory where staged, device memory otherwise) and where its warps keep
+// their trimmed rows.
+struct GeomSrc {
+  bool copied;    // the copies started by geom_stage, for the body to wait
+  float* rows;
+  const float* pts;
+  const float* w;
+  const float* ru;
+  const float* consts;   // the pair's grid constants (5)
+  const float* trim;     // its trim count, or null
+  const int* table;
+  const int* cells;
+};
+
+// The body's layout from `smem`: the rows' scratch, then the point data
+// and the tables where the stage flags say so.  copy: start the copies
+// into it (two commit groups, the point data first: the first node's
+// voxelization needs only it; the body waits for them); else they are
+// there already (the inner run stages a lane once for all its
+// iterations).
+__device__ __forceinline__ GeomSrc geom_stage(const GeomParams& p, int lane,
+                                              int pair, unsigned char* smem,
+                                              bool copy) {
   const int warps = blockDim.x >> 5;
   const bool trim = p.trim_k > 0 || p.trim_count != nullptr;
-  const bool pts_staged = p.stage_points, tab_staged = p.stage_tables;
   const bool with_unc = p.rot_unc != nullptr;
   const size_t nd_words = region_words(p.Nd);
-  const size_t row_words = row_words_of(p.Nd);
   const int per_thread = (p.Nd + 31) >> 5;
-  // trimmed rows longer than one chunk a thread live in shared memory
   const int n_rows = trim && per_thread > kChunk ? (p.fused ? 2 : 1) : 0;
-
-  float* s_rows = reinterpret_cast<float*>(smem);   // warps x n_rows rows
-  float* s_pts = s_rows + warps * n_rows * row_words;
-  float* s_w = s_pts + (pts_staged ? region_words(3 * p.Nd) : 0);
-  float* s_ru = s_w + (pts_staged ? nd_words : 0);
+  float* s_rows = reinterpret_cast<float*>(smem);
+  float* s_pts = s_rows + warps * n_rows * row_words_of(p.Nd);
+  float* s_w = s_pts + (p.stage_points ? region_words(3 * p.Nd) : 0);
+  float* s_ru = s_w + (p.stage_points ? nd_words : 0);
+  float* s_consts = s_ru + (p.stage_points && with_unc ? nd_words : 0);
   int* s_table = reinterpret_cast<int*>(
-      s_ru + (pts_staged && with_unc ? nd_words : 0));
+      s_consts + (p.stage_points ? region_words(6) : 0));
   int* s_cells = s_table + region_words(p.n_vox);
-
   const size_t pr = static_cast<size_t>(pair);
   const float* g_pts = p.pts + static_cast<size_t>(lane) * p.Nd * 3;
   const float* g_w = p.weights + pr * p.Nd;
   const float* g_ru = with_unc ? p.rot_unc + static_cast<size_t>(lane) * p.Nd
                                : nullptr;
+  const float* g_consts = p.consts + pr * 5;
+  const float* g_trim = p.trim_count != nullptr ? p.trim_count + pair
+                                                : nullptr;
   const int* g_table = p.nearest_cell + pr * p.n_vox;
   const int* g_cells = p.cells + pr * p.C * 3;
-
-  // the point data first, the tables behind it: the first node's
-  // voxelization needs only the former
-  if (pts_staged) {
+  if (copy && p.stage_points) {
     async_copy_words(s_pts, g_pts, 3 * p.Nd);
     async_copy_words(s_w, g_w, p.Nd);
     if (with_unc) async_copy_words(s_ru, g_ru, p.Nd);
+    async_copy_words(s_consts, g_consts, 5);
+    if (g_trim != nullptr) async_copy_words(s_consts + 5, g_trim, 1);
   }
   async_commit();
-  if (tab_staged) {
+  if (copy && p.stage_tables) {
     async_copy_words(s_table, g_table, p.n_vox);
     async_copy_words(s_cells, g_cells, 3 * p.C);
   }
   async_commit();
-  // shared or device memory, chosen once: the loads below go through
+  // shared or device memory, chosen once: the body's loads go through
   // generic pointers and carry no branch
-  const float* pts = pts_staged ? s_pts : g_pts;
-  const float* weights = pts_staged ? s_w : g_w;
-  const float* ru = pts_staged ? s_ru : g_ru;
-  const int* table = tab_staged ? s_table : g_table;
-  const int* cells = tab_staged ? s_cells : g_cells;
+  const bool sp = p.stage_points;
+  return GeomSrc{copy,
+                 s_rows,
+                 sp ? s_pts : g_pts,
+                 sp ? s_w : g_w,
+                 sp ? s_ru : g_ru,
+                 sp ? s_consts : g_consts,
+                 g_trim == nullptr ? nullptr : (sp ? s_consts + 5 : g_trim),
+                 p.stage_tables ? s_table : g_table,
+                 p.stage_tables ? s_cells : g_cells};
+}
 
-  const GridConsts g = load_consts(p.consts + pr * 5);
+// The nodes [n0, n_end) of one lane, one warp per node at a time, called
+// by the whole block on the sources geom_stage gave.  `pair` selects the
+// table rows (always 0 for K1).  kLocal = false: the nodes' centres,
+// widths and outputs are the lane's rows of (L, B) arrays in device memory
+// (K1, K3); kLocal = true: they are arrays of this block indexed by the
+// node alone, which may lie in shared memory, its own or a cluster
+// peer's (the inner step and run).
+template <bool kLocal>
+__device__ __forceinline__ void geom_bounds_body(
+    const GeomParams& p, int lane, int pair, const GeomSrc& src, int n0,
+    int n_end, const float* centers, const float* widths, float* out0,
+    float* out1, float* out2) {
+  const int warp = threadIdx.x >> 5, tid = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const bool trim = p.trim_k > 0 || p.trim_count != nullptr;
+  const bool with_unc = p.rot_unc != nullptr;
+  const size_t row_words = row_words_of(p.Nd);
+  const int per_thread = (p.Nd + 31) >> 5;
+  // trimmed rows longer than one chunk a thread live in shared memory
+  const int n_rows = trim && per_thread > kChunk ? (p.fused ? 2 : 1) : 0;
+  const float* pts = src.pts;
+  const float* weights = src.w;
+  const float* ru = src.ru;
+  const int* table = src.table;
+  const int* cells = src.cells;
+
   const int n_first = n0 + warp;
+  GridConsts g;   // read once the point data is staged (below)
   const float inf = __int_as_float(0x7f800000);
-  float* row_dis = s_rows + warp * n_rows * row_words;
+  float* row_dis = src.rows + warp * n_rows * row_words;
   float* row_disu = row_dis + row_words;
   for (int i = p.Nd + tid; i < n_rows * row_words; i += 32)
     if (i % row_words >= p.Nd) row_dis[i] = inf;   // the rows' tails
@@ -268,16 +311,27 @@ __device__ __forceinline__ void geom_bounds_body(
   };
   read_node(n_first, c_next, s3w_next);
 
-  async_wait<1>();
-  __syncthreads();
+  // (the copies geom_stage started: the point data first, then the
+  // tables; data staged before needs no wait)
+  if (src.copied) {
+    async_wait<1>();
+    __syncthreads();
+  }
+  g = load_consts(src.consts);   // staged with the points
   int vox[kChunk];
   float excess[kChunk];
   if (n_first < n_end) voxelize(c_next, 0, vox, excess);
-  async_wait<0>();
-  __syncthreads();
+  if (src.copied) {
+    async_wait<0>();
+    __syncthreads();
+  }
+#if defined(GOICP_INNER_STOP) && GOICP_INNER_STOP < 4
+  if (tid == 0 && n_first < n_end)
+    out0[node_at(n_first)] = __int_as_float(vox[0]);
+  return;   // the probe's stop after the staging (inner_body.cuh)
+#endif
 
-  const float* trim_count =
-      p.trim_count != nullptr ? p.trim_count + pair : nullptr;
+  const float* trim_count = src.trim;
   const int n_chunks = (per_thread + kChunk - 1) / kChunk;
 
   for (int node = n_first; node < n_end; node += warps) {
@@ -360,7 +414,7 @@ __device__ __forceinline__ void geom_bounds_body(
     }
     if (trim) {
       // ranks 0 .. K-1 are kept, K the count of ranks below the float K
-      const float kf = trim_count != nullptr ? __ldg(trim_count)
+      const float kf = trim_count != nullptr ? *trim_count
                                              : static_cast<float>(p.trim_k);
       const int K = !(kf > 0.0f) ? 0
           : (kf >= static_cast<float>(p.Nd) ? p.Nd

@@ -74,8 +74,9 @@ __device__ __forceinline__ void geom_bounds_block(const GeomParams& p,
                                                   int lane, int pair) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n0 = (blockIdx.x % p.blocks_per_lane) * p.per_block;
-  geom_bounds_body<false>(p, lane, pair, smem, n0, min(n0 + p.per_block, p.B),
-                          p.centers, p.widths, p.out0, p.out1, p.out2);
+  geom_bounds_body<false>(p, lane, pair, geom_stage(p, lane, pair, smem, true),
+                          n0, min(n0 + p.per_block, p.B), p.centers,
+                          p.widths, p.out0, p.out1, p.out2);
 }
 
 __global__ void geom_bounds_kernel(GeomParams p) {

@@ -53,6 +53,7 @@ from goicp_tpu_torch.geom.rotation import rodrigues
 from goicp_tpu_torch.icp.icp import icp_run
 from goicp_tpu_torch.pipeline.prepare import PairData
 from goicp_tpu_torch.search import transition
+from goicp_tpu_torch.search.args import TransitionBuffers
 from goicp_tpu_torch.search.inner import InnerResult, inner_bnb
 
 INF = float("inf")
@@ -208,7 +209,7 @@ def _pop(pair: PairData, cfg: GoICPConfig, s: dict, min_lb=None,
     convergence is tested on (None: the frontier's own minimum; the
     sharded engine passes the minimum over every rank's frontier).  Also
     the rest of the frontier (fr_lbs, fr_nodes: views of s's).  bufs: the
-    run's transition.TransitionBuffers, whose two sets the pop's outputs
+    run's search/args.py TransitionBuffers, whose two sets the pop's outputs
     come from in turn."""
     pb, tabs = _one_row(pair, cfg)
     p = transition.advance("pop", cfg, pb, _as_row(s), [0], tables=tabs,
@@ -268,7 +269,7 @@ def _make_body(pair: PairData, cfg: GoICPConfig, mesh=None):
     L = cfg.rot_batch * 8
     # the run's transition and inner-run outputs, two sets used in turn,
     # and its argument blocks
-    bufs = transition.TransitionBuffers()
+    bufs = TransitionBuffers()
 
     def inner(p, inc, with_rot_uncertainty, fused, lanes0, mrd):
         """(InnerResult, its final lanes; None over a mesh: lb_safe
@@ -430,7 +431,7 @@ def _batch_step(pairs: list, pair_batch: PairData, cfg: GoICPConfig,
     that improved and did not converge, and one adoption of every
     stepping row, written into `s`.  Rows not in `rows` keep their
     state.  p: the run's B-row pop outputs (transition.outputs), written
-    at the stepping rows; bufs: the run's transition.TransitionBuffers
+    at the stepping rows; bufs: the run's search/args.py TransitionBuffers
     (the harvest's and the inner run's outputs from its two sets in turn,
     and the calls' argument blocks)."""
     from goicp_tpu_torch.search import fused_stream as fs
@@ -490,7 +491,7 @@ def batch_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
     tables = fs._window_tables(pair_batch, cfg, cfg.rot_batch * 8)
     pop = transition.outputs("pop", cfg, B, pair_batch.n_data_padded,
                              pair_batch.device)
-    bufs = transition.TransitionBuffers()
+    bufs = TransitionBuffers()
     while True:
         conv = s["converged"].cpu().numpy()
         rows = np.nonzero(~conv & (its < limit))[0]

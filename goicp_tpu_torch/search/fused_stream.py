@@ -71,6 +71,7 @@ from goicp_tpu_torch.search.device_engine import (DeviceResult,
                                                   _initial_incumbent,
                                                   result_to_numpy)
 from goicp_tpu_torch.search import transition
+from goicp_tpu_torch.search.args import TransitionBuffers
 from goicp_tpu_torch.search.inner import (_COUNTERS, _PER_LANE,
                                           _chem_active, inner_iteration,
                                           inner_loop, inner_run_plain,
@@ -241,7 +242,7 @@ def _inner_run(pair_batch: PairData, cfg: GoICPConfig, s: dict, tables,
     the torch body.  `s` is not written.  Returns (the new inner state
     with its counters, the iterations run: an int, or a 0-d int32 tensor
     on the card, where the whole run is one launch of csrc/inner.cu).
-    bufs: the loop's transition.TransitionBuffers, whose two allocations
+    bufs: the loop's search/args.py TransitionBuffers, whose two allocations
     the run's outputs then come from in turn (inner.inner_run)."""
     ist = s["inner"]
     W, L = ist["done"].shape
@@ -314,7 +315,7 @@ def _transition_batch(pair_batch: PairData, cfg: GoICPConfig, s: dict,
     returned; else `s` is left as it was and the rows' new states are
     returned as one state of len(rows) rows, in order (`s` then only
     needs s[k][r] to be row r's value).  bufs: the loop's
-    transition.TransitionBuffers (the harvest's outputs from its two sets
+    search/args.py TransitionBuffers (the harvest's outputs from its two sets
     in turn, and the calls' argument blocks, re-checked only where the
     window's tensors changed)."""
     counters["transitions"] += 1
@@ -375,7 +376,7 @@ def fused_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
     W, L = s["inner"]["done"].shape
     K = _trans_budget(cfg, W)
     tables = _window_tables(pair_batch, cfg, L)
-    bufs = transition.TransitionBuffers()
+    bufs = TransitionBuffers()
     fin0 = fin0_dev = None
     g = 0
     n = 0          # the global iterations of the last inner run

@@ -11,13 +11,15 @@ folding the minimum lb of dropped nodes into the returned lower bound.
 
 The JAX package's lax.while_loops run on the card here too: inner_run is
 ONE launch of csrc/inner.cu (goicp_inner_run) that iterates until the
-search ends, with no host read in between (a lane a thread-block cluster,
-a grid barrier between iterations).  Its plain twin inner_run_plain is
-the Python loop that reads the predicate on the host once per iteration,
-with the staged lane compaction (L -> L/2 -> L/4: the still-active lanes
-gathered into a narrower batch, which changes no lane's trajectory); the
-kernel leaves the lanes in place and keeps only the compaction's trace
-in the chem_corners counter.  Lanes that finished keep their state.
+search ends, with no host read in between (a lane a thread-block cluster
+that keeps the lane's state in shared memory; no grid barrier in modes
+search and groups, an arrival count a global iteration in mode stream).
+Its plain twin inner_run_plain is the Python loop that reads the
+predicate on the host once per iteration, with the staged lane
+compaction (L -> L/2 -> L/4: the still-active lanes gathered into a
+narrower batch, which changes no lane's trajectory); the kernel leaves
+the lanes in place and keeps only the compaction's trace in the
+chem_corners counter.  Lanes that finished keep their state.
 
 Two knobs change how an iteration does its work, never what it finds:
 cfg.sorted_merge re-inserts the children by a rank merge against the
@@ -60,6 +62,7 @@ from goicp_tpu_torch.bounds.evaluate import (_CHILD_CORNER_TO_LATTICE,
                                              one_pair_tables, only_incomp,
                                              rot_uncertainty)
 from goicp_tpu_torch.pipeline.prepare import PairData
+from goicp_tpu_torch.search.args import TransitionArgs, _call_block
 from goicp_tpu_torch.utils.fp32 import _launch, _ptr, _stream, kernels
 
 INF = float("inf")
@@ -894,6 +897,8 @@ class RunResult(NamedTuple):
     counters: dict             # it, evals, geom_surv, chem_corners (groups,)
     iters: object              # an int (plain), a 0-d int32 tensor (kernel)
     clusters: object = None    # the kernel's grid in clusters (0-d int32)
+    resident: object = None    # the lanes whose state stayed in a
+                               # cluster's shared memory (0-d int32)
 
 
 def _complete(cfg: GoICPConfig, lanes: dict, cnt: dict,
@@ -961,35 +966,71 @@ def inner_run_plain(pair, cfg: GoICPConfig, lanes: dict, pts, mrd,
     return RunResult(lanes, cnt, n)
 
 
+_LANE_FIELDS = ("nodes", "lbs", "cvals", "opt_err", "thr", "best_node",
+                "ub_terms", "min_dropped", "done")
+
+
 def _run_outputs(lanes: dict, L: int, C: int, reuse: bool, groups: int,
                  pts) -> dict:
     """One allocation for a run: the output sets A (returned) and B, each
     the float fields packed and done, and the int32 words (counters
-    (4, groups), info (4), the barrier's 4, frozen (L), lane stats (2 L),
-    live_next (groups)).  -> out (A's fields shaped as `lanes`), sets (A's
-    and B's pointers), ints, and the RunResult's views of the words: cnt,
-    iters, clusters."""
+    (4, groups), info (4), the sync words (4), then L each of frozen,
+    lane evals, lane survivors, lane steps and done iterations), zeroed
+    here (on the card by a memset, not a kernel): the kernel leaves its
+    sync words zero.  -> out (A's fields shaped as `lanes`), b (B's,
+    flat), ints, and the RunResult's views of the words: cnt, iters,
+    clusters, resident."""
     sizes = (L * C * 4, L * C, L * C * 8 if reuse else 0, L, L, L * 4,
              L * 3, L)
     F = sum(sizes)
-    n_int = 4 * groups + 8 + 3 * L + groups
+    n_int = 4 * groups + 8 + 5 * L
     buf = pts.new_empty(2 * F + n_int + (2 * L + 3) // 4)
     ints = buf[2 * F:2 * F + n_int].view(torch.int32)
+    if ints.is_cuda:      # a memset, no kernel launch
+        _launch(kernels.goicp_zero_words(ints.data_ptr(), 4 * n_int,
+                                         _stream(pts)), "inner_run zero")
+    else:
+        ints.zero_()
     dones = buf[2 * F + n_int:].view(torch.uint8)[:2 * L].view(torch.bool)
-    names = ("nodes", "lbs", "cvals", "opt_err", "thr", "best_node",
-             "ub_terms", "min_dropped")
     sets = []
     for i in (0, 1):
         o = buf[i * F:(i + 1) * F].split(sizes)
-        sets.append([x.data_ptr() for x in o]
-                    + [dones[i * L:(i + 1) * L].data_ptr()])
-        if i == 0:
-            out = {k: v.view(lanes[k].shape) for k, v in zip(names, o)
-                   if k in lanes}
-            out["done"] = dones[:L].view(lanes["done"].shape)
-    return dict(out=out, sets=sets, ints=ints,
+        sets.append(dict(zip(_LANE_FIELDS, o), done=dones[i * L:(i + 1) * L]))
+    lead = lanes["done"].shape
+    shapes = dict(nodes=(C, 4), lbs=(C,), cvals=(C, 8), best_node=(4,),
+                  ub_terms=(3,))
+    out = {k: v.view(lead + shapes.get(k, ())) for k, v in sets[0].items()
+           if k in lanes}
+    return dict(out=out, b=sets[1], ints=ints,
                 cnt=dict(zip(_COUNTERS, ints[:4 * groups].view(4, groups))),
-                iters=ints[4 * groups], clusters=ints[4 * groups + 2])
+                iters=ints[4 * groups], clusters=ints[4 * groups + 2],
+                resident=ints[4 * groups + 3])
+
+
+def _run_specs(L: int, C: int, nd: int, n_cells: int, S: int, W: int,
+               groups: int, n_int: int) -> tuple:
+    """(name, per-row shape, dtype, rows) of each of goicp_inner_run's
+    pointer slots (csrc/inner.cu): the tables, the input lanes, live,
+    watch, once, the counters in, output sets A and B, the int words."""
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    lane = (((C, 4), f32), ((C,), f32), ((C, 8), f32), ((), f32), ((), f32),
+            ((4,), f32), ((3,), f32), ((), f32), ((), b))
+    return ((("pts", (nd, 3), f32, L), ("mrd", (nd,), f32, L),
+             ("weights", (nd,), f32, W),
+             ("cell_coords", (n_cells, 3), i32, W),
+             ("nearest_cell", (S ** 3,), i32, W), ("consts", (5,), f32, W),
+             ("trim_count", (), f32, W),
+             ("cell_compat", (n_cells, 9), f32, W),
+             ("prop_onehot", (nd, 9), f32, W), ("data_mask", (nd,), f32, W),
+             ("lane_pair", (), i32, L), ("sse", (), f32, W))
+            + tuple((k, shp, dt, L) for k, (shp, dt) in zip(_LANE_FIELDS,
+                                                            lane))
+            + (("live", (), b, groups), ("watch", (), b, groups),
+               ("once", (), b, 1))
+            + tuple((k, (), i32, groups) for k in _COUNTERS)
+            + tuple((f"{s}_{k}", shp, dt, L) for s in ("a", "b")
+                    for k, (shp, dt) in zip(_LANE_FIELDS, lane))
+            + (("ints", (n_int,), i32, 1),))
 
 
 def inner_run(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
@@ -998,9 +1039,9 @@ def inner_run(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
               bufs=None) -> RunResult:
     """The inner iterations of a whole search, or of a stretch of one: on
     CUDA tensors ONE launch of csrc/inner.cu (goicp_inner_run: a lane a
-    thread-block cluster, as many clusters as the card holds at once, a
-    grid barrier between iterations, no host read) or a raise, on CPU
-    tensors inner_run_plain.
+    thread-block cluster holding its state in shared memory, as many
+    clusters as the card holds at once; no grid barrier in modes search
+    and groups; no host read) or a raise, on CPU tensors inner_run_plain.
 
     pair, lanes, pts, mrd, fused: as inner_step's.  The lanes fall in
     `groups` runs of L / groups with counters (groups,) int32 among it /
@@ -1019,22 +1060,27 @@ def inner_run(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
     An iteration counts only the groups that step in it.  Returns
     RunResult: the lanes' fields (new tensors, shaped as `lanes`), the
     counters after the run and the iterations it made (a 0-d int32 tensor
-    on the card); nothing given is written.  Raises on the card for a
-    configuration the kernel does not carry (kernel_carries), shapes past
-    cuda_eval.in_envelope, a pop or capacity whose arrays do not fit a
-    block, and a shape of which not one cluster fits the card: no path
-    falls back to the step or the torch loop."""
+    on the card); nothing given is written.  bufs: the run's
+    search/args.py TransitionBuffers: the outputs come from its two sets
+    in turn (valid until the call after next), the call's argument block
+    (search/args.py TransitionArgs: the tables, lanes and counters
+    checked, re-checked only in the slots that hold a new tensor) is kept
+    there, and the call is one kernel launch; None: new outputs (their
+    sync words zeroed by a memset) and a block built for the call.  Raises
+    on the card for a configuration the kernel does not carry
+    (kernel_carries), shapes past cuda_eval.in_envelope, a wrong slot
+    (naming it), a pop or capacity whose arrays do not fit a block, and a
+    shape of which not one cluster fits the card: no path falls back to
+    the step or the torch loop."""
     if cuda_eval._route(pts) == "cpu":
         return inner_run_plain(pair, cfg, lanes, pts, mrd, fused, mode,
                                live, watch, once, groups, counters, steps)
     t = pair if isinstance(pair, LaneTables) else one_pair_tables(pair, cfg)
-    dev = pts.device
     done = lanes["done"]
     L = done.numel()
     nd = pts.shape[-2]
     W, n_cells = t.cell_coords.shape[:2]
     C = cfg.trans_capacity
-    P = cfg.trans_pop
     chem = _chem_active(cfg)
     reuse = _chem_reuse_active(cfg)
     if not kernel_carries(cfg) or L % groups or mode not in _RUN_MODES:
@@ -1044,39 +1090,47 @@ def inner_run(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
     if mode == "stream" and steps < 1:
         raise ValueError("inner_run: mode stream needs steps >= 1")
     cuda_eval._check_envelope("inner_run", nd, n_cells, t.size)
-    tab = _table_ptrs(t, (L, nd, n_cells, W), chem, dev, None)
     counters = counters or {}
-    items = _lane_items(lanes, pts, mrd, C, reuse)
-    for name, x, n in (("live", live, groups), ("watch", watch, groups),
-                       ("once", once, 1)):
-        if x is not None:
-            items.append((name, x, n, torch.bool))
-    items += [(k, v, groups, torch.int32) for k, v in counters.items()]
-    if not _inputs_ok(items, pts.get_device()):
-        _bad_input(items, dev)
-    if bufs is None:
-        o = _run_outputs(lanes, L, C, reuse, groups, pts)
-    else:
-        _, o = bufs.take(("inner_run", L, C, reuse, groups, done.shape, nd),
-                         lambda: _run_outputs(lanes, L, C, reuse, groups,
-                                              pts),
-                         [*lanes.values(), *counters.values()])
-    out, sets, ints = o["out"], o["sets"], o["ints"]
     widths = _stage_widths(cfg, L) + [0, 0] if mode == "search" else [0] * 3
+    ints = (L, C, cfg.trans_pop, L // groups, nd, n_cells, t.size,
+            cfg.norm, int(fused), t.trim_k, int(reuse),
+            int(cfg.sorted_merge), _RUN_MODES[mode], cfg.inner_max_iters,
+            int(steps), widths[1], widths[2])
+    ins = (pts, mrd, t.weights, t.cell_coords, t.nearest_cell, t.consts,
+           t.trim_count, t.cell_compat if chem else None,
+           t.prop_onehot if chem else None, t.data_mask if chem else None,
+           t.lane_pair, t.sse) \
+        + tuple(lanes.get(k) if k != "cvals" or reuse else None
+                for k in _LANE_FIELDS) \
+        + (live, watch, once) + tuple(counters.get(k) for k in _COUNTERS)
+    n_int = 4 * groups + 8 + 5 * L
+
+    def outs(o):
+        a = o["out"]
+        return tuple(a.get(k) if k != "cvals" or reuse else None
+                     for k in _LANE_FIELDS) \
+            + tuple(o["b"][k] if k != "cvals" or reuse else None
+                    for k in _LANE_FIELDS) + (o["ints"],)
+
+    def make(tensors):
+        return TransitionArgs(
+            _run_specs(L, C, nd, n_cells, t.size, W, groups, n_int),
+            tensors, len(ins), pts.device, ints, who="inner_run")
+
+    # the block is kept for the shapes its slots were checked for; its
+    # ints (the mode, a stream's steps left) are written each call
+    o, blk = _call_block(
+        bufs, ("inner_run", L, C, reuse, groups, done.shape, nd, n_cells,
+               t.size, W),
+        lambda: _run_outputs(lanes, L, C, reuse, groups, pts), ins, outs,
+        make)
+    blk.ints[:] = ints
     _launch(kernels.goicp_inner_run(
-        pts.data_ptr(), _ptr(mrd), *tab, lanes["nodes"].data_ptr(),
-        lanes["lbs"].data_ptr(), _ptr(lanes["cvals"]) if reuse else None,
-        lanes["opt_err"].data_ptr(), lanes["thr"].data_ptr(),
-        lanes["best_node"].data_ptr(), lanes["ub_terms"].data_ptr(),
-        lanes["min_dropped"].data_ptr(), done.data_ptr(), _ptr(live),
-        _ptr(watch), _ptr(once), *(_ptr(counters.get(k)) for k in _COUNTERS),
-        *sets[0], *sets[1], ints.data_ptr(), L, C, P, L // groups, nd,
-        n_cells, t.size, cfg.norm, int(fused), t.trim_k, int(reuse),
-        int(cfg.sorted_merge), _RUN_MODES[mode], cfg.inner_max_iters,
-        int(steps), widths[1], widths[2], float(cfg.regularization),
-        _stream(pts)), "inner_run")
+        blk.ptrs, len(blk.ptrs), blk.ints, len(blk.ints),
+        float(cfg.regularization), _stream(pts)), "inner_run")
     inner_run.launches += 1
-    return RunResult(out, o["cnt"], o["iters"], o["clusters"])
+    return RunResult(o["out"], o["cnt"], o["iters"], o["clusters"],
+                     o["resident"])
 
 
 inner_run.launches = 0

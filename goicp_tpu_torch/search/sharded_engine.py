@@ -41,9 +41,9 @@ from goicp_tpu_torch.pipeline.prepare import PairData
 from goicp_tpu_torch.search.device_engine import (DeviceResult,
                                                   _icp_best_of_seeds, _pop,
                                                   device_init)
+from goicp_tpu_torch.search.args import TransitionBuffers
 from goicp_tpu_torch.search.inner import inner_bnb
-from goicp_tpu_torch.search.transition import (TransitionBuffers,
-                                               _merge_children)
+from goicp_tpu_torch.search.transition import _merge_children
 
 INF = float("inf")
 AXIS = "search"

@@ -343,9 +343,9 @@ def card():
     return torch.device("cuda")
 
 
-def _card_pair(card, cfg):
-    """A pair prepared by the port itself on the card (no JAX), 8 rotated
-    lanes and their rotation uncertainty."""
+def _card_pair(card, cfg, lanes=8):
+    """A pair prepared by the port itself on the card (no JAX), `lanes`
+    rotated lanes and their rotation uncertainty."""
     from goicp_tpu_torch.geom.rotation import rodrigues_np
     from goicp_tpu_torch.pipeline.prepare import prepare_pair
     rng = np.random.default_rng(3)
@@ -354,11 +354,12 @@ def _card_pair(card, cfg):
     props = rng.integers(0, 9, size=48).astype(np.int32)
     pair = prepare_pair(src, tgt, props[:40], props, cfg, pad_data_to=64,
                         device=card)
-    rots = np.stack([rodrigues_np(v) for v in rng.uniform(-2, 2, (8, 3))])
+    rots = np.stack([rodrigues_np(v)
+                     for v in rng.uniform(-2, 2, (lanes, 3))])
     pts = torch.as_tensor(np.einsum("lij,nj->lni", rots,
                                     pair.data.cpu().numpy()),
                           dtype=torch.float32, device=card).contiguous()
-    mrd = rot_uncertainty(torch.as_tensor(rng.uniform(0.2, 1.2, 8),
+    mrd = rot_uncertainty(torch.as_tensor(rng.uniform(0.2, 1.2, lanes),
                                           dtype=torch.float32, device=card),
                           pair.norm_data)
     return pair, pts, mrd
@@ -378,16 +379,25 @@ def test_kernel_refuses_what_it_does_not_carry(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("over", [{}, dict(sorted_merge=1),
-                                  dict(inner_max_iters=5)])
-def test_kernel_equals_plain_run(card, over):
+@pytest.mark.parametrize("over,n_lanes,mode", [
+    ({}, 8, "search"), (dict(sorted_merge=1), 8, "search"),
+    (dict(inner_max_iters=5), 8, "search"),
+    # more lanes than the card holds clusters at once: in mode search a
+    # cluster takes one lane after another, in mode stream they stride
+    ({}, 256, "search"), ({}, 256, "stream")])
+def test_kernel_equals_plain_run(card, over, n_lanes, mode):
     cfg = tconfig.GoICPConfig(**{**BASE, **over})
-    pair, pts, mrd = _card_pair(card, cfg)
-    lanes = tinner.initial_lanes(pair, cfg, pts, torch.as_tensor(
-        ACTIVE, device=card), torch.tensor(INC, device=card))
-    got = tinner.inner_run(pair, cfg, lanes, pts, mrd, True, "search")
-    want = tinner.inner_run_plain(pair, cfg, lanes, pts, mrd, True, "search")
-    assert int(got.iters) == want.iters
+    pair, pts, mrd = _card_pair(card, cfg, n_lanes)
+    active = torch.as_tensor(np.resize(ACTIVE, n_lanes), device=card)
+    lanes = tinner.initial_lanes(pair, cfg, pts, active,
+                                 torch.tensor(INC, device=card))
+    kw = dict(groups=2, steps=40) if mode == "stream" else {}
+    got = tinner.inner_run(pair, cfg, lanes, pts, mrd, True, mode, **kw)
+    want = tinner.inner_run_plain(pair, cfg, lanes, pts, mrd, True, mode,
+                                  **kw)
+    if n_lanes > 8:
+        assert int(got.clusters) < n_lanes
+    assert int(got.iters) == int(want.iters)
     for k, w in want.counters.items():
         assert torch.equal(got.counters[k].cpu(), w.cpu()), k
     for k, w in want.lanes.items():

@@ -193,10 +193,13 @@ def test_two_pairs_interleaved_match_jax_per_pair():
 
 def _nan_inf_state(cfg, jp, pts_np, widths, merge):
     """A mid-search state with built NaN and INF lbs: the frontier's last
-    finite entries of two lanes NaN and INF (sorted for either merge: NaN
-    ranks as +inf there), a popped parent's lb NaN in a third, and one
-    stored corner of a popped parent NaN in a fourth, so that children's
-    ub and lb are NaN and adoption takes a NaN."""
+    finite entries of two lanes NaN and INF, a popped parent's lb NaN in a
+    third, and one stored corner of a popped parent NaN in a fourth, so
+    that children's ub and lb are NaN and adoption takes a NaN.  The
+    frontier past the pop stays in the merge's order, as every merge leaves
+    it (the kernel's precondition): NaN ranks as +inf under sorted_merge 1,
+    after +inf under sorted_merge 0, where the NaN entries are the rows'
+    tails."""
     tcfg = dataclasses.replace(_port_cfg(cfg), sorted_merge=merge)
     tp = pair_from_jax(jp, "cpu")
     pts = torch.as_tensor(pts_np)
@@ -207,10 +210,19 @@ def _nan_inf_state(cfg, jp, pts_np, widths, merge):
     lbs = s["lbs"].clone()
     finite = torch.isfinite(lbs).sum(dim=1)
     assert int(finite.min()) > cfg.trans_pop + 2
-    lbs[0, int(finite[0]) - 1] = float("nan")
+    if merge:
+        lbs[0, int(finite[0]) - 1] = float("nan")
+        lbs[1, int(finite[1])] = float("nan")
+    else:
+        lbs[0, int(finite[0]) - 1:] = float("nan")
+        lbs[1, -1] = float("nan")
     lbs[0, int(finite[0]) - 2] = float("inf")
     lbs[1, int(finite[1]) - 1] = float("inf")
-    lbs[1, int(finite[1])] = float("nan")
+    rest = lbs[:, cfg.trans_pop:]
+    nan = torch.isnan(rest)
+    key = torch.where(nan, float("inf"), rest)
+    assert bool((key[:, 1:] >= key[:, :-1]).all())
+    assert merge or bool((nan[:, :-1] <= nan[:, 1:]).all())
     lbs[3, 1] = float("nan")
     cv = s["cvals"].clone()
     cv[4, 0, 3] = float("nan")

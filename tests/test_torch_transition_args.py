@@ -28,6 +28,7 @@ from goicp_tpu_torch.dist.mesh import stack_pairs
 from goicp_tpu_torch.search import device_engine as eng
 from goicp_tpu_torch.search import fused_stream as fs
 from goicp_tpu_torch.search import transition as tr
+from goicp_tpu_torch.search.args import TransitionBuffers, _leaves
 
 # small torch ops in a loop: intra-op threads only contend with the
 # parallel test workers (see test_torch_device_engine.py)
@@ -105,7 +106,7 @@ def test_block_reused_for_the_same_tensors_and_rebuilt_for_a_new_one(
         window, kernel_route):
     cfg, pb, s, tabs = window
     s = fs._map_state(torch.clone, s)
-    bufs = tr.TransitionBuffers()
+    bufs = TransitionBuffers()
     rows = [0, 1]
     for _ in range(4):          # both output sets, twice each
         h = tr.harvest(cfg, s, rows, bufs=bufs)
@@ -143,7 +144,7 @@ def test_block_raises_naming_the_slot(window, kernel_route, bad):
     cfg, pb, s, tabs = window
     s = fs._map_state(torch.clone, s)
     rows = [0, 1]
-    bufs = tr.TransitionBuffers()
+    bufs = TransitionBuffers()
     if bad == "non-contiguous output":
         h = tr.harvest(cfg, s, rows, bufs=bufs)
         out = fs._map_state(torch.clone, s)
@@ -165,7 +166,7 @@ def test_block_raises_naming_the_slot(window, kernel_route, bad):
 
 
 def test_sets_in_turn_never_hold_the_inputs():
-    bufs = tr.TransitionBuffers()
+    bufs = TransitionBuffers()
     made = []
 
     def alloc():
@@ -222,7 +223,7 @@ def test_outputs_start_on_16_bytes_and_odd_frontiers_take_the_torch_code(
     for mode in ("pop", "adopt", "both"):
         for n in (1, 3):
             out = tr.outputs(mode, cfg, n, nd, "cpu")
-            assert all(x.data_ptr() % 16 == 0 for x in tr._leaves(out)), \
+            assert all(x.data_ptr() % 16 == 0 for x in _leaves(out)), \
                 (mode, n)
     assert tr.kernel_carries(cfg) and cfg.device_rot_capacity % 4 == 0
     odd = dataclasses.replace(cfg, device_rot_capacity=130)
