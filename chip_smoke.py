@@ -40,10 +40,14 @@ Phases, each of which fails the script (nonzero exit, no result line):
     torch.matmul.  The ICP kernel (csrc/icp.cu): icp_run, one launch an
     ICP event, held to icp_run_plain on the same card tensors bit for bit
     in R, t, nn_idx, err and iters, on syn07 (4 seeds untrimmed; its
-    padded bucket with row 1 disabled), trm00 (count + dynamic trim; a
-    static trim), the demo's 1000 / 500 points and 4,200 / 4,200 points
-    (the workspace in device memory); kabsch3 held to kabsch_from_H on
-    zero, rank 1, rank 2, reflected and seeded H.  Every
+    padded bucket with row 1 disabled; one row as the fused stream
+    refines it; the 8 initial seeds), trm00 (count + dynamic trim; a
+    static trim), the demo's 1000 / 500 points, 4,200 / 4,200 points (the
+    workspace in device memory) and 165 / 306 and 306 / 306 points (the
+    bench's extremes), each timed an iteration, one launch and no memset
+    an event, and ptxas's stack frame and spills of the ICP kernel 0;
+    kabsch3 held to kabsch_from_H on zero, rank 1, rank 2, reflected and
+    seeded H.  Every
     prepared pair used here has its Grid.nearest_cell, the table the
     kernels trust, held equal to nearest_occupied over all S^3 voxels.
     One more pair is prepared on a 64^3 grid, whose 1 MB table does not
@@ -350,8 +354,6 @@ CHECK_ONLY = ("kabsch3",)   # the ICP kernel's Kabsch alone: phase 2 only
 # chem, phase 11's c-FPFH and neighbour terms)
 IN_STEP = ("geometric_bounds_kernel", "geometric_bounds_kernel_lanes",
            "chem_incomp_kernel_lanes")
-# phase 2's ICP event whose workspace lies in device memory
-BIG_ICP_POINTS, BIG_ICP_ITERS = 4200, 8
 
 
 def ICP_OPS(nd, m):
@@ -465,6 +467,18 @@ def _in_turns(kern, library, n=25):
     k1, l1, l2, k2 = (_median_ms(kern, n), _median_ms(library, n),
                       _median_ms(library, n), _median_ms(kern, n))
     return (k1 + k2) / 2, (l1 + l2) / 2
+
+
+def _alternated(kern, library, rounds=10, n=25):
+    """(kernel medians, library medians): _median_ms of each, alternated
+    kernel, library, library, kernel, ... for `rounds` of each, so that a
+    drift of the clocks or the host weighs on both alike."""
+    ks, ls = [], []
+    for r in range(rounds):
+        pair = ((kern, ks), (library, ls))
+        for fn, out in (pair if r % 2 == 0 else pair[::-1]):
+            out.append(_median_ms(fn, n))
+    return ks, ls
 
 
 def _same_bits(got, want):
@@ -1733,7 +1747,8 @@ def _product_checks(kernels, cfg, pools, dev, floor):
         k.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
                  graph_ms=dms, library_ms=lms)
         shapes = " x ".join(str(tuple(a.shape)) for a in args)
-        lib = "none" if lms is None else f"{lms:.4f} ms (in turns)"
+        how = "alternated" if name == "norm3" else "in turns"
+        lib = "none" if lms is None else f"{lms:.4f} ms ({how})"
         print(f"{name}: {shapes}: max_abs_err={err:.3g} (bit for bit) "
               f"kernel {ms:.4f} ms (from a graph {dms:.4f} ms) plain "
               f"{pms:.4f} ms library {lib} bound {bms:.6f} ms ({bby}) "
@@ -1818,6 +1833,12 @@ def _fused_checks(kernels, cfg, pools, dev, floor):
             sin_cos = _median_ms(lambda: (torch.sin(angles),
                                           torch.cos(angles)))
             extra = f"; torch.sin + torch.cos {sin_cos:.4f} ms"
+        elif name == "norm3":
+            ks, ls = _alternated(kern, library)
+            ms, lms = statistics.median(ks), statistics.median(ls)
+            extra = (f"; alternated x{len(ks)}: norm3 median {ms:.4f} ms "
+                     f"[{min(ks):.4f}-{max(ks):.4f}], vector_norm median "
+                     f"{lms:.4f} ms [{min(ls):.4f}-{max(ls):.4f}]")
         else:
             ms, lms = _in_turns(kern, library)
             extra = ""
@@ -1829,7 +1850,8 @@ def _fused_checks(kernels, cfg, pools, dev, floor):
             seen.add(name)
             k.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
                      graph_ms=dms, library_ms=lms)
-        lib = "none" if lms is None else f"{lms:.4f} ms (in turns)"
+        how = "alternated" if name == "norm3" else "in turns"
+        lib = "none" if lms is None else f"{lms:.4f} ms ({how})"
         print(f"{name} {label}: max_abs_err={err:.3g} (bit for bit) kernel "
               f"{ms:.4f} ms (from a graph {dms:.4f} ms) plain {pms:.4f} ms "
               f"library {lib}{extra} bound {bms:.6f} ms ({bby}) {floor}",
@@ -2847,79 +2869,41 @@ def _icp_checks(kernels, cfg, cfg_t, pools, dev, floor):
     """Phase 2's check of csrc/icp.cu: icp_run (one launch an ICP event)
     against icp_run_plain (the host loop of torch ops, its sums and
     products launching the fixed-order kernels) on the same card tensors,
-    bit for bit in R, t, nn_idx, err and iters, in every mask mode: syn07
-    with the outer step's 4 seeds untrimmed (its real points) and as the
-    engine calls it on its padded bucket (data_mask and count) with row 1
-    disabled, trm00 with count + dynamic_trim and with a static trim, the
-    demo's 1000 / 500 points, and one row of 4,200 / 4,200 points, whose
-    workspace does not fit shared memory and lies in device memory.  Then
-    kabsch3 against kabsch_from_H on degenerate H (zero, rank 1, rank 2,
-    a reflection) and seeded ones.  syn07's untrimmed event is timed both
-    ways (the kernels line's numbers); no one PyTorch call computes
-    either function."""
+    bit for bit in R, t, nn_idx, err and iters, in every mask mode, on
+    bench/icp_stops.py's events: syn07 with the outer step's 4 seeds
+    untrimmed (its real points) and as the engine calls it on its padded
+    bucket (data_mask and count) with row 1 disabled, trm00 with count +
+    dynamic_trim and with a static trim, the demo's 1000 / 500 points, one
+    row of 4,200 / 4,200 points, whose workspace does not fit shared
+    memory and lies in device memory, syn07's bucket as the fused stream
+    refines one row (K = 1) and from the 8 initial seeds (K = 8), and 165
+    / 306 and 306 / 306 points (the bench's smallest and largest clouds).
+    Each event's time an iteration is its graph_ms over its longest row's
+    iterations.  syn07's untrimmed event is also timed as the plain loop
+    (the kernels line's numbers; no one PyTorch call computes either
+    function) and shown to be one launch and no memset.  ptxas's stack
+    frame and spills of the ICP kernel are 0.  Then kabsch3 against
+    kabsch_from_H on degenerate H (zero, rank 1, rank 2, a reflection) and
+    seeded ones."""
     import numpy as np
     import torch
+    from goicp_tpu_torch import _build
+    from goicp_tpu_torch.bench.icp_stops import (BIG_POINTS, icp_events,
+                                                 kernel_info)
     from goicp_tpu_torch.geom.rotation import rodrigues_np
     from goicp_tpu_torch.icp import icp as ticp
-    from goicp_tpu_torch.pipeline.prepare import prepare_pair
-    from goicp_tpu_torch.bench.measure import _normalized_synthetic
     rng = np.random.default_rng(13)
     K = cfg.icp_seeds
-
-    def starts(k):
-        R0 = torch.as_tensor(np.stack([rodrigues_np(v) for v in rng.uniform(
-            -0.3, 0.3, (k, 3))]), dtype=torch.float32, device=dev)
-        t0 = torch.as_tensor(rng.uniform(-0.05, 0.05, (k, 3)),
-                             dtype=torch.float32, device=dev)
-        return R0, t0
-
-    def engine_kw(pair, c):
-        """icp_run's keywords as the engine passes them (device_engine.
-        _icp_from)."""
-        return dict(inlier_num=pair.inlier_num, max_iter=c.icp_max_iter,
-                    err_diff=c.err_diff,
-                    data_mask=pair.data_mask if pair.padded else None,
-                    count=pair.inlier_f() if pair.dynamic_counts else None,
-                    dynamic_trim=pair.dynamic_counts and c.doTrim)
-
-    syn07 = _prepared("syn07", cfg, pools, dev)
-    real07 = syn07.data[syn07.data_mask > 0].contiguous()
-    trm00 = _prepared("trm00", cfg_t, pools, dev)
-    static00 = prepare_pair(*_normalized_synthetic(pools["trm00"]), cfg_t,
-                            bucket=True, device=dev)
-    demo_model = rng.uniform(-0.7, 0.7, (DEMO_POINTS[0], 3))
-    demo_data = (demo_model[:DEMO_POINTS[1]] - rng.uniform(-0.1, 0.1, 3)) \
-        @ rodrigues_np(rng.uniform(-0.3, 0.3, 3))
-    big = rng.uniform(-0.7, 0.7, (BIG_ICP_POINTS, 3))
-    big_data = (big - 0.01) @ rodrigues_np(np.array([0.02, -0.01, 0.03]))
     f32 = dict(dtype=torch.float32, device=dev)
-    R4, t4 = starts(K)
-    cases = [
-        ("syn07, 4 seeds, untrimmed", real07, syn07.model, R4, t4,
-         dict(inlier_num=real07.shape[0], max_iter=cfg.icp_max_iter,
-              err_diff=cfg.err_diff)),
-        ("syn07 padded bucket (data_mask, count), row 1 disabled",
-         syn07.data, syn07.model, *starts(K),
-         dict(engine_kw(syn07, cfg), enabled=torch.tensor(
-             [True, False, True, True][:K], device=dev))),
-        ("trm00 count + dynamic_trim", trm00.data, trm00.model, *starts(K),
-         engine_kw(trm00, cfg_t)),
-        ("trm00 static trim", static00.data, static00.model, *starts(K),
-         engine_kw(static00, cfg_t)),
-        (f"demo {DEMO_POINTS[0]} / {DEMO_POINTS[1]} points",
-         torch.as_tensor(demo_data, **f32), torch.as_tensor(demo_model, **f32),
-         *starts(K), dict(inlier_num=DEMO_POINTS[1], max_iter=cfg.icp_max_iter,
-                          err_diff=cfg.err_diff)),
-        (f"{BIG_ICP_POINTS} / {BIG_ICP_POINTS} points, workspace in device "
-         f"memory", torch.as_tensor(big_data, **f32),
-         torch.as_tensor(big, **f32), *starts(1),
-         dict(inlier_num=BIG_ICP_POINTS, max_iter=BIG_ICP_ITERS,
-              err_diff=cfg.err_diff)),
-    ]
-    _require(static00.inlier_num < static00.n_data
-             and not static00.dynamic_counts, "trm00 with a static trim")
-    _require(4 * (10 + 4) * BIG_ICP_POINTS > ticp.ICP_SMEM_BYTES,
-             "the last event's workspace does not fit shared memory")
+    info = kernel_info(_build.build_info.get("log", ""))
+    _require(info, "ptxas's report for the ICP kernel is in the build's "
+             "log (kept beside the library, read back when it is cached)")
+    _require(any("0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                 "spill loads" in x for x in info),
+             f"the ICP kernel has no stack frame and no spills: {info}")
+    cases = icp_events(cfg, cfg_t, pools, dev)
+    _require(4 * (10 + 4) * BIG_POINTS > ticp.ICP_SMEM_BYTES,
+             "the 4,200-point event's workspace does not fit shared memory")
     k = kernels["icp_run"]
     for i, (label, data, model, R0, t0, kw) in enumerate(cases):
         nd, m = data.shape[0], model.shape[0]
@@ -2944,18 +2928,27 @@ def _icp_checks(kernels, cfg, cfg_t, pools, dev, floor):
                              kw.get("data_mask"), kw.get("dynamic_trim",
                                                          False))
         ms, dms = _median_ms(kern, n=7), _device_ms(kern, n=5, reps=3)
+        longest = max(1, int(got.iters.max()))
         bms, bby = _icp_bound(got, nd, m, mode,
                               [data, model, R0, t0, kw.get("data_mask")])
-        times = f"kernel {ms:.4f} ms (from a graph {dms:.4f} ms)"
+        times = (f"kernel {ms:.4f} ms (from a graph {dms:.4f} ms, "
+                 f"{dms / longest * 1e3:.3f} us an iteration of the longest "
+                 f"row)")
         if i == 0:
             pms = _median_ms(plain, n=5)
             k.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
                      graph_ms=dms, library_ms=None)
             times += f" plain {pms:.4f} ms"
+            launches, memsets = _launches_memsets(kern)
+            _require(launches == 1 and memsets == 0,
+                     f"icp_run is one launch and no memset an event "
+                     f"({launches}, {memsets})")
+            times += f"; {launches:g} launch, {memsets:g} memsets a call"
         print(f"icp_run {label}: Nd={nd} M={m} K={R0.shape[0]} mode {mode} "
               f"iters {got.iters.tolist()}: max_abs_err={err:.3g} (bit for "
               f"bit) {times} bound {bms:.6f} ms ({bby}) library none "
               f"{floor}", flush=True)
+    print(f"icp_run kernel (ptxas): {info}", flush=True)
 
     # the Kabsch alone, on degenerate and seeded H
     H = [np.zeros((3, 3)), np.outer(rng.normal(size=3), rng.normal(size=3)),
@@ -3177,7 +3170,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {kind}", flush=True)
     t0 = time.perf_counter()
-    _build.library(ptxas_verbose=True)
+    _build.library()
     print(f"build: {time.perf_counter() - t0:.3f} s "
           f"({_build.build_info['path']})", flush=True)
     for line in _build.build_info["log"].splitlines():

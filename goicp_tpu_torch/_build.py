@@ -28,6 +28,9 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+# ptxas's report (registers, stack frame, spills per kernel) in every
+# kernel build's log
+PTXAS_LOG = ("-Xptxas", "-v")
 
 HOST_SRC = _PKG / "native"
 HOST_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-shared", "-Wall")
@@ -114,11 +117,12 @@ def _compile(compiler: str, flags: tuple, sources: list, stem: str,
              log_flags: tuple = ()):
     """Compile sources into BUILD_DIR/<stem>_<hash of flags and sources>.so
     unless it is there.  log_flags only add to the compiler's log (the
-    same library, so not hashed).  Returns (path, compiler log); the log is
-    empty when the library was already built.  Processes that build at
-    once (the ranks of a multi-GPU run) take turns under a file lock, so
-    one builds and the others load its library; the lock goes with its
-    process."""
+    same library, so not hashed).  Returns (path, compiler log): the log
+    is kept beside the library (<name>.so.log) and read back when the
+    library was already built; a library without its log is built again.
+    Processes that build at once (the ranks of a multi-GPU run) take turns
+    under a file lock, so one builds and the others load its library; the
+    lock goes with its process."""
     h = hashlib.sha256(" ".join(flags).encode())
     for path in sources:
         h.update(path.name.encode())
@@ -149,9 +153,10 @@ def _run(cmds: list) -> str:
 def _compile_locked(compiler: str, flags: tuple, sources: list,
                     out: pathlib.Path) -> str:
     """Compile every source into an object file, all at once (one compiler
-    process each), then link them into `out`."""
-    if out.exists():
-        return ""
+    process each), then link them into `out`; the log beside it."""
+    log_path = out.with_name(f"{out.name}.log")
+    if out.exists() and log_path.exists():
+        return log_path.read_text()
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     units = [p for p in sources if p.suffix in (".cu", ".cpp")]
     objs = [tmp.with_name(f"{tmp.name}.{p.name}.o") for p in units]
@@ -160,6 +165,7 @@ def _compile_locked(compiler: str, flags: tuple, sources: list,
         log = _run([[compiler, *obj_flags, "-c", str(p), "-o", str(o)]
                     for p, o in zip(units, objs)])
         log += _run([[compiler, *flags, "-o", str(tmp), *map(str, objs)]])
+        log_path.write_text(log)
         os.replace(tmp, out)
     finally:
         for o in objs:
@@ -195,29 +201,34 @@ def _declare(lib: ctypes.CDLL, every: bool = True) -> ctypes.CDLL:
 
 
 def variant(sources: tuple, defines: tuple, csrc: pathlib.Path = CSRC,
-            stem: str = "libgoicp_variant") -> ctypes.CDLL:
+            stem: str = "libgoicp_variant",
+            logs: dict | None = None) -> ctypes.CDLL:
     """A library of some of the kernel sources (names in csrc, every header
     of csrc beside them) built with extra `-D` defines, for a measurement
-    that compiles stop points into a kernel (bench/inner_stops.py).  Named
-    by the hash of its sources and flags like library()'s, so a variant is
-    built once; builds of distinct stems may run at once."""
+    that compiles stop points into a kernel (bench/inner_stops.py,
+    bench/icp_stops.py).  Named by the hash of its sources and flags like
+    library()'s, so a variant is built once; builds of distinct stems may
+    run at once.  logs: a dict that gets logs[stem], the build's log with
+    ptxas's report."""
     flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-    out, _ = _compile(_nvcc(), flags, [csrc / n for n in sources]
-                      + sorted(csrc.glob("*.cuh")), stem)
+    out, log = _compile(_nvcc(), flags, [csrc / n for n in sources]
+                        + sorted(csrc.glob("*.cuh")), stem, PTXAS_LOG)
+    if logs is not None:
+        logs[stem] = log
     return _declare(ctypes.CDLL(str(out)), every=False)
 
 
-def library(ptxas_verbose: bool = False) -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed.  ptxas_verbose
-    adds `-Xptxas -v` (registers, shared memory and spills per kernel) to
-    the build, whose log is kept in build_info["log"]."""
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed.  Its build's log,
+    with ptxas's registers, stack frame and spills per kernel, is in
+    build_info["log"]."""
     global _lib
     if _lib is not None:
         return _lib
     t0 = time.perf_counter()
     out, log = _compile(_nvcc(), NVCC_FLAGS, sorted(CSRC.glob("*.cu"))
                         + sorted(CSRC.glob("*.cuh")), "libgoicp_kernels",
-                        ("-Xptxas", "-v") if ptxas_verbose else ())
+                        PTXAS_LOG)
     lib = _declare(ctypes.CDLL(str(out)))
     build_info.update(path=str(out), seconds=time.perf_counter() - t0,
                       log=log)

@@ -2,7 +2,7 @@
 utils/fp32.py on the card, and of each step a launch path is made of.
 
     python goicp_tpu_torch/bench/host_path.py [--calls N] [--json PATH]
-        [--transition-only]
+        [--transition-only | --norm3-only]
 
 Each number is time.perf_counter() around N calls (default 10,000) of one
 thunk and a final torch.cuda.synchronize(), divided by N, in µs: the
@@ -17,7 +17,10 @@ one torch call that computes the same function in another order
 cos take two).  The ladder builds ordered_sum's call up from the bare C
 call one piece at a time, beside the same call made the older way (as
 at commit 90724d7: a lookup per call, c_void_p pointers, a Stream
-object); the steps are the pieces of a launch path, each timed alone.
+object); the norm3 ladder builds norm3's call up the same way, with
+the output shaped by a torch.Size (the wrapper before its host path was
+cut) and by its row count; the steps are the pieces of a launch path,
+each timed alone.  --norm3-only times the norm3 ladder alone.
 
 The transition's wrappers (search/transition.py: harvest; advance in
 modes pop, adopt and both) are timed at the streams' shape (syn02 +
@@ -151,6 +154,62 @@ def ladder(dev, calls: int) -> dict:
             pr10_call,
     }
     return {k: _us(f, calls) for k, f in thunks.items()}
+
+
+def norm3_ladder(dev, calls: int) -> dict:
+    """µs per call of norm3 over the rotation centres' (8, 3) built up
+    from the bare C call one piece of its wrapper at a time (as the
+    wrapper was before its host path was cut: the output shaped by a
+    torch.Size; then by the row count, an int); then, at (8, 3) and at
+    the points' (192, 3), the wrapper itself and torch.linalg.vector_norm,
+    timed in turns (forward, then in reverse: a list of the two)."""
+    from goicp_tpu_torch.utils import fp32
+    v = _inputs(dev)["centers"]
+    o = v.new_empty((8,))
+    fn = fp32.kernels.goicp_norm3
+    pv, po, idx = v.data_ptr(), o.data_ptr(), v.get_device()
+    raw = torch._C._cuda_getCurrentRawStream
+    s = raw(idx)
+
+    def size_output():
+        out = v.new_empty(v.shape[:-1])
+        return fn(pv, out.data_ptr(), out.numel(), raw(idx))
+
+    def int_output():
+        out = v.new_empty(8)
+        return fn(pv, out.data_ptr(), 8, raw(idx))
+
+    def size_wrapper():
+        if not fp32._on_card(v):
+            return None
+        if v.dim() == 0 or v.shape[-1] != 3:
+            raise ValueError
+        w = v.contiguous()
+        out = w.new_empty(w.shape[:-1])
+        rows = out.numel()
+        fp32._launch(fn(w.data_ptr(), out.data_ptr(), rows,
+                        fp32._stream(w)), "norm3")
+        return out
+    thunks = {
+        "1. the C call, its arguments ready": lambda: fn(pv, po, 8, s),
+        "2. + the stream handle read": lambda: fn(pv, po, 8, raw(idx)),
+        "3. + a new output shaped by a torch.Size": size_output,
+        "3'. + a new output shaped by its row count": int_output,
+        "4. + the checks, contiguous(), _launch (the wrapper before)":
+            size_wrapper,
+    }
+    out = {k: _us(f, calls) for k, f in thunks.items()}
+    turns = {}
+    for name, x in (("", v), (" (192, 3)", _inputs(dev)["pts"])):
+        turns.update({
+            f"5. fp32.norm3{name}": lambda x=x: fp32.norm3(x),
+            f"torch.linalg.vector_norm{name}":
+                lambda x=x: torch.linalg.vector_norm(x, dim=-1)})
+    for k in turns:
+        out[k] = []
+    for k in list(turns) + list(turns)[::-1]:
+        out[k].append(_us(turns[k], calls))
+    return out
 
 
 def steps(dev, calls: int) -> dict:
@@ -298,6 +357,8 @@ def main(argv=None) -> int:
     ap.add_argument("--json", help="also write the object to this file")
     ap.add_argument("--transition-only", action="store_true",
                     help="time the transition's wrappers alone")
+    ap.add_argument("--norm3-only", action="store_true",
+                    help="time norm3's ladder alone")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("host_path needs a CUDA device", file=sys.stderr)
@@ -307,9 +368,17 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     out = dict(package=goicp_tpu_torch.__file__, card=card(),
                calls=a.calls)
+    if a.norm3_only:
+        out["norm3_ladder_us"] = norm3_ladder(dev, a.calls)
+        print(json.dumps(out), flush=True)
+        if a.json:
+            with open(a.json, "w") as fh:
+                json.dump(out, fh)
+        return 0
     if not a.transition_only:
         out.update(wrappers_us=wrappers(dev, a.calls),
                    ladder_us=ladder(dev, a.calls),
+                   norm3_ladder_us=norm3_ladder(dev, a.calls),
                    steps_us=steps(dev, a.calls))
     out["transition_us"] = transition(dev)
     print(json.dumps(out), flush=True)

@@ -47,59 +47,16 @@ import argparse
 import concurrent.futures
 import dataclasses
 import json
-import statistics
-import subprocess
 import sys
 import time
+
+from goicp_tpu_torch.bench.probe import card, device_ms, median_ms, setup
 
 STAGES = {1: "done check, pop", 2: "children, corners", 3: "staging",
           4: "geometric body", 5: "chem body", 6: "gather",
           7: "chem terms, adoption", 8: "merge", 99: "full run"}
 STREAM_STEPS = 40
 WARM = 3               # full iterations before the timed runs
-
-
-def _device_ms(fn, n=10, reps=7, warm_s=0.03):
-    """Per-call time of fn from n calls captured into one CUDA graph, the
-    median of reps replays between CUDA events."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < warm_s:
-        graph.replay()
-        torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        graph.replay()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / n)
-    return statistics.median(times)
-
-
-def _median_ms(fn, n=25):
-    """The median of n single calls of fn between CUDA events."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(n):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def _lanes(names, cfg, pools, dev, rng, lanes=8):
@@ -154,16 +111,6 @@ def _lanes(names, cfg, pools, dev, rng, lanes=8):
     return tables, pts, mrd, s, len(pairs)
 
 
-def _card() -> str:
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=30).stdout.strip()
-    except (OSError, subprocess.SubprocessError):
-        return "unknown"
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", default=None)
@@ -180,9 +127,7 @@ def main(argv=None) -> int:
 
     import numpy as np
 
-    import goicp_tpu_torch
     from goicp_tpu_torch import _build
-    from goicp_tpu_torch.bench.measure import (bench_shape, synthetic_pool)
     from goicp_tpu_torch.search import inner
     from goicp_tpu_torch.utils.fp32 import kernels
 
@@ -202,14 +147,13 @@ def main(argv=None) -> int:
             b[1], stem=f"libgoicp_inner_{b[0]}_{b[1].name}"), builds))
     build_s = time.perf_counter() - t0
     dev = torch.device("cuda")
-    cfg = bench_shape(goicp_tpu_torch.GoICPConfig())
-    pools = {e[0]: e for e in synthetic_pool(64, seed=7)}
+    cfg, _, pools = setup()
     rng = np.random.default_rng(2028)
     shapes = {"search": _lanes("syn07", cfg, pools, dev, rng),
               "stream": _lanes(("syn00", "syn01"), cfg, pools, dev, rng),
               "stride": _lanes(tuple(f"syn{i:02d}" for i in range(16)),
                                cfg, pools, dev, rng)}
-    report = dict(card=_card(), torch=torch.__version__, warm=args.warm,
+    report = dict(card=card(), torch=torch.__version__, warm=args.warm,
                   build_s=round(build_s, 1), shapes={})
     for name, (pair, pts, mrd, s, groups) in shapes.items():
         mode = "search" if name == "search" else "stream"
@@ -231,7 +175,7 @@ def main(argv=None) -> int:
             if lib is not None:
                 inner.kernels = lib
             try:
-                ms = _device_ms(lambda: inner.inner_run(
+                ms = device_ms(lambda: inner.inner_run(
                     pair, c, s, pts, mrd, True, mode, **kw_n))
             finally:
                 inner.kernels = kernels
@@ -248,8 +192,8 @@ def main(argv=None) -> int:
                                    **kw, **kw_c)
         has = "bufs" in inspect.signature(inner.inner_run).parameters
         bufs = buffers() if has else None
-        ms_bufs = _median_ms(lambda: call(bufs=bufs)) if has else None
-        ms_call = _median_ms(call)
+        ms_bufs = median_ms(lambda: call(bufs=bufs)) if has else None
+        ms_call = median_ms(call)
         full_ms = rows[-1]["graph_ms"]
         print(f"inner_stops {name}: single calls {ms_bufs} ms with the "
               f"run's buffers (host share "

@@ -12,30 +12,55 @@
 //
 // What bounds it on the H100: latency.  An event of K rows (the ICP
 // seeds, or 1) has K independent loops of up to max_iter iterations, each
-// iteration a chain of dependent steps: ~Nd*M*8 operations of the nearest-
-// neighbour search, 16 fixed-order sums over the points and a serial 3x3
-// Kabsch (a Jacobi SVD of 18 Givens rotations).  The design: one block
-// per row, which loads the two clouds into shared memory once and loops
-// its own iterations until the row stops (converged or max_iter), exactly
-// as each row of the plain loop does (stopped rows keep their state); so
-// an event is one launch and no host read.  Clouds too large for shared
-// memory (10 Nd + 4 M words above 227 KB) take a per-block workspace in
-// device memory from the wrapper instead; the code is the same.
+// iteration a chain of dependent steps: ~Nd*M*9 operations of the nearest-
+// neighbour search, the trimmed modes' stable ranks (~Nd^2), 16 fixed-
+// order sums over the points and a serial 3x3 Kabsch (a Jacobi SVD of 18
+// Givens rotations, each a chain of a division, square roots and
+// reciprocals).  The design (bench/icp_stops.py times it stage by stage):
+// a thread-block cluster of C = ceil(Nd / 32) <= 8 blocks per row, which
+// loops the row's iterations until it stops (converged or max_iter),
+// exactly as each row of the plain loop does (stopped rows keep their
+// state); so an event is one launch and no host read.  Every block holds
+// the model, |q|^2 and the data in its shared memory and takes a
+// contiguous share of the data points for the nearest-neighbour scan: G
+// threads a point (G the largest power of two <= 32 with G points' worth
+// of threads in the block), thread g scanning the model points j = g (mod
+// G); one thread a point (G = 1, large shares) takes two points at once.
+// Each block sends its points' (d2, NN index) pairs, 8 bytes each, to
+// every block of the cluster through distributed shared memory; while
+// they travel (between the cluster barrier's arrival and its wait) each
+// block rotates all the points for its own sums.  In the trimmed modes the
+// same G threads a point then count the share's stable ranks, and the
+// mask goes to every block before a second barrier (ranking all the
+// points in every block instead took 5 us an iteration more on trm00).
+// Then every block holds the whole arrays and forms the 16 sums and the
+// Kabsch alike, so the row's state is the same in every block with no
+// further exchange.  The pairs are kept in two copies used in turn, so a
+// block that runs ahead into the next iteration writes the other copy.
+// Clouds too large for a cluster's shared memory take one block per row
+// (C = 1); too large for that (10 Nd + 4 M words above 227 KB), a per-row
+// workspace in device memory from the wrapper; the code is the same.
 //
 // Every value equals the plain loop's bit for bit, on the card and on the
 // CPU, because each step takes the plain loop's own order:
 //   1. pts = rotate(R, data) + t, each coordinate a dot3_warp;
 //   2. the NN search by sq_dist3's algebra (|p|^2 - 2 p.q) + |q|^2, the
-//      first index of the minimum, then clamp(min=0); 1e12 on padded rows;
+//      first index of the minimum, then clamp(min=0); 1e12 on padded rows:
+//      each of the G threads keeps the first minimum of its model points
+//      (ascending j), and the G partial results combine by (d, j), the
+//      lower index winning ties, which is the serial scan's first minimum
+//      for finite points;
 //   3. the mask in one of four modes (kMode*), the trimmed ones by the
 //      stable rank #{j: d2_j < d2_i} + #{j < i: d2_j == d2_i}, which is the
-//      position in argsort(stable=True);
+//      position in argsort(stable=True) (integer counts, exact in any
+//      order of the G partial counts);
 //   4. err_new, mu_d (3), mu_m (3), then the 9 entries of H: each sum by
-//      one warp in ordered_sum's lanes-32 order (lane t adds terms t,
-//      t+32, ... from +0.0; then common.cuh's xor butterfly);
+//      one warp of a block in ordered_sum's lanes-32 order (lane t adds
+//      terms t, t+32, ... from +0.0; then common.cuh's xor butterfly),
+//      over the whole gathered arrays, never split across blocks;
 //   5. the convergence test (err > 0) & (err - err_new < err_diff cnt);
-//   6. kabsch_from_H (below) on one thread, then t_, R_next and t_next by
-//      matvec3's and matmul3's dot3_warp.
+//   6. kabsch_from_H (below) on one thread, H in registers, then t_,
+//      R_next and t_next by matvec3's and matmul3's dot3_warp.
 // Every product and sum is an explicit round-to-nearest intrinsic (no FMA
 // contraction) except R = V (dU)^T's chain, fp32_order.cuh's dot_fma_step
 // (__fmaf_rn, one rounding a step, as fp32.py's dot_fma); Python scalars
@@ -43,13 +68,42 @@
 // torch rounds them; torch.clamp, sign, amax and argmin keep torch's NaN
 // and signed-zero rules.  The NN search assumes finite points (its
 // argmin does not look for NaN).
+#include <climits>
+#include <cooperative_groups.h>
+
 #include "common.cuh"
 #include "fp32_order.cuh"
+
+namespace cg = cooperative_groups;
+
+// The probe's stop points (bench/icp_stops.py): a build with
+// -DGOICP_ICP_STOP=n ends every iteration after stage n (1 the rotation
+// and the nearest neighbours, 2 the mask, 3 the 7 masked sums, 4 H's 9
+// sums; 5, the convergence test, the Kabsch and the update, is the full
+// kernel), and a row then runs max_iter iterations.  The normal build
+// defines no stop: every stage runs.
+#ifndef GOICP_ICP_STOP
+#define GOICP_ICP_STOP 99
+#endif
+// a stopped iteration's end: count it and go on to the next
+#define ICP_STOP_AFTER(n)                  \
+  if (GOICP_ICP_STOP == (n)) {             \
+    if (tid == 0) {                        \
+      s_it += 1;                           \
+      s_run = s_it < p.max_iter;           \
+    }                                      \
+    __syncthreads();                       \
+    continue;                              \
+  }
 
 namespace goicp {
 
 constexpr int kIcpThreads = 512;
 constexpr int kIcpWarps = kIcpThreads / 32;
+// the blocks of a row: ceil(Nd / kIcpPointsPerBlock), at most
+// kIcpClusterMax (the portable cluster size)
+constexpr int kIcpClusterMax = 8;
+constexpr int kIcpPointsPerBlock = 32;
 constexpr int kKabschThreads = 128;
 // a row's workspace in shared memory, at most: the opt-in limit less the
 // kernel's static shared memory (icp/icp.py::ICP_SMEM_BYTES mirrors it)
@@ -88,21 +142,38 @@ __device__ __forceinline__ int argmin3(const float* v) {
 
 // One Givens rotation of the one-sided Jacobi (icp.py::_jacobi_svd3's
 // rot), zeroing the inner product of columns P and Q of A; applied to A
-// and V.  Row-major 3x3 arrays.
+// and V.  Row-major 3x3 arrays.  The serial chain of the Kabsch: each
+// rotation's tau, root, t and c wait on one another, so the rotation
+// takes the shortest exact form of each (the same bits as the plain
+// version's):
+//   - not safe: t = 0 and c = 1 / sqrt(1 + 0 * 0) = 1, nothing to compute;
+//   - root = sqrt(RN(1 + tau^2)) is |tau| where 1 + tau^2 rounds to
+//     RN(tau^2) and that is finite (sqrt(RN(x^2)) = |x| in binary floating
+//     point), as in the late sweeps, where tau is large;
+//   - c = 1 / sqrt(RN(1 + t^2)) is 1 where 1 + t^2 rounds to 1 (|t| <
+//     2^-12, the late sweeps again).
+// (A quotient 1 / x stays a division: __frcp_rn's chain is the longer on
+// the H100, bench/icp_stops.py's variants show.)
 template <int P, int Q>
 __device__ __forceinline__ void givens(float* A, float* V) {
   const float ap[3] = {A[P], A[3 + P], A[6 + P]};
   const float aq[3] = {A[Q], A[3 + Q], A[6 + Q]};
   const float app = dot3_seq(ap, ap), aqq = dot3_seq(aq, aq),
               apq = dot3_seq(ap, aq);
-  const bool safe = fabsf(apq) > 1e-30f;
-  const float tau =
-      __fdiv_rn(__fsub_rn(aqq, app), safe ? __fmul_rn(2.0f, apq) : 1.0f);
-  const float root = __fsqrt_rn(__fadd_rn(1.0f, __fmul_rn(tau, tau)));
-  const float t =
-      safe ? __fdiv_rn(sign_of(tau), __fadd_rn(fabsf(tau), root)) : 0.0f;
-  const float c =
-      __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(1.0f, __fmul_rn(t, t))));
+  float t = 0.0f, c = 1.0f;
+  if (fabsf(apq) > 1e-30f) {
+    const float tau = __fdiv_rn(__fsub_rn(aqq, app), __fmul_rn(2.0f, apq));
+    const float tau2 = __fmul_rn(tau, tau);
+    const float y = __fadd_rn(1.0f, tau2);
+    float root;
+    if (y == tau2 && tau2 < __int_as_float(0x7f800000))
+      root = fabsf(tau);
+    else
+      root = __fsqrt_rn(y);
+    t = __fdiv_rn(sign_of(tau), __fadd_rn(fabsf(tau), root));
+    const float z = __fadd_rn(1.0f, __fmul_rn(t, t));
+    if (z != 1.0f) c = __fdiv_rn(1.0f, __fsqrt_rn(z));
+  }
   const float s = __fmul_rn(t, c);
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -136,8 +207,10 @@ __device__ __forceinline__ void sort_swap(float* A, float* V, float* sigma) {
 
 // icp.py::kabsch_from_H: R = V D U^T from the Jacobi SVD of H / max|H|,
 // D = diag(1, 1, det(V) det(U)) on the smallest singular value; identity
-// where max|H| is not > 0.  H and R row-major; everything in registers.
-__device__ void kabsch_from_H(const float* H, float* R) {
+// where max|H| is not > 0.  H and R row-major arrays of the caller's
+// registers: inlined, so that no array goes through a stack frame.
+__device__ __forceinline__ void kabsch_from_H(const float (&H)[9],
+                                              float (&R)[9]) {
   float hmax = fabsf(H[0]);           // torch.amax: a NaN wins
 #pragma unroll
   for (int k = 1; k < 9; ++k) {
@@ -148,6 +221,7 @@ __device__ void kabsch_from_H(const float* H, float* R) {
   float A[9], V[9] = {1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
 #pragma unroll
   for (int k = 0; k < 9; ++k) A[k] = __fdiv_rn(H[k], scale);
+#pragma unroll 1
   for (int sweep = 0; sweep < 6; ++sweep) {
     givens<0, 1>(A, V);
     givens<0, 2>(A, V);
@@ -229,12 +303,41 @@ __global__ void kabsch3_kernel(const float* __restrict__ H,
   for (int k = 0; k < 9; ++k) R[9 * b + k] = r[k];
 }
 
-// words of a row's workspace: data, rotated points (3 Nd each), d2, the
-// NN index, the mask, data_mask (Nd each); model (3 M) and |q|^2 (M)
-__host__ __device__ __forceinline__ long long icp_workspace_words(int nd,
-                                                                  int m) {
-  return 10LL * nd + 4LL * m;
+// A block's share of a row's points (C blocks a row) and a row's
+// workspace in words, the same in every block: model (3 M) and |q|^2 (M);
+// data_mask and the mask (Nd each); the data and the rotated points (3 Nd
+// each); then, in one copy for C = 1 and two used in turn for C > 1, each
+// point's (d2, NN index) pair (2 Nd, on 8 bytes: every offset before it
+// is even).  C = 1 is 10 Nd + 4 M words, the size the wrapper checks
+// against ICP_SMEM_BYTES.
+__host__ __device__ __forceinline__ int icp_share(int nd, int c) {
+  return (nd + c - 1) / c;
 }
+
+__host__ __device__ __forceinline__ long long icp_workspace_words(int nd,
+                                                                  int m,
+                                                                  int c) {
+  return 4LL * m + 8LL * nd + (c > 1 ? 2LL : 1LL) * 2LL * nd;
+}
+
+struct IcpParams {
+  const float* data;             // (Nd, 3)
+  const float* model;            // (M, 3)
+  const float* R0;               // (K, 3, 3)
+  const float* t0;               // (K, 3)
+  const float* data_mask;        // (Nd,) or null
+  const float* count;            // a scalar or null
+  const unsigned char* enabled;  // (K,) or null
+  float* workspace;              // K rows' workspaces (C = 1) or null
+  float* R_out;
+  float* t_out;
+  long long* nn_out;
+  float* err_out;
+  int* iters_out;
+  int nd, m, inlier_num, max_iter, mode;
+  int cluster;                   // C, the blocks of a row
+  float err_diff;
+};
 
 // one fixed-order sum over the points by the calling warp: lane t adds
 // term(t), term(t + 32), ... from +0.0, then the xor butterfly
@@ -242,119 +345,228 @@ template <typename Term>
 __device__ __forceinline__ float warp_ordered_sum(int nd, Term term) {
   const int lane = threadIdx.x & 31;
   float acc = 0.0f;
+#pragma unroll 4
   for (int i = lane; i < nd; i += 32) acc = __fadd_rn(acc, term(i));
   return warp_sum(acc);
 }
 
+// where block r of the row keeps the word that lies at x in this block's
+// workspace (x itself for C = 1, whose workspace may be in device memory)
+template <typename T>
+__device__ __forceinline__ T* at_rank(cg::cluster_group& cluster, T* x,
+                                      int r, int c) {
+  return c > 1 ? cluster.map_shared_rank(x, r) : x;
+}
+
+// the cluster's barrier in two halves: the arrival releases this thread's
+// writes (to any block's shared memory), the wait acquires the others'
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// R p + t of one data point, each coordinate a dot3_warp
+__device__ __forceinline__ void rotate_point(const float* R, const float* t,
+                                             const float* x, float* q) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) q[r] = __fadd_rn(dot3_warp(R + 3 * r, x), t[r]);
+}
+
 __global__ void __launch_bounds__(kIcpThreads)
-    icp_run_kernel(const float* __restrict__ data,
-                   const float* __restrict__ model,
-                   const float* __restrict__ R0, const float* __restrict__ t0,
-                   const float* __restrict__ data_mask,
-                   const float* __restrict__ count,
-                   const unsigned char* __restrict__ enabled,
-                   float* __restrict__ workspace, float* __restrict__ R_out,
-                   float* __restrict__ t_out, long long* __restrict__ nn_out,
-                   float* __restrict__ err_out, int* __restrict__ iters_out,
-                   int nd, int m, int inlier_num, int max_iter, int mode,
-                   float err_diff) {
+    icp_run_kernel(const IcpParams p) {
   extern __shared__ float dyn_smem[];
   __shared__ float sR[9], st[3], sums[16];
   __shared__ float s_err;
   __shared__ int s_it, s_run;
-  const int row = blockIdx.x, tid = threadIdx.x, warp = tid >> 5;
-  float* ws = workspace == nullptr
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = p.cluster, nd = p.nd, m = p.m, mode = p.mode;
+  const int rank = c > 1 ? static_cast<int>(cluster.block_rank()) : 0;
+  const int row = blockIdx.x / c, tid = threadIdx.x, warp = tid >> 5;
+  float* ws = p.workspace == nullptr
                   ? dyn_smem
-                  : workspace + row * icp_workspace_words(nd, m);
-  float* s_data = ws;
-  float* s_pts = s_data + 3 * nd;
-  float* s_d2 = s_pts + 3 * nd;
-  int* s_idx = reinterpret_cast<int*>(s_d2 + nd);
-  float* s_mask = reinterpret_cast<float*>(s_idx + nd);
-  float* s_dmask = s_mask + nd;
-  float* s_model = s_dmask + nd;
+                  : p.workspace + row * icp_workspace_words(nd, m, c);
+  float* s_model = ws;
   float* s_qq = s_model + 3 * m;
+  float* s_dmask = s_qq + m;
+  float* s_mask = s_dmask + nd;
+  float* s_data = s_mask + nd;
+  float* s_pts = s_data + 3 * nd;
+  float2* s_pair0 = reinterpret_cast<float2*>(s_pts + 3 * nd);
+  // the block's share of the points: [lo, lo + nb)
+  const int per = icp_share(nd, c), lo = rank * per;
+  const int nb = max(0, min(nd - lo, per));
+  // G threads a point: the largest power of two <= 32 that fits
+  int g_log = 5;
+  while (g_log > 0 && (nb << g_log) > kIcpThreads) --g_log;
+  const int G = 1 << g_log, slots = kIcpThreads >> g_log;
+  const int slot = tid >> g_log, g = tid & (G - 1);
+  const bool trimmed = mode == kModeTrim || mode == kModeDynTrim;
 
-  for (int i = tid; i < 3 * nd; i += kIcpThreads) s_data[i] = __ldg(data + i);
   for (int i = tid; i < 3 * m; i += kIcpThreads)
-    s_model[i] = __ldg(model + i);
+    s_model[i] = __ldg(p.model + i);
+  for (int i = tid; i < 3 * nd; i += kIcpThreads)
+    s_data[i] = __ldg(p.data + i);
   for (int i = tid; i < nd; i += kIcpThreads) {
-    s_dmask[i] = data_mask == nullptr ? 1.0f : __ldg(data_mask + i);
-    s_idx[i] = 0;
+    const float dm = p.data_mask == nullptr ? 1.0f : __ldg(p.data_mask + i);
+    s_dmask[i] = dm;
+    if (!trimmed) s_mask[i] = mode == kModeCount ? dm : 1.0f;
   }
-  if (tid < 9) sR[tid] = __ldg(R0 + 9 * row + tid);
-  if (tid < 3) st[tid] = __ldg(t0 + 3 * row + tid);
+  if (tid < 9) sR[tid] = __ldg(p.R0 + 9 * row + tid);
+  if (tid < 3) st[tid] = __ldg(p.t0 + 3 * row + tid);
   if (tid == 0) {
     s_err = -1.0f;
     s_it = 0;
-    s_run = (enabled == nullptr || enabled[row] != 0) && max_iter > 0;
+    s_run = (p.enabled == nullptr || p.enabled[row] != 0) && p.max_iter > 0;
   }
   __syncthreads();
   for (int j = tid; j < m; j += kIcpThreads)
     s_qq[j] = dot3_warp(s_model + 3 * j, s_model + 3 * j);
   // the kept-set size: the count read on the device, or inlier_num
   const float cnt =
-      count == nullptr ? static_cast<float>(inlier_num) : __ldg(count);
-  const bool padded = data_mask != nullptr;
-  __syncthreads();
+      p.count == nullptr ? static_cast<float>(p.inlier_num) : __ldg(p.count);
+  const bool padded = p.data_mask != nullptr;
+  // every block of the row has started before any writes to another
+  if (c > 1)
+    cluster.sync();
+  else
+    __syncthreads();
 
   while (s_run) {
-    // 1-2. rotate, then the nearest model point of every data point
+    float2* s_pair = s_pair0 + (c > 1 ? (s_it & 1) * nd : 0);
     float R[9], t[3];
 #pragma unroll
     for (int k = 0; k < 9; ++k) R[k] = sR[k];
 #pragma unroll
     for (int k = 0; k < 3; ++k) t[k] = st[k];
-    for (int i = tid; i < nd; i += kIcpThreads) {
-      float p[3];
-#pragma unroll
-      for (int r = 0; r < 3; ++r)
-        p[r] = __fadd_rn(dot3_warp(R + 3 * r, s_data + 3 * i), t[r]);
-#pragma unroll
-      for (int r = 0; r < 3; ++r) s_pts[3 * i + r] = p[r];
-      const float pp = dot3_warp(p, p);
-      float best = sq_dist_from(pp, dot3_warp(p, s_model), s_qq[0]);
-      int arg = 0;
-      for (int j = 1; j < m; ++j) {
-        const float d =
-            sq_dist_from(pp, dot3_warp(p, s_model + 3 * j), s_qq[j]);
-        if (d < best) {
-          best = d;
-          arg = j;
-        }
-      }
+    // a share point's (d2, NN index), clamped, 1e12 where padded, sent to
+    // every block of the row by the lanes g, g + G, ... < C
+    auto send = [&](int li, float best, int arg) {
+      const int i = lo + li;
       best = clamp_min(best, 0.0f);
       if (padded && !(s_dmask[i] > 0.0f)) best = 1.0e12f;
-      s_d2[i] = best;
-      s_idx[i] = arg;
-    }
-    __syncthreads();
-    // 3. the mask
-    for (int i = tid; i < nd; i += kIcpThreads) {
-      float keep = 1.0f;
-      if (mode == kModeCount) {
-        keep = s_dmask[i];
-      } else if (mode == kModeTrim || mode == kModeDynTrim) {
-        const float di = s_d2[i];
-        int rank = 0;
-        for (int j = 0; j < nd; ++j) {
-          const float dj = s_d2[j];
-          rank += (dj < di) || (dj == di && j < i);
+      const float2 v = make_float2(best, __int_as_float(arg));
+      for (int r = g; r < c; r += G) at_rank(cluster, s_pair, r, c)[i] = v;
+    };
+    // 1-2. the nearest model point of each point of the share
+    if (G == 1) {
+      // one thread a point: two points at once, each model point's loads
+      // shared between them
+      for (int la = slot; la < nb; la += 2 * slots) {
+        const int lb = la + slots < nb ? la + slots : la;
+        float qa[3], qb[3];
+        rotate_point(R, t, s_data + 3 * (lo + la), qa);
+        rotate_point(R, t, s_data + 3 * (lo + lb), qb);
+        const float ppa = dot3_warp(qa, qa), ppb = dot3_warp(qb, qb);
+        float ba = sq_dist_from(ppa, dot3_warp(qa, s_model), s_qq[0]);
+        float bb = sq_dist_from(ppb, dot3_warp(qb, s_model), s_qq[0]);
+        int aa = 0, ab = 0;
+#pragma unroll 4
+        for (int j = 1; j < m; ++j) {
+          const float mj[3] = {s_model[3 * j], s_model[3 * j + 1],
+                               s_model[3 * j + 2]};
+          const float qqj = s_qq[j];
+          const float da = sq_dist_from(ppa, dot3_warp(qa, mj), qqj);
+          const float db = sq_dist_from(ppb, dot3_warp(qb, mj), qqj);
+          if (da < ba) {
+            ba = da;
+            aa = j;
+          }
+          if (db < bb) {
+            bb = db;
+            ab = j;
+          }
         }
-        keep = (mode == kModeTrim ? rank < inlier_num
-                                  : __int2float_rn(rank) < cnt)
-                   ? 1.0f
-                   : 0.0f;
+        send(la, ba, aa);
+        if (lb != la) send(lb, bb, ab);
       }
-      s_mask[i] = keep;
+    } else {
+      // G threads a point, thread g scanning j = g (mod G)
+      for (int base = 0; base < nb; base += slots) {
+        const int li = base + slot;
+        const bool live = li < nb;
+        float best = __int_as_float(0x7f800000);  // +inf
+        int arg = INT_MAX;
+        if (live) {
+          float q[3];
+          rotate_point(R, t, s_data + 3 * (lo + li), q);
+          const float pp = dot3_warp(q, q);
+          if (g < m) {
+            best = sq_dist_from(pp, dot3_warp(q, s_model + 3 * g), s_qq[g]);
+            arg = g;
+          }
+#pragma unroll 4
+          for (int j = g + G; j < m; j += G) {
+            const float d =
+                sq_dist_from(pp, dot3_warp(q, s_model + 3 * j), s_qq[j]);
+            if (d < best) {
+              best = d;
+              arg = j;
+            }
+          }
+        }
+        // the G partial first minima, combined by (d, j)
+        for (int off = G >> 1; off > 0; off >>= 1) {
+          const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+          const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
+          if (ob < best || (ob == best && oa < arg)) {
+            best = ob;
+            arg = oa;
+          }
+        }
+        if (live) send(li, best, arg);
+      }
     }
+    // while the pairs travel: every point's rotation, kept by each block
+    // for its sums (the same expression as the share's, the same bits)
+    if (c > 1) cluster_arrive();
+    for (int i = tid; i < nd; i += kIcpThreads)
+      rotate_point(R, t, s_data + 3 * i, s_pts + 3 * i);
     __syncthreads();
+    if (c > 1) cluster_wait();
+    ICP_STOP_AFTER(1)
+    // 3. the trimmed modes' mask: the share's stable ranks, G threads a
+    // point counting over j = g (mod G), each sent to every block, then
+    // the row's second barrier
+    if (trimmed) {
+      for (int base = 0; base < nb; base += slots) {
+        const int li = base + slot;
+        const int i = lo + li;
+        int rank_i = 0;
+        if (li < nb) {
+          const float di = s_pair[i].x;
+          for (int j = g; j < nd; j += G) {
+            const float dj = s_pair[j].x;
+            rank_i += (dj < di) || (dj == di && j < i);
+          }
+        }
+        for (int off = G >> 1; off > 0; off >>= 1)
+          rank_i += __shfl_xor_sync(0xffffffffu, rank_i, off);
+        if (li < nb) {
+          const float keep = (mode == kModeTrim
+                                  ? rank_i < p.inlier_num
+                                  : __int2float_rn(rank_i) < cnt)
+                                 ? 1.0f
+                                 : 0.0f;
+          for (int r = g; r < c; r += G)
+            at_rank(cluster, s_mask, r, c)[i] = keep;
+        }
+      }
+      if (c > 1)
+        cluster.sync();
+      else
+        __syncthreads();
+    }
+    ICP_STOP_AFTER(2)
     // 4. err_new, the masked sums of the points and of their matches
+    auto nn = [&](int i) { return __float_as_int(s_pair[i].y); };
     if (warp < 7) {
       float s;
       if (warp == 0) {
         s = warp_ordered_sum(
-            nd, [&](int i) { return __fmul_rn(s_d2[i], s_mask[i]); });
+            nd, [&](int i) { return __fmul_rn(s_pair[i].x, s_mask[i]); });
       } else if (warp < 4) {
         const int a = warp - 1;
         s = warp_ordered_sum(nd, [&](int i) {
@@ -363,12 +575,13 @@ __global__ void __launch_bounds__(kIcpThreads)
       } else {
         const int a = warp - 4;
         s = warp_ordered_sum(nd, [&](int i) {
-          return __fmul_rn(s_model[3 * s_idx[i] + a], s_mask[i]);
+          return __fmul_rn(s_model[3 * nn(i) + a], s_mask[i]);
         });
       }
       if ((tid & 31) == 0) sums[warp] = s;
     }
     __syncthreads();
+    ICP_STOP_AFTER(3)
     float mu_d[3], mu_m[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -376,26 +589,34 @@ __global__ void __launch_bounds__(kIcpThreads)
       mu_m[a] = __fdiv_rn(sums[4 + a], cnt);
     }
     // H[a][b] = sum_i ((pts_i - mu_d) m_i)[a] ((model[nn_i] - mu_m) m_i)[b]
+    // (the warp's means picked into registers: an array indexed by a
+    // runtime index would lie in a stack frame)
     for (int e = warp; e < 9; e += kIcpWarps) {
       const int a = e / 3, b = e % 3;
+      const float md = a == 0 ? mu_d[0] : (a == 1 ? mu_d[1] : mu_d[2]);
+      const float mm = b == 0 ? mu_m[0] : (b == 1 ? mu_m[1] : mu_m[2]);
       const float s = warp_ordered_sum(nd, [&](int i) {
         const float qd =
-            __fmul_rn(__fsub_rn(s_pts[3 * i + a], mu_d[a]), s_mask[i]);
+            __fmul_rn(__fsub_rn(s_pts[3 * i + a], md), s_mask[i]);
         const float qm = __fmul_rn(
-            __fsub_rn(s_model[3 * s_idx[i] + b], mu_m[b]), s_mask[i]);
+            __fsub_rn(s_model[3 * nn(i) + b], mm), s_mask[i]);
         return __fmul_rn(qd, qm);
       });
       if ((tid & 31) == 0) sums[7 + e] = s;
     }
     __syncthreads();
-    // 5-6. the convergence test, the Kabsch and the update (one thread)
+    ICP_STOP_AFTER(4)
+    // 5-6. the convergence test, the Kabsch and the update (one thread of
+    // every block, alike)
     if (tid == 0) {
       const float err_new = sums[0];
-      const bool conv = s_err > 0.0f &&
-                        __fsub_rn(s_err, err_new) < __fmul_rn(err_diff, cnt);
+      const bool conv = s_err > 0.0f && __fsub_rn(s_err, err_new) <
+                                            __fmul_rn(p.err_diff, cnt);
       if (!conv) {
-        float Rk[9];
-        kabsch_from_H(sums + 7, Rk);
+        float H[9], Rk[9];
+#pragma unroll
+        for (int k = 0; k < 9; ++k) H[k] = sums[7 + k];
+        kabsch_from_H(H, Rk);
         float t_[3], Rn[9], tn[3];
 #pragma unroll
         for (int r = 0; r < 3; ++r) {
@@ -414,19 +635,25 @@ __global__ void __launch_bounds__(kIcpThreads)
       }
       s_err = err_new;
       s_it += 1;
-      s_run = !conv && s_it < max_iter;
+      s_run = !conv && s_it < p.max_iter;
     }
     __syncthreads();
   }
 
-  if (tid < 9) R_out[9 * row + tid] = sR[tid];
-  if (tid < 3) t_out[3 * row + tid] = st[tid];
-  if (tid == 0) {
-    err_out[row] = s_err;
-    iters_out[row] = s_it;
+  if (rank == 0) {
+    if (tid < 9) p.R_out[9 * row + tid] = sR[tid];
+    if (tid < 3) p.t_out[3 * row + tid] = st[tid];
+    if (tid == 0) {
+      p.err_out[row] = s_err;
+      p.iters_out[row] = s_it;
+    }
   }
-  for (int i = tid; i < nd; i += kIcpThreads)
-    nn_out[static_cast<long long>(row) * nd + i] = s_idx[i];
+  // the share's NN index from the last iteration (0 where none ran)
+  const float2* s_last =
+      s_pair0 + (c > 1 && s_it > 0 ? ((s_it - 1) & 1) * nd : 0);
+  for (int li = tid; li < nb; li += kIcpThreads)
+    p.nn_out[static_cast<long long>(row) * nd + lo + li] =
+        s_it > 0 ? __float_as_int(s_last[lo + li].y) : 0;
 }
 
 }  // namespace goicp
@@ -435,9 +662,11 @@ __global__ void __launch_bounds__(kIcpThreads)
 // (m, 3), R0 (K, 3, 3), t0 (K, 3) float32; data_mask (nd,) or null;
 // count a float32 scalar or null (then inlier_num is the kept-set size);
 // enabled (K,) bytes or null; workspace K * (10 nd + 4 m) floats in
-// device memory, or null for shared memory (then at most kIcpSmemMax);
-// mode 0 untrimmed, 1 static trim, 2 data_mask, 3 dynamic trim.  Writes
-// R (K, 3, 3), t (K, 3), nn_idx (K, nd) int64, err (K,), iters (K,) int32.
+// device memory (then one block a row), or null for shared memory (that
+// size at most kIcpSmemMax; a cluster of blocks a row where its larger
+// workspace fits too); mode 0 untrimmed, 1 static trim, 2 data_mask, 3
+// dynamic trim.  Writes R (K, 3, 3), t (K, 3), nn_idx (K, nd) int64, err
+// (K,), iters (K,) int32.
 extern "C" int goicp_icp_run(const float* data, const float* model,
                              const float* R0, const float* t0,
                              const float* data_mask, const float* count,
@@ -450,17 +679,56 @@ extern "C" int goicp_icp_run(const float* data, const float* model,
   if (K <= 0) return 0;
   if (nd <= 0 || m <= 0 || mode < kModeAll || mode > kModeDynTrim)
     return static_cast<int>(cudaErrorInvalidValue);
+  int c = 1;
   size_t smem = 0;
   if (workspace == nullptr) {
-    smem = 4 * static_cast<size_t>(icp_workspace_words(nd, m));
+    c = (nd + kIcpPointsPerBlock - 1) / kIcpPointsPerBlock;
+    if (c > kIcpClusterMax) c = kIcpClusterMax;
+    smem = 4 * static_cast<size_t>(icp_workspace_words(nd, m, c));
+    if (smem > kIcpSmemMax) {
+      c = 1;
+      smem = 4 * static_cast<size_t>(icp_workspace_words(nd, m, 1));
+    }
     if (smem > kIcpSmemMax) return static_cast<int>(cudaErrorInvalidValue);
     static size_t granted = 0;
     const cudaError_t e = allow_smem(icp_run_kernel, smem, &granted);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  icp_run_kernel<<<K, kIcpThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      data, model, R0, t0, data_mask, count, enabled, workspace, R, t, nn_idx,
-      err, iters, nd, m, inlier_num, max_iter, mode, err_diff);
+  IcpParams p;
+  p.data = data;
+  p.model = model;
+  p.R0 = R0;
+  p.t0 = t0;
+  p.data_mask = data_mask;
+  p.count = count;
+  p.enabled = enabled;
+  p.workspace = workspace;
+  p.R_out = R;
+  p.t_out = t;
+  p.nn_out = nn_idx;
+  p.err_out = err;
+  p.iters_out = iters;
+  p.nd = nd;
+  p.m = m;
+  p.inlier_num = inlier_num;
+  p.max_iter = max_iter;
+  p.mode = mode;
+  p.cluster = c;
+  p.err_diff = err_diff;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(K * c);
+  cfg.blockDim = dim3(kIcpThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t launch = cudaLaunchKernelEx(&cfg, icp_run_kernel, p);
+  if (launch != cudaSuccess) return static_cast<int>(launch);
   return static_cast<int>(cudaGetLastError());
 }
 

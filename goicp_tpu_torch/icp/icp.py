@@ -16,8 +16,9 @@ orders that XLA:CPU takes op by op (sequential sums; its last product an
 FMA chain, fp32.dot_fma), in which it equals the JAX package's
 kabsch_from_H run op by op bit for bit.
 icp_run runs K starts at once (the JAX package vmaps it).  On CUDA
-tensors it is one launch of csrc/icp.cu (goicp_icp_run): a block per row
-loops that row's iterations on the card, no host read, counted in
+tensors it is one launch of csrc/icp.cu (goicp_icp_run): a thread-block
+cluster per row (its blocks splitting the nearest-neighbour scan) loops
+that row's iterations on the card, no host read, counted in
 `icp_run.launches`.  On CPU tensors it is icp_run_plain, a Python loop
 that steps every row while any row is still running (rows that have
 stopped keep their state, as rows of a vmapped while_loop do); any other
@@ -41,8 +42,8 @@ from goicp_tpu_torch.utils.fp32 import (_check_f32, _launch, _on_cpu,
                                         ordered_sum, rotate, sq_dist3)
 
 SEQ = 1    # ordered_sum's sequential order (lanes=1), the Kabsch's
-# csrc/icp.cu: a row's workspace (10 Nd + 4 M floats) in shared memory at
-# most this many bytes (kIcpSmemMax), else in device memory
+# csrc/icp.cu: a row's one-block workspace (10 Nd + 4 M floats) in shared
+# memory at most this many bytes (kIcpSmemMax), else in device memory
 ICP_SMEM_BYTES = 227 * 1024 - 1024
 # csrc/icp.cu's masks: untrimmed, static trim, data_mask, dynamic trim
 MODE_ALL, MODE_TRIM, MODE_COUNT, MODE_DYN_TRIM = range(4)

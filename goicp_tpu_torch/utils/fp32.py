@@ -196,10 +196,15 @@ def _ptr(x: torch.Tensor | None) -> int | None:
     return None if x is None else x.data_ptr()
 
 
+_F32 = torch.float32
+# the current CUDA stream's handle by device index (None in a CPU build)
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _stream(x: torch.Tensor) -> int:
     """The handle of the current CUDA stream on x's card, read without the
     torch.cuda.Stream object that torch.cuda.current_stream() builds."""
-    return torch._C._cuda_getCurrentRawStream(x.get_device())
+    return _raw_stream(x.get_device())
 
 
 def _launch(err: int, what: str):
@@ -411,20 +416,30 @@ def norm3_plain(v: torch.Tensor) -> torch.Tensor:
 def norm3(v: torch.Tensor) -> torch.Tensor:
     """Euclidean norms over the last axis (of 3), the squares summed as
     dot_fma sums them and the square root correctly rounded: one launch of
-    csrc/fp32_products.cu on a CUDA tensor, norm3_plain on a CPU one."""
-    if not _on_card(v):
+    csrc/fp32_products.cu on a CUDA tensor, norm3_plain on a CPU one.
+
+    The host path is kept short for the main path's call, a contiguous
+    (N, 3) float32 CUDA tensor (bench/host_path.py's norm3 ladder): the
+    card test reads two attributes, contiguous() and view() run only for
+    other tensors, and the output is made from the row count, an int (a
+    torch.Size argument takes the argument parser's slow path, ~3 µs
+    more)."""
+    if not (v.is_cuda and v.dtype is _F32) and not _on_card(v):
         return norm3_plain(v)
-    if v.dim() == 0 or v.shape[-1] != 3:
-        raise ValueError(f"norm3 takes (..., 3), got {tuple(v.shape)}")
-    v = v.contiguous()
-    out = v.new_empty(v.shape[:-1])
-    rows = out.numel()
-    if rows == 0:
-        return out
-    _launch(kernels.goicp_norm3(v.data_ptr(), out.data_ptr(), rows,
-                                _stream(v)), "norm3")
-    norm3.launches += 1
-    return out
+    shape = v.shape
+    if not shape or shape[-1] != 3:
+        raise ValueError(f"norm3 takes (..., 3), got {tuple(shape)}")
+    if not v.is_contiguous():
+        v = v.contiguous()
+    rows = v.numel() // 3
+    out = v.new_empty(rows)
+    if rows:
+        err = kernels.goicp_norm3(v.data_ptr(), out.data_ptr(), rows,
+                                  _raw_stream(v.get_device()))
+        if err:
+            _launch(err, "norm3")
+        norm3.launches += 1
+    return out if len(shape) == 2 else out.view(shape[:-1])
 
 
 norm3.launches = 0

@@ -83,14 +83,33 @@ def argmin3(v):
     return k
 
 
+# how often each of the kernel's shortcuts in givens() was taken
+GIVENS_PATHS = {"rotations": 0, "root = |tau|": 0, "c = 1": 0}
+
+
 def givens(A, V, p, q):
+    """The kernel's givens<P, Q>: its exact shortcuts (not safe: t = 0, c =
+    1; root = |tau| where 1 + tau^2 rounds to a finite tau^2; c = 1 where
+    1 + t^2 rounds to 1)."""
     ap, aq = A[:, p].copy(), A[:, q].copy()
     app, aqq, apq = dot3_seq(ap, ap), dot3_seq(aq, aq), dot3_seq(ap, aq)
-    safe = abs(apq) > F32(1e-30)
-    tau = (aqq - app) / (F32(2.0) * apq if safe else ONE)
-    root = sqrt_rn(ONE + tau * tau)
-    t = sign_of(tau) / (abs(tau) + root) if safe else ZERO
-    c = ONE / sqrt_rn(ONE + t * t)
+    t, c = ZERO, ONE
+    GIVENS_PATHS["rotations"] += 1
+    if abs(apq) > F32(1e-30):
+        tau = (aqq - app) / (F32(2.0) * apq)
+        tau2 = tau * tau
+        y = ONE + tau2
+        if y == tau2 and np.isfinite(tau2):
+            root = abs(tau)
+            GIVENS_PATHS["root = |tau|"] += 1
+        else:
+            root = sqrt_rn(y)
+        t = sign_of(tau) / (abs(tau) + root)
+        z = ONE + t * t
+        if z != ONE:
+            c = ONE / sqrt_rn(z)
+        else:
+            GIVENS_PATHS["c = 1"] += 1
     s = t * c
     for M in (A, V):
         mp, mq = M[:, p].copy(), M[:, q].copy()
@@ -254,12 +273,11 @@ def _kabsch_H(kind, seed=3):
     return H.astype(F32)
 
 
-def _icp_case(mode, K=4, seed=5):
-    """data (<= 48 points, padded in the count modes), model, starts at
-    growing distances (rows stop at different iterations) and icp_run's
-    keywords for `mode`."""
+def _icp_case(mode, K=4, seed=5, n=40, m=44):
+    """data (n points, n <= m; 8 more padded in the count modes), model (m
+    points), starts at growing distances (rows stop at different
+    iterations) and icp_run's keywords for `mode`."""
     rng = np.random.default_rng(seed)
-    n, m = 40, 44
     model = rng.uniform(-0.7, 0.7, (m, 3))
     R = rodrigues_np(rng.uniform(-0.3, 0.3, 3))
     data = (model[:n] - rng.uniform(-0.05, 0.05, 3)) @ R \
@@ -323,7 +341,8 @@ def test_kabsch_walk_equals_kabsch_from_H(kind):
 
 
 def test_kabsch_walk_equals_kabsch_from_H_on_a_batch():
-    """64 seeded H of mixed scale, with degenerate and tiny ones."""
+    """64 seeded H of mixed scale, with degenerate and tiny ones; the
+    kernel's shortcuts in givens() are taken on the way."""
     rng = np.random.default_rng(31)
     H = (rng.normal(size=(64, 3, 3))
          * 10.0 ** rng.uniform(-6, 3, (64, 1, 1))).astype(F32)
@@ -331,8 +350,24 @@ def test_kabsch_walk_equals_kabsch_from_H_on_a_batch():
     H[1] = np.outer([1, 2, 3], [0, 1e-20, 0])           # tiny rank 1
     H[2, :, 2] = H[2, :, 0]                             # repeated column
     want = ticp.kabsch_from_H(torch.from_numpy(H)).numpy()
+    before = dict(GIVENS_PATHS)
     got = np.stack([np_kabsch3(h) for h in H])
     np.testing.assert_array_equal(bits(got), bits(want))
+    taken = {k: GIVENS_PATHS[k] - before[k] for k in GIVENS_PATHS}
+    assert taken["rotations"] == 64 * 18
+    assert 0 < taken["root = |tau|"] < taken["rotations"]
+    assert 0 < taken["c = 1"] < taken["rotations"]
+
+
+@pytest.mark.parametrize("scale", [2.0 ** -40, 2.0 ** 12, 2.0 ** 40])
+def test_sqrt_of_a_rounded_square_is_the_magnitude(scale):
+    """givens()' root shortcut: sqrt_rn(RN(x^2)) == |x| for every float32
+    mantissa in two binades (both exponent parities) at three scales."""
+    m = np.arange(2 ** 23, dtype=np.uint32)
+    for lo in (1.0, 2.0):
+        x = (np.float32(lo).view(np.uint32) + m).view(F32) * F32(scale)
+        root = np.sqrt((x * x).astype(np.float64)).astype(F32)
+        np.testing.assert_array_equal(root, x)
 
 
 @pytest.mark.parametrize("mode", ["all", "trim", "mask", "count",
@@ -404,12 +439,24 @@ def test_icp_run_refuses_other_devices_mixes_and_missing_counts():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(40, 44, 4), (165, 306, 4),
+                                   (306, 306, 4), (40, 44, 1),
+                                   (165, 306, 8)])
 @pytest.mark.parametrize("mode", ["all", "trim", "mask", "count",
                                   "dynamic_trim", "enabled"])
-def test_icp_kernel_equals_the_plain_loop_on_card(mode):
+def test_icp_kernel_equals_the_plain_loop_on_card(mode, shape):
+    """Data and model points (Nd, M) and rows K: the tests' small clouds,
+    the bench's smallest and largest (a cluster of 6 and of 8 blocks a
+    row, neither dividing Nd), one row (the fused stream's) and the 8
+    initial seeds."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the ICP kernel has no CPU mode")
-    data, model, R0, t0, kw, enabled = _icp_case(mode)
+    n, m, K = shape
+    if mode == "enabled" and K < 2:
+        K = 2
+    data, model, R0, t0, kw, enabled = _icp_case(mode, K=K, n=n, m=m)
+    if enabled is not None:
+        enabled = np.arange(K) % 4 != 1
     args = [torch.from_numpy(x).cuda() for x in (data, model, R0, t0)]
     tkw = _torch_kw(kw, enabled, "cuda")
     before = ticp.icp_run.launches
