@@ -32,14 +32,21 @@ Phases, each of which fails the script (nonzero exit, no result line):
     in turns with torch.sum; rotate (csrc/ordered_sum.cu) at an outer
     transition's shape (8 R x syn07's data) and a rescoring's (4 R, + t),
     norm3 at the rotation centres' (8, 3) and the preparation's (syn07's
-    data) and sincos32 at (8,) (csrc/fp32_products.cu), each equal to its
-    plain version bit for bit, in turns with torch.matmul, torch.baddbmm
-    and torch.linalg.vector_norm (sincos32 has no one torch call); so the
-    fixed-order products (csrc/fp32_products.cu: sq_dist3, det3, cross3,
-    dot_fma), in turns with torch.linalg.det, torch.linalg.cross and
-    torch.matmul.  The ICP kernel (csrc/icp.cu): icp_run, one launch an
-    ICP event, held to icp_run_plain on the same card tensors bit for bit
-    in R, t, nn_idx, err and iters, on syn07 (4 seeds untrimmed; its
+    data), sincos32 at (8,), rodrigues of 8 seeded centres and
+    rot_uncertainty of 8 widths x syn07's point norms
+    (csrc/fp32_products.cu), each equal to its plain version bit for bit,
+    in turns with torch.matmul and torch.baddbmm, alternated (medians of
+    10) with torch.linalg.vector_norm and, for sincos32, which has no one
+    torch call, with torch.sin; rodrigues and rot_uncertainty one kernel
+    launch and no memset a call, and bit for bit again on wide inputs
+    (zero, axis-aligned and |v| = pi rotation vectors; the BnB's widths
+    and clamped ones); so the fixed-order products (csrc/fp32_products.cu:
+    sq_dist3, det3, cross3, dot_fma), in turns with torch.linalg.det and
+    torch.matmul, cross3 alternated with torch.linalg.cross and bit for
+    bit in six layouts.  The ICP kernel
+    (csrc/icp.cu): icp_run, one launch an ICP event, held to
+    icp_run_plain on the same card tensors bit for bit in R, t, nn_idx,
+    err and iters, on syn07 (4 seeds untrimmed; its
     padded bucket with row 1 disabled; one row as the fused stream
     refines it; the 8 initial seeds), trm00 (count + dynamic trim; a
     static trim), the demo's 1000 / 500 points, 4,200 / 4,200 points (the
@@ -127,17 +134,18 @@ Phases, each of which fails the script (nonzero exit, no result line):
     outer steps; converged or not, an achievable error and a valid gap).
  4. proof: the launch counters of the inner run kernel, the
     transition kernels (harvest, advance: the pop with its root corners
-    through K2's body, the adoption), the ordered sum, rotate, norm3,
-    sincos32 and the ICP kernel, zeroed just before phase 3, are > 0
-    after it, the inner step kernel's is 0, and neither the torch inner
-    body nor the torch transition ran on the card (so in phases 5 and
-    7-13: every inner search, or a stream's iterations up to a
-    transition, was one launch of csrc/inner.cu's run; phase 6's packed
-    stream launches the inner step, one an iteration; every outer
-    transition went through csrc/transition.cu);
+    through K2's body, the adoption), the ordered sum, rotate, rodrigues
+    (the ICP seeds), norm3 (the preparation) and the ICP kernel, zeroed
+    just before phase 3, are > 0 after it, the inner step kernel's is 0,
+    and neither the torch inner body nor the torch transition ran on the
+    card (so in phases 5 and 7-13: every inner search, or a stream's
+    iterations up to a transition, was one launch of csrc/inner.cu's
+    run; phase 6's packed stream launches the inner step, one an
+    iteration; every outer transition went through csrc/transition.cu);
     sq_dist3, det3 and cross3, whose only caller was the plain ICP loop,
-    and dot_fma, whose other caller was norm3, are 0 (so in phases 5, 6,
-    7 and 13; phase 11's row checks launch sq_dist3 through
+    dot_fma, whose other caller was norm3, and sincos32, whose callers
+    rodrigues and rot_uncertainty are one launch each, are 0 (so in
+    phases 5, 6, 7 and 13; phase 11's row checks launch sq_dist3 through
     nn_correspondences themselves).  K1, K3 and K4 launch on their own
     only in phase 2 and for the configurations the step does not carry.
  5. the fused cross-pair stream: the similar pool syn00-syn15 and the
@@ -146,8 +154,8 @@ Phases, each of which fails the script (nonzero exit, no result line):
     register_fused_stream(width=2, chunk_steps=512).  Every pair is held
     against the port's register_device on the same prepared pair and,
     where there is one, against its fp32 reference row.  The inner step
-    kernel (no torch body on the card), the ordered sum, rotate, norm3,
-    sincos32 and the ICP kernel must have launched.  Then the trimmed pool
+    kernel (no torch body on the card), the ordered sum, rotate,
+    rodrigues and the ICP kernel must have launched.  Then the trimmed pool
     once more with escalate_capacity =
     2 * trans_capacity after 1 chunk of 64 global iterations: at least
     one pair escalated, every pair converged, error within MSEThresh*Nd +
@@ -155,8 +163,8 @@ Phases, each of which fails the script (nonzero exit, no result line):
  6. the slot-packed stream on the same pools:
     register_packed_stream(width=16, chunk_steps=512) with 16 slots and
     transitions every 8 iterations; the same checks, and the inner step
-    kernel, the ordered sum, rotate, norm3, sincos32 and the ICP kernel
-    must have launched again.
+    kernel, the ordered sum, rotate, rodrigues and the ICP kernel must
+    have launched again.
  7. the user's entry points, from files: a BO1-style data root written
     in a temporary directory (goicp_tpu_torch/bench/bo1_files.py) holding
     syn00, syn01, syn05, syn06, syn13 and syn07 as .mol2 cavities, c-FPFH
@@ -166,7 +174,9 @@ Phases, each of which fails the script (nonzero exit, no result line):
     goicp_tpu_torch.cli.main on the card: run-pair on syn07 with the device
     engine (held to its reference row and to register_device on the same
     prepared pair; output files written; RMSD near 0) and with the host
-    engine (converged, error within MSEThresh*Nd of the row); run-bo1
+    engine (converged, error within MSEThresh*Nd of the row; rodrigues
+    and rot_uncertainty launched by it, its outer step's rotations and
+    its inner searches' rotation uncertainty); run-bo1
     with the fused engine over the six pairs (each row equal in error and
     counters to phase 3's result, RMSD below 1e-3), with the device-batch
     engine (the compacting batch) over the six pairs (the same checks;
@@ -260,7 +270,7 @@ Phases, each of which fails the script (nonzero exit, no result line):
     the port wrote on the CPU (goicp_tpu_torch/bench/cpu_rows.jsonl,
     `python -m goicp_tpu_torch.bench.cpu_rows --write`); the inner step
     kernel (no torch body on the card), K2, the ordered sum, rotate,
-    norm3, sincos32 and the ICP kernel must have launched.  Last, the
+    rodrigues and the ICP kernel must have launched.  Last, the
     kernel launches of one global iteration's inner step, of one
     register_device inner iteration and of one ICP iteration
     (goicp_tpu_torch/bench/launch_counts.py) beside those of the
@@ -270,7 +280,9 @@ Phases, each of which fails the script (nonzero exit, no result line):
     register_device outer step (at most 4 launches) beside the trees
     before the transition kernel (789170e) and before advance was one
     launch (fd41384), and an ICP event's: one launch of csrc/icp.cu and
-    no host read.
+    no host read; one rodrigues and one rot_uncertainty, one launch each,
+    and a host-engine outer step, beside the tree before they were one
+    launch each (5157d79).
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -332,21 +344,39 @@ BEFORE_ONE_LAUNCH_ADVANCE = {
     "transition": "3 launches, 0 host reads, 1 sync",
     "outer_step": "5 launches (4 besides its inner search's 1), 0 host "
                   "reads, 1 sync"}
+# the same on the tree before rodrigues and rot_uncertainty were one
+# launch each (commit 5157d79, PERF.md §5), on the H100 in one call with
+# this tree (in turns): one rodrigues of 8 centres, one rot_uncertainty
+# of 8 widths and the host engine's first outer step on syn07 (the lanes
+# the engine passes, the root's 8 children)
+BEFORE_ONE_LAUNCH_ROTATION = {
+    "rodrigues": "26 launches", "rot_uncertainty": "7 launches",
+    "host_outer_step": "65 launches, 1 host read, 5 syncs"}
 # the fixed-order products of utils/fp32.py (csrc/fp32_products.cu)
 FIXED_ORDER_PRODUCTS = ("sq_dist3", "det3", "cross3", "dot_fma")
-# the fixed-order functions that take an outer transition's and a
-# rescoring's neighbouring ops into one launch each (utils/fp32.py): name
-# -> source
+# the fixed-order functions that take neighbouring torch ops into one
+# launch each (utils/fp32.py; rodrigues_kernel is geom/rotation.py's
+# rodrigues on the card, rot_uncertainty_kernel bounds/evaluate.py's
+# rot_uncertainty): name -> source
 FUSED_ORDER = {"rotate": "goicp_tpu_torch/csrc/ordered_sum.cu",
                "norm3": "goicp_tpu_torch/csrc/fp32_products.cu",
-               "sincos32": "goicp_tpu_torch/csrc/fp32_products.cu"}
+               "sincos32": "goicp_tpu_torch/csrc/fp32_products.cu",
+               "rodrigues_kernel": "goicp_tpu_torch/csrc/fp32_products.cu",
+               "rot_uncertainty_kernel":
+                   "goicp_tpu_torch/csrc/fp32_products.cu"}
 # what every registration launches besides the bound kernels: the rescoring's
-# ordered sums, the ICP event (csrc/icp.cu), and every outer transition's
-# norms, sin and cos and rotated points; and the products whose callers
-# (the plain ICP loop; norm3 before it was one launch) no longer run on the
-# card, now launched 0 times on the main path
-PATH_KERNELS = ("ordered_sum", "icp_run", *FUSED_ORDER)
-OFF_PATH = ("sq_dist3", "det3", "cross3", "dot_fma")
+# ordered sums and rotated points, the ICP event (csrc/icp.cu) and the ICP
+# seeds' rotations (rodrigues); norm3 where a pair is prepared (phase 3's
+# window holds the preparation); rodrigues and rot_uncertainty in every
+# host-engine registration (its outer step's rotations, its inner
+# searches' rotation uncertainty).  The products whose callers (the plain
+# ICP loop; norm3 before it was one launch; rodrigues and rot_uncertainty
+# before they were one launch each) no longer run on the card launch 0
+# times on the main path.
+PATH_KERNELS = ("ordered_sum", "icp_run", "rotate", "rodrigues_kernel")
+PREP_KERNELS = ("norm3",)
+HOST_ENGINE_KERNELS = ("rodrigues_kernel", "rot_uncertainty_kernel")
+OFF_PATH = ("sq_dist3", "det3", "cross3", "dot_fma", "sincos32")
 CHECK_ONLY = ("kabsch3",)   # the ICP kernel's Kabsch alone: phase 2 only
 # K1, K3 and K4, whose bodies run inside the inner step kernel
 # (csrc/inner.cu) on the main path: their own launches are phase 2's and
@@ -492,7 +522,8 @@ def _same_bits(got, want):
 def _off_path(counts, where):
     """The products whose callers no longer run on the card launched 0
     times: every ICP event went through csrc/icp.cu, every norm through
-    norm3's own kernel."""
+    norm3's own kernel, every sine and cosine through rodrigues' and
+    rot_uncertainty's."""
     _require(all(counts[k] == 0 for k in OFF_PATH),
              f"{', '.join(OFF_PATH)} launched 0 times in {where}: "
              f"{ {k: counts[k] for k in OFF_PATH} }")
@@ -823,11 +854,18 @@ def _entry_points(cfg, pools, ref, phase3, dev):
 
         # ---- run-pair, host engine, syn07 ----
         t0 = time.perf_counter()
+        before = cuda_eval.launch_counts()
         with _returns(pair_mod, "run_pair") as res:
             _require(cli.main(run_pair_argv(os.path.join(tmp, "host"),
                                             "host")) == 0,
                      "run-pair --engine host")
         wall = time.perf_counter() - t0
+        host_launches = {k: v - before[k]
+                         for k, v in cuda_eval.launch_counts().items()}
+        for kname in HOST_ENGINE_KERNELS:
+            _require(host_launches[kname] > 0,
+                     f"{kname} launched by run-pair --engine host: "
+                     f"{host_launches[kname]}")
         hreg = res[0].registration
         eps = cfg.MSEThresh * nd7
         _require(hreg.converged and abs(hreg.error - row["error"]) <= eps,
@@ -838,8 +876,8 @@ def _entry_points(cfg, pools, ref, phase3, dev):
               f"(row {row['error']}, eps {eps:.3g}), RMSD {res[0].rmsd:.3g}; "
               f"outer steps {hreg.outer_steps}, evals {hreg.bound_evals}, "
               f"ICP runs {hreg.icp_runs} (the device engine: "
-              f"{reg.outer_steps}, {reg.bound_evals}, {reg.icp_runs})",
-              flush=True)
+              f"{reg.outer_steps}, {reg.bound_evals}, {reg.icp_runs}); "
+              f"launches {json.dumps(host_launches)}", flush=True)
 
         # ---- run-bo1 ----
         def bo1(engine, out, *extra):
@@ -1739,45 +1777,78 @@ def _product_checks(kernels, cfg, pools, dev, floor):
         err = _max_err([got], [want])
         k["errs"].append(err)
         pms, dms = _median_ms(plain), _device_ms(kern)
+        extra = ""
         if lib_fn is None:
             ms, lms = _median_ms(kern), None
+        elif name == "cross3":
+            ks, ls = _alternated(kern, lambda fn=lib_fn, args=args:
+                                 fn(*args))
+            ms, lms = statistics.median(ks), statistics.median(ls)
+            extra = (f"; alternated x{len(ks)}: cross3 median {ms:.4f} ms "
+                     f"[{min(ks):.4f}-{max(ks):.4f}], linalg.cross median "
+                     f"{lms:.4f} ms [{min(ls):.4f}-{max(ls):.4f}]")
         else:
             ms, lms = _in_turns(kern, lambda fn=lib_fn, args=args: fn(*args))
         bms, bby = _bound(n_eval, ops, [*args, got])
         k.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
                  graph_ms=dms, library_ms=lms)
         shapes = " x ".join(str(tuple(a.shape)) for a in args)
-        how = "alternated" if name == "norm3" else "in turns"
+        how = "alternated" if name == "cross3" else "in turns"
         lib = "none" if lms is None else f"{lms:.4f} ms ({how})"
         print(f"{name}: {shapes}: max_abs_err={err:.3g} (bit for bit) "
               f"kernel {ms:.4f} ms (from a graph {dms:.4f} ms) plain "
-              f"{pms:.4f} ms library {lib} bound {bms:.6f} ms ({bby}) "
-              f"{floor}", flush=True)
+              f"{pms:.4f} ms library {lib}{extra} bound {bms:.6f} ms "
+              f"({bby}) {floor}", flush=True)
 
 
 # operations a function needs: rotate 5 a coordinate (3 products, 2 sums)
 # and 1 more with t; norm3 6 a vector (a product, two FMAs of 2, a square
 # root); sincos32 40 float64 operations an angle (the reduction 6, z 1, two
-# Horner chains of 14, sin r 3, cos r 2)
-ROTATE_OPS, NORM3_OPS, SINCOS_OPS = 15, 6, 40
+# Horner chains of 14, sin r 3, cos r 2), its sine alone 24; rodrigues a
+# vector norm3's 6, u 3 divisions, 1 - cos 1 and 6 an entry of R (ct e,
+# st K, their sum, u_i u_j, its product with 1 - cos, the sum) in float32,
+# and sincos32's 40 in float64; rot_uncertainty a lane 5 in float32
+# (sqrt3 w, / 2, the clamp, / 2, 2 s) and the sine's 24 in float64, and 1
+# an output (the product with the point's norm)
+ROTATE_OPS, NORM3_OPS, SINCOS_OPS, SINE_OPS = 15, 6, 40, 24
+RODRIGUES_OPS = NORM3_OPS + 3 + 1 + 9 * 6
+ROT_UNC_LANE_OPS = 5
+
+
+def _ops_s(f32=0, f64=0):
+    """Seconds the card needs for f32 float32 and f64 float64 operations
+    at its peak rates (outside the tensor cores)."""
+    return f32 / PEAK_OPS + f64 / PEAK_OPS_F64
 
 
 def _fused_checks(kernels, cfg, pools, dev, floor):
     """Phase 2's check of the fixed-order functions that are one launch
-    each (utils/fp32.py): rotate at an outer transition's shape (8 R from
-    8 seeded rotation centres through rodrigues, times syn07's data) and
-    at the rescoring's (4 R, with t), norm3 at the centres' shape (8, 3)
-    and the preparation's (syn07's data), sincos32 at (8,) (the centres'
-    angles), each equal to its plain version (rotate_plain, norm3_plain,
-    sincos32_plain: elementwise torch ops, launching no kernel of ours) on
-    the same card tensors bit for bit, timed like the bound kernels; the
-    library call (torch.matmul, torch.baddbmm, torch.linalg.vector_norm;
-    none computes sin and cos at once, so sincos32 has none, and torch.sin
-    + torch.cos is printed beside it) is timed in turns with the kernel.
-    The first case of each goes to the kernels line."""
+    each (utils/fp32.py, geom/rotation.py's rodrigues, bounds/evaluate.py's
+    rot_uncertainty): rotate at an outer transition's shape (8 R from 8
+    seeded rotation centres through rodrigues, times syn07's data) and at
+    the rescoring's (4 R, with t), norm3 at the centres' shape (8, 3) and
+    the preparation's (syn07's data), sincos32 at (8,) (the centres'
+    angles), rodrigues of the 8 centres (the host engine's lanes) and
+    rot_uncertainty of 8 widths of the BnB's levels (2 pi / 2^k, k = 1..8)
+    times syn07's point norms, each equal to its plain version
+    (rotate_plain, norm3_plain, sincos32_plain, rodrigues_plain,
+    rot_uncertainty_plain: elementwise torch ops, launching no kernel of
+    ours) on the same card tensors bit for bit, timed like the bound
+    kernels; the library call (torch.matmul,
+    torch.baddbmm, torch.linalg.vector_norm) is timed in turns with the
+    kernel, norm3 and vector_norm alternated (medians of 10); none
+    computes sin and cos at once, so sincos32 has none and is alternated
+    with one torch.sin (printed, and kept as the entry's `sin_ms`), torch
+    .sin + torch.cos printed beside it; rodrigues and rot_uncertainty have
+    none.  rodrigues and rot_uncertainty are one kernel launch and no
+    memset a call (torch.profiler).  The first case of each goes to the
+    kernels line.  Then, untimed, each bit for bit on wide inputs, and
+    cross3 in six layouts."""
     import numpy as np
     import torch
-    from goicp_tpu_torch.geom.rotation import rodrigues
+    from goicp_tpu_torch.bounds.evaluate import (rot_uncertainty,
+                                                 rot_uncertainty_plain)
+    from goicp_tpu_torch.geom.rotation import rodrigues, rodrigues_plain
     from goicp_tpu_torch.utils import fp32
     pair = _prepared("syn07", cfg, pools, dev)
     rng = np.random.default_rng(14)
@@ -1791,33 +1862,47 @@ def _fused_checks(kernels, cfg, pools, dev, floor):
     n = data.shape[0]
     angles = fp32.norm3(centers)
     data_b = data.expand(4, n, 3)
-    # name, kernel, plain, library (None: none), function evaluations,
-    # operations each, float64 operations or not, inputs
+    widths = torch.tensor([2 * np.pi / 2 ** k for k in range(1, 9)],
+                          dtype=torch.float32, device=dev)
+    nd = pair.norm_data
+    L, Nd = widths.shape[0], nd.shape[0]
+    # name, label, kernel, plain, library (None: none), seconds of the
+    # operations at the card's peak, inputs
     cases = (
         ("rotate", "8 R x syn07's data (an outer transition)",
          lambda: fp32.rotate(R8, data), lambda: fp32.rotate_plain(R8, data),
-         lambda: torch.matmul(data, R8.transpose(-1, -2)), 8 * n,
-         ROTATE_OPS, False, (R8, data)),
+         lambda: torch.matmul(data, R8.transpose(-1, -2)),
+         _ops_s(8 * n * ROTATE_OPS), (R8, data)),
         ("rotate", "4 R x syn07's data + t (a rescoring)",
          lambda: fp32.rotate(R4, data, t4),
          lambda: fp32.rotate_plain(R4, data, t4),
          lambda: torch.baddbmm(t4[:, None, :], data_b,
-                               R4.transpose(-1, -2)), 4 * n,
-         ROTATE_OPS + 3, False, (R4, data, t4)),
+                               R4.transpose(-1, -2)),
+         _ops_s(4 * n * (ROTATE_OPS + 3)), (R4, data, t4)),
         ("norm3", "the rotation centres (8, 3)",
          lambda: fp32.norm3(centers), lambda: fp32.norm3_plain(centers),
-         lambda: torch.linalg.vector_norm(centers, dim=-1), 8, NORM3_OPS,
-         False, (centers,)),
+         lambda: torch.linalg.vector_norm(centers, dim=-1),
+         _ops_s(8 * NORM3_OPS), (centers,)),
         ("norm3", "syn07's data (the preparation)",
          lambda: fp32.norm3(data), lambda: fp32.norm3_plain(data),
-         lambda: torch.linalg.vector_norm(data, dim=-1), n, NORM3_OPS,
-         False, (data,)),
+         lambda: torch.linalg.vector_norm(data, dim=-1),
+         _ops_s(n * NORM3_OPS), (data,)),
         ("sincos32", "the centres' angles (8,)",
          lambda: fp32.sincos32(angles), lambda: fp32.sincos32_plain(angles),
-         None, 8, SINCOS_OPS, True, (angles,)),
+         None, _ops_s(f64=8 * SINCOS_OPS), (angles,)),
+        ("rodrigues_kernel", "the rotation centres (8, 3) (the host "
+         "engine's lanes)", lambda: rodrigues(centers),
+         lambda: rodrigues_plain(centers), None,
+         _ops_s(8 * RODRIGUES_OPS, 8 * SINCOS_OPS), (centers,)),
+        ("rot_uncertainty_kernel",
+         f"8 widths x syn07's {Nd} point norms",
+         lambda: rot_uncertainty(widths, nd),
+         lambda: rot_uncertainty_plain(widths, nd), None,
+         _ops_s(L * ROT_UNC_LANE_OPS + L * Nd, L * SINE_OPS),
+         (widths, nd)),
     )
     seen = set()
-    for name, label, kern, plain, library, n_eval, ops, f64, ins in cases:
+    for name, label, kern, plain, library, t_ops, ins in cases:
         k = kernels[name]
         got, want = kern(), plain()
         got = got if isinstance(got, tuple) else (got,)
@@ -1828,11 +1913,25 @@ def _fused_checks(kernels, cfg, pools, dev, floor):
         err = _max_err(got, want)
         k["errs"].append(err)
         pms, dms = _median_ms(plain), _device_ms(kern)
-        if library is None:
-            ms, lms = _median_ms(kern), None
+        extra = ""
+        if name == "sincos32":
+            ks, ls = _alternated(kern, lambda: torch.sin(angles))
+            ms, lms = statistics.median(ks), None
+            k["sin_ms"] = statistics.median(ls)
             sin_cos = _median_ms(lambda: (torch.sin(angles),
                                           torch.cos(angles)))
-            extra = f"; torch.sin + torch.cos {sin_cos:.4f} ms"
+            extra = (f"; alternated x{len(ks)}: sincos32 median {ms:.4f} ms "
+                     f"[{min(ks):.4f}-{max(ks):.4f}], torch.sin median "
+                     f"{k['sin_ms']:.4f} ms [{min(ls):.4f}-{max(ls):.4f}]; "
+                     f"torch.sin + torch.cos {sin_cos:.4f} ms")
+        elif library is None:
+            ms, lms = _median_ms(kern), None
+            launches, memsets = _launches_memsets(kern)
+            _require(launches == 1 and memsets == 0,
+                     f"{name} one kernel launch and no memset a call: "
+                     f"{launches}, {memsets}")
+            extra = (f"; {launches:g} kernel launch and {memsets:g} memsets "
+                     f"a call (torch.profiler)")
         elif name == "norm3":
             ks, ls = _alternated(kern, library)
             ms, lms = statistics.median(ks), statistics.median(ls)
@@ -1841,8 +1940,6 @@ def _fused_checks(kernels, cfg, pools, dev, floor):
                      f"{lms:.4f} ms [{min(ls):.4f}-{max(ls):.4f}]")
         else:
             ms, lms = _in_turns(kern, library)
-            extra = ""
-        t_ops = n_eval * ops / (PEAK_OPS_F64 if f64 else PEAK_OPS)
         t_bytes = _nbytes(*ins, *got) / PEAK_BYTES
         bms = max(t_ops, t_bytes) * 1e3
         bby = "operations" if t_ops >= t_bytes else "bytes"
@@ -1857,7 +1954,11 @@ def _fused_checks(kernels, cfg, pools, dev, floor):
               f"library {lib}{extra} bound {bms:.6f} ms ({bby}) {floor}",
               flush=True)
     # wide inputs, untimed: 2^16 angles in [-8, 8], 2^16 vectors over six
-    # decades
+    # decades; rotation vectors at the edges (zero, on the axes, |v| = pi
+    # and next to it, the cube's corner sqrt(3) pi) and 2^12 in the cube
+    # [-pi, pi]^3; the BnB's widths 2 pi / 2^k (k = 0..12), 0 and widths
+    # where the clamp binds, times syn07's norms (its padding's zeros
+    # among them)
     ang = torch.as_tensor(rng.uniform(-8.0, 8.0, 2**16), dtype=torch.float32,
                           device=dev)
     vec = torch.as_tensor(rng.normal(size=(2**16, 3))
@@ -1866,8 +1967,43 @@ def _fused_checks(kernels, cfg, pools, dev, floor):
     _require(_same_bits(fp32.sincos32(ang), fp32.sincos32_plain(ang))
              and _same_bits([fp32.norm3(vec)], [fp32.norm3_plain(vec)]),
              "sincos32 and norm3 == plain bit for bit on 2^16 inputs")
-    print("sincos32 on 2^16 angles in [-8, 8], norm3 on 2^16 vectors over "
-          "six decades: bit for bit", flush=True)
+    pi = np.pi
+    axes = np.concatenate([np.eye(3), -np.eye(3)])
+    unit = rng.normal(size=(16, 3))
+    unit /= np.linalg.norm(unit, axis=1, keepdims=True)
+    rv = np.concatenate([
+        np.zeros((1, 3)), axes * pi / 2, axes * pi,
+        axes * pi * (1 - 2.0 ** -20), axes * pi * (1 + 2.0 ** -20),
+        unit * pi, unit * np.float32(pi), [[pi, pi, pi], [-pi, pi, -pi]],
+        rng.uniform(-pi, pi, (2**12, 3))])
+    rv = torch.as_tensor(rv, dtype=torch.float32, device=dev)
+    wide_w = torch.as_tensor(np.concatenate([
+        [2 * pi / 2 ** k for k in range(13)], [0.0],
+        rng.uniform(3.5, 8.0, 8)]), dtype=torch.float32, device=dev)
+    _require(_same_bits([rodrigues(rv)], [rodrigues_plain(rv)])
+             and _same_bits([rodrigues(rv[5])], [rodrigues_plain(rv[5])])
+             and _same_bits([rot_uncertainty(wide_w, nd)],
+                            [rot_uncertainty_plain(wide_w, nd)]),
+             "rodrigues and rot_uncertainty == plain bit for bit on wide "
+             "inputs")
+    # cross3 in six layouts: contiguous, strided, each side broadcast, two
+    # vectors, and two leading dims
+    a = torch.as_tensor(rng.normal(size=(64, 3, 3)), dtype=torch.float32,
+                        device=dev)
+    b = torch.as_tensor(rng.normal(size=(64, 3, 3)), dtype=torch.float32,
+                        device=dev)
+    layouts = ((a[:, 0], b[:, 1]), (a[:, :, 0], b[:, 1]), (a[:, 0], b[0, 1]),
+               (a[:1, 0], b[:, :, 2]), (a[0, 0], b[0, :, 1]),
+               (a[:4, :, None, :], b[:4, None, :, :]))
+    for x, y in layouts:
+        _require(_same_bits([fp32.cross3(x, y)], [fp32.cross3_plain(x, y)]),
+                 f"cross3 == plain bit for bit at {tuple(x.shape)} "
+                 f"{x.stride()} x {tuple(y.shape)} {y.stride()}")
+    print(f"sincos32 on 2^16 angles in [-8, 8], norm3 on 2^16 vectors over "
+          f"six decades, rodrigues on {rv.shape[0]} rotation vectors (the "
+          f"edges and the cube), rot_uncertainty on {wide_w.shape[0]} widths "
+          f"x {Nd} norms, cross3 in {len(layouts)} layouts: bit for bit",
+          flush=True)
 
 
 def _icp_bound(res, nd, m, mode, tensors):
@@ -3129,6 +3265,21 @@ def _one_answer_phase(dev):
              and loops["icp_iteration"]["launches"] == 0,
              f"an ICP event is one launch of csrc/icp.cu and no host read, "
              f"0 launches an iteration: {ev}, {loops['icp_iteration']}")
+    rod, unc = launch_counts.rodrigues_call(), \
+        launch_counts.rot_uncertainty_call()
+    hs = launch_counts.host_outer_step()
+    print(f"phase 13 a rodrigues of 8 centres: {rod['launches']:.1f} "
+          f"launches ({rod['ms']:.4f} ms on the host clock); a "
+          f"rot_uncertainty of 8 widths x {unc['points']} norms: "
+          f"{unc['launches']:.1f} launches ({unc['ms']:.4f} ms); a "
+          f"host-engine outer step ({hs['active']} lanes): "
+          f"{hs['launches']:.1f} launches, {hs['host_reads']:.1f} host "
+          f"reads, {hs['syncs']:.1f} syncs, {hs['ms']:.3f} ms on the host "
+          f"clock; before rodrigues and rot_uncertainty were one launch "
+          f"each: {BEFORE_ONE_LAUNCH_ROTATION}", flush=True)
+    _require(rod["launches"] == 1 and unc["launches"] == 1,
+             f"rodrigues and rot_uncertainty are one launch each: {rod}, "
+             f"{unc}")
     print(f"phase 13 wall {time.perf_counter() - t_phase:.3f} s", flush=True)
     return counts
 
@@ -3627,7 +3778,7 @@ def main() -> int:
     # ---- 4. proof the main path ran the kernels ----
     print(f"launches during the registrations: {json.dumps(counts)}",
           flush=True)
-    for kname in PATH_KERNELS:
+    for kname in PATH_KERNELS + PREP_KERNELS:
         _require(counts[kname] > 0, f"{kname} launched on the main path")
     _step_path(counts, "phase 3")
     _off_path(counts, "phase 3")
@@ -3802,6 +3953,7 @@ def main() -> int:
          "launch_floor_ms": floor_ms, "graph_ms": k["graph_ms"],
          "graph_launch_floor_ms": floor_dev,
          **({"norm1": k["norm1"]} if "norm1" in k else {}),
+         **({"sin_ms": k["sin_ms"]} if "sin_ms" in k else {}),
          # K1-K4's bodies also run inside every inner run and inner step
          # launch, K2's in every pop of the transition (the root corners)
          # too

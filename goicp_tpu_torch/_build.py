@@ -72,6 +72,10 @@ _SIGNATURES = {
     "goicp_norm3": [_P, _P, _L, _P],
     # x, sin, cos, n, stream
     "goicp_sincos32": [_P, _P, _P, _L, _P],
+    # v, R, vectors, stream
+    "goicp_rodrigues": [_P, _P, _L, _P],
+    # widths, norms, out, lanes, points, stream
+    "goicp_rot_uncertainty": [_P, _P, _P, _L, _L, _P],
     # data, model, R0, t0, data_mask, count, enabled, workspace, R, t,
     # nn_idx, err, iters, K, Nd, M, inlier_num, max_iter, mode, err_diff,
     # stream

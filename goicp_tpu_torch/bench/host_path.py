@@ -2,7 +2,7 @@
 utils/fp32.py on the card, and of each step a launch path is made of.
 
     python goicp_tpu_torch/bench/host_path.py [--calls N] [--json PATH]
-        [--transition-only | --norm3-only]
+        [--transition-only | --ladders-only | --wrappers-only]
 
 Each number is time.perf_counter() around N calls (default 10,000) of one
 thunk and a final torch.cuda.synchronize(), divided by N, in µs: the
@@ -10,17 +10,23 @@ host's time per call, since the kernels (~2 µs on the card) keep up with
 it.  The wrappers run at the main path's shapes: ordered_sum over 4 rows
 of 192 (the rescoring's sums), rotate of 192 points by 8 R (an outer
 transition) and by 4 R with t (a rescoring), norm3 of 8 rotation centres,
-sincos32 of 8 angles, rodrigues of 8 centres, dot_fma of (8, 3) x (8, 3)
-and of the Kabsch's broadcast (4, 3, 1, 3) x (4, 1, 3, 3); each beside the
-one torch call that computes the same function in another order
-(torch.sum, torch.matmul, torch.baddbmm, torch.linalg.vector_norm; sin and
-cos take two).  The ladder builds ordered_sum's call up from the bare C
-call one piece at a time, beside the same call made the older way (as
-at commit 90724d7: a lookup per call, c_void_p pointers, a Stream
-object); the norm3 ladder builds norm3's call up the same way, with
-the output shaped by a torch.Size (the wrapper before its host path was
-cut) and by its row count; the steps are the pieces of a launch path,
-each timed alone.  --norm3-only times the norm3 ladder alone.
+sincos32 of 8 angles, rodrigues of 8 centres, rot_uncertainty of 8 widths
+times 192 point norms, cross3 of chip_smoke.py phase 2's strided (4, 3)
+operands (a column of one 3x3 against a row of another), dot_fma of (8, 3)
+x (8, 3) and of the Kabsch's broadcast (4, 3, 1, 3) x (4, 1, 3, 3); each
+beside the one torch call that computes the same function in another
+order (torch.sum, torch.matmul, torch.baddbmm, torch.linalg.vector_norm,
+torch.linalg.cross; sin and cos take two, and torch.sin alone is timed
+too; rodrigues and rot_uncertainty have none).  The ladder builds
+ordered_sum's call up from the bare C call one piece at a time, beside
+the same call made the older way (as at commit 90724d7: a lookup per
+call, c_void_p pointers, a Stream object); the norm3 ladder builds
+norm3's call up the same way, with the output shaped by a torch.Size
+(the wrapper before its host path was cut) and by its row count; the
+steps are the pieces of a launch path,
+each timed alone.  The cross3 and sincos32 ladders do the same for
+those two calls.  --ladders-only times the three ladders alone,
+--wrappers-only the wrappers alone.
 
 The transition's wrappers (search/transition.py: harvest; advance in
 modes pop, adopt and both) are timed at the streams' shape (syn02 +
@@ -73,6 +79,7 @@ def _inputs(dev):
 def wrappers(dev, calls: int) -> dict:
     """µs per call of each wrapper (this tree's or the older one's) and of
     its library call."""
+    from goicp_tpu_torch.bounds.evaluate import rot_uncertainty
     from goicp_tpu_torch.geom.rotation import rodrigues
     from goicp_tpu_torch.utils import fp32
     x = _inputs(dev)
@@ -91,6 +98,9 @@ def wrappers(dev, calls: int) -> dict:
         def sincos():
             return fp32.sin32(x["angles"]), fp32.cos32(x["angles"])
     pts_b = pts.expand(4, 192, 3)
+    ca, cb = x["V"][:, :, 0], x["U"][:, 1]
+    widths = x["angles"] / 2.0
+    norms = torch.linalg.vector_norm(pts, dim=-1)
     thunks = {
         "ordered_sum (4, 192)": lambda: fp32.ordered_sum(rows),
         "torch.sum": lambda: torch.sum(rows, dim=-1),
@@ -106,7 +116,12 @@ def wrappers(dev, calls: int) -> dict:
         "sincos32 (8,)": sincos,
         "torch.sin + torch.cos": lambda: (torch.sin(x["angles"]),
                                           torch.cos(x["angles"])),
+        "torch.sin": lambda: torch.sin(x["angles"]),
         "rodrigues (8, 3)": lambda: rodrigues(x["centers"]),
+        "rot_uncertainty (8,) x (192,)": lambda: rot_uncertainty(widths,
+                                                                 norms),
+        "cross3 (4, 3) x (4, 3) strided": lambda: fp32.cross3(ca, cb),
+        "torch.linalg.cross": lambda: torch.linalg.cross(ca, cb),
         "dot_fma (8, 3) x (8, 3)": lambda: fp32.dot_fma(x["centers"],
                                                         x["centers"]),
         "dot_fma (4, 3, 1, 3) x (4, 1, 3, 3)": lambda: fp32.dot_fma(Vb, Ub),
@@ -209,6 +224,120 @@ def norm3_ladder(dev, calls: int) -> dict:
         out[k] = []
     for k in list(turns) + list(turns)[::-1]:
         out[k].append(_us(turns[k], calls))
+    return out
+
+
+def _in_turns_us(turns: dict, calls: int) -> dict:
+    """µs per call of each thunk, timed forward then in reverse: a list
+    of the two for each."""
+    out = {k: [] for k in turns}
+    for k in list(turns) + list(turns)[::-1]:
+        out[k].append(_us(turns[k], calls))
+    return out
+
+
+def cross3_ladder(dev, calls: int) -> dict:
+    """µs per call of cross3 at chip_smoke.py phase 2's strided (4, 3) x
+    (4, 3) (a column of one 3x3 against a row of another), built up from
+    the bare C call one piece of its wrapper at a time: the stream handle
+    read, a new output (from the kept broadcast shape, a tuple, as the
+    wrapper makes it, or from its ints), the description looked up per
+    layout (_broadcast_view); then the wrapper and torch.linalg.cross in
+    turns."""
+    from goicp_tpu_torch.utils import fp32
+    x = _inputs(dev)
+    a, b = x["V"][:, :, 0], x["U"][:, 1]
+    o = a.new_empty(4, 3)
+    fn = fp32.kernels.goicp_cross3
+    pa, pb, po, idx = a.data_ptr(), b.data_ptr(), o.data_ptr(), a.get_device()
+    raw = torch._C._cuda_getCurrentRawStream
+    s = raw(idx)
+    shape, meta = fp32._broadcast_view(a.shape, a.stride(), b.shape,
+                                       b.stride())
+
+    def out_tuple():
+        out = a.new_empty(shape)
+        return fn(pa, pb, out.data_ptr(), meta, raw(idx))
+
+    def out_ints():
+        out = a.new_empty(*shape)
+        return fn(pa, pb, out.data_ptr(), meta, raw(idx))
+
+    def lookup():
+        sh, m = fp32._broadcast_view(a.shape, a.stride(), b.shape,
+                                     b.stride())
+        out = a.new_empty(sh)
+        return fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, raw(idx))
+    thunks = {
+        "1. the C call, its arguments ready": lambda: fn(pa, pb, po, meta,
+                                                         s),
+        "2. + the stream handle read": lambda: fn(pa, pb, po, meta,
+                                                  raw(idx)),
+    }
+    out = {k: _us(f, calls) for k, f in thunks.items()}
+    out.update(_in_turns_us({
+        "3a. + a new output, new_empty(shape), a tuple": out_tuple,
+        "3b. + a new output, new_empty(*shape), ints": out_ints,
+        "4. + the description looked up (_broadcast_view)": lookup,
+        "5. fp32.cross3": lambda: fp32.cross3(a, b),
+        "torch.linalg.cross": lambda: torch.linalg.cross(a, b)}, calls))
+    return out
+
+
+def sincos32_ladder(dev, calls: int) -> dict:
+    """µs per call of sincos32 at (8,) built up from the bare C call: its
+    outputs made as two tensors (empty_like, as before its call was cut;
+    new_empty from ints) or as one (2, n) tensor returned as its two rows
+    (unbind, or a slice each), each with the C call; then the wrapper,
+    torch.sin and torch.sin + torch.cos in turns."""
+    from goicp_tpu_torch.utils import fp32
+    x = _inputs(dev)["angles"]
+    n = x.numel()
+    o = x.new_empty(2, n)
+    fn = fp32.kernels.goicp_sincos32
+    px, po, idx = x.data_ptr(), o.data_ptr(), x.get_device()
+    raw = torch._C._cuda_getCurrentRawStream
+    s = raw(idx)
+
+    def call(sp, cp):
+        return fn(px, sp, cp, n, raw(idx))
+
+    def empty_like():
+        sv, cv = torch.empty_like(x), torch.empty_like(x)
+        call(sv.data_ptr(), cv.data_ptr())
+        return sv, cv
+
+    def two_new():
+        sv, cv = x.new_empty(n), x.new_empty(n)
+        call(sv.data_ptr(), cv.data_ptr())
+        return sv, cv
+
+    def unbind():
+        out = x.new_empty(2, n)
+        p = out.data_ptr()
+        call(p, p + 4 * n)
+        return out.unbind(0)
+
+    def slices():
+        out = x.new_empty(2 * n)
+        p = out.data_ptr()
+        call(p, p + 4 * n)
+        return out[:n], out[n:]
+    thunks = {
+        "1. the C call, its arguments ready": lambda: fn(px, po, po + 4 * n,
+                                                         n, s),
+        "2. + the stream handle read": lambda: call(po, po + 4 * n),
+    }
+    out = {k: _us(f, calls) for k, f in thunks.items()}
+    out.update(_in_turns_us({
+        "3a. + two outputs, empty_like": empty_like,
+        "3b. + two outputs, new_empty(n)": two_new,
+        "3c. + one (2, n) output, unbind": unbind,
+        "3d. + one 2n output, two slices": slices,
+        "4. fp32.sincos32": lambda: fp32.sincos32(x),
+        "torch.sin": lambda: torch.sin(x),
+        "torch.sin + torch.cos": lambda: (torch.sin(x), torch.cos(x))},
+        calls))
     return out
 
 
@@ -357,8 +486,11 @@ def main(argv=None) -> int:
     ap.add_argument("--json", help="also write the object to this file")
     ap.add_argument("--transition-only", action="store_true",
                     help="time the transition's wrappers alone")
-    ap.add_argument("--norm3-only", action="store_true",
-                    help="time norm3's ladder alone")
+    ap.add_argument("--ladders-only", action="store_true",
+                    help="time the norm3, cross3 and sincos32 ladders "
+                         "alone")
+    ap.add_argument("--wrappers-only", action="store_true",
+                    help="time the wrappers alone")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("host_path needs a CUDA device", file=sys.stderr)
@@ -368,8 +500,13 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     out = dict(package=goicp_tpu_torch.__file__, card=card(),
                calls=a.calls)
-    if a.norm3_only:
-        out["norm3_ladder_us"] = norm3_ladder(dev, a.calls)
+    if a.ladders_only or a.wrappers_only:
+        if a.ladders_only:
+            out.update(norm3_ladder_us=norm3_ladder(dev, a.calls),
+                       cross3_ladder_us=cross3_ladder(dev, a.calls),
+                       sincos32_ladder_us=sincos32_ladder(dev, a.calls))
+        else:
+            out["wrappers_us"] = wrappers(dev, a.calls)
         print(json.dumps(out), flush=True)
         if a.json:
             with open(a.json, "w") as fh:
@@ -379,6 +516,8 @@ def main(argv=None) -> int:
         out.update(wrappers_us=wrappers(dev, a.calls),
                    ladder_us=ladder(dev, a.calls),
                    norm3_ladder_us=norm3_ladder(dev, a.calls),
+                   cross3_ladder_us=cross3_ladder(dev, a.calls),
+                   sincos32_ladder_us=sincos32_ladder(dev, a.calls),
                    steps_us=steps(dev, a.calls))
     out["transition_us"] = transition(dev)
     print(json.dumps(out), flush=True)

@@ -57,9 +57,26 @@ every `.item()` and `bool()` of a card tensor goes through):
     reads it counts (fused_stream.counters), host reads per global
     iteration, and host-clock ms;
   * one rescoring: score_transform of that pair at four seeded transforms
-    and their nearest-neighbour correspondences (the ICP event's).
+    and their nearest-neighbour correspondences (the ICP event's);
+  * one rodrigues of 8 seeded rotation centres (the host engine's lanes)
+    and one rot_uncertainty of their 8 widths times that pair's point
+    norms: launches and host-clock ms a call (each one launch of
+    csrc/fp32_products.cu on a tree that has them, their torch bodies
+    before);
+  * one outer step of the host engine (search/outer.py, run-pair --engine
+    host): its device work on that pair, prepared with static counts as
+    run_pair prepares it, at the bench's shape: step_bounds (rodrigues,
+    rotate, the inner search with its rotation uncertainty) on the
+    arguments the engine passed it at its first step (the root's 8
+    children, its incumbent; recorded from a one-step run), and the one
+    read of the results (outer.to_host): launches, host reads, syncs,
+    host-clock ms.
 
     python goicp_tpu_torch/bench/launch_counts.py [--json PATH]
+        [--only NAME ...]
+
+--only counts the named entries alone (the keys of the printed object,
+e.g. `--only rodrigues rot_uncertainty host_outer_step`).
 
 prints one JSON object (the counts, each loop's host-clock ms, the card's
 name and power limit).  It uses only functions the port has had since
@@ -396,6 +413,89 @@ def rescoring(device="cuda", n=10) -> dict:
     return dict(launches=_launches(score, n), ms=_host_ms(score, 5 * n))
 
 
+def _static_pair(name, device):
+    """(cfg, pair): a bench pair prepared with static counts, as the host
+    engine takes it (run_pair's preparation), at the bench's shape."""
+    from goicp_tpu_torch.bench.measure import (_normalized_synthetic,
+                                               bench_shape, synthetic_pool)
+    from goicp_tpu_torch.config import GoICPConfig
+    from goicp_tpu_torch.pipeline.prepare import prepare_pair
+    cfg = bench_shape(GoICPConfig())
+    pool = {e[0]: e for e in synthetic_pool(64, seed=7)}
+    return cfg, prepare_pair(*_normalized_synthetic(pool[name]), cfg,
+                             device=device)
+
+
+def _first_step_args(pair, cfg) -> tuple:
+    """(centers, widths, active, opt) of the host engine's first outer
+    step on pair, as outer.register passes them to outer.step_bounds:
+    recorded from a run of one outer step, so that the lanes are the
+    engine's own expansion of the root's children and opt its own
+    incumbent."""
+    import dataclasses
+
+    from goicp_tpu_torch.search import outer
+    seen = []
+    step_bounds = outer.step_bounds
+
+    def record(*args):
+        seen.append(args[2:])
+        return step_bounds(*args)
+    outer.step_bounds = record
+    try:
+        outer.register(pair, dataclasses.replace(cfg, max_outer_steps=1))
+    finally:
+        outer.step_bounds = step_bounds
+    return seen[0]
+
+
+def rodrigues_call(device="cuda", n=20) -> dict:
+    """Launches and host-clock ms of one rodrigues of 8 seeded rotation
+    centres (its own launch count on a tree that keeps one)."""
+    from goicp_tpu_torch.geom.rotation import rodrigues
+    rng = np.random.default_rng(14)
+    v = torch.as_tensor(rng.uniform(-1.8, 1.8, (8, 3)), dtype=torch.float32,
+                        device=device)
+    return dict(launches=_launches(lambda: rodrigues(v), n),
+                ms=_host_ms(lambda: rodrigues(v), 50 * n))
+
+
+def rot_uncertainty_call(device="cuda", n=20) -> dict:
+    """Launches and host-clock ms of one rot_uncertainty of 8 widths (the
+    BnB's 2 pi / 2^k, k = 1..8) times PAIR_ICP's point norms."""
+    from goicp_tpu_torch.bounds.evaluate import rot_uncertainty
+    _, pair = _static_pair(PAIR_ICP, device)
+    w = torch.tensor([2 * np.pi / 2 ** k for k in range(1, 9)],
+                     dtype=torch.float32, device=device)
+
+    def call():
+        return rot_uncertainty(w, pair.norm_data)
+    return dict(launches=_launches(call, n), ms=_host_ms(call, 50 * n),
+                lanes=8, points=int(pair.norm_data.shape[0]))
+
+
+def host_outer_step(device="cuda", n=5) -> dict:
+    """Launches, host reads, syncs and host-clock ms of the device work of
+    the host engine's first outer step on PAIR_ICP (the root's children,
+    from the engine's incumbent after its initial ICP): outer.step_bounds
+    on the arguments the engine passed it, and the one read of its
+    results."""
+    from goicp_tpu_torch.search import outer
+    cfg, pair = _static_pair(PAIR_ICP, device)
+    centers, widths, active, opt = _first_step_args(pair, cfg)
+
+    def step():
+        R, ub, lb = outer.step_bounds(pair, cfg, centers, widths, active,
+                                      opt)
+        return outer.to_host(R, ub.best_err, ub.best_node, ub.ub_terms,
+                             ub.evals, lb.lb_safe, lb.evals)
+    step()
+    launches, reads, syncs = _profile(step, n, syncs=True)
+    return dict(lanes=int(centers.shape[0]), active=int(active.sum()),
+                launches=launches, host_reads=reads, syncs=syncs,
+                ms=_host_ms(step, 4 * n))
+
+
 def _has_inner_step() -> bool:
     from goicp_tpu_torch.search import inner
     return hasattr(inner, "inner_step")
@@ -410,23 +510,32 @@ def card() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", help="also write the object to this file")
+    ap.add_argument("--only", nargs="+", metavar="NAME",
+                    help="count these entries alone")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("launch_counts needs a CUDA device", file=sys.stderr)
         return 1
     import goicp_tpu_torch
-    out = dict(package=goicp_tpu_torch.__file__, card=card(),
-               global_iteration=global_iteration(),
-               one_pair_iteration=one_pair_iteration()
-               if _has_inner_step() else None,
-               icp_iteration=icp_iteration(), icp_event=icp_event(),
-               transition=transition(),
-               transition_chained=transition(chained=True),
-               packed_transition=packed_transition(),
-               outer_step=outer_step(),
-               outer_step_chained=outer_step(chained=True),
-               stream_chunk=stream_chunk(),
-               rescoring=rescoring())
+    entries = {
+        "global_iteration": global_iteration,
+        "one_pair_iteration": lambda: one_pair_iteration()
+        if _has_inner_step() else None,
+        "icp_iteration": icp_iteration, "icp_event": icp_event,
+        "transition": transition,
+        "transition_chained": lambda: transition(chained=True),
+        "packed_transition": packed_transition,
+        "outer_step": outer_step,
+        "outer_step_chained": lambda: outer_step(chained=True),
+        "stream_chunk": stream_chunk, "rescoring": rescoring,
+        "rodrigues": rodrigues_call, "rot_uncertainty": rot_uncertainty_call,
+        "host_outer_step": host_outer_step}
+    unknown = set(a.only or ()) - set(entries)
+    if unknown:
+        ap.error(f"no such entries: {sorted(unknown)}")
+    out = dict(package=goicp_tpu_torch.__file__, card=card())
+    out.update({k: f() for k, f in entries.items()
+                if a.only is None or k in a.only})
     print(json.dumps(out), flush=True)
     if a.json:
         with open(a.json, "w") as fh:

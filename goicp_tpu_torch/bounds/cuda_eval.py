@@ -45,8 +45,9 @@ from goicp_tpu_torch.grid.lookup import (flat_index, oob_extension,
                                          voxel_indices)
 from goicp_tpu_torch.icp.icp import icp_run, kabsch3
 from goicp_tpu_torch.utils.fp32 import (cross3, det3, dot_fma, norm3,
-                                        ordered_sum, rotate, sincos32,
-                                        sq_dist3)
+                                        ordered_sum, rodrigues_kernel,
+                                        rot_uncertainty_kernel, rotate,
+                                        sincos32, sq_dist3)
 
 SQRT3 = float(np.sqrt(3.0))
 MAX_POINTS = 8192     # points per row: two trimmed rows fit a block's memory
@@ -446,8 +447,9 @@ chem_incomp_kernel_lanes.launches = 0
 # the inner step's
 _KERNELS = (geometric_bounds_kernel, chem_incomp_kernel,
             geometric_bounds_kernel_lanes, chem_incomp_kernel_lanes,
-            ordered_sum, rotate, norm3, sincos32, sq_dist3, det3, cross3,
-            dot_fma, icp_run, kabsch3)
+            ordered_sum, rotate, norm3, sincos32, rodrigues_kernel,
+            rot_uncertainty_kernel, sq_dist3, det3, cross3, dot_fma, icp_run,
+            kabsch3)
 
 
 def _all_kernels() -> tuple:

@@ -37,7 +37,9 @@ from goicp_tpu_torch.bounds.cuda_eval import reduce_bounds
 from goicp_tpu_torch.grid.lookup import (dt_distance, flat_index,
                                          nearest_cell_id, voxel_indices)
 from goicp_tpu_torch.pipeline.prepare import PairData
-from goicp_tpu_torch.utils.fp32 import dot3, ordered_sum, sincos32
+from goicp_tpu_torch.utils.fp32 import (_on_card, dot3, ordered_sum,
+                                        rot_uncertainty_kernel,
+                                        sincos32_plain)
 
 SQRT3 = float(np.sqrt(3.0))
 
@@ -291,6 +293,20 @@ def chem_bounds_from_lattice(cfg: GoICPConfig, lattice_vals: dict,
 
 def rot_uncertainty(widths: torch.Tensor, norm_data: torch.Tensor):
     """maxRotDis for rotation cubes of width w (L,) -> (L, Nd)
-    (jly_goicp.cpp:185-206): 2 sin(min(sqrt(3) w/2, pi)/2) * ||p||."""
+    (jly_goicp.cpp:185-206): 2 sin(min(sqrt(3) w/2, pi)/2) * ||p||.  One
+    launch of csrc/fp32_products.cu on CUDA float32 tensors
+    (utils/fp32.py's rot_uncertainty_kernel: a thread an output,
+    rot_uncertainty_plain's seven steps in their order);
+    rot_uncertainty_plain on CPU tensors."""
+    if _on_card(widths, norm_data):
+        return rot_uncertainty_kernel(widths, norm_data)
+    return rot_uncertainty_plain(widths, norm_data)
+
+
+def rot_uncertainty_plain(widths: torch.Tensor, norm_data: torch.Tensor):
+    """rot_uncertainty in elementwise torch ops, float32: float(sqrt 3) w,
+    / 2, clamp(max=float(pi)) (a NaN stays), / 2, sincos32's sine, 2 s,
+    times norm_data[j]."""
     angle = torch.clamp(SQRT3 * widths / 2.0, max=math.pi)
-    return 2.0 * sincos32(angle / 2.0)[0][:, None] * norm_data[None, :]
+    return 2.0 * sincos32_plain(angle / 2.0)[0][:, None] \
+        * norm_data[None, :]

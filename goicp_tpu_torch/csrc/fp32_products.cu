@@ -23,7 +23,15 @@
 //              both in one launch: it replaces fp32.py's cos32 and sin32,
 //              six launches (a cast, the device's libm call and a cast
 //              back, twice) whose libm differed between the card and the
-//              CPU.
+//              CPU;
+//   rodrigues  (..., 3) angle-axis vectors -> (..., 3, 3) rotations, a
+//              thread a vector: norm3_of then rodrigues_of (rot_body.cuh,
+//              the transition's pop takes the same): it replaces
+//              geom/rotation.py's torch body, norm3, sincos32 and ~20
+//              elementwise launches;
+//   rot_uncertainty  widths (L,) and point norms (Nd,) -> (L, Nd), a thread
+//              an output: rot_unc_of (rot_body.cuh), bounds/evaluate.py's
+//              seven torch steps around sincos32 in one launch.
 //
 // The orders (dot3's warp and sequential ones, the cross product, the
 // FMA chain, the sin and cos polynomials) are fp32_order.cuh's, shared
@@ -35,8 +43,10 @@
 // into one launch and its wrapper (fp32.py) keeps the host's work per
 // call to a few checks and one C call.  Since the ICP event is one
 // launch of icp.cu, the registration path launches none of sq_dist3,
-// det3, cross3 or dot_fma; norm3 and sincos32 are on it (the outer
-// transition, rodrigues, the preparation, the rotation uncertainty).
+// det3, cross3 or dot_fma, and since rodrigues and rot_uncertainty are
+// one launch each, none of sincos32; norm3 (the preparation), rodrigues
+// (the ICP seeds, the host engine's outer step) and rot_uncertainty (the
+// host engine's inner searches) are on it.
 #include "common.cuh"
 #include "fp32_order.cuh"
 #include "rot_body.cuh"
@@ -147,6 +157,30 @@ __global__ void sincos32_kernel(const float* __restrict__ x,
   sincos32(__ldg(x + i), s + i, c + i);
 }
 
+__global__ void rodrigues_kernel(const float* __restrict__ v,
+                                 float* __restrict__ R, long long n) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  float x[3], r[9];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) x[a] = __ldg(v + 3 * i + a);
+  rodrigues_of(x, norm3_of(x[0], x[1], x[2]), r);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) R[9 * i + k] = r[k];
+}
+
+__global__ void rot_uncertainty_kernel(const float* __restrict__ widths,
+                                       const float* __restrict__ norms,
+                                       float* __restrict__ out, long long n,
+                                       long long nd) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const long long l = i / nd;
+  out[i] = rot_unc_of(__ldg(widths + l), __ldg(norms + (i - l * nd)));
+}
+
 inline int launch_status(long long blocks) {
   return blocks > 0x7fffffffLL ? static_cast<int>(cudaErrorInvalidValue) : 0;
 }
@@ -239,5 +273,30 @@ extern "C" int goicp_sincos32(const float* x, float* s, float* c,
   if (int err = launch_status(blocks)) return err;
   sincos32_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(x, s, c, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int goicp_rodrigues(const float* v, float* R, long long n,
+                               void* stream) {
+  using namespace goicp;
+  if (n <= 0) return 0;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (int err = launch_status(blocks)) return err;
+  rodrigues_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(v, R, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int goicp_rot_uncertainty(const float* widths, const float* norms,
+                                     float* out, long long lanes,
+                                     long long nd, void* stream) {
+  using namespace goicp;
+  if (lanes <= 0 || nd <= 0) return 0;
+  const long long n = lanes * nd;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (int err = launch_status(blocks)) return err;
+  rot_uncertainty_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      widths, norms, out, n, nd);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
 // The per-element code of the rotation path, one definition each, shared
-// by the standalone kernels (fp32_products.cu's norm3, ordered_sum.cu's
-// rotate) and the outer-step transition (transition.cu), so that all of
-// them compile the same arithmetic:
+// by the standalone kernels (fp32_products.cu's norm3, rodrigues and
+// rot_uncertainty, ordered_sum.cu's rotate) and the outer-step transition
+// (transition.cu), so that all of them compile the same arithmetic:
 //
 //   norm3_of       sqrt(fma(z, z, fma(y, y, x x))) with a correctly rounded
 //                  square root: utils/fp32.py's norm3 (dot_fma's chain);
@@ -14,7 +14,16 @@
 //                  R_ij = (ct * eye_ij + st * K_ij) + one_ct * (u_i * u_j),
 //                  K the cross-product matrix of u with +0.0 on its
 //                  diagonal, each product taken even where a factor is 0
-//                  (ct * 0 is -0.0 for a negative ct, as in torch).
+//                  (ct * 0 is -0.0 for a negative ct, as in torch);
+//   rot_unc_of     bounds/evaluate.py's rot_uncertainty for one width and
+//                  one point norm in torch's float32 order:
+//                  (2 sin(min(float(sqrt 3) w / 2, float(pi)) / 2)) * nd,
+//                  each step rounded once (torch divides by the scalar 2
+//                  as a multiplication by 0.5 on the card: the same value,
+//                  halving is exact), the clamp keeping a NaN (torch's
+//                  rule, not fminf's), the sine sincos32's; its factor
+//                  before nd (rot_unc_sine2) is also the transition's
+//                  rotation factor.
 #pragma once
 
 #include "fp32_order.cuh"
@@ -58,6 +67,24 @@ __device__ __forceinline__ void rodrigues_of(const float* v, float t,
       R[3 * i + j] = __fadd_rn(a, __fmul_rn(one_ct, __fmul_rn(u[i], u[j])));
     }
   }
+}
+
+// float(sqrt 3) and float(pi), as torch rounds the Python scalars
+constexpr float kSqrt3f = 0x1.bb67aep+0f;
+constexpr float kPif = 0x1.921fb6p+1f;
+
+// rot_uncertainty's factor 2 sin(min(sqrt3 w / 2, pi) / 2) for width w,
+// the one before the point norm (also the transition's rotation factor)
+__device__ __forceinline__ float rot_unc_sine2(float w) {
+  float a = __fdiv_rn(__fmul_rn(kSqrt3f, w), 2.0f);
+  a = a > kPif ? kPif : a;              // clamp(max=pi); NaN stays
+  float s, c;
+  sincos32(__fdiv_rn(a, 2.0f), &s, &c);
+  return __fmul_rn(2.0f, s);
+}
+
+__device__ __forceinline__ float rot_unc_of(float w, float nd) {
+  return __fmul_rn(rot_unc_sine2(w), nd);
 }
 
 }  // namespace goicp

@@ -102,8 +102,6 @@ constexpr int kThreads = 256;      // a harvest block
 // an advance block: rank 0's chain is one dependent pass a frontier entry
 // or lane a thread, so the more threads, the shorter it is
 constexpr int kAdvThreads = 1024;
-constexpr float kSqrt3f = 1.7320508075688772f;   // float32(sqrt(3))
-constexpr float kPif = 3.141592653589793f;       // float32(pi)
 
 enum Mode { kBoth = 0, kPop = 1, kAdopt = 2 };
 
@@ -781,10 +779,7 @@ __global__ void __launch_bounds__(kAdvThreads) advance_kernel(AdvanceParams ap) 
           __fsub_rn(nrm, __fdiv_rn(__fmul_rn(kSqrt3f, cw), 2.0f)) <= kPif;
       float Rl[9];
       rodrigues_of(cen, nrm, Rl);
-      float ang = __fdiv_rn(__fmul_rn(kSqrt3f, cw), 2.0f);
-      ang = ang > kPif ? kPif : ang;        // clamp(max=pi); NaN stays
-      float sn, cs;
-      sincos32(__fdiv_rn(ang, 2.0f), &sn, &cs);
+      const float sine2 = rot_unc_sine2(cw);
       float* cn = out_<float>(p[kOChildNodes]) + 4 * (ol + l);
       for (int a = 0; a < 3; ++a) cn[a] = cxyz[a];
       cn[3] = cw;
@@ -795,7 +790,7 @@ __global__ void __launch_bounds__(kAdvThreads) advance_kernel(AdvanceParams ap) 
       const int owner = l / lpb, j = l - owner * lpb;
       float* dst = cluster.map_shared_rank(sm, owner);
       for (int k = 0; k < 9; ++k) dst[lay.lR + 9 * j + k] = Rl[k];
-      dst[lay.l2s + j] = __fmul_rn(2.0f, sn);
+      dst[lay.l2s + j] = sine2;
       dst[lay.la + j] = inside && ex ? 1.0f : 0.0f;
     }
     if (t < K) *cluster.map_shared_rank(&s_f[1], t) = opt;

@@ -97,11 +97,15 @@ On CUDA tensors each of ordered_sum, rotate, norm3, sincos32, sq_dist3,
 det3, cross3 and dot_fma is one launch (csrc/ordered_sum.cu: the sum and
 rotate; csrc/fp32_products.cu: the others), counted in
 `<function>.launches`; on CPU tensors each is its elementwise torch form
-(`*_plain`), the same bits, and there is no other fallback.  Their work
-is a few hundred bytes to a few hundred KB, so a launch's cost is the
-host's: the library's C functions are looked up once (`kernels`),
-pointers and the stream handle pass as plain ints, and a wrapper does its
-checks and one C call.
+(`*_plain`), the same bits, and there is no other fallback.  So are
+sincos32's two callers, geom/rotation.py's rodrigues and
+bounds/evaluate.py's rot_uncertainty, through rodrigues_kernel and
+rot_uncertainty_kernel here (csrc/fp32_products.cu, their elementwise
+bodies in csrc/rot_body.cuh), which launch no sincos32.
+Their work is a few hundred bytes to a few hundred KB, so a launch's
+cost is the host's: the library's C functions are looked up once
+(`kernels`), pointers and the stream handle pass as plain ints, and a
+wrapper does its checks and one C call.
 """
 
 from __future__ import annotations
@@ -509,15 +513,21 @@ def cross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Cross products over the last axis (of 3), broadcasting a and b, each
     entry a1*b2 - a2*b1 (and its rotations) with both products and the
     difference rounded once: one launch of csrc/fp32_products.cu on CUDA
-    tensors (at most 4 leading dims), cross3_plain on CPU ones."""
-    if not _on_card(a, b):
+    tensors (at most 4 leading dims), cross3_plain on CPU ones.  The card
+    test reads two attributes a tensor, as norm3's does, and the output is
+    made from the kept shape's ints (bench/host_path.py's cross3 ladder,
+    on an H100 machine's host: 0.5-1.6 µs less than from the tuple)."""
+    if not (a.is_cuda and b.is_cuda and a.dtype is _F32
+            and b.dtype is _F32) and not _on_card(a, b):
         return cross3_plain(a, b)
     shape, meta = _broadcast_view(a.shape, a.stride(), b.shape, b.stride())
-    out = a.new_empty(shape)
+    out = a.new_empty(*shape)
     if out.numel() == 0:
         return out
-    _launch(kernels.goicp_cross3(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                 meta, _stream(a)), "cross3")
+    err = kernels.goicp_cross3(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                               meta, _raw_stream(a.get_device()))
+    if err:
+        _launch(err, "cross3")
     cross3.launches += 1
     return out
 
@@ -554,18 +564,81 @@ def sincos32(x: torch.Tensor):
     """(sin x, cos x) of float32 angles, the module docstring's float64
     evaluation rounded once to float32, the same bits on every device:
     one launch of csrc/fp32_products.cu for both on a CUDA tensor,
-    sincos32_plain on a CPU one."""
-    if not _on_card(x):
+    sincos32_plain on a CPU one.  On the card both come from one output
+    made from ints, (2, n), returned as its two rows (viewed as x only
+    where x is not 1-D); contiguous() runs only for a tensor that is
+    not."""
+    if not (x.is_cuda and x.dtype is _F32) and not _on_card(x):
         return sincos32_plain(x)
-    x = x.contiguous()
-    s, c = torch.empty_like(x), torch.empty_like(x)
+    if not x.is_contiguous():
+        x = x.contiguous()
     n = x.numel()
-    if n == 0:
-        return s, c
-    _launch(kernels.goicp_sincos32(x.data_ptr(), s.data_ptr(), c.data_ptr(),
-                                   n, _stream(x)), "sincos32")
-    sincos32.launches += 1
+    out = x.new_empty(2, n)
+    if n:
+        p = out.data_ptr()
+        err = kernels.goicp_sincos32(x.data_ptr(), p, p + 4 * n, n,
+                                     _raw_stream(x.get_device()))
+        if err:
+            _launch(err, "sincos32")
+        sincos32.launches += 1
+    s, c = out.unbind(0)
+    if x.dim() != 1:
+        s, c = s.view(x.shape), c.view(x.shape)
     return s, c
 
 
 sincos32.launches = 0
+
+
+def rodrigues_kernel(v: torch.Tensor) -> torch.Tensor:
+    """geom/rotation.py's rodrigues of CUDA float32 angle-axis vectors
+    (..., 3) -> (..., 3, 3): one launch of csrc/fp32_products.cu, a thread
+    a vector (rot_body.cuh's norm3_of and rodrigues_of).  rodrigues routes
+    the card's tensors here."""
+    shape = v.shape
+    if not shape or shape[-1] != 3:
+        raise ValueError(f"rodrigues takes (..., 3), got {tuple(shape)}")
+    if not v.is_contiguous():
+        v = v.contiguous()
+    n = v.numel() // 3
+    out = v.new_empty(n, 3, 3)
+    if n:
+        err = kernels.goicp_rodrigues(v.data_ptr(), out.data_ptr(), n,
+                                      _raw_stream(v.get_device()))
+        if err:
+            _launch(err, "rodrigues")
+        rodrigues_kernel.launches += 1
+    return out if len(shape) == 2 else out.view(*shape[:-1], 3, 3)
+
+
+rodrigues_kernel.launches = 0
+
+
+def rot_uncertainty_kernel(widths: torch.Tensor,
+                           norm_data: torch.Tensor) -> torch.Tensor:
+    """bounds/evaluate.py's rot_uncertainty of CUDA float32 widths (L,)
+    and point norms (Nd,) -> (L, Nd): one launch of
+    csrc/fp32_products.cu, a thread an output (rot_body.cuh's rot_unc_of,
+    rot_uncertainty_plain's seven steps in their order).  rot_uncertainty
+    routes the card's tensors here."""
+    if widths.dim() != 1 or norm_data.dim() != 1:
+        raise ValueError(f"rot_uncertainty takes widths (L,) and norm_data "
+                         f"(Nd,), got {tuple(widths.shape)}, "
+                         f"{tuple(norm_data.shape)}")
+    if not widths.is_contiguous():
+        widths = widths.contiguous()
+    if not norm_data.is_contiguous():
+        norm_data = norm_data.contiguous()
+    lanes, nd = widths.shape[0], norm_data.shape[0]
+    out = widths.new_empty(lanes, nd)
+    if lanes and nd:
+        err = kernels.goicp_rot_uncertainty(
+            widths.data_ptr(), norm_data.data_ptr(), out.data_ptr(), lanes,
+            nd, _raw_stream(widths.get_device()))
+        if err:
+            _launch(err, "rot_uncertainty")
+        rot_uncertainty_kernel.launches += 1
+    return out
+
+
+rot_uncertainty_kernel.launches = 0

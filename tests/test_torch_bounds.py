@@ -472,6 +472,7 @@ def test_lane_wrappers_take_plain_versions_on_cpu():
                            "chem_incomp_kernel_lanes", "ordered_sum",
                            "rotate", "norm3", "sincos32",
                            "sq_dist3", "det3", "cross3", "dot_fma",
+                           "rodrigues_kernel", "rot_uncertainty_kernel",
                            "icp_run", "kabsch3", "inner_step", "inner_run",
                            "harvest", "advance"}
     k3 = _k3_args(stacked, a, True)

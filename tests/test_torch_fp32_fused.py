@@ -324,3 +324,48 @@ def test_sincos32_kernel_equals_its_plain_version(card):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(bits(g.cpu().numpy()),
                                       bits(w.numpy()))
+
+
+@pytest.mark.cuda
+def test_rodrigues_and_rot_uncertainty_kernels_equal_their_plain_versions(
+        card):
+    from goicp_tpu_torch.bounds.evaluate import (rot_uncertainty,
+                                                 rot_uncertainty_plain)
+    from goicp_tpu_torch.geom.rotation import rodrigues, rodrigues_plain
+    rng = np.random.default_rng(18)
+    axes = np.concatenate([np.eye(3), -np.eye(3)])
+    v = np.concatenate([np.zeros((1, 3)), axes * math.pi / 2, axes * math.pi,
+                        axes * math.pi * (1 + 2.0**-20),
+                        [[math.pi] * 3],
+                        rng.uniform(-math.pi, math.pi, (4096, 3))]).astype(F32)
+    before = fp32.rodrigues_kernel.launches
+    got = rodrigues(torch.from_numpy(v).to(card)).cpu()
+    assert fp32.rodrigues_kernel.launches == before + 1
+    np.testing.assert_array_equal(
+        bits(got.numpy()), bits(rodrigues_plain(torch.from_numpy(v))))
+    w = np.concatenate([[2 * math.pi / 2**k for k in range(13)], [0.0],
+                        rng.uniform(0.0, 8.0, 16)]).astype(F32)
+    nd = np.concatenate([[0.0], rng.uniform(0.05, 1.2, 191)]).astype(F32)
+    before = fp32.rot_uncertainty_kernel.launches
+    got = rot_uncertainty(torch.from_numpy(w).to(card),
+                          torch.from_numpy(nd).to(card)).cpu()
+    assert fp32.rot_uncertainty_kernel.launches == before + 1
+    np.testing.assert_array_equal(
+        bits(got.numpy()),
+        bits(rot_uncertainty_plain(torch.from_numpy(w), torch.from_numpy(nd))))
+
+
+@pytest.mark.cuda
+def test_cross3_kernel_equals_its_plain_version_in_six_layouts(card):
+    rng = np.random.default_rng(19)
+    A = torch.from_numpy(rng.normal(size=(16, 3, 3)).astype(F32))
+    B = torch.from_numpy(rng.normal(size=(16, 3, 3)).astype(F32))
+    for a, b in ((A[:, 0], B[:, 1]), (A[:, :, 0], B[:, 1]),
+                 (A[:, 0], B[:1, 2]), (A[0, :, 2], B[:, :, 0]),
+                 (A[0, 0], B[0, :, 1]), (A[:4, :, None, :], B[:4, None])):
+        ca = A.to(card).as_strided(a.shape, a.stride(), a.storage_offset())
+        cb = B.to(card).as_strided(b.shape, b.stride(), b.storage_offset())
+        got = fp32.cross3(ca, cb).cpu()
+        want = fp32.cross3_plain(a, b)
+        assert got.shape == want.shape
+        np.testing.assert_array_equal(bits(got.numpy()), bits(want.numpy()))
