@@ -29,7 +29,8 @@ Phases, each of which fails the script (nonzero exit, no result line):
     the K-th smallest, then its ties.)  The ordered-sum kernel
     (csrc/ordered_sum.cu) at the rescoring's and the ICP's shapes on
     syn07, equal to its plain version bit for bit and timed the same way,
-    in turns with torch.sum; rotate (csrc/ordered_sum.cu) at an outer
+    alternated with torch.sum (medians of 10; the other shapes in turns);
+    rotate (csrc/ordered_sum.cu) at an outer
     transition's shape (8 R x syn07's data) and a rescoring's (4 R, + t),
     norm3 at the rotation centres' (8, 3) and the preparation's (syn07's
     data), sincos32 at (8,), rodrigues of 8 seeded centres and
@@ -54,7 +55,16 @@ Phases, each of which fails the script (nonzero exit, no result line):
     bench's extremes), each timed an iteration, one launch and no memset
     an event, and ptxas's stack frame and spills of the ICP kernel 0;
     kabsch3 held to kabsch_from_H on zero, rank 1, rank 2, reflected and
-    seeded H.  Every
+    seeded H.  The rescoring kernel (csrc/score.cu, bounds/error.py's
+    score_kernel) in its three routes, bit for bit with the torch bodies
+    (score_transform_plain and icp_chem_terms' count,
+    bnb_incompatibility_count_plain, initial_error_plain) on the ten ICP
+    events' results, each on the pair it reads, on syn07's bucket shifted
+    far outside its grid and on phase 11's L1, c-FPFH and neighbour
+    pairs; timed on syn07's bucket, one launch and no memset a call,
+    ptxas's stack frame and spills 0; the card's torch.sum over 3 terms
+    against the orders it could take, and dt_distance far outside a grid
+    on the card and the CPU bit for bit.  Every
     prepared pair used here has its Grid.nearest_cell, the table the
     kernels trust, held equal to nearest_occupied over all S^3 voxels.
     One more pair is prepared on a 64^3 grid, whose 1 MB table does not
@@ -134,9 +144,13 @@ Phases, each of which fails the script (nonzero exit, no result line):
     outer steps; converged or not, an achievable error and a valid gap).
  4. proof: the launch counters of the inner run kernel, the
     transition kernels (harvest, advance: the pop with its root corners
-    through K2's body, the adoption), the ordered sum, rotate, rodrigues
-    (the ICP seeds), norm3 (the preparation) and the ICP kernel, zeroed
-    just before phase 3, are > 0 after it, the inner step kernel's is 0,
+    through K2's body, the adoption), the rescoring kernel, rodrigues
+    (the ICP seeds), norm3 and the ordered sum (the preparation) and the
+    ICP kernel, zeroed just before phase 3, are > 0 after it, every
+    ordered sum launched was the preparation's c-FPFH table (so in phases
+    5-9, 12 and 13: the rescoring is one launch of csrc/score.cu; phase
+    3's additions and phase 11 print theirs), the inner step kernel's is
+    0,
     and neither the torch inner body nor the torch transition ran on the
     card (so in phases 5 and 7-13: every inner search, or a stream's
     iterations up to a transition, was one launch of csrc/inner.cu's
@@ -154,8 +168,8 @@ Phases, each of which fails the script (nonzero exit, no result line):
     register_fused_stream(width=2, chunk_steps=512).  Every pair is held
     against the port's register_device on the same prepared pair and,
     where there is one, against its fp32 reference row.  The inner step
-    kernel (no torch body on the card), the ordered sum, rotate,
-    rodrigues and the ICP kernel must have launched.  Then the trimmed pool
+    kernel (no torch body on the card), the rescoring kernel, rodrigues
+    and the ICP kernel must have launched.  Then the trimmed pool
     once more with escalate_capacity =
     2 * trans_capacity after 1 chunk of 64 global iterations: at least
     one pair escalated, every pair converged, error within MSEThresh*Nd +
@@ -163,8 +177,8 @@ Phases, each of which fails the script (nonzero exit, no result line):
  6. the slot-packed stream on the same pools:
     register_packed_stream(width=16, chunk_steps=512) with 16 slots and
     transitions every 8 iterations; the same checks, and the inner step
-    kernel, the ordered sum, rotate, rodrigues and the ICP kernel must
-    have launched again.
+    kernel, the rescoring kernel, rodrigues and the ICP kernel must have
+    launched again.
  7. the user's entry points, from files: a BO1-style data root written
     in a temporary directory (goicp_tpu_torch/bench/bo1_files.py) holding
     syn00, syn01, syn05, syn06, syn13 and syn07 as .mol2 cavities, c-FPFH
@@ -174,9 +188,10 @@ Phases, each of which fails the script (nonzero exit, no result line):
     goicp_tpu_torch.cli.main on the card: run-pair on syn07 with the device
     engine (held to its reference row and to register_device on the same
     prepared pair; output files written; RMSD near 0) and with the host
-    engine (converged, error within MSEThresh*Nd of the row; rodrigues
-    and rot_uncertainty launched by it, its outer step's rotations and
-    its inner searches' rotation uncertainty); run-bo1
+    engine (converged, error within MSEThresh*Nd of the row; rodrigues,
+    rotate and rot_uncertainty launched by it, its outer step's rotations
+    and rotated points and its inner searches' rotation uncertainty);
+    run-bo1
     with the fused engine over the six pairs (each row equal in error and
     counters to phase 3's result, RMSD below 1e-3), with the device-batch
     engine (the compacting batch) over the six pairs (the same checks;
@@ -269,13 +284,14 @@ Phases, each of which fails the script (nonzero exit, no result line):
     the card, equal in every counter and every float32 bit to the row
     the port wrote on the CPU (goicp_tpu_torch/bench/cpu_rows.jsonl,
     `python -m goicp_tpu_torch.bench.cpu_rows --write`); the inner step
-    kernel (no torch body on the card), K2, the ordered sum, rotate,
+    kernel (no torch body on the card), K2, the rescoring kernel,
     rodrigues and the ICP kernel must have launched.  Last, the
     kernel launches of one global iteration's inner step, of one
     register_device inner iteration and of one ICP iteration
     (goicp_tpu_torch/bench/launch_counts.py) beside those of the
     trees before the fixed order (commit 1025156) and before the ICP
-    kernel (ce5be19), those of one rescoring, of a fused-stream
+    kernel (ce5be19), those of one rescoring (one launch; 85 on
+    c0016a3) and of an improving step's refinement, of a fused-stream
     transition of 8 rows (at most 2 launches and 1 host read) and of a
     register_device outer step (at most 4 launches) beside the trees
     before the transition kernel (789170e) and before advance was one
@@ -364,18 +380,23 @@ FUSED_ORDER = {"rotate": "goicp_tpu_torch/csrc/ordered_sum.cu",
                "rodrigues_kernel": "goicp_tpu_torch/csrc/fp32_products.cu",
                "rot_uncertainty_kernel":
                    "goicp_tpu_torch/csrc/fp32_products.cu"}
-# what every registration launches besides the bound kernels: the rescoring's
-# ordered sums and rotated points, the ICP event (csrc/icp.cu) and the ICP
-# seeds' rotations (rodrigues); norm3 where a pair is prepared (phase 3's
-# window holds the preparation); rodrigues and rot_uncertainty in every
-# host-engine registration (its outer step's rotations, its inner
-# searches' rotation uncertainty).  The products whose callers (the plain
-# ICP loop; norm3 before it was one launch; rodrigues and rot_uncertainty
-# before they were one launch each) no longer run on the card launch 0
-# times on the main path.
-PATH_KERNELS = ("ordered_sum", "icp_run", "rotate", "rodrigues_kernel")
-PREP_KERNELS = ("norm3",)
-HOST_ENGINE_KERNELS = ("rodrigues_kernel", "rot_uncertainty_kernel")
+# the same on the tree before the rescoring was one launch (commit
+# c0016a3, PERF.md §5): one rescoring (score_transform at 4 transforms)
+BEFORE_ONE_LAUNCH_RESCORING = {"rescoring": "85 launches"}
+# what every registration launches besides the bound kernels: the
+# rescoring (csrc/score.cu: the initial error, each ICP event's scores and
+# the candidate's BnB count), the ICP event (csrc/icp.cu) and the ICP
+# seeds' rotations (rodrigues); norm3 and the ordered sum where a pair is
+# prepared (phase 3's window holds the preparation; the ordered sum builds
+# its c-FPFH table, PREP_SUMS); rodrigues, rotate and rot_uncertainty in
+# every host-engine registration (its outer step's rotations and rotated
+# points, its inner searches' rotation uncertainty).  The products whose
+# callers (the plain ICP loop; norm3 before it was one launch; rodrigues
+# and rot_uncertainty before they were one launch each) no longer run on
+# the card launch 0 times on the main path.
+PATH_KERNELS = ("score_kernel", "icp_run", "rodrigues_kernel")
+PREP_KERNELS = ("norm3", "ordered_sum")
+HOST_ENGINE_KERNELS = ("rodrigues_kernel", "rotate", "rot_uncertainty_kernel")
 OFF_PATH = ("sq_dist3", "det3", "cross3", "dot_fma", "sincos32")
 CHECK_ONLY = ("kabsch3",)   # the ICP kernel's Kabsch alone: phase 2 only
 # K1, K3 and K4, whose bodies run inside the inner step kernel
@@ -517,6 +538,52 @@ def _same_bits(got, want):
     return all(g.shape == w.shape and torch.equal(
         g.contiguous().view(torch.int32), w.contiguous().view(torch.int32))
         for g, w in zip(got, want))
+
+
+# ordered_sum launches made inside the preparation's chem tables
+# (pipeline/prepare.py::_chem_tables: the c-FPFH table, built at every
+# preparation, over one zero bin without descriptors) since the launch
+# counts were last zeroed: the only ordered sums of the default
+# configuration's paths since the rescoring is one launch of csrc/score.cu
+PREP_SUMS = {"launches": 0}
+
+
+def _count_prep_sums():
+    """Wrap prepare._chem_tables and cuda_eval.reset_launch_counts so that
+    PREP_SUMS counts the preparation's ordered_sum launches and is zeroed
+    with the launch counts."""
+    from goicp_tpu_torch.bounds import cuda_eval
+    from goicp_tpu_torch.pipeline import prepare
+    from goicp_tpu_torch.utils import fp32
+    chem_tables, reset = prepare._chem_tables, cuda_eval.reset_launch_counts
+
+    def counted(*args, **kw):
+        before = fp32.ordered_sum.launches
+        out = chem_tables(*args, **kw)
+        PREP_SUMS["launches"] += fp32.ordered_sum.launches - before
+        return out
+
+    def zeroed():
+        reset()
+        PREP_SUMS["launches"] = 0
+    prepare._chem_tables, cuda_eval.reset_launch_counts = counted, zeroed
+
+
+def _sums_in_prep(counts, where, others=None):
+    """Every ordered_sum launch of `where` (the launch counts just read)
+    was the preparation's: the default configuration's registrations,
+    streams, batches and entry points launch none (their rescoring is
+    csrc/score.cu).  others: what launches the rest in a phase that runs
+    other configurations (printed, not required)."""
+    n, prep = counts["ordered_sum"], PREP_SUMS["launches"]
+    if others is None:
+        _require(n == prep, f"ordered_sum launched only by the preparation "
+                 f"in {where}: {n} launches, {prep} of them the "
+                 f"preparation's")
+    print(f"ordered_sum in {where}: {n} launches, {prep} of them the "
+          f"preparation's c-FPFH table"
+          + (f", {n - prep} {others}" if others else "; 0 on the path"),
+          flush=True)
 
 
 def _off_path(counts, where):
@@ -715,6 +782,7 @@ def _sweep_phase(stream_outs, dev):
     _require(counts["advance"] > 0,
              "advance (the root corners, K2's body) launched in phase 12")
     _step_path(counts, "phase 12")
+    _sums_in_prep(counts, "phase 12")
     return counts
 
 
@@ -983,6 +1051,7 @@ def _entry_points(cfg, pools, ref, phase3, dev):
                  f"{kname} launched in phase 7")
     _step_path(counts, "phase 7")
     _off_path(counts, "phase 7")
+    _sums_in_prep(counts, "phase 7")
     return counts
 
 
@@ -1042,6 +1111,8 @@ def _knob_phase(cfg, pair, full):
     counts = cuda_eval.launch_counts()
     print(f"launches during phase 3's additions: {json.dumps(counts)}",
           flush=True)
+    _sums_in_prep(counts, "phase 3's additions",
+                  others="outside it (the two-phase chem's torch body)")
     return counts
 
 
@@ -1162,6 +1233,7 @@ def _batch_phase(cfg, cfg_t, pools, ref, phase3, dev):
     _require(counts["advance"] > 0,
              "advance (the root corners, K2's body) launched in phase 9")
     _step_path(counts, "phase 9")
+    _sums_in_prep(counts, "phase 9")
     return counts, outs
 
 
@@ -1211,6 +1283,7 @@ def _bench_phase(dev):
     print(f"phase 8 wall {time.perf_counter() - t_phase:.3f} s; launches "
           f"during phase 8: {json.dumps(counts)}", flush=True)
     _step_path(counts, "phase 8")
+    _sums_in_prep(counts, "phase 8")
     return counts
 
 
@@ -1642,6 +1715,8 @@ def _options_phase(cfg, pools, dev):
 
     counts = cuda_eval.launch_counts()
     wall = time.perf_counter() - t_phase
+    _sums_in_prep(counts, "phase 11", others="the options' own (the c-FPFH "
+                  "and neighbour terms' torch inner body and gather path)")
     # (sq_dist3 launches here too: the rescoring check's
     # nn_correspondences above)
     for kname in counts:
@@ -1712,8 +1787,13 @@ def _ordered_sum_checks(k, cfg, pools, dev, floor):
                  f"ordered_sum == plain bit for bit ({label})")
         err = _max_err([got], [want])
         k["errs"].append(err)
-        (ms, lms), pms, dms = (_in_turns(kern, library), _median_ms(plain),
-                               _device_ms(kern))
+        if i == 0:
+            ks, ls = _alternated(kern, library)
+            ms, lms = statistics.median(ks), statistics.median(ls)
+            how = f"medians of {len(ks)} alternated"
+        else:
+            (ms, lms), how = _in_turns(kern, library), "in turns"
+        pms, dms = _median_ms(plain), _device_ms(kern)
         n = x.shape[dim]
         bms, bby = _bound(got.numel(), n, [x, got])
         if i == 0:
@@ -1722,7 +1802,7 @@ def _ordered_sum_checks(k, cfg, pools, dev, floor):
         print(f"ordered_sum {label}: x {tuple(x.shape)} over dim {dim}, "
               f"lanes {lanes}: max_abs_err={err:.3g} (bit for bit) kernel "
               f"{ms:.4f} ms (from a graph {dms:.4f} ms) plain {pms:.4f} ms "
-              f"torch.sum {lms:.4f} ms (in turns) bound {bms:.6f} ms "
+              f"torch.sum {lms:.4f} ms ({how}) bound {bms:.6f} ms "
               f"({bby}) {floor}", flush=True)
 
 
@@ -3116,6 +3196,191 @@ def _icp_checks(kernels, cfg, cfg_t, pools, dev, floor):
           f"ms ({bby}) library none {floor}", flush=True)
 
 
+# per (row, real point) operations a rescoring needs (csrc/score.cu's
+# step 1 and its sums): the rotation 15 and + t 3, the voxel 21, the
+# table index 4, the weight, the square and the sum 3, the two
+# incompatibility tests and their counts 4
+SCORE_OPS = 15 + 3 + 21 + 4 + 3 + 4
+# bytes per (row, real point) a rescoring gathers besides its inputs read
+# once: the distance field 4, the nearest cell 4, the (point, cell)
+# compat entry 1, the correspondence's model property 4
+SCORE_GATHER_BYTES = 4 + 4 + 1 + 4
+SCORE_FAR = 1500.0     # a shift that puts every point thousands of voxels
+                       # outside the grid (squares beyond 2^24)
+
+
+def _score_bound(pair, rows, tensors):
+    """(bound_ms, bound_by) of a rescoring of `rows` transforms: its
+    operations and gathers per (row, real point), its tensors read or
+    written once."""
+    n = rows * _real_points(pair)
+    t_ops = n * SCORE_OPS / PEAK_OPS
+    t_bytes = (_nbytes(*tensors) + n * SCORE_GATHER_BYTES) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _score_checks(k, cfg, cfg_t, pools, dev, floor):
+    """Phase 2's check of csrc/score.cu (bounds/error.py's score_kernel):
+    each of its routes against the torch bodies on the same card tensors,
+    bit for bit.  The full route (rescore: score_transform's six fields
+    and icp_chem_terms' count) on the transforms and correspondences of
+    bench/icp_stops.py's ten ICP events, each rescored on the pair it
+    reads (syn07's 4 seeds on its unpadded pair and on its padded bucket,
+    trm00's dynamic trim and static trim, the demo's 1000 / 500 points,
+    the 4,200 / 4,200 points, syn07's K = 1 and K = 8, 165 / 306 points
+    with a static trim, 306 / 306), on syn07's bucket shifted SCORE_FAR
+    outside its grid, and on phase 11's L1, c-FPFH and neighbour
+    configurations (each option's first pair); the count route at each
+    case's starts, batched and one candidate alone; the initial-error
+    route on every pair.  Timed on syn07's bucket (the rescoring the
+    engines run): single calls, from a CUDA graph, the torch bodies; one
+    launch and no memset a call; ptxas's stack frame and spills of the
+    kernel 0.  Then the card's torch.sum over a last axis of 3 against the
+    orders grid/lookup.py's oob_extension could take (it writes out the
+    sequential one), and dt_distance on points far outside a grid, card
+    and CPU bit for bit."""
+    import numpy as np
+    import torch
+    from goicp_tpu_torch import _build
+    from goicp_tpu_torch.bench.icp_stops import (engine_kw, icp_events,
+                                                 kernel_info)
+    from goicp_tpu_torch.bench.measure import _normalized_synthetic
+    from goicp_tpu_torch.bench.options import OPTION_PAIRS, option_config
+    from goicp_tpu_torch.bounds import error as terr
+    from goicp_tpu_torch.geom.rotation import rodrigues_np
+    from goicp_tpu_torch.grid.lookup import dt_distance
+    from goicp_tpu_torch.icp.icp import icp_run
+    from goicp_tpu_torch.pipeline.prepare import prepare_pair
+    info = kernel_info(_build.build_info.get("log", ""), "score_kernel")
+    _require(any("0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+                 "spill loads" in x for x in info),
+             f"the rescoring kernel has no stack frame and no spills: {info}")
+    print(f"score_kernel (ptxas): {info}", flush=True)
+    rng = np.random.default_rng(19)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def starts(n):
+        R = torch.as_tensor(np.stack([rodrigues_np(v) for v in rng.uniform(
+            -0.3, 0.3, (n, 3))]), **f32)
+        return R, torch.as_tensor(rng.uniform(-0.05, 0.05, (n, 3)), **f32)
+
+    def cloud_pair(data, model, c):
+        props = rng.integers(0, 9, model.shape[0]).astype(np.int32)
+        dp = props[:data.shape[0]].copy()
+        dp[::5] = (dp[::5] + 1) % 9
+        return prepare_pair(data.cpu().numpy(), model.cpu().numpy(), dp,
+                            props, c, device=dev)
+
+    syn07 = _prepared("syn07", cfg, pools, dev)
+    own = {0: (prepare_pair(*_normalized_synthetic(pools["syn07"]), cfg,
+                            device=dev), cfg),
+           1: (syn07, cfg), 2: (_prepared("trm00", cfg_t, pools, dev), cfg_t),
+           3: (prepare_pair(*_normalized_synthetic(pools["trm00"]), cfg_t,
+                            bucket=True, device=dev), cfg_t),
+           6: (syn07, cfg), 7: (syn07, cfg)}
+    cases = []
+    for i, (label, data, model, R0, t0, kw) in enumerate(
+            icp_events(cfg, cfg_t, pools, dev)):
+        pair, c = own.get(i) or (
+            cloud_pair(data, model, cfg_t if "static trim" in label else cfg),
+            cfg_t if "static trim" in label else cfg)
+        _require(pair.n_data_padded == data.shape[0],
+                 f"the pair rescoring {label} has its {data.shape[0]} points")
+        res = icp_run(data, model, R0, t0, **kw)
+        cases.append((label, pair, c, res.R, res.t, res.nn_idx, R0, t0))
+    R1, t1, nn1 = cases[1][3:6]
+    cases.append((f"syn07's bucket shifted {SCORE_FAR} outside its grid",
+                  syn07, cfg, R1, t1 + SCORE_FAR, nn1, R1, t1 + SCORE_FAR))
+    for option in ("l1", "fpfh", "nbr"):
+        name = OPTION_PAIRS[option][0]
+        c = option_config(cfg, option)
+        (pair,) = _option_pairs([name], c, pools, dev)
+        R0, t0 = starts(cfg.icp_seeds)
+        res = icp_run(pair.data, pair.model, R0, t0, **engine_kw(pair, c))
+        cases.append((f"phase 11's {option} ({name})", pair, c, res.R,
+                      res.t, res.nn_idx, R0, t0))
+
+    for i, (label, pair, c, R, t, nn, R0, t0) in enumerate(cases):
+        def kern(a=(pair, c, R, t, nn)):
+            return terr.rescore(*a)
+
+        def plain(a=(pair, c, R, t, nn)):
+            return (terr.score_transform_plain(*a),
+                    terr.icp_chem_terms(a[0], a[1], a[4])[3])
+        (got, gi), (want, wi) = kern(), plain()
+        counts = [(terr.bnb_incompatibility_count(pair, c, *x),
+                   terr.bnb_incompatibility_count_plain(pair, c, *x))
+                  for x in ((R0, t0), (R0[0], t0[0]))]
+        init = (terr.initial_error(pair, c), terr.initial_error_plain(pair, c))
+        torch.cuda.synchronize()
+        floats = ("error", "geom", "incomp_term", "fpfh_term", "nbr_term")
+        _require(_same_bits([getattr(got, f) for f in floats] + [gi],
+                            [getattr(want, f) for f in floats] + [wi])
+                 and torch.equal(got.incomp_count, want.incomp_count),
+                 f"rescore == the torch bodies bit for bit ({label}): "
+                 f"{got} vs {want}")
+        _require(all(torch.equal(a, b) for a, b in counts),
+                 f"the count route == bnb_incompatibility_count_plain "
+                 f"({label}): {counts}")
+        _require(_same_bits([init[0]], [init[1]]),
+                 f"the initial-error route == initial_error_plain ({label}): "
+                 f"{init}")
+        err = _max_err([getattr(got, f) for f in floats] + [gi, init[0]],
+                       [getattr(want, f) for f in floats] + [wi, init[1]])
+        k["errs"].append(err)
+        times = ""
+        if i == 1:
+            ms, dms, pms = _median_ms(kern), _device_ms(kern), \
+                _median_ms(plain)
+            bms, bby = _score_bound(pair, R.shape[0], [
+                pair.data, pair.weights, pair.data_mask, pair.data_props, R,
+                t, nn, got.error, got.geom, got.incomp_term, got.fpfh_term,
+                got.nbr_term, got.incomp_count, gi])
+            k.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                     graph_ms=dms, library_ms=None)
+            launches, memsets = _launches_memsets(kern)
+            _require(launches == 1 and memsets == 0,
+                     f"a rescoring is one launch and no memset "
+                     f"({launches}, {memsets})")
+            cms = _median_ms(lambda: terr.bnb_incompatibility_count(
+                pair, c, R0[0], t0[0]))
+            ims = _median_ms(lambda: terr.initial_error(pair, c))
+            times = (f"; kernel {ms:.4f} ms (from a graph {dms:.4f} ms) "
+                     f"plain {pms:.4f} ms bound {bms:.6f} ms ({bby}) library "
+                     f"none; {launches:g} launch, {memsets:g} memsets a "
+                     f"call; the count route {cms:.4f} ms, the initial "
+                     f"error {ims:.4f} ms; {floor}")
+        trim = "none" if not c.doTrim else \
+            "dynamic" if pair.dynamic_counts else "static"
+        print(f"score_kernel {label}: K={R.shape[0]} Nd={pair.n_data_padded} "
+              f"trim {trim} norm {c.norm} error {got.error.tolist()} "
+              f"icp_incomp {gi.tolist()} counts {counts[0][0].tolist()} "
+              f"initial {float(init[0]):.6g}: max_abs_err={err:.3g} (bit "
+              f"for bit, all three routes){times}", flush=True)
+
+    # the card's torch.sum over 3 terms, and the extension's written order
+    x = torch.as_tensor(rng.integers(2000, 9000, (8192, 3)).astype(
+        np.float32) ** 2, device=dev)
+    s = torch.sum(x, dim=-1)
+    orders = {"(a + b) + c": (x[:, 0] + x[:, 1]) + x[:, 2],
+              "(a + c) + b": (x[:, 0] + x[:, 2]) + x[:, 1],
+              "a + (b + c)": x[:, 0] + (x[:, 1] + x[:, 2])}
+    same = {o: float((v == s).float().mean()) for o, v in orders.items()}
+    g = syn07.grid
+    far = torch.as_tensor(rng.uniform(-2000.0, 2000.0, (4096, 3)), **f32)
+    card_d = dt_distance(far, g.dist, g.consts)
+    cpu_d = dt_distance(far.cpu(), g.dist.cpu(), g.consts.cpu())
+    _require(_same_bits([card_d.cpu()], [cpu_d]),
+             "dt_distance far outside the grid: the card == the CPU bit "
+             "for bit")
+    print(f"torch.sum over a last axis of 3 on the card (8192 rows of "
+          f"squares beyond 2^24): share equal to each order {same}; the "
+          f"CPU's and XLA:CPU's order is (a + b) + c, which oob_extension "
+          f"writes out; dt_distance of 4096 points far outside syn07's "
+          f"grid: the card == the CPU bit for bit", flush=True)
+
+
 def _one_answer_phase(dev):
     """Phase 13: one answer on both devices (see the module docstring).
     The CPU's side of the bench pairs runs in a child process while this
@@ -3202,6 +3467,7 @@ def _one_answer_phase(dev):
         _require(counts[kname] > 0, f"{kname} launched in phase 13")
     _step_path(counts, "phase 13")
     _off_path(counts, "phase 13")
+    _sums_in_prep(counts, "phase 13")
 
     # launches of the host-dispatched loops, after the path's counts
     loops = dict(global_iteration=launch_counts.global_iteration(),
@@ -3222,11 +3488,18 @@ def _one_answer_phase(dev):
              f"iteration are at most 8 launches (131 before the inner step "
              f"kernel), the latter with one host read: "
              f"{loops['global_iteration']}, {one}")
-    v = launch_counts.rescoring()
+    v, rf = launch_counts.rescoring(), launch_counts.refine()
     print(f"phase 13 launches per rescoring: {v['launches']:.1f} "
           f"({v['ms']:.3f} ms on the host clock); before rotate, norm3 and "
           f"sincos32 were one launch each: "
-          f"{BEFORE_FUSED_ORDER_LAUNCHES['rescoring']}", flush=True)
+          f"{BEFORE_FUSED_ORDER_LAUNCHES['rescoring']}; before the "
+          f"rescoring was one launch: "
+          f"{BEFORE_ONE_LAUNCH_RESCORING['rescoring']}", flush=True)
+    print(f"phase 13 an improving step's refinement (the ICP seeds' event, "
+          f"its rescoring, the pick, the candidate's count): "
+          f"{rf['launches']:.1f} launches, {rf['host_reads']:.1f} host "
+          f"reads, {rf['ms']:.3f} ms on the host clock", flush=True)
+    _require(v["launches"] == 1, f"a rescoring is one launch: {v}")
     tb, st = launch_counts.transition(), launch_counts.outer_step()
     print(f"phase 13 a fused-stream transition of {tb['rows']} rows: "
           f"{tb['launches']:.1f} launches, {tb['host_reads']:.1f} host "
@@ -3366,6 +3639,9 @@ def main() -> int:
         **{name: dict(source="goicp_tpu_torch/csrc/icp.cu", replaces=None,
                       errs=[])
            for name in ("icp_run", "kabsch3")},
+        # not a TPU kernel: the rescoring XLA computes (bounds/error.py)
+        "score_kernel": dict(source="goicp_tpu_torch/csrc/score.cu",
+                             replaces=None, errs=[]),
         # the whole inner-BnB iteration XLA runs around K3/K4 (the JAX
         # package's body), K1-K4's bodies inside it
         "inner_step": dict(source="goicp_tpu_torch/csrc/inner.cu",
@@ -3717,6 +3993,7 @@ def main() -> int:
     _fused_checks(kernels, cfg, pools, dev, floor)
     _product_checks(kernels, cfg, pools, dev, floor)
     _icp_checks(kernels, cfg, cfg_t, pools, dev, floor)
+    _score_checks(kernels["score_kernel"], cfg, cfg_t, pools, dev, floor)
     _step_checks(kernels["inner_step"], cfg, cfg_t, pools, dev, floor)
     _run_checks(kernels["inner_run"], kernels, cfg, cfg_t, pools, dev, floor)
     _transition_checks(kernels, cfg, cfg_t, pools, dev, floor)
@@ -3724,6 +4001,7 @@ def main() -> int:
     if sys.argv[1:] == ["--kernels-only"]:
         print("kernels only: phases 3-13 not run, no result", flush=True)
         return 0
+    _count_prep_sums()
     if sys.argv[1:] == ["--options"]:
         _options_phase(cfg, pools, dev)
         print("options only: phases 3-10 and 12 not run, no result",
@@ -3782,6 +4060,7 @@ def main() -> int:
         _require(counts[kname] > 0, f"{kname} launched on the main path")
     _step_path(counts, "phase 3")
     _off_path(counts, "phase 3")
+    _sums_in_prep(counts, "phase 3")
     counts3k = _knob_phase(cfg, *syn07)
 
     # ---- 5. and 6. the cross-pair streams ----
@@ -3886,6 +4165,7 @@ def main() -> int:
         _step_path(phase_counts, f"phase {phase} ({engine} stream)",
                    "inner_step" if engine == "packed" else "inner_run")
         _off_path(phase_counts, f"phase {phase}")
+        _sums_in_prep(phase_counts, f"phase {phase}")
         return phase_counts
 
     counts5 = run_stream(5, "fused", lambda pairs, c: register_fused_stream(
@@ -3906,6 +4186,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts5e = cuda_eval.launch_counts()
+    _sums_in_prep(counts5e, "phase 5 (escalation)")
     n_esc = fused_stream.counters["escalated"]
     _require(n_esc > 0, "escalation sent a trimmed pair to the deferred "
              "phase")

@@ -82,6 +82,11 @@ _SIGNATURES = {
     "goicp_icp_run": [_P] * 13 + [_I] * 6 + [ctypes.c_float, _P],
     # H, R, batch, stream
     "goicp_kabsch3": [_P, _P, _L, _P],
+    # slots (15 pointers: bounds/error.py::_SLOTS), ints (14), floats (4),
+    # R, t, nn_idx (NULL: none), nn_idx int64, out, rows, mode, stream
+    "goicp_score": [ctypes.POINTER(ctypes.c_ulonglong), ctypes.POINTER(_I),
+                    ctypes.POINTER(ctypes.c_float), _P, _P, _P, _I, _P, _L,
+                    _I, _P],
     # pts, rot_unc, weights, cells, nearest_cell, consts, trim_count,
     # cell_compat, prop_onehot, data_mask, lane_pair, sse; nodes, lbs,
     # cvals, opt_err, thr, best_node, ub_terms, min_dropped, done, live;

@@ -57,7 +57,14 @@ every `.item()` and `bool()` of a card tensor goes through):
     reads it counts (fused_stream.counters), host reads per global
     iteration, and host-clock ms;
   * one rescoring: score_transform of that pair at four seeded transforms
-    and their nearest-neighbour correspondences (the ICP event's);
+    and their nearest-neighbour correspondences (the ICP event's): one
+    launch of csrc/score.cu on a tree that has it, ~85 before;
+  * one improving step's refinement as register_device runs it
+    (`refine`): device_engine._icp_best_of_seeds on that pair's first
+    outer step (its 8 rotation lanes, seeded translation nodes and upper
+    bounds: the ICP event from the 4 lowest, the rescoring, the pick of
+    the best seed) and the candidate's BnB count: launches, host reads and
+    host-clock ms;
   * one rodrigues of 8 seeded rotation centres (the host engine's lanes)
     and one rot_uncertainty of their 8 widths times that pair's point
     norms: launches and host-clock ms a call (each one launch of
@@ -79,10 +86,11 @@ every `.item()` and `bool()` of a card tensor goes through):
 e.g. `--only rodrigues rot_uncertainty host_outer_step`).
 
 prints one JSON object (the counts, each loop's host-clock ms, the card's
-name and power limit).  It uses only functions the port has had since
-its cross-pair streams, so the same script counts an older tree's
-launches too: put that tree first on PYTHONPATH (its icp_run has no
-launch count: null).  Needs a card.
+name and power limit, and ptxas's registers, stack frame and spills of
+the rescoring kernel where the tree has csrc/score.cu).  It uses only
+functions the port has had since its cross-pair streams, so the same
+script counts an older tree's launches too: put that tree first on
+PYTHONPATH (its icp_run has no launch count: null).  Needs a card.
 """
 
 from __future__ import annotations
@@ -413,6 +421,42 @@ def rescoring(device="cuda", n=10) -> dict:
     return dict(launches=_launches(score, n), ms=_host_ms(score, 5 * n))
 
 
+def refine(device="cuda", n=10) -> dict:
+    """Launches, host reads and host-clock ms of an improving step's
+    refinement: _icp_best_of_seeds and the candidate's BnB count, as
+    register_device's body calls them, on PAIR_ICP's first outer step."""
+    from goicp_tpu_torch.bounds.error import bnb_incompatibility_count
+    from goicp_tpu_torch.search import device_engine as eng
+    cfg, (pair,) = _bench_pairs((PAIR_ICP,), device, bucket_together=False)
+    R_lanes = eng._pop(pair, cfg, eng.device_init(pair, cfg))["R_lanes"]
+    L = R_lanes.shape[0]
+    rng = np.random.default_rng(10)
+    nodes = torch.as_tensor(np.concatenate(
+        [rng.uniform(-0.05, 0.05, (L, 3)), np.full((L, 1), 0.02)], axis=1),
+        dtype=torch.float32, device=device)
+    ubs = torch.as_tensor(rng.uniform(0.5, 2.0, L), dtype=torch.float32,
+                          device=device)
+    cand_R, cand_t = R_lanes[0].contiguous(), nodes[0, :3] + nodes[0, 3] / 2
+
+    def step():
+        best = eng._icp_best_of_seeds(pair, cfg, R_lanes, nodes, ubs)
+        return best, bnb_incompatibility_count(pair, cfg, cand_R, cand_t)
+    launches, reads = _profile(step, n)
+    return dict(launches=launches, host_reads=reads,
+                ms=_host_ms(step, 5 * n))
+
+
+def _score_ptxas() -> list | None:
+    """ptxas's lines for the rescoring kernel from the kernel library's
+    build log (None for a tree without csrc/score.cu)."""
+    from goicp_tpu_torch import _build
+    if not (_build.CSRC / "score.cu").exists():
+        return None
+    from goicp_tpu_torch.bench.icp_stops import kernel_info
+    _build.library()
+    return kernel_info(_build.build_info.get("log", ""), "score_kernel")
+
+
 def _static_pair(name, device):
     """(cfg, pair): a bench pair prepared with static counts, as the host
     engine takes it (run_pair's preparation), at the bench's shape."""
@@ -528,6 +572,7 @@ def main(argv=None) -> int:
         "outer_step": outer_step,
         "outer_step_chained": lambda: outer_step(chained=True),
         "stream_chunk": stream_chunk, "rescoring": rescoring,
+        "refine": refine, "score_ptxas": _score_ptxas,
         "rodrigues": rodrigues_call, "rot_uncertainty": rot_uncertainty_call,
         "host_outer_step": host_outer_step}
     unknown = set(a.only or ()) - set(entries)

@@ -3,7 +3,7 @@ first on PYTHONPATH (as launch_counts.py), so that two trees can be
 timed in turns in one call:
 
     PYTHONPATH=TREE python goicp_tpu_torch/bench/run_walls.py [--reps N]
-        [--json PATH]
+        [--json PATH] [--only WORD ...]
 
   bench: chip_smoke.py phase 8's passes, the fused stream over 16
     similar pairs in at most 4 buckets and over 8 trimmed pairs
@@ -12,7 +12,12 @@ timed in turns in one call:
     register_device_batch_compact, chunk_steps 256, pad_to 8) on its six
     similar and four trimmed pairs: s;
   chunk: launch_counts.stream_chunk, one fused_run_chunk of 512 global
-    iterations over syn00-syn15 (128 lanes in mode stream): ms.
+    iterations over syn00-syn15 (128 lanes in mode stream): ms;
+  syn72: chip_smoke.py phase 13's registration, register_device on syn72
+    (bench/cpu_rows.py's pair, 1,335 outer steps, 14 ICP events): s.
+
+--only runs the cases whose name holds one of the words (e.g. `--only
+syn72`).
 
 Each is run once untimed (the kernels' build, the tables), then --reps
 times (default 3); every rep is reported.  Prints the card's name and
@@ -35,14 +40,16 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--json", default=None)
+    ap.add_argument("--only", nargs="+", default=None, metavar="WORD")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("run_walls: needs a CUDA card", file=sys.stderr)
         return 2
     import goicp_tpu_torch
-    from goicp_tpu_torch.bench import launch_counts, measure
+    from goicp_tpu_torch.bench import cpu_rows, launch_counts, measure
     from goicp_tpu_torch.search import chunked
+    from goicp_tpu_torch.search.device_engine import register_device
 
     dev = torch.device("cuda")
     cfg = measure.bench_shape(goicp_tpu_torch.GoICPConfig())
@@ -78,13 +85,25 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    def syn72():
+        c, pair = cpu_rows.bench_pair("syn72", dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        register_device(pair, c)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
     cases = {
         "bench similar, pairs/s": lambda: bench("similar"),
         "bench trimmed, pairs/s": lambda: bench("trimmed"),
         "batch similar, s": lambda: batch("similar"),
         "batch trimmed, s": lambda: batch("trimmed"),
         "chunk of 512 steps, syn00-15, ms":
-            lambda: launch_counts.stream_chunk(dev)["ms"]}
+            lambda: launch_counts.stream_chunk(dev)["ms"],
+        "syn72 register_device, s": syn72}
+    if args.only:
+        cases = {k: f for k, f in cases.items()
+                 if any(w in k for w in args.only)}
     report = dict(card=launch_counts.card(), tree=goicp_tpu_torch.__file__,
                   reps=args.reps, walls={})
     for name, fn in cases.items():

@@ -12,10 +12,18 @@ including the reference quirks:
 Transforms may carry a leading batch axis: R (..., 3, 3), t (..., 3),
 nn_idx (..., Nd) -> scores of shape (...).  Float sums and the rotated
 points take utils/fp32.py's fixed order, the same on every device.
+
+On the card each of score_transform (with icp_chem_terms' counts:
+`rescore`), bnb_incompatibility_count and initial_error is one launch of
+csrc/score.cu (`score_kernel`, counted in `score_kernel.launches`), whose
+operations are the torch bodies' in their order; on the CPU they are
+those torch bodies (`*_plain`), the same bits.  There is no other
+fallback: a failed build or launch raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -25,7 +33,8 @@ from goicp_tpu_torch.chem.properties import compatibility_matrix
 from goicp_tpu_torch.config import GoICPConfig
 from goicp_tpu_torch.grid.lookup import dt_distance, nearest_cell_id
 from goicp_tpu_torch.pipeline.prepare import PairData
-from goicp_tpu_torch.utils.fp32 import ordered_sum, rotate
+from goicp_tpu_torch.utils.fp32 import (_launch, _on_card, _stream, kernels,
+                                        ordered_sum, rotate)
 
 
 class Score(NamedTuple):
@@ -102,8 +111,8 @@ def icp_chem_terms(pair: PairData, cfg: GoICPConfig, nn_idx: torch.Tensor):
     return nbr_term, incomp_term, fpfh_term, incomp
 
 
-def bnb_incompatibility_count(pair: PairData, cfg: GoICPConfig,
-                              R: torch.Tensor, t: torch.Tensor):
+def bnb_incompatibility_count_plain(pair: PairData, cfg: GoICPConfig,
+                                    R: torch.Tensor, t: torch.Tensor):
     """GoICP::updateCompatibilities (jly_goicp.cpp:933-946): count of data
     points whose property is incompatible with their nearest occupied cell
     under the full transform."""
@@ -117,8 +126,9 @@ def bnb_incompatibility_count(pair: PairData, cfg: GoICPConfig,
                      dim=-1).to(torch.int32)
 
 
-def score_transform(pair: PairData, cfg: GoICPConfig, R: torch.Tensor,
-                    t: torch.Tensor, nn_idx: torch.Tensor) -> Score:
+def score_transform_plain(pair: PairData, cfg: GoICPConfig,
+                          R: torch.Tensor, t: torch.Tensor,
+                          nn_idx: torch.Tensor) -> Score:
     """GoICP::ICP re-scoring of a transform with DT distances + chem terms.
     nn_idx: ICP correspondences used for the chem terms."""
     pts = _transform(pair, R, t)
@@ -136,7 +146,7 @@ def score_transform(pair: PairData, cfg: GoICPConfig, R: torch.Tensor,
 
     nbr_term, incomp_term, fpfh_term, _ = icp_chem_terms(pair, cfg, nn_idx)
     error = geom + nbr_term + incomp_term + fpfh_term
-    bnb_count = bnb_incompatibility_count(pair, cfg, R, t)
+    bnb_count = bnb_incompatibility_count_plain(pair, cfg, R, t)
     return Score(error=error, geom=geom, incomp_term=incomp_term,
                  fpfh_term=fpfh_term, nbr_term=nbr_term,
                  incomp_count=bnb_count)
@@ -160,12 +170,11 @@ def refine_transform(pair: PairData, cfg: GoICPConfig, R0: torch.Tensor,
                   data_mask=pair.data_mask if pair.padded else None,
                   count=pair.inlier_f() if pair.dynamic_counts else None,
                   dynamic_trim=pair.dynamic_counts and cfg.doTrim)
-    sc = score_transform(pair, cfg, res.R, res.t, res.nn_idx)
-    *_, icp_incomp = icp_chem_terms(pair, cfg, res.nn_idx)
+    sc, icp_incomp = rescore(pair, cfg, res.R, res.t, res.nn_idx)
     return bnb_count, res, sc, icp_incomp
 
 
-def initial_error(pair: PairData, cfg: GoICPConfig) -> torch.Tensor:
+def initial_error_plain(pair: PairData, cfg: GoICPConfig) -> torch.Tensor:
     """Initial incumbent at identity + worst-case chem seeds
     (jly_goicp.cpp:597-626)."""
     d = dt_distance(pair.data, pair.grid.dist, pair.grid.consts)
@@ -184,3 +193,166 @@ def initial_error(pair: PairData, cfg: GoICPConfig) -> torch.Tensor:
     if cfg.regularizationNeighbors > 0:
         err = err + cfg.regularizationNeighbors * (6.0 * nd) * (6.0 * nd)
     return err
+
+
+# ---------------------------------------------------------------------------
+# the card's route: csrc/score.cu
+# ---------------------------------------------------------------------------
+
+FULL, COUNT, INITIAL = 0, 1, 2     # the kernel's routes (csrc/score.cu)
+# the pair's tensors the kernel reads, in its slot order (ScoreArgs)
+_SLOTS = ("data", "weights", "data_mask", "dist", "nearest_cell", "consts",
+          "data_props", "model_props", "compat", "data_nbrs", "model_nbrs",
+          "data_fpfh", "model_fpfh", "compat_table", "counts")
+_SLOT_TYPES = (torch.float32,) * 4 + (torch.int32, torch.float32,
+                                      torch.int32, torch.int32, torch.bool,
+                                      torch.int32, torch.int32,
+                                      torch.float32, torch.float32,
+                                      torch.bool, torch.float32)
+
+
+def _slot_tensors(pair: PairData) -> tuple:
+    g = pair.grid
+    return (pair.data, pair.weights, pair.data_mask, g.dist, g.nearest_cell,
+            g.consts, pair.data_props, pair.model_props, _compat(pair.device),
+            pair.data_nbrs, pair.model_nbrs, pair.data_fpfh, pair.model_fpfh,
+            pair.compat_table, pair.counts)
+
+
+class _ScoreArgs(NamedTuple):
+    tensors: tuple                  # what the slots point at (kept alive)
+    slots: ctypes.Array             # c_ulonglong[15]
+    ints: ctypes.Array              # c_int[13]
+    floats: ctypes.Array            # c_float[4]
+
+
+def _score_args(pair: PairData, cfg: GoICPConfig) -> _ScoreArgs:
+    """The kernel's slot block for a pair and configuration, kept on the
+    pair per configuration and used again while the pair holds the same
+    tensors (a call checks them by identity)."""
+    key = (cfg.norm, bool(cfg.doTrim), cfg.regularization,
+           cfg.regularizationNeighbors, cfg.regularizationFPFH, cfg.cfpfh)
+    cache = pair.__dict__.setdefault("_score_args", {})
+    tensors = _slot_tensors(pair)
+    got = cache.get(key)
+    if got is not None and all(a is b for a, b in zip(got.tensors, tensors)):
+        return got
+    nd = pair.n_data_padded
+    for name, x, dtype in zip(_SLOTS, tensors, _SLOT_TYPES):
+        if x.dtype != dtype or not x.is_contiguous() or not x.is_cuda:
+            raise ValueError(f"the rescoring kernel takes {name} as a "
+                             f"contiguous {dtype} CUDA tensor, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if pair.data.shape != (nd, 3) or pair.compat_table.shape[0] != nd \
+            or pair.data_fpfh.shape[0] != nd:
+        raise ValueError(f"inconsistent pair shapes: data "
+                         f"{tuple(pair.data.shape)}, compat_table "
+                         f"{tuple(pair.compat_table.shape)}, data_fpfh "
+                         f"{tuple(pair.data_fpfh.shape)}")
+    trim = (2 if pair.dynamic_counts else 1) if cfg.doTrim else 0
+    reg_f = cfg.regularizationFPFH
+    ints = (nd, pair.compat_table.shape[1], tensors[8].shape[1],
+            pair.data_fpfh.shape[1], int(cfg.norm), trim, pair.inlier_num,
+            pair.n_data, int(pair.dynamic_counts),
+            int(cfg.regularization > 0), int(cfg.regularizationNeighbors > 0),
+            int(reg_f > 0 and cfg.cfpfh != 0), int(reg_f > 0))
+    # the initial error's c-FPFH seed, a Python float as torch adds it
+    floats = (cfg.regularization, cfg.regularizationNeighbors, reg_f,
+              reg_f * (800.0 * 800.0))
+    got = _ScoreArgs(tensors,
+                     (ctypes.c_ulonglong * len(tensors))(
+                         *(x.data_ptr() for x in tensors)),
+                     (ctypes.c_int * len(ints))(*ints),
+                     (ctypes.c_float * len(floats))(*floats))
+    cache[key] = got
+    return got
+
+
+def _rows(x: torch.Tensor, shape: tuple, what: str) -> torch.Tensor:
+    """x of this shape, contiguous (the kernel reads it row by row)."""
+    if x.shape != shape:
+        raise ValueError(f"the rescoring takes {what} of shape {shape}, got "
+                         f"{tuple(x.shape)}")
+    return x if x.is_contiguous() else x.contiguous()
+
+
+def score_kernel(pair: PairData, cfg: GoICPConfig, mode: int,
+                 R: torch.Tensor | None = None, t: torch.Tensor | None = None,
+                 nn_idx: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch of csrc/score.cu on the pair's card tensors.  mode FULL:
+    R (..., 3, 3), t (..., 3), nn_idx (..., Nd) int64 or int32, the same
+    leading dims (no broadcasting) -> (7, ...)
+    float32, the rows error, geom, incomp_term, fpfh_term, nbr_term,
+    incomp_count (int32 bits) and icp_incomp; COUNT: R, t -> (...) int32,
+    the BnB counts; INITIAL: () float32, the initial error."""
+    args = _score_args(pair, cfg)
+    nn_ptr, wide = None, 0
+    if mode == INITIAL:
+        lead, rows = (), 1
+        R_ptr = t_ptr = None
+        out = pair.data.new_empty(())
+    else:
+        lead = tuple(R.shape[:-2])
+        R, t = _rows(R, lead + (3, 3), "R"), _rows(t, lead + (3,), "t")
+        R_ptr, t_ptr = R.data_ptr(), t.data_ptr()
+        rows = R.numel() // 9
+        if mode == FULL:
+            nd = pair.n_data_padded
+            if nn_idx.dtype not in (torch.int64, torch.int32):
+                raise TypeError(f"nn_idx must be int64 or int32, got "
+                                f"{nn_idx.dtype}")
+            nn_idx = _rows(nn_idx, lead + (nd,), "nn_idx")
+            nn_ptr, wide = nn_idx.data_ptr(), int(nn_idx.dtype is torch.int64)
+            out = R.new_empty((7,) + lead)
+        else:
+            out = torch.empty(lead, dtype=torch.int32, device=R.device)
+    if rows:
+        _launch(kernels.goicp_score(args.slots, args.ints, args.floats, R_ptr,
+                                    t_ptr, nn_ptr, wide, out.data_ptr(),
+                                    rows, mode, _stream(pair.data)),
+                "score")
+        score_kernel.launches += 1
+    return out
+
+
+score_kernel.launches = 0
+
+
+def rescore(pair: PairData, cfg: GoICPConfig, R: torch.Tensor,
+            t: torch.Tensor, nn_idx: torch.Tensor):
+    """(score_transform, icp_chem_terms' incompatibility count) of the
+    transforms and their ICP correspondences: one launch of csrc/score.cu
+    on the card, the torch bodies on the CPU."""
+    if not _on_card(pair.data, R, t):
+        return (score_transform_plain(pair, cfg, R, t, nn_idx),
+                icp_chem_terms(pair, cfg, nn_idx)[3])
+    out = score_kernel(pair, cfg, FULL, R, t, nn_idx).unbind(0)
+    return (Score(error=out[0], geom=out[1], incomp_term=out[2],
+                  fpfh_term=out[3], nbr_term=out[4],
+                  incomp_count=out[5].view(torch.int32)), out[6])
+
+
+def score_transform(pair: PairData, cfg: GoICPConfig, R: torch.Tensor,
+                    t: torch.Tensor, nn_idx: torch.Tensor) -> Score:
+    """score_transform_plain's Score: one launch of csrc/score.cu on the
+    card (rescore's), the torch body on the CPU."""
+    if not _on_card(pair.data, R, t):
+        return score_transform_plain(pair, cfg, R, t, nn_idx)
+    return rescore(pair, cfg, R, t, nn_idx)[0]
+
+
+def bnb_incompatibility_count(pair: PairData, cfg: GoICPConfig,
+                              R: torch.Tensor, t: torch.Tensor):
+    """bnb_incompatibility_count_plain's int32 counts: one launch of
+    csrc/score.cu on the card, the torch body on the CPU."""
+    if not _on_card(pair.data, R, t):
+        return bnb_incompatibility_count_plain(pair, cfg, R, t)
+    return score_kernel(pair, cfg, COUNT, R, t)
+
+
+def initial_error(pair: PairData, cfg: GoICPConfig) -> torch.Tensor:
+    """initial_error_plain's value: one launch of csrc/score.cu on the
+    card, the torch body on the CPU."""
+    if not _on_card(pair.data):
+        return initial_error_plain(pair, cfg)
+    return score_kernel(pair, cfg, INITIAL)

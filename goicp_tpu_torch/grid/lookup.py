@@ -46,7 +46,12 @@ def oob_extension(raw: torch.Tensor, consts: torch.Tensor):
     zero = torch.zeros_like(below)
     excess = torch.where(raw < 0, below, torch.where(raw >= size, above, zero))
     oob = torch.any((raw < 0) | (raw >= size), dim=-1)
-    return oob, exact_sqrt(torch.sum(excess * excess, dim=-1)) / consts[3]
+    # (a^2 + b^2) + c^2 written out: the sequential order XLA:CPU and the
+    # CPU's torch.sum take over three terms; torch.sum leaves the order to
+    # the device's library (csrc/score.cu and the bound kernels take this
+    # one)
+    sq = excess * excess
+    return oob, exact_sqrt((sq[..., 0] + sq[..., 1]) + sq[..., 2]) / consts[3]
 
 
 def dt_distance(points: torch.Tensor, dist_field: torch.Tensor,

@@ -47,8 +47,7 @@ import torch
 from goicp_tpu_torch.config import GoICPConfig
 from goicp_tpu_torch.bounds.evaluate import one_pair_tables
 from goicp_tpu_torch.bounds.error import (Score, bnb_incompatibility_count,
-                                          icp_chem_terms, initial_error,
-                                          score_transform)
+                                          initial_error, rescore)
 from goicp_tpu_torch.geom.rotation import rodrigues
 from goicp_tpu_torch.icp.icp import icp_run
 from goicp_tpu_torch.pipeline.prepare import PairData
@@ -87,7 +86,8 @@ _INIT_SEED_RV = np.array(
 
 
 def _icp_from(pair: PairData, cfg: GoICPConfig, R0, t0, enabled=None):
-    """ICP from K starts, each scored: (R, t, Score, icp_incomp), batched."""
+    """ICP from K starts, each scored: (R, t, Score, icp_incomp), batched
+    (on the card one launch of csrc/icp.cu and one of csrc/score.cu)."""
     r = icp_run(pair.data, pair.model, R0, t0,
                 inlier_num=pair.inlier_num, max_iter=cfg.icp_max_iter,
                 err_diff=cfg.err_diff,
@@ -95,8 +95,7 @@ def _icp_from(pair: PairData, cfg: GoICPConfig, R0, t0, enabled=None):
                 count=pair.inlier_f() if pair.dynamic_counts else None,
                 dynamic_trim=pair.dynamic_counts and cfg.doTrim,
                 enabled=enabled)
-    sc = score_transform(pair, cfg, r.R, r.t, r.nn_idx)
-    *_, inc = icp_chem_terms(pair, cfg, r.nn_idx)
+    sc, inc = rescore(pair, cfg, r.R, r.t, r.nn_idx)
     return r.R, r.t, sc, inc
 
 
