@@ -383,20 +383,32 @@ FUSED_ORDER = {"rotate": "goicp_tpu_torch/csrc/ordered_sum.cu",
 # the same on the tree before the rescoring was one launch (commit
 # c0016a3, PERF.md §5): one rescoring (score_transform at 4 transforms)
 BEFORE_ONE_LAUNCH_RESCORING = {"rescoring": "85 launches"}
-# what every registration launches besides the bound kernels: the
-# rescoring (csrc/score.cu: the initial error, each ICP event's scores and
-# the candidate's BnB count), the ICP event (csrc/icp.cu) and the ICP
-# seeds' rotations (rodrigues); norm3 and the ordered sum where a pair is
-# prepared (phase 3's window holds the preparation; the ordered sum builds
-# its c-FPFH table, PREP_SUMS); rodrigues, rotate and rot_uncertainty in
+# the same on the tree before the pick was one launch (commit ab7a9ff,
+# PERF.md §5), on the H100 in one call with this tree (in turns): an
+# improving step's refinement (launch_counts.py refine: the ICP event
+# from 4 seeds, its rescoring, the pick by 0-d indices, the candidate's
+# count, the refine block made and written) and the initial incumbent
+BEFORE_ONE_LAUNCH_PICK = {"refine": "21 launches and 9 host reads",
+                          "initial": "19 launches"}
+# what every registration launches besides the bound kernels: the ICP
+# events (csrc/icp.cu), their seeds and their pick (csrc/score.cu's
+# goicp_icp_seeds and goicp_score_pick: the initial incumbent's route,
+# and each improving step's, which writes the refine record); norm3 and
+# the ordered sum where a pair is prepared (phase 3's window holds the
+# preparation; the ordered sum builds its c-FPFH table, PREP_SUMS);
+# rodrigues, rotate, rot_uncertainty and the rescoring (csrc/score.cu's
+# goicp_score: the initial error, the ICP's scores, the BnB count) in
 # every host-engine registration (its outer step's rotations and rotated
-# points, its inner searches' rotation uncertainty).  The products whose
-# callers (the plain ICP loop; norm3 before it was one launch; rodrigues
-# and rot_uncertainty before they were one launch each) no longer run on
-# the card launch 0 times on the main path.
-PATH_KERNELS = ("score_kernel", "icp_run", "rodrigues_kernel")
+# points, its inner searches' rotation uncertainty, its refinements).
+# The products whose callers (the plain ICP loop; norm3 before it was one
+# launch; rodrigues and rot_uncertainty before they were one launch each)
+# no longer run on the card launch 0 times on the main path; so does the
+# rescoring (PICK_ONLY), and rodrigues at most once a process (the
+# initial ICP's seeds, kept).
+PATH_KERNELS = ("icp_seeds", "score_pick", "score_initial", "icp_run")
 PREP_KERNELS = ("norm3", "ordered_sum")
-HOST_ENGINE_KERNELS = ("rodrigues_kernel", "rotate", "rot_uncertainty_kernel")
+HOST_ENGINE_KERNELS = ("rodrigues_kernel", "rotate", "rot_uncertainty_kernel",
+                       "score_kernel")
 OFF_PATH = ("sq_dist3", "det3", "cross3", "dot_fma", "sincos32")
 CHECK_ONLY = ("kabsch3",)   # the ICP kernel's Kabsch alone: phase 2 only
 # K1, K3 and K4, whose bodies run inside the inner step kernel
@@ -594,6 +606,17 @@ def _off_path(counts, where):
     _require(all(counts[k] == 0 for k in OFF_PATH),
              f"{', '.join(OFF_PATH)} launched 0 times in {where}: "
              f"{ {k: counts[k] for k in OFF_PATH} }")
+
+
+def _pick_path(counts, where):
+    """Every ICP event of `where` ended in its pick (search/pick.py's
+    kernels): the rescoring kernel launched no time, and rodrigues at most
+    once (the initial ICP's seeds, made once a process)."""
+    _require(counts["score_kernel"] == 0 and counts["rodrigues_kernel"] <= 1,
+             f"score_kernel launched 0 times and rodrigues_kernel at most "
+             f"once in {where} (every rescoring in a pick, the initial "
+             f"seeds kept): {counts['score_kernel']}, "
+             f"{counts['rodrigues_kernel']}")
 
 
 def _step_path(counts, where, loop="inner_run"):
@@ -3379,6 +3402,203 @@ def _score_checks(k, cfg, cfg_t, pools, dev, floor):
           f"CPU's and XLA:CPU's order is (a + b) + c, which oob_extension "
           f"writes out; dt_distance of 4096 points far outside syn07's "
           f"grid: the card == the CPU bit for bit", flush=True)
+    return cases
+
+
+# bytes per lane the seeds read (ub 4, R 36, node 16) and per seed they
+# write (R 36, t 12); operations per pair of lanes (the rank's comparison:
+# two NaN tests, a less-than, an equality, the index test, the add) and
+# per seed (t: a division and three adds)
+SEEDS_LANE_BYTES, SEEDS_SEED_BYTES = 4 + 36 + 16, 36 + 12
+SEEDS_PAIR_OPS, SEEDS_SEED_OPS = 6, 4
+
+
+def _pick_checks(kernels, cases, cfg, pools, dev, floor):
+    """Phase 2's check of the pick (search/pick.py: csrc/score.cu's
+    goicp_icp_seeds and goicp_score_pick) against its plain versions on
+    the same card tensors, bit for bit.  The pick route (score_pick: the
+    rescoring of K ICP results, the first best, the candidate's count,
+    into row 1 of a 3-row refine record) and the initial route
+    (score_initial) on each of _score_checks' cases (the ten ICP events'
+    results, syn07 far outside its grid, phase 11's options) at K = 1, 4
+    and 8 where the event has that many rows, and on the rows repeated
+    twice and three times (tied errors: the first wins; above 8 rows the
+    ticket form); the seeds (icp_seeds: the K lowest-ub of 64 lanes,
+    syn07's first 8 eight times over, ties to the lower lane) at K = 1,
+    4, 8, 12 on distinct ubs, on ubs of five values (ties), with inactive
+    lanes (inf) and a NaN lane, the first also resetting a record.  Timed on syn07's bucket (4 seeds,
+    the engines' refinement): single calls, from a CUDA graph, the plain
+    versions; one launch and no memset a call; ptxas's stack frame and
+    spills of both kernels 0."""
+    import numpy as np
+    import torch
+    from goicp_tpu_torch import _build
+    from goicp_tpu_torch.bench.icp_stops import kernel_info
+    from goicp_tpu_torch.geom.rotation import rodrigues_np
+    from goicp_tpu_torch.search import device_engine as eng
+    from goicp_tpu_torch.search import pick
+    from goicp_tpu_torch.search.args import RefineRows
+    log = _build.build_info.get("log", "")
+    for kname in ("pick_kernel", "icp_seeds_kernel"):
+        info = kernel_info(log, kname)
+        _require(info and all("0 bytes stack frame, 0 bytes spill stores, "
+                              "0 bytes spill loads" in x
+                              for x in info if "stack frame" in x),
+                 f"{kname} has no stack frame and no spills: {info}")
+        print(f"{kname} (ptxas): {info}", flush=True)
+    ks, kp, ki = (kernels[k] for k in ("icp_seeds", "score_pick",
+                                       "score_initial"))
+    f32 = dict(dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(20)
+
+    def record(n=3):
+        rec = RefineRows(n, dev)
+        for v in rec.values():      # a state no route writes
+            v.view(torch.uint8).copy_(torch.as_tensor(
+                rng.integers(0, 2, v.view(torch.uint8).shape), device=dev))
+        return rec
+
+    def same(got, want):
+        return all(torch.equal(g.reshape(-1).view(torch.uint8),
+                               w.reshape(-1).view(torch.uint8))
+                   for g, w in zip(got, want))
+
+    def err(got, want):
+        return max(float((g.float() - w.float()).abs().max())
+                   for g, w in zip(got, want)
+                   if g.dtype == torch.float32 or g.dtype == torch.int32)
+
+    for i, (label, pair, c, R, t, nn, R0, t0) in enumerate(cases):
+        K = R.shape[0]
+        shapes = [(f"K={k}", R[:k], t[:k], nn[:k]) for k in (1, 4, 8)
+                  if k <= K]
+        shapes += [(f"K={m * K} (the rows {m}x: ties"
+                    + ("; tickets)" if m * K > pick.CLUSTER else ")"),
+                    R.repeat(m, 1, 1), t.repeat(m, 1), nn.repeat(m, 1))
+                   for m in (2, 3)]
+        cand = (R0[0].contiguous(), t0[0].contiguous())
+        for sub, Rk, tk, nk in shapes:
+            Rk, tk, nk = Rk.contiguous(), tk.contiguous(), nk.contiguous()
+            got, want = record(), None
+            want = RefineRows(3, dev)
+            for k_, v in got.items():
+                want[k_].copy_(v)
+            pick.score_pick(pair, c, Rk, tk, nk, *cand, got, 1)
+            pick.score_pick_plain(pair, c, Rk, tk, nk, *cand, want, 1)
+            gi = pick.score_initial(pair, c, Rk, tk, nk)
+            wi = pick.score_initial_plain(pair, c, Rk, tk, nk)
+            torch.cuda.synchronize()
+            g1, w1 = list(got.values()), list(want.values())
+            g2, w2 = list(gi.values()), list(wi.values())
+            _require(same(g1, w1),
+                     f"score_pick == score_pick_plain bit for bit ({label}, "
+                     f"{sub}): {dict(got)} vs {dict(want)}")
+            _require(same(g2, w2),
+                     f"score_initial == score_initial_plain bit for bit "
+                     f"({label}, {sub}): {gi} vs {wi}")
+            kp["errs"].append(err(g1, w1))
+            ki["errs"].append(err(g2, w2))
+        line = ""
+        if i == 1:
+            rec, rec_p = record(), record()
+
+            def kern(a=(pair, c, R, t, nn, *cand, rec, 1)):
+                return pick.score_pick(*a)
+
+            def plain(a=(pair, c, R, t, nn, *cand, rec_p, 1)):
+                return pick.score_pick_plain(*a)
+
+            def kern_i(a=(pair, c, R, t, nn)):
+                return pick.score_initial(*a)
+
+            def plain_i(a=(pair, c, R, t, nn)):
+                return pick.score_initial_plain(*a)
+            line = ";"
+            for k, (fk, fp), what in ((kp, (kern, plain), "pick"),
+                                      (ki, (kern_i, plain_i), "initial")):
+                ms, dms, pms = _median_ms(fk), _device_ms(fk), _median_ms(fp)
+                outs = list(rec.values()) if what == "pick" \
+                    else list(kern_i().values())
+                bms, bby = _score_bound(pair, K + 1, [
+                    pair.data, pair.weights, pair.data_mask,
+                    pair.data_props, R, t, nn, *cand, *outs])
+                launches, memsets = _launches_memsets(fk)
+                _require(launches == 1 and memsets == 0,
+                         f"the {what} route is one launch and no memset a "
+                         f"call ({launches}, {memsets})")
+                k.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby,
+                         graph_ms=dms, library_ms=None)
+                line += (f" the {what} route {ms:.4f} ms (from a graph "
+                         f"{dms:.4f} ms) plain {pms:.4f} ms bound "
+                         f"{bms:.6f} ms ({bby}), {launches:g} launch, "
+                         f"{memsets:g} memsets a call;")
+            line += f" {floor}"
+        print(f"score_pick / score_initial {label}: K={K} "
+              f"Nd={pair.n_data_padded}, at {', '.join(x[0] for x in shapes)}:"
+              f" max_abs_err={max(kp['errs'][-len(shapes):]):.3g} / "
+              f"{max(ki['errs'][-len(shapes):]):.3g} (bit for bit, every "
+              f"field of the record and of the state){line}", flush=True)
+
+    # the seeds: syn07's first outer step's lanes, 8 times over (64 lanes,
+    # the host engine's width; the bench shape pops 8)
+    syn07 = cases[1][1]
+    R_lanes = eng._pop(syn07, cfg, eng.device_init(syn07, cfg))[
+        "R_lanes"].repeat(8, 1, 1).contiguous()
+    L = R_lanes.shape[0]
+    nodes = torch.as_tensor(np.concatenate(
+        [rng.uniform(-0.05, 0.05, (L, 3)), rng.uniform(0.01, 0.1, (L, 1))],
+        axis=1), **f32)
+    distinct = rng.uniform(0.5, 2.0, L)
+    five = rng.integers(0, 5, L).astype(np.float64)
+    holes = distinct.copy()
+    holes[rng.choice(L, L // 3, replace=False)] = np.inf
+    holes[7] = np.nan
+    for j, (what, u) in enumerate((("distinct ubs", distinct),
+                                   ("ubs of five values (ties)", five),
+                                   ("a third inf, one NaN", holes))):
+        ubs = torch.as_tensor(u, **f32)
+        for K in (1, 4, 8, 12):
+            got_rec, want_rec = (record(), record()) if j == 0 else (None,
+                                                                     None)
+            if got_rec is not None:
+                for k_, v in got_rec.items():
+                    want_rec[k_].copy_(v)
+            got = pick.icp_seeds(ubs, R_lanes, nodes, K, reset=got_rec)
+            want = pick.icp_seeds_plain(ubs, R_lanes, nodes, K,
+                                        reset=want_rec)
+            torch.cuda.synchronize()
+            _require(same(got, want) and (got_rec is None or same(
+                list(got_rec.values()), list(want_rec.values()))),
+                f"icp_seeds == icp_seeds_plain bit for bit ({what}, K={K})")
+            ks["errs"].append(err(got, want))
+        print(f"icp_seeds syn07's {L} lanes, {what}: K=1, 4, 8, 12"
+              f"{' (each resetting a 3-row record)' if j == 0 else ''}: "
+              f"max_abs_err={max(ks['errs'][-4:]):.3g} (bit for bit)",
+              flush=True)
+    ubs = torch.as_tensor(distinct, **f32)
+    K = cfg.icp_seeds
+    out = tuple(torch.empty(s_, **f32) for s_ in ((K, 3, 3), (K, 3)))
+
+    def kern_s():
+        return pick.icp_seeds(ubs, R_lanes, nodes, K, out=out)
+
+    def plain_s():
+        return pick.icp_seeds_plain(ubs, R_lanes, nodes, K)
+    ms, dms, pms = _median_ms(kern_s), _device_ms(kern_s), _median_ms(plain_s)
+    t_ops = (L * L * SEEDS_PAIR_OPS + K * SEEDS_SEED_OPS) / PEAK_OPS
+    t_bytes = (L * SEEDS_LANE_BYTES + K * SEEDS_SEED_BYTES) / PEAK_BYTES
+    bms, bby = (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
+    launches, memsets = _launches_memsets(kern_s)
+    _require(launches == 1 and memsets == 0,
+             f"the seeds are one launch and no memset a call ({launches}, "
+             f"{memsets})")
+    ks.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, graph_ms=dms,
+              library_ms=None)
+    print(f"icp_seeds timed: L={L} K={K}: kernel {ms:.4f} ms (from a graph "
+          f"{dms:.4f} ms) plain {pms:.4f} ms bound {bms:.6f} ms ({bby}), "
+          f"{launches:g} launch, {memsets:g} memsets a call; {floor}",
+          flush=True)
 
 
 def _one_answer_phase(dev):
@@ -3466,6 +3686,7 @@ def _one_answer_phase(dev):
     for kname in PATH_KERNELS:
         _require(counts[kname] > 0, f"{kname} launched in phase 13")
     _step_path(counts, "phase 13")
+    _pick_path(counts, "phase 13")
     _off_path(counts, "phase 13")
     _sums_in_prep(counts, "phase 13")
 
@@ -3495,11 +3716,23 @@ def _one_answer_phase(dev):
           f"{BEFORE_FUSED_ORDER_LAUNCHES['rescoring']}; before the "
           f"rescoring was one launch: "
           f"{BEFORE_ONE_LAUNCH_RESCORING['rescoring']}", flush=True)
-    print(f"phase 13 an improving step's refinement (the ICP seeds' event, "
-          f"its rescoring, the pick, the candidate's count): "
-          f"{rf['launches']:.1f} launches, {rf['host_reads']:.1f} host "
-          f"reads, {rf['ms']:.3f} ms on the host clock", flush=True)
+    ini = launch_counts.initial()
+    print(f"phase 13 an improving step's refinement (the ICP seeds, the "
+          f"event, the pick with its rescoring and the candidate's count, "
+          f"written into the refine record): {rf['launches']:.1f} "
+          f"launches, {rf['host_reads']:.1f} host reads, {rf['ms']:.3f} ms "
+          f"on the host clock; before the pick was one launch: "
+          f"{BEFORE_ONE_LAUNCH_PICK['refine']}; the initial incumbent: "
+          f"{ini['launches']:.1f} launches, {ini['host_reads']:.1f} host "
+          f"reads, {ini['ms']:.3f} ms; before: "
+          f"{BEFORE_ONE_LAUNCH_PICK['initial']}", flush=True)
     _require(v["launches"] == 1, f"a rescoring is one launch: {v}")
+    _require(rf["launches"] <= 3 and rf["host_reads"] == 0,
+             f"an improving step's refinement is at most three launches "
+             f"(the seeds, the ICP event, the pick) and no host read: {rf}")
+    _require(ini["launches"] <= 2 and ini["host_reads"] == 0,
+             f"the initial incumbent is at most two launches (the ICP "
+             f"event, the pick's initial route) and no host read: {ini}")
     tb, st = launch_counts.transition(), launch_counts.outer_step()
     print(f"phase 13 a fused-stream transition of {tb['rows']} rows: "
           f"{tb['launches']:.1f} launches, {tb['host_reads']:.1f} host "
@@ -3639,9 +3872,12 @@ def main() -> int:
         **{name: dict(source="goicp_tpu_torch/csrc/icp.cu", replaces=None,
                       errs=[])
            for name in ("icp_run", "kabsch3")},
-        # not a TPU kernel: the rescoring XLA computes (bounds/error.py)
-        "score_kernel": dict(source="goicp_tpu_torch/csrc/score.cu",
-                             replaces=None, errs=[]),
+        # not TPU kernels: the rescoring XLA computes (bounds/error.py),
+        # the ICP seeds and the pick around the event (search/pick.py)
+        **{name: dict(source="goicp_tpu_torch/csrc/score.cu",
+                      replaces=None, errs=[])
+           for name in ("score_kernel", "icp_seeds", "score_pick",
+                        "score_initial")},
         # the whole inner-BnB iteration XLA runs around K3/K4 (the JAX
         # package's body), K1-K4's bodies inside it
         "inner_step": dict(source="goicp_tpu_torch/csrc/inner.cu",
@@ -3993,7 +4229,9 @@ def main() -> int:
     _fused_checks(kernels, cfg, pools, dev, floor)
     _product_checks(kernels, cfg, pools, dev, floor)
     _icp_checks(kernels, cfg, cfg_t, pools, dev, floor)
-    _score_checks(kernels["score_kernel"], cfg, cfg_t, pools, dev, floor)
+    cases = _score_checks(kernels["score_kernel"], cfg, cfg_t, pools, dev,
+                          floor)
+    _pick_checks(kernels, cases, cfg, pools, dev, floor)
     _step_checks(kernels["inner_step"], cfg, cfg_t, pools, dev, floor)
     _run_checks(kernels["inner_run"], kernels, cfg, cfg_t, pools, dev, floor)
     _transition_checks(kernels, cfg, cfg_t, pools, dev, floor)
@@ -4059,6 +4297,7 @@ def main() -> int:
     for kname in PATH_KERNELS + PREP_KERNELS:
         _require(counts[kname] > 0, f"{kname} launched on the main path")
     _step_path(counts, "phase 3")
+    _pick_path(counts, "phase 3")
     _off_path(counts, "phase 3")
     _sums_in_prep(counts, "phase 3")
     counts3k = _knob_phase(cfg, *syn07)
@@ -4164,6 +4403,7 @@ def main() -> int:
                      f"{kname} launched by the {engine} stream")
         _step_path(phase_counts, f"phase {phase} ({engine} stream)",
                    "inner_step" if engine == "packed" else "inner_run")
+        _pick_path(phase_counts, f"phase {phase} ({engine} stream)")
         _off_path(phase_counts, f"phase {phase}")
         _sums_in_prep(phase_counts, f"phase {phase}")
         return phase_counts

@@ -87,6 +87,18 @@ _SIGNATURES = {
     "goicp_score": [ctypes.POINTER(ctypes.c_ulonglong), ctypes.POINTER(_I),
                     ctypes.POINTER(ctypes.c_float), _P, _P, _P, _I, _P, _L,
                     _I, _P],
+    # slots, ints, floats (goicp_score's), R, t, nn_idx, nn_idx int64, K,
+    # cand_R, cand_t (NULL: the initial route), out (7 pointers), j,
+    # route, ws, ticket, stream
+    "goicp_score_pick": [ctypes.POINTER(ctypes.c_ulonglong),
+                         ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_float),
+                         _P, _P, _P, _I, _L, _P, _P,
+                         ctypes.POINTER(ctypes.c_ulonglong), _I, _I, _P, _P,
+                         _P],
+    # ubs, R_lanes, nodes, seed_R, seed_t, L, K, record (7 pointers or
+    # NULL), its rows, stream
+    "goicp_icp_seeds": [_P, _P, _P, _P, _P, _L, _I,
+                        ctypes.POINTER(ctypes.c_ulonglong), _I, _P],
     # pts, rot_unc, weights, cells, nearest_cell, consts, trim_count,
     # cell_compat, prop_onehot, data_mask, lane_pair, sse; nodes, lbs,
     # cvals, opt_err, thr, best_node, ub_terms, min_dropped, done, live;

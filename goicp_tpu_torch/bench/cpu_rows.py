@@ -104,9 +104,10 @@ def pair_results(pair, cfg, seed: int = 13) -> dict:
     """A prepared pair's results on its own device, from seeded inputs:
     initial_error, rodrigues of 8 rotations and the data rotated by them,
     one ICP event from the identity and 4 starts near it with its
-    rescoring (the engine's _icp_from), and score_transform at the 8
-    rotations with their nearest-neighbour correspondences.  Tensors are
-    moved to the CPU."""
+    rescoring (the engine's _icp_from), score_transform at the 8
+    rotations with their nearest-neighbour correspondences, and the
+    initial incumbent (the engine's _initial_incumbent: its ICP event and
+    pick).  Tensors are moved to the CPU."""
     from goicp_tpu_torch.bounds.error import initial_error, score_transform
     from goicp_tpu_torch.geom.rotation import rodrigues
     from goicp_tpu_torch.icp.icp import nn_correspondences
@@ -129,7 +130,8 @@ def pair_results(pair, cfg, seed: int = 13) -> dict:
                                                                device=d)),
                           torch.as_tensor(t_icp, device=d)),
         "score_transform at the 8 rotations": score_transform(
-            pair, cfg, R8, torch.zeros((8, 3), device=d), nn)}, "cpu")
+            pair, cfg, R8, torch.zeros((8, 3), device=d), nn),
+        "the initial incumbent": eng._initial_incumbent(pair, cfg)}, "cpu")
 
 
 def pair_digest(pair) -> dict:
@@ -231,16 +233,21 @@ def _explain_init(pc, pg, cfg):
     if _first("initial_error (identity error)",
               differences(initial_error(pg, cfg), initial_error(pc, cfg))):
         return
+    from goicp_tpu_torch.geom.rotation import rodrigues
     K = max(1, min(int(cfg.init_seeds), len(eng._INIT_SEED_RV)))
     rv = torch.as_tensor(eng._INIT_SEED_RV[:K])
-    Rc = eng.rodrigues(rv)
+    Rc = rodrigues(rv)
     if _first("rodrigues of the ICP seeds",
-              differences(eng.rodrigues(rv.cuda()), Rc)):
+              differences(rodrigues(rv.cuda()), Rc)):
         return
     z = torch.zeros((K, 3))
-    _first("seeded ICP + rescoring (R, t, score, incomp)",
-           differences(eng._icp_from(pg, cfg, Rc.cuda(), z.cuda()),
-                       eng._icp_from(pc, cfg, Rc, z)))
+    if _first("seeded ICP + rescoring (R, t, score, incomp)",
+              differences(eng._icp_from(pg, cfg, Rc.cuda(), z.cuda()),
+                          eng._icp_from(pc, cfg, Rc, z))):
+        return
+    _first("the initial incumbent (the pick)",
+           differences(eng._initial_incumbent(pg, cfg),
+                       eng._initial_incumbent(pc, cfg)))
 
 
 def _explain_step(pc, pg, cfg, s_cpu):
@@ -263,12 +270,17 @@ def _explain_step(pc, pg, cfg, s_cpu):
     rg = rg._replace(iters=int(rg.iters), chem_corners=int(rg.chem_corners))
     if _first("the inner search (bound sums)", differences(rg, rc)):
         return
+    from goicp_tpu_torch.search import pick
     ubs = torch.where(p_c["active"], rc.best_err, eng.INF)
-    args = (p_c["R_lanes"], rc.best_node, ubs)
-    got_c = eng._icp_best_of_seeds(pc, cfg, *args)
-    got_g = eng._icp_best_of_seeds(pg, cfg, *_to(args, "cuda"))
-    if _first("the ICP of the best lanes + rescoring (R, t, score)",
-              differences(got_g, got_c)):
+    lane = int(torch.argmin(ubs))
+    tn = rc.best_node[lane]
+    args = (p_c["R_lanes"], rc.best_node, ubs, p_c["R_lanes"][lane],
+            tn[:3] + tn[3] / 2.0)
+    got_c = pick.refine_rows(cfg, [(0, pc, *args)], 1, "cpu")
+    got_g = pick.refine_rows(cfg, [(0, pg, *_to(args, "cuda"))], 1, "cuda")
+    if _first("the ICP of the best lanes, the pick and the candidate's "
+              "count (the refine record)", differences(dict(got_g),
+                                                        dict(got_c))):
         return
     print("  every piece agrees from the same inputs: the split is in "
           "the step's own arithmetic (adopt / merge)", flush=True)

@@ -60,11 +60,18 @@ every `.item()` and `bool()` of a card tensor goes through):
     and their nearest-neighbour correspondences (the ICP event's): one
     launch of csrc/score.cu on a tree that has it, ~85 before;
   * one improving step's refinement as register_device runs it
-    (`refine`): device_engine._icp_best_of_seeds on that pair's first
-    outer step (its 8 rotation lanes, seeded translation nodes and upper
-    bounds: the ICP event from the 4 lowest, the rescoring, the pick of
-    the best seed) and the candidate's BnB count: launches, host reads and
-    host-clock ms;
+    (`refine`) on that pair's first outer step (its rotation lanes,
+    seeded translation nodes and upper bounds): on a tree with
+    search/pick.py, pick.refine_rows into a run's refine record (the
+    seeds, the ICP event from the 4 lowest, the pick of the best seed
+    with its rescoring and the candidate's BnB count, written into the
+    record); before, device_engine._icp_best_of_seeds, the candidate's
+    count and the refine block (transition.refine_rows, set_refine) as
+    that tree's body made them: launches, host reads and host-clock ms;
+  * the initial incumbent (`initial`): device_engine._initial_incumbent
+    on that pair (the ICP from init_seeds starts, the rescoring, the
+    initial error, the pick and the comparison), after one call (the
+    seeds a tree keeps): launches, host reads and host-clock ms;
   * one rodrigues of 8 seeded rotation centres (the host engine's lanes)
     and one rot_uncertainty of their 8 widths times that pair's point
     norms: launches and host-clock ms a call (each one launch of
@@ -87,7 +94,8 @@ e.g. `--only rodrigues rot_uncertainty host_outer_step`).
 
 prints one JSON object (the counts, each loop's host-clock ms, the card's
 name and power limit, and ptxas's registers, stack frame and spills of
-the rescoring kernel where the tree has csrc/score.cu).  It uses only
+csrc/score.cu's kernels where the tree has it: the rescoring's, and the
+pick's and the seeds' where it has them).  It uses only
 functions the port has had since its cross-pair streams, so the same
 script counts an older tree's launches too: put that tree first on
 PYTHONPATH (its icp_run has no launch count: null).  Needs a card.
@@ -423,9 +431,8 @@ def rescoring(device="cuda", n=10) -> dict:
 
 def refine(device="cuda", n=10) -> dict:
     """Launches, host reads and host-clock ms of an improving step's
-    refinement: _icp_best_of_seeds and the candidate's BnB count, as
-    register_device's body calls them, on PAIR_ICP's first outer step."""
-    from goicp_tpu_torch.bounds.error import bnb_incompatibility_count
+    refinement as register_device's body makes it, on PAIR_ICP's first
+    outer step (the module docstring's `refine`)."""
     from goicp_tpu_torch.search import device_engine as eng
     cfg, (pair,) = _bench_pairs((PAIR_ICP,), device, bucket_together=False)
     R_lanes = eng._pop(pair, cfg, eng.device_init(pair, cfg))["R_lanes"]
@@ -437,24 +444,66 @@ def refine(device="cuda", n=10) -> dict:
     ubs = torch.as_tensor(rng.uniform(0.5, 2.0, L), dtype=torch.float32,
                           device=device)
     cand_R, cand_t = R_lanes[0].contiguous(), nodes[0, :3] + nodes[0, 3] / 2
+    try:
+        from goicp_tpu_torch.search import pick
+        from goicp_tpu_torch.search.args import RefineRecord
+    except ImportError:         # a tree before the pick was one launch
+        pick = None
+    if pick is not None:
+        record = RefineRecord()
 
-    def step():
-        best = eng._icp_best_of_seeds(pair, cfg, R_lanes, nodes, ubs)
-        return best, bnb_incompatibility_count(pair, cfg, cand_R, cand_t)
+        def step():
+            return pick.refine_rows(
+                cfg, [(0, pair, R_lanes, nodes, ubs, cand_R, cand_t)], 1,
+                pair.device, record)
+    else:
+        from goicp_tpu_torch.bounds.error import bnb_incompatibility_count
+        from goicp_tpu_torch.search import transition
+
+        def step():
+            icp_R, icp_t, sc, icp_incomp = eng._icp_best_of_seeds(
+                pair, cfg, R_lanes, nodes, ubs)
+            r = transition.refine_rows(1, pair.device)
+            transition.set_refine(r, 0, dict(
+                icp_R=icp_R, icp_t=icp_t, icp_err=sc.error,
+                icp_terms=torch.stack([sc.geom, sc.incomp_term
+                                       + sc.nbr_term, sc.fpfh_term]),
+                icp_incomp=icp_incomp.to(torch.int32),
+                bnb_comp=bnb_incompatibility_count(
+                    pair, cfg, cand_R, cand_t).to(torch.int32)))
+            return r
+    step()
     launches, reads = _profile(step, n)
     return dict(launches=launches, host_reads=reads,
                 ms=_host_ms(step, 5 * n))
 
 
+def initial(device="cuda", n=10) -> dict:
+    """Launches, host reads and host-clock ms of the initial incumbent
+    (device_engine._initial_incumbent) on PAIR_ICP, after one call."""
+    from goicp_tpu_torch.search import device_engine as eng
+    cfg, (pair,) = _bench_pairs((PAIR_ICP,), device, bucket_together=False)
+
+    def call():
+        return eng._initial_incumbent(pair, cfg)
+    call()
+    launches, reads = _profile(call, n)
+    return dict(launches=launches, host_reads=reads,
+                ms=_host_ms(call, 5 * n))
+
+
 def _score_ptxas() -> list | None:
-    """ptxas's lines for the rescoring kernel from the kernel library's
-    build log (None for a tree without csrc/score.cu)."""
+    """ptxas's lines for csrc/score.cu's kernels (the rescoring, the pick,
+    the seeds) from the kernel library's build log (None for a tree
+    without csrc/score.cu)."""
     from goicp_tpu_torch import _build
     if not (_build.CSRC / "score.cu").exists():
         return None
     from goicp_tpu_torch.bench.icp_stops import kernel_info
     _build.library()
-    return kernel_info(_build.build_info.get("log", ""), "score_kernel")
+    log = _build.build_info.get("log", "")
+    return [x for k in ("score_kernel", "pick_kernel", "icp_seeds_kernel")
+            for x in kernel_info(log, k)]
 
 
 def _static_pair(name, device):
@@ -572,7 +621,7 @@ def main(argv=None) -> int:
         "outer_step": outer_step,
         "outer_step_chained": lambda: outer_step(chained=True),
         "stream_chunk": stream_chunk, "rescoring": rescoring,
-        "refine": refine, "score_ptxas": _score_ptxas,
+        "refine": refine, "initial": initial, "score_ptxas": _score_ptxas,
         "rodrigues": rodrigues_call, "rot_uncertainty": rot_uncertainty_call,
         "host_outer_step": host_outer_step}
     unknown = set(a.only or ()) - set(entries)

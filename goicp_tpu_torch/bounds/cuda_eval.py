@@ -454,12 +454,16 @@ _KERNELS = (geometric_bounds_kernel, chem_incomp_kernel,
 
 def _all_kernels() -> tuple:
     """_KERNELS, the inner step's and run's (search/inner.py), the
-    transition's (search/transition.py) and the rescoring's
-    (bounds/error.py), which import this module or what it imports."""
+    transition's (search/transition.py), the rescoring's
+    (bounds/error.py) and the pick's (search/pick.py), which import this
+    module or what it imports."""
     from goicp_tpu_torch.bounds.error import score_kernel
     from goicp_tpu_torch.search.inner import inner_run, inner_step
+    from goicp_tpu_torch.search.pick import (icp_seeds, score_initial,
+                                             score_pick)
     from goicp_tpu_torch.search.transition import advance, harvest
-    return _KERNELS + (inner_step, inner_run, harvest, advance, score_kernel)
+    return _KERNELS + (inner_step, inner_run, harvest, advance, score_kernel,
+                       icp_seeds, score_pick, score_initial)
 
 
 def launch_counts() -> dict:

@@ -7,7 +7,9 @@ A block (TransitionArgs) holds one call site's checked pointer slots, the
 ints and the tensors they were checked for, and re-checks only the slots
 that hold another tensor object at the next call; a run's
 TransitionBuffers hands out each kind of call's outputs from two sets
-used in turn and keeps a block for each set.
+used in turn and keeps a block for each set, and the run's RefineRecord:
+the refine block the transitions read, which search/pick.py's kernels
+write (csrc/score.cu).
 """
 
 from __future__ import annotations
@@ -122,6 +124,7 @@ class TransitionBuffers:
         self.sets: dict = {}        # kind -> [(outputs, storages) or None] * 2
         self.turn: dict = {}
         self.blocks: dict = {}      # (kind, set index or "out") -> block
+        self.record = RefineRecord()
 
     def take(self, kind, alloc, inputs=()) -> tuple:
         """(index, outputs): the next output set of `kind` that holds none
@@ -149,6 +152,61 @@ class TransitionBuffers:
         else:
             self.blocks.pop(site, None)
         return blk
+
+
+# the refine block's fields, in the order advance's slots take them
+# (search/transition.py): name, per-row shape, dtype
+REFINE_FIELDS = (("icp_R", (3, 3), torch.float32),
+                 ("icp_t", (3,), torch.float32),
+                 ("icp_err", (), torch.float32),
+                 ("icp_terms", (3,), torch.float32),
+                 ("icp_incomp", (), torch.int32),
+                 ("bnb_comp", (), torch.int32),
+                 ("do_icp", (), torch.bool))
+
+
+class RefineRows(dict):
+    """The refine block of n rows as transition.advance reads it (a dict
+    of REFINE_FIELDS' tensors, (n,) + shape each) and, on the card, the
+    fields' pointers in that order (`ptrs`, a c_ulonglong[7]) for
+    csrc/score.cu's seeds and pick."""
+
+    def __init__(self, n: int, dev):
+        super().__init__((k, torch.empty((n,) + shape, dtype=dt, device=dev))
+                         for k, shape, dt in REFINE_FIELDS)
+        self.n = n
+        self.ptrs = (ctypes.c_ulonglong * len(REFINE_FIELDS))(
+            *(v.data_ptr() for v in self.values())) \
+            if torch.device(dev).type == "cuda" else None
+
+
+class RefineRecord:
+    """A run's refine record: the refine block of n rows (RefineRows) that
+    its transitions read, made once per n and device, and the buffers of
+    the ICP seeds (K) that a refinement starts from.  search/pick.py
+    writes it: a transition's first refinement sets the rows to the dummy
+    of a row that did not refine unless every row refines (in the seeds'
+    launch), and each refining row's pick writes its row.  What a
+    transition reads is valid until the next one's refinement."""
+
+    def __init__(self):
+        self._rows: dict = {}
+        self._seeds: dict = {}
+
+    def rows(self, n: int, dev) -> RefineRows:
+        key = (n, str(dev))
+        if key not in self._rows:
+            self._rows[key] = RefineRows(n, dev)
+        return self._rows[key]
+
+    def seeds(self, K: int, dev) -> tuple:
+        """(R (K, 3, 3), t (K, 3)) float32: where the seeds are written."""
+        key = (K, str(dev))
+        if key not in self._seeds:
+            self._seeds[key] = (
+                torch.empty((K, 3, 3), dtype=torch.float32, device=dev),
+                torch.empty((K, 3), dtype=torch.float32, device=dev))
+        return self._seeds[key]
 
 
 def _leaves(d: dict) -> list:

@@ -22,9 +22,10 @@ inside one lax.while_loop.  Here the batch axes are written out:
     tables do not carry, run the body once per window row instead;
   * the transition, which is rare, serves every transitioning row of
     the event at once (search/transition.py: on the card one harvest
-    launch, one host read, the refine of the rows that improved, and one
-    advance of two launches that writes the rows' new state into the
-    window in place).  Rows that do not transition, and rows that
+    launch, one host read, the refine of the rows that improved
+    (search/pick.py: three launches a row, into the loop's refine
+    record), and one advance launch that writes the rows' new state into
+    the window in place).  Rows that do not transition, and rows that
     converged, are not touched.
 
 The loop is a Python loop over transition events: it reads ONE small
@@ -61,16 +62,14 @@ import os
 import numpy as np
 import torch
 
-from goicp_tpu_torch.bounds.error import bnb_incompatibility_count
 from goicp_tpu_torch.bounds.evaluate import lane_tables, only_incomp
 from goicp_tpu_torch.config import GoICPConfig
 from goicp_tpu_torch.dist.mesh import stack_pairs
 from goicp_tpu_torch.pipeline.prepare import PairData
 from goicp_tpu_torch.search.device_engine import (DeviceResult,
-                                                  _icp_best_of_seeds,
                                                   _initial_incumbent,
                                                   result_to_numpy)
-from goicp_tpu_torch.search import transition
+from goicp_tpu_torch.search import pick, transition
 from goicp_tpu_torch.search.args import TransitionBuffers
 from goicp_tpu_torch.search.inner import (_COUNTERS, _PER_LANE,
                                           _chem_active, inner_iteration,
@@ -275,22 +274,6 @@ def _inner_complete(cfg: GoICPConfig, s: dict) -> torch.Tensor:
 # the outer-step transition (per transitioning row)
 # ---------------------------------------------------------------------------
 
-def _refine(pair: PairData, cfg: GoICPConfig, s: dict, h: dict) -> dict:
-    """Per-pair ICP refinement + BnB compat count for an improving
-    candidate.  The expensive block of a transition: the caller runs it
-    only for rows that improved (improvements are rare)."""
-    icp_R, icp_t, sc, icp_incomp = _icp_best_of_seeds(
-        pair, cfg, s["R_lanes"], s["inner"]["best_node"], h["ubs"])
-    bnb_comp = bnb_incompatibility_count(pair, cfg, h["cand_R"],
-                                         h["cand_t"])
-    return dict(icp_R=icp_R, icp_t=icp_t, icp_err=sc.error,
-                icp_terms=torch.stack([sc.geom,
-                                       sc.incomp_term + sc.nbr_term,
-                                       sc.fpfh_term]),
-                icp_incomp=icp_incomp.to(_I32),
-                bnb_comp=bnb_comp.to(_I32))
-
-
 def _transition_tables(pair_batch: PairData, cfg: GoICPConfig):
     """The window's LaneTables for the transition kernel (its epsilon and
     K2's tables), made once per window object and configuration."""
@@ -326,14 +309,13 @@ def _transition_batch(pair_batch: PairData, cfg: GoICPConfig, s: dict,
         counters["host_reads"] += 1
     else:
         do_icp = np.ones(len(rows), bool)
-    r = None
-    if do_icp.any():
-        r = transition.refine_rows(len(rows), pair_batch.device)
-        for j in np.nonzero(do_icp)[0]:
-            w = rows[j]
-            transition.set_refine(r, j, _refine(
-                _pair_row(pair_batch, w), cfg, _row(s, w),
-                {k: h[k][j] for k in ("ubs", "cand_R", "cand_t")}))
+    # the ICP/compat refine block of the rows that improved (improvements
+    # are rare): three launches a row into the loop's refine record
+    r = pick.refine_rows(
+        cfg, [(j, _pair_row(pair_batch, rows[j]), s["R_lanes"][rows[j]],
+               s["inner"]["best_node"][rows[j]], h["ubs"][j], h["cand_R"][j],
+               h["cand_t"][j]) for j in np.nonzero(do_icp)[0]],
+        len(rows), pair_batch.device, None if bufs is None else bufs.record)
     new = transition.advance(
         "both", cfg, pair_batch, s, rows,
         tables=_transition_tables(pair_batch, cfg), h=h, r=r,

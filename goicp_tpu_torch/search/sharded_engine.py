@@ -34,12 +34,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from goicp_tpu_torch.bounds.error import bnb_incompatibility_count
 from goicp_tpu_torch.config import GoICPConfig
 from goicp_tpu_torch.dist.mesh import MAX, MIN, SUM, Mesh
 from goicp_tpu_torch.pipeline.prepare import PairData
-from goicp_tpu_torch.search.device_engine import (DeviceResult,
-                                                  _icp_best_of_seeds, _pop,
+from goicp_tpu_torch.search import pick
+from goicp_tpu_torch.search.device_engine import (DeviceResult, _pop,
                                                   device_init)
 from goicp_tpu_torch.search.args import TransitionBuffers
 from goicp_tpu_torch.search.inner import inner_bnb
@@ -110,7 +109,7 @@ def register_device_sharded(pair: PairData, cfg: GoICPConfig, mesh: Mesh,
     Cr = cfg.device_rot_capacity
     dev = pair.device
     s = _local_init(pair, cfg, mesh)
-    bufs = TransitionBuffers()      # the pops' outputs, two sets in turn
+    bufs = TransitionBuffers()      # the pops' outputs, the refine record
     it = 0
     while it < cfg.max_outer_steps and not bool(s["converged"]):
         g_min = mesh.all_reduce(s["fr_lbs"][0], MIN, AXIS)
@@ -143,13 +142,16 @@ def register_device_sharded(pair: PairData, cfg: GoICPConfig, mesh: Mesh,
         cand_t = tn[:3] + tn[3] / 2.0
 
         # ---- local ICP seeds (gated on improvement) -> local proposal ----
+        # (the seeds, the event, the pick and the candidate's count into
+        # the run's refine record: three launches, no host read)
         do_icp = (cand_ub < s["opt_err"]) if cfg.icp_on_improve else None
-        icp_R, icp_t, sc, icp_incomp = _icp_best_of_seeds(
-            pair, cfg, p["R_lanes"], res.best_node, ubs, enabled=do_icp)
-        icp_better = sc.error < cand_ub
+        rec = pick.refine_rows(cfg, [(0, pair, p["R_lanes"], res.best_node,
+                                      ubs, cand_R, cand_t)], 1, dev,
+                               bufs.record, enabled=do_icp)
+        icp = {k: v[0] for k, v in rec.items()}
+        icp_better = icp["icp_err"] < cand_ub
         if cfg.icp_on_improve:
             icp_better = icp_better & do_icp
-        bnb_comp = bnb_incompatibility_count(pair, cfg, cand_R, cand_t)
 
         def prop(icp_v, bnb_v):
             return torch.where(icp_better, icp_v, bnb_v).reshape(-1).float()
@@ -157,10 +159,10 @@ def register_device_sharded(pair: PairData, cfg: GoICPConfig, mesh: Mesh,
         # one float32 row per rank: err, R (9), t (3), comp (exact below
         # 2^24), terms (3), whether ICP made it
         mine = torch.cat([
-            prop(sc.error, cand_ub), prop(icp_R, cand_R), prop(icp_t, cand_t),
-            prop(icp_incomp.to(torch.int32), bnb_comp.to(torch.int32)),
-            prop(torch.stack([sc.geom, sc.incomp_term + sc.nbr_term,
-                              sc.fpfh_term]), res.ub_terms[best_lane]),
+            prop(icp["icp_err"], cand_ub), prop(icp["icp_R"], cand_R),
+            prop(icp["icp_t"], cand_t),
+            prop(icp["icp_incomp"], icp["bnb_comp"]),
+            prop(icp["icp_terms"], res.ub_terms[best_lane]),
             icp_better.reshape(1).float()])
 
         # ---- incumbent all-gather: adopt the global best proposal ----

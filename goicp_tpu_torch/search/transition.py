@@ -58,8 +58,8 @@ from goicp_tpu_torch.bounds.evaluate import rot_uncertainty
 from goicp_tpu_torch.config import GoICPConfig
 from goicp_tpu_torch.geom.rotation import rodrigues
 from goicp_tpu_torch.search import inner as inner_mod
-from goicp_tpu_torch.search.args import (TransitionArgs, TransitionBuffers,
-                                         _call_block)
+from goicp_tpu_torch.search.args import (REFINE_FIELDS, TransitionArgs,
+                                         TransitionBuffers, _call_block)
 from goicp_tpu_torch.search.inner import (_chem_reuse_active, _chem_terms,
                                           root_corner_values)
 from goicp_tpu_torch.utils.fp32 import _launch, _stream, kernels, norm3, \
@@ -232,23 +232,28 @@ _HARVEST_OUT = ("lb_safe", "ubs", "cand_ub", "incumbent", "cand_R", "cand_t",
 # the refine block's rows
 # ---------------------------------------------------------------------------
 
-_REFINE = (("icp_R", (3, 3), _F32), ("icp_t", (3,), _F32),
-           ("icp_err", (), _F32), ("icp_terms", (3,), _F32),
-           ("icp_incomp", (), _I32), ("bnb_comp", (), _I32),
-           ("do_icp", (), _B))
+# the engines' refinements write the block into a run's record
+# (search/args.py::RefineRecord, search/pick.py: csrc/score.cu on the
+# card); these two make and write one in torch ops
+_REFINE = REFINE_FIELDS
+
+
+def reset_refine(r: dict) -> None:
+    """Every row of a refine block to the dummy of a row that did not
+    refine (identity, 0, inf, 0, 0, 0, do_icp False), in place."""
+    r["icp_R"].copy_(torch.eye(3, dtype=_F32, device=r["icp_R"].device))
+    for k in ("icp_t", "icp_terms", "icp_incomp", "bnb_comp", "do_icp"):
+        r[k].zero_()
+    r["icp_err"].fill_(INF)
 
 
 def refine_rows(n: int, device) -> dict:
     """The refine block's outputs for n rows, every row the dummy of a row
-    that did not refine (identity, 0, inf, 0, 0, 0, do_icp False): the
-    caller writes the rows that refined with set_refine."""
-    r = dict(icp_R=torch.eye(3, dtype=_F32, device=device).repeat(n, 1, 1),
-             icp_t=torch.zeros((n, 3), dtype=_F32, device=device),
-             icp_err=torch.full((n,), INF, dtype=_F32, device=device),
-             icp_terms=torch.zeros((n, 3), dtype=_F32, device=device),
-             icp_incomp=torch.zeros((n,), dtype=_I32, device=device),
-             bnb_comp=torch.zeros((n,), dtype=_I32, device=device),
-             do_icp=torch.zeros((n,), dtype=_B, device=device))
+    that did not refine: the caller writes the rows that refined with
+    set_refine."""
+    r = {k: torch.empty((n,) + shape, dtype=dt, device=device)
+         for k, shape, dt in _REFINE}
+    reset_refine(r)
     return r
 
 
@@ -807,9 +812,10 @@ def advance(mode: str, cfg: GoICPConfig, pairs, s: dict, rows, *, tables,
       mode "adopt": s a device state (with or without a tensor `it`); p
         the pop's outputs at the rows' indices of s (converged, final_lb,
         active, child_nodes); h the harvest's and r the refine block's
-        rows (refine_rows; None: no row refined); work the inner
-        search's evals, iters, geom_surv, chem_corners, each (W,) int32 at
-        the rows' indices or a Python int.  Returns the new state
+        rows (a run's search/args.py RefineRows, or refine_rows; None: no
+        row refined); work the inner search's evals, iters, geom_surv,
+        chem_corners, each (W,) int32 at the rows' indices or a Python
+        int.  Returns the new state
         (without `it` where s has none).
       mode "both": s the streams' window state (fused layout, its pop
         context and inner counters inside), h and r as for adopt.
