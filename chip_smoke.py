@@ -64,7 +64,18 @@ Phases, each of which fails the script (nonzero exit, no result line):
     pairs; timed on syn07's bucket, one launch and no memset a call,
     ptxas's stack frame and spills 0; the card's torch.sum over 3 terms
     against the orders it could take, and dt_distance far outside a grid
-    on the card and the CPU bit for bit.  Every
+    on the card and the CPU bit for bit.  The pick (search/pick.py:
+    csrc/score.cu's goicp_score_pick, the best seed of an ICP event with
+    the candidate's count written into a refine record, and its initial
+    route; goicp_icp_seeds, the K lowest-ub lanes) bit for bit with its
+    torch bodies, and the refine route (csrc/icp.cu's goicp_icp_refine:
+    every refining row of a transition in one launch, the seeds, the ICP
+    event, the rescoring, the pick and the count) bit for bit with the
+    plain composition and with the three launches a row it replaced, on
+    syn07's bucket at K = 1, 4, 8, 12 (tied, inf and NaN ubs), with the
+    ICP disabled and with its workspace in device memory, and on a
+    similar and a trimmed 2-row window; timed with the three launches
+    beside it.  Every
     prepared pair used here has its Grid.nearest_cell, the table the
     kernels trust, held equal to nearest_occupied over all S^3 voxels.
     One more pair is prepared on a 64^3 grid, whose 1 MB table does not
@@ -146,7 +157,10 @@ Phases, each of which fails the script (nonzero exit, no result line):
     transition kernels (harvest, advance: the pop with its root corners
     through K2's body, the adoption), the rescoring kernel, rodrigues
     (the ICP seeds), norm3 and the ordered sum (the preparation) and the
-    ICP kernel, zeroed just before phase 3, are > 0 after it, every
+    ICP kernels (icp_run, the initial incumbent's; icp_refine, every
+    refinement's), zeroed just before phase 3, are > 0 after it, those
+    of the seeds' and the pick's own kernels 0 (so in phases 5, 6 and
+    13), every
     ordered sum launched was the preparation's c-FPFH table (so in phases
     5-9, 12 and 13: the rescoring is one launch of csrc/score.cu; phase
     3's additions and phase 11 print theirs), the inner step kernel's is
@@ -390,10 +404,18 @@ BEFORE_ONE_LAUNCH_RESCORING = {"rescoring": "85 launches"}
 # count, the refine block made and written) and the initial incumbent
 BEFORE_ONE_LAUNCH_PICK = {"refine": "21 launches and 9 host reads",
                           "initial": "19 launches"}
+# the same on the tree before the refine route (commit cdb6064, PERF.md
+# §5-6, on the H100): an improving step's refinement, and the
+# refinement of a fused-stream window's two rows (launch_counts.py
+# refine_window: three launches a row)
+BEFORE_REFINE_ROUTE = {"refine": "3 launches, 0 host reads, 0.271-0.273 ms "
+                                 "on the host clock",
+                       "refine_window": "6 launches, 0 host reads"}
 # what every registration launches besides the bound kernels: the ICP
-# events (csrc/icp.cu), their seeds and their pick (csrc/score.cu's
-# goicp_icp_seeds and goicp_score_pick: the initial incumbent's route,
-# and each improving step's, which writes the refine record); norm3 and
+# events (csrc/icp.cu: icp_run, the initial incumbent's, and icp_refine,
+# every improving step's refinement with its seeds, rescoring and pick,
+# which writes the refine record), the initial incumbent's pick
+# (csrc/score.cu's goicp_score_pick, route kInit: score_initial); norm3 and
 # the ordered sum where a pair is prepared (phase 3's window holds the
 # preparation; the ordered sum builds its c-FPFH table, PREP_SUMS);
 # rodrigues, rotate, rot_uncertainty and the rescoring (csrc/score.cu's
@@ -404,8 +426,11 @@ BEFORE_ONE_LAUNCH_PICK = {"refine": "21 launches and 9 host reads",
 # launch; rodrigues and rot_uncertainty before they were one launch each)
 # no longer run on the card launch 0 times on the main path; so does the
 # rescoring (PICK_ONLY), and rodrigues at most once a process (the
-# initial ICP's seeds, kept).
-PATH_KERNELS = ("icp_seeds", "score_pick", "score_initial", "icp_run")
+# initial ICP's seeds, kept).  The seeds' and the pick's own launches
+# (REFINED_AWAY) are phase 2's only: the refine route took both into the
+# ICP event's launch.
+PATH_KERNELS = ("icp_refine", "score_initial", "icp_run")
+REFINED_AWAY = ("icp_seeds", "score_pick")
 PREP_KERNELS = ("norm3", "ordered_sum")
 HOST_ENGINE_KERNELS = ("rodrigues_kernel", "rotate", "rot_uncertainty_kernel",
                        "score_kernel")
@@ -611,12 +636,24 @@ def _off_path(counts, where):
 def _pick_path(counts, where):
     """Every ICP event of `where` ended in its pick (search/pick.py's
     kernels): the rescoring kernel launched no time, and rodrigues at most
-    once (the initial ICP's seeds, made once a process)."""
+    once (the initial ICP's seeds, made once a process); every refinement
+    went through the refine route: the seeds' and the pick's own kernels
+    launched no time."""
     _require(counts["score_kernel"] == 0 and counts["rodrigues_kernel"] <= 1,
              f"score_kernel launched 0 times and rodrigues_kernel at most "
              f"once in {where} (every rescoring in a pick, the initial "
              f"seeds kept): {counts['score_kernel']}, "
              f"{counts['rodrigues_kernel']}")
+    _refined_away(counts, where)
+
+
+def _refined_away(counts, where):
+    """Every refinement of `where` was one launch of the refine route: the
+    seeds' and the pick's own kernels launched no time."""
+    _require(all(counts[k] == 0 for k in REFINED_AWAY),
+             f"{', '.join(REFINED_AWAY)} launched 0 times in {where} "
+             f"(every refinement one launch of the refine route): "
+             f"{ {k: counts[k] for k in REFINED_AWAY} }")
 
 
 def _step_path(counts, where, loop="inner_run"):
@@ -1069,9 +1106,10 @@ def _entry_points(cfg, pools, ref, phase3, dev):
           f"during phase 7: {json.dumps(counts)}", flush=True)
     for kname in counts:
         _require(counts[kname] > 0
-                 or kname in OFF_PATH + CHECK_ONLY + IN_STEP
+                 or kname in OFF_PATH + CHECK_ONLY + IN_STEP + REFINED_AWAY
                  + ("inner_step",),
                  f"{kname} launched in phase 7")
+    _refined_away(counts, "phase 7")
     _step_path(counts, "phase 7")
     _off_path(counts, "phase 7")
     _sums_in_prep(counts, "phase 7")
@@ -1745,8 +1783,9 @@ def _options_phase(cfg, pools, dev):
     for kname in counts:
         _require(counts[kname] > 0
                  or kname in OFF_PATH + CHECK_ONLY + IN_STEP[1:]
-                 + ("inner_step",),
+                 + REFINED_AWAY + ("inner_step",),
                  f"{kname} launched in phase 11")
+    _refined_away(counts, "phase 11")
     # the inner step alone, after the phase's launches were read: its calls
     # time the step and are not the path
     for option, (two, c) in step_pairs.items():
@@ -2664,7 +2703,7 @@ def _stream_case(s0, case, c, dev):
     if case.startswith("improved"):
         h = tr.harvest_plain(s, rows)
         s["opt_err"][e] = h["cand_ub"][0] * 2 + 1
-        r = tr.refine_rows(len(rows), dev)
+        r = tr.dummy_refine_rows(len(rows), dev)
         h = tr.harvest_plain(s, rows)
         factor = 0.5 if case.endswith("ICP") else 2.0
         tr.set_refine(r, 0, dict(
@@ -2873,7 +2912,7 @@ def _transition_checks(kernels, cfg, cfg_t, pools, dev, floor):
         h = tr.harvest(cfg, src, [0], lb=lb, conv=p["converged"])
         same(h, tr.harvest_plain(src, [0], lb=lb, conv=p["converged"]),
              f"harvest (syn07 {label})")
-        r = tr.refine_rows(1, dev)
+        r = tr.dummy_refine_rows(1, dev)
         tr.set_refine(r, 0, dict(
             icp_R=torch.eye(3, device=dev), icp_t=torch.zeros(3, device=dev),
             icp_err=h["incumbent"][0] * 0.5, icp_terms=torch.ones(3,
@@ -3413,6 +3452,22 @@ SEEDS_LANE_BYTES, SEEDS_SEED_BYTES = 4 + 36 + 16, 36 + 12
 SEEDS_PAIR_OPS, SEEDS_SEED_OPS = 6, 4
 
 
+def _same_fields(got, want):
+    """Every tensor of `got` equals its `want` bit for bit."""
+    import torch
+    return all(torch.equal(g.reshape(-1).view(torch.uint8),
+                           w.reshape(-1).view(torch.uint8))
+               for g, w in zip(got, want))
+
+
+def _field_err(got, want):
+    """max |got - want| over the float32 and int32 tensors."""
+    import torch
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want)
+               if g.dtype == torch.float32 or g.dtype == torch.int32)
+
+
 def _pick_checks(kernels, cases, cfg, pools, dev, floor):
     """Phase 2's check of the pick (search/pick.py: csrc/score.cu's
     goicp_icp_seeds and goicp_score_pick) against its plain versions on
@@ -3458,16 +3513,7 @@ def _pick_checks(kernels, cases, cfg, pools, dev, floor):
                 rng.integers(0, 2, v.view(torch.uint8).shape), device=dev))
         return rec
 
-    def same(got, want):
-        return all(torch.equal(g.reshape(-1).view(torch.uint8),
-                               w.reshape(-1).view(torch.uint8))
-                   for g, w in zip(got, want))
-
-    def err(got, want):
-        return max(float((g.float() - w.float()).abs().max())
-                   for g, w in zip(got, want)
-                   if g.dtype == torch.float32 or g.dtype == torch.int32)
-
+    same, err = _same_fields, _field_err
     for i, (label, pair, c, R, t, nn, R0, t0) in enumerate(cases):
         K = R.shape[0]
         shapes = [(f"K={k}", R[:k], t[:k], nn[:k]) for k in (1, 4, 8)
@@ -3593,12 +3639,257 @@ def _pick_checks(kernels, cases, cfg, pools, dev, floor):
     _require(launches == 1 and memsets == 0,
              f"the seeds are one launch and no memset a call ({launches}, "
              f"{memsets})")
+    # the selection alone (no gathers, no centres): one torch call
+    def select():
+        return torch.topk(ubs, K, largest=False)
+    sel_ms, sel_dms = _median_ms(select), _device_ms(select)
     ks.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=bby, graph_ms=dms,
-              library_ms=None)
+              library_ms=None, selection_ms=sel_ms,
+              selection_graph_ms=sel_dms)
     print(f"icp_seeds timed: L={L} K={K}: kernel {ms:.4f} ms (from a graph "
           f"{dms:.4f} ms) plain {pms:.4f} ms bound {bms:.6f} ms ({bby}), "
-          f"{launches:g} launch, {memsets:g} memsets a call; {floor}",
+          f"{launches:g} launch, {memsets:g} memsets a call; the selection "
+          f"only, torch.topk(ubs, K, largest=False): {sel_ms:.4f} ms (from "
+          f"a graph {sel_dms:.4f} ms); {floor}", flush=True)
+
+
+# what the kernels line adds for the refine route: the three launches a
+# row it replaced, timed the same two ways on the same inputs, and the
+# two-row window's graph times (one launch against six)
+REFINE_EXTRAS = ("three_launch_ms", "three_launch_graph_ms",
+                 "icp_run_graph_ms", "window_graph_ms",
+                 "window_three_graph_ms",
+                 "trm00_graph_ms", "trm00_three_graph_ms",
+                 "trm00_icp_run_graph_ms")
+
+
+def _refine_bound(pair, c, K, L, iters, tensors):
+    """(bound_ms, bound_by) of a refinement of one row: the seeds' ranks
+    (SEEDS_PAIR_OPS a lane pair), the ICP's `iters` iterations (summed
+    over the seeds; ICP_OPS an iteration, the trimmed modes' ranks ~2 Nd^2
+    more), K rescorings and the candidate's count (SCORE_OPS a real
+    point) over PEAK_OPS, against `tensors` read or written once and the
+    rescorings' gathers over PEAK_BYTES."""
+    nd, m = pair.n_data_padded, pair.model.shape[0]
+    per_iter = ICP_OPS(nd, m) + (2 * nd * nd if c.doTrim else 0)
+    real = _real_points(pair)
+    t_ops = (L * L * SEEDS_PAIR_OPS + iters * per_iter
+             + (K + 1) * real * SCORE_OPS) / PEAK_OPS
+    t_bytes = (_nbytes(*tensors)
+               + (K + 1) * real * SCORE_GATHER_BYTES) / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _refine_checks(k, cases, cfg, cfg_t, pools, dev, floor):
+    """Phase 2's check of the refine route (search/pick.py's icp_refine:
+    csrc/icp.cu's goicp_icp_refine, every refining row of a transition in
+    one launch: the seeds, the ICP event, the rescoring, the pick and the
+    candidate's count) against the plain composition (refine_rows_plain:
+    icp_seeds_plain, icp_run_plain, score_pick_plain) and the three
+    launches a row it replaced (refine_rows_by_launches: icp_seeds,
+    icp_run, score_pick), every field of a refine record bit for bit: on
+    syn07's bucket, rows 0 and 2 of a 3-row record refining (row 1 the
+    dummy), at K = 1, 4, 8 and 12 seeds of 16 lanes with distinct ubs,
+    ubs of five values (ties) and a third inf with a NaN; with the ICP
+    disabled; with the ICP's workspace in device memory; and on 2-row
+    windows of two similar (both refining) and two trimmed bench pairs
+    of one bucket (rows 0 and 2 of 3), each row its own pair.  Timed on
+    one row whose lanes are the starts of _score_checks' syn07 4-seed
+    event (its unpadded pair; icp_run's timing) and of trm00's dynamic
+    trim (ubs ascending, nodes of width 0: the seeds are the event's bit
+    for bit): single calls, from a CUDA graph, the plain composition, the
+    three launches both ways, the event alone from a graph; the similar
+    window from graphs (one launch against six).  One launch and no
+    memset a call; ptxas's stack frame and spills of the refine route 0,
+    printed beside the ICP route's registers."""
+    import numpy as np
+    import torch
+    from goicp_tpu_torch import _build
+    from goicp_tpu_torch.bench.icp_stops import kernel_info
+    from goicp_tpu_torch.bench.measure import (_bucket_and_prepare,
+                                               _normalized_synthetic)
+    from goicp_tpu_torch.dist.mesh import stack_pairs
+    from goicp_tpu_torch.icp.icp import icp_run
+    from goicp_tpu_torch.search import device_engine as eng
+    from goicp_tpu_torch.search import fused_stream as fs
+    from goicp_tpu_torch.search import pick
+    from goicp_tpu_torch.search.args import RefineRecord
+    log = _build.build_info.get("log", "")
+    info = kernel_info(log, "icp_refine_kernel")
+    _require(info and all("0 bytes stack frame, 0 bytes spill stores, "
+                          "0 bytes spill loads" in x
+                          for x in info if "stack frame" in x),
+             f"icp_refine_kernel has no stack frame and no spills: {info}")
+    print(f"icp_refine_kernel (ptxas): {info}; icp_run_kernel (ptxas): "
+          f"{kernel_info(log, 'icp_run_kernel')}", flush=True)
+    f32 = dict(dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(21)
+
+    def nodes_of(L):
+        return torch.as_tensor(np.concatenate(
+            [rng.uniform(-0.05, 0.05, (L, 3)),
+             rng.uniform(0.01, 0.1, (L, 1))], axis=1), **f32)
+
+    def lanes_of(pair, c, L=None):
+        """A pair's first popped lanes (R_lanes, repeated to L), seeded
+        best nodes and distinct ubs."""
+        R = eng._pop(pair, c, eng.device_init(pair, c))["R_lanes"]
+        L = R.shape[0] if L is None else L
+        R = R.repeat(L // R.shape[0], 1, 1).contiguous()
+        return R, nodes_of(L), torch.as_tensor(rng.uniform(0.5, 2.0, L),
+                                               **f32)
+
+    def row(j, pair, R, nodes, ubs):
+        return (j, pair, R, nodes, ubs, R[j % R.shape[0]].contiguous(),
+                nodes[j, :3] + nodes[j, 3] / 2.0)
+
+    def check(label, c, todo, n, enabled=None):
+        before = pick.icp_refine.launches
+        got = pick.refine_rows(c, todo, n, dev, RefineRecord(), enabled)
+        launched = pick.icp_refine.launches - before
+        plain = pick.refine_rows_plain(c, todo, n, dev, RefineRecord(),
+                                       enabled)
+        three = pick.refine_rows_by_launches(c, todo, n, dev,
+                                             RefineRecord(), enabled)
+        torch.cuda.synchronize()
+        g, p, t3 = (list(x.values()) for x in (got, plain, three))
+        _require(launched == 1,
+                 f"the refine route is one launch ({label}): {launched}")
+        _require(_same_fields(g, p) and _same_fields(g, t3),
+                 f"icp_refine == refine_rows_plain == the three launches "
+                 f"bit for bit ({label}): {dict(got)} vs {dict(plain)} vs "
+                 f"{dict(three)}")
+        e = max(_field_err(g, p), _field_err(g, t3))
+        k["errs"].append(e)
+        return e
+
+    syn07 = cases[1][1]
+    R16, _, distinct = lanes_of(syn07, cfg, 16)
+    five = torch.as_tensor(rng.integers(0, 5, 16).astype(np.float32), **f32)
+    holes = distinct.clone()
+    holes[::3] = float("inf")
+    holes[7] = float("nan")
+    done = []
+    for what, u in (("distinct ubs", distinct), ("ubs of five values",
+                                                  five),
+                    ("a third inf, a NaN", holes)):
+        for K in (1, 4, 8, 12):
+            c = dataclasses.replace(cfg, icp_seeds=K)
+            todo = [row(j, syn07, R16, nodes_of(16), u) for j in (0, 2)]
+            done.append(check(f"syn07 {what}, K={K}", c, todo, 3))
+    todo = [row(j, syn07, R16, nodes_of(16), distinct) for j in (0, 2)]
+    done.append(check("syn07, the ICP disabled", cfg, todo, 3,
+                      torch.tensor(False, device=dev)))
+    smem = pick.ICP_SMEM_BYTES
+    pick.ICP_SMEM_BYTES = 0            # every cloud's workspace on the card
+    try:
+        done.append(check("syn07, the ICP's workspace in device memory", cfg,
+                          todo, 3))
+    finally:
+        pick.ICP_SMEM_BYTES = smem
+    windows = {}
+    for label, names, c, js, n in (
+            ("similar window", ("syn02", "syn03"), cfg, (0, 1), 2),
+            ("trimmed window", ("trm02", "trm03"), cfg_t, (0, 2), 3)):
+        pb = stack_pairs(_bucket_and_prepare(
+            [_normalized_synthetic(pools[x]) for x in names], c, device=dev))
+        rows = [fs._pair_row(pb, r) for r in range(2)]
+        todo = [row(j, p, *lanes_of(p, c)) for j, p in zip(js, rows)]
+        done.append(check(f"{label} {'+'.join(names)}", c, todo, n))
+        windows[label] = (c, todo, n)
+    print(f"icp_refine: syn07's bucket at K=1, 4, 8, 12 (16 lanes: "
+          f"distinct, tied, inf and NaN ubs), the ICP disabled, its "
+          f"workspace in device memory, a similar and a trimmed 2-row "
+          f"window: max_abs_err={max(done):.3g} against the plain "
+          f"composition and the three launches (bit for bit, every field "
+          f"of the record, the rows that do not refine the dummy)",
           flush=True)
+
+    # timed: one row whose lanes are an ICP event's starts (ubs ascending,
+    # nodes of width 0: the route's seeds are the event's R0 and t0 bit
+    # for bit), beside the event alone: syn07's 4 seeds on its unpadded
+    # pair (icp_run's own timing) and trm00's dynamic trim; and the
+    # similar window's two rows
+    def as_row(case):
+        _, pair, c, _, _, _, R0, t0 = case
+        K = R0.shape[0]
+        nodes = torch.cat([t0, torch.zeros_like(t0[:, :1])], 1).contiguous()
+        todo = [(0, pair, R0.contiguous(), nodes, torch.arange(K, **f32),
+                 R0[0].contiguous(), t0[0].contiguous())]
+        return dataclasses.replace(c, icp_seeds=K), pair, todo
+
+    def timed(case, plain_too=False):
+        c, pair, todo = as_row(case)
+        recs = [RefineRecord() for _ in range(3)]
+        R0, t0 = case[6:8]
+
+        def kern():
+            return pick.refine_rows(c, todo, 1, dev, recs[0])
+
+        def three():
+            return pick.refine_rows_by_launches(c, todo, 1, dev, recs[1])
+
+        def alone():
+            return icp_run(pair.data, pair.model, R0, t0,
+                           **pick.icp_kw(pair, c))
+        got, want = kern(), three()
+        torch.cuda.synchronize()
+        _require(_same_fields(list(got.values()), list(want.values())),
+                 f"icp_refine == the three launches bit for bit ({case[0]} "
+                 f"as one row)")
+        out = dict(ms=_median_ms(kern), graph_ms=_device_ms(kern),
+                   three_ms=_median_ms(three),
+                   three_graph_ms=_device_ms(three),
+                   alone_graph_ms=_device_ms(alone),
+                   iters=int(alone().iters.sum()), K=R0.shape[0])
+        if plain_too:
+            out["plain_ms"] = _median_ms(lambda: pick.refine_rows_plain(
+                c, todo, 1, dev, recs[2]))
+            out["launches"], out["memsets"] = _launches_memsets(kern)
+            rec = recs[0].rows(1, dev)
+            out["bound"] = _refine_bound(pair, c, out["K"], out["K"],
+                                         out["iters"], [
+                pair.data, pair.model, pair.weights, pair.data_mask,
+                pair.data_props, pair.model_props, *todo[0][2:],
+                *rec.values()])
+        return out
+
+    s7, tr = timed(cases[0], plain_too=True), timed(cases[2])
+    _require(s7["launches"] == 1 and s7["memsets"] == 0,
+             f"the refine route is one launch and no memset a call "
+             f"({s7['launches']}, {s7['memsets']})")
+    c, wtodo, n = windows["similar window"]
+    wrecs = [RefineRecord() for _ in range(2)]
+
+    def kern_w():
+        return pick.refine_rows(c, wtodo, n, dev, wrecs[0])
+
+    def three_w():
+        return pick.refine_rows_by_launches(c, wtodo, n, dev, wrecs[1])
+    wms, wms3 = _device_ms(kern_w), _device_ms(three_w)
+    bms, bby = s7["bound"]
+    k.update(ms=s7["ms"], plain_ms=s7["plain_ms"], bound_ms=bms,
+             bound_by=bby, graph_ms=s7["graph_ms"], library_ms=None,
+             three_launch_ms=s7["three_ms"],
+             three_launch_graph_ms=s7["three_graph_ms"],
+             icp_run_graph_ms=s7["alone_graph_ms"], window_graph_ms=wms,
+             window_three_graph_ms=wms3, trm00_graph_ms=tr["graph_ms"],
+             trm00_three_graph_ms=tr["three_graph_ms"],
+             trm00_icp_run_graph_ms=tr["alone_graph_ms"])
+    print(f"icp_refine timed on {cases[0][0]} as one row (K={s7['K']}, "
+          f"{s7['iters']} ICP iterations over the seeds): kernel "
+          f"{s7['ms']:.4f} ms (from a graph {s7['graph_ms']:.4f} ms) plain "
+          f"{s7['plain_ms']:.4f} ms bound {bms:.6f} ms ({bby}), "
+          f"{s7['launches']:g} launch, {s7['memsets']:g} memsets a call; the "
+          f"three launches it replaced {s7['three_ms']:.4f} ms (from a graph "
+          f"{s7['three_graph_ms']:.4f} ms); the ICP event alone from a graph "
+          f"{s7['alone_graph_ms']:.4f} ms; {cases[2][0]} as one row (K="
+          f"{tr['K']}) from a graph {tr['graph_ms']:.4f} ms, as three "
+          f"launches {tr['three_graph_ms']:.4f} ms, the event alone "
+          f"{tr['alone_graph_ms']:.4f} ms; the similar window's two rows "
+          f"from a graph {wms:.4f} ms, as six launches {wms3:.4f} ms; "
+          f"{floor}", flush=True)
 
 
 def _one_answer_phase(dev):
@@ -3717,19 +4008,26 @@ def _one_answer_phase(dev):
           f"rescoring was one launch: "
           f"{BEFORE_ONE_LAUNCH_RESCORING['rescoring']}", flush=True)
     ini = launch_counts.initial()
+    rw = launch_counts.refine_window()
     print(f"phase 13 an improving step's refinement (the ICP seeds, the "
           f"event, the pick with its rescoring and the candidate's count, "
           f"written into the refine record): {rf['launches']:.1f} "
           f"launches, {rf['host_reads']:.1f} host reads, {rf['ms']:.3f} ms "
-          f"on the host clock; before the pick was one launch: "
-          f"{BEFORE_ONE_LAUNCH_PICK['refine']}; the initial incumbent: "
+          f"on the host clock; before the refine route: "
+          f"{BEFORE_REFINE_ROUTE['refine']}; before the pick was one "
+          f"launch: {BEFORE_ONE_LAUNCH_PICK['refine']}; a fused-stream "
+          f"window's two refining rows: {rw['launches']:.1f} launches, "
+          f"{rw['host_reads']:.1f} host reads, {rw['ms']:.3f} ms (before: "
+          f"{BEFORE_REFINE_ROUTE['refine_window']}); the initial incumbent: "
           f"{ini['launches']:.1f} launches, {ini['host_reads']:.1f} host "
           f"reads, {ini['ms']:.3f} ms; before: "
           f"{BEFORE_ONE_LAUNCH_PICK['initial']}", flush=True)
     _require(v["launches"] == 1, f"a rescoring is one launch: {v}")
-    _require(rf["launches"] <= 3 and rf["host_reads"] == 0,
-             f"an improving step's refinement is at most three launches "
-             f"(the seeds, the ICP event, the pick) and no host read: {rf}")
+    _require(rf["launches"] == 1 and rf["host_reads"] == 0
+             and rw["launches"] == 1 and rw["host_reads"] == 0,
+             f"an improving step's refinement, and a window's two refining "
+             f"rows, is one launch of the refine route and no host read: "
+             f"{rf}, {rw}")
     _require(ini["launches"] <= 2 and ini["host_reads"] == 0,
              f"the initial incumbent is at most two launches (the ICP "
              f"event, the pick's initial route) and no host read: {ini}")
@@ -3871,7 +4169,7 @@ def main() -> int:
         # not TPU kernels: the ICP event and its Kabsch (icp/icp.py)
         **{name: dict(source="goicp_tpu_torch/csrc/icp.cu", replaces=None,
                       errs=[])
-           for name in ("icp_run", "kabsch3")},
+           for name in ("icp_run", "kabsch3", "icp_refine")},
         # not TPU kernels: the rescoring XLA computes (bounds/error.py),
         # the ICP seeds and the pick around the event (search/pick.py)
         **{name: dict(source="goicp_tpu_torch/csrc/score.cu",
@@ -4232,6 +4530,8 @@ def main() -> int:
     cases = _score_checks(kernels["score_kernel"], cfg, cfg_t, pools, dev,
                           floor)
     _pick_checks(kernels, cases, cfg, pools, dev, floor)
+    _refine_checks(kernels["icp_refine"], cases, cfg, cfg_t, pools, dev,
+                   floor)
     _step_checks(kernels["inner_step"], cfg, cfg_t, pools, dev, floor)
     _run_checks(kernels["inner_run"], kernels, cfg, cfg_t, pools, dev, floor)
     _transition_checks(kernels, cfg, cfg_t, pools, dev, floor)
@@ -4482,7 +4782,11 @@ def main() -> int:
             else {"body_runs_in": "inner_run, inner_step, advance"}
             if kname == "chem_incomp_kernel" else {}),
          **({k2: k[k2] for k2 in ("iterations", "steps_graph_ms")}
-            if kname == "inner_run" else {})}
+            if kname == "inner_run" else {}),
+         **({k2: k[k2] for k2 in REFINE_EXTRAS} if kname == "icp_refine"
+            else {}),
+         **({k2: k[k2] for k2 in ("selection_ms", "selection_graph_ms")}
+            if kname == "icp_seeds" else {})}
         for kname, k in kernels.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

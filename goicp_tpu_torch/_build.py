@@ -95,6 +95,14 @@ _SIGNATURES = {
                          _P, _P, _P, _I, _L, _P, _P,
                          ctypes.POINTER(ctypes.c_ulonglong), _I, _I, _P, _P,
                          _P],
+    # slots (21 a row: search/pick.py::_refine_tensors), j (the rows'
+    # record rows), n, ints (20), floats (5), record (7 pointers), its
+    # rows, rows_ws, tickets, enabled, workspace, stream
+    "goicp_icp_refine": [ctypes.POINTER(ctypes.c_ulonglong),
+                         ctypes.POINTER(_I), _I, ctypes.POINTER(_I),
+                         ctypes.POINTER(ctypes.c_float),
+                         ctypes.POINTER(ctypes.c_ulonglong), _I, _P, _P, _P,
+                         _P, _P],
     # ubs, R_lanes, nodes, seed_R, seed_t, L, K, record (7 pointers or
     # NULL), its rows, stream
     "goicp_icp_seeds": [_P, _P, _P, _P, _P, _L, _I,

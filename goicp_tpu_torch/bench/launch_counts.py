@@ -67,7 +67,18 @@ every `.item()` and `bool()` of a card tensor goes through):
     with its rescoring and the candidate's BnB count, written into the
     record); before, device_engine._icp_best_of_seeds, the candidate's
     count and the refine block (transition.refine_rows, set_refine) as
-    that tree's body made them: launches, host reads and host-clock ms;
+    that tree's body made them: launches, host reads and host-clock ms,
+    `ms` a call with the card's work (the larger of the two) and
+    `host_ms` the host's own (timed up to the last call's return; one
+    launch of csrc/icp.cu's refine route on a tree that has it, three on
+    the tree before);
+  * the refinement of a fused-stream window's two rows, both improving
+    (`refine_window`), as _transition_batch makes it: pick.refine_rows
+    over views of the window's stacked pairs and lanes made anew a call
+    (WINDOW_REFINE, one bucket; each row its pair's first popped lanes,
+    seeded translation nodes and upper bounds): launches, host reads,
+    `ms` and `host_ms` (one launch on a tree with the refine route, six
+    before);
   * the initial incumbent (`initial`): device_engine._initial_incumbent
     on that pair (the ICP from init_seeds starts, the rescoring, the
     initial error, the pick and the comparison), after one call (the
@@ -95,7 +106,8 @@ e.g. `--only rodrigues rot_uncertainty host_outer_step`).
 prints one JSON object (the counts, each loop's host-clock ms, the card's
 name and power limit, and ptxas's registers, stack frame and spills of
 csrc/score.cu's kernels where the tree has it: the rescoring's, and the
-pick's and the seeds' where it has them).  It uses only
+pick's and the seeds' where it has them; and csrc/icp.cu's refine
+route's where it has it).  It uses only
 functions the port has had since its cross-pair streams, so the same
 script counts an older tree's launches too: put that tree first on
 PYTHONPATH (its icp_run has no launch count: null).  Needs a card.
@@ -119,6 +131,7 @@ TRANSITION_ROWS = ("syn00", "syn01", "syn02", "syn03", "syn04", "syn05",
 STREAM_ROWS = tuple(f"syn{i:02d}" for i in range(16))
 STREAM_STEPS = 512
 PAIR_ICP = "syn07"
+WINDOW_REFINE = ("syn02", "syn03")
 OUTER_FROM = 7      # syn07's outer steps 6, 19 and 27 improve (0-based)
 ICP_SEEDS = 4
 
@@ -167,6 +180,8 @@ def _launches(fn, n: int) -> float:
 
 
 def _host_ms(fn, n: int) -> float:
+    """Host-clock ms a call over n calls and the card's work they
+    enqueued (the larger of the host's time and the card's)."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -174,6 +189,20 @@ def _host_ms(fn, n: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / n * 1e3
+
+
+def _enqueue_ms(fn, n: int) -> float:
+    """Host-clock ms a call of the host's own work: n calls timed up to
+    the last one's return, the card left running (for calls that read
+    nothing back and enqueue far fewer launches than the stream holds)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    ms = (time.perf_counter() - t0) / n * 1e3
+    torch.cuda.synchronize()
+    return ms
 
 
 def global_iteration(device="cuda", n=10) -> dict:
@@ -463,7 +492,9 @@ def refine(device="cuda", n=10) -> dict:
         def step():
             icp_R, icp_t, sc, icp_incomp = eng._icp_best_of_seeds(
                 pair, cfg, R_lanes, nodes, ubs)
-            r = transition.refine_rows(1, pair.device)
+            dummy = getattr(transition, "dummy_refine_rows", None) \
+                or transition.refine_rows     # the name before
+            r = dummy(1, pair.device)
             transition.set_refine(r, 0, dict(
                 icp_R=icp_R, icp_t=icp_t, icp_err=sc.error,
                 icp_terms=torch.stack([sc.geom, sc.incomp_term
@@ -475,7 +506,43 @@ def refine(device="cuda", n=10) -> dict:
     step()
     launches, reads = _profile(step, n)
     return dict(launches=launches, host_reads=reads,
-                ms=_host_ms(step, 5 * n))
+                ms=_host_ms(step, 5 * n), host_ms=_enqueue_ms(step, 2 * n))
+
+
+def refine_window(device="cuda", n=10) -> dict:
+    """Launches, host reads and host-clock ms of the refinement of a
+    fused-stream window's two improving rows (the module docstring's
+    `refine_window`)."""
+    from goicp_tpu_torch.dist.mesh import stack_pairs
+    from goicp_tpu_torch.search import device_engine as eng
+    from goicp_tpu_torch.search import fused_stream as fs
+    from goicp_tpu_torch.search import pick
+    from goicp_tpu_torch.search.args import RefineRecord
+    cfg, pairs = _bench_pairs(WINDOW_REFINE, device, bucket_together=True)
+    pb = stack_pairs(pairs)
+    W = len(pairs)
+    R_lanes = torch.stack([eng._pop(p, cfg, eng.device_init(p, cfg))[
+        "R_lanes"] for p in pairs])
+    L = R_lanes.shape[1]
+    rng = np.random.default_rng(11)
+    nodes = torch.as_tensor(np.concatenate(
+        [rng.uniform(-0.05, 0.05, (W, L, 3)), np.full((W, L, 1), 0.02)],
+        axis=2), dtype=torch.float32, device=device)
+    ubs = torch.as_tensor(rng.uniform(0.5, 2.0, (W, L)), dtype=torch.float32,
+                          device=device)
+    cand_R = R_lanes[:, 0].contiguous()
+    cand_t = nodes[:, 0, :3] + nodes[:, 0, 3:] / 2
+    record = RefineRecord()
+
+    def step():
+        return pick.refine_rows(
+            cfg, [(j, fs._pair_row(pb, j), R_lanes[j], nodes[j], ubs[j],
+                   cand_R[j], cand_t[j]) for j in range(W)], W, pb.device,
+            record)
+    step()
+    launches, reads = _profile(step, n)
+    return dict(rows=W, launches=launches, host_reads=reads,
+                ms=_host_ms(step, 5 * n), host_ms=_enqueue_ms(step, 2 * n))
 
 
 def initial(device="cuda", n=10) -> dict:
@@ -494,15 +561,17 @@ def initial(device="cuda", n=10) -> dict:
 
 def _score_ptxas() -> list | None:
     """ptxas's lines for csrc/score.cu's kernels (the rescoring, the pick,
-    the seeds) from the kernel library's build log (None for a tree
-    without csrc/score.cu)."""
+    the seeds) and for csrc/icp.cu's refine route where the tree has it,
+    from the kernel library's build log (None for a tree without
+    csrc/score.cu)."""
     from goicp_tpu_torch import _build
     if not (_build.CSRC / "score.cu").exists():
         return None
     from goicp_tpu_torch.bench.icp_stops import kernel_info
     _build.library()
     log = _build.build_info.get("log", "")
-    return [x for k in ("score_kernel", "pick_kernel", "icp_seeds_kernel")
+    return [x for k in ("score_kernel", "pick_kernel", "icp_seeds_kernel",
+                        "icp_refine_kernel")
             for x in kernel_info(log, k)]
 
 
@@ -621,7 +690,8 @@ def main(argv=None) -> int:
         "outer_step": outer_step,
         "outer_step_chained": lambda: outer_step(chained=True),
         "stream_chunk": stream_chunk, "rescoring": rescoring,
-        "refine": refine, "initial": initial, "score_ptxas": _score_ptxas,
+        "refine": refine, "refine_window": refine_window,
+        "initial": initial, "score_ptxas": _score_ptxas,
         "rodrigues": rodrigues_call, "rot_uncertainty": rot_uncertainty_call,
         "host_outer_step": host_outer_step}
     unknown = set(a.only or ()) - set(entries)

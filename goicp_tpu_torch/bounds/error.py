@@ -226,6 +226,23 @@ class _ScoreArgs(NamedTuple):
     floats: ctypes.Array            # c_float[4]
 
 
+def _score_ints(pair: PairData, cfg: GoICPConfig) -> tuple:
+    """(ints, floats) of the kernel's ScoreArgs for a pair and
+    configuration (csrc/score_body.cuh), in its order."""
+    trim = (2 if pair.dynamic_counts else 1) if cfg.doTrim else 0
+    reg_f = cfg.regularizationFPFH
+    ints = (pair.n_data_padded, pair.compat_table.shape[1],
+            _compat(pair.device).shape[1], pair.data_fpfh.shape[1],
+            int(cfg.norm), trim, pair.inlier_num, pair.n_data,
+            int(pair.dynamic_counts), int(cfg.regularization > 0),
+            int(cfg.regularizationNeighbors > 0),
+            int(reg_f > 0 and cfg.cfpfh != 0), int(reg_f > 0))
+    # the initial error's c-FPFH seed, a Python float as torch adds it
+    floats = (cfg.regularization, cfg.regularizationNeighbors, reg_f,
+              reg_f * (800.0 * 800.0))
+    return ints, floats
+
+
 def _score_args(pair: PairData, cfg: GoICPConfig) -> _ScoreArgs:
     """The kernel's slot block for a pair and configuration, kept on the
     pair per configuration and used again while the pair holds the same
@@ -249,16 +266,7 @@ def _score_args(pair: PairData, cfg: GoICPConfig) -> _ScoreArgs:
                          f"{tuple(pair.data.shape)}, compat_table "
                          f"{tuple(pair.compat_table.shape)}, data_fpfh "
                          f"{tuple(pair.data_fpfh.shape)}")
-    trim = (2 if pair.dynamic_counts else 1) if cfg.doTrim else 0
-    reg_f = cfg.regularizationFPFH
-    ints = (nd, pair.compat_table.shape[1], tensors[8].shape[1],
-            pair.data_fpfh.shape[1], int(cfg.norm), trim, pair.inlier_num,
-            pair.n_data, int(pair.dynamic_counts),
-            int(cfg.regularization > 0), int(cfg.regularizationNeighbors > 0),
-            int(reg_f > 0 and cfg.cfpfh != 0), int(reg_f > 0))
-    # the initial error's c-FPFH seed, a Python float as torch adds it
-    floats = (cfg.regularization, cfg.regularizationNeighbors, reg_f,
-              reg_f * (800.0 * 800.0))
+    ints, floats = _score_ints(pair, cfg)
     got = _ScoreArgs(tensors,
                      (ctypes.c_ulonglong * len(tensors))(
                          *(x.data_ptr() for x in tensors)),

@@ -1,5 +1,8 @@
 // icp: the whole ICP event of goicp_tpu_torch/icp/icp.py::icp_run in one
-// launch, and the Kabsch step alone (kabsch_from_H) for a batch of 3x3 H.
+// launch, the refine route (search/pick.py::icp_refine: every refining row
+// of a transition, each an event with its seeds before it and its
+// rescoring and pick after it, in one launch), and the Kabsch step alone
+// (kabsch_from_H) for a batch of 3x3 H.
 //
 // Not a port of a TPU kernel: the JAX package's ICP
 // (goicp_tpu/icp/icp.py:174, icp_run, a lax.while_loop that XLA compiles)
@@ -41,6 +44,19 @@
 // (C = 1); too large for that (10 Nd + 4 M words above 227 KB), a per-row
 // workspace in device memory from the wrapper; the code is the same.
 //
+// The refine route (icp_refine_kernel) runs the same loop, an instance of
+// icp_event apart from icp_run_kernel's (one kernel carrying both routes
+// would hold the registers of both).  Cluster q of its grid is seed k = q
+// % K of refine row q / K, each row reading its own pair through its row
+// of pointers.  Before the loop every block ranks the row's lanes from
+// shared memory and takes the start of rank k (csrc/score.cu's
+// icp_seeds_kernel did this in a launch of its own); after it, block 0 of
+// each cluster rescores its result with score_body.cuh's score_row, the
+// row's seed-0 cluster counts the BnB candidate's incompatibilities, and
+// the last of the row's K + 1 arrivals at its ticket picks with
+// pick_write into the refine record (score.cu's pick_kernel did this).
+// The bodies are score.cu's, so the bits are the three launches'.
+//
 // Every value equals the plain loop's bit for bit, on the card and on the
 // CPU, because each step takes the plain loop's own order:
 //   1. pts = rotate(R, data) + t, each coordinate a dot3_warp;
@@ -68,11 +84,13 @@
 // torch rounds them; torch.clamp, sign, amax and argmin keep torch's NaN
 // and signed-zero rules.  The NN search assumes finite points (its
 // argmin does not look for NaN).
+#include <algorithm>
 #include <climits>
 #include <cooperative_groups.h>
 
 #include "common.cuh"
 #include "fp32_order.cuh"
+#include "score_body.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -86,6 +104,14 @@ namespace cg = cooperative_groups;
 #define GOICP_ICP_STOP 99
 #endif
 // a stopped iteration's end: count it and go on to the next
+// The refine route's (bench/refine_stops.py): -DGOICP_REFINE_STOP=1 ends
+// each cluster after its ICP loop (no rescoring, no pick), 2 after the
+// rescoring and the count (no ticket, no pick); the record is then not
+// written.  The stop is taken on a condition the compiler cannot fold
+// (L >= 0), so that the code after it, and the registers, stay.
+#ifndef GOICP_REFINE_STOP
+#define GOICP_REFINE_STOP 99
+#endif
 #define ICP_STOP_AFTER(n)                  \
   if (GOICP_ICP_STOP == (n)) {             \
     if (tid == 0) {                        \
@@ -320,6 +346,49 @@ __host__ __device__ __forceinline__ long long icp_workspace_words(int nd,
   return 4LL * m + 8LL * nd + (c > 1 ? 2LL : 1LL) * 2LL * nd;
 }
 
+// The refine route (goicp_icp_refine): the rows of a transition that
+// refine, each an ICP event of K seeds, in one launch.  A row's inputs are
+// pointers of its own (the rows of a window or a batch share the bucket's
+// padded shapes, not their tensors): the 15 pointers of ScoreArgs in its
+// order, then the model, R_lanes (L, 3, 3), best_nodes (L, 4), ubs (L,),
+// cand_R (3, 3) and cand_t (3,).
+constexpr int kRefineMaxRows = 16;  // rows a launch carries in its parameters
+constexpr int kRefineSlots = 21;
+enum RefineSlot { kRsModel = 15, kRsLanes, kRsNodes, kRsUbs, kRsCandR,
+                  kRsCandT };
+
+struct RefineRow {
+  unsigned long long p[kRefineSlots];
+  int j;                         // the record's row
+  int gap_lo;                    // record rows [gap_lo, j) take the dummy
+};
+
+struct RefineParams {
+  ScoreArgs a;                   // the shared ints and floats (no pointers)
+  RefineRow rows[kRefineMaxRows];
+  PickOut rec;                   // the refine record
+  float* rows_ws;                // per row: kRowWords (K + 1) + 12 K words
+  unsigned* tickets;             // per row, 0 between launches
+  const unsigned char* enabled;  // one flag for every row, or null
+  int K, L, n_rows;
+  int lane_off;                  // the staged lanes' words in shared memory
+  int tail_lo, tail_hi;          // record rows the launch's last row resets
+  int icp_padded;                // the ICP reads data_mask
+  int icp_count;                 // the ICP reads counts[1]
+};
+
+// a refine row's words in rows_ws: the K rescored rows and the candidate's
+// count (kRowWords each), then the K results' R (9 each) and t (3 each)
+__host__ __device__ __forceinline__ int refine_row_words(int K) {
+  return kRowWords * (K + 1) + 12 * K;
+}
+
+// a refine row's lanes staged in shared memory: ubs (L), R_lanes (9 L),
+// best_nodes (4 L)
+__host__ __device__ __forceinline__ int refine_lane_words(int L) {
+  return 14 * L;
+}
+
 struct IcpParams {
   const float* data;             // (Nd, 3)
   const float* model;            // (M, 3)
@@ -375,8 +444,123 @@ __device__ __forceinline__ void rotate_point(const float* R, const float* t,
   for (int r = 0; r < 3; ++r) q[r] = __fadd_rn(dot3_warp(R + 3 * r, x), t[r]);
 }
 
-__global__ void __launch_bounds__(kIcpThreads)
-    icp_run_kernel(const IcpParams p) {
+// A refine row's prologue (every block of each of its clusters alike, in
+// place of icp_seeds_kernel), in two halves around the block's first
+// barrier.  refine_stage, beside the workspace's loads: the row's L ubs,
+// R_lanes and best nodes staged into shared memory (s_lanes), once; and
+// block 0 of the row's cluster 0 sets the record's rows below j that do
+// not refine (in the launch's last row also those above it) to the
+// dummy.  refine_seed, after the barrier: each thread ranks a lane by
+// counting the lanes that sort before it, reading the ubs from shared
+// memory; the lane of rank k gives cluster k its start, R0 its R_lanes
+// row and t0 = c + w / 2 of its best node.
+__device__ __forceinline__ void refine_stage(const RefineParams& rp, int rr,
+                                             bool first, float* s_lanes) {
+  const RefineRow& q = rp.rows[rr];
+  const float* ubs = reinterpret_cast<const float*>(q.p[kRsUbs]);
+  const float* R_lanes = reinterpret_cast<const float*>(q.p[kRsLanes]);
+  const float* nodes = reinterpret_cast<const float*>(q.p[kRsNodes]);
+  const int tid = threadIdx.x, L = rp.L;
+  for (int i = tid; i < L; i += kIcpThreads) s_lanes[i] = __ldg(ubs + i);
+  for (int i = tid; i < 9 * L; i += kIcpThreads)
+    s_lanes[L + i] = __ldg(R_lanes + i);
+  for (int i = tid; i < 4 * L; i += kIcpThreads)
+    s_lanes[10 * L + i] = __ldg(nodes + i);
+  if (first) {
+    for (int r = q.gap_lo + tid; r < q.j; r += kIcpThreads)
+      dummy_row(rp.rec, r);
+    if (rr == rp.n_rows - 1)
+      for (int r = rp.tail_lo + tid; r < rp.tail_hi; r += kIcpThreads)
+        dummy_row(rp.rec, r);
+  }
+}
+
+__device__ __forceinline__ void refine_seed(int L, int k,
+                                            const float* s_lanes, float* sR,
+                                            float* st) {
+  for (int i = threadIdx.x; i < L; i += kIcpThreads) {
+    const float u = s_lanes[i];
+    int rank = 0;
+    for (int j = 0; j < L; ++j) rank += sorts_before(s_lanes[j], j, u, i);
+    if (rank == k) {
+      const float* Ri = s_lanes + L + 9 * i;
+      const float* ni = s_lanes + 10 * L + 4 * i;
+#pragma unroll
+      for (int e = 0; e < 9; ++e) sR[e] = Ri[e];
+      const float half = __fdiv_rn(ni[3], 2.0f);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) st[c] = __fadd_rn(ni[c], half);
+    }
+  }
+}
+
+// The refine row's ScoreArgs: the shared ints and floats, the row's
+// pointers
+__device__ __forceinline__ ScoreArgs refine_score_args(const RefineParams& rp,
+                                                       int rr) {
+  ScoreArgs a = rp.a;
+  const unsigned long long* p = rp.rows[rr].p;
+  a.data = reinterpret_cast<const float*>(p[0]);
+  a.weights = reinterpret_cast<const float*>(p[1]);
+  a.mask = reinterpret_cast<const float*>(p[2]);
+  a.dist = reinterpret_cast<const float*>(p[3]);
+  a.nearest = reinterpret_cast<const int*>(p[4]);
+  a.consts = reinterpret_cast<const float*>(p[5]);
+  a.data_props = reinterpret_cast<const int*>(p[6]);
+  a.model_props = reinterpret_cast<const int*>(p[7]);
+  a.compat = reinterpret_cast<const unsigned char*>(p[8]);
+  a.data_nbrs = reinterpret_cast<const int*>(p[9]);
+  a.model_nbrs = reinterpret_cast<const int*>(p[10]);
+  a.data_fpfh = reinterpret_cast<const float*>(p[11]);
+  a.model_fpfh = reinterpret_cast<const float*>(p[12]);
+  a.table = reinterpret_cast<const unsigned char*>(p[13]);
+  a.counts = reinterpret_cast<const float*>(p[14]);
+  return a;
+}
+
+// A refine row's arrival: after the block's barrier, one thread fences
+// the block's words in rows_ws (a release of what the barrier ordered
+// before it) and takes the row's ticket; the block with the last of the
+// K + 1 tickets (the K rescorings and the candidate's count) stages the
+// row's words into shared memory (read past L1: other blocks wrote them),
+// picks the first best seed with pick_write into record row j, and sets
+// the ticket back to 0 for the next launch.
+__device__ __forceinline__ void refine_arrive(const RefineParams& rp, int rr,
+                                              float* scratch) {
+  __shared__ bool last;
+  const int tid = threadIdx.x, K = rp.K;
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(rp.tickets + rr, 1u) == static_cast<unsigned>(K);
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  const float* words = rp.rows_ws + static_cast<size_t>(rr) * refine_row_words(K);
+  for (int e = tid; e < refine_row_words(K); e += kIcpThreads)
+    scratch[e] = __ldcg(words + e);
+  __syncthreads();
+  if (tid == 0) {
+    PickArgs pk = {};
+    pk.R = scratch + kRowWords * (K + 1);
+    pk.t = pk.R + 9 * K;
+    pk.out = rp.rec;
+    pk.j = rp.rows[rr].j;
+    pk.K = K;
+    pk.route = kPick;
+    pick_write(pk, scratch, false);
+    rp.tickets[rr] = 0u;
+  }
+}
+
+// The ICP event of a row (icp_run_kernel: every row of the launch an ICP
+// row; icp_refine_kernel: cluster q of the launch seed k = q % K of refine
+// row q / K, with its prologue and epilogue).  The loop is the same code in
+// both.
+template <bool kRefine>
+__device__ __forceinline__ void icp_event(const IcpParams& p,
+                                          const RefineParams* rp) {
   extern __shared__ float dyn_smem[];
   __shared__ float sR[9], st[3], sums[16];
   __shared__ float s_err;
@@ -385,6 +569,25 @@ __global__ void __launch_bounds__(kIcpThreads)
   const int c = p.cluster, nd = p.nd, m = p.m, mode = p.mode;
   const int rank = c > 1 ? static_cast<int>(cluster.block_rank()) : 0;
   const int row = blockIdx.x / c, tid = threadIdx.x, warp = tid >> 5;
+  // the row's inputs
+  const float* data = p.data;
+  const float* model = p.model;
+  const float* data_mask = p.data_mask;
+  const float* count = p.count;
+  const unsigned char* enabled =
+      p.enabled == nullptr ? nullptr : p.enabled + row;
+  int rr = 0, k = 0;
+  if constexpr (kRefine) {
+    rr = row / rp->K;
+    k = row - rr * rp->K;
+    const unsigned long long* q = rp->rows[rr].p;
+    data = reinterpret_cast<const float*>(q[0]);
+    model = reinterpret_cast<const float*>(q[kRsModel]);
+    data_mask = rp->icp_padded ? reinterpret_cast<const float*>(q[2]) : nullptr;
+    count = rp->icp_count ? reinterpret_cast<const float*>(q[14]) + 1 : nullptr;
+    enabled = rp->enabled;
+    refine_stage(*rp, rr, k == 0 && rank == 0, dyn_smem + rp->lane_off);
+  }
   float* ws = p.workspace == nullptr
                   ? dyn_smem
                   : p.workspace + row * icp_workspace_words(nd, m, c);
@@ -406,28 +609,31 @@ __global__ void __launch_bounds__(kIcpThreads)
   const bool trimmed = mode == kModeTrim || mode == kModeDynTrim;
 
   for (int i = tid; i < 3 * m; i += kIcpThreads)
-    s_model[i] = __ldg(p.model + i);
+    s_model[i] = __ldg(model + i);
   for (int i = tid; i < 3 * nd; i += kIcpThreads)
-    s_data[i] = __ldg(p.data + i);
+    s_data[i] = __ldg(data + i);
   for (int i = tid; i < nd; i += kIcpThreads) {
-    const float dm = p.data_mask == nullptr ? 1.0f : __ldg(p.data_mask + i);
+    const float dm = data_mask == nullptr ? 1.0f : __ldg(data_mask + i);
     s_dmask[i] = dm;
     if (!trimmed) s_mask[i] = mode == kModeCount ? dm : 1.0f;
   }
-  if (tid < 9) sR[tid] = __ldg(p.R0 + 9 * row + tid);
-  if (tid < 3) st[tid] = __ldg(p.t0 + 3 * row + tid);
+  if constexpr (!kRefine) {
+    if (tid < 9) sR[tid] = __ldg(p.R0 + 9 * row + tid);
+    if (tid < 3) st[tid] = __ldg(p.t0 + 3 * row + tid);
+  }
   if (tid == 0) {
     s_err = -1.0f;
     s_it = 0;
-    s_run = (p.enabled == nullptr || p.enabled[row] != 0) && p.max_iter > 0;
+    s_run = (enabled == nullptr || *enabled != 0) && p.max_iter > 0;
   }
   __syncthreads();
+  if constexpr (kRefine) refine_seed(rp->L, k, dyn_smem + rp->lane_off, sR, st);
   for (int j = tid; j < m; j += kIcpThreads)
     s_qq[j] = dot3_warp(s_model + 3 * j, s_model + 3 * j);
   // the kept-set size: the count read on the device, or inlier_num
   const float cnt =
-      p.count == nullptr ? static_cast<float>(p.inlier_num) : __ldg(p.count);
-  const bool padded = p.data_mask != nullptr;
+      count == nullptr ? static_cast<float>(p.inlier_num) : __ldg(count);
+  const bool padded = data_mask != nullptr;
   // every block of the row has started before any writes to another
   if (c > 1)
     cluster.sync();
@@ -640,20 +846,70 @@ __global__ void __launch_bounds__(kIcpThreads)
     __syncthreads();
   }
 
-  if (rank == 0) {
-    if (tid < 9) p.R_out[9 * row + tid] = sR[tid];
-    if (tid < 3) p.t_out[3 * row + tid] = st[tid];
-    if (tid == 0) {
-      p.err_out[row] = s_err;
-      p.iters_out[row] = s_it;
-    }
-  }
-  // the share's NN index from the last iteration (0 where none ran)
+  // the NN index from the last iteration (0 where none ran)
   const float2* s_last =
       s_pair0 + (c > 1 && s_it > 0 ? ((s_it - 1) & 1) * nd : 0);
-  for (int li = tid; li < nb; li += kIcpThreads)
-    p.nn_out[static_cast<long long>(row) * nd + lo + li] =
-        s_it > 0 ? __float_as_int(s_last[lo + li].y) : 0;
+  if constexpr (!kRefine) {
+    if (rank == 0) {
+      if (tid < 9) p.R_out[9 * row + tid] = sR[tid];
+      if (tid < 3) p.t_out[3 * row + tid] = st[tid];
+      if (tid == 0) {
+        p.err_out[row] = s_err;
+        p.iters_out[row] = s_it;
+      }
+    }
+    for (int li = tid; li < nb; li += kIcpThreads)
+      p.nn_out[static_cast<long long>(row) * nd + lo + li] =
+          s_it > 0 ? __float_as_int(s_last[lo + li].y) : 0;
+  } else {
+    // the epilogue, in place of the pick's launch.  Every block holds the
+    // whole row (the loop's exchange), and no block reads or writes
+    // another's shared memory after the loop: the workspace is free.
+    // Block 0 rescores the seed's result (score_row at the ICP's R, t and
+    // NN indices, the values and their ranked copy over the workspace);
+    // block 1 of seed 0's cluster (block 0 after its rescoring where C =
+    // 1) the candidate's BnB count; each then arrives at the row's ticket.
+    if (GOICP_REFINE_STOP == 1 && rp->L >= 0) return;
+    __shared__ RowShared sh;
+    __shared__ float res[kRowWords];
+    const int K = rp->K;
+    float* words = rp->rows_ws + static_cast<size_t>(rr) * refine_row_words(K);
+    const size_t rw = region_words(static_cast<size_t>(nd));
+    if (rank == 0) {
+      int* nn = reinterpret_cast<int*>(ws + 2 * rw);   // clear of s_pair
+      for (int i = tid; i < nd; i += kIcpThreads)
+        nn[i] = s_it > 0 ? __float_as_int(s_last[i].y) : 0;
+      if (tid < 9) words[kRowWords * (K + 1) + 9 * k + tid] = sR[tid];
+      if (tid < 3) words[kRowWords * (K + 1) + 9 * K + 3 * k + tid] = st[tid];
+      __syncthreads();
+      score_row<kIcpThreads>(refine_score_args(*rp, rr), kFull, sR, st, nn, 0,
+                             ws, ws + rw, sh, res);
+      if (tid < kRowWords) words[kRowWords * k + tid] = res[tid];
+      if (GOICP_REFINE_STOP != 2 || rp->L < 0)
+        refine_arrive(*rp, rr, dyn_smem);
+    }
+    if (k == 0 && rank == (c > 1 ? 1 : 0)) {
+      const unsigned long long* q = rp->rows[rr].p;
+      score_row<kIcpThreads>(refine_score_args(*rp, rr), kCount,
+                             reinterpret_cast<const float*>(q[kRsCandR]),
+                             reinterpret_cast<const float*>(q[kRsCandT]),
+                             nullptr, 0, ws, ws + rw, sh, res);
+      if (tid < kRowWords) words[kRowWords * K + tid] = res[tid];
+      if (GOICP_REFINE_STOP != 2 || rp->L < 0)
+        refine_arrive(*rp, rr, dyn_smem);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kIcpThreads)
+    icp_run_kernel(const __grid_constant__ IcpParams p) {
+  icp_event<false>(p, nullptr);
+}
+
+__global__ void __launch_bounds__(kIcpThreads)
+    icp_refine_kernel(const __grid_constant__ IcpParams p,
+                      const __grid_constant__ RefineParams rp) {
+  icp_event<true>(p, &rp);
 }
 
 }  // namespace goicp
@@ -741,5 +997,104 @@ extern "C" int goicp_kabsch3(const float* H, float* R, long long batch,
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   kabsch3_kernel<<<static_cast<unsigned>(blocks), kKabschThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(H, R, batch);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The refine route: n rows of a transition that refine, each an ICP event
+// from its K lowest-ub lanes, rescored and picked into its record row, in
+// launches of at most kRefineMaxRows rows (grid: a row's K clusters of C
+// blocks, as goicp_icp_run sizes them).  slots: n * 21 pointers (a row's
+// RefineRow::p); j: the n record rows, ascending; ints: ScoreArgs' 13
+// ints, then K, L, M, max_iter, mode, icp_padded, icp_count; floats:
+// ScoreArgs' 4 floats, then err_diff; rec: the record's 7 pointers
+// (PickOut's order) and its rows n_rec (those not in j take the dummy);
+// rows_ws kRefineMaxRows * refine_row_words(K) floats and tickets
+// kRefineMaxRows words (0) in device memory; enabled: one byte for every
+// row, or null; workspace: K * kRefineMaxRows * (10 Nd + 4 M) floats in
+// device memory (one block a row), or null for shared memory.
+extern "C" int goicp_icp_refine(const unsigned long long* slots,
+                                const int* j, int n, const int* ints,
+                                const float* floats,
+                                const unsigned long long* rec, int n_rec,
+                                float* rows_ws, void* tickets,
+                                const unsigned char* enabled,
+                                float* workspace, void* stream) {
+  using namespace goicp;
+  if (n <= 0) return 0;
+  const ScoreArgs a = score_args(slots, ints, floats);
+  const int K = ints[13], L = ints[14], m = ints[15], nd = a.nd;
+  const int mode = ints[17];
+  bool ok = nd > 0 && m > 0 && K > 0 && K <= L && mode >= kModeAll &&
+            mode <= kModeDynTrim && rec != nullptr && rows_ws != nullptr &&
+            tickets != nullptr && n <= n_rec;
+  for (int r = 0; r < n && ok; ++r)
+    ok = j[r] >= (r == 0 ? 0 : j[r - 1] + 1) && j[r] < n_rec;
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  // the blocks of an ICP row, as goicp_icp_run sizes them; shared memory
+  // holds the workspace, the prologue's lanes past it, and after the loop
+  // the pick's staged words
+  const size_t lanes = refine_lane_words(L), staged = refine_row_words(K);
+  int c = 1;
+  size_t words = std::max(lanes, staged), lane_off = 0;
+  if (workspace == nullptr) {
+    c = (nd + kIcpPointsPerBlock - 1) / kIcpPointsPerBlock;
+    if (c > kIcpClusterMax) c = kIcpClusterMax;
+    if (4 * (icp_workspace_words(nd, m, c) + lanes) > kIcpSmemMax) c = 1;
+    lane_off = static_cast<size_t>(icp_workspace_words(nd, m, c));
+    words = std::max(lane_off + lanes, staged);
+  }
+  const size_t smem = 4 * words;
+  if (smem > kIcpSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  static size_t granted = 0;
+  cudaError_t err = allow_smem(icp_refine_kernel, smem, &granted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  IcpParams p = {};
+  p.workspace = workspace;
+  p.nd = nd;
+  p.m = m;
+  p.inlier_num = a.inlier_num;
+  p.max_iter = ints[16];
+  p.mode = mode;
+  p.cluster = c;
+  p.err_diff = floats[4];
+  RefineParams rp;
+  rp.a = a;
+  rp.rec = pick_out(rec);
+  rp.rows_ws = rows_ws;
+  rp.tickets = static_cast<unsigned*>(tickets);
+  rp.enabled = enabled;
+  rp.K = K;
+  rp.L = L;
+  rp.lane_off = static_cast<int>(lane_off);
+  rp.icp_padded = ints[18];
+  rp.icp_count = ints[19];
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(kIcpThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  for (int r0 = 0; r0 < n; r0 += kRefineMaxRows) {
+    const int rows = std::min(n - r0, kRefineMaxRows);
+    for (int r = 0; r < rows; ++r) {
+      RefineRow& q = rp.rows[r];
+      for (int e = 0; e < kRefineSlots; ++e)
+        q.p[e] = slots[static_cast<size_t>(r0 + r) * kRefineSlots + e];
+      q.j = j[r0 + r];
+      q.gap_lo = r0 + r == 0 ? 0 : j[r0 + r - 1] + 1;
+    }
+    rp.n_rows = rows;
+    const bool last = r0 + rows == n;
+    rp.tail_lo = last ? j[n - 1] + 1 : 0;
+    rp.tail_hi = last ? n_rec : 0;
+    cfg.gridDim = dim3(static_cast<unsigned>(rows * K * c));
+    err = cudaLaunchKernelEx(&cfg, icp_refine_kernel, p, rp);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,9 @@ ints and the tensors they were checked for, and re-checks only the slots
 that hold another tensor object at the next call; a run's
 TransitionBuffers hands out each kind of call's outputs from two sets
 used in turn and keeps a block for each set, and the run's RefineRecord:
-the refine block the transitions read, which search/pick.py's kernels
-write (csrc/score.cu).
+the refine block the transitions read, which search/pick.py's refine
+route writes (csrc/icp.cu), with that launch's own argument block
+(RefineArgs).
 """
 
 from __future__ import annotations
@@ -180,24 +181,116 @@ class RefineRows(dict):
             if torch.device(dev).type == "cuda" else None
 
 
+REFINE_ROWS = 16     # rows a refine launch carries (csrc/icp.cu)
+REFINE_SLOTS = 21    # pointers a refine row takes (search/pick.py)
+
+
+class RefineArgs:
+    """The refine route's argument block (csrc/icp.cu's goicp_icp_refine):
+    REFINE_SLOTS pointers a row (`slots`), the rows' record rows (`j`),
+    the ints and the floats.  A row's slots are re-checked (by the
+    caller's `check`, which raises ValueError) only where the row now
+    holds another tensor object than at the call before (`rechecked`
+    counts them); the ints are rebuilt only where their key changed."""
+
+    def __init__(self):
+        self.cap = 0
+        self.slots = None
+        self.j = None
+        self.held: list = []       # per row: the tensors its slots hold
+        self.key = None
+        self.ints = None
+        self.floats = None
+        self.copies: list = []     # this call's contiguous copies
+        self.rechecked = 0
+
+    def bind(self, rows: list, check) -> "RefineArgs":
+        """Bind rows [(j, tensors)]: check(k, x) -> x (a contiguous tensor
+        to point at) for each slot k whose tensor changed."""
+        n = len(rows)
+        if n > self.cap:
+            cap = max(n, 2 * self.cap)
+            slots = (ctypes.c_ulonglong * (cap * REFINE_SLOTS))()
+            j = (ctypes.c_int * cap)()
+            if self.cap:
+                ctypes.memmove(slots, self.slots,
+                               ctypes.sizeof(self.slots))
+            self.slots, self.j, self.cap = slots, j, cap
+            self.held += [(None,) * REFINE_SLOTS] * (cap - len(self.held))
+        self.copies = []
+        for r, (j, ts) in enumerate(rows):
+            self.j[r] = j
+            held = self.held[r]
+            if all(a is b for a, b in zip(ts, held)):
+                continue
+            kept = list(held)
+            for k, (a, b) in enumerate(zip(ts, held)):
+                if a is not b:
+                    x = check(k, a)
+                    self.slots[r * REFINE_SLOTS + k] = x.data_ptr()
+                    kept[k] = a
+                    if x is not a:      # a copy: this call's, checked again
+                        kept[k] = None
+                        self.copies.append(x)
+                    self.rechecked += 1
+            self.held[r] = tuple(kept)
+        return self
+
+    def set_ints(self, key, make) -> None:
+        """The ints and floats for `key`, made by make() -> (ints, floats)
+        where the key changed."""
+        if key != self.key:
+            ints, floats = make()
+            self.ints = (ctypes.c_int * len(ints))(*ints)
+            self.floats = (ctypes.c_float * len(floats))(*floats)
+            self.key = key
+
+
 class RefineRecord:
     """A run's refine record: the refine block of n rows (RefineRows) that
-    its transitions read, made once per n and device, and the buffers of
-    the ICP seeds (K) that a refinement starts from.  search/pick.py
-    writes it: a transition's first refinement sets the rows to the dummy
-    of a row that did not refine unless every row refines (in the seeds'
-    launch), and each refining row's pick writes its row.  What a
-    transition reads is valid until the next one's refinement."""
+    its transitions read, made once per n and device; on the card what the
+    refine route's launch needs besides (its argument block, RefineArgs;
+    each row's rescoring rows and ticket, the tickets zero between
+    launches; the ICP's device workspace where a cloud does not fit a
+    block's shared memory), and on the CPU the buffers of the ICP seeds
+    (K) that a refinement starts from.  search/pick.py writes it: the rows
+    that refine get their picks, the others the dummy of a row that did
+    not refine.  What a transition reads is valid until the next one's
+    refinement."""
 
     def __init__(self):
         self._rows: dict = {}
         self._seeds: dict = {}
+        self._launch: dict = {}
+        self.args = RefineArgs()
 
     def rows(self, n: int, dev) -> RefineRows:
         key = (n, str(dev))
         if key not in self._rows:
             self._rows[key] = RefineRows(n, dev)
         return self._rows[key]
+
+    def launch_buffers(self, K: int, dev) -> tuple:
+        """(rows_ws, tickets) of the refine launch at K seeds: REFINE_ROWS
+        rows of 7 (K + 1) + 12 K float32 and REFINE_ROWS int32 tickets,
+        zeroed once (the kernel leaves them zero)."""
+        key = (K, str(dev))
+        if key not in self._launch:
+            self._launch[key] = (
+                torch.empty((REFINE_ROWS * (7 * (K + 1) + 12 * K),),
+                            dtype=torch.float32, device=dev),
+                torch.zeros((REFINE_ROWS,), dtype=torch.int32, device=dev))
+        return self._launch[key]
+
+    def workspace(self, words: int, dev) -> torch.Tensor:
+        """A device workspace of at least `words` float32 (the ICP's
+        where its cloud does not fit shared memory), kept and grown."""
+        key = ("ws", str(dev))
+        ws = self._launch.get(key)
+        if ws is None or ws.numel() < words:
+            ws = torch.empty((words,), dtype=torch.float32, device=dev)
+            self._launch[key] = ws
+        return ws
 
     def seeds(self, K: int, dev) -> tuple:
         """(R (K, 3, 3), t (K, 3)) float32: where the seeds are written."""

@@ -20,8 +20,9 @@ run on the card (search/inner.py::inner_run), no host read.  The pop, the harves
 search/transition.py's (on the card csrc/transition.cu); the ICP, its
 rescoring and the BnB compat count run only on a step whose candidate
 improved (every step with icp_on_improve=0), written into the run's
-refine record by search/pick.py (on the card the seeds, the ICP event
-and the pick: three launches, no host read).
+refine record by search/pick.py (on the card one launch of the refine
+route, csrc/icp.cu: the seeds, the ICP event and the pick; no host
+read).
 
 With a mesh (dist/mesh.py), register_device splits each outer step's
 rotation lanes over the mesh's `search` axis: every search rank runs the
@@ -264,8 +265,8 @@ def _make_body(pair: PairData, cfg: GoICPConfig, mesh=None):
         improved, converged = bool(flags[0]), bool(flags[1])
         # ICP gating (refine only on improvement, jly_goicp.cpp:771-854):
         # the ICP seeds, the event, the pick of the best seed and the
-        # candidate's count written into the run's refine record (three
-        # launches, no host read)
+        # candidate's count written into the run's refine record (one
+        # launch, no host read)
         r = pick.refine_rows(
             cfg, [(0, pair, p["R_lanes"], res_ub.best_node, h["ubs"][0],
                    h["cand_R"][0], h["cand_t"][0])]

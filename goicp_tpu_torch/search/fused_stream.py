@@ -291,8 +291,8 @@ def _transition_batch(pair_batch: PairData, cfg: GoICPConfig, s: dict,
     (search/transition.py), ONE host read of which of them improved, the
     ICP/compat refine block only for those, then one advance (adopt,
     merge, pop, rotate, fresh inner state) of every row: on the card three
-    launches whatever the number of rows, plus the refine of the rows
-    that improved.  The adopt ordering is device_engine._make_body's, so
+    launches whatever the number of rows, plus one launch refining every
+    row that improved.  The adopt ordering is device_engine._make_body's, so
     the per-pair trajectory matches register_device.  in_place: the rows'
     new states are written into `s` (the kernel's own scatter) and None is
     returned; else `s` is left as it was and the rows' new states are
@@ -310,7 +310,7 @@ def _transition_batch(pair_batch: PairData, cfg: GoICPConfig, s: dict,
     else:
         do_icp = np.ones(len(rows), bool)
     # the ICP/compat refine block of the rows that improved (improvements
-    # are rare): three launches a row into the loop's refine record
+    # are rare): one launch for all of them into the loop's refine record
     r = pick.refine_rows(
         cfg, [(j, _pair_row(pair_batch, rows[j]), s["R_lanes"][rows[j]],
                s["inner"]["best_node"][rows[j]], h["ubs"][j], h["cand_R"][j],

@@ -5,31 +5,39 @@ and the initial incumbent.
 Port of what goicp_tpu/search/device_engine.py's _icp_best_of_seeds
 (:199-231) and _initial_incumbent (:140-181) do around their ICP event,
 with the candidate's compatibility count that every engine computes
-beside the pick (device_engine._make_body's refine block).  On the card
-each of the three steps around icp_run is one launch of csrc/score.cu:
+beside the pick (device_engine._make_body's refine block).
+
+The engines' refinement, refine_rows, is on the card one launch for
+every row of a transition that refines (icp_refine: csrc/icp.cu's refine
+route, goicp_icp_refine): each row's K ICP events from its K lowest-ub
+lanes, the K results rescored, the first best picked and written with the
+candidate's count into the row's record row, the other rows set to the
+dummy; no host read.  It computes what three launches a row computed
+before, and still compute for the tests and the measurements (each also
+one launch of csrc/score.cu, whose bodies the refine route shares through
+csrc/score_body.cuh):
 
   icp_seeds      (goicp_icp_seeds) the K lowest-ub lanes, ties to the
                  lower lane (torch.argsort(stable=True)'s first K, JAX's
                  lax.top_k(-ubs, K)), their R and t = c + w / 2; given a
                  refine record, its rows set to the dummy of a row that
                  did not refine, in the same launch;
+  icp_run        the ICP event (icp/icp.py);
   score_pick     (goicp_score_pick, route kPick) the K ICP results'
                  rescoring (bounds/error.py's score_transform and
                  icp_chem_terms' count), the first best seed
                  (torch.argmin), the candidate's BnB count, all written
-                 into row j of the refine record;
-  score_initial  (route kInit) the same rescoring, the initial error and
-                 the incumbent _initial_incumbent forms from them,
-                 written into new state tensors.
+                 into row j of the refine record.
 
-refine_rows and initial_incumbent put them around icp_run: a refinement
-is three launches and an initial incumbent two, and neither reads the
-host (the engine before picked with a 0-d index, one host read a field).
-The *_plain twins are the torch bodies the engines ran before (argsort
-and gathers; rescore, argmin and the picks by index), the CPU's route and
-the kernels' yardstick: the same bits.  There is no other fallback: a
-failed build or launch raises, and a tensor outside the kernels'
-envelope raises ValueError.
+The initial incumbent is icp_run and score_initial (route kInit of
+goicp_score_pick: the same rescoring, the initial error and the
+incumbent _initial_incumbent forms from them, written into new state
+tensors): two launches and no host read.  The *_plain twins are the
+torch bodies the engines ran before (argsort and gathers; rescore,
+argmin and the picks by index), the CPU's route and the kernels'
+yardstick: the same bits.  There is no other fallback: a failed build or
+launch raises, and a tensor outside the kernels' envelope raises
+ValueError.
 """
 
 from __future__ import annotations
@@ -39,17 +47,21 @@ import ctypes
 import numpy as np
 import torch
 
-from goicp_tpu_torch.bounds.error import (Score, _rows, _score_args,
+from goicp_tpu_torch.bounds.error import (_SLOT_TYPES, _SLOTS, Score, _rows,
+                                          _score_args, _score_ints,
+                                          _slot_tensors,
                                           bnb_incompatibility_count_plain,
                                           icp_chem_terms, initial_error_plain,
                                           score_transform_plain)
 from goicp_tpu_torch.config import GoICPConfig
 from goicp_tpu_torch.geom.rotation import rodrigues
-from goicp_tpu_torch.icp.icp import icp_run
+from goicp_tpu_torch.icp.icp import (ICP_SMEM_BYTES, icp_mode, icp_run,
+                                    icp_run_plain)
 from goicp_tpu_torch.pipeline.prepare import PairData
-from goicp_tpu_torch.search.args import RefineRecord, RefineRows
+from goicp_tpu_torch.search.args import REFINE_ROWS, RefineRecord, RefineRows
 from goicp_tpu_torch.search.transition import reset_refine, set_refine
-from goicp_tpu_torch.utils.fp32 import _launch, _on_card, _stream, kernels
+from goicp_tpu_torch.utils.fp32 import (_launch, _on_card, _ptr, _stream,
+                                        kernels)
 
 PICK, INIT = 0, 1      # goicp_score_pick's routes (csrc/score.cu)
 CLUSTER = 8            # seeds a pick serves in one cluster; above: tickets
@@ -281,6 +293,133 @@ score_initial.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# the refine route: every refining row of a transition in one launch
+# ---------------------------------------------------------------------------
+
+# a refine row's slots (csrc/icp.cu's RefineRow): the pair's rescoring
+# slots, then the ICP's model and the row's lanes and candidate
+_REFINE_NAMES = _SLOTS + ("model", "R_lanes", "best_nodes", "ubs", "cand_R",
+                          "cand_t")
+_REFINE_TYPES = _SLOT_TYPES + (torch.float32,) * 6
+
+
+def _refine_tensors(pair: PairData, R_lanes, best_nodes, ubs, cand_R,
+                    cand_t) -> tuple:
+    return _slot_tensors(pair) + (pair.model, R_lanes, best_nodes, ubs,
+                                  cand_R, cand_t)
+
+
+def _refine_shapes(pair: PairData, L: int) -> tuple:
+    """What a row's slots must be shaped as: the bucket's padded shapes of
+    `pair` (the first row's), the lanes' at L."""
+    ts = _slot_tensors(pair)
+    nd, M = pair.n_data_padded, pair.model.shape[0]
+    want = dict(data=(nd, 3), weights=(nd,), data_mask=(nd,),
+                data_props=(nd,), model_props=(M,), data_nbrs=(nd,),
+                model_nbrs=(M,), counts=(3,))
+    shapes = tuple(torch.Size(want.get(name, x.shape))
+                   for name, x in zip(_SLOTS, ts))
+    if pair.compat_table.shape[0] != nd or pair.data_fpfh.shape[0] != nd \
+            or pair.model_fpfh.shape[0] != M:
+        raise ValueError(f"inconsistent pair shapes: data "
+                         f"{tuple(pair.data.shape)}, compat_table "
+                         f"{tuple(pair.compat_table.shape)}, data_fpfh "
+                         f"{tuple(pair.data_fpfh.shape)}, model_fpfh "
+                         f"{tuple(pair.model_fpfh.shape)}")
+    return shapes + tuple(torch.Size(x) for x in (
+        (M, 3), (L, 3, 3), (L, 4), (L,), (3, 3), (3,)))
+
+
+def _refine_ints(cfg: GoICPConfig, pair: PairData, K: int, L: int) -> tuple:
+    """(ints, floats) of goicp_icp_refine: ScoreArgs', then K, L, M,
+    max_iter, the ICP's mask mode, whether it reads data_mask and counts
+    (icp_kw's data_mask and count); err_diff."""
+    ints, floats = _score_ints(pair, cfg)
+    padded, dynamic = pair.padded, pair.dynamic_counts
+    mode = icp_mode(pair.n_data_padded, pair.inlier_num,
+                    True if dynamic else None, True if padded else None,
+                    dynamic and bool(cfg.doTrim))
+    return (ints + (K, L, pair.model.shape[0], int(cfg.icp_max_iter), mode,
+                    int(padded), int(dynamic)),
+            floats + (float(cfg.err_diff),))
+
+
+def icp_refine(cfg: GoICPConfig, todo: list, rec: RefineRows,
+               record: RefineRecord, enabled=None) -> None:
+    """The refine route on the card: every row of `todo` (refine_rows')
+    refined into `rec` and the record's other rows set to the dummy, in
+    one launch of goicp_icp_refine (one a REFINE_ROWS rows;
+    icp_refine.launches) and no host read.  The rows' tensors may each be
+    their own (a window's rows, a batch chunk's, a lone pair) but must
+    share the first row's padded shapes and host counts (else
+    ValueError); K = min(icp_seeds, L) is the same for every row.  The
+    argument block is the record's (RefineArgs): a row's slots are checked
+    again only where they hold other tensors than at the call before."""
+    if rec.ptrs is None:
+        raise ValueError("icp_refine writes a refine record on the card")
+    todo = sorted(todo, key=lambda x: x[0])
+    js = [x[0] for x in todo]
+    if len(set(js)) != len(js) or js[0] < 0 or js[-1] >= rec.n:
+        raise ValueError(f"icp_refine refines distinct rows j < {rec.n}, "
+                         f"got {js}")
+    pair0, L = todo[0][1], todo[0][2].shape[0]
+    K = min(cfg.icp_seeds, L)
+    dev = rec["icp_err"].device
+    shapes = _refine_shapes(pair0, L)
+    host = (pair0.n_data_padded, pair0.inlier_num, pair0.n_data,
+            pair0.dynamic_counts)
+    key = (cfg.norm, bool(cfg.doTrim), cfg.regularization,
+           cfg.regularizationNeighbors, cfg.regularizationFPFH, cfg.cfpfh,
+           cfg.icp_max_iter, cfg.err_diff, K, shapes, host, str(dev))
+    blk = record.args
+    if key != blk.key:
+        blk.held = [(None,) * len(_REFINE_NAMES)] * len(blk.held)
+    blk.set_ints(key, lambda: _refine_ints(cfg, pair0, K, L))
+    rows = []
+    for j, pair, *lane in todo:
+        got = (pair.n_data_padded, pair.inlier_num, pair.n_data,
+               pair.dynamic_counts)
+        if got != host:
+            raise ValueError(f"icp_refine's rows share the bucket's counts "
+                             f"{host}; row {j} has {got}")
+        rows.append((j, _refine_tensors(pair, *lane)))
+
+    def check(k, x):
+        if not x.is_contiguous():
+            x = x.contiguous()
+        if x.device != dev or x.dtype != _REFINE_TYPES[k] \
+                or x.shape != shapes[k]:
+            raise ValueError(
+                f"icp_refine takes {_REFINE_NAMES[k]} as a {_REFINE_TYPES[k]}"
+                f" tensor of shape {tuple(shapes[k])} on {dev} (the rows "
+                f"share the bucket's padded shapes); got {x.dtype} "
+                f"{tuple(x.shape)} on {x.device}")
+        return x
+    blk.bind(rows, check)
+    en = None
+    if enabled is not None:
+        en = torch.as_tensor(enabled, device=dev)
+        if en.numel() != 1:
+            raise ValueError(f"icp_refine takes one enabled flag for every "
+                             f"row, got shape {tuple(en.shape)}")
+        en = en.to(torch.bool).reshape(())
+    rows_ws, tickets = record.launch_buffers(K, dev)
+    nd, M = pair0.n_data_padded, pair0.model.shape[0]
+    words = 10 * nd + 4 * M       # a row's ICP workspace; then its lanes
+    ws = None if 4 * (words + 14 * L) <= ICP_SMEM_BYTES else \
+        record.workspace(REFINE_ROWS * K * words, dev)
+    n = len(rows)
+    _launch(kernels.goicp_icp_refine(
+        blk.slots, blk.j, n, blk.ints, blk.floats, rec.ptrs, rec.n,
+        rows_ws.data_ptr(), tickets.data_ptr(), _ptr(en), _ptr(ws),
+        _stream(rows_ws)), "icp_refine")
+    icp_refine.launches += -(-n // REFINE_ROWS)
+
+
+icp_refine.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # the engines' calls
 # ---------------------------------------------------------------------------
 
@@ -290,28 +429,64 @@ def refine_rows(cfg: GoICPConfig, todo: list, n: int, dev,
     """The refine block of a transition's n rows with the rows of `todo`
     refined, None where todo is empty.  todo: (j, pair, R_lanes (L, 3, 3),
     best_nodes (L, 4), ubs (L,), cand_R (3, 3), cand_t (3,)) for each row
-    j that refines: ICP from its K = min(icp_seeds, L) lowest-ub lanes
-    (icp_seeds, icp_run), the best seed and the candidate's count written
-    into row j (score_pick).  The other rows hold the dummy (set in the
-    first row's seeds launch).  record: the run's RefineRecord, whose
+    j that refines: ICP from its K = min(icp_seeds, L) lowest-ub lanes,
+    the best seed and the candidate's count written into row j.  The
+    other rows hold the dummy.  record: the run's RefineRecord, whose
     block for n rows is written (valid until the next call); None: a new
     one.  enabled (0-d bool): where False the ICP runs no iteration (the
-    sharded engine's).  On the card three launches a refining row and no
-    host read."""
+    sharded engine's).  On the card one launch for every row (icp_refine)
+    and no host read; on the CPU the plain composition, row by row:
+    icp_seeds_plain, icp_run_plain, score_pick_plain."""
     if not todo:
         return None
+    if not _on_card(*todo[0][2:]):
+        return refine_rows_plain(cfg, todo, n, dev, record, enabled)
+    record = RefineRecord() if record is None else record
+    rec = record.rows(n, dev)
+    icp_refine(cfg, todo, rec, record, enabled)
+    return rec
+
+
+def _by_row(cfg, todo, n, dev, record, enabled, seeds, run, pick_):
     record = RefineRecord() if record is None else record
     rec = record.rows(n, dev)
     for i, (j, pair, R_lanes, best_nodes, ubs, cand_R, cand_t) in \
             enumerate(todo):
         K = min(cfg.icp_seeds, R_lanes.shape[0])
-        seed_R, seed_t = icp_seeds(
+        seed_R, seed_t = seeds(
             ubs, R_lanes, best_nodes, K, out=record.seeds(K, dev),
             reset=rec if i == 0 and len(todo) < n else None)
-        r = icp_run(pair.data, pair.model, seed_R, seed_t,
-                    **icp_kw(pair, cfg), enabled=enabled)
-        score_pick(pair, cfg, r.R, r.t, r.nn_idx, cand_R, cand_t, rec, j)
+        r = run(pair.data, pair.model, seed_R, seed_t, **icp_kw(pair, cfg),
+                enabled=enabled)
+        pick_(pair, cfg, r.R, r.t, r.nn_idx, cand_R, cand_t, rec, j)
     return rec
+
+
+def refine_rows_plain(cfg: GoICPConfig, todo: list, n: int, dev,
+                      record: RefineRecord | None = None,
+                      enabled: torch.Tensor | None = None
+                      ) -> RefineRows | None:
+    """refine_rows in torch ops, row by row (icp_seeds_plain, the first
+    row's resetting the record where not every row refines; icp_run_plain;
+    score_pick_plain): the CPU's route and the refine route's yardstick."""
+    if not todo:
+        return None
+    return _by_row(cfg, todo, n, dev, record, enabled, icp_seeds_plain,
+                   icp_run_plain, score_pick_plain)
+
+
+def refine_rows_by_launches(cfg: GoICPConfig, todo: list, n: int, dev,
+                            record: RefineRecord | None = None,
+                            enabled: torch.Tensor | None = None
+                            ) -> RefineRows | None:
+    """refine_rows as the composition that the refine route took into one
+    launch: on the card three launches a row (icp_seeds, icp_run,
+    score_pick), each on the plain route on the CPU.  Kept as the refine
+    route's second yardstick and for the measurements."""
+    if not todo:
+        return None
+    return _by_row(cfg, todo, n, dev, record, enabled, icp_seeds, icp_run,
+                   score_pick)
 
 
 _init_seeds: dict = {}     # (device, K) -> (R (K, 3, 3), t (K, 3))

@@ -143,7 +143,7 @@ def register_device_sharded(pair: PairData, cfg: GoICPConfig, mesh: Mesh,
 
         # ---- local ICP seeds (gated on improvement) -> local proposal ----
         # (the seeds, the event, the pick and the candidate's count into
-        # the run's refine record: three launches, no host read)
+        # the run's refine record: one launch, no host read)
         do_icp = (cand_ub < s["opt_err"]) if cfg.icp_on_improve else None
         rec = pick.refine_rows(cfg, [(0, pair, p["R_lanes"], res.best_node,
                                       ubs, cand_R, cand_t)], 1, dev,

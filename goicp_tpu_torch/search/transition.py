@@ -247,7 +247,7 @@ def reset_refine(r: dict) -> None:
     r["icp_err"].fill_(INF)
 
 
-def refine_rows(n: int, device) -> dict:
+def dummy_refine_rows(n: int, device) -> dict:
     """The refine block's outputs for n rows, every row the dummy of a row
     that did not refine: the caller writes the rows that refined with
     set_refine."""
@@ -258,7 +258,7 @@ def refine_rows(n: int, device) -> dict:
 
 
 def set_refine(r: dict, j: int, ref: dict) -> None:
-    """Row j of refine_rows' r <- one row's refine block (icp_R, icp_t,
+    """Row j of dummy_refine_rows' r <- one row's refine block (icp_R, icp_t,
     icp_err, icp_terms, icp_incomp, bnb_comp), do_icp set."""
     for k, _, _ in _REFINE[:-1]:
         r[k][j] = ref[k]
@@ -569,7 +569,7 @@ def advance_plain(mode: str, cfg: GoICPConfig, pairs, s: dict, rows, *,
                                 None if min_lb is None else min_lb[j]))
             continue
         rj = _row_of(r, j) if r is not None \
-            else _row_of(refine_rows(1, s["opt_err"].device), 0)
+            else _row_of(dummy_refine_rows(1, s["opt_err"].device), 0)
         icp_improved = rj["do_icp"] & ~(rj["icp_err"] >= hj["incumbent"])
         if mode == "both":
             new.append(_advance_row(_pair_row(pairs, w), cfg, _row_of(s, w),
@@ -812,7 +812,7 @@ def advance(mode: str, cfg: GoICPConfig, pairs, s: dict, rows, *, tables,
       mode "adopt": s a device state (with or without a tensor `it`); p
         the pop's outputs at the rows' indices of s (converged, final_lb,
         active, child_nodes); h the harvest's and r the refine block's
-        rows (a run's search/args.py RefineRows, or refine_rows; None: no
+        rows (a run's search/args.py RefineRows, or dummy_refine_rows; None: no
         row refined); work the inner search's evals, iters, geom_surv,
         chem_corners, each (W,) int32 at the rows' indices or a Python
         int.  Returns the new state

@@ -14,15 +14,23 @@ goicp_icp_seeds and goicp_score_pick), held on the CPU:
     with ties and inf, and the pick's first minimum (the kernel's rule)
     torch.argmin's and jnp.argmin's on errors with ties and NaN;
   * a refine record of several rows: the rows that refine equal a lone
-    refinement, the others the dummy (transition.refine_rows'), whatever
-    the record held before;
+    refinement, the others the dummy (transition.dummy_refine_rows'),
+    whatever the record held before; a window of three rows from two
+    pairs, one row not refining, each refining row equal to the JAX
+    package's _icp_best_of_seeds and its candidate's count;
+  * the refine route's argument block (icp_refine down the card's route
+    on CPU tensors, the C function replaced by a recorder): every row's
+    pointers and record row, the ints, the slots checked again only where
+    a row holds other tensors, rows of other shapes refused;
   * register_device and a fused-stream window on short bench pairs give
     the reference rows (bench/reference_rows.jsonl) as before;
   * CPU tensors take the plain routes and launch nothing.
 
 The `cuda` tests hold each kernel to its plain route on the card (they
-skip without one); chip_smoke.py phase 2 does the same at the main
-path's shapes.
+skip without one), and the refine route (csrc/icp.cu, one launch for a
+transition's refining rows) to both the plain composition and the three
+launches a row it replaced, bit for bit; chip_smoke.py phase 2 does the
+same at the main path's shapes.
 """
 
 import json
@@ -64,13 +72,16 @@ def clouds(n, m=56, seed=7):
     return data.astype(F32), model.astype(F32), dp, mp
 
 
-def pairs(case, **over):
-    """(port cfg, JAX cfg, port pair, JAX pair) of a small case."""
+def pairs(case, seed=7, pad_cells=None, **over):
+    """(port cfg, JAX cfg, port pair, JAX pair) of a small case (the clouds
+    made from `seed`; pad_cells: the grid's cells padded to that many, a
+    shape two pairs can share)."""
     from goicp_tpu.config import GoICPConfig as JConfig
     from goicp_tpu.pipeline import prepare as jprep
     kw, n, pad, dynamic = CASES[case]
     kw = dict(BASE, **kw, **over)
-    jp = jprep.prepare_pair(*clouds(n), JConfig(**kw), pad_data_to=pad)
+    jp = jprep.prepare_pair(*clouds(n, seed=seed), JConfig(**kw),
+                            pad_data_to=pad, pad_cells=pad_cells)
     if dynamic:
         jp = jprep.make_count_dynamic(jp)
     return (GoICPConfig(**kw), JConfig(**kw), tprep.pair_from_jax(jp, "cpu"),
@@ -244,7 +255,7 @@ def test_reset_is_the_dummy_row():
     assert list(rec) == list(want)
     for k, v in want.items():
         assert torch.equal(rec[k], v), k
-        assert torch.equal(transition.refine_rows(3, "cpu")[k], v), k
+        assert torch.equal(transition.dummy_refine_rows(3, "cpu")[k], v), k
     assert rec.ptrs is None
 
 
@@ -261,7 +272,7 @@ def test_record_rows_that_refine_and_the_rest():
         v.view(torch.uint8).fill_(1)                # an earlier transition
     rec = pick.refine_rows(cfg, todo, 3, "cpu", record)
     assert rec is stale                             # kept for the run
-    dummy = transition.refine_rows(1, "cpu")
+    dummy = transition.dummy_refine_rows(1, "cpu")
     for k in rec:
         assert torch.equal(rec[k][1], dummy[k][0]), k
     for j, item in zip((0, 2), todo):
@@ -273,6 +284,122 @@ def test_record_rows_that_refine_and_the_rest():
     rec = pick.refine_rows(cfg, [(j, *item[1:]) for j, item in
                                  enumerate(todo)], 2, "cpu", record)
     assert bool(rec["do_icp"].all())
+
+
+def _window_todo(pair_a, pair_b, K_seed=30):
+    """A window of three rows: row 0 refines on pair_a, row 2 on pair_b,
+    row 1 does not refine; each row's lanes (16, tied ubs) and candidate
+    made from a seed."""
+    todo = []
+    for j, tp in ((0, pair_a), (2, pair_b)):
+        R_l, nodes, ubs = lanes(16, seed=K_seed + j)
+        cand_R = R_l[j + 1]
+        cand_t = nodes[j + 1, :3] + nodes[j + 1, 3] / F32(2)
+        todo.append((j, tp, R_l, nodes, ubs, cand_R, cand_t))
+    return todo
+
+
+@pytest.mark.parametrize("case", ["l2", "dynamic trim"])
+@pytest.mark.parametrize("K", [1, 4])
+def test_window_refinement_matches_jax(K, case):
+    import jax.numpy as jnp
+    from goicp_tpu.bounds import error as jerr
+    from goicp_tpu.search import device_engine as jeng
+    cfg, jcfg, tp_a, jp_a = pairs(case, icp_seeds=K, rot_batch=2)
+    _, _, tp_b, jp_b = pairs(case, seed=8, icp_seeds=K, rot_batch=2)
+    todo = _window_todo(tp_a, tp_b)
+    record = RefineRecord()
+    for v in record.rows(3, "cpu").values():
+        v.view(torch.uint8).fill_(1)                # an earlier transition
+    rec = pick.refine_rows(cfg, [(j, tp, *map(torch.from_numpy, rest))
+                                 for j, tp, *rest in todo], 3, "cpu", record)
+    for (j, _, R_l, nodes, ubs, cand_R, cand_t), jp in zip(todo,
+                                                           (jp_a, jp_b)):
+        jR, jt, jsc, jinc = jeng._icp_best_of_seeds(
+            jp, jcfg, jnp.asarray(R_l), jnp.asarray(nodes),
+            jnp.asarray(ubs))
+        jbnb = jerr.bnb_incompatibility_count(jp, jcfg, jnp.asarray(cand_R),
+                                              jnp.asarray(cand_t))
+        close(rec["icp_R"][j], jR, f"icp_R row {j}")
+        close(rec["icp_t"][j], jt, f"icp_t row {j}")
+        close(rec["icp_err"][j], jsc.error, f"icp_err row {j}")
+        close(rec["icp_terms"][j], [jsc.geom, jsc.incomp_term + jsc.nbr_term,
+                                    jsc.fpfh_term], f"icp_terms row {j}")
+        assert int(rec["icp_incomp"][j]) == int(jinc), j
+        assert int(rec["bnb_comp"][j]) == int(jbnb), j
+        assert bool(rec["do_icp"][j]), j
+    dummy = transition.dummy_refine_rows(1, "cpu")
+    for k in rec:
+        assert torch.equal(rec[k][1], dummy[k][0]), k
+
+
+class _RefineRecorder:
+    """goicp_icp_refine's stand-in: records each call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def goicp_icp_refine(self, slots, j, n, ints, floats, rec, n_rec,
+                         rows_ws, tickets, enabled, ws, stream):
+        self.calls.append(dict(slots=list(slots)[:21 * n], j=list(j)[:n],
+                               ints=list(ints), floats=list(floats),
+                               rec=list(rec), n_rec=n_rec, rows_ws=rows_ws,
+                               tickets=tickets, enabled=enabled, ws=ws))
+        return 0
+
+
+def test_refine_route_argument_block(monkeypatch):
+    """icp_refine down the card's route on CPU tensors: one call for the
+    window's refining rows, each row's 21 pointers its tensors', the
+    record rows ascending, the ints the kernel's; the slots checked again
+    only where a row holds other tensors; a row of another shape
+    refused."""
+    import ctypes
+    from goicp_tpu_torch.bounds.error import _slot_tensors
+    recorder = _RefineRecorder()
+    monkeypatch.setattr(pick, "kernels", recorder)
+    monkeypatch.setattr(pick.icp_refine, "launches", 0)
+    monkeypatch.setattr(pick, "_stream", lambda x: 0)
+    cfg, _, tp, _ = pairs("dynamic trim", pad_cells=64, icp_seeds=4,
+                          rot_batch=2)
+    _, _, tp_b, _ = pairs("dynamic trim", seed=8, pad_cells=64, icp_seeds=4,
+                          rot_batch=2)
+    todo = [(j, p, *map(torch.from_numpy, rest))
+            for j, p, *rest in _window_todo(tp, tp_b)]
+    record = RefineRecord()
+    rec = record.rows(3, "cpu")
+    rec.ptrs = (ctypes.c_ulonglong * 7)(*(v.data_ptr()
+                                          for v in rec.values()))
+    pick.icp_refine(cfg, todo[::-1], rec, record)        # any order
+    call = recorder.calls[-1]
+    assert call["j"] == [0, 2] and call["n_rec"] == 3
+    assert call["rec"] == list(rec.ptrs)
+    for r, (_, p, R_l, nodes, ubs, cand_R, cand_t) in enumerate(todo):
+        want = [x.data_ptr() for x in _slot_tensors(p)] + [
+            x.data_ptr() for x in (p.model, R_l, nodes, ubs, cand_R,
+                                   cand_t)]
+        assert call["slots"][21 * r:21 * (r + 1)] == want, r
+    nd, M = tp.n_data_padded, tp.model.shape[0]
+    assert call["ints"][:9] == [nd, tp.compat_table.shape[1], 9,
+                                tp.data_fpfh.shape[1], 2, 2, nd, nd, 1]
+    # K, L, M, max_iter, dynamic trim (mode 3), data_mask and counts read
+    assert call["ints"][13:] == [4, 16, M, cfg.icp_max_iter, 3, 1, 1]
+    assert call["floats"][4] == pytest.approx(cfg.err_diff)
+    assert call["enabled"] is None and call["ws"] is None
+    assert pick.icp_refine.launches == 1          # one launch, two rows
+    checked = record.args.rechecked
+    pick.icp_refine(cfg, todo, rec, record)
+    assert record.args.rechecked == checked       # the same tensors
+    fresh = [(j, p, R_l.clone(), *rest) for j, p, R_l, *rest in todo]
+    pick.icp_refine(cfg, fresh, rec, record)
+    assert record.args.rechecked == checked + 2   # R_lanes of each row
+    assert recorder.calls[-1]["slots"][16] == fresh[0][2].data_ptr()
+    short = [(0, tp, todo[0][2][:8], todo[0][3][:8], todo[0][4][:8],
+              *todo[0][5:])]
+    with pytest.raises(ValueError, match="R_lanes|shapes"):
+        pick.icp_refine(cfg, short + todo[1:], rec, record)
+    with pytest.raises(ValueError, match="distinct rows"):
+        pick.icp_refine(cfg, [todo[0], todo[0]], rec, record)
 
 
 def test_cpu_tensors_take_the_plain_routes_and_launch_nothing():
@@ -391,3 +518,59 @@ def test_pick_and_initial_equal_plain_on_the_card(K, case):
     got = pick.score_initial(pair, cfg, R, t, nn)
     want = pick.score_initial_plain(pair, cfg, R, t, nn)
     assert _same(got.values(), want.values())
+
+
+def _card_window(case, **over):
+    """(cfg, [row 0, row 1]): two pairs prepared on the card in one shape
+    bucket and stacked, as a window's rows (fused_stream._pair_row)."""
+    from goicp_tpu_torch.dist.mesh import stack_pairs
+    from goicp_tpu_torch.search import fused_stream as fs
+    kw, n, _, dynamic = CASES[case]
+    cfg = GoICPConfig(**dict(BASE, **kw, **over))
+    raw = [clouds(n, seed=s) for s in (7, 8)]
+    dims = [tprep.bucket_dims(c[1], n, len(c[1]), cfg) for c in raw]
+    dims = {k: max(d[k] for d in dims) for k in dims[0]}
+    ps = [tprep.prepare_pair(*c, cfg, device="cuda", **dims) for c in raw]
+    if dynamic:
+        ps = [tprep.make_count_dynamic(p) for p in ps]
+    pb = stack_pairs(ps)
+    return cfg, [fs._pair_row(pb, r) for r in range(2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,case,ubs,how", [
+    (1, "l2", "ties", None), (4, "dynamic trim", "ties", None),
+    (8, "l2", "inf", None), (12, "dynamic trim", "nan", None),
+    (4, "l2", "ties", "disabled"), (4, "dynamic trim", "inf", "workspace")])
+def test_refine_route_equals_compositions_on_the_card(K, case, ubs, how,
+                                                      monkeypatch):
+    """One launch for a window's two refining rows (row 1 not refining)
+    equals the plain composition and the three launches a row, bit for
+    bit: K = 1, 4, 8, 12 seeds of 16 lanes; ubs tied, a third inf, a NaN;
+    the ICP disabled; the ICP's workspace in device memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if how == "workspace":      # every cloud above the shared-memory size
+        monkeypatch.setattr(pick, "ICP_SMEM_BYTES", 0)
+    cfg, rows = _card_window(case, icp_seeds=K, rot_batch=2)
+    todo = []
+    for j, p in zip((0, 2), rows):
+        R_l, nodes, u = lanes(16, seed=40 + K + j)
+        if ubs != "ties":
+            u = u.astype(F32) + np.arange(16, dtype=F32) / 64
+            u[::3] = np.inf
+            if ubs == "nan":
+                u[5] = np.nan
+        R_l, nodes, u = (torch.from_numpy(x).cuda() for x in (R_l, nodes,
+                                                                u))
+        todo.append((j, p, R_l, nodes, u, R_l[j + 1].contiguous(),
+                     nodes[j + 1, :3] + nodes[j + 1, 3] / 2.0))
+    en = torch.tensor(False, device="cuda") if how == "disabled" else None
+    before = pick.icp_refine.launches
+    got = pick.refine_rows(cfg, todo, 3, "cuda", RefineRecord(), en)
+    assert pick.icp_refine.launches == before + 1
+    plain = pick.refine_rows_plain(cfg, todo, 3, "cuda", RefineRecord(), en)
+    three = pick.refine_rows_by_launches(cfg, todo, 3, "cuda",
+                                         RefineRecord(), en)
+    assert _same(got.values(), plain.values())
+    assert _same(got.values(), three.values())

@@ -244,7 +244,7 @@ def test_stream_transition_matches_jax(window, case, how, reuse):
     if case == "nan_incumbent":
         assert np.isnan(float(h["cand_ub"][0]))
 
-    r = tr.refine_rows(len(rows), "cpu")
+    r = tr.dummy_refine_rows(len(rows), "cpu")
     for j, w in enumerate(rows):
         if r_np["do_icp"][w]:
             tr.set_refine(r, j, {k: torch.as_tensor(v[w])
@@ -475,7 +475,7 @@ def test_stream_kernels_equal_plain(window, card, case, how, reuse):
     tpb = window["tpb"].to(card)
     h = tr.harvest(cfg, ts, rows)
     _all_same(h, tr.harvest_plain(ts, rows), "harvest")
-    r = tr.refine_rows(len(rows), card) if how != "none" else None
+    r = tr.dummy_refine_rows(len(rows), card) if how != "none" else None
     if r is not None:
         tr.set_refine(r, 0, dict(
             icp_R=torch.eye(3, device=card), icp_t=torch.zeros(3, device=card),
