@@ -73,9 +73,18 @@ Phases, each of which fails the script (nonzero exit, no result line):
     event, the rescoring, the pick and the count) bit for bit with the
     plain composition and with the three launches a row it replaced, on
     syn07's bucket at K = 1, 4, 8, 12 (tied, inf and NaN ubs), with the
-    ICP disabled and with its workspace in device memory, and on a
-    similar and a trimmed 2-row window; timed with the three launches
-    beside it.  Every
+    ICP disabled and with its workspace in device memory, on a similar
+    and a trimmed 2-row window and on phase 11's c-FPFH and neighbour
+    pairs; timed with the three launches beside it and its split
+    rescoring's ptxas stack and spills 0.  The initial route
+    (csrc/icp.cu's goicp_icp_init: an initial incumbent in one launch, the
+    ICP events from the initial seeds, their rescoring, the initial error
+    and the pick into the state's tensors) bit for bit with the plain
+    composition (icp_run_plain, score_initial_plain) and with the two
+    launches it replaced (icp_run, score_initial), at K = 1, 4 and 8 on
+    syn07's bucket, trm00's dynamic trim and its static trim, on phase
+    11's three option pairs and on syn07's bucket with the workspace in
+    device memory (C = 1); timed with the two launches beside it.  Every
     prepared pair used here has its Grid.nearest_cell, the table the
     kernels trust, held equal to nearest_occupied over all S^3 voxels.
     One more pair is prepared on a 64^3 grid, whose 1 MB table does not
@@ -157,10 +166,11 @@ Phases, each of which fails the script (nonzero exit, no result line):
     transition kernels (harvest, advance: the pop with its root corners
     through K2's body, the adoption), the rescoring kernel, rodrigues
     (the ICP seeds), norm3 and the ordered sum (the preparation) and the
-    ICP kernels (icp_run, the initial incumbent's; icp_refine, every
+    ICP kernels (icp_init, every initial incumbent's; icp_refine, every
     refinement's), zeroed just before phase 3, are > 0 after it, those
-    of the seeds' and the pick's own kernels 0 (so in phases 5, 6 and
-    13), every
+    of the seeds', the pick's and score_initial's own kernels and of
+    icp_run (the event alone: the host engine's) 0 (so in phases 5, 6
+    and 13), every
     ordered sum launched was the preparation's c-FPFH table (so in phases
     5-9, 12 and 13: the rescoring is one launch of csrc/score.cu; phase
     3's additions and phase 11 print theirs), the inner step kernel's is
@@ -412,28 +422,29 @@ BEFORE_REFINE_ROUTE = {"refine": "3 launches, 0 host reads, 0.271-0.273 ms "
                                  "on the host clock",
                        "refine_window": "6 launches, 0 host reads"}
 # what every registration launches besides the bound kernels: the ICP
-# events (csrc/icp.cu: icp_run, the initial incumbent's, and icp_refine,
-# every improving step's refinement with its seeds, rescoring and pick,
-# which writes the refine record), the initial incumbent's pick
-# (csrc/score.cu's goicp_score_pick, route kInit: score_initial); norm3 and
-# the ordered sum where a pair is prepared (phase 3's window holds the
-# preparation; the ordered sum builds its c-FPFH table, PREP_SUMS);
-# rodrigues, rotate, rot_uncertainty and the rescoring (csrc/score.cu's
-# goicp_score: the initial error, the ICP's scores, the BnB count) in
-# every host-engine registration (its outer step's rotations and rotated
-# points, its inner searches' rotation uncertainty, its refinements).
-# The products whose callers (the plain ICP loop; norm3 before it was one
-# launch; rodrigues and rot_uncertainty before they were one launch each)
-# no longer run on the card launch 0 times on the main path; so does the
-# rescoring (PICK_ONLY), and rodrigues at most once a process (the
-# initial ICP's seeds, kept).  The seeds' and the pick's own launches
-# (REFINED_AWAY) are phase 2's only: the refine route took both into the
-# ICP event's launch.
-PATH_KERNELS = ("icp_refine", "score_initial", "icp_run")
-REFINED_AWAY = ("icp_seeds", "score_pick")
+# events with their ends (csrc/icp.cu: icp_init, the initial incumbent's
+# events from the initial seeds, their rescoring, the initial error and
+# the pick into the state; icp_refine, every improving step's refinement
+# with its seeds, rescoring and pick, which writes the refine record);
+# norm3 and the ordered sum where a pair is prepared (phase 3's window
+# holds the preparation; the ordered sum builds its c-FPFH table,
+# PREP_SUMS); the ICP event alone (icp_run), rodrigues, rotate,
+# rot_uncertainty and the rescoring (csrc/score.cu's goicp_score: the
+# initial error, the ICP's scores, the BnB count) in every host-engine
+# registration (its outer step's rotations and rotated points, its inner
+# searches' rotation uncertainty, its refinements).  The products whose
+# callers (the plain ICP loop; norm3 before it was one launch; rodrigues
+# and rot_uncertainty before they were one launch each) no longer run on
+# the card launch 0 times on the main path; so do the rescoring and the
+# event alone, and rodrigues at most once a process (the initial ICP's
+# seeds, kept).  The seeds', the pick's and the initial pick's own
+# launches (REFINED_AWAY) are phase 2's only: the refine route took the
+# first two into the ICP event's launch, the initial route the third.
+PATH_KERNELS = ("icp_refine", "icp_init")
+REFINED_AWAY = ("icp_seeds", "score_pick", "score_initial")
 PREP_KERNELS = ("norm3", "ordered_sum")
 HOST_ENGINE_KERNELS = ("rodrigues_kernel", "rotate", "rot_uncertainty_kernel",
-                       "score_kernel")
+                       "score_kernel", "icp_run")
 OFF_PATH = ("sq_dist3", "det3", "cross3", "dot_fma", "sincos32")
 CHECK_ONLY = ("kabsch3",)   # the ICP kernel's Kabsch alone: phase 2 only
 # K1, K3 and K4, whose bodies run inside the inner step kernel
@@ -634,25 +645,29 @@ def _off_path(counts, where):
 
 
 def _pick_path(counts, where):
-    """Every ICP event of `where` ended in its pick (search/pick.py's
-    kernels): the rescoring kernel launched no time, and rodrigues at most
-    once (the initial ICP's seeds, made once a process); every refinement
-    went through the refine route: the seeds' and the pick's own kernels
-    launched no time."""
-    _require(counts["score_kernel"] == 0 and counts["rodrigues_kernel"] <= 1,
-             f"score_kernel launched 0 times and rodrigues_kernel at most "
-             f"once in {where} (every rescoring in a pick, the initial "
-             f"seeds kept): {counts['score_kernel']}, "
+    """Every ICP event of `where` ended in its pick inside its own launch
+    (csrc/icp.cu's refine and initial routes), `where` running no host
+    engine: the rescoring kernel and the event alone (icp_run) launched
+    no time, and rodrigues at most once (the initial ICP's seeds, made
+    once a process); the seeds' and the picks' own kernels no time."""
+    _require(counts["score_kernel"] == 0 and counts["icp_run"] == 0
+             and counts["rodrigues_kernel"] <= 1,
+             f"score_kernel and icp_run launched 0 times and "
+             f"rodrigues_kernel at most once in {where} (every rescoring "
+             f"and every event in a route's launch, the initial seeds "
+             f"kept): {counts['score_kernel']}, {counts['icp_run']}, "
              f"{counts['rodrigues_kernel']}")
     _refined_away(counts, where)
 
 
 def _refined_away(counts, where):
-    """Every refinement of `where` was one launch of the refine route: the
-    seeds' and the pick's own kernels launched no time."""
+    """Every refinement of `where` was one launch of the refine route and
+    every initial incumbent one of the initial route: the seeds', the
+    pick's and score_initial's own kernels launched no time."""
     _require(all(counts[k] == 0 for k in REFINED_AWAY),
              f"{', '.join(REFINED_AWAY)} launched 0 times in {where} "
-             f"(every refinement one launch of the refine route): "
+             f"(every refinement one launch of the refine route, every "
+             f"initial incumbent one of the initial route): "
              f"{ {k: counts[k] for k in REFINED_AWAY} }")
 
 
@@ -3716,13 +3731,15 @@ def _refine_checks(k, cases, cfg, cfg_t, pools, dev, floor):
     from goicp_tpu_torch.search import pick
     from goicp_tpu_torch.search.args import RefineRecord
     log = _build.build_info.get("log", "")
-    info = kernel_info(log, "icp_refine_kernel")
-    _require(info and all("0 bytes stack frame, 0 bytes spill stores, "
-                          "0 bytes spill loads" in x
-                          for x in info if "stack frame" in x),
-             f"icp_refine_kernel has no stack frame and no spills: {info}")
-    print(f"icp_refine_kernel (ptxas): {info}; icp_run_kernel (ptxas): "
-          f"{kernel_info(log, 'icp_run_kernel')}", flush=True)
+    for kname in ("icp_refine_kernel", "icp_init_kernel"):
+        info = kernel_info(log, kname)
+        _require(info and all("0 bytes stack frame, 0 bytes spill stores, "
+                              "0 bytes spill loads" in x
+                              for x in info if "stack frame" in x),
+                 f"{kname} has no stack frame and no spills: {info}")
+        print(f"{kname} (ptxas): {info}", flush=True)
+    print(f"icp_run_kernel (ptxas): {kernel_info(log, 'icp_run_kernel')}",
+          flush=True)
     f32 = dict(dtype=torch.float32, device=dev)
     rng = np.random.default_rng(21)
 
@@ -3798,10 +3815,15 @@ def _refine_checks(k, cases, cfg, cfg_t, pools, dev, floor):
         todo = [row(j, p, *lanes_of(p, c)) for j, p in zip(js, rows)]
         done.append(check(f"{label} {'+'.join(names)}", c, todo, n))
         windows[label] = (c, todo, n)
+    for label, pair, c in ((x[0], x[1], x[2]) for x in cases
+                           if x[0].startswith("phase 11's")):
+        done.append(check(f"{label} as one row", c,
+                          [row(0, pair, *lanes_of(pair, c))], 1))
     print(f"icp_refine: syn07's bucket at K=1, 4, 8, 12 (16 lanes: "
           f"distinct, tied, inf and NaN ubs), the ICP disabled, its "
           f"workspace in device memory, a similar and a trimmed 2-row "
-          f"window: max_abs_err={max(done):.3g} against the plain "
+          f"window, phase 11's three options as one row: "
+          f"max_abs_err={max(done):.3g} against the plain "
           f"composition and the three launches (bit for bit, every field "
           f"of the record, the rows that do not refine the dummy)",
           flush=True)
@@ -3890,6 +3912,141 @@ def _refine_checks(k, cases, cfg, cfg_t, pools, dev, floor):
           f"{tr['alone_graph_ms']:.4f} ms; the similar window's two rows "
           f"from a graph {wms:.4f} ms, as six launches {wms3:.4f} ms; "
           f"{floor}", flush=True)
+
+
+# what the kernels line adds for the initial route: the two launches it
+# replaced (icp_run, score_initial) timed the same two ways on the same
+# pair, the event alone from a graph, and the engines' default of one
+# seed from graphs, the route against the two launches
+INIT_EXTRAS = ("two_launch_ms", "two_launch_graph_ms", "icp_run_graph_ms",
+               "one_seed_graph_ms", "one_seed_two_graph_ms")
+
+
+def _init_checks(k, cases, cfg, dev, floor):
+    """Phase 2's check of the initial route (search/pick.py's
+    initial_incumbent on the card: csrc/icp.cu's goicp_icp_init, an
+    initial incumbent in one launch: the ICP events from init_seeds'
+    starts, their rescoring, the initial error and the pick into the
+    state's tensors) against the plain composition (initial_incumbent_
+    plain: icp_run_plain, score_initial_plain) and the two launches it
+    replaced (initial_incumbent_by_launches: icp_run, score_initial),
+    every field bit for bit: at K = 1, 4 and 8 (every INIT_SEED_RV start)
+    on syn07's unpadded pair and its padded bucket (data_mask, counts),
+    trm00's dynamic trim and trm00 with a static trim (inlier_num < Nd);
+    at K = 4 on phase 11's L1, c-FPFH and neighbour pairs and on syn07's
+    bucket with the ICP's workspace in device memory (one block a row).
+    Timed on syn07's bucket at 4 seeds (score_initial's timing) and at the
+    engines' default of 1: single calls, from a CUDA graph, the plain
+    composition (3 calls), the two launches both ways, the event alone
+    from a graph.  One launch and no memset a call."""
+    import torch
+    from goicp_tpu_torch.icp.icp import icp_run
+    from goicp_tpu_torch.search import pick
+    keys = ("opt_err", "opt_R", "opt_t", "comp", "terms", "last_icp")
+
+    def fields(d):
+        return [d[x] for x in keys]
+
+    def check(label, pair, c):
+        before = pick.icp_init.launches
+        got = pick.initial_incumbent(pair, c)
+        launched = pick.icp_init.launches - before
+        plain = pick.initial_incumbent_plain(pair, c)
+        two = pick.initial_incumbent_by_launches(pair, c)
+        torch.cuda.synchronize()
+        g, p, t2 = fields(got), fields(plain), fields(two)
+        _require(launched == 1,
+                 f"the initial route is one launch ({label}): {launched}")
+        _require(_same_fields(g, p) and _same_fields(g, t2),
+                 f"the initial route == initial_incumbent_plain == the two "
+                 f"launches bit for bit ({label}): {got} vs {plain} vs "
+                 f"{two}")
+        e = max(_field_err(g, p), _field_err(g, t2))
+        k["errs"].append(e)
+        return e
+
+    done = []
+    for i in range(4):
+        label, pair, c = cases[i][:3]
+        for K in (1, 4, len(pick.INIT_SEED_RV)):
+            done.append(check(f"{label}, K={K}", pair,
+                              dataclasses.replace(c, init_seeds=K)))
+    for label, pair, c in ((x[0], x[1], x[2]) for x in cases
+                           if x[0].startswith("phase 11's")):
+        done.append(check(f"{label}, K=4", pair,
+                          dataclasses.replace(c, init_seeds=4)))
+    syn07, c4 = cases[1][1], dataclasses.replace(cases[1][2], init_seeds=4)
+    smem = pick.ICP_SMEM_BYTES
+    pick.ICP_SMEM_BYTES = 0            # every cloud's workspace on the card
+    try:
+        done.append(check("syn07's bucket, the ICP's workspace in device "
+                          "memory, K=4", syn07, c4))
+    finally:
+        pick.ICP_SMEM_BYTES = smem
+    print(f"icp_init: syn07 (unpadded, its bucket), trm00's dynamic trim "
+          f"and its static trim at K=1, 4, {len(pick.INIT_SEED_RV)}; phase "
+          f"11's three options and syn07's bucket with the workspace in "
+          f"device memory at K=4: max_abs_err={max(done):.3g} against the "
+          f"plain composition and the two launches (bit for bit, every "
+          f"field of the incumbent)", flush=True)
+
+    def timed(K, full=False):
+        c = dataclasses.replace(cases[1][2], init_seeds=K)
+        R0, t0 = pick.init_seeds(K, dev)
+
+        def kern():
+            return pick.initial_incumbent(syn07, c)
+
+        def two():
+            return pick.initial_incumbent_by_launches(syn07, c)
+
+        def alone():
+            return icp_run(syn07.data, syn07.model, R0, t0,
+                           **pick.icp_kw(syn07, c))
+        res = dict(graph_ms=_device_ms(kern), two_graph_ms=_device_ms(two))
+        if full:
+            res.update(ms=_median_ms(kern), two_ms=_median_ms(two),
+                       alone_graph_ms=_device_ms(alone),
+                       plain_ms=_median_ms(
+                           lambda: pick.initial_incumbent_plain(syn07, c),
+                           n=3),
+                       iters=int(alone().iters.sum()))
+            res["launches"], res["memsets"] = _launches_memsets(kern)
+            real = _real_points(syn07)
+            nd, m = syn07.n_data_padded, syn07.model.shape[0]
+            t_ops = (res["iters"] * ICP_OPS(nd, m)
+                     + (K + 1) * real * SCORE_OPS) / PEAK_OPS
+            t_bytes = (_nbytes(syn07.data, syn07.model, syn07.weights,
+                               syn07.data_mask, syn07.data_props,
+                               syn07.model_props, R0, t0,
+                               *kern().values())
+                       + (K + 1) * real * SCORE_GATHER_BYTES) / PEAK_BYTES
+            res["bound"] = (max(t_ops, t_bytes) * 1e3,
+                            "operations" if t_ops >= t_bytes else "bytes")
+        return res
+
+    t4, t1 = timed(4, full=True), timed(1)
+    _require(t4["launches"] == 1 and t4["memsets"] == 0,
+             f"the initial route is one launch and no memset a call "
+             f"({t4['launches']}, {t4['memsets']})")
+    bms, bby = t4["bound"]
+    k.update(ms=t4["ms"], plain_ms=t4["plain_ms"], bound_ms=bms,
+             bound_by=bby, graph_ms=t4["graph_ms"], library_ms=None,
+             two_launch_ms=t4["two_ms"],
+             two_launch_graph_ms=t4["two_graph_ms"],
+             icp_run_graph_ms=t4["alone_graph_ms"],
+             one_seed_graph_ms=t1["graph_ms"],
+             one_seed_two_graph_ms=t1["two_graph_ms"])
+    print(f"icp_init timed on syn07's bucket, 4 seeds ({t4['iters']} ICP "
+          f"iterations over the seeds): kernel {t4['ms']:.4f} ms (from a "
+          f"graph {t4['graph_ms']:.4f} ms) plain {t4['plain_ms']:.4f} ms "
+          f"bound {bms:.6f} ms ({bby}), {t4['launches']:g} launch, "
+          f"{t4['memsets']:g} memsets a call; the two launches it replaced "
+          f"{t4['two_ms']:.4f} ms (from a graph {t4['two_graph_ms']:.4f} "
+          f"ms); the ICP event alone from a graph "
+          f"{t4['alone_graph_ms']:.4f} ms; 1 seed from a graph "
+          f"{t1['graph_ms']:.4f} ms, as two launches "
+          f"{t1['two_graph_ms']:.4f} ms; {floor}", flush=True)
 
 
 def _one_answer_phase(dev):
@@ -4028,9 +4185,9 @@ def _one_answer_phase(dev):
              f"an improving step's refinement, and a window's two refining "
              f"rows, is one launch of the refine route and no host read: "
              f"{rf}, {rw}")
-    _require(ini["launches"] <= 2 and ini["host_reads"] == 0,
-             f"the initial incumbent is at most two launches (the ICP "
-             f"event, the pick's initial route) and no host read: {ini}")
+    _require(ini["launches"] == 1 and ini["host_reads"] == 0,
+             f"the initial incumbent is one launch (csrc/icp.cu's initial "
+             f"route) and no host read: {ini}")
     tb, st = launch_counts.transition(), launch_counts.outer_step()
     print(f"phase 13 a fused-stream transition of {tb['rows']} rows: "
           f"{tb['launches']:.1f} launches, {tb['host_reads']:.1f} host "
@@ -4169,7 +4326,7 @@ def main() -> int:
         # not TPU kernels: the ICP event and its Kabsch (icp/icp.py)
         **{name: dict(source="goicp_tpu_torch/csrc/icp.cu", replaces=None,
                       errs=[])
-           for name in ("icp_run", "kabsch3", "icp_refine")},
+           for name in ("icp_run", "kabsch3", "icp_refine", "icp_init")},
         # not TPU kernels: the rescoring XLA computes (bounds/error.py),
         # the ICP seeds and the pick around the event (search/pick.py)
         **{name: dict(source="goicp_tpu_torch/csrc/score.cu",
@@ -4532,6 +4689,7 @@ def main() -> int:
     _pick_checks(kernels, cases, cfg, pools, dev, floor)
     _refine_checks(kernels["icp_refine"], cases, cfg, cfg_t, pools, dev,
                    floor)
+    _init_checks(kernels["icp_init"], cases, cfg, dev, floor)
     _step_checks(kernels["inner_step"], cfg, cfg_t, pools, dev, floor)
     _run_checks(kernels["inner_run"], kernels, cfg, cfg_t, pools, dev, floor)
     _transition_checks(kernels, cfg, cfg_t, pools, dev, floor)
@@ -4784,6 +4942,8 @@ def main() -> int:
          **({k2: k[k2] for k2 in ("iterations", "steps_graph_ms")}
             if kname == "inner_run" else {}),
          **({k2: k[k2] for k2 in REFINE_EXTRAS} if kname == "icp_refine"
+            else {}),
+         **({k2: k[k2] for k2 in INIT_EXTRAS} if kname == "icp_init"
             else {}),
          **({k2: k[k2] for k2 in ("selection_ms", "selection_graph_ms")}
             if kname == "icp_seeds" else {})}

@@ -103,6 +103,13 @@ _SIGNATURES = {
                          ctypes.POINTER(ctypes.c_float),
                          ctypes.POINTER(ctypes.c_ulonglong), _I, _P, _P, _P,
                          _P, _P],
+    # slots (15: bounds/error.py::_SLOTS), ints (20, goicp_icp_refine's),
+    # floats (5), model, R0, t0, out (7 pointers: the state's), words,
+    # ticket, workspace, stream
+    "goicp_icp_init": [ctypes.POINTER(ctypes.c_ulonglong),
+                       ctypes.POINTER(_I), ctypes.POINTER(ctypes.c_float),
+                       _P, _P, _P, ctypes.POINTER(ctypes.c_ulonglong), _P,
+                       _P, _P, _P],
     # ubs, R_lanes, nodes, seed_R, seed_t, L, K, record (7 pointers or
     # NULL), its rows, stream
     "goicp_icp_seeds": [_P, _P, _P, _P, _P, _L, _I,

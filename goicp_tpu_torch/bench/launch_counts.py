@@ -82,7 +82,9 @@ every `.item()` and `bool()` of a card tensor goes through):
   * the initial incumbent (`initial`): device_engine._initial_incumbent
     on that pair (the ICP from init_seeds starts, the rescoring, the
     initial error, the pick and the comparison), after one call (the
-    seeds a tree keeps): launches, host reads and host-clock ms;
+    seeds a tree keeps): launches, host reads, `ms` a call with the
+    card's work and `host_ms` the host's own (one launch of csrc/icp.cu's
+    initial route on a tree that has it, two on the tree before);
   * one rodrigues of 8 seeded rotation centres (the host engine's lanes)
     and one rot_uncertainty of their 8 widths times that pair's point
     norms: launches and host-clock ms a call (each one launch of
@@ -107,7 +109,7 @@ prints one JSON object (the counts, each loop's host-clock ms, the card's
 name and power limit, and ptxas's registers, stack frame and spills of
 csrc/score.cu's kernels where the tree has it: the rescoring's, and the
 pick's and the seeds' where it has them; and csrc/icp.cu's refine
-route's where it has it).  It uses only
+and initial routes' where it has them).  It uses only
 functions the port has had since its cross-pair streams, so the same
 script counts an older tree's launches too: put that tree first on
 PYTHONPATH (its icp_run has no launch count: null).  Needs a card.
@@ -556,12 +558,13 @@ def initial(device="cuda", n=10) -> dict:
     call()
     launches, reads = _profile(call, n)
     return dict(launches=launches, host_reads=reads,
-                ms=_host_ms(call, 5 * n))
+                ms=_host_ms(call, 5 * n), host_ms=_enqueue_ms(call, 2 * n))
 
 
 def _score_ptxas() -> list | None:
     """ptxas's lines for csrc/score.cu's kernels (the rescoring, the pick,
-    the seeds) and for csrc/icp.cu's refine route where the tree has it,
+    the seeds) and for csrc/icp.cu's refine and initial routes where the
+    tree has them,
     from the kernel library's build log (None for a tree without
     csrc/score.cu)."""
     from goicp_tpu_torch import _build
@@ -571,7 +574,7 @@ def _score_ptxas() -> list | None:
     _build.library()
     log = _build.build_info.get("log", "")
     return [x for k in ("score_kernel", "pick_kernel", "icp_seeds_kernel",
-                        "icp_refine_kernel")
+                        "icp_refine_kernel", "icp_init_kernel")
             for x in kernel_info(log, k)]
 
 

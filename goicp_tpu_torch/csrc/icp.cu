@@ -1,8 +1,10 @@
 // icp: the whole ICP event of goicp_tpu_torch/icp/icp.py::icp_run in one
-// launch, the refine route (search/pick.py::icp_refine: every refining row
+// launch; the refine route (search/pick.py::icp_refine: every refining row
 // of a transition, each an event with its seeds before it and its
-// rescoring and pick after it, in one launch), and the Kabsch step alone
-// (kabsch_from_H) for a batch of 3x3 H.
+// rescoring and pick after it, in one launch); the initial route
+// (pick.py::icp_init: a pair's initial incumbent, the event from the
+// initial seeds, its rescoring, the initial error and the pick, in one
+// launch); and the Kabsch step alone (kabsch_from_H) for a batch of 3x3 H.
 //
 // Not a port of a TPU kernel: the JAX package's ICP
 // (goicp_tpu/icp/icp.py:174, icp_run, a lax.while_loop that XLA compiles)
@@ -44,18 +46,32 @@
 // (C = 1); too large for that (10 Nd + 4 M words above 227 KB), a per-row
 // workspace in device memory from the wrapper; the code is the same.
 //
-// The refine route (icp_refine_kernel) runs the same loop, an instance of
-// icp_event apart from icp_run_kernel's (one kernel carrying both routes
-// would hold the registers of both).  Cluster q of its grid is seed k = q
-// % K of refine row q / K, each row reading its own pair through its row
-// of pointers.  Before the loop every block ranks the row's lanes from
-// shared memory and takes the start of rank k (csrc/score.cu's
-// icp_seeds_kernel did this in a launch of its own); after it, block 0 of
-// each cluster rescores its result with score_body.cuh's score_row, the
-// row's seed-0 cluster counts the BnB candidate's incompatibilities, and
-// the last of the row's K + 1 arrivals at its ticket picks with
-// pick_write into the refine record (score.cu's pick_kernel did this).
-// The bodies are score.cu's, so the bits are the three launches'.
+// The refine and initial routes run the same loop, instances of icp_event
+// apart from icp_run_kernel's (one kernel carrying every route would hold
+// the registers of all).  The refine route (icp_refine_kernel): cluster q
+// of its grid is seed k = q % K of refine row q / K, each row reading its
+// own pair through its row of pointers; before the loop every block ranks
+// the row's lanes from shared memory and takes the start of rank k
+// (csrc/score.cu's icp_seeds_kernel did this in a launch of its own).  The
+// initial route (icp_init_kernel): cluster k < K is seed k from the
+// initial seeds' R0[k], t0[k], and one more cluster's block 0 computes the
+// initial error (score_body.cuh's score_row, route kInitial) while the
+// loops run.  After the loop every block of a seed's cluster holds the
+// whole row (R, t and the last NN indices), and the epilogue rescores it
+// with score_body.cuh's score_row_cluster: each block scores the points of
+// its share of the loop, the values and integer partials go to block 0
+// through distributed shared memory, the trimmed ranks are counted G
+// threads a point over the blocks as the loop's mask is, each value
+// placed at its rank in block 0, and block 0 forms the sums and terms in
+// the block form's orders (C = 1: score_row on the row's one block).  The
+// refine route's seed-0 cluster counts the BnB candidate's
+// incompatibilities beside its shares.  The last of a row's K + 1
+// arrivals at its ticket (the K rescorings and the extra row: the count
+// or the initial error) picks with pick_write: into the refine record
+// (route kPick; score.cu's pick_kernel did this), or the initial
+// incumbent into the state's tensors (route kInit; score.cu's pick route
+// kInit after icp_run's launch did this).  The bodies are score.cu's and
+// their sums keep its orders, so the bits are the replaced launches'.
 //
 // Every value equals the plain loop's bit for bit, on the card and on the
 // CPU, because each step takes the plain loop's own order:
@@ -103,15 +119,18 @@ namespace cg = cooperative_groups;
 #ifndef GOICP_ICP_STOP
 #define GOICP_ICP_STOP 99
 #endif
-// a stopped iteration's end: count it and go on to the next
-// The refine route's (bench/refine_stops.py): -DGOICP_REFINE_STOP=1 ends
-// each cluster after its ICP loop (no rescoring, no pick), 2 after the
-// rescoring and the count (no ticket, no pick); the record is then not
-// written.  The stop is taken on a condition the compiler cannot fold
-// (L >= 0), so that the code after it, and the registers, stay.
+// The refine and initial routes' (bench/refine_stops.py):
+// -DGOICP_REFINE_STOP=1 ends each cluster after its ICP loop (no
+// rescoring, no initial error, no pick); 2 after the split rescoring's
+// values and counts are in block 0 (its first barrier), 3 after the
+// ranks' barrier, 4 after the rescorings, the candidate's count and the
+// initial error (no ticket, no pick); the record or the state is then not
+// written.  A stop is taken on a condition the compiler cannot fold
+// (max_iter >= 0), so that the code after it, and the registers, stay.
 #ifndef GOICP_REFINE_STOP
 #define GOICP_REFINE_STOP 99
 #endif
+// a stopped iteration's end: count it and go on to the next
 #define ICP_STOP_AFTER(n)                  \
   if (GOICP_ICP_STOP == (n)) {             \
     if (tid == 0) {                        \
@@ -140,6 +159,11 @@ constexpr int kModeAll = 0;       // untrimmed: every row kept
 constexpr int kModeTrim = 1;      // static trim: stable rank < inlier_num
 constexpr int kModeCount = 2;     // dynamic counts: data_mask itself
 constexpr int kModeDynTrim = 3;   // dynamic trim: stable rank < *count
+
+// the kernels' routes, one kernel each (icp_event's instances)
+constexpr int kRouteRun = 0;      // icp_run_kernel: the event alone
+constexpr int kRouteRefine = 1;   // icp_refine_kernel: a transition's rows
+constexpr int kRouteInit = 2;     // icp_init_kernel: the initial incumbent
 
 // torch.clamp(x, min=lo): x where x >= lo or NaN
 __device__ __forceinline__ float clamp_min(float x, float lo) {
@@ -389,6 +413,17 @@ __host__ __device__ __forceinline__ int refine_lane_words(int L) {
   return 14 * L;
 }
 
+// The initial route (goicp_icp_init): the pair's rescoring block with its
+// pointers, the state's tensors the pick writes (route kInit), the row's
+// words (refine_row_words(K)) and ticket in device memory, the seeds K.
+struct InitParams {
+  ScoreArgs a;
+  PickOut out;
+  float* words;
+  unsigned* ticket;              // 0 between launches
+  int K;
+};
+
 struct IcpParams {
   const float* data;             // (Nd, 3)
   const float* model;            // (M, 3)
@@ -518,49 +553,48 @@ __device__ __forceinline__ ScoreArgs refine_score_args(const RefineParams& rp,
   return a;
 }
 
-// A refine row's arrival: after the block's barrier, one thread fences
-// the block's words in rows_ws (a release of what the barrier ordered
-// before it) and takes the row's ticket; the block with the last of the
-// K + 1 tickets (the K rescorings and the candidate's count) stages the
-// row's words into shared memory (read past L1: other blocks wrote them),
-// picks the first best seed with pick_write into record row j, and sets
-// the ticket back to 0 for the next launch.
-__device__ __forceinline__ void refine_arrive(const RefineParams& rp, int rr,
-                                              float* scratch) {
+// A row's arrival (the refine and initial routes): after the block's
+// barrier, one thread fences the block's words in the row's words (a
+// release of what the barrier ordered before it) and takes n of the row's
+// K + 1 tickets (the K rescorings and the extra row: the candidate's count
+// or the initial error); the block with the last stages the words into
+// shared memory (read past L1: other blocks wrote them), picks the first
+// best seed with pick_write (pk: where, and the route), and sets the
+// ticket back to 0 for the next launch.
+__device__ __forceinline__ void row_arrive(unsigned* ticket, unsigned n,
+                                           int K, const float* words,
+                                           float* scratch, PickArgs pk) {
   __shared__ bool last;
-  const int tid = threadIdx.x, K = rp.K;
+  const int tid = threadIdx.x;
   __syncthreads();
   if (tid == 0) {
     __threadfence();
-    last = atomicAdd(rp.tickets + rr, 1u) == static_cast<unsigned>(K);
+    last = atomicAdd(ticket, n) + n == static_cast<unsigned>(K + 1);
     if (last) __threadfence();
   }
   __syncthreads();
   if (!last) return;
-  const float* words = rp.rows_ws + static_cast<size_t>(rr) * refine_row_words(K);
   for (int e = tid; e < refine_row_words(K); e += kIcpThreads)
     scratch[e] = __ldcg(words + e);
   __syncthreads();
   if (tid == 0) {
-    PickArgs pk = {};
     pk.R = scratch + kRowWords * (K + 1);
     pk.t = pk.R + 9 * K;
-    pk.out = rp.rec;
-    pk.j = rp.rows[rr].j;
     pk.K = K;
-    pk.route = kPick;
     pick_write(pk, scratch, false);
-    rp.tickets[rr] = 0u;
+    *ticket = 0u;
   }
 }
 
 // The ICP event of a row (icp_run_kernel: every row of the launch an ICP
 // row; icp_refine_kernel: cluster q of the launch seed k = q % K of refine
-// row q / K, with its prologue and epilogue).  The loop is the same code in
-// both.
-template <bool kRefine>
-__device__ __forceinline__ void icp_event(const IcpParams& p,
-                                          const RefineParams* rp) {
+// row q / K, with its prologue and epilogue; icp_init_kernel: cluster k <
+// K seed k of the initial incumbent, with the epilogue, and cluster K the
+// initial error).  The loop is the same code in every route.  ep: the
+// route's parameters (RefineParams, InitParams; unused by kRouteRun).
+template <int kRoute, typename Ep>
+__device__ __forceinline__ void icp_event(const IcpParams& p, const Ep* ep) {
+  constexpr bool kRefine = kRoute == kRouteRefine;
   extern __shared__ float dyn_smem[];
   __shared__ float sR[9], st[3], sums[16];
   __shared__ float s_err;
@@ -569,6 +603,29 @@ __device__ __forceinline__ void icp_event(const IcpParams& p,
   const int c = p.cluster, nd = p.nd, m = p.m, mode = p.mode;
   const int rank = c > 1 ? static_cast<int>(cluster.block_rank()) : 0;
   const int row = blockIdx.x / c, tid = threadIdx.x, warp = tid >> 5;
+  const size_t rw = region_words(static_cast<size_t>(nd));
+  float* ws = p.workspace == nullptr
+                  ? dyn_smem
+                  : p.workspace + row * icp_workspace_words(nd, m, c);
+  if constexpr (kRoute == kRouteInit) {
+    // the extra cluster: block 0 computes the initial error (the block
+    // form; the ICP clusters run meanwhile), writes it as the row's extra
+    // row and arrives
+    if (row == ep->K) {
+      if ((GOICP_REFINE_STOP == 1 && p.max_iter >= 0) || rank != 0) return;
+      __shared__ RowShared ish;
+      __shared__ float ires[kRowWords];
+      score_row<kIcpThreads>(ep->a, kInitial, nullptr, nullptr, nullptr, 0,
+                             ws, ws + rw, ish, ires);
+      if (tid < kRowWords) ep->words[kRowWords * ep->K + tid] = ires[tid];
+      if (GOICP_REFINE_STOP != 99 && p.max_iter >= 0) return;
+      PickArgs pk = {};
+      pk.out = ep->out;
+      pk.route = kInit;
+      row_arrive(ep->ticket, 1, ep->K, ep->words, dyn_smem, pk);
+      return;
+    }
+  }
   // the row's inputs
   const float* data = p.data;
   const float* model = p.model;
@@ -576,21 +633,18 @@ __device__ __forceinline__ void icp_event(const IcpParams& p,
   const float* count = p.count;
   const unsigned char* enabled =
       p.enabled == nullptr ? nullptr : p.enabled + row;
-  int rr = 0, k = 0;
+  int rr = 0, k = row;
   if constexpr (kRefine) {
-    rr = row / rp->K;
-    k = row - rr * rp->K;
-    const unsigned long long* q = rp->rows[rr].p;
+    rr = row / ep->K;
+    k = row - rr * ep->K;
+    const unsigned long long* q = ep->rows[rr].p;
     data = reinterpret_cast<const float*>(q[0]);
     model = reinterpret_cast<const float*>(q[kRsModel]);
-    data_mask = rp->icp_padded ? reinterpret_cast<const float*>(q[2]) : nullptr;
-    count = rp->icp_count ? reinterpret_cast<const float*>(q[14]) + 1 : nullptr;
-    enabled = rp->enabled;
-    refine_stage(*rp, rr, k == 0 && rank == 0, dyn_smem + rp->lane_off);
+    data_mask = ep->icp_padded ? reinterpret_cast<const float*>(q[2]) : nullptr;
+    count = ep->icp_count ? reinterpret_cast<const float*>(q[14]) + 1 : nullptr;
+    enabled = ep->enabled;
+    refine_stage(*ep, rr, k == 0 && rank == 0, dyn_smem + ep->lane_off);
   }
-  float* ws = p.workspace == nullptr
-                  ? dyn_smem
-                  : p.workspace + row * icp_workspace_words(nd, m, c);
   float* s_model = ws;
   float* s_qq = s_model + 3 * m;
   float* s_dmask = s_qq + m;
@@ -627,7 +681,7 @@ __device__ __forceinline__ void icp_event(const IcpParams& p,
     s_run = (enabled == nullptr || *enabled != 0) && p.max_iter > 0;
   }
   __syncthreads();
-  if constexpr (kRefine) refine_seed(rp->L, k, dyn_smem + rp->lane_off, sR, st);
+  if constexpr (kRefine) refine_seed(ep->L, k, dyn_smem + ep->lane_off, sR, st);
   for (int j = tid; j < m; j += kIcpThreads)
     s_qq[j] = dot3_warp(s_model + 3 * j, s_model + 3 * j);
   // the kept-set size: the count read on the device, or inlier_num
@@ -849,7 +903,7 @@ __device__ __forceinline__ void icp_event(const IcpParams& p,
   // the NN index from the last iteration (0 where none ran)
   const float2* s_last =
       s_pair0 + (c > 1 && s_it > 0 ? ((s_it - 1) & 1) * nd : 0);
-  if constexpr (!kRefine) {
+  if constexpr (kRoute == kRouteRun) {
     if (rank == 0) {
       if (tid < 9) p.R_out[9 * row + tid] = sR[tid];
       if (tid < 3) p.t_out[3 * row + tid] = st[tid];
@@ -862,54 +916,99 @@ __device__ __forceinline__ void icp_event(const IcpParams& p,
       p.nn_out[static_cast<long long>(row) * nd + lo + li] =
           s_it > 0 ? __float_as_int(s_last[lo + li].y) : 0;
   } else {
-    // the epilogue, in place of the pick's launch.  Every block holds the
-    // whole row (the loop's exchange), and no block reads or writes
-    // another's shared memory after the loop: the workspace is free.
-    // Block 0 rescores the seed's result (score_row at the ICP's R, t and
-    // NN indices, the values and their ranked copy over the workspace);
-    // block 1 of seed 0's cluster (block 0 after its rescoring where C =
-    // 1) the candidate's BnB count; each then arrives at the row's ticket.
-    if (GOICP_REFINE_STOP == 1 && rp->L >= 0) return;
+    // the epilogue, in place of the pick's launch: the seed's result
+    // rescored (kFull at the ICP's R, t and NN indices) and, in the refine
+    // route's seed-0 cluster, the BnB candidate's count; the row's words
+    // (the rescored rows, each seed's R and t) written and the row's
+    // ticket taken, the last arrival picking.  C > 1: the cluster form,
+    // every block its share of the points; C = 1: the block form, the
+    // workspace (shared or device memory) free after the loop.
+    if (GOICP_REFINE_STOP == 1 && p.max_iter >= 0) return;
     __shared__ RowShared sh;
-    __shared__ float res[kRowWords];
-    const int K = rp->K;
-    float* words = rp->rows_ws + static_cast<size_t>(rr) * refine_row_words(K);
-    const size_t rw = region_words(static_cast<size_t>(nd));
+    __shared__ float res[kRowWords], cres[kRowWords];
+    const int K = ep->K;
+    const bool full = GOICP_REFINE_STOP == 99 || p.max_iter < 0;
+    ScoreArgs a;
+    float* words;
+    unsigned* ticket;
+    PickArgs pk = {};
+    const float* cand_R = nullptr;
+    const float* cand_t = nullptr;
+    if constexpr (kRefine) {
+      a = refine_score_args(*ep, rr);
+      words = ep->rows_ws + static_cast<size_t>(rr) * refine_row_words(K);
+      ticket = ep->tickets + rr;
+      pk.out = ep->rec;
+      pk.j = ep->rows[rr].j;
+      pk.route = kPick;
+      if (k == 0) {
+        cand_R = reinterpret_cast<const float*>(ep->rows[rr].p[kRsCandR]);
+        cand_t = reinterpret_cast<const float*>(ep->rows[rr].p[kRsCandT]);
+      }
+    } else {
+      a = ep->a;
+      words = ep->words;
+      ticket = ep->ticket;
+      pk.out = ep->out;
+      pk.route = kInit;
+    }
     if (rank == 0) {
-      int* nn = reinterpret_cast<int*>(ws + 2 * rw);   // clear of s_pair
-      for (int i = tid; i < nd; i += kIcpThreads)
-        nn[i] = s_it > 0 ? __float_as_int(s_last[i].y) : 0;
       if (tid < 9) words[kRowWords * (K + 1) + 9 * k + tid] = sR[tid];
       if (tid < 3) words[kRowWords * (K + 1) + 9 * K + 3 * k + tid] = st[tid];
-      __syncthreads();
-      score_row<kIcpThreads>(refine_score_args(*rp, rr), kFull, sR, st, nn, 0,
-                             ws, ws + rw, sh, res);
-      if (tid < kRowWords) words[kRowWords * k + tid] = res[tid];
-      if (GOICP_REFINE_STOP != 2 || rp->L < 0)
-        refine_arrive(*rp, rr, dyn_smem);
     }
-    if (k == 0 && rank == (c > 1 ? 1 : 0)) {
-      const unsigned long long* q = rp->rows[rr].p;
-      score_row<kIcpThreads>(refine_score_args(*rp, rr), kCount,
-                             reinterpret_cast<const float*>(q[kRsCandR]),
-                             reinterpret_cast<const float*>(q[kRsCandT]),
-                             nullptr, 0, ws, ws + rw, sh, res);
+    if (c > 1) {
+      // the split rescoring's words: the values over the data mask, the
+      // ranked values and the c-FPFH values over the pair copy the loop's
+      // last iteration did not use.  No block reads either after its
+      // arrival at that iteration's first barrier, which every block
+      // passed before its loop ended; so the rescoring needs no barrier
+      // of its own before it writes into another block
+      float* other = reinterpret_cast<float*>(s_pair0 + (s_it & 1) * nd);
+      const bool holds = score_row_cluster<kIcpThreads, GOICP_REFINE_STOP>(
+          a, sR, st, s_it > 0 ? s_last : nullptr, s_data, cand_R, cand_t, c,
+          rank, lo, nb, s_dmask, other, other + nd, sh, res, cres);
+      if (holds) {
+        if (tid < kRowWords) {
+          words[kRowWords * k + tid] = res[tid];
+          if (cand_R != nullptr) words[kRowWords * K + tid] = cres[tid];
+        }
+        if (full)
+          row_arrive(ticket, cand_R != nullptr ? 2 : 1, K, words, dyn_smem,
+                     pk);
+      }
+      return;
+    }
+    int* nn = reinterpret_cast<int*>(ws + 2 * rw);   // clear of s_pair
+    for (int i = tid; i < nd; i += kIcpThreads)
+      nn[i] = s_it > 0 ? __float_as_int(s_last[i].y) : 0;
+    __syncthreads();
+    score_row<kIcpThreads>(a, kFull, sR, st, nn, 0, ws, ws + rw, sh, res);
+    if (tid < kRowWords) words[kRowWords * k + tid] = res[tid];
+    if (cand_R != nullptr) {
+      score_row<kIcpThreads>(a, kCount, cand_R, cand_t, nullptr, 0, ws,
+                             ws + rw, sh, res);
       if (tid < kRowWords) words[kRowWords * K + tid] = res[tid];
-      if (GOICP_REFINE_STOP != 2 || rp->L < 0)
-        refine_arrive(*rp, rr, dyn_smem);
     }
+    if (full) row_arrive(ticket, cand_R != nullptr ? 2 : 1, K, words,
+                         dyn_smem, pk);
   }
 }
 
 __global__ void __launch_bounds__(kIcpThreads)
     icp_run_kernel(const __grid_constant__ IcpParams p) {
-  icp_event<false>(p, nullptr);
+  icp_event<kRouteRun, int>(p, nullptr);
 }
 
 __global__ void __launch_bounds__(kIcpThreads)
     icp_refine_kernel(const __grid_constant__ IcpParams p,
                       const __grid_constant__ RefineParams rp) {
-  icp_event<true>(p, &rp);
+  icp_event<kRouteRefine>(p, &rp);
+}
+
+__global__ void __launch_bounds__(kIcpThreads)
+    icp_init_kernel(const __grid_constant__ IcpParams p,
+                    const __grid_constant__ InitParams ip) {
+  icp_event<kRouteInit>(p, &ip);
 }
 
 }  // namespace goicp
@@ -1096,5 +1195,82 @@ extern "C" int goicp_icp_refine(const unsigned long long* slots,
     err = cudaLaunchKernelEx(&cfg, icp_refine_kernel, p, rp);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The initial route: a pair's initial incumbent in one launch (grid: K
+// clusters of C blocks, as goicp_icp_run sizes them, each seed k's ICP
+// event from R0[k], t0[k] and its rescoring; one more cluster whose block
+// 0 computes the initial error; the last of the K + 1 arrivals picks with
+// route kInit).  slots, floats: the pair's rescoring block as goicp_score
+// takes it (15 pointers; 4 floats, then err_diff); ints: its 13 ints,
+// then K, L (unused), M, max_iter, mode, icp_padded, icp_count, as
+// goicp_icp_refine takes them; model (M, 3), R0 (K, 3, 3), t0 (K, 3);
+// out: PickOut's 7 pointers (opt_R, opt_t, opt_err, terms, comp, unused,
+// last_icp); words refine_row_words(K) floats and ticket (one word, 0)
+// in device memory; workspace (K + 1) * (10 Nd + 4 M) floats in device
+// memory (one block a row), or null for shared memory.
+extern "C" int goicp_icp_init(const unsigned long long* slots,
+                              const int* ints, const float* floats,
+                              const float* model, const float* R0,
+                              const float* t0,
+                              const unsigned long long* out, float* words,
+                              void* ticket, float* workspace, void* stream) {
+  using namespace goicp;
+  const ScoreArgs a = score_args(slots, ints, floats);
+  const int K = ints[13], m = ints[15], nd = a.nd, mode = ints[17];
+  if (nd <= 0 || m <= 0 || K <= 0 || mode < kModeAll || mode > kModeDynTrim ||
+      out == nullptr || words == nullptr || ticket == nullptr ||
+      model == nullptr || R0 == nullptr || t0 == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t staged = refine_row_words(K);
+  int c = 1;
+  size_t ws_words = 0;
+  if (workspace == nullptr) {
+    c = (nd + kIcpPointsPerBlock - 1) / kIcpPointsPerBlock;
+    if (c > kIcpClusterMax) c = kIcpClusterMax;
+    if (4 * icp_workspace_words(nd, m, c) > kIcpSmemMax) c = 1;
+    ws_words = static_cast<size_t>(icp_workspace_words(nd, m, c));
+  }
+  const size_t smem = 4 * std::max(ws_words, staged);
+  if (smem > kIcpSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  static size_t granted = 0;
+  cudaError_t err = allow_smem(icp_init_kernel, smem, &granted);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  IcpParams p = {};
+  p.data = a.data;
+  p.model = model;
+  p.R0 = R0;
+  p.t0 = t0;
+  p.data_mask = ints[18] ? a.mask : nullptr;
+  p.count = ints[19] ? a.counts + 1 : nullptr;
+  p.workspace = workspace;
+  p.nd = nd;
+  p.m = m;
+  p.inlier_num = a.inlier_num;
+  p.max_iter = ints[16];
+  p.mode = mode;
+  p.cluster = c;
+  p.err_diff = floats[4];
+  InitParams ip;
+  ip.a = a;
+  ip.out = pick_out(out);
+  ip.words = words;
+  ip.ticket = static_cast<unsigned*>(ticket);
+  ip.K = K;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.gridDim = dim3(static_cast<unsigned>((K + 1) * c));
+  cfg.blockDim = dim3(kIcpThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, icp_init_kernel, p, ip);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,15 +1,26 @@
 // score_body: the rescoring of one row and the pick's rules, shared by
 // csrc/score.cu (the rescoring, the pick, the seeds) and csrc/icp.cu (the
-// refine route, which rescoring and picks inside the ICP event's launch),
-// so that both compile the same bodies and give the same bits.
+// refine and initial routes, which rescore and pick inside the ICP
+// event's launch), so that both compile the same bodies and give the same
+// bits.
 //
-//   score_row     one row's rescoring by a whole block (score.cu's head
-//                 sets out its steps), for a block of kThreads threads;
-//   sorts_before  the seeds' order: a stable ascending sort, NaN last;
-//   first_min     the pick's rule, torch.argmin's (the first NaN first);
-//   pick_write    the winner written where the route writes;
-//   dummy_row     a refine record's row that did not refine.
+//   score_row          one row's rescoring by a whole block (score.cu's
+//                      head sets out its steps), for a block of kThreads
+//                      threads;
+//   score_row_cluster  the same row's rescoring (kFull, with the BnB
+//                      candidate's count beside it where asked) by the C
+//                      blocks of a thread-block cluster, each block the
+//                      points of its share: icp.cu's routes after the ICP
+//                      loop, whose blocks each hold the whole row;
+//   sorts_before       the seeds' and the trimmed ranks' order: a stable
+//                      ascending sort, NaN last (torch.sort's);
+//   first_min          the pick's rule, torch.argmin's (the first NaN
+//                      first);
+//   pick_write         the winner written where the route writes;
+//   dummy_row          a refine record's row that did not refine.
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include "common.cuh"
 #include "fp32_order.cuh"
@@ -23,6 +34,7 @@ constexpr int kPick = 0, kInit = 1;            // goicp_score_pick's routes
 constexpr int kNoTrim = 0, kStaticTrim = 1, kDynamicTrim = 2;
 constexpr int kPickCluster = 8;   // the portable cluster size
 constexpr int kRowWords = 7;      // a row's result (RowOut)
+constexpr int kScoreClusterMax = 8;   // blocks of score_row_cluster's cluster
 
 // the pair's tensors and the configuration, as the wrapper's slot block
 // lays them out (bounds/error.py::_score_args)
@@ -54,15 +66,192 @@ struct ScoreArgs {
 // error in word 0
 enum RowOut { kErr, kGeom, kIncTerm, kFpfhTerm, kNbrTerm, kBnb, kInc };
 
-// the block's integer counts and the c-FPFH mean of a row
+// the block's integer counts (the cluster form: and the candidate's) and
+// the c-FPFH mean of a row
 struct RowShared {
-  int incomp, nbr, bnb;
+  int incomp, nbr, bnb, cand;
   float fp;
 };
 
 // dynamic shared memory a row needs: its values and their ranked copy
 __host__ __forceinline__ size_t score_smem(int nd) {
   return 2 * region_words(static_cast<size_t>(nd)) * sizeof(float);
+}
+
+// does (v, q) come before (u, i) in a stable ascending sort with NaN last
+// (torch.sort's order)?  The seeds' lanes and the trimmed ranks.
+__device__ __forceinline__ bool sorts_before(float v, int q, float u, int i) {
+  if (v != v) return u != u && q < i;
+  if (u != u) return true;
+  return v < u || (v == u && q < i);
+}
+
+// Step 1 of a row for point i (score.cu's head): the value the sum takes
+// (modes kFull, kInitial) and the point's integer counts added to incomp,
+// nbr and bnb; j the point's correspondence (kFull).  r, shift: the
+// transform in registers (the identity and 0 for kInitial).  data: the
+// pair's (Nd, 3) points, a.data or a copy in shared memory.
+__device__ __forceinline__ float score_point(const ScoreArgs& a,
+                                             const GridConsts& g, int mode,
+                                             const float* r,
+                                             const float* shift,
+                                             const float* data, int i,
+                                             long long j, int& incomp,
+                                             int& nbr, int& bnb) {
+  const bool full = mode == kFull, initial = mode == kInitial;
+  const bool trimmed = a.trim != kNoTrim;
+  float p[3], q[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) p[c] = data[3 * i + c];
+  if (initial) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) q[c] = p[c];
+  } else {
+    rotate_point(r, p, q);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) q[c] = __fadd_rn(q[c], shift[c]);
+  }
+  int cl[3];
+  float ex[3];
+  bool oob = false;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float raw = truncf(__fadd_rn(
+        __fmul_rn(__fsub_rn(q[c], g.lo[c]), g.scale), 0.5f));
+    const int ri = static_cast<int>(raw);
+    cl[c] = min(max(ri, 0), g.size - 1);
+    ex[c] = ri < 0 ? static_cast<float>(ri)
+                   : (ri >= g.size ? static_cast<float>(ri - g.size + 1)
+                                   : 0.0f);
+    oob = oob || ri < 0 || ri >= g.size;
+  }
+  const int vox = flat_voxel(cl[0], cl[1], cl[2], g.size);
+  const float m = __ldg(a.mask + i);
+  const bool real = m != 0.0f;
+  float v = 0.0f;
+  if (mode != kCount) {
+    float d = __ldg(a.dist + vox);
+    if (oob) {
+      const float s = __fadd_rn(
+          __fadd_rn(__fmul_rn(ex[0], ex[0]), __fmul_rn(ex[1], ex[1])),
+          __fmul_rn(ex[2], ex[2]));
+      d = __fadd_rn(d, __fdiv_rn(__fsqrt_rn(s), g.scale));
+    }
+    // the rescoring's trim drops the weights (the reference's quirk)
+    v = trimmed && !initial ? d : __fmul_rn(__ldg(a.weights + i), d);
+    if (trimmed && !(m > 0.0f)) v = __int_as_float(0x7f800000);
+  }
+  if (mode != kInitial) {
+    const int cell = __ldg(a.nearest + vox);
+    bnb += real && !a.table[static_cast<size_t>(i) * a.n_cells + cell];
+  }
+  if (full) {
+    const int dp = __ldg(a.data_props + i);
+    const int mp = __ldg(a.model_props + j);
+    incomp += real && !a.compat[dp * a.n_props + mp];
+    if (a.nbr_on && real)
+      nbr += abs(__ldg(a.data_nbrs + i) - __ldg(a.model_nbrs + j));
+  }
+  return v;
+}
+
+// Step 2's per-point value: the c-FPFH distance of point i to its
+// correspondence j by the calling warp (lane b adds |f_d[b] - f_m[b]| for
+// b = lane, lane + 32, ..., the xor butterfly), times the mask; every lane
+// gets it.
+__device__ __forceinline__ float fpfh_point(const ScoreArgs& a, int i,
+                                            long long j) {
+  const int lane = threadIdx.x & 31;
+  const float* fd = a.data_fpfh + static_cast<size_t>(i) * a.bins;
+  const float* fm = a.model_fpfh + static_cast<size_t>(j) * a.bins;
+  float acc = 0.0f;
+  for (int b = lane; b < a.bins; b += 32)
+    acc = __fadd_rn(acc, fabsf(__fsub_rn(__ldg(fd + b), __ldg(fm + b))));
+  return __fmul_rn(warp_sum(acc), __ldg(a.mask + i));
+}
+
+// the kept-set size where the rescoring ranks its values: counts[1]
+// (dynamic K) or inlier_num, and whether it ranks at all (a static K not
+// below Nd takes the values unsorted, as trimmed_smallest does)
+__device__ __forceinline__ bool score_ranks(const ScoreArgs& a, int mode) {
+  return mode != kCount && a.trim != kNoTrim &&
+         (a.trim == kDynamicTrim || a.inlier_num < a.nd);
+}
+
+__device__ __forceinline__ float score_keep_below(const ScoreArgs& a,
+                                                  int mode) {
+  if (mode == kCount || a.trim == kNoTrim) return static_cast<float>(a.nd);
+  return a.trim == kDynamicTrim ? __ldg(a.counts + 1)
+                                : static_cast<float>(a.inlier_num);
+}
+
+// value v of point i's stable rank among vals[0, nd) counted over j = g,
+// g + G, ... (G threads a point add their counts)
+__device__ __forceinline__ int rank_part(const float* vals, int nd, float v,
+                                         int i, int g, int G) {
+  const bool vn = v != v;
+  int rank = 0;
+  for (int j = g; j < nd; j += G) {
+    const float u = vals[j];
+    rank += vn ? (u == u || j < i) : (u < v || (u == v && j < i));
+  }
+  return rank;
+}
+
+// Steps 4 and 5 by warp 0 (every thread calls it): the sum of f(v) over
+// kept[0, nd) in the warp order, positions below keep_below, then the
+// terms in the torch bodies' order into res; kCount: the BnB count
+__device__ __forceinline__ void score_terms(const ScoreArgs& a, int mode,
+                                            const float* kept,
+                                            float keep_below, float nd_f,
+                                            const RowShared& sh, float* res) {
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x >= 32) return;
+  if (mode == kCount) {
+    if (lane == 0) res[kBnb] = __int_as_float(sh.bnb);
+    return;
+  }
+  const bool initial = mode == kInitial;
+  const bool square = a.norm == 2 || (a.trim != kNoTrim && !initial);
+  float acc = 0.0f;
+  for (int i = lane; i < a.nd; i += 32) {
+    const float v = kept[i];
+    const float fv = square ? __fmul_rn(v, v) : v;
+    acc = __fadd_rn(acc, static_cast<float>(i) < keep_below ? fv : 0.0f);
+  }
+  const float geom = warp_sum(acc);
+  if (lane != 0) return;
+  if (initial) {
+    float err = geom;
+    if (a.reg_on) err = __fadd_rn(err, __fmul_rn(__fmul_rn(a.reg, nd_f), nd_f));
+    if (a.seed_fpfh_on) err = __fadd_rn(err, a.seed_fpfh);
+    if (a.nbr_on) {
+      const float six = __fmul_rn(6.0f, nd_f);
+      err = __fadd_rn(err, __fmul_rn(__fmul_rn(a.reg_nbr, six), six));
+    }
+    res[kErr] = err;
+    return;
+  }
+  const float inc = static_cast<float>(sh.incomp);
+  const float nb = static_cast<float>(sh.nbr);
+  const float nbr_term =
+      a.nbr_on ? __fmul_rn(__fmul_rn(a.reg_nbr, nb), nb) : 0.0f;
+  const float incomp_term =
+      a.reg_on ? __fmul_rn(__fmul_rn(a.reg, inc), inc) : 0.0f;
+  const float fpfh_term =
+      a.fpfh_on ? __fmul_rn(__fmul_rn(a.reg_fpfh, sh.fp), sh.fp) : 0.0f;
+  res[kErr] = __fadd_rn(__fadd_rn(__fadd_rn(geom, nbr_term), incomp_term),
+                        fpfh_term);
+  res[kGeom] = geom;
+  res[kIncTerm] = incomp_term;
+  res[kFpfhTerm] = fpfh_term;
+  res[kNbrTerm] = nbr_term;
+  res[kInc] = inc;
+  res[kBnb] = __int_as_float(sh.bnb);
+}
+
+__device__ __forceinline__ float score_nd(const ScoreArgs& a) {
+  return a.dynamic ? __ldg(a.counts) : static_cast<float>(a.n_data);
 }
 
 // One row's score by the whole block of kThreads threads (every thread
@@ -84,97 +273,40 @@ __device__ __forceinline__ void score_row(const ScoreArgs& a, int mode,
   if (tid == 0) sh.incomp = sh.nbr = sh.bnb = 0;
   __syncthreads();
 
-  const bool full = mode == kFull, initial = mode == kInitial;
-  const bool trimmed = a.trim != kNoTrim;
+  const bool full = mode == kFull;
   float r[9] = {1.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f, 1.0f};
   float shift[3] = {0.0f, 0.0f, 0.0f};
-  if (!initial) {
+  if (mode != kInitial) {
 #pragma unroll
     for (int i = 0; i < 9; ++i) r[i] = R[i];
 #pragma unroll
     for (int i = 0; i < 3; ++i) shift[i] = t[i];
   }
   const GridConsts g = load_consts(a.consts);
-  const float inf = __int_as_float(0x7f800000);
   const long long* nn64 = static_cast<const long long*>(nn);
   const int* nn32 = static_cast<const int*>(nn);
+  auto nn_of = [&](int i) -> long long {
+    return full ? (nn_wide ? nn64[i] : nn32[i]) : 0;
+  };
 
   // 1. the points
   int incomp = 0, nbr = 0, bnb = 0;
   for (int i = tid; i < nd; i += kThreads) {
-    float p[3], q[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) p[c] = __ldg(a.data + 3 * i + c);
-    if (initial) {
-#pragma unroll
-      for (int c = 0; c < 3; ++c) q[c] = p[c];
-    } else {
-      rotate_point(r, p, q);
-#pragma unroll
-      for (int c = 0; c < 3; ++c) q[c] = __fadd_rn(q[c], shift[c]);
-    }
-    int cl[3];
-    float ex[3];
-    bool oob = false;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const float raw = truncf(__fadd_rn(
-          __fmul_rn(__fsub_rn(q[c], g.lo[c]), g.scale), 0.5f));
-      const int ri = static_cast<int>(raw);
-      cl[c] = min(max(ri, 0), g.size - 1);
-      ex[c] = ri < 0 ? static_cast<float>(ri)
-                     : (ri >= g.size ? static_cast<float>(ri - g.size + 1)
-                                     : 0.0f);
-      oob = oob || ri < 0 || ri >= g.size;
-    }
-    const int vox = flat_voxel(cl[0], cl[1], cl[2], g.size);
-    const float m = __ldg(a.mask + i);
-    const bool real = m != 0.0f;
-    if (mode != kCount) {
-      float d = __ldg(a.dist + vox);
-      if (oob) {
-        const float s = __fadd_rn(
-            __fadd_rn(__fmul_rn(ex[0], ex[0]), __fmul_rn(ex[1], ex[1])),
-            __fmul_rn(ex[2], ex[2]));
-        d = __fadd_rn(d, __fdiv_rn(__fsqrt_rn(s), g.scale));
-      }
-      // the rescoring's trim drops the weights (the reference's quirk)
-      float v = trimmed && !initial ? d : __fmul_rn(__ldg(a.weights + i), d);
-      if (trimmed && !(m > 0.0f)) v = inf;
-      vals[i] = v;
-    }
-    if (mode != kInitial) {
-      const int cell = __ldg(a.nearest + vox);
-      bnb += real && !a.table[static_cast<size_t>(i) * a.n_cells + cell];
-    }
-    if (full) {
-      const long long j = nn_wide ? nn64[i] : nn32[i];
-      const int dp = __ldg(a.data_props + i);
-      const int mp = __ldg(a.model_props + j);
-      incomp += real && !a.compat[dp * a.n_props + mp];
-      if (a.nbr_on && real)
-        nbr += abs(__ldg(a.data_nbrs + i) - __ldg(a.model_nbrs + j));
-    }
+    const float v = score_point(a, g, mode, r, shift, a.data, i, nn_of(i),
+                                incomp, nbr, bnb);
+    if (mode != kCount) vals[i] = v;
   }
   if (incomp) atomicAdd(&sh.incomp, incomp);
   if (nbr) atomicAdd(&sh.nbr, nbr);
   if (bnb) atomicAdd(&sh.bnb, bnb);
   __syncthreads();
-
-  const float nd_f =
-      a.dynamic ? __ldg(a.counts) : static_cast<float>(a.n_data);
+  const float nd_f = score_nd(a);
 
   // 2. the c-FPFH term: a warp a point, then one warp over the points
   if (full && a.fpfh_on) {
     for (int i = warp; i < nd; i += kThreads / 32) {
-      const long long j = nn_wide ? nn64[i] : nn32[i];
-      const float* fd = a.data_fpfh + static_cast<size_t>(i) * a.bins;
-      const float* fm = a.model_fpfh + static_cast<size_t>(j) * a.bins;
-      float acc = 0.0f;
-      for (int b = lane; b < a.bins; b += 32)
-        acc = __fadd_rn(acc, fabsf(__fsub_rn(__ldg(fd + b), __ldg(fm + b))));
-      acc = warp_sum(acc);
-      if (lane == 0) buf[i] = __fmul_rn(acc, __ldg(a.mask + i));
+      const float f = fpfh_point(a, i, nn_of(i));
+      if (lane == 0) buf[i] = f;
     }
     __syncthreads();
     if (warp == 0) {
@@ -188,70 +320,150 @@ __device__ __forceinline__ void score_row(const ScoreArgs& a, int mode,
 
   // 3. the trimmed selection: each value at its rank
   const float* kept = vals;
-  float keep_below = static_cast<float>(nd);   // positions kept: < this
-  if (mode != kCount && trimmed) {
-    keep_below = a.trim == kDynamicTrim ? __ldg(a.counts + 1)
-                                        : static_cast<float>(a.inlier_num);
-    if (a.trim == kDynamicTrim || a.inlier_num < nd) {
-      for (int i = tid; i < nd; i += kThreads) {
-        const float v = vals[i];
-        int rank = 0;
-        for (int j = 0; j < nd; ++j) {
-          const float u = vals[j];
-          rank += u < v || (u == v && j < i);
-        }
-        buf[rank] = v;
-      }
-      __syncthreads();
-      kept = buf;
+  if (score_ranks(a, mode)) {
+    for (int i = tid; i < nd; i += kThreads) {
+      const float v = vals[i];
+      buf[rank_part(vals, nd, v, i, 0, 1)] = v;
     }
+    __syncthreads();
+    kept = buf;
   }
 
   // 4. and 5. the sum in the warp order, then the terms (warp 0)
-  if (warp == 0) {
-    if (mode == kCount) {
-      if (lane == 0) res[kBnb] = __int_as_float(sh.bnb);
+  score_terms(a, mode, kept, score_keep_below(a, mode), nd_f, sh, res);
+  __syncthreads();
+}
+
+// The cluster form of score_row, mode kFull (csrc/icp.cu's routes after
+// the ICP loop, every thread of the cluster's c blocks calls it): block
+// `rank` takes the points of its share [lo, lo + nb), the share it took in
+// the loop.  Each block holds the row's correspondences (the loop's last
+// (d2, NN index) pairs, `last`, NULL where no iteration ran: index 0), the
+// points (data: a.data or a copy in shared memory) and its own vals, buf
+// and fpv (Nd words each, shared memory, at the same offsets in every
+// block); block 0's hold the row.  There is no barrier on entry: vals,
+// buf and fpv must lie in words no block reads after its arrival at the
+// ICP loop's last barrier (icp.cu's epilogue), which every block passes
+// before this.
+//   - Step 1 for the share, each point's value sent to block 0's vals
+//     (to every block's where the values are ranked), the integer counts
+//     as the block's partials to block 0's parts; with cand_R, the BnB
+//     candidate's count at (cand_R, cand_t) beside it, a fourth partial
+//     (R, t, cand_R and cand_t read at each point, not held in registers).
+//     The c-FPFH values a warp a point into block 0's fpv.  A barrier.
+//   - Ranked (score_ranks): each share point's stable rank, G threads a
+//     point over the block's own vals (G the largest power of two <= 32
+//     with the share's G threads a point in the block), the value written
+//     at its rank into block 0's buf.  A barrier.
+//   - Block 0 adds the partials (integers: exact in any order) and forms
+//     the c-FPFH mean, the sum and the terms as score_row does, in the
+//     same orders: the same bits.  It returns true, holding the row in res
+//     (and the candidate's count in cand_res[kBnb]); the other blocks
+//     return false, and no block reads or writes another's shared memory
+//     after the last barrier.
+// kStop (bench/refine_stops.py's stop points; a.nd >= 0 keeps the
+// compiler from folding them): 2 returns false after the values' barrier,
+// 3 after the ranks'.
+template <int kThreads, int kStop = 99>
+__device__ __forceinline__ bool score_row_cluster(
+    const ScoreArgs& a, const float* R, const float* t, const float2* last,
+    const float* data, const float* cand_R, const float* cand_t, int c,
+    int rank, int lo, int nb, float* vals, float* buf, float* fpv,
+    RowShared& sh, float* res, float* cand_res) {
+  namespace cg = cooperative_groups;
+  __shared__ int parts[kScoreClusterMax][4];     // block 0's: the partials
+  cg::cluster_group cluster = cg::this_cluster();
+  const int nd = a.nd;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool ranked = score_ranks(a, kFull), count = cand_R != nullptr;
+  if (tid == 0) sh.incomp = sh.nbr = sh.bnb = sh.cand = 0;
+  const GridConsts g = load_consts(a.consts);
+  auto nn_of = [&](int i) -> long long {
+    return last == nullptr ? 0 : __float_as_int(last[i].y);
+  };
+  __syncthreads();
+
+  // 1. the share's points (and the candidate's count)
+  int incomp = 0, nbr = 0, bnb = 0, cand = 0, unused = 0;
+  for (int i = lo + tid; i < lo + nb; i += kThreads) {
+    const float v = score_point(a, g, kFull, R, t, data, i, nn_of(i),
+                                incomp, nbr, bnb);
+    if (ranked) {
+      for (int q = 0; q < c; ++q) cluster.map_shared_rank(vals, q)[i] = v;
     } else {
-      const bool square = a.norm == 2 || (trimmed && !initial);
-      float acc = 0.0f;
-      for (int i = lane; i < nd; i += 32) {
-        const float v = kept[i];
-        const float fv = square ? __fmul_rn(v, v) : v;
-        acc = __fadd_rn(acc, static_cast<float>(i) < keep_below ? fv : 0.0f);
-      }
-      const float geom = warp_sum(acc);
-      if (lane == 0 && initial) {
-        float err = geom;
-        if (a.reg_on)
-          err = __fadd_rn(err, __fmul_rn(__fmul_rn(a.reg, nd_f), nd_f));
-        if (a.seed_fpfh_on) err = __fadd_rn(err, a.seed_fpfh);
-        if (a.nbr_on) {
-          const float six = __fmul_rn(6.0f, nd_f);
-          err = __fadd_rn(err, __fmul_rn(__fmul_rn(a.reg_nbr, six), six));
-        }
-        res[kErr] = err;
-      } else if (lane == 0) {
-        const float inc = static_cast<float>(sh.incomp);
-        const float nb = static_cast<float>(sh.nbr);
-        const float nbr_term =
-            a.nbr_on ? __fmul_rn(__fmul_rn(a.reg_nbr, nb), nb) : 0.0f;
-        const float incomp_term =
-            a.reg_on ? __fmul_rn(__fmul_rn(a.reg, inc), inc) : 0.0f;
-        const float fpfh_term =
-            a.fpfh_on ? __fmul_rn(__fmul_rn(a.reg_fpfh, sh.fp), sh.fp)
-                      : 0.0f;
-        res[kErr] = __fadd_rn(
-            __fadd_rn(__fadd_rn(geom, nbr_term), incomp_term), fpfh_term);
-        res[kGeom] = geom;
-        res[kIncTerm] = incomp_term;
-        res[kFpfhTerm] = fpfh_term;
-        res[kNbrTerm] = nbr_term;
-        res[kInc] = inc;
-        res[kBnb] = __int_as_float(sh.bnb);
-      }
+      cluster.map_shared_rank(vals, 0)[i] = v;
+    }
+    if (count)
+      score_point(a, g, kCount, cand_R, cand_t, data, i, 0, unused, unused,
+                  cand);
+  }
+  if (incomp) atomicAdd(&sh.incomp, incomp);
+  if (nbr) atomicAdd(&sh.nbr, nbr);
+  if (bnb) atomicAdd(&sh.bnb, bnb);
+  if (cand) atomicAdd(&sh.cand, cand);
+  if (a.fpfh_on) {
+    float* fp0 = cluster.map_shared_rank(fpv, 0);
+    for (int i = lo + warp; i < lo + nb; i += kThreads / 32) {
+      const float f = fpfh_point(a, i, nn_of(i));
+      if (lane == 0) fp0[i] = f;
     }
   }
   __syncthreads();
+  if (tid < 4) {
+    const int w = tid == 0 ? sh.incomp
+                           : (tid == 1 ? sh.nbr
+                                       : (tid == 2 ? sh.bnb : sh.cand));
+    cluster.map_shared_rank(&parts[0][0], 0)[4 * rank + tid] = w;
+  }
+  cluster.sync();
+  if (kStop == 2 && nd >= 0) return false;
+
+  // 3. the ranks, G threads a point
+  if (ranked) {
+    int g_log = 5;
+    while (g_log > 0 && (nb << g_log) > kThreads) --g_log;
+    const int G = 1 << g_log, slots = kThreads >> g_log;
+    const int slot = tid >> g_log, gi = tid & (G - 1);
+    float* buf0 = cluster.map_shared_rank(buf, 0);
+    for (int base = 0; base < nb; base += slots) {
+      const int li = base + slot, i = lo + li;
+      const float v = li < nb ? vals[i] : 0.0f;
+      int rk = li < nb ? rank_part(vals, nd, v, i, gi, G) : 0;
+      for (int off = G >> 1; off > 0; off >>= 1)
+        rk += __shfl_xor_sync(0xffffffffu, rk, off);
+      if (li < nb && gi == 0) buf0[rk] = v;
+    }
+    cluster.sync();
+  }
+  if (kStop == 3 && nd >= 0) return false;
+  if (rank != 0) return false;
+
+  // 4. block 0: the partials, the c-FPFH mean, the sum and the terms
+  if (tid == 0) {
+    int s[4] = {0, 0, 0, 0};
+    for (int q = 0; q < c; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[e] += parts[q][e];
+    sh.incomp = s[0];
+    sh.nbr = s[1];
+    sh.bnb = s[2];
+    sh.cand = s[3];
+  }
+  __syncthreads();
+  const float nd_f = score_nd(a);
+  if (a.fpfh_on && warp == 0) {
+    float acc = 0.0f;
+    for (int i = lane; i < nd; i += 32) acc = __fadd_rn(acc, fpv[i]);
+    acc = warp_sum(acc);
+    if (lane == 0) sh.fp = __fdiv_rn(acc, nd_f);
+  }
+  __syncthreads();
+  score_terms(a, kFull, ranked ? buf : vals, score_keep_below(a, kFull),
+              nd_f, sh, res);
+  if (count && tid < kRowWords)
+    cand_res[tid] = tid == kBnb ? __int_as_float(sh.cand) : 0.0f;
+  __syncthreads();
+  return true;
 }
 
 // where the pick writes: the refine record's fields at row j (kPick), or
@@ -361,14 +573,6 @@ __device__ __forceinline__ void pick_write(const PickArgs& p,
   o.terms[1] = better ? inc_nbr : 0.0f;
   o.terms[2] = better ? w[kFpfhTerm] : 0.0f;
   o.flag[0] = better;
-}
-
-// does (v, lane q) come before (u, lane i) in a stable ascending sort with
-// NaN last?
-__device__ __forceinline__ bool sorts_before(float v, int q, float u, int i) {
-  if (v != v) return u != u && q < i;
-  if (u != u) return true;
-  return v < u || (v == u && q < i);
 }
 
 // row r of a refine record set to the dummy of a row that did not refine

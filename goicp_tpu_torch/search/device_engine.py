@@ -90,7 +90,7 @@ def _initial_incumbent(pair: PairData, cfg: GoICPConfig):
     """Initial incumbent: identity error + chem worst-case seeds, then ICP
     from identity (and, with cfg.init_seeds > 1, from K-1 coarse rotations
     too, adopting the best): search/pick.py's initial_incumbent, on the
-    card two launches and no host read.
+    card one launch of csrc/icp.cu's initial route and no host read.
     Returns (opt_err0, opt_R0, opt_t0, comp0, terms0, better0)."""
     o = pick.initial_incumbent(pair, cfg)
     return (o["opt_err"], o["opt_R"], o["opt_t"], o["comp"], o["terms"],

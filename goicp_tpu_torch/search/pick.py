@@ -29,14 +29,18 @@ csrc/score_body.cuh):
                  (torch.argmin), the candidate's BnB count, all written
                  into row j of the refine record.
 
-The initial incumbent is icp_run and score_initial (route kInit of
-goicp_score_pick: the same rescoring, the initial error and the
-incumbent _initial_incumbent forms from them, written into new state
-tensors): two launches and no host read.  The *_plain twins are the
-torch bodies the engines ran before (argsort and gathers; rescore,
-argmin and the picks by index), the CPU's route and the kernels'
-yardstick: the same bits.  There is no other fallback: a failed build or
-launch raises, and a tensor outside the kernels' envelope raises
+The initial incumbent (initial_incumbent) is, on the card, one launch of
+csrc/icp.cu's initial route (icp_init, goicp_icp_init): K clusters run
+the ICP event from the K starts of init_seeds and rescore their results,
+one more block computes the initial error beside them, and the last
+arrival forms the incumbent _initial_incumbent forms (pick_write's route
+kInit), written into the state's tensors; no host read.  score_initial
+(goicp_score_pick's route kInit after icp_run's launch, the two launches
+the initial route replaced) stays as the shared body's check.  The
+*_plain twins are the torch bodies the engines ran before (argsort and
+gathers; rescore, argmin and the picks by index), the CPU's route and the
+kernels' yardstick: the same bits.  There is no other fallback: a failed
+build or launch raises, and a tensor outside the kernels' envelope raises
 ValueError.
 """
 
@@ -202,10 +206,24 @@ def score_initial_plain(pair: PairData, cfg: GoICPConfig, R: torch.Tensor,
         last_icp=better0)
 
 
-_INITIAL = (("opt_R", (3, 3), _F32), ("opt_t", (3,), _F32),
-            ("opt_err", (), _F32), ("terms", (3,), _F32),
-            ("comp", (), _I32), (None, None, None),
-            ("last_icp", (), torch.bool))      # in PickOut's order
+# PickOut's fields, in its order (None: bnb, which the initial route
+# does not write)
+_PICK_OUT = ("opt_R", "opt_t", "opt_err", "terms", "comp", None, "last_icp")
+
+
+def incumbent_tensors(dev) -> tuple:
+    """(an initial incumbent's tensors on dev in the state's order, the
+    PickOut pointers the kernels write them by): views of one 18-word
+    allocation, each field in words of its own."""
+    buf = torch.empty((18,), dtype=_F32, device=dev)
+    out = dict(opt_err=buf[12], opt_R=buf[:9].view(3, 3), opt_t=buf[9:12],
+               comp=buf[16].view(_I32), terms=buf[13:16],
+               last_icp=buf[17:].view(torch.uint8)[0].view(torch.bool))
+    ptrs = (ctypes.c_ulonglong * len(_PICK_OUT))(
+        *(0 if k is None else out[k].data_ptr() for k in _PICK_OUT))
+    return out, ptrs
+
+
 _tickets: dict = {}     # device -> (rows (K + 1) * 7 float32, ticket int32)
 
 
@@ -274,19 +292,17 @@ def score_initial(pair: PairData, cfg: GoICPConfig, R: torch.Tensor,
     ICP event's K results: new tensors opt_err, opt_R, opt_t, comp,
     terms, last_icp (the initial error's where no seed beats it).  On the
     card one launch of goicp_score_pick (route kInit,
-    score_initial.launches), else score_initial_plain."""
+    score_initial.launches), else score_initial_plain.  The engines'
+    initial incumbents take the initial route (icp_init), which computes
+    this in the ICP event's launch; this stays as the shared body's
+    check and the second yardstick's tail."""
     if not _on_card(pair.data, R, t):
         return score_initial_plain(pair, cfg, R, t, nn_idx)
-    dev = pair.device
-    out = {k: torch.empty(shape, dtype=dt, device=dev)
-           for k, shape, dt in _INITIAL if k is not None}
-    ptrs = (ctypes.c_ulonglong * len(_INITIAL))(
-        *(0 if k is None else out[k].data_ptr() for k, _, _ in _INITIAL))
+    out, ptrs = incumbent_tensors(pair.device)
     _pick_launch(pair, cfg, R, t, nn_idx, None, None, ptrs, 0, INIT,
                  "score_initial")
     score_initial.launches += 1
-    return {k: out[k] for k in ("opt_err", "opt_R", "opt_t", "comp",
-                                "terms", "last_icp")}
+    return out
 
 
 score_initial.launches = 0
@@ -504,13 +520,96 @@ def init_seeds(K: int, dev) -> tuple:
     return _init_seeds[key]
 
 
+def initial_incumbent_plain(pair: PairData, cfg: GoICPConfig) -> dict:
+    """initial_incumbent as the plain composition (icp_run_plain from
+    init_seeds' starts, then score_initial_plain): the CPU's route and the
+    initial route's yardstick."""
+    K = _init_K(cfg)
+    R0, t0 = init_seeds(K, pair.device)
+    r = icp_run_plain(pair.data, pair.model, R0, t0, **icp_kw(pair, cfg))
+    return score_initial_plain(pair, cfg, r.R, r.t, r.nn_idx)
+
+
+def initial_incumbent_by_launches(pair: PairData, cfg: GoICPConfig) -> dict:
+    """initial_incumbent as the two launches the initial route replaced
+    (icp_run, then score_initial: goicp_score_pick's route kInit); each
+    the plain route on the CPU.  Kept as the initial route's second
+    yardstick and for the measurements."""
+    K = _init_K(cfg)
+    R0, t0 = init_seeds(K, pair.device)
+    r = icp_run(pair.data, pair.model, R0, t0, **icp_kw(pair, cfg))
+    return score_initial(pair, cfg, r.R, r.t, r.nn_idx)
+
+
+def _init_K(cfg: GoICPConfig) -> int:
+    return max(1, min(int(cfg.init_seeds), len(INIT_SEED_RV)))
+
+
+def _init_args(pair: PairData, cfg: GoICPConfig, K: int) -> tuple:
+    """The initial route's slot block for a pair and configuration: the
+    rescoring's (bounds/error.py::_score_args, kept on the pair) and the
+    ints and floats of goicp_icp_init, kept on the pair per configuration
+    and K while the pair holds the same tensors."""
+    args = _score_args(pair, cfg)
+    key = (cfg.norm, bool(cfg.doTrim), cfg.regularization,
+           cfg.regularizationNeighbors, cfg.regularizationFPFH, cfg.cfpfh,
+           cfg.icp_max_iter, cfg.err_diff, K)
+    cache = pair.__dict__.setdefault("_init_args", {})
+    got = cache.get(key)
+    if got is None or got[0] is not args or got[1] is not pair.model:
+        model = pair.model
+        M = pair.model.shape[0]
+        if model.dtype != _F32 or model.shape != (M, 3) \
+                or not model.is_contiguous() or model.device != pair.device:
+            raise ValueError(f"the initial route takes the model as a "
+                             f"contiguous float32 (M, 3) tensor on "
+                             f"{pair.device}, got {model.dtype} "
+                             f"{tuple(model.shape)} on {model.device}")
+        ints, floats = _refine_ints(cfg, pair, K, K)
+        got = (args, model, (ctypes.c_int * len(ints))(*ints),
+               (ctypes.c_float * len(floats))(*floats))
+        cache[key] = got
+    return got
+
+
+def icp_init(pair: PairData, cfg: GoICPConfig) -> dict:
+    """The initial route on the card: the pair's initial incumbent in new
+    tensors (incumbent_tensors), which it returns, in one launch of
+    goicp_icp_init (icp_init.launches) and no host read.  The launch's
+    buffers (its row's words and ticket, the ICP's device workspace where
+    the cloud does not fit a block's shared memory) are the pair's own, a
+    RefineRecord kept on it."""
+    K = _init_K(cfg)
+    dev = pair.device
+    R0, t0 = init_seeds(K, dev)
+    args, model, ints, floats = _init_args(pair, cfg, K)
+    out, ptrs = incumbent_tensors(dev)
+    nd, M = pair.n_data_padded, model.shape[0]
+    words = 10 * nd + 4 * M       # a row's one-block ICP workspace
+    record = pair.__dict__.get("_init_record")
+    if record is None:
+        record = pair.__dict__["_init_record"] = RefineRecord()
+    rows_ws, tickets = record.launch_buffers(K, dev)
+    ws = None if 4 * words <= ICP_SMEM_BYTES else \
+        record.workspace((K + 1) * words, dev)
+    _launch(kernels.goicp_icp_init(
+        args.slots, ints, floats, model.data_ptr(), R0.data_ptr(),
+        t0.data_ptr(), ptrs, rows_ws.data_ptr(), tickets.data_ptr(),
+        _ptr(ws), _stream(rows_ws)), "icp_init")
+    icp_init.launches += 1
+    return out
+
+
+icp_init.launches = 0
+
+
 def initial_incumbent(pair: PairData, cfg: GoICPConfig) -> dict:
     """The initial incumbent (device_engine._initial_incumbent): ICP from
     the identity and, with cfg.init_seeds > 1, from K - 1 coarse
     rotations too, the best seed adopted where it beats the initial
-    error.  On the card two launches (icp_run, score_initial) and no host
-    read."""
-    K = max(1, min(int(cfg.init_seeds), len(INIT_SEED_RV)))
-    R0, t0 = init_seeds(K, pair.device)
-    r = icp_run(pair.data, pair.model, R0, t0, **icp_kw(pair, cfg))
-    return score_initial(pair, cfg, r.R, r.t, r.nn_idx)
+    error: opt_err, opt_R, opt_t, comp, terms, last_icp, the tensors a
+    state holds.  On the card one launch of the initial route (icp_init)
+    and no host read; on the CPU initial_incumbent_plain."""
+    if not _on_card(pair.data):
+        return initial_incumbent_plain(pair, cfg)
+    return icp_init(pair, cfg)

@@ -476,7 +476,7 @@ def test_lane_wrappers_take_plain_versions_on_cpu():
                            "icp_run", "kabsch3", "inner_step", "inner_run",
                            "harvest", "advance", "score_kernel",
                            "icp_seeds", "score_pick", "score_initial",
-                           "icp_refine"}
+                           "icp_refine", "icp_init"}
     k3 = _k3_args(stacked, a, True)
     for g, w in zip(
             cuda_eval.geometric_bounds_kernel_lanes(*k3, size=size, norm=2),

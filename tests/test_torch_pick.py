@@ -1,18 +1,22 @@
 """The end of an ICP event (goicp_tpu_torch/search/pick.py: the seeds, the
 pick of the best seed with the candidate's count written into the refine
 record, the initial incumbent) and its kernels (csrc/score.cu's
-goicp_icp_seeds and goicp_score_pick), held on the CPU:
+goicp_icp_seeds and goicp_score_pick; csrc/icp.cu's refine and initial
+routes), held on the CPU:
 
   * the plain routes equal the JAX package's _icp_best_of_seeds (with
     bnb_incompatibility_count at the candidate) and _initial_incumbent
     on XLA:CPU, from numpy inputs made from a seed: indices and counts
     exactly, errors, transforms and terms to 1e-5 absolute; icp_seeds 1
-    and 4 (ubs with ties), init_seeds 1 and 4, untrimmed and a dynamic
-    trim;
+    and 4 (ubs with ties), init_seeds 1, 4 and 8, untrimmed, a dynamic
+    and a static trim;
   * the seeds' order (the kernel's rank by counting, NaN last) equals
     torch.argsort(stable=True)'s and JAX's lax.top_k(-ubs, K)'s on ubs
     with ties and inf, and the pick's first minimum (the kernel's rule)
     torch.argmin's and jnp.argmin's on errors with ties and NaN;
+  * the split rescoring's ranks (score_body.cuh's score_row_cluster: each
+    block its share of the points, G threads a point) are a stable
+    argsort's positions on ties, inf and NaN;
   * a refine record of several rows: the rows that refine equal a lone
     refinement, the others the dummy (transition.dummy_refine_rows'),
     whatever the record held before; a window of three rows from two
@@ -24,13 +28,16 @@ goicp_icp_seeds and goicp_score_pick), held on the CPU:
     a row holds other tensors, rows of other shapes refused;
   * register_device and a fused-stream window on short bench pairs give
     the reference rows (bench/reference_rows.jsonl) as before;
-  * CPU tensors take the plain routes and launch nothing.
+  * CPU tensors take the plain routes and launch nothing, the engines'
+    initialisation too.
 
 The `cuda` tests hold each kernel to its plain route on the card (they
-skip without one), and the refine route (csrc/icp.cu, one launch for a
+skip without one), the refine route (csrc/icp.cu, one launch for a
 transition's refining rows) to both the plain composition and the three
-launches a row it replaced, bit for bit; chip_smoke.py phase 2 does the
-same at the main path's shapes.
+launches a row it replaced, and the initial route (one launch an initial
+incumbent) to the plain composition and the two launches it replaced,
+bit for bit; chip_smoke.py phase 2 does the same at the main path's
+shapes.
 """
 
 import json
@@ -54,7 +61,9 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 BASE = dict(regularization=0.0005, ponderation=1, distTransSize=12)
 # configuration, data points, padded length, dynamic counts
 CASES = {"l2": (dict(), 48, None, False),
-         "dynamic trim": (dict(trimFraction=0.15), 48, 64, True)}
+         "dynamic trim": (dict(trimFraction=0.15), 48, 64, True),
+         "static trim": (dict(trimFraction=0.15), 48, None, False),
+         "one block": (dict(), 30, None, False)}     # C = 1 on the card
 TOL = 1e-5
 
 
@@ -136,7 +145,8 @@ def test_refinement_matches_jax(K, case):
     assert bool(rec["do_icp"][0])
 
 
-@pytest.mark.parametrize("K,case", [(1, "l2"), (4, "dynamic trim")])
+@pytest.mark.parametrize("K,case", [(1, "l2"), (4, "dynamic trim"),
+                                    (8, "static trim")])
 def test_initial_incumbent_matches_jax(K, case):
     from goicp_tpu.search import device_engine as jeng
     cfg, jcfg, tp, jp = pairs(case, init_seeds=K)
@@ -233,6 +243,62 @@ def test_first_min_model_is_argmin_with_ties_and_nan():
         got = first_min_model(err)
         assert got == int(torch.argmin(torch.from_numpy(err))), err
         assert got == int(jnp.argmin(jnp.asarray(err))), err
+
+
+def rank_before(u, j, v, i):
+    """score_body.cuh's rank_part term: does (u, j) come before (v, i) in
+    a stable ascending sort, NaN last?"""
+    if np.isnan(v):
+        return (not np.isnan(u)) or j < i
+    return bool(u < v or (u == v and j < i))
+
+
+def cluster_ranks_model(vals, C, threads=512):
+    """score_row_cluster's ranks: block r of C takes the share [r per, r
+    per + nb) (csrc/icp.cu's icp_share, per = ceil(Nd / C)), G threads a
+    point (the largest power of two <= 32 with nb G <= threads), thread g
+    of a point counting over j = g, g + G, ...; the G counts added.
+    Returns (each point's rank, the block that ranked it)."""
+    nd = len(vals)
+    per = -(-nd // C)
+    rank, block = [None] * nd, [None] * nd
+    for r in range(C):
+        lo = r * per
+        nb = max(0, min(nd - lo, per))
+        g_log = 5
+        while g_log > 0 and (nb << g_log) > threads:
+            g_log -= 1
+        G = 1 << g_log
+        for i in range(lo, lo + nb):
+            assert rank[i] is None                 # one share a point
+            rank[i] = sum(sum(rank_before(vals[j], j, vals[i], i)
+                              for j in range(g, nd, G)) for g in range(G))
+            block[i] = r
+    return rank, block
+
+
+@pytest.mark.parametrize("nd", [33, 64, 192, 306])
+def test_cluster_rank_model_is_stable_argsort(nd):
+    """The split rescoring's ranks over C = min(8, ceil(Nd / 32)) blocks
+    (and over 2 and 8 blocks) are the positions of a stable argsort, on
+    values with ties, inf and NaN: each point placed at its rank gives
+    torch.sort's values bit for bit (what the trimmed sum reads)."""
+    rng = np.random.default_rng(nd)
+    for trial in range(3):
+        vals = rng.integers(0, 6, nd).astype(F32) / F32(4)     # ties
+        vals[rng.random(nd) < 0.2] = np.inf
+        if trial > 0:
+            vals[rng.random(nd) < 0.1] = np.nan
+        order = torch.argsort(torch.from_numpy(vals), stable=True).tolist()
+        for C in sorted({min(8, -(-nd // 32)), 2, 8}):
+            rank, block = cluster_ranks_model(vals, C)
+            assert sorted(set(block)) == list(range(min(C, len(set(block)))))
+            assert [order[r] for r in rank] == list(range(nd)), (nd, C)
+            placed = np.empty(nd, F32)
+            placed[rank] = vals
+            want = torch.sort(torch.from_numpy(vals), stable=True).values
+            assert np.array_equal(placed.view(np.uint32),
+                                  want.numpy().view(np.uint32)), (nd, C)
 
 
 # ---------------------------------------------------------------------------
@@ -416,6 +482,53 @@ def test_cpu_tensors_take_the_plain_routes_and_launch_nothing():
     assert [k.launches for k in counters] == before
 
 
+def test_incumbent_sets_and_their_pointers():
+    """The initial routes' outputs (incumbent_tensors: views of one
+    buffer): the state's six fields in score_initial_plain's order, their
+    shapes and types, contiguous, no two fields overlapping, the PickOut
+    pointers the fields' in PickOut's order (0 for the unused bnb), and
+    each field writes its own words."""
+    want = dict(opt_err=((), torch.float32), opt_R=((3, 3), torch.float32),
+                opt_t=((3,), torch.float32), comp=((), torch.int32),
+                terms=((3,), torch.float32), last_icp=((), torch.bool))
+    sets = [pick.incumbent_tensors("cpu") for _ in range(3)]
+    for out, ptrs in sets:
+        assert list(out) == list(want)
+        assert {k: (tuple(v.shape), v.dtype) for k, v in out.items()} == want
+        assert all(v.is_contiguous() for v in out.values())
+        assert list(ptrs) == [out[k].data_ptr() if k else 0 for k in (
+            "opt_R", "opt_t", "opt_err", "terms", "comp", None, "last_icp")]
+        spans = sorted((v.data_ptr(),
+                        v.data_ptr() + v.numel() * v.element_size())
+                       for v in out.values())
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+        for v in out.values():
+            v.zero_()
+    for i, (out, _) in enumerate(sets):
+        out["opt_R"].fill_(i + 1.0)
+        out["last_icp"].fill_(True)
+    for i, (out, _) in enumerate(sets):
+        assert bool((out["opt_R"] == i + 1.0).all())
+        assert float(out["opt_err"]) == 0.0 and int(out["comp"]) == 0
+        assert bool(out["last_icp"]) and float(out["terms"].abs().sum()) == 0
+
+
+def test_engines_initialise_on_the_cpu_by_the_plain_route():
+    """device_init and fused_init on CPU tensors hold the plain
+    composition's incumbent (icp_run_plain, score_initial_plain) and
+    launch nothing."""
+    from goicp_tpu_torch.bounds import cuda_eval
+    from goicp_tpu_torch.search import fused_stream
+    cfg, _, tp, _ = pairs("dynamic trim", init_seeds=4, rot_batch=2)
+    before = cuda_eval.launch_counts()
+    want = pick.initial_incumbent_plain(tp, cfg)
+    for st in (pick.initial_incumbent(tp, cfg), teng.device_init(tp, cfg),
+               fused_stream.fused_init(tp, cfg)):
+        for k, v in want.items():
+            assert torch.equal(st[k], v), k
+    assert cuda_eval.launch_counts() == before
+
+
 # ---------------------------------------------------------------------------
 # the engines on short bench pairs
 # ---------------------------------------------------------------------------
@@ -541,7 +654,8 @@ def _card_window(case, **over):
 @pytest.mark.parametrize("K,case,ubs,how", [
     (1, "l2", "ties", None), (4, "dynamic trim", "ties", None),
     (8, "l2", "inf", None), (12, "dynamic trim", "nan", None),
-    (4, "l2", "ties", "disabled"), (4, "dynamic trim", "inf", "workspace")])
+    (4, "l2", "ties", "disabled"), (4, "dynamic trim", "inf", "workspace"),
+    (4, "static trim", "ties", None), (8, "static trim", "nan", None)])
 def test_refine_route_equals_compositions_on_the_card(K, case, ubs, how,
                                                       monkeypatch):
     """One launch for a window's two refining rows (row 1 not refining)
@@ -574,3 +688,29 @@ def test_refine_route_equals_compositions_on_the_card(K, case, ubs, how,
                                          RefineRecord(), en)
     assert _same(got.values(), plain.values())
     assert _same(got.values(), three.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,case,how", [
+    (1, "l2", None), (4, "dynamic trim", None), (8, "static trim", None),
+    (4, "one block", None), (8, "l2", "workspace")])
+def test_initial_route_equals_compositions_on_the_card(K, case, how,
+                                                       monkeypatch):
+    """The initial incumbent as one launch of the initial route equals the
+    plain composition and the two launches it replaced (icp_run,
+    score_initial), bit for bit: K = 1, 4, 8 starts; untrimmed, a static
+    and a dynamic trim; a cloud of one block (C = 1); the ICP's workspace
+    in device memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    if how == "workspace":      # every cloud above the shared-memory size
+        monkeypatch.setattr(pick, "ICP_SMEM_BYTES", 0)
+    cfg, pair = _card_pair(case, init_seeds=K)
+    before = pick.icp_init.launches
+    got = pick.initial_incumbent(pair, cfg)
+    assert pick.icp_init.launches == before + 1
+    plain = pick.initial_incumbent_plain(pair, cfg)
+    two = pick.initial_incumbent_by_launches(pair, cfg)
+    keys = ("opt_err", "opt_R", "opt_t", "comp", "terms", "last_icp")
+    assert _same([got[k] for k in keys], [plain[k] for k in keys])
+    assert _same([got[k] for k in keys], [two[k] for k in keys])
