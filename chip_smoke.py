@@ -149,8 +149,15 @@ Phases, each of which fails the script (nonzero exit, no result line):
     syn07; the batch engine's pop into B-row outputs and at out_rows,
     and adoption in place; timed at the streams' shape (syn02 + syn03)
     and at register_device's, each call with the run's buffers (the main
-    path's) and with a block built a call.  max |kernel - plain| is 0 in
-    every case.
+    path's) and with a block built a call.  The harvest at the inner
+    run's end (csrc/harvest_body.cuh inside goicp_inner_run) held bit for
+    bit to the run without it followed by the standalone harvest, on
+    every route (stream held and global with the event head, eager and
+    not, every row served and one, a run cut at one step; search and
+    groups with their rows, at trans_capacity 4096 too), and the event
+    head alone (goicp_harvest's event mode) to event_head_plain on edited
+    windows (a NaN ub, every ub inf, a converged row, no row complete);
+    timed with and without it.  max |kernel - plain| is 0 in every case.
  3. registrations through the port's entry points: prepare_pair(bucket=
     True) -> make_count_dynamic -> register_device, under GoICPConfig() +
     bench_shape, on six pairs of the similar pool and four of the trimmed
@@ -193,7 +200,9 @@ Phases, each of which fails the script (nonzero exit, no result line):
     against the port's register_device on the same prepared pair and,
     where there is one, against its fp32 reference row.  The inner step
     kernel (no torch body on the card), the rescoring kernel, rodrigues
-    and the ICP kernel must have launched.  Then the trimmed pool
+    and the ICP kernel must have launched; host reads and launches per
+    transition event printed (one read an event and one or two a chunk,
+    required).  Then the trimmed pool
     once more with escalate_capacity =
     2 * trans_capacity after 1 chunk of 64 global iterations: at least
     one pair escalated, every pair converged, error within MSEThresh*Nd +
@@ -231,8 +240,9 @@ Phases, each of which fails the script (nonzero exit, no result line):
     2, 512-step chunks), held to measure._check_parity (converged, the
     margin guard, the fp32 reference rows' errors and, on the similar pool,
     their counters); pairs/s and bound evaluations/s printed, and the
-    pairs whose counters differ from their sweep383 rows (TPU runs).  The
-    inner step kernel must have launched, the torch body not on the card.
+    pairs whose counters differ from their sweep383 rows (TPU runs), and
+    the host reads and launches per transition event.  The inner step
+    kernel must have launched, the torch body not on the card.
  9. the compacting batch engine: phase 3's six similar pairs in one
     pool-max bucket and its four trimmed pairs in another (every nearest-
     cell table checked), each set through register_device_batch_compact
@@ -315,9 +325,11 @@ Phases, each of which fails the script (nonzero exit, no result line):
     (goicp_tpu_torch/bench/launch_counts.py) beside those of the
     trees before the fixed order (commit 1025156) and before the ICP
     kernel (ce5be19), those of one rescoring (one launch; 85 on
-    c0016a3) and of an improving step's refinement, of a fused-stream
-    transition of 8 rows (at most 2 launches and 1 host read) and of a
-    register_device outer step (at most 4 launches) beside the trees
+    c0016a3) and of an improving step's refinement, of a transition
+    batch of 8 rows with its own harvest (at most 2 launches and 1 host
+    read), of a register_device outer step (at most 3 launches: pop, the
+    inner run with its harvest, adopt) and of a 512-step fused-stream
+    chunk (one host read a transition event and one to end) beside the trees
     before the transition kernel (789170e) and before advance was one
     launch (fd41384), and an ICP event's: one launch of csrc/icp.cu and
     no host read; one rodrigues and one rot_uncertainty, one launch each,
@@ -671,6 +683,10 @@ def _refined_away(counts, where):
              f"{ {k: counts[k] for k in REFINED_AWAY} }")
 
 
+# the inner runs that harvested at their end, by the phase that read them
+HARVEST_TAILS: dict = {}
+
+
 def _step_path(counts, where, loop="inner_run"):
     """The inner kernel `loop` and the transition kernels launched, and
     neither the torch body nor the torch transition ran on the card since
@@ -689,10 +705,16 @@ def _step_path(counts, where, loop="inner_run"):
                  f"inner_step launched no time in {where} (every inner "
                  f"search a run): {counts['inner_step']}")
     rows = transition.plain_on_card["rows"]
-    _require(counts["harvest"] > 0 and counts["advance"] > 0 and rows == 0,
-             f"harvest ({counts['harvest']}) and advance "
-             f"({counts['advance']}) launched and the torch transition ran "
-             f"no row on the card ({rows}) in {where}")
+    tails = inner.harvests_in_run["runs"]
+    HARVEST_TAILS[where] = tails
+    _require((counts["harvest"] > 0 or tails > 0) and counts["advance"] > 0
+             and rows == 0,
+             f"the harvest (goicp_harvest {counts['harvest']} launches, at "
+             f"the end of {tails} inner runs) and advance "
+             f"({counts['advance']}) ran on the card and the torch "
+             f"transition ran no row ({rows}) in {where}")
+    print(f"{where}: the harvest at the end of {tails} inner runs, "
+          f"{counts['harvest']} goicp_harvest launches", flush=True)
 
 
 def _max_err(got, want):
@@ -1313,6 +1335,23 @@ def _batch_phase(cfg, cfg_t, pools, ref, phase3, dev):
     return counts, outs
 
 
+def _event_costs(sc, launched, where, fused=True):
+    """A stream's host reads and kernel launches per transition event
+    (fused_stream.counters, the kernels' launch counts); the fused stream
+    reads the host once an event and once more to end each chunk (and
+    once where a chunk starts with no row to serve)."""
+    e = max(sc["transitions"], 1)
+    n = sum(launched.values())
+    if fused:
+        _require(sc["transitions"] + sc["chunks"] <= sc["host_reads"]
+                 <= sc["transitions"] + 2 * sc["chunks"],
+                 f"{where}: one host read an event and one or two a chunk: "
+                 f"{sc}")
+    return (f"{sc['host_reads'] / e:.3f} host reads and {n / e:.3f} "
+            f"launches of the port's kernels per transition event "
+            f"({sc['transitions']} events, {sc['chunks']} chunks)")
+
+
 def _bench_phase(dev):
     """Phase 8: the bench's pools at a smaller depth, one timed pass each.
     Returns the kernels' launch counts of the phase."""
@@ -1321,6 +1360,7 @@ def _bench_phase(dev):
     import goicp_tpu_torch
     from goicp_tpu_torch.bench import measure
     from goicp_tpu_torch.bounds import cuda_eval
+    from goicp_tpu_torch.search import fused_stream
 
     cfg = measure.bench_shape(goicp_tpu_torch.GoICPConfig())
     cfg_t = dataclasses.replace(cfg, trimFraction=measure.TRIM_FRACTION,
@@ -1340,7 +1380,13 @@ def _bench_phase(dev):
         buckets = build()
         torch.cuda.synchronize()
         prep = time.perf_counter() - t0
+        fused_stream.reset_counters()
+        before = cuda_eval.launch_counts()
         wall, out = measure.timed_pass(buckets, c, n, names, rows)
+        launched = {k: v - before[k]
+                    for k, v in cuda_eval.launch_counts().items()}
+        per_event = _event_costs(dict(fused_stream.counters), launched,
+                                 f"phase 8 {label}")
         evals = int(np.sum(out.evals))
         differ = measure.sweep_row_differences(out, names,
                                                measure.sweep_rows())
@@ -1350,7 +1396,8 @@ def _bench_phase(dev):
               f"stream {wall:.3f} s = {n / wall:.4f} pairs/s, {evals} "
               f"bound evaluations = {evals / wall:.1f} evals/s; "
               f"_check_parity held; counters other than the sweep383 rows' "
-              f"(this run, row): {json.dumps(differ)}", flush=True)
+              f"(this run, row): {json.dumps(differ)}; {per_event}",
+              flush=True)
     print(f"phase 8: pairs_per_s {rates['similar'][0]:.4f}, "
           f"trimmed_pairs_per_s {rates['trimmed'][0]:.4f}, "
           f"bound_evals_per_s {rates['similar'][1]:.1f} (the card's, at "
@@ -3146,6 +3193,308 @@ def _transition_checks(kernels, cfg, cfg_t, pools, dev, floor):
             ka["register_device_shape"] = times["advance"]
 
 
+HEAD_STREAM_STEPS = (64, 1)   # the runs' steps in _head_checks
+HEAD_WINDOW_STEPS = 6         # its windows' global iterations
+HEAD_WIDE_TILE = 18           # its wide window: 16 pairs repeated, 288 rows
+
+
+def _head_rows(ev, n):
+    """The first n rows of a harvest's outputs (event_head's or a run's)
+    and the event's words, for _tree_diff."""
+    from goicp_tpu_torch.search.args import HARVEST_KEYS
+    out = {k: ev["h"][k][:n] for k in HARVEST_KEYS}
+    if ev.get("words") is not None:
+        out["words"] = ev["words"]
+    return out
+
+
+def _head_checks(kernels, cfg, pools, dev, floor):
+    """Phase 2's check of the harvest at the inner run's end (csrc/inner.cu's
+    run_finish, csrc/harvest_body.cuh) and of the event head alone
+    (goicp_harvest's event mode), bit for bit (NaN to NaN).  Each run
+    route with its harvest against the same run without it followed by
+    the standalone kernel: every lane field, counter, the iteration count,
+    the harvest's rows and the event's words.  Stream held (syn00 + syn01,
+    a lane a cluster) and global (syn00-syn15, more lanes than clusters),
+    each from its window 6 global iterations in after the event there
+    was served, every row served (K = W) and K = 1, eager and not, steps
+    64 and 1 (a run cut there serves no row), the masks from the state
+    against the torch rule (fused_stream._stream_masks) passed as
+    tensors; search (syn07's register_device step, first state and 5
+    steps in; again at trans_capacity 4096, the state in device memory)
+    and groups (rows 0 and 2 of a 3-row batch stepping; and at capacity
+    4096).  Past 256 groups (the masks' and the rows' words sized to the
+    launch): a wide window of syn00-syn15 repeated to 288 rows, whose
+    fused stream equals the 16-row window's row for row, its stream run
+    with its event head (K = W, not eager, steps 64 and 1) as above, and
+    a groups run harvesting 287 of its 288 rows.  Then the event head
+    alone against event_head_plain on those
+    windows and on edited copies: a row's NaN ub, a row with every ub
+    inf, a converged row, no row complete (n = 0).  Timed: the event head
+    alone (the streams' 2 rows), the stream run with its event head and
+    without it, register_device's run with its harvest and without it."""
+    import torch
+    from goicp_tpu_torch.bench.measure import (_bucket_and_prepare,
+                                               _normalized_synthetic)
+    from goicp_tpu_torch.dist.mesh import stack_pairs
+    from goicp_tpu_torch.search import device_engine as eng
+    from goicp_tpu_torch.search import fused_stream as fs
+    from goicp_tpu_torch.search import inner
+    from goicp_tpu_torch.search import transition as tr
+    from goicp_tpu_torch.search.args import (RunHead, TransitionBuffers,
+                                             harvest_rows_of)
+    kh, kr = kernels["harvest"], kernels["inner_run"]
+
+    def same(got, want, where):
+        torch.cuda.synchronize()
+        bad = _tree_diff(got, want)
+        _require(not bad, f"{where}: bit for bit: {bad}")
+        kh["errs"].append(0.0)
+
+    said = []
+    windows = {}
+    sixteen = tuple(f"syn{i:02d}" for i in range(16))
+    for label, names, tile in (("held", ("syn00", "syn01"), 1),
+                               ("global", sixteen, 1),
+                               ("wide", sixteen, HEAD_WIDE_TILE)):
+        pairs = _bucket_and_prepare(
+            [_normalized_synthetic(pools[n]) for n in names], cfg,
+            device=dev)
+        pb = stack_pairs(pairs * tile)
+        W = len(names) * tile
+        L = cfg.rot_batch * 8
+        s0 = fs.fused_run_chunk(pb, cfg, fs._init_batch(pb, cfg),
+                                HEAD_WINDOW_STEPS)
+        tables = fs._window_tables(pb, cfg, L)
+        windows[label] = (pb, s0)
+        if label == "wide":
+            # each row steps as it does in the 16-row window
+            _, s16 = windows["global"]
+            same({k: v for k, v in fs._flat_items(s0)},
+                 {k: torch.cat([v] * tile) if v.dim() else v
+                  for k, v in fs._flat_items(s16)},
+                 f"fused stream of {W} rows == its 16 rows alone")
+            said.append(f"fused stream {W} rows == 16 rows alone")
+        for K in ((W, 1) if tile == 1 else (W,)):
+            for eager in ((False, True) if tile == 1 else (False,)):
+                s = fs._map_state(torch.clone, s0)
+                bufs = TransitionBuffers()
+                fin0 = bufs.fin0(W, dev)
+                ev = tr.event_head(cfg, s, K, fin0=fin0, bufs=bufs)
+                fin0_p = torch.zeros_like(fin0)
+                want = tr.event_head_plain(cfg, s, K, fin0=fin0_p)
+                e = tr.read_event(ev, W, K, bufs)
+                n = len(e.rows)
+                same(dict(_head_rows(ev, n), fin0=fin0),
+                     dict(_head_rows(want, n), fin0=fin0_p),
+                     f"event head alone == plain ({label}, K {K})")
+                if e.rows:
+                    fs._transition_batch(
+                        pb, cfg, s, e.rows, in_place=True, bufs=bufs,
+                        h=harvest_rows_of(ev, n), improved=e.improved)
+                for steps in HEAD_STREAM_STEPS:
+                    sa = fs._map_state(torch.clone, s)
+                    sb = fs._map_state(torch.clone, s)
+                    ia, na, eva = fs._inner_run(
+                        pb, cfg, sa, tables, "stream", steps=steps,
+                        bufs=TransitionBuffers(), head=RunHead(
+                            sa["active"], sa["R_lanes"], sa["opt_err"],
+                            sa["converged"], it=sa["it"], fin0=fin0, K=K,
+                            max_outer=cfg.max_outer_steps, eager=eager))
+                    live, watch, once = fs._stream_masks(cfg, sb, fin0,
+                                                         eager)
+                    ib, nb = fs._inner_run(pb, cfg, sb, tables, "stream",
+                                           live=live, watch=watch,
+                                           once=once, steps=steps)
+                    sb = dict(sb, inner=ib)
+                    evb = tr.event_head(cfg, sb, K, n_iters=nb)
+                    nev = tr.read_event(evb, W, K)
+                    where = (f"stream {label} run with its event head "
+                             f"(K {K}, eager {eager}, steps {steps})")
+                    same(dict(ia, iters=na.reshape(1)),
+                         dict(ib, iters=nb.reshape(1)), where + ": lanes")
+                    same(_head_rows(eva, len(nev.rows)),
+                         _head_rows(evb, len(nev.rows)),
+                         where + ": event == the event head alone")
+                    same(_head_rows(evb, len(nev.rows)),
+                         _head_rows(tr.event_head_plain(cfg, sb, K,
+                                                        n_iters=nb),
+                                    len(nev.rows)),
+                         where + ": the event head alone == plain")
+                    said.append(f"stream {label} K={K} eager={int(eager)} "
+                                f"steps={steps}: {int(na)} iterations, "
+                                f"{len(nev.rows)} served")
+    # the event head alone on edited windows
+    pb, s0 = windows["held"]
+    for case in ("NaN ub", "all-inf ubs", "converged row", "none complete"):
+        s = fs._map_state(torch.clone, s0)
+        ist = s["inner"]
+        s["converged"][:] = False
+        if case == "NaN ub":
+            ist["done"][0] = True
+            ist["opt_err"][0, 0] = float("nan")
+            s["active"][0, 0] = True
+        elif case == "all-inf ubs":
+            ist["done"][0] = True
+            s["active"][0] = False
+        elif case == "converged row":
+            s["converged"][0] = True
+            ist["done"][1] = True
+        else:
+            ist["done"][:] = False
+            ist["it"][:] = 0
+        W = s["converged"].shape[0]
+        for K in (W, 1):
+            ev = tr.event_head(cfg, s, K)
+            want = tr.event_head_plain(cfg, s, K)
+            n = len(tr.read_event(ev, W, K).rows)
+            same(_head_rows(ev, n), _head_rows(want, n),
+                 f"event head alone == plain ({case}, K {K})")
+            said.append(f"{case} K={K}: {n} served")
+    # search and groups: the rows' harvest at the run's end
+    pair = _prepared("syn07", cfg, pools, dev)
+    big = dataclasses.replace(cfg, trans_capacity=4096)
+    timed = None
+    for c in (cfg, big):
+        st0 = eng.device_init(pair, c)
+        for stl, st in (("first state", st0),
+                        ("5 outer steps in",
+                         eng.device_run_chunk(pair, c, st0, 5))):
+            p = eng._pop(pair, c, st)
+            args = (pair, c, p["pts"], p["widths"], p["active"],
+                    st["opt_err"], False, True)
+            kw = dict(lanes0=p["lanes"], mrd=p["mrd"], raw=True)
+            head = RunHead(p["batch"]["active"], p["batch"]["R_lanes"],
+                           st["opt_err"].reshape(1), p["batch"]["converged"],
+                           rows=torch.zeros((1,), dtype=torch.int32,
+                                            device=dev))
+            ra, la, ha = inner.inner_bnb(*args, head=head, **kw)
+            rb, lb_ = inner.inner_bnb(*args, **kw)
+            hb = tr.harvest(c, eng._harvest_src(p, st["opt_err"], rb), [0],
+                            lb=eng._lb_lanes(lb_),
+                            conv=p["batch"]["converged"])
+            where = (f"search run with its harvest (syn07 {stl}, capacity "
+                     f"{c.trans_capacity})")
+            same(dict(la, iters=ra.iters.reshape(1)),
+                 dict(lb_, iters=rb.iters.reshape(1)), where + ": lanes")
+            same(_head_rows(ha, 1), _head_rows(dict(h=hb), 1),
+                 where + ": == the harvest alone")
+            said.append(f"search C={c.trans_capacity} {stl}: "
+                        f"{int(ra.iters)} iterations")
+            if c is cfg and stl == "5 outer steps in":
+                timed = (args, kw, head, p, st)
+        # groups: rows 0 and 2 of a 3-row batch stepping; at the first
+        # capacity also every row but one of 288 (syn00-syn15 repeated)
+        for names, tile, rows in (
+                (("syn00", "syn01", "syn02"), 1, [0, 2]),
+                (sixteen, HEAD_WIDE_TILE,
+                 [r for r in range(16 * HEAD_WIDE_TILE) if r != 5])):
+            if tile > 1 and c is not cfg:
+                continue
+            pairs = _bucket_and_prepare(
+                [_normalized_synthetic(pools[n]) for n in names], c,
+                device=dev)
+            pbg = stack_pairs(pairs * tile)
+            B = len(names) * tile
+            sg = eng.batch_init(pbg, c)
+            tab = fs._window_tables(pbg, c, c.rot_batch * 8)
+            pop = tr.outputs("pop", c, B, pbg.n_data_padded, dev)
+            pop["lanes"]["done"].fill_(True)
+            pg = tr.advance("pop", c, pbg, sg, rows, tables=tab, out=pop)
+            cnt = torch.zeros((4, B), dtype=torch.int32, device=dev)
+            bs = dict(inner=dict(pg["lanes"], it=cnt[0], evals=cnt[1],
+                                 geom_surv=cnt[2], chem_corners=cnt[3]),
+                      pts_rot=pg["pts"], mrd=pg["mrd"])
+            ia, na, ha = fs._inner_run(
+                pbg, c, bs, tab, "groups", head=RunHead(
+                    pg["active"], pg["R_lanes"], sg["opt_err"],
+                    pg["converged"],
+                    rows=torch.tensor(rows, dtype=torch.int32, device=dev)))
+            ib, nb = fs._inner_run(pbg, c, bs, tab, "groups")
+            hb = tr.harvest(c, dict(inner=ib, active=pg["active"],
+                                    R_lanes=pg["R_lanes"],
+                                    opt_err=sg["opt_err"]), rows,
+                            conv=pg["converged"])
+            where = (f"groups run with its harvest ({B} rows, {len(rows)} "
+                     f"harvested, capacity {c.trans_capacity})")
+            same(dict(ia, iters=na.reshape(1)),
+                 dict(ib, iters=nb.reshape(1)), where + ": lanes")
+            same(_head_rows(ha, len(rows)),
+                 _head_rows(dict(h=hb), len(rows)),
+                 where + ": == the harvest alone")
+            said.append(f"groups B={B} rows={len(rows)} "
+                        f"C={c.trans_capacity}: {int(na)} iterations")
+    print("harvest at the run's end and the event head: "
+          + "; ".join(said) + "; every case bit for bit", flush=True)
+
+    # timed: the event head alone at the streams' shape, the stream run
+    # with and without its event head, register_device's run with and
+    # without its harvest (graph_ms: the card's time)
+    pb, s0 = windows["held"]
+    W = 2
+    L = cfg.rot_batch * 8
+    tables = fs._window_tables(pb, cfg, L)
+    bufs = TransitionBuffers()
+    fin0 = bufs.fin0(W, dev)
+    ev = tr.event_head(cfg, s0, W, fin0=fin0, bufs=bufs)
+    e = tr.read_event(ev, W, W, bufs)
+    s = fs._map_state(torch.clone, s0)
+    if e.rows:
+        fs._transition_batch(pb, cfg, s, e.rows, in_place=True, bufs=bufs,
+                             h=harvest_rows_of(ev, len(e.rows)),
+                             improved=e.improved)
+    live, watch, once = fs._stream_masks(cfg, s, fin0, False)
+    hd = RunHead(s["active"], s["R_lanes"], s["opt_err"], s["converged"],
+                 it=s["it"], fin0=fin0, K=W, max_outer=cfg.max_outer_steps)
+
+    def ev_alone():
+        return tr.event_head(cfg, s0, W, bufs=bufs)
+
+    def ev_plain():
+        return tr.event_head_plain(cfg, s0, W)
+
+    def stream_head(b=TransitionBuffers()):
+        return fs._inner_run(pb, cfg, s, tables, "stream", steps=64,
+                             bufs=b, head=hd)
+
+    def stream_no_head(b=TransitionBuffers()):
+        return fs._inner_run(pb, cfg, s, tables, "stream", live=live,
+                             watch=watch, once=once, steps=64, bufs=b)
+    args, kw, head, p, st = timed
+
+    def search_head(b=TransitionBuffers()):
+        return inner.inner_bnb(*args, head=head, bufs=b, **kw)
+
+    def search_no_head(b=TransitionBuffers()):
+        return inner.inner_bnb(*args, bufs=b, **kw)
+    t = {}
+    for name, fn in (("event head alone", ev_alone),
+                     ("stream run + event head", stream_head),
+                     ("stream run", stream_no_head),
+                     ("search run + harvest", search_head),
+                     ("search run", search_no_head)):
+        t[name] = (_median_ms(fn), _device_ms(fn, n=10))
+    pms = _median_ms(ev_plain, n=5)
+    launches, memsets = _launches_memsets(stream_head)
+    _require(launches == 1 and memsets == 0,
+             f"the stream run with its event head: one launch, no memset "
+             f"({launches}, {memsets})")
+    launches, memsets = _launches_memsets(search_head)
+    _require(launches == 1 and memsets == 0,
+             f"the search run with its harvest: one launch, no memset "
+             f"({launches}, {memsets})")
+    kh.update(event_ms=t["event head alone"][0],
+              event_graph_ms=t["event head alone"][1], event_plain_ms=pms)
+    kr.update(stream_head_graph_ms=t["stream run + event head"][1],
+              stream_graph_ms=t["stream run"][1],
+              search_head_graph_ms=t["search run + harvest"][1],
+              search_graph_ms=t["search run"][1])
+    print("timed (ms a call, host included / from a graph): " + "; ".join(
+        f"{k} {a:.4f} / {b:.4f}" for k, (a, b) in t.items())
+        + f"; the event head's plain twin {pms:.4f}; the run with its "
+        f"harvest one launch and no memset {floor}", flush=True)
+
+
 def _leaves(d):
     """The tensors of a (nested) dict."""
     import torch
@@ -4189,7 +4538,8 @@ def _one_answer_phase(dev):
              f"the initial incumbent is one launch (csrc/icp.cu's initial "
              f"route) and no host read: {ini}")
     tb, st = launch_counts.transition(), launch_counts.outer_step()
-    print(f"phase 13 a fused-stream transition of {tb['rows']} rows: "
+    print(f"phase 13 a transition batch of {tb['rows']} rows with its own "
+          f"harvest (the packed stream's way): "
           f"{tb['launches']:.1f} launches, {tb['host_reads']:.1f} host "
           f"reads, {tb['syncs']:.1f} syncs, {tb['ms']:.3f} ms on the host "
           f"clock "
@@ -4209,10 +4559,21 @@ def _one_answer_phase(dev):
           f"before the inner run: {BEFORE_INNER_RUN['outer_step']}; "
           f"before advance was one launch: "
           f"{BEFORE_ONE_LAUNCH_ADVANCE['outer_step']}", flush=True)
-    _require(st["inner_launches"] == 1 and st["launches"] <= 4,
-             f"a register_device outer step is at most four launches (pop, "
-             f"the inner run, harvest, adopt), its inner search one launch "
-             f"of the inner run: {st}")
+    _require(st["inner_launches"] == 1 and st["launches"] <= 3,
+             f"a register_device outer step is at most three launches (pop, "
+             f"the inner run with its harvest, adopt), its inner search one "
+             f"launch of the inner run: {st}")
+    sk = launch_counts.stream_chunk()
+    print(f"phase 13 a fused-stream chunk of {sk['rows']} rows, at most "
+          f"{sk['steps']} global iterations: {sk['global_iters']} "
+          f"iterations, {sk['transitions']} transition events, "
+          f"{sk['host_reads']} host reads ({sk['host_reads_per_event']:.3f} "
+          f"an event), {sk['launches']:.0f} launches "
+          f"({sk['launches_per_event']:.2f} an event), {sk['syncs']:.0f} "
+          f"syncs, {sk['ms']:.3f} ms on the host clock", flush=True)
+    _require(sk["host_reads"] == sk["transitions"] + 1,
+             f"a fused-stream chunk reads the host once an event and once "
+             f"to end: {sk}")
     _require(tb["launches"] <= 2 and tb["syncs"] <= 1,
              f"a stream transition batch is at most two launches (harvest, "
              f"advance) and one host read (a sync): {tb}")
@@ -4693,6 +5054,7 @@ def main() -> int:
     _step_checks(kernels["inner_step"], cfg, cfg_t, pools, dev, floor)
     _run_checks(kernels["inner_run"], kernels, cfg, cfg_t, pools, dev, floor)
     _transition_checks(kernels, cfg, cfg_t, pools, dev, floor)
+    _head_checks(kernels, cfg, pools, dev, floor)
 
     if sys.argv[1:] == ["--kernels-only"]:
         print("kernels only: phases 3-13 not run, no result", flush=True)
@@ -4814,7 +5176,10 @@ def main() -> int:
                   f"{sc['host_reads'] / g:.3f} per global iteration, "
                   f"launches {json.dumps(launched)} = "
                   + ", ".join(f"{k} {v / g:.3f}" for k, v in launched.items()
-                              if v) + " per global iteration", flush=True)
+                              if v) + " per global iteration; "
+                  + _event_costs(sc, launched,
+                                 f"phase {phase} {engine} {label}",
+                                 engine == "fused"), flush=True)
             for i, (name, r) in enumerate(zip(names, refs)):
                 got = dict(error=float(out.error[i]),
                            converged=bool(out.converged[i]),
@@ -4918,6 +5283,8 @@ def main() -> int:
     counts11 = _options_phase(cfg, pools, dev)
     counts12 = _sweep_phase(stream_outs, dev)
     counts13 = _one_answer_phase(dev)
+    print(f"the harvest at the end of inner runs, by phase: "
+          f"{json.dumps(HARVEST_TAILS)}", flush=True)
 
     print(json.dumps({"kernels": [
         {"name": kname, "route": "cuda", "source": k["source"],
@@ -4939,8 +5306,16 @@ def main() -> int:
          **({"body_runs_in": "inner_run, inner_step"} if kname in IN_STEP
             else {"body_runs_in": "inner_run, inner_step, advance"}
             if kname == "chem_incomp_kernel" else {}),
-         **({k2: k[k2] for k2 in ("iterations", "steps_graph_ms")}
+         **({k2: k[k2] for k2 in ("iterations", "steps_graph_ms",
+                                   "stream_head_graph_ms", "stream_graph_ms",
+                                   "search_head_graph_ms",
+                                   "search_graph_ms")}
             if kname == "inner_run" else {}),
+         # the harvest's body also runs at the end of inner runs (a head)
+         **({"harvests_in_inner_run": sum(HARVEST_TAILS.values()),
+             **{k2: k[k2] for k2 in ("event_ms", "event_graph_ms",
+                                     "event_plain_ms")}}
+            if kname == "harvest" else {}),
          **({k2: k[k2] for k2 in REFINE_EXTRAS} if kname == "icp_refine"
             else {}),
          **({k2: k[k2] for k2 in INIT_EXTRAS} if kname == "icp_init"

@@ -20,8 +20,9 @@ every `.item()` and `bool()` of a card tensor goes through):
   * one ICP iteration: the same event with its convergence test switched
     off so that it runs a fixed number of iterations; the launches of 3
     iterations less those of 2 (0 when the event is one launch);
-  * one outer transition of the fused stream: fused_stream.
-    _transition_batch, as fused_run_chunk runs it (the rows' new states
+  * one outer transition of the fused stream with its own harvest:
+    fused_stream._transition_batch given no harvest, as fused_run_chunk
+    ran it before its event head (the rows' new states
     written back into the window, with the loop's TransitionBuffers on a
     tree that has them), of every row of a window of TRANSITION_ROWS
     bench pairs, each call on a fresh copy of their first state
@@ -55,7 +56,9 @@ every `.item()` and `bool()` of a card tensor goes through):
     bench pairs syn00-syn15 from their first state, STREAM_STEPS global
     iterations at most: the global iterations, transition events and host
     reads it counts (fused_stream.counters), host reads per global
-    iteration, and host-clock ms;
+    iteration, and host-clock ms; its launches (every kernel, counted by
+    torch.profiler) and syncs, and host reads, launches and syncs per
+    transition event;
   * one rescoring: score_transform of that pair at four seeded transforms
     and their nearest-neighbour correspondences (the ICP event's): one
     launch of csrc/score.cu on a tree that has it, ~85 before;
@@ -109,7 +112,8 @@ prints one JSON object (the counts, each loop's host-clock ms, the card's
 name and power limit, and ptxas's registers, stack frame and spills of
 csrc/score.cu's kernels where the tree has it: the rescoring's, and the
 pick's and the seeds' where it has them; and csrc/icp.cu's refine
-and initial routes' where it has them).  It uses only
+and initial routes' where it has them; `inner_ptxas`: csrc/inner.cu's
+four run kernels' and the harvest's).  It uses only
 functions the port has had since its cross-pair streams, so the same
 script counts an older tree's launches too: put that tree first on
 PYTHONPATH (its icp_run has no launch count: null).  Needs a card.
@@ -310,7 +314,9 @@ def icp_event(device="cuda", n=3) -> dict:
 
 def transition(device="cuda", n=5, chained: bool = False) -> dict:
     """Launches, host reads and ms of one fused-stream transition of every
-    row of a window of TRANSITION_ROWS pairs, as fused_run_chunk runs it:
+    row of a window of TRANSITION_ROWS pairs with its own harvest, as
+    fused_run_chunk ran it before the event head (and as the packed
+    stream's transition runs it: _transition_batch given no harvest):
     the rows' new states written into the window in place, with the
     loop's transition.TransitionBuffers on a tree that has them.  Each
     call on a fresh copy of the window's first state (the root popped);
@@ -420,7 +426,10 @@ def stream_chunk(device="cuda") -> dict:
     """One fused_run_chunk of STREAM_STEPS global iterations at most over
     a window of STREAM_ROWS from their first state: what the stream's own
     counters count (global iterations, transition events, host reads) and
-    the host reads per global iteration, with its host-clock ms."""
+    the host reads per global iteration, with its host-clock ms; then the
+    same chunk under torch.profiler: its kernel launches (every kernel,
+    torch's and the port's) and syncs, and the host reads, launches and
+    syncs per transition event."""
     from goicp_tpu_torch.dist.mesh import stack_pairs
     from goicp_tpu_torch.search import fused_stream as fs
     cfg, pairs = _bench_pairs(STREAM_ROWS, device, bucket_together=True)
@@ -434,11 +443,17 @@ def stream_chunk(device="cuda") -> dict:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     c = dict(fs.counters)
+    launches, _, syncs = _profile(
+        lambda: fs.fused_run_chunk(pb, cfg, init, STREAM_STEPS), 1,
+        syncs=True)
+    e = max(c["transitions"], 1)
     return dict(rows=len(pairs), steps=STREAM_STEPS,
                 global_iters=c["global_iters"],
                 transitions=c["transitions"], host_reads=c["host_reads"],
                 host_reads_per_global_iter=c["host_reads"]
-                / max(c["global_iters"], 1), ms=ms)
+                / max(c["global_iters"], 1), ms=ms, launches=launches,
+                syncs=syncs, host_reads_per_event=c["host_reads"] / e,
+                launches_per_event=launches / e, syncs_per_event=syncs / e)
 
 
 def rescoring(device="cuda", n=10) -> dict:
@@ -578,6 +593,18 @@ def _score_ptxas() -> list | None:
             for x in kernel_info(log, k)]
 
 
+def _inner_ptxas() -> list:
+    """ptxas's lines for csrc/inner.cu's run kernels (the four routes) and
+    csrc/transition.cu's harvest and event head, from the kernel
+    library's build log (the names a tree has)."""
+    from goicp_tpu_torch import _build
+    from goicp_tpu_torch.bench.icp_stops import kernel_info
+    _build.library()
+    log = _build.build_info.get("log", "")
+    return [x for k in ("inner_run_kernel", "harvest_kernel", "event_kernel")
+            for x in kernel_info(log, k)]
+
+
 def _static_pair(name, device):
     """(cfg, pair): a bench pair prepared with static counts, as the host
     engine takes it (run_pair's preparation), at the bench's shape."""
@@ -695,6 +722,7 @@ def main(argv=None) -> int:
         "stream_chunk": stream_chunk, "rescoring": rescoring,
         "refine": refine, "refine_window": refine_window,
         "initial": initial, "score_ptxas": _score_ptxas,
+        "inner_ptxas": _inner_ptxas,
         "rodrigues": rodrigues_call, "rot_uncertainty": rot_uncertainty_call,
         "host_outer_step": host_outer_step}
     unknown = set(a.only or ()) - set(entries)

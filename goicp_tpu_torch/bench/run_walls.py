@@ -13,6 +13,9 @@ timed in turns in one call:
     similar and four trimmed pairs: s;
   chunk: launch_counts.stream_chunk, one fused_run_chunk of 512 global
     iterations over syn00-syn15 (128 lanes in mode stream): ms;
+  fused: chip_smoke.py phase 5's streams, register_fused_stream (width 2,
+    chunk_steps 512) over syn00-syn15 and over trm00-trm07, each pool in
+    one bucket, prepared before the clock starts: s;
   syn72: chip_smoke.py phase 13's registration, register_device on syn72
     (bench/cpu_rows.py's pair, 1,335 outer steps, 14 ICP events): s.
 
@@ -34,6 +37,8 @@ import time
 
 SIMILAR = ["syn00", "syn01", "syn05", "syn06", "syn13", "syn07"]
 TRIMMED = ["trm00", "trm01", "trm03", "trm13"]
+STREAM_SIMILAR = [f"syn{i:02d}" for i in range(16)]
+STREAM_TRIMMED = [f"trm{i:02d}" for i in range(8)]
 
 
 def main(argv=None) -> int:
@@ -50,6 +55,7 @@ def main(argv=None) -> int:
     from goicp_tpu_torch.bench import cpu_rows, launch_counts, measure
     from goicp_tpu_torch.search import chunked
     from goicp_tpu_torch.search.device_engine import register_device
+    from goicp_tpu_torch.search.fused_stream import register_fused_stream
 
     dev = torch.device("cuda")
     cfg = measure.bench_shape(goicp_tpu_torch.GoICPConfig())
@@ -85,6 +91,18 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    def fused(label):
+        names, c = (STREAM_SIMILAR, cfg) if label == "similar" else (
+            STREAM_TRIMMED, cfg_t)
+        pairs = measure._bucket_and_prepare(
+            [measure._normalized_synthetic(pools[n]) for n in names], c,
+            device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        register_fused_stream(pairs, c, width=2, chunk_steps=512)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
     def syn72():
         c, pair = cpu_rows.bench_pair("syn72", dev)
         torch.cuda.synchronize()
@@ -100,6 +118,8 @@ def main(argv=None) -> int:
         "batch trimmed, s": lambda: batch("trimmed"),
         "chunk of 512 steps, syn00-15, ms":
             lambda: launch_counts.stream_chunk(dev)["ms"],
+        "fused similar w=2, s": lambda: fused("similar"),
+        "fused trimmed w=2, s": lambda: fused("trimmed"),
         "syn72 register_device, s": syn72}
     if args.only:
         cases = {k: f for k, f in cases.items()

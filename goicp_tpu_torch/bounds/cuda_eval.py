@@ -475,13 +475,16 @@ def launch_counts() -> dict:
 
 def reset_launch_counts():
     """Zero every kernel's launch count, the torch body's iterations on
-    the card (search/inner.py::body_on_card) and the torch transition's
-    rows on the card (search/transition.py::plain_on_card)."""
-    from goicp_tpu_torch.search.inner import body_on_card
+    the card (search/inner.py::body_on_card), the inner runs that
+    harvested at their end (search/inner.py::harvests_in_run) and the
+    torch transition's rows on the card (search/transition.py::
+    plain_on_card)."""
+    from goicp_tpu_torch.search.inner import body_on_card, harvests_in_run
     from goicp_tpu_torch.search.transition import plain_on_card
     for k in _all_kernels():
         k.launches = 0
     body_on_card["iterations"] = 0
+    harvests_in_run["runs"] = 0
     plain_on_card["rows"] = 0
 
 

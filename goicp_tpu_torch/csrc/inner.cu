@@ -113,7 +113,19 @@
 //   * each of the four routes (a held lane or one in device memory; modes
 //     search and groups, or stream) is a kernel of its own
 //     (run_kernels), which the host picks, so that each holds its own
-//     route's registers only.
+//     route's registers only;
+//   * the run's end: where the caller names a head, the last cluster to
+//     finish (the ticket that forms the counters) harvests after it, in
+//     the same block (harvest_body.cuh): modes search and groups the rows
+//     the caller names (register_device's row, the batch engine's stepping
+//     rows), mode stream the fused stream's event head (the rows' flags,
+//     the served rows, their harvest, the event's words), so that the
+//     host's one read of an outer step or a transition event follows the
+//     run with no launch between; mode stream then takes its masks (the
+//     groups that step, those whose completion ends the run, once) from
+//     the state as every block starts (stream_masks), not from tensors
+//     the host formed.  The masks' bits lie behind everything else in
+//     the block's dynamic shared memory, sized to the launch's groups.
 // Three stop modes, each the torch loop it replaces iteration for
 // iteration (search/inner.py::inner_run_plain):
 //   search (inner_bnb): while a lane is not done and it < max_iters; one
@@ -132,6 +144,7 @@
 #include <climits>
 #include <cooperative_groups.h>
 
+#include "harvest_body.cuh"
 #include "inner_body.cuh"
 
 namespace goicp {
@@ -305,7 +318,104 @@ struct RunParams {
   int resident;              // a held lane's state in rank 0's shared
                              // memory (state_words behind the step's)
   int state_words;
+  // the sets a lane in device memory reads (the caller's input, set A,
+  // set B) and writes (A, B), indexed by its iteration's parity: used in
+  // place in the parameters, so that no set's pointers stay in registers
+  // across an iteration (they spilled)
+  LaneIn ins[3];
+  LaneOut outs[2];
+  // the harvest at the run's end, by the last cluster (hv.ubs null:
+  // none; its lanes set A): modes search and groups the rows hrows[0 ..
+  // n_hrows) (device memory), mode stream (ev.words set) the event head
+  // on every row; the words of the block's dynamic shared memory it may
+  // take (all but the masks': nothing else is read there by then)
+  HarvestIo hv;
+  EventIo ev;
+  const int* hrows;
+  int n_hrows, scratch_words;
+  int mask_at;               // mode stream: the masks' first word in the
+                             // block's dynamic shared memory
+  // mode stream's masks from the state where st_conv is set (live, watch
+  // and once then null), the fused stream's rule: a group steps where it
+  // has not converged and its search is not complete, a group's complete
+  // search ends the run where it has not converged, and one iteration
+  // when every group finished (converged or it >= max_outer) or, eager,
+  // one finished that had not at the chunk's start (fin0)
+  const unsigned char* st_conv;  // (groups,)
+  const int* st_it;              // (groups,) the outer steps taken
+  const unsigned char* fin0;     // (groups,)
+  int eager, max_outer;
 };
+
+// the block's dynamic shared memory as words
+__device__ __forceinline__ unsigned* dynamic_words() {
+  extern __shared__ __align__(16) unsigned char smem[];
+  return reinterpret_cast<unsigned*>(smem);
+}
+
+// Mode stream's masks: the groups that step (live) and those whose
+// complete search ends the run (watch), a bit a group in `nw` words each
+// from word `at` of the block's dynamic shared memory (RunParams.mask_at),
+// and whether one iteration ends it.  The struct itself is static shared
+// memory.
+struct StreamMasks {
+  int at, nw, once;
+  __device__ __forceinline__ bool bit(int k, int g) const {
+    return (dynamic_words()[at + k * nw + (g >> 5)] >> (g & 31)) & 1u;
+  }
+  __device__ __forceinline__ bool is_live(int g) const { return bit(0, g); }
+  __device__ __forceinline__ bool watched(int g) const { return bit(1, g); }
+};
+
+// The block's masks: from the caller's live, watch and once (null: every
+// group, every group, not set), or from the state (st_conv).  The whole
+// block, before the first iteration.
+__device__ void stream_masks(const RunParams& r, StreamMasks& m) {
+  const StepParams& p = r.step;
+  const int t = threadIdx.x, nt = blockDim.x, tid = t & 31, warp = t >> 5;
+  const int nw = nt >> 5, G = p.group, groups = p.L / G;
+  const int mw = (groups + 31) >> 5;
+  unsigned* live = dynamic_words() + r.mask_at;
+  unsigned* watch = live + mw;
+  if (t == 0) {
+    m.at = r.mask_at;
+    m.nw = mw;
+  }
+  for (int k = t; k < 2 * mw; k += nt) live[k] = 0u;
+  __syncthreads();
+  int fin_all = 1, fresh = 0;
+  if (r.st_conv == nullptr) {
+    for (int g = t; g < groups; g += nt) {
+      if (r.live == nullptr || r.live[g] != 0)
+        atomicOr(&live[g >> 5], 1u << (g & 31));
+      if (r.watch == nullptr || r.watch[g] != 0)
+        atomicOr(&watch[g >> 5], 1u << (g & 31));
+    }
+    fin_all = 0;
+    fresh = r.once != nullptr && r.once[0] != 0;
+  } else {
+    for (int g = warp; g < groups; g += nw) {
+      bool all = true;
+      for (int l = tid; l < G; l += 32)
+        all = all && __ldcg(p.in.done + static_cast<size_t>(g) * G + l) != 0;
+      all = __all_sync(0xffffffffu, all);
+      if (tid == 0) {
+        const bool conv = r.st_conv[g] != 0;
+        const int it = p.cnt_in[0] != nullptr ? p.cnt_in[0][g] : 0;
+        const bool fin = conv || r.st_it[g] >= r.max_outer;
+        if (!conv && !(all || it >= r.max_iters))
+          atomicOr(&live[g >> 5], 1u << (g & 31));
+        if (!conv) atomicOr(&watch[g >> 5], 1u << (g & 31));
+        fin_all = fin_all && fin;
+        fresh = fresh || (r.eager && fin && r.fin0[g] == 0);
+      }
+    }
+  }
+  fin_all = __syncthreads_and(fin_all);
+  fresh = __syncthreads_or(fresh);
+  if (t == 0) m.once = fin_all || fresh;
+  __syncthreads();
+}
 
 __device__ __forceinline__ unsigned long long global_ns() {
   unsigned long long t;
@@ -459,6 +569,7 @@ __device__ void run_lanes_held(const RunParams& r,
                                unsigned char* smem, unsigned char* body,
                                int part, int cid, int n_clusters) {
   __shared__ int s_next;
+  __shared__ int s_work[2];    // the lane's evals, survivors (thread 0's)
   const StepParams& p = r.step;
   const int t = threadIdx.x;
   const Resident st = resident_state(p, smem);
@@ -472,9 +583,10 @@ __device__ void run_lanes_held(const RunParams& r,
                            ? p.cnt_in[0][lane / p.group] : 0);
     stage_lane(p, lane, pair, body, true);
     load_lane(p, st, lane);
+    if (t == 0) s_work[0] = s_work[1] = 0;
     async_wait<0>();
     __syncthreads();
-    int steps = 0, ev = 0, su = 0, cur = 0;
+    int steps = 0, cur = 0;
     for (; steps < cap && st.buf(0).done[0] == 0; ++steps) {
       if (lane_done<true>(p, as_input(st.buf(cur)), 0, sse)) {
         // the step that finds the lane done: its flag set
@@ -485,8 +597,10 @@ __device__ void run_lanes_held(const RunParams& r,
       }
       a.par = steps & 1;
       held_iteration(cluster, p, a, st, cur, lane, pair, sse, part, body);
-      ev += 8 * a.misc()[0];
-      su += a.misc()[1];
+      if (t == 0) {
+        s_work[0] += 8 * a.misc()[0];
+        s_work[1] += a.misc()[1];
+      }
 #if GOICP_INNER_STOP >= 8
       cur ^= 1;   // the merge's output (a probe stopped before the merge
                   // iterates on its input)
@@ -495,8 +609,8 @@ __device__ void run_lanes_held(const RunParams& r,
     if (part == 0) {
       store_lane(p, st, cur, lane);
       if (t == 0) {
-        r.lane_ev[lane] = ev;
-        r.lane_su[lane] = su;
+        r.lane_ev[lane] = s_work[0];
+        r.lane_su[lane] = s_work[1];
         r.lane_steps[lane] = steps;
         s_next = n_clusters +
                  static_cast<int>(atomicAdd(r.sync + kWork, 1u));
@@ -512,7 +626,7 @@ __device__ void run_lanes_held(const RunParams& r,
 // Mode stream: after iteration i, every block arrives, waits for the
 // grid, and decides from the lanes' done iterations whether the run
 // stops there (the same answer in every block).
-__device__ bool run_agree(const RunParams& r, int i) {
+__device__ bool run_agree(const RunParams& r, const StreamMasks& m, int i) {
 #if GOICP_INNER_STOP < 99
   return i + 1 >= r.steps;
 #else
@@ -535,39 +649,39 @@ __device__ bool run_agree(const RunParams& r, int i) {
   const int n = i + 1, groups = p.L / p.group;
   int due = 0;
   for (int g = t; g < groups; g += nt) {
-    const bool lv = r.live == nullptr || r.live[g] != 0;
     const int it = (p.cnt_in[0] != nullptr ? p.cnt_in[0][g] : 0) +
-                   (lv ? n : 0);
+                   (m.is_live(g) ? n : 0);
     bool all_done = true;
     for (int l = g * p.group; l < (g + 1) * p.group; ++l)
       all_done = all_done && __ldcg(r.done_at + l) < n;
-    due |= (all_done || it >= r.max_iters) &&
-           (r.watch == nullptr || r.watch[g] != 0);
+    due |= (all_done || it >= r.max_iters) && m.watched(g);
   }
   due = __syncthreads_or(due);
-  return due || n >= r.steps || (r.once != nullptr && r.once[0] != 0);
+  return due || n >= r.steps || m.once;
 #endif
 }
 
 // Mode stream, one lane a cluster (L <= the clusters), its state held in
 // the cluster; -> the iterations the run made.
-__device__ int run_stream_held(const RunParams& r,
+__device__ int run_stream_held(const RunParams& r, const StreamMasks& m,
                                cg::cluster_group& cluster, StepArrays a,
                                unsigned char* smem, unsigned char* body,
                                int part, int lane) {
+  __shared__ int s_work[2];    // the lane's evals, survivors (thread 0's)
   const StepParams& p = r.step;
   const int t = threadIdx.x;
   const Resident st = resident_state(p, smem);
   const int pair = p.lane_pair != nullptr ? p.lane_pair[lane] : 0;
   const float sse = p.sse[pair];
-  const bool live = r.live == nullptr || r.live[lane / p.group] != 0;
+  const bool live = m.is_live(lane / p.group);
   if (part == 0 && t == 0)
     r.done_at[lane] = __ldcg(p.in.done + lane) != 0 ? -1 : INT_MAX;
   stage_lane(p, lane, pair, body, true);
   load_lane(p, st, lane);
+  if (t == 0) s_work[0] = s_work[1] = 0;
   async_wait<0>();
   __syncthreads();
-  int ev = 0, su = 0, cur = 0, i = 0;
+  int cur = 0, i = 0;
   for (;; ++i) {
     if (live && st.buf(0).done[0] == 0) {
       if (lane_done<true>(p, as_input(st.buf(cur)), 0, sse)) {
@@ -579,20 +693,22 @@ __device__ int run_stream_held(const RunParams& r,
       } else {
         a.par = i & 1;
         held_iteration(cluster, p, a, st, cur, lane, pair, sse, part, body);
-        ev += 8 * a.misc()[0];
-        su += a.misc()[1];
+        if (t == 0) {
+          s_work[0] += 8 * a.misc()[0];
+          s_work[1] += a.misc()[1];
+        }
 #if GOICP_INNER_STOP >= 8
         cur ^= 1;
 #endif
       }
     }
-    if (run_agree(r, i)) break;
+    if (run_agree(r, m, i)) break;
   }
   if (part == 0) {
     store_lane(p, st, cur, lane);
     if (t == 0) {
-      r.lane_ev[lane] = ev;
-      r.lane_su[lane] = su;
+      r.lane_ev[lane] = s_work[0];
+      r.lane_su[lane] = s_work[1];
     }
   }
   return i + 1;
@@ -657,10 +773,8 @@ __device__ void run_lanes_global(const RunParams& r,
     int steps = 0, ev = 0, su = 0;
     for (;; ++steps) {
       // step j reads set (j - 1) % 2 (the input at j = 0), writes j % 2
-      const LaneIn in = steps == 0 ? p.in
-                                   : as_input(steps % 2 == 1 ? p.out
-                                                             : r.set_b);
-      const LaneOut out = steps % 2 == 0 ? p.out : r.set_b;
+      const LaneIn& in = r.ins[steps == 0 ? 0 : 2 - steps % 2];
+      const LaneOut& out = r.outs[steps % 2];
       int go = 0;
       if (part == 0 && steps < cap && __ldcg(in.done + lane) == 0) {
         if (lane_done<false>(p, in, lane, p.sse[pair])) {
@@ -683,7 +797,7 @@ __device__ void run_lanes_global(const RunParams& r,
     }
     if (part == 0) {
       if (steps % 2 == 0) {
-        const LaneIn src = steps == 0 ? p.in : as_input(r.set_b);
+        const LaneIn& src = r.ins[steps == 0 ? 0 : 2];
         copy_lane(p, src, p.out, lane, __ldcg(src.done + lane) != 0);
       }
       if (t == 0) {
@@ -705,13 +819,14 @@ __device__ void run_lanes_global(const RunParams& r,
 // rank 0: pop the lane where it steps, else copy it (once into each set);
 // -> whether it steps.
 __device__ __forceinline__ int stream_head_global(const RunParams& r,
+                                                  const StreamMasks& m,
                                                   const StepArrays& a,
                                                   const LaneIn& in,
                                                   const LaneOut& out,
                                                   int lane, int pair, int i) {
   const StepParams& p = r.step;
   const int t = threadIdx.x;
-  const bool live = r.live == nullptr || r.live[lane / p.group] != 0;
+  const bool live = m.is_live(lane / p.group);
   const bool done_in = __ldcg(in.done + lane) != 0;
   const float sse = p.sse[pair];
   if (live && !lane_done<false>(p, in, lane, sse)) {
@@ -731,7 +846,7 @@ __device__ __forceinline__ int stream_head_global(const RunParams& r,
 // Mode stream, the lanes' state in device memory (more lanes than
 // clusters, or a state too large for shared memory): each cluster strides
 // over its lanes every iteration; -> the iterations the run made.
-__device__ int run_stream_global(const RunParams& r,
+__device__ int run_stream_global(const RunParams& r, const StreamMasks& m,
                                  cg::cluster_group& cluster,
                                  const StepArrays& a, unsigned char* body,
                                  int part, int cid, int n_clusters) {
@@ -751,12 +866,13 @@ __device__ int run_stream_global(const RunParams& r,
   }
   int i = 0;
   for (;; ++i) {
-    const LaneIn in = i == 0 ? p.in : as_input(i % 2 == 1 ? p.out : r.set_b);
-    const LaneOut out = i % 2 == 0 ? p.out : r.set_b;
+    const LaneIn& in = r.ins[i == 0 ? 0 : 2 - i % 2];
+    const LaneOut& out = r.outs[i % 2];
     for (int lane = cid; lane < p.L; lane += n_clusters) {
       const int pair = p.lane_pair != nullptr ? p.lane_pair[lane] : 0;
       const int go = part == 0
-                         ? stream_head_global(r, a, in, out, lane, pair, i)
+                         ? stream_head_global(r, m, a, in, out, lane, pair,
+                                              i)
                          : 0;
       if (!cluster_bounds(cluster, p, a, lane, pair, part, go, held, body))
         continue;
@@ -770,14 +886,14 @@ __device__ int run_stream_global(const RunParams& r,
       }
 #endif
     }
-    if (run_agree(r, i)) break;
+    if (run_agree(r, m, i)) break;
   }
   const int n = i + 1;
   if (part == 0 && n % 2 == 0)
     // the result into set A: set B's lanes that still differ
     for (int lane = cid; lane < p.L; lane += n_clusters)
       if (r.frozen[lane] < 2)
-        copy_lane(p, as_input(r.set_b), p.out, lane,
+        copy_lane(p, r.ins[2], p.out, lane,
                   __ldcg(r.set_b.done + lane) != 0);
   return n;
 }
@@ -801,10 +917,12 @@ __device__ int stage_iterations(Last last, int L, int w) {
 }
 
 // The counters and info from the lanes' records, by the rank 0 of the
-// last cluster to finish (a ticket), which then zeroes the sync words.
-// scratch: the block's shared arrays, free by now (scratch_words).
+// last cluster to finish (a ticket), which then zeroes the sync words and
+// harvests (the rows hrows, or the event head: r.hv, r.ev).  scratch: the
+// block's dynamic shared memory, free by now (r.scratch_words of it); m:
+// mode stream's masks (null in the other modes).
 __device__ void run_finish(const RunParams& r, int n, int n_clusters,
-                           int* scratch, int scratch_words) {
+                           int* scratch, const StreamMasks* m) {
   __shared__ int s_last;
   const StepParams& p = r.step;
   const int t = threadIdx.x, nt = blockDim.x;
@@ -838,8 +956,7 @@ __device__ void run_finish(const RunParams& r, int n, int n_clusters,
     }
     ev = block_sum(ev);
     su = block_sum(su);
-    it = r.mode == kStream ? (r.live == nullptr || r.live[0] ? n : 0)
-                           : block_max(smax);
+    it = r.mode == kStream ? (m->is_live(0) ? n : 0) : block_max(smax);
     if (t == 0) put(0, it, ev, su);
   } else {
     for (int g = t; g < groups; g += nt) {
@@ -849,8 +966,7 @@ __device__ void run_finish(const RunParams& r, int n, int n_clusters,
         su += __ldcg(r.lane_su + l);
         if (r.mode != kStream) smax = max(smax, __ldcg(r.lane_steps + l));
       }
-      const bool lv = r.live == nullptr || r.live[g] != 0;
-      const int S = r.mode == kStream ? (lv ? n : 0) : smax;
+      const int S = r.mode == kStream ? (m->is_live(g) ? n : 0) : smax;
       put(g, S, ev, su);
       it = max(it, S);
     }
@@ -863,7 +979,7 @@ __device__ void run_finish(const RunParams& r, int n, int n_clusters,
       return __ldcg(p.out.done + l) != 0 ? __ldcg(r.lane_steps + l) - 1
                                          : it - 1;
     };
-    const bool staged = L <= scratch_words;
+    const bool staged = L <= r.scratch_words;
     if (staged)
       for (int l = t; l < L; l += nt) scratch[l] = last_global(l);
     __syncthreads();
@@ -887,6 +1003,17 @@ __device__ void run_finish(const RunParams& r, int n, int n_clusters,
     r.sync[kTicket] = 0;
     r.sync[kArrive] = 0;
   }
+  if (r.hv.ubs == nullptr) return;
+  // the harvest reads the lanes of set A (every cluster's, fenced before
+  // its ticket) and the counters just formed
+  __threadfence();
+  __syncthreads();
+  if (r.ev.words != nullptr)
+    event_head(r.ev, r.hv, n, scratch, r.scratch_words);
+  else
+    harvest_rows(r.hv, [&r](int j) { return __ldg(r.hrows + j); },
+                 r.n_hrows, 0, reinterpret_cast<float*>(scratch),
+                 r.scratch_words, nullptr);
 }
 
 // the run's four routes, each a kernel of its own (the host picks one)
@@ -905,17 +1032,26 @@ __global__ void __launch_bounds__(kStepWarps * 32, 2)
   const StepArrays a = step_arrays(p, smem);
   unsigned char* body =
       smem + 4 * static_cast<size_t>(p.step_words + r.state_words);
-  int n = 0;
-  if constexpr (kRoute == kStreamHeld)
-    n = run_stream_held(r, cluster, a, smem, body, part, cid);
-  else if constexpr (kRoute == kLanesHeld)
-    run_lanes_held(r, cluster, a, smem, body, part, cid, n_clusters);
-  else if constexpr (kRoute == kStreamGlobal)
-    n = run_stream_global(r, cluster, a, body, part, cid, n_clusters);
-  else
-    run_lanes_global(r, cluster, a, body, part, cid, n_clusters);
-  if (part == 0)
-    run_finish(r, n, n_clusters, reinterpret_cast<int*>(smem), p.step_words);
+  int* scratch = reinterpret_cast<int*>(smem);
+  if constexpr (kRoute == kStreamHeld || kRoute == kStreamGlobal) {
+    __shared__ StreamMasks s_masks;
+    stream_masks(r, s_masks);
+    int n;
+    if constexpr (kRoute == kStreamHeld)
+      n = run_stream_held(r, s_masks, cluster, a, smem, body, part, cid);
+    else
+      n = run_stream_global(r, s_masks, cluster, a, body, part, cid,
+                            n_clusters);
+    if (part == 0)
+      run_finish(r, n, n_clusters, scratch, &s_masks);
+  } else {
+    if constexpr (kRoute == kLanesHeld)
+      run_lanes_held(r, cluster, a, smem, body, part, cid, n_clusters);
+    else
+      run_lanes_global(r, cluster, a, body, part, cid, n_clusters);
+    if (part == 0)
+      run_finish(r, 0, n_clusters, scratch, nullptr);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1160,8 +1296,12 @@ extern "C" int goicp_zero_words(void* p, long long n_bytes, void* stream) {
       p, 0, static_cast<size_t>(n_bytes), static_cast<cudaStream_t>(stream)));
 }
 
-// the run's slots and ints (search/inner.py's _run_specs and inner_run)
+// the run's slots and ints (search/inner.py's _run_specs and inner_run),
+// and with the harvest at its end (_head_specs and the ints inner_run
+// appends)
 constexpr int kRunSlots = 47, kRunInts = 17;
+constexpr int kHeadSlots = kRunSlots + 16, kHeadInts = kRunInts + 5;
+enum HeadMode { kHeadRows = 1, kHeadEvent = 2 };
 
 // One launch of the run: a cluster of blocks_per_lane blocks a lane
 // (plan_step), as many clusters as the card holds at once up to one a
@@ -1174,13 +1314,25 @@ constexpr int kRunSlots = 47, kRunInts = 17;
 // each of frozen, lane evals, lane survivors, lane steps, done
 // iterations.  ints: L, cap, pop, group, Nd, n_cells, size, norm, fused,
 // trim_k, reuse, sorted_merge, mode, max_iters, steps, stage_w1,
-// stage_w2.  cudaErrorCooperativeLaunchTooLarge where not one cluster
-// fits.
+// stage_w2.  With the harvest at the run's end (kHeadSlots slots,
+// kHeadInts ints): 16 more slots, the harvest's active, R_lanes, opt_err
+// and conv (mode stream: the state's converged), the state's `it` and
+// fin0 (mode stream), its 8 outputs (lb_safe, ubs, cand_ub, incumbent,
+// cand_R, cand_t, cand_terms, flags), the event's words (mode stream) and
+// the rows harvested (modes search and groups: n_rows int32 in [0,
+// groups) in device memory); 5 more ints, the head mode (kHeadRows in
+// modes search and groups; kHeadEvent in mode stream: the event head, the
+// masks from the state), K, max_outer_steps, eager, n_rows.  Mode stream
+// takes 2 ceil(groups / 32) more words of dynamic shared memory (its
+// masks), and a head what its harvest needs beyond the step's arrays.
+// cudaErrorCooperativeLaunchTooLarge where not one cluster fits.
 extern "C" int goicp_inner_run(const unsigned long long* slots, int n_slots,
                                const int* ints, int n_ints, float reg,
                                void* stream) {
   using namespace goicp;
-  if (n_slots != kRunSlots || n_ints != kRunInts)
+  const bool headed = n_slots == kHeadSlots;
+  if ((n_slots != kRunSlots && !headed) ||
+      n_ints != (headed ? kHeadInts : kRunInts))
     return static_cast<int>(cudaErrorInvalidValue);
   auto f = [slots](int k) {
     return reinterpret_cast<float*>(static_cast<uintptr_t>(slots[k]));
@@ -1194,17 +1346,53 @@ extern "C" int goicp_inner_run(const unsigned long long* slots, int n_slots,
   };
   const int L = ints[0], cap = ints[1], pop = ints[2], group = ints[3];
   const int mode = ints[12], steps = ints[14];
-  if (mode < kSearch || mode > kStream || (mode == kStream && steps < 1))
+  if (mode < kSearch || mode > kStream || (mode == kStream && steps < 1) ||
+      group <= 0 || L % group != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int groups = L / group;
+  // the shared words the harvest at the end takes (a row's ubs, and the
+  // event's served rows), and mode stream's masks'
+  size_t need = 0;
+  const int head = headed ? ints[kRunInts] : 0;
+  const int served = headed ? ints[kRunInts + 1] : 0;
+  const int n_rows = headed ? ints[kRunInts + 4] : 0;
+  if (head == kHeadEvent) {
+    if (mode != kStream || served < 1 || served > groups ||
+        u8(21) != nullptr || u8(22) != nullptr || u8(23) != nullptr ||
+        u8(50) == nullptr || i32(51) == nullptr || u8(52) == nullptr ||
+        i32(61) == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    need = group + event_words(groups, served);
+  } else if (head == kHeadRows) {
+    if (mode == kStream || n_rows < 0 || n_rows > groups ||
+        (n_rows > 0 && i32(62) == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    need = group;
+  } else if (headed) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t mask_words =
+      mode == kStream ? 2 * ((static_cast<size_t>(groups) + 31) / 32) : 0;
   RunParams r{};
   StepParams& p = r.step;
   int warps = 0, state = 0;
   size_t words = 0;
+  // the step's plan, then the harvest's words (from the start: everything
+  // there is free at the run's end) and the masks behind both
   auto plan = [&](bool held) {
-    return plan_step(p, f(0), f(1), f(2), i32(3), i32(4), f(5), f(6), f(7),
-                     f(8), f(9), i32(10), f(11), L, cap, pop, group, ints[4],
-                     ints[5], ints[6], ints[7], ints[8], ints[9], ints[10],
-                     ints[11], reg, held, &warps, &words, &state);
+    const cudaError_t e = plan_step(
+        p, f(0), f(1), f(2), i32(3), i32(4), f(5), f(6), f(7), f(8), f(9),
+        i32(10), f(11), L, cap, pop, group, ints[4], ints[5], ints[6],
+        ints[7], ints[8], ints[9], ints[10], ints[11], reg, held, &warps,
+        &words, &state);
+    if (e != cudaSuccess) return e;
+    r.scratch_words = static_cast<int>(
+        need > static_cast<size_t>(p.step_words) ? need : p.step_words);
+    r.mask_at = static_cast<int>(
+        words > static_cast<size_t>(r.scratch_words) ? words
+                                                     : r.scratch_words);
+    words = r.mask_at + mask_words;
+    return 4 * words > kMaxDynamicSmem ? cudaErrorInvalidValue : cudaSuccess;
   };
   const cudaError_t planned = plan(true);
   if (planned != cudaSuccess) return static_cast<int>(planned);
@@ -1240,8 +1428,12 @@ extern "C" int goicp_inner_run(const unsigned long long* slots, int n_slots,
                    f(34), f(35), u8(36));
   r.set_b = lane_out(f(37), f(38), rz ? f(39) : nullptr, f(40), f(41),
                      f(42), f(43), f(44), u8(45));
+  r.ins[0] = p.in;
+  r.ins[1] = as_input(p.out);
+  r.ins[2] = as_input(r.set_b);
+  r.outs[0] = p.out;
+  r.outs[1] = r.set_b;
   for (int k = 0; k < 4; ++k) p.cnt_in[k] = i32(24 + k);
-  const int groups = L / group;
   r.live = mode == kStream ? u8(21) : nullptr;
   r.watch = mode == kStream ? u8(22) : nullptr;
   r.once = mode == kStream ? u8(23) : nullptr;
@@ -1261,6 +1453,25 @@ extern "C" int goicp_inner_run(const unsigned long long* slots, int n_slots,
   r.state_words = state;
   const int n_clusters = resident < L ? resident : L;
   r.resident = route == kLanesHeld || route == kStreamHeld;
+  if (headed) {
+    const LaneOut& a = p.out;
+    r.hv = HarvestIo{a.lbs, ints[8] ? a.thr : a.opt_err, a.min_dropped,
+                     a.done, nullptr, a.opt_err, a.best_node, a.ub_terms,
+                     u8(47), f(48), f(49), u8(50), f(53), f(54), f(55),
+                     f(56), f(57), f(58), f(59), u8(60), group, cap};
+    if (head == kHeadEvent) {
+      r.ev = EventIo{u8(50), i32(51), a.done, r.cnt, nullptr, i32(61),
+                     groups, served, ints[kRunInts + 2], ints[13]};
+      r.st_conv = u8(50);
+      r.st_it = i32(51);
+      r.fin0 = u8(52);
+      r.eager = ints[kRunInts + 3];
+      r.max_outer = ints[kRunInts + 2];
+    } else {
+      r.hrows = i32(62);
+      r.n_hrows = n_rows;
+    }
+  }
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;

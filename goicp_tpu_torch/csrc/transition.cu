@@ -8,14 +8,14 @@
 // no Pallas kernel; the port ran it as ~60 torch ops a row (the pop) plus
 // the harvest, the adoption and the frontier merge, row by row.
 //
-// goicp_harvest, one block a row: each lane's lower bound lb_safe (the
-// minimum of thr or the lb pass's opt_err and min_dropped, and of the
-// lane's translation frontier where its search did not finish; or given),
-// ubs = active ? opt_err : inf, the first argmin lane (NaN first, as
-// torch.argmin), the candidate's ub, R, t = tn[:3] + tn[3] / 2 and terms,
-// the incumbent min(opt_err, cand_ub) and improved = !(cand_ub >= opt_err)
-// (NaN-infectious), beside a copy of the row's converged flag: the one
-// host read of a transition reads those two flags.
+// goicp_harvest (the body in harvest_body.cuh): a finished inner search's
+// harvest, one block a row (each lane's lb_safe and ub, the first argmin
+// lane's candidate, the incumbent and the flags improved, converged); or
+// the fused stream's event head alone, one block (the flags of every row,
+// the served rows, their harvest and the event's words), for a chunk's
+// first event.  The later events' heads run at the end of the inner run
+// that precedes them (inner.cu), as register_device's and the batch
+// engine's harvests do.
 //
 // goicp_advance, in three modes:
 //   pop    (register_device, the batch engine, the sharded engine's pop):
@@ -64,8 +64,9 @@
 // rotation factor and active flag and the incumbent into that block's
 // shared memory (distributed shared memory: a lane block never reads the
 // row being written), and after the cluster barrier every block writes
-// its lanes.  So a transition batch is two launches, whatever its number
-// of rows: harvest, then advance.
+// its lanes.  So a transition batch is one launch of advance, whatever
+// its number of rows, after the harvest (at the end of the inner run, or
+// goicp_harvest).
 //
 // Every float step is the torch code's, one rounding each, with the
 // round-to-nearest intrinsics nvcc may not contract: cxyz + off * cw,
@@ -91,6 +92,7 @@
 #include <cooperative_groups.h>
 
 #include "chem_body.cuh"
+#include "harvest_body.cuh"
 #include "rot_body.cuh"
 
 namespace goicp {
@@ -118,27 +120,18 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   return nan_(a) || nan_(b) ? __int_as_float(0x7fffffff) : fminf(a, b);
 }
 
-// argmin's order: NaN first, then the value, then the index
-__device__ __forceinline__ bool arg_before(float a, int ia, float b,
-                                           int ib) {
-  if (nan_(a) || nan_(b)) return nan_(a) && (!nan_(b) || ia < ib);
-  return a < b || (a == b && ia < ib);
-}
-
 // ---------------------------------------------------------------------------
 // harvest
 // ---------------------------------------------------------------------------
 
+// goicp_harvest's pointer slots (search/transition.py's _HARVEST_IN,
+// _HARVEST_OUT, then the event head's own); the last four only in the
+// event mode
 enum HarvestSlot {
   kHLbs, kHRef, kHMinDrop, kHDone, kHLbIn, kHUbErr, kHBestNode, kHUbTerms,
   kHActive, kHRLanes, kHOptErr, kHConv, kHOLbSafe, kHOUbs, kHOCandUb,
-  kHOIncumbent, kHOCandR, kHOCandT, kHOCandTerms, kHOFlags, kHSlots
-};
-
-struct HarvestParams {
-  const void* p[kHSlots];
-  int L, C;
-  int rows[kMaxRows];
+  kHOIncumbent, kHOCandR, kHOCandT, kHOCandTerms, kHOFlags, kHSlots,
+  kHIt = kHSlots, kHInnerIt, kHOWords, kHOFin0, kHEventSlots
 };
 
 template <typename T>
@@ -151,73 +144,31 @@ __device__ __forceinline__ T* out_(const void* p) {
   return static_cast<T*>(const_cast<void*>(p));
 }
 
-__global__ void __launch_bounds__(kThreads) harvest_kernel(HarvestParams hp) {
+struct HarvestParams {
+  HarvestIo io;
+  int rows[kMaxRows];
+};
+
+// a block a row
+__global__ void __launch_bounds__(kThreads)
+    harvest_kernel(const __grid_constant__ HarvestParams hp) {
   extern __shared__ float s_ubs[];   // (L,)
   const int i = blockIdx.x, w = hp.rows[i];
-  const int L = hp.L, C = hp.C;
-  const int t = threadIdx.x, warp = t >> 5, tid = t & 31;
-  const size_t wl = static_cast<size_t>(w) * L;
-  const float inf = inf_();
-  const void* const* p = hp.p;
+  harvest_rows(hp.io, [w](int) { return w; }, 1, i, s_ubs, hp.io.L, nullptr);
+}
 
-  for (int l = warp; l < L; l += kThreads / 32) {
-    float lb;
-    if (p[kHLbIn] != nullptr) {
-      lb = in_<float>(p[kHLbIn])[wl + l];
-    } else {
-      // rem_min = amin(lbs): NaN-propagating, over the lane's C entries
-      const float* row = in_<float>(p[kHLbs]) + (wl + l) * C;
-      float m = inf;
-      for (int c = tid; c < C; c += 32) m = min_nan(m, row[c]);
-      for (int off = 16; off > 0; off >>= 1)
-        m = min_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
-      lb = min_nan(in_<float>(p[kHRef])[wl + l],
-                   in_<float>(p[kHMinDrop])[wl + l]);
-      if (!in_<unsigned char>(p[kHDone])[wl + l]) lb = min_nan(lb, m);
-    }
-    if (tid == 0) {
-      const float u =
-          in_<unsigned char>(p[kHActive])[wl + l] ? in_<float>(p[kHUbErr])[wl + l]
-                                                  : inf;
-      out_<float>(p[kHOLbSafe])[static_cast<size_t>(i) * L + l] = lb;
-      out_<float>(p[kHOUbs])[static_cast<size_t>(i) * L + l] = u;
-      s_ubs[l] = u;
-    }
-  }
-  __syncthreads();
-  if (warp != 0) return;
-  float bv = inf;
-  int bi = 0x7fffffff;
-  for (int l = tid; l < L; l += 32)
-    if (arg_before(s_ubs[l], l, bv, bi)) {
-      bv = s_ubs[l];
-      bi = l;
-    }
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-    if (arg_before(ov, oi, bv, bi)) {
-      bv = ov;
-      bi = oi;
-    }
-  }
-  if (tid != 0) return;
-  const size_t lane = wl + bi;
-  const float opt = in_<float>(p[kHOptErr])[w];
-  const float* tn = in_<float>(p[kHBestNode]) + 4 * lane;
-  const float* R = in_<float>(p[kHRLanes]) + 9 * lane;
-  const float* terms = in_<float>(p[kHUbTerms]) + 3 * lane;
-  out_<float>(p[kHOCandUb])[i] = bv;
-  out_<float>(p[kHOIncumbent])[i] = min_nan(opt, bv);
-  for (int k = 0; k < 9; ++k) out_<float>(p[kHOCandR])[9 * i + k] = R[k];
-  const float half = __fdiv_rn(tn[3], 2.0f);
-  for (int a = 0; a < 3; ++a) {
-    out_<float>(p[kHOCandT])[3 * i + a] = __fadd_rn(tn[a], half);
-    out_<float>(p[kHOCandTerms])[3 * i + a] = terms[a];
-  }
-  unsigned char* flags = out_<unsigned char>(p[kHOFlags]) + 2 * i;
-  flags[0] = !(bv >= opt);   // NaN-infectious <
-  flags[1] = p[kHConv] != nullptr ? in_<unsigned char>(p[kHConv])[w] : 0;
+struct EventParams {
+  HarvestIo io;
+  EventIo ev;
+  int cap;                           // the block's shared words
+  int n_iters;                       // the event words' global iterations
+};
+
+// the event head alone (a chunk's first event): one block
+__global__ void __launch_bounds__(kThreads)
+    event_kernel(const __grid_constant__ EventParams ep) {
+  extern __shared__ int s_ev[];
+  event_head(ep.ev, ep.io, ep.n_iters, s_ev, ep.cap);
 }
 
 // ---------------------------------------------------------------------------
@@ -893,39 +844,86 @@ inline int invalid() { return static_cast<int>(cudaErrorInvalidValue); }
 
 }  // namespace goicp
 
-// One launch for n rows (in launches of at most kMaxRows): slots are the
-// HarvestSlot pointers, ints = (L, C).
+static goicp::HarvestIo harvest_io(const unsigned long long* slots, int L,
+                                   int C) {
+  auto f = [slots](int k) {
+    return reinterpret_cast<float*>(static_cast<uintptr_t>(slots[k]));
+  };
+  auto u8 = [slots](int k) {
+    return reinterpret_cast<unsigned char*>(static_cast<uintptr_t>(slots[k]));
+  };
+  using namespace goicp;
+  return HarvestIo{f(kHLbs),      f(kHRef),        f(kHMinDrop),
+                   u8(kHDone),    f(kHLbIn),       f(kHUbErr),
+                   f(kHBestNode), f(kHUbTerms),    u8(kHActive),
+                   f(kHRLanes),   f(kHOptErr),     u8(kHConv),
+                   f(kHOLbSafe),  f(kHOUbs),       f(kHOCandUb),
+                   f(kHOIncumbent), f(kHOCandR),   f(kHOCandT),
+                   f(kHOCandTerms), u8(kHOFlags),  L, C};
+}
+
+// Two modes.  The harvest of n rows (n_slots = kHSlots, ints = (L, C)):
+// one launch of a block a row (in launches of at most kMaxRows).  The
+// event head (n_slots = kHEventSlots, ints = (L, C, W, K, max_outer_steps,
+// inner_max_iters, the global iterations for the words); rows and n
+// unused): one launch of one block, which
+// writes the served rows' harvest into rows 0 .. K - 1 of the outputs, the
+// event's words and, where its slot is not null, fin0.
 extern "C" int goicp_harvest(const unsigned long long* slots, int n_slots,
                              const int* ints, int n_ints, const int* rows,
                              int n, void* stream) {
   using namespace goicp;
-  if (n_slots != kHSlots || n_ints != 2 || n < 0) return invalid();
-  HarvestParams hp{};
-  for (int k = 0; k < kHSlots; ++k)
-    hp.p[k] = reinterpret_cast<const void*>(slots[k]);
-  hp.L = ints[0];
-  hp.C = ints[1];
-  if (hp.L <= 0 || hp.C <= 0 || hp.L > 32 * 1024) return invalid();
+  const bool event = n_slots == kHEventSlots;
+  if ((n_slots != kHSlots && !event) || n_ints != (event ? 7 : 2) || n < 0)
+    return invalid();
+  const int L = ints[0], C = ints[1];
+  if (L <= 0 || C <= 0 || L > 32 * 1024) return invalid();
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const HarvestIo io = harvest_io(slots, L, C);
+  if (event) {
+    EventParams ep{};
+    ep.io = io;
+    ep.ev = EventIo{
+        reinterpret_cast<const unsigned char*>(slots[kHConv]),
+        reinterpret_cast<const int*>(slots[kHIt]),
+        reinterpret_cast<const unsigned char*>(slots[kHDone]),
+        reinterpret_cast<const int*>(slots[kHInnerIt]),
+        reinterpret_cast<unsigned char*>(slots[kHOFin0]),
+        reinterpret_cast<int*>(slots[kHOWords]),
+        ints[2], ints[3], ints[4], ints[5]};
+    ep.n_iters = ints[6];
+    const int W = ep.ev.W, K = ep.ev.K;
+    if (W <= 0 || K <= 0 || K > W || ep.ev.conv == nullptr ||
+        ep.ev.it == nullptr || ep.ev.inner_it == nullptr ||
+        ep.ev.words == nullptr || io.lb_in != nullptr)
+      return invalid();
+    // the served rows' words, then the ubs of as many rows at a time as
+    // fit 48 KB
+    const int head = event_words(W, K);
+    const int fit = (12 * 1024 - head) / L;
+    if (fit < 1) return invalid();
+    ep.cap = head + (K < fit ? K : fit) * L;
+    event_kernel<<<1, kThreads, 4 * static_cast<size_t>(ep.cap), s>>>(ep);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (4 * static_cast<size_t>(L) > 48 * 1024) return invalid();
+  HarvestParams hp{};
+  hp.io = io;
   for (int r0 = 0; r0 < n; r0 += kMaxRows) {
     const int m = n - r0 < kMaxRows ? n - r0 : kMaxRows;
     for (int k = 0; k < m; ++k) hp.rows[k] = rows[r0 + k];
     // the row-indexed outputs of this launch start at row r0
     HarvestParams h = hp;
-    const size_t L = hp.L;
-    auto shift = [&](int slot, size_t per_row) {
-      if (h.p[slot] != nullptr)
-        h.p[slot] = static_cast<const char*>(h.p[slot]) + per_row * r0;
-    };
-    shift(kHOLbSafe, 4 * L);
-    shift(kHOUbs, 4 * L);
-    shift(kHOCandUb, 4);
-    shift(kHOIncumbent, 4);
-    shift(kHOCandR, 36);
-    shift(kHOCandT, 12);
-    shift(kHOCandTerms, 12);
-    shift(kHOFlags, 2);
-    harvest_kernel<<<m, kThreads, 4 * L, s>>>(h);
+    const size_t rL = static_cast<size_t>(r0) * L;
+    h.io.lb_safe += rL;
+    h.io.ubs += rL;
+    h.io.cand_ub += r0;
+    h.io.incumbent += r0;
+    h.io.cand_R += 9 * static_cast<size_t>(r0);
+    h.io.cand_t += 3 * static_cast<size_t>(r0);
+    h.io.cand_terms += 3 * static_cast<size_t>(r0);
+    h.io.flags += 2 * static_cast<size_t>(r0);
+    harvest_kernel<<<m, kThreads, 4 * static_cast<size_t>(L), s>>>(h);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -10,13 +10,16 @@ TransitionBuffers hands out each kind of call's outputs from two sets
 used in turn and keeps a block for each set, and the run's RefineRecord:
 the refine block the transitions read, which search/pick.py's refine
 route writes (csrc/icp.cu), with that launch's own argument block
-(RefineArgs).
+(RefineArgs).  RunHead names the harvest an inner run makes at its end
+(inner.inner_run(head=)); the buffers keep the fused stream's fin0 and
+the pinned host words an event is read into.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -126,6 +129,24 @@ class TransitionBuffers:
         self.turn: dict = {}
         self.blocks: dict = {}      # (kind, set index or "out") -> block
         self.record = RefineRecord()
+        self._kept: dict = {}
+
+    def fin0(self, W: int, dev) -> torch.Tensor:
+        """The fused stream's (W,) bool: each row finished at the chunk's
+        first event (its event head writes it)."""
+        key = ("fin0", W, str(dev))
+        if key not in self._kept:
+            self._kept[key] = torch.zeros((W,), dtype=torch.bool, device=dev)
+        return self._kept[key]
+
+    def host_words(self, words: torch.Tensor) -> torch.Tensor:
+        """A pinned host tensor of words' shape and type, kept: what an
+        event's words are copied into (one copy, the event's host read)."""
+        key = ("host", tuple(words.shape), words.dtype)
+        if key not in self._kept:
+            self._kept[key] = torch.empty(words.shape, dtype=words.dtype,
+                                          pin_memory=True)
+        return self._kept[key]
 
     def take(self, kind, alloc, inputs=()) -> tuple:
         """(index, outputs): the next output set of `kind` that holds none
@@ -300,6 +321,60 @@ class RefineRecord:
                 torch.empty((K, 3, 3), dtype=torch.float32, device=dev),
                 torch.empty((K, 3), dtype=torch.float32, device=dev))
         return self._seeds[key]
+
+
+class RunHead(NamedTuple):
+    """The harvest an inner run makes at its end, by the last cluster to
+    finish (search/inner.py::inner_run(head=); csrc/inner.cu's run_finish,
+    the body csrc/harvest_body.cuh): the state's rows that the run's lanes
+    belong to (W of them, one a group of lanes), what the harvest reads of
+    them beside the lanes, and what it serves.
+
+    Modes search and groups: the rows `rows`, an int32 tensor on the
+    lanes' device of indices in [0, W) (register_device's row 0, the batch
+    engine's stepping rows), harvested into output rows 0 .. len(rows) - 1
+    (search/transition.py::harvest's outputs).  Mode stream
+    (`it` given): the fused stream's event head on the W rows (served: the
+    first K complete and not converged rows), the run's masks (live, watch,
+    once) taken from the state (conv, it, the lanes' done and inner it,
+    fin0, eager) instead of the caller's."""
+    active: torch.Tensor                 # (W, L) bool
+    R_lanes: torch.Tensor                # (W, L, 3, 3) float32
+    opt_err: torch.Tensor                # (W,) float32, the incumbent
+    conv: torch.Tensor | None            # (W,) bool, the flags' second
+    rows: torch.Tensor | None = None     # (n,) int32: search, groups
+    it: torch.Tensor | None = None       # (W,) int32: mode stream
+    fin0: torch.Tensor | None = None     # (W,) bool: mode stream
+    K: int = 0                           # mode stream: rows served at most
+    max_outer: int = 0                   # mode stream: max_outer_steps
+    eager: bool = False                  # mode stream
+
+    @property
+    def event(self) -> bool:
+        return self.it is not None
+
+
+HARVEST_KEYS = ("lb_safe", "ubs", "cand_ub", "incumbent", "cand_R", "cand_t",
+                "cand_terms", "flags")
+
+
+def event_words(W: int, K: int) -> int:
+    """The fused stream's event's int32 words: finished, converged and
+    complete of each of W rows, the rows served, K served rows, K improved
+    flags, the global iterations (csrc/harvest_body.cuh's layout)."""
+    return 3 * W + 2 * K + 2
+
+
+def harvest_rows_of(out: dict, n: int) -> dict:
+    """The first n rows of a harvest's outputs (out["h"], a capacity of
+    rows) as views, with `improved` = flags[:, 0]; kept in out["views"]
+    per n, so that a call given them binds the same tensor objects."""
+    views = out.setdefault("views", {})
+    if n not in views:
+        h = {k: out["h"][k][:n] for k in HARVEST_KEYS}
+        h["improved"] = h["flags"][:, 0]
+        views[n] = h
+    return views[n]
 
 
 def _leaves(d: dict) -> list:

@@ -16,7 +16,10 @@ overflows fold the minimum dropped lb into the reported gap.
 The JAX package runs the outer loop as one lax.while_loop; here it is a
 Python loop that reads the host once per outer step (the harvest's
 flags: improved, converged); the inner search is one launch of the inner
-run on the card (search/inner.py::inner_run), no host read.  The pop, the harvest and the adoption are
+run on the card (search/inner.py::inner_run), no host read, and the
+harvest is made at the run's end by its last cluster (inner_run's head),
+so that an outer step is three launches: the pop, the run, the
+adoption.  The pop, the harvest and the adoption are
 search/transition.py's (on the card csrc/transition.cu); the ICP, its
 rescoring and the BnB compat count run only on a step whose candidate
 improved (every step with icp_on_improve=0), written into the run's
@@ -54,7 +57,8 @@ from goicp_tpu_torch.icp.icp import icp_run
 from goicp_tpu_torch.pipeline.prepare import PairData
 from goicp_tpu_torch.search import pick, transition
 from goicp_tpu_torch.search.pick import INIT_SEED_RV as _INIT_SEED_RV
-from goicp_tpu_torch.search.args import TransitionBuffers
+from goicp_tpu_torch.search.args import (RunHead, TransitionBuffers,
+                                         harvest_rows_of)
 from goicp_tpu_torch.search.inner import InnerResult, inner_bnb
 
 INF = float("inf")
@@ -200,10 +204,12 @@ def _make_body(pair: PairData, cfg: GoICPConfig, mesh=None):
     """One outer BnB step: pop -> expand -> inner search -> ICP -> adopt ->
     prune/merge, body(s) -> (new state, converged on the host).  The pop,
     the harvest and the adoption are search/transition.py's (on the card
-    csrc/transition.cu: three launches, their outputs from the run's two
-    sets in turn, the states alternating between the adoption's two: a
-    state the body returned is valid until the step after next); the
-    step reads the host ONCE, the
+    csrc/transition.cu; the harvest made at the end of the inner run,
+    csrc/inner.cu, where the inner search is one fused run on this card:
+    three launches, their outputs from the run's two sets in turn, the
+    states alternating between the adoption's two: a state the body
+    returned is valid until the step after next); the step reads the host
+    ONCE, the
     harvest's flags (improved, converged), and runs the ICP, its rescoring
     and the BnB compat count only when the candidate improved (always with
     icp_on_improve=0), never for a converged step, whose result is frozen.
@@ -216,34 +222,47 @@ def _make_body(pair: PairData, cfg: GoICPConfig, mesh=None):
     # the run's transition and inner-run outputs, two sets used in turn,
     # and its argument blocks
     bufs = TransitionBuffers()
+    # the inner run harvests at its end on the card (one pair: not over a
+    # mesh, whose lanes are gathered first)
+    tail = mesh is None and cfg.fused_inner \
+        and transition.route(cfg, pair.data) == "kernel"
+    row0 = torch.zeros((1,), dtype=torch.int32, device=pair.device) \
+        if tail else None
 
-    def inner(p, inc, with_rot_uncertainty, fused, lanes0, mrd):
+    def inner(p, inc, with_rot_uncertainty, fused, lanes0, mrd, head=None):
         """(InnerResult, its final lanes; None over a mesh: lb_safe
-        gathered instead)."""
+        gathered instead, the harvest the run made at its end with head
+        (None where it made none))."""
         pts, widths, active = p["pts"], p["widths"], p["active"]
         if mesh is None:
-            return inner_bnb(pair, cfg, pts, widths, active, inc,
-                             with_rot_uncertainty=with_rot_uncertainty,
-                             fused=fused, lanes0=lanes0, mrd=mrd, raw=True,
-                             bufs=bufs)
+            out = inner_bnb(pair, cfg, pts, widths, active, inc,
+                            with_rot_uncertainty=with_rot_uncertainty,
+                            fused=fused, lanes0=lanes0, mrd=mrd, raw=True,
+                            bufs=bufs, head=head)
+            return out if head is not None else out + (None,)
         from goicp_tpu_torch.dist.mesh import gather_lanes
         mine = mesh.block(L, "search")
         return gather_lanes(inner_bnb(
             pair, cfg, pts[mine], widths[mine], active[mine], inc,
             with_rot_uncertainty=with_rot_uncertainty, fused=fused,
             lanes0={k: v[mine] for k, v in lanes0.items()},
-            mrd=None if mrd is None else mrd[mine]), mesh), None
+            mrd=None if mrd is None else mrd[mine]), mesh), None, None
 
     def body(s):
         p = _pop(pair, cfg, s, bufs=bufs)
         conv = p["batch"]["converged"]
+        h = None
         if cfg.fused_inner:
-            res_ub, lanes = inner(p, s["opt_err"], False, True, p["lanes"],
-                                  p["mrd"])
+            # the harvest at the run's end (row 0 of a 1-row batch)
+            res_ub, lanes, h = inner(
+                p, s["opt_err"], False, True, p["lanes"], p["mrd"],
+                RunHead(p["batch"]["active"], p["batch"]["R_lanes"],
+                        s["opt_err"].reshape(1), conv, rows=row0)
+                if tail else None)
             res_lb = res_ub
         else:
-            res_ub, lanes = inner(p, s["opt_err"], False, False,
-                                  p["lanes"], None)
+            res_ub, lanes, _ = inner(p, s["opt_err"], False, False,
+                                     p["lanes"], None)
             h1 = transition.harvest(cfg, _harvest_src(p, s["opt_err"],
                                                       res_ub), [0],
                                     fused=False, lb=_lb_lanes(lanes),
@@ -252,15 +271,18 @@ def _make_body(pair: PairData, cfg: GoICPConfig, mesh=None):
             # incumbent
             inc = torch.ones((L,), dtype=torch.float32,
                              device=pair.device) * h1["incumbent"][0]
-            res_lb, lanes = inner(p, h1["incumbent"][0], True, False,
-                                  dict(p["lanes"], opt_err=inc,
-                                       thr=inc.clone()), p["mrd"])
-        lb = _lb_lanes(lanes)
-        h = transition.harvest(
-            cfg, _harvest_src(p, s["opt_err"], res_ub), [0],
-            fused=bool(cfg.fused_inner), lb=lb, conv=conv,
-            lb_safe=None if lb is not None else res_lb.lb_safe[None],
-            bufs=bufs)
+            res_lb, lanes, _ = inner(p, h1["incumbent"][0], True, False,
+                                     dict(p["lanes"], opt_err=inc,
+                                          thr=inc.clone()), p["mrd"])
+        if h is None:
+            lb = _lb_lanes(lanes)
+            h = transition.harvest(
+                cfg, _harvest_src(p, s["opt_err"], res_ub), [0],
+                fused=bool(cfg.fused_inner), lb=lb, conv=conv,
+                lb_safe=None if lb is not None else res_lb.lb_safe[None],
+                bufs=bufs)
+        else:
+            h = harvest_rows_of(h, 1)
         flags = h["flags"].cpu().numpy()[0]          # the one host read
         improved, converged = bool(flags[0]), bool(flags[1])
         # ICP gating (refine only on improvement, jly_goicp.cpp:771-854):
@@ -366,8 +388,8 @@ def _batch_step(pairs: list, pair_batch: PairData, cfg: GoICPConfig,
     as one lane batch (B x L lanes, the row of each lane in `tables`: on
     the card one launch of the inner run, search/inner.py::inner_run in
     mode "groups"), rows whose search ended early masked until every
-    row's has ended; then one harvest of
-    the stepping rows, one host read of which improved (and which
+    row's has ended; then one harvest of the stepping rows (on the card
+    made at the run's end), one host read of which improved (and which
     converged at the pop), the ICP/compat refine block only for the rows
     that improved and did not converge, and one adoption of every
     stepping row, written into `s`.  Rows not in `rows` keep their
@@ -386,14 +408,25 @@ def _batch_step(pairs: list, pair_batch: PairData, cfg: GoICPConfig,
     bs = dict(inner=dict(p["lanes"], it=cnt[0], evals=cnt[1],
                          geom_surv=cnt[2], chem_corners=cnt[3]),
               pts_rot=p["pts"], mrd=p["mrd"])
-    bs["inner"], _ = fs._inner_run(pair_batch, cfg, bs, tables, "groups",
-                                   bufs=bufs)
-
+    if transition.route(cfg, s["opt_err"]) == "kernel":
+        # the harvest at the run's end, its rows copied to the card
+        # (staged by the copy: no wait)
+        rows_dev = torch.tensor(rows, dtype=torch.int32).to(
+            dev, non_blocking=True)
+        bs["inner"], _, h = fs._inner_run(
+            pair_batch, cfg, bs, tables, "groups", bufs=bufs,
+            head=RunHead(p["active"], p["R_lanes"], s["opt_err"],
+                         p["converged"], rows=rows_dev))
+        h = harvest_rows_of(h, len(rows))
+    else:
+        bs["inner"], _ = fs._inner_run(pair_batch, cfg, bs, tables,
+                                       "groups", bufs=bufs)
+        h = transition.harvest(cfg, dict(inner=bs["inner"],
+                                         active=p["active"],
+                                         R_lanes=p["R_lanes"],
+                                         opt_err=s["opt_err"]), rows,
+                               conv=p["converged"], bufs=bufs)
     ist = bs["inner"]
-    h = transition.harvest(cfg, dict(inner=ist, active=p["active"],
-                                     R_lanes=p["R_lanes"],
-                                     opt_err=s["opt_err"]), rows,
-                           conv=p["converged"], bufs=bufs)
     flags = h["flags"].cpu().numpy()                 # the one host read
     r = pick.refine_rows(
         cfg, [(j, pairs[w], p["R_lanes"][w], ist["best_node"][w], h["ubs"][j],

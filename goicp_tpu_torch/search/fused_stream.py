@@ -21,18 +21,23 @@ inside one lax.while_loop.  Here the batch axes are written out:
     Configurations with FPFH or neighbour chem terms, which the per-lane
     tables do not carry, run the body once per window row instead;
   * the transition, which is rare, serves every transitioning row of
-    the event at once (search/transition.py: on the card one harvest
-    launch, one host read, the refine of the rows that improved
-    (search/pick.py: three launches a row, into the loop's refine
-    record), and one advance launch that writes the rows' new state into
-    the window in place).  Rows that do not transition, and rows that
-    converged, are not touched.
+    the event at once (search/transition.py): the event head (each row's
+    flags, the rows served, their harvest, the event's words) runs at the
+    end of the inner run before it on the card (inner_run's head: no
+    launch of its own; a chunk's first event launches it alone), then
+    the refine of the rows that improved (search/pick.py: one launch of
+    the refine route, into the loop's refine record), and one advance
+    launch that writes the rows' new state into the window in place.
+    Rows that do not transition, and rows that converged, are not
+    touched.
 
 The loop is a Python loop over transition events: it reads ONE small
-tensor on the host (which rows finished, which completed their inner
-search, and how many global iterations the last inner run made), and a
-transition event reads one more (which of its rows improved) before it
-decides about ICP.  `counters` counts both.
+tensor on the host an event, the event's words (which rows finished,
+converged and completed their inner search, the rows served and which of
+them improved, and how many global iterations the last inner run made),
+and decides about ICP from it; the inner run that follows takes its
+masks (the rows that step, those whose completion ends it, and `once`)
+from the state on the card.  `counters` counts the reads.
 
 Epsilon-optimality bookkeeping is identical to search/device_engine.py
 (same pop/threshold-discard/prune rules, same min-dropped-lb folding into
@@ -70,7 +75,8 @@ from goicp_tpu_torch.search.device_engine import (DeviceResult,
                                                   _initial_incumbent,
                                                   result_to_numpy)
 from goicp_tpu_torch.search import pick, transition
-from goicp_tpu_torch.search.args import TransitionBuffers
+from goicp_tpu_torch.search.args import (RunHead, TransitionBuffers,
+                                         harvest_rows_of)
 from goicp_tpu_torch.search.inner import (_COUNTERS, _PER_LANE,
                                           _chem_active, inner_iteration,
                                           inner_loop, inner_run_plain,
@@ -83,9 +89,11 @@ _F32 = torch.float32
 _I32 = torch.int32
 
 # what the stream loops did since reset_counters(): global iterations,
-# transition events, the host reads those two cost, and the pairs sent to
-# the deferred phase of capacity escalation
-counters = dict(global_iters=0, transitions=0, host_reads=0, escalated=0)
+# transition events, the host reads those two cost, the pairs sent to the
+# deferred phase of capacity escalation, and the fused stream's chunks
+# (each ends on one read besides its events')
+counters = dict(global_iters=0, transitions=0, host_reads=0, escalated=0,
+                chunks=0)
 
 
 def reset_counters():
@@ -230,7 +238,7 @@ def _inner_step(pair_batch: PairData, cfg: GoICPConfig, s: dict,
 
 def _inner_run(pair_batch: PairData, cfg: GoICPConfig, s: dict, tables,
                mode: str, live=None, watch=None, once=None, steps: int = 0,
-               bufs=None):
+               bufs=None, head=None):
     """The inner iterations of every row in one run (search/inner.py::
     inner_run): mode "groups" until every row's inner search is complete
     (the batch engine), "stream" the global iterations up to the next
@@ -242,7 +250,10 @@ def _inner_run(pair_batch: PairData, cfg: GoICPConfig, s: dict, tables,
     with its counters, the iterations run: an int, or a 0-d int32 tensor
     on the card, where the whole run is one launch of csrc/inner.cu).
     bufs: the loop's search/args.py TransitionBuffers, whose two allocations
-    the run's outputs then come from in turn (inner.inner_run)."""
+    the run's outputs then come from in turn (inner.inner_run).  head
+    (search/args.py RunHead): the harvest the run makes at its end on the
+    card (inner.inner_run), then returned third (None where the run made
+    none)."""
     ist = s["inner"]
     W, L = ist["done"].shape
     lanes = {k: ist[k] for k in _PER_LANE if k in ist}
@@ -251,7 +262,8 @@ def _inner_run(pair_batch: PairData, cfg: GoICPConfig, s: dict, tables,
         pts = s["pts_rot"].reshape((W * L,) + s["pts_rot"].shape[2:])
         r = inner_loop(tables, cfg, lanes, pts, s["mrd"].reshape(W * L, -1),
                        True, mode, live=live, watch=watch, once=once,
-                       groups=W, counters=counters, steps=steps, bufs=bufs)
+                       groups=W, counters=counters, steps=steps, bufs=bufs,
+                       head=head)
     else:
         def step(lanes, live, cnt):
             new = _inner_step(pair_batch, cfg, dict(s, inner=dict(
@@ -261,13 +273,29 @@ def _inner_run(pair_batch: PairData, cfg: GoICPConfig, s: dict, tables,
         r = inner_run_plain(None, cfg, lanes, None, None, True, mode,
                             live=live, watch=watch, once=once, groups=W,
                             counters=counters, steps=steps, step=step)
-    return dict(r.lanes, **r.counters), r.iters
+    out = dict(r.lanes, **r.counters), r.iters
+    return out if head is None else out + (r.head,)
 
 
 def _inner_complete(cfg: GoICPConfig, s: dict) -> torch.Tensor:
     """(W,) has each pair's in-flight inner search finished?"""
     return torch.all(s["inner"]["done"], dim=-1) \
         | (s["inner"]["it"] >= cfg.inner_max_iters)
+
+
+def _stream_masks(cfg: GoICPConfig, s: dict, fin0, eager: bool):
+    """The inner run's masks after a transition (the rule the run takes
+    from the state on the card where it makes the event head): the rows
+    that step (live: not converged, search not complete), those whose
+    complete search ends the run (watch: not converged), and once (every
+    row finished, or eager and a row finished that had not at the chunk's
+    first event, fin0)."""
+    live = ~s["converged"] & ~_inner_complete(cfg, s)
+    fin = s["converged"] | (s["it"] >= cfg.max_outer_steps)
+    once = torch.all(fin)
+    if eager:
+        once = once | torch.any(fin & ~fin0)
+    return live, ~s["converged"], once
 
 
 # ---------------------------------------------------------------------------
@@ -285,14 +313,17 @@ def _transition_tables(pair_batch: PairData, cfg: GoICPConfig):
 
 
 def _transition_batch(pair_batch: PairData, cfg: GoICPConfig, s: dict,
-                      rows, in_place: bool = False, bufs=None):
+                      rows, in_place: bool = False, bufs=None, h=None,
+                      improved=None):
     """Outer-step transition of the window rows `rows` (host indices of
-    live rows whose inner search completed): one harvest of every row
-    (search/transition.py), ONE host read of which of them improved, the
-    ICP/compat refine block only for those, then one advance (adopt,
-    merge, pop, rotate, fresh inner state) of every row: on the card three
-    launches whatever the number of rows, plus one launch refining every
-    row that improved.  The adopt ordering is device_engine._make_body's, so
+    live rows whose inner search completed): their harvest (h, with the
+    host's `improved` flags, from the event head that served them; else
+    one harvest of every row, search/transition.py, and ONE host read of
+    which of them improved), the ICP/compat refine block only for those
+    that improved, then one advance (adopt, merge, pop, rotate, fresh
+    inner state) of every row: on the card one launch whatever the number
+    of rows (two with the harvest), plus one launch refining every row
+    that improved.  The adopt ordering is device_engine._make_body's, so
     the per-pair trajectory matches register_device.  in_place: the rows'
     new states are written into `s` (the kernel's own scatter) and None is
     returned; else `s` is left as it was and the rows' new states are
@@ -303,12 +334,13 @@ def _transition_batch(pair_batch: PairData, cfg: GoICPConfig, s: dict,
     window's tensors changed)."""
     counters["transitions"] += 1
     rows = [int(r) for r in rows]
-    h = transition.harvest(cfg, s, rows, bufs=bufs)
-    if cfg.icp_on_improve:
-        do_icp = h["flags"].cpu().numpy()[:, 0]
-        counters["host_reads"] += 1
-    else:
-        do_icp = np.ones(len(rows), bool)
+    if h is None:
+        h = transition.harvest(cfg, s, rows, bufs=bufs)
+        if cfg.icp_on_improve:
+            improved = h["flags"].cpu().numpy()[:, 0]
+            counters["host_reads"] += 1
+    do_icp = np.asarray(improved, bool) if cfg.icp_on_improve \
+        else np.ones(len(rows), bool)
     # the ICP/compat refine block of the rows that improved (improvements
     # are rare): one launch for all of them into the loop's refine record
     r = pick.refine_rows(
@@ -353,55 +385,61 @@ def fused_run_chunk(pair_batch: PairData, cfg: GoICPConfig, state: dict,
     cfg.trans_slots = K > 0 serves only the K lowest-index transitioning
     rows per event; the others keep their completed (idempotent) inner
     state and are served at the next one — their own pop sequence is
-    unchanged."""
+    unchanged.
+
+    One host read an event: its words (transition.read_event), written by
+    the event head, which on the card runs at the end of the inner run
+    before it (a chunk's first event: its own launch); the refine of the
+    rows that improved, the advance and the next inner run follow, the
+    run's masks taken from the state on the card (_stream_masks' rule,
+    computed here on the torch route)."""
+    counters["chunks"] += 1
     s = _map_state(torch.clone, state)
     W, L = s["inner"]["done"].shape
     K = _trans_budget(cfg, W)
     tables = _window_tables(pair_batch, cfg, L)
     bufs = TransitionBuffers()
-    fin0 = fin0_dev = None
+    # on the card the inner run makes the event head at its end
+    tail = transition.route(cfg, s["opt_err"]) == "kernel"
+    fin0 = bufs.fin0(W, s["opt_err"].device)
+    ev = transition.event_head(cfg, s, K, fin0=fin0, bufs=bufs)
+    fin0_host = None
     g = 0
-    n = 0          # the global iterations of the last inner run
     while True:
-        finished = s["converged"] | (s["it"] >= cfg.max_outer_steps)
-        flags = torch.stack([finished, s["converged"],
-                             _inner_complete(cfg, s)])
-        if isinstance(n, torch.Tensor):
-            # the run's iteration count rides in the flags' one copy
-            both = torch.cat([flags.reshape(-1).to(_I32),
-                              n.reshape(1)]).cpu().numpy()
-            flags, n = both[:-1].reshape(3, W) != 0, int(both[-1])
-        else:
-            flags = flags.cpu().numpy()
+        e = transition.read_event(ev, W, K, bufs)    # the event's one read
         counters["host_reads"] += 1
-        g += n
-        counters["global_iters"] += n
-        if fin0 is None:
-            fin0 = flags[0].copy()
-            fin0_dev = finished
-        go = bool((~flags[0]).any()) and g < steps
+        g += e.n_iters
+        counters["global_iters"] += e.n_iters
+        if fin0_host is None:
+            fin0_host = e.finished
+        go = bool((~e.finished).any()) and g < steps
         if eager:
-            go = go and not bool((flags[0] & ~fin0).any())
+            go = go and not bool((e.finished & ~fin0_host).any())
         if not go:
             break
-        rows = np.nonzero(flags[2] & ~flags[1])[0][:K]
-        if len(rows):
-            _transition_batch(pair_batch, cfg, s, rows, in_place=True,
-                              bufs=bufs)
+        if e.rows:
+            _transition_batch(pair_batch, cfg, s, e.rows, in_place=True,
+                              bufs=bufs, h=harvest_rows_of(ev, len(e.rows)),
+                              improved=e.improved)
         # inner iterations for every pair still mid-search (the body is
         # harmless on done inner states; `where` keeps them anyway) up to
         # the next global iteration at which the loop above would act: a
         # transition due, `steps` reached, or (one iteration) every row
         # finished or, eager, a row newly finished; nothing else it reads
         # changes in between
-        live = ~s["converged"] & ~_inner_complete(cfg, s)
-        fin = s["converged"] | (s["it"] >= cfg.max_outer_steps)
-        once = torch.all(fin)
-        if eager:
-            once = once | torch.any(fin & ~fin0_dev)
-        s["inner"], n = _inner_run(pair_batch, cfg, s, tables, "stream",
-                                   live=live, watch=~s["converged"],
-                                   once=once, steps=steps - g, bufs=bufs)
+        if tail:
+            s["inner"], _, ev = _inner_run(
+                pair_batch, cfg, s, tables, "stream", steps=steps - g,
+                bufs=bufs, head=RunHead(
+                    s["active"], s["R_lanes"], s["opt_err"],
+                    s["converged"], it=s["it"], fin0=fin0, K=K,
+                    max_outer=cfg.max_outer_steps, eager=eager))
+        else:
+            live, watch, once = _stream_masks(cfg, s, fin0, eager)
+            s["inner"], n = _inner_run(pair_batch, cfg, s, tables, "stream",
+                                       live=live, watch=watch, once=once,
+                                       steps=steps - g, bufs=bufs)
+            ev = transition.event_head(cfg, s, K, n_iters=n, bufs=bufs)
     return s
 
 

@@ -62,7 +62,9 @@ from goicp_tpu_torch.bounds.evaluate import (_CHILD_CORNER_TO_LATTICE,
                                              one_pair_tables, only_incomp,
                                              rot_uncertainty)
 from goicp_tpu_torch.pipeline.prepare import PairData
-from goicp_tpu_torch.search.args import TransitionArgs, _call_block
+from goicp_tpu_torch.search.args import (HARVEST_KEYS, RunHead,
+                                         TransitionArgs, _call_block,
+                                         event_words)
 from goicp_tpu_torch.utils.fp32 import _launch, _ptr, _stream, kernels
 
 INF = float("inf")
@@ -144,6 +146,9 @@ _PER_LANE = ("nodes", "lbs", "opt_err", "thr", "best_node", "ub_terms",
 # kernel's envelope; chip_smoke.py zeroes and reads it beside the launch
 # counts)
 body_on_card = {"iterations": 0}
+# inner_run launches that harvested at their end (a head: the harvest's
+# body inside the run kernel; zeroed and read with the launch counts)
+harvests_in_run = {"runs": 0}
 
 
 def initial_lanes(pair, cfg: GoICPConfig, pts_rot: torch.Tensor,
@@ -182,7 +187,7 @@ def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
               opt_error_init: torch.Tensor, with_rot_uncertainty: bool,
               fused: bool = False, lanes0: dict | None = None,
               mrd: torch.Tensor | None = None,
-              raw: bool = False, bufs=None):
+              raw: bool = False, bufs=None, head: RunHead | None = None):
     """pts_rot (L, Nd, 3) pre-rotated data; rot_widths (L,); active (L,)
     bool; opt_error_init 0-d incumbent.
 
@@ -204,7 +209,10 @@ def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
     iters and chem_corners are then 0-d int32 tensors on the card and
     nothing is read on the host; elsewhere the loop of _search_plain, and
     they are ints.  bufs: the run's search/transition.py TransitionBuffers
-    (see inner_run)."""
+    (see inner_run).  head (with raw=True): the harvest the run makes at
+    its end (inner_run's head); then (InnerResult, final lanes, the
+    harvest's outputs, or None where the run made none: the torch loop,
+    which leaves the harvest to the caller) is returned."""
     C = cfg.trans_capacity
     P = cfg.trans_pop
     assert P < C, "trans_pop must be < trans_capacity (sorted-slice pop)"
@@ -212,20 +220,23 @@ def inner_bnb(pair: PairData, cfg: GoICPConfig, pts_rot: torch.Tensor,
         mrd = rot_uncertainty(rot_widths, pair.norm_data)
     if lanes0 is None:
         lanes0 = initial_lanes(pair, cfg, pts_rot, active, opt_error_init)
+    h = None
     if kernel_carries(cfg) and cuda_eval._route(pts_rot) == "cuda":
         r = inner_run(pair, cfg, lanes0, pts_rot, mrd, fused, "search",
-                      bufs=bufs)
+                      bufs=bufs, head=head)
         s, cnt = r.lanes, r.counters
         iters, corners = r.iters, cnt["chem_corners"].reshape(())
+        h = r.head
     else:
         s, iters, corners, cnt = _search_plain(pair, cfg, lanes0, pts_rot,
                                                mrd, fused)
     if raw:
-        return InnerResult(best_err=s["opt_err"], best_node=s["best_node"],
-                           lb_safe=None, ub_terms=s["ub_terms"],
-                           iters=iters, evals=cnt["evals"].reshape(()),
-                           geom_surv=cnt["geom_surv"].reshape(()),
-                           chem_corners=corners), s
+        res = InnerResult(best_err=s["opt_err"], best_node=s["best_node"],
+                          lb_safe=None, ub_terms=s["ub_terms"],
+                          iters=iters, evals=cnt["evals"].reshape(()),
+                          geom_surv=cnt["geom_surv"].reshape(()),
+                          chem_corners=corners)
+        return (res, s) if head is None else (res, s, h)
     # safe lower bound: lanes that did not finish also fold in the remaining
     # frontier min (they would have kept searching)
     rem_min = torch.amin(s["lbs"], dim=1)
@@ -899,6 +910,11 @@ class RunResult(NamedTuple):
     clusters: object = None    # the kernel's grid in clusters (0-d int32)
     resident: object = None    # the lanes whose state stayed in a
                                # cluster's shared memory (0-d int32)
+    head: object = None        # the harvest at the run's end (head=): dict
+                               # h (its outputs, a capacity of rows; take
+                               # args.harvest_rows_of), words (mode stream:
+                               # the event's) or None (no head, or the
+                               # torch loop)
 
 
 def _complete(cfg: GoICPConfig, lanes: dict, cnt: dict,
@@ -1007,6 +1023,36 @@ def _run_outputs(lanes: dict, L: int, C: int, reuse: bool, groups: int,
                 resident=ints[4 * groups + 3])
 
 
+def _head_outputs(Hn: int, G: int, nw: int, dev) -> dict:
+    """The harvest's outputs at a run's end for Hn rows of G lanes
+    (transition.harvest's fields) and, nw > 0, the event's words."""
+    sizes = (Hn * G, Hn * G, Hn, Hn, 9 * Hn, 3 * Hn, 3 * Hn)
+    f = torch.empty((sum(sizes),), dtype=torch.float32,
+                    device=dev).split(sizes)
+    h = dict(lb_safe=f[0].view(Hn, G), ubs=f[1].view(Hn, G), cand_ub=f[2],
+             incumbent=f[3], cand_R=f[4].view(Hn, 3, 3),
+             cand_t=f[5].view(Hn, 3), cand_terms=f[6].view(Hn, 3),
+             flags=torch.empty((Hn, 2), dtype=torch.bool, device=dev))
+    return dict(h=h, words=torch.empty((nw,), dtype=torch.int32, device=dev)
+                if nw else None)
+
+
+def _head_specs(W: int, G: int, Hn: int, nw: int, n_rows: int) -> tuple:
+    """The 16 slots goicp_inner_run takes with a head (csrc/inner.cu):
+    what the harvest reads of the W rows, the state's it and fin0 (mode
+    stream), its outputs (Hn rows), the event's words and the n_rows rows
+    harvested (modes search and groups)."""
+    f32, i32, b = torch.float32, torch.int32, torch.bool
+    return (("h_active", (G,), b, W), ("h_R_lanes", (G, 3, 3), f32, W),
+            ("h_opt_err", (), f32, W), ("h_conv", (), b, W),
+            ("st_it", (), i32, W), ("fin0", (), b, W),
+            ("o_lb_safe", (G,), f32, Hn), ("o_ubs", (G,), f32, Hn),
+            ("o_cand_ub", (), f32, Hn), ("o_incumbent", (), f32, Hn),
+            ("o_cand_R", (3, 3), f32, Hn), ("o_cand_t", (3,), f32, Hn),
+            ("o_cand_terms", (3,), f32, Hn), ("o_flags", (2,), b, Hn),
+            ("o_words", (max(nw, 1),), i32, 1), ("h_rows", (), i32, n_rows))
+
+
 def _run_specs(L: int, C: int, nd: int, n_cells: int, S: int, W: int,
                groups: int, n_int: int) -> tuple:
     """(name, per-row shape, dtype, rows) of each of goicp_inner_run's
@@ -1036,7 +1082,7 @@ def _run_specs(L: int, C: int, nd: int, n_cells: int, S: int, W: int,
 def inner_run(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
               mode: str, live=None, watch=None, once=None, groups: int = 1,
               counters: dict | None = None, steps: int = 0,
-              bufs=None) -> RunResult:
+              bufs=None, head: RunHead | None = None) -> RunResult:
     """The inner iterations of a whole search, or of a stretch of one: on
     CUDA tensors ONE launch of csrc/inner.cu (goicp_inner_run: a lane a
     thread-block cluster holding its state in shared memory, as many
@@ -1071,7 +1117,15 @@ def inner_run(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
     (kernel_carries), shapes past cuda_eval.in_envelope, a wrong slot
     (naming it), a pop or capacity whose arrays do not fit a block, and a
     shape of which not one cluster fits the card: no path falls back to
-    the step or the torch loop."""
+    the step or the torch loop.
+
+    head (search/args.py RunHead; the kernel's route only): the last
+    cluster to finish harvests at the run's end, the lanes' fields set A's
+    (csrc/harvest_body.cuh; lb_safe from thr where fused): in modes search
+    and groups the rows head.rows (any number), in mode stream the fused
+    stream's event head (transition.event_head's outputs and words), the
+    masks then taken from the state (live, watch and once must be None).
+    RunResult.head holds the outputs; with no head, or on the CPU, None."""
     if cuda_eval._route(pts) == "cpu":
         return inner_run_plain(pair, cfg, lanes, pts, mrd, fused, mode,
                                live, watch, once, groups, counters, steps)
@@ -1104,45 +1158,77 @@ def inner_run(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
                 for k in _LANE_FIELDS) \
         + (live, watch, once) + tuple(counters.get(k) for k in _COUNTERS)
     n_int = 4 * groups + 8 + 5 * L
+    hkey = n_rows = None
+    if head is not None:
+        event = head.event
+        if event != (mode == "stream") or (event and not (
+                live is None and watch is None and once is None)):
+            raise ValueError("inner_run: a head's event is mode stream's, "
+                             "whose masks it then takes from the state")
+        n_rows = 0 if event else head.rows.numel()
+        Hn = head.K if event else groups
+        nw = event_words(groups, head.K) if event else 0
+        hkey = (event, Hn, nw)
+        ints = ints + (2 if event else 1, int(head.K), int(head.max_outer),
+                       int(head.eager), n_rows)
 
     def outs(o):
         a = o["out"]
-        return tuple(a.get(k) if k != "cvals" or reuse else None
-                     for k in _LANE_FIELDS) \
+        got = tuple(a.get(k) if k != "cvals" or reuse else None
+                    for k in _LANE_FIELDS) \
             + tuple(o["b"][k] if k != "cvals" or reuse else None
                     for k in _LANE_FIELDS) + (o["ints"],)
+        if head is None:
+            return got
+        h = o["head"]["h"]
+        return got + (head.active, head.R_lanes, head.opt_err, head.conv,
+                      head.it, head.fin0) \
+            + tuple(h[k] for k in HARVEST_KEYS) \
+            + (o["head"]["words"], head.rows)
 
     def make(tensors):
-        return TransitionArgs(
-            _run_specs(L, C, nd, n_cells, t.size, W, groups, n_int),
-            tensors, len(ins), pts.device, ints, who="inner_run")
+        specs = _run_specs(L, C, nd, n_cells, t.size, W, groups, n_int)
+        if head is not None:
+            specs += _head_specs(groups, L // groups, *hkey[1:], n_rows)
+        return TransitionArgs(specs, tensors, len(ins), pts.device, ints,
+                              who="inner_run")
 
-    # the block is kept for the shapes its slots were checked for; its
-    # ints (the mode, a stream's steps left) are written each call
+    def alloc():
+        o = _run_outputs(lanes, L, C, reuse, groups, pts)
+        if head is not None:
+            o["head"] = _head_outputs(hkey[1], L // groups, hkey[2],
+                                      pts.device)
+        return o
+
+    # the block is kept for the shapes its slots were checked for (a
+    # block per number of rows harvested); its ints (the mode, a stream's
+    # steps left) are written each call
     o, blk = _call_block(
         bufs, ("inner_run", L, C, reuse, groups, done.shape, nd, n_cells,
-               t.size, W),
-        lambda: _run_outputs(lanes, L, C, reuse, groups, pts), ins, outs,
-        make)
+               t.size, W, hkey), alloc, ins, outs, make,
+        extra=(n_rows,) if head is not None else ())
     blk.ints[:] = ints
     _launch(kernels.goicp_inner_run(
-        blk.ptrs, len(blk.ptrs), blk.ints, len(blk.ints),
+        blk.ptrs, len(blk.ptrs), blk.ints, len(ints),
         float(cfg.regularization), _stream(pts)), "inner_run")
     inner_run.launches += 1
+    if head is not None:
+        harvests_in_run["runs"] += 1
     return RunResult(o["out"], o["cnt"], o["iters"], o["clusters"],
-                     o["resident"])
+                     o["resident"], o.get("head"))
 
 
 inner_run.launches = 0
 
 
 def inner_loop(pair, cfg: GoICPConfig, lanes: dict, pts, mrd, fused: bool,
-               mode: str, bufs=None, **kw) -> RunResult:
+               mode: str, bufs=None, head=None, **kw) -> RunResult:
     """The inner loop every engine runs: inner_run for the configurations
     the kernel carries (kernel_carries; on the card one launch, whatever
     the shapes: those it cannot take raise), inner_run_plain for the
-    others; the same arguments and results (bufs: inner_run's)."""
+    others; the same arguments and results (bufs, head: inner_run's; the
+    torch loop makes no harvest)."""
     if kernel_carries(cfg):
         return inner_run(pair, cfg, lanes, pts, mrd, fused, mode, bufs=bufs,
-                         **kw)
+                         head=head, **kw)
     return inner_run_plain(pair, cfg, lanes, pts, mrd, fused, mode, **kw)

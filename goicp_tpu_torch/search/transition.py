@@ -3,7 +3,7 @@
 Port of what goicp_tpu/search/fused_stream.py::_harvest (:131) and
 _advance (:177) do, vmapped over the window, and of the head and tail of
 goicp_tpu/search/device_engine.py::_make_body (:259-412): the work JAX
-leaves to XLA between one inner translation search and the next.  Two
+leaves to XLA between one inner translation search and the next.  Three
 functions, each for a batch of rows at once, each row reading its own
 pair:
 
@@ -12,6 +12,15 @@ pair:
             t, terms), the incumbent min(opt_err, cand_ub), and the flags
             (improved, converged) that the one host read of a transition
             reads;
+  event_head  the fused stream's transition event: each row's flags
+            (finished, converged, complete), the rows it serves (the first
+            K complete and not converged), their harvest and the event's
+            words, which the stream reads in one copy (read_event).  On
+            the card an inner run makes its harvest or its event head at
+            its end (search/inner.py::inner_run(head=)), so that these
+            launch alone only where no run came before (a chunk's first
+            event) or none harvests (the two-pass engines, the sharded and
+            the packed streams);
   advance   in three modes.  "pop" (register_device, the batch engine,
             the sharded engine): the convergence test and final_lb, the
             rot_batch parents and their 8 children each, the pi-ball
@@ -25,10 +34,11 @@ pair:
             counters, the freeze of a converged row.  "both" (the
             streams): adopt on the whole frontier, then the next pop.
 
-harvest_plain and advance_plain are the torch code the engines ran before,
-row by row (fused_stream._harvest / _advance, device_engine._pop /
-_merge_children / _adopt, inner_bnb's lb_safe), at the kernel's interface:
-the CPU's route and the kernel's yardstick.  harvest and advance route by
+harvest_plain, event_head_plain and advance_plain are the torch code the
+engines ran before, row by row (fused_stream._harvest / _advance,
+device_engine._pop / _merge_children / _adopt, inner_bnb's lb_safe, the
+stream's flags), at the kernel's interface: the CPU's route and the
+kernel's yardstick.  harvest, event_head and advance route by
 configuration (route): on a CUDA device the configurations the inner step
 kernel carries (search/inner.py::kernel_carries) take csrc/transition.cu
 (goicp_harvest and goicp_advance: one launch each in every mode, whatever
@@ -50,7 +60,9 @@ epsilon and K2's tables from the rows' LaneTables.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from goicp_tpu_torch.bounds import cuda_eval
@@ -58,8 +70,9 @@ from goicp_tpu_torch.bounds.evaluate import rot_uncertainty
 from goicp_tpu_torch.config import GoICPConfig
 from goicp_tpu_torch.geom.rotation import rodrigues
 from goicp_tpu_torch.search import inner as inner_mod
-from goicp_tpu_torch.search.args import (REFINE_FIELDS, TransitionArgs,
-                                         TransitionBuffers, _call_block)
+from goicp_tpu_torch.search.args import (HARVEST_KEYS, REFINE_FIELDS,
+                                         TransitionArgs, TransitionBuffers,
+                                         _call_block, event_words)
 from goicp_tpu_torch.search.inner import (_chem_reuse_active, _chem_terms,
                                           root_corner_values)
 from goicp_tpu_torch.utils.fp32 import _launch, _stream, kernels, norm3, \
@@ -123,8 +136,7 @@ def _harvest_row(src: dict, r: int, fused: bool, lb, lb_safe) -> dict:
                 improved=~(cand_ub >= opt))         # NaN-infectious <
 
 
-_HARVEST_KEYS = ("lb_safe", "ubs", "cand_ub", "incumbent", "cand_R",
-                 "cand_t", "cand_terms")
+_HARVEST_KEYS = HARVEST_KEYS[:-1]
 
 
 def harvest_plain(src: dict, rows, fused: bool = True, lb=None,
@@ -203,12 +215,12 @@ def harvest(cfg: GoICPConfig, src: dict, rows, fused: bool = True, lb=None,
             ((L, C), _F32), ((L,), _F32), ((L,), _F32), ((L,), _B),
             ((L,), _F32), ((L,), _F32), ((L, 4), _F32), ((L, 3), _F32),
             ((L,), _B), ((L, 3, 3), _F32), ((), _F32), ((), _B)))) + tuple(
-            (k, shp, dt, n) for k, (shp, dt) in zip(_HARVEST_OUT, (
+            (k, shp, dt, n) for k, (shp, dt) in zip(HARVEST_KEYS, (
                 ((L,), _F32), ((L,), _F32), ((), _F32), ((), _F32),
                 ((3, 3), _F32), ((3,), _F32), ((3,), _F32), ((2,), _B))))
 
     out, blk = _call_block(
-        bufs, kind, alloc, ins, lambda o: tuple(o[k] for k in _HARVEST_OUT),
+        bufs, kind, alloc, ins, lambda o: tuple(o[k] for k in HARVEST_KEYS),
         lambda t: TransitionArgs(specs(), t, len(_HARVEST_IN), dev, (L, C),
                                  n=n))
     blk.rows[:] = rows
@@ -224,8 +236,154 @@ harvest.launches = 0
 _HARVEST_IN = ("lbs", "ref", "lmin_drop", "ldone", "lb_in", "ub_err",
                "best_node", "ub_terms", "active", "R_lanes", "opt_err",
                "conv")
-_HARVEST_OUT = ("lb_safe", "ubs", "cand_ub", "incumbent", "cand_R", "cand_t",
-                "cand_terms", "flags")
+
+
+# ---------------------------------------------------------------------------
+# the fused stream's event head
+# ---------------------------------------------------------------------------
+
+def event_head_plain(cfg: GoICPConfig, s: dict, K: int, n_iters=0,
+                     fin0=None) -> dict:
+    """event_head in torch ops (see there): the flags as fused_run_chunk
+    stacked them, the served rows as np.nonzero(complete & ~converged)[:K]
+    picked them (a stable argsort puts the served rows first in index
+    order), and harvest_plain's row for each served row.  On the CPU the
+    number served costs no host read: the harvest's outputs then hold the
+    served rows only (none where no row is served).  On the card it would
+    be a read, so the harvest fills all K slots, those past the rows
+    served from some other row (their values are not the kernel's, and
+    no one reads them)."""
+    from goicp_tpu_torch.search.fused_stream import _inner_complete
+    dev = s["opt_err"].device
+    conv = s["converged"]
+    finished = conv | (s["it"] >= cfg.max_outer_steps)
+    complete = _inner_complete(cfg, s)
+    cand = complete & ~conv
+    served = cand & (torch.cumsum(cand.to(_I32), 0) <= K)
+    n = torch.sum(served.to(_I32))
+    order = torch.argsort((~served).to(_I32), stable=True)[:K]
+    m = K if conv.is_cuda else int(n)
+    _count_plain(s["opt_err"], m)
+    hs = [_harvest_row(s, order[j], True, None, None) for j in range(m)]
+    if hs:
+        h = {k: torch.stack([x[k] for x in hs]) for k in _HARVEST_KEYS}
+        h["flags"] = torch.stack([torch.stack([x["improved"],
+                                               conv[order[j]]])
+                                  for j, x in enumerate(hs)])
+        h["improved"] = h["flags"][:, 0]
+    else:
+        h = _harvest_out(0, s["active"].shape[1], dev)
+    j = torch.arange(K, device=dev)
+    improved = torch.zeros((K,), dtype=_B, device=dev)
+    improved[:m] = h["improved"]
+    words = torch.cat([
+        finished.to(_I32), conv.to(_I32), complete.to(_I32), n.reshape(1),
+        torch.where(j < n, order, -1).to(_I32),
+        torch.where(j < n, improved, False).to(_I32),
+        torch.as_tensor(n_iters, device=dev).to(_I32).reshape(1)])
+    if fin0 is not None:
+        fin0.copy_(finished)
+    return dict(h=h, words=words)
+
+
+def _event_out(W: int, K: int, L: int, dev) -> dict:
+    return dict(h=_harvest_out(K, L, dev),
+                words=torch.empty((event_words(W, K),), dtype=_I32,
+                                  device=dev))
+
+
+_EVENT_IN = ("it", "inner_it")
+_EVENT_OUT = ("words", "fin0")
+
+
+def event_head(cfg: GoICPConfig, s: dict, K: int, n_iters=0, fin0=None,
+               bufs: TransitionBuffers | None = None) -> dict:
+    """The fused stream's transition event on the window state `s` (W rows:
+    converged, it, active, R_lanes, opt_err, and the lanes and counters of
+    s["inner"]): each row's flags finished = converged | it >=
+    max_outer_steps, converged and complete (every lane done or the inner
+    it at inner_max_iters); the rows served, complete & ~converged, the
+    first K in index order; their harvest (harvest's fields, fused: lb_safe
+    from thr, flags[:, 1] the row's converged); and the event's words
+    (event_words: the flags, the rows served, the rows, their improved
+    flags, n_iters, the global iterations of the run before).  fin0 (W,)
+    bool: written with finished where given.  Returns dict(h: the
+    harvest's outputs for K rows, the served rows first, words: (words,)
+    int32); read it with read_event.  bufs: the run's TransitionBuffers
+    (the outputs from its two sets in turn, and the call's argument
+    block).  On the card one launch of goicp_harvest's event mode (one
+    block; csrc/harvest_body.cuh's event_head, the one an inner run makes
+    at its end), else event_head_plain."""
+    if route(cfg, s["opt_err"]) == "plain":
+        return event_head_plain(cfg, s, K, n_iters, fin0)
+    ist = s["inner"]
+    W, L = s["active"].shape
+    C = ist["lbs"].shape[-1]
+    dev = s["opt_err"].device
+    nw = event_words(W, K)
+    ins = (ist["lbs"], ist["thr"], ist["min_dropped"], ist["done"], None,
+           ist["opt_err"], ist["best_node"], ist["ub_terms"], s["active"],
+           s["R_lanes"], s["opt_err"], s["converged"])
+    ints = (L, C, W, K, cfg.max_outer_steps, cfg.inner_max_iters,
+            int(n_iters))
+
+    def outs(o):
+        return tuple(o["h"][k] for k in HARVEST_KEYS) + (
+            s["it"], ist["it"], o["words"], fin0)
+
+    def specs():
+        return tuple((k, shp, dt, W) for k, (shp, dt) in zip(_HARVEST_IN, (
+            ((L, C), _F32), ((L,), _F32), ((L,), _F32), ((L,), _B),
+            ((L,), _F32), ((L,), _F32), ((L, 4), _F32), ((L, 3), _F32),
+            ((L,), _B), ((L, 3, 3), _F32), ((), _F32), ((), _B)))) + tuple(
+            (k, shp, dt, K) for k, (shp, dt) in zip(HARVEST_KEYS, (
+                ((L,), _F32), ((L,), _F32), ((), _F32), ((), _F32),
+                ((3, 3), _F32), ((3,), _F32), ((3,), _F32), ((2,), _B)))) + (
+            ("it", (), _I32, W), ("inner_it", (), _I32, W),
+            ("words", (nw,), _I32, 1), ("fin0", (), _B, W))
+
+    out, blk = _call_block(
+        bufs, ("event", W, K, L, C), lambda: _event_out(W, K, L, dev), ins,
+        outs, lambda t: TransitionArgs(specs(), t, len(_HARVEST_IN), dev,
+                                       ints))
+    blk.ints[:] = ints
+    _launch(kernels.goicp_harvest(blk.ptrs, len(blk.ptrs), blk.ints,
+                                  len(ints), blk.rows, 0,
+                                  _stream(s["opt_err"])), "event head")
+    harvest.launches += 1
+    return out
+
+
+class Event(NamedTuple):
+    """An event's words as the host reads them (read_event)."""
+    finished: np.ndarray       # (W,) bool
+    converged: np.ndarray      # (W,) bool
+    complete: np.ndarray       # (W,) bool
+    rows: list                 # the rows served, in index order
+    improved: np.ndarray       # (len(rows),) bool
+    n_iters: int               # the global iterations of the run before
+
+
+def read_event(ev: dict, W: int, K: int,
+               bufs: TransitionBuffers | None = None) -> Event:
+    """The host's one read of an event (event_head's or an inner run's at
+    its end): its words, in one copy (on the card into the pinned host
+    words bufs keeps; the copy waits for the stream's work, no device
+    synchronize)."""
+    w = ev["words"]
+    if w.is_cuda:
+        host = bufs.host_words(w) if bufs is not None else torch.empty(
+            w.shape, dtype=w.dtype, pin_memory=True)
+        host.copy_(w)
+        a = host.numpy()
+    else:
+        a = w.numpy()
+    f = a[:3 * W].reshape(3, W) != 0
+    n = int(a[3 * W])
+    return Event(finished=f[0], converged=f[1], complete=f[2],
+                 rows=[int(r) for r in a[3 * W + 1:3 * W + 1 + n]],
+                 improved=a[3 * W + 1 + K:3 * W + 1 + K + n] != 0,
+                 n_iters=int(a[3 * W + 1 + 2 * K]))
 
 
 # ---------------------------------------------------------------------------
